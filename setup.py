@@ -17,8 +17,11 @@ setup(
     "full capability surface of Demucs v4",
     long_description=(HERE / "README.md").read_text(),
     long_description_content_type="text/markdown",
-    packages=find_packages(include=["demucs_tpu", "demucs_tpu.*"]),
-    package_data={"demucs_tpu": ["py.typed"]},
+    # demucs_tpu_torch: the PyTorch / CUDA port (its CUDA sources are built
+    # with nvcc at the first CUDA call, so they ship as package data)
+    packages=find_packages(include=["demucs_tpu", "demucs_tpu.*",
+                                    "demucs_tpu_torch", "demucs_tpu_torch.*"]),
+    package_data={"demucs_tpu": ["py.typed"], "demucs_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -33,6 +36,7 @@ setup(
         "eval": ["museval", "musdb"],
     },
     entry_points={
-        "console_scripts": ["demucs-tpu = demucs_tpu.separate:main"],
+        "console_scripts": ["demucs-tpu = demucs_tpu.separate:main",
+                            "demucs-tpu-torch = demucs_tpu_torch.separate:main"],
     },
 )

@@ -1,0 +1,61 @@
+"""Package rules of the port: no JAX and nothing of demucs_tpu inside
+demucs_tpu_torch or chip_smoke.py, and the card as the default device."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from demucs_tpu_torch import resolve_device
+from demucs_tpu_torch.kernels import NoBackward
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "demucs_tpu")
+
+
+def _port_files():
+    return sorted((REPO / "demucs_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
+def test_port_imports_no_jax_and_no_reference_package(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scan_sees_the_whole_package():
+    names = {p.name for p in _port_files()}
+    assert {"chip_smoke.py", "htdemucs.py", "attention.py", "stft.py", "api.py"} <= names
+
+
+def test_resolve_device_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        resolve_device()  # the default is the card
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("mps")
+
+
+def test_kernel_launch_node_refuses_backward():
+    """A launch runs as an autograd node: the forward works with grad on, and
+    a backward through a kernel raises instead of cutting the graph."""
+    x = torch.ones(3, requires_grad=True)
+    a, b = NoBackward.apply("twice", lambda t: (t.detach() * 2, t.detach() * 3), x)
+    assert a.requires_grad and torch.equal(b.detach(), torch.full((3,), 3.0))
+    with pytest.raises(NotImplementedError, match="twice has no backward kernel"):
+        (a.sum() + b.sum()).backward()
+    with torch.inference_mode():
+        assert torch.equal(NoBackward.apply("twice", lambda t: t * 2, x), torch.full((3,), 2.0))

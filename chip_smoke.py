@@ -17,13 +17,17 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               (yardstick only: the port never calls it), with CUDA events.
 3. model    — the released-width HTDemucs (channels 48, nfft 4096,
               bottom_channels 512, 5 layers, 8 heads, dconv_mode 3) with random
-              weights from a seeded torch.Generator, one 1.0 s segment through
-              HTDemucs.forward on the card and on the CPU (plain versions).
+              weights from a seeded torch.Generator and every LayerScale at 1.0
+              (at their 1e-4 init the transformer's branches would hide below the
+              tolerance), one 1.0 s segment through HTDemucs.forward on the card
+              and on the CPU (plain versions).
 4. serving  — a Separator on the card with the 7.8 s model, loaded from a .dmx
               saved from the phase-3 weights, answers three requests (30 s, 12 s
               and 5 s synthetic stereo tracks at 44.1 kHz, each 5 times) after one
               warm-up request; every kernel's launch count must equal what the number
               of batched forwards predicts (K1 and K2 once each, K3 ten times).
+              Then one more 30 s request: its batched forward of 6 segments is held
+              against the same weights on the CPU.
    profile  — one more 30 s request under torch.profiler: device time by
               kernel group and the device's busy share of the wall time.
 5. cli      — python -m demucs_tpu_torch on a WAV file with that .dmx.
@@ -31,6 +35,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
 CUDA cores and 3.35 TB/s of HBM; the card's power limit is printed beside.
+Each bound counts the least work of the function, not of the kernel's
+algorithm: K1 and K2 compute an STFT and an iSTFT as dense DFT products, but
+their bounds count the signal and the spectrum moved once and the operations
+of a real FFT (2.5 n log2 n per frame, plus the window and the overlap-add).
 """
 
 from __future__ import annotations
@@ -74,6 +82,11 @@ def cuda_ms(fn, repeat: int = N_TIMED) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeat
+
+
+def fft_flops(n: int) -> float:
+    """Operations of one real FFT of length n: half the 5 n log2 n of a complex one."""
+    return 2.5 * n * math.log2(n)
 
 
 def bound(flops: float, nbytes: float) -> tuple:
@@ -129,8 +142,9 @@ def phase_kernels() -> list:
         want = KS.stft_dft_plain(x, n_fft, hop)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         peak = max(w.abs().max().item() for w in want)
-        flops = 2 * 2 * x.shape[0] * n_frames * n_fft * freqs
-        nbytes = 4 * (x.numel() + 2 * n_fft * freqs + 2 * x.shape[0] * n_frames * freqs)
+        frames = x.shape[0] * n_frames
+        flops = frames * (n_fft + fft_flops(n_fft))  # window, real FFT
+        nbytes = 4 * (x.numel() + 2 * frames * freqs)
         rows.append(dict(
             name="stft_dft", tol=KERNEL_RTOL * peak, max_abs_err=err,
             source="demucs_tpu_torch/csrc/stft.cu",
@@ -140,13 +154,15 @@ def phase_kernels() -> list:
             library_ms=cuda_ms(lambda: torch.stft(x, n_fft, hop, window=window, center=False,
                                                   return_complex=True)),
             library="torch.stft(center=False)", flops=flops, bytes=nbytes,
+            dense_dft_flops=2 * 2 * frames * n_fft * freqs,
             shape=f"x {tuple(x.shape)} -> 2 x {(2, n_frames, freqs)}"))
         # K2
         got = KS.istft_dft(zr, zi, n_fft, hop)
         want = KS.istft_dft_plain(zr, zi, n_fft, hop)
         z = torch.complex(zr, zi).transpose(1, 2)
-        flops = 2 * 2 * zr.shape[0] * n_frames * n_fft * freqs  # 4 hop slices of each frame
-        nbytes = 4 * (2 * zr.numel() + 2 * n_fft * freqs + got.numel())
+        frames = zr.shape[0] * n_frames
+        flops = frames * (fft_flops(n_fft) + 2 * n_fft)  # inverse real FFT, window, add
+        nbytes = 4 * (2 * zr.numel() + got.numel())
         rows.append(dict(
             name="istft_dft", tol=KERNEL_RTOL * want.abs().max().item(),
             max_abs_err=(got - want).abs().max().item(),
@@ -156,7 +172,7 @@ def phase_kernels() -> list:
             plain_ms=cuda_ms(lambda: KS.istft_dft_plain(zr, zi, n_fft, hop)),
             library_ms=cuda_ms(lambda: torch.istft(z, n_fft, hop, window=window, center=True)),
             library="torch.istft(center=True), which adds the envelope division and crop",
-            flops=flops, bytes=nbytes,
+            flops=flops, bytes=nbytes, dense_dft_flops=2 * 2 * frames * n_fft * freqs,
             shape=f"2 x {tuple(zr.shape)} -> {tuple(got.shape)}"))
         # K3 at the four shapes of the transformer: freq (2688) and time
         # (1344) tokens, self and cross; C 512, 8 heads of 64.
@@ -217,7 +233,7 @@ def phase_model():
     from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
 
     cfg = HTDemucsConfig(segment=1.0, **RELEASED)
-    cpu_model = init_htdemucs(cfg, seed=0).eval()
+    cpu_model = init_htdemucs(cfg, seed=0, layer_scale=1.0).eval()
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     gen = torch.Generator().manual_seed(1)
     mix = torch.randn(1, 2, SR, generator=gen) * 0.1
@@ -306,7 +322,37 @@ def phase_serving(cpu_model, workdir: Path) -> dict:
         raise AssertionError(f"launch counts {launches} != expected {want} ({n_fwd} forwards)")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
+    info["batched_check"] = check_batched_forward(sep)
     return info, sep
+
+
+def check_batched_forward(sep) -> dict:
+    """One more 30 s request: its batched forward (6 segments, so K1 sees 12
+    rows, K2 48 and K3 a batch of 6) against a CPU copy of the served model."""
+    import torch
+
+    seen = []
+    handle = sep.model.module.register_forward_hook(
+        lambda mod, args, out: seen.append((args[0].cpu(), out.cpu())))
+    try:
+        sep.separate_tensor(_track(30.0, 0), SR)
+    finally:
+        handle.remove()
+    mix, got = seen[0]
+    cpu_module = copy.deepcopy(sep.model.module).to("cpu")
+    start = time.perf_counter()
+    with torch.inference_mode():
+        want = cpu_module(mix)
+    peak = want.abs().max().item()
+    rel = (got - want).abs().max().item() / peak
+    info = {"phase": "batched_check", "segments": mix.shape[0], "forwards": len(seen),
+            "max_abs_err_over_peak": rel, "tol": MODEL_RTOL, "peak": peak,
+            "cpu_forward_s": time.perf_counter() - start,
+            "ok": mix.shape[0] == 6 and bool(torch.isfinite(got).all()) and rel <= MODEL_RTOL}
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"batched forward on the card vs CPU: {info}")
+    return info
 
 
 def _kernel_group(name: str) -> str:

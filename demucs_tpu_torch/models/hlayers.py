@@ -7,7 +7,9 @@ The spec dataclasses and :func:`build_hybrid_layout` are copies of the JAX
 package's. The layers are ``nn.Module``s whose attribute names and
 ``Sequential`` indices reproduce the reference's state-dict paths (for
 example ``encoder.0.dconv.layers.1.3.weight``), so a flat checkpoint loads
-with ``load_state_dict(strict=True)``.
+with ``load_state_dict(strict=True)``. The modules hold the weights and the
+``forward`` methods apply them through ``demucs_tpu_torch.ops.nn``, call for
+call as the JAX package's ``*_forward`` functions do.
 
 The DConv LSTM and local-attention options and MultiWrap (per-band layer
 replicas) belong to the HDemucs slice of the port and raise until then.
@@ -20,6 +22,8 @@ import typing as tp
 
 import torch
 from torch import nn
+
+from demucs_tpu_torch.ops import nn as ops
 
 # ---------------------------------------------------------------------------
 # Specs (copies of demucs_tpu/models/hlayers.py:41-254)
@@ -264,11 +268,19 @@ def _norm(enabled: bool, groups: int, channels: int) -> nn.Module:
     return nn.GroupNorm(groups, channels) if enabled else nn.Identity()
 
 
+def _maybe_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    if isinstance(norm, nn.Identity):
+        return x
+    return ops.group_norm(x, norm.num_groups, norm.weight, norm.bias)
+
+
 class DConv(nn.Module):
     """Residual dilated-conv branch (``demucs/demucs.py:86-154``), ``x (B, C, T)``.
 
     ``layers[d]`` is a Sequential with the reference's indices: 0 conv1,
-    1 norm1, 2 GELU, 3 conv2, 4 norm2, 5 GLU, 6 LayerScale.
+    1 norm1, 2 GELU, 3 conv2, 4 norm2, 5 GLU, 6 LayerScale. The modules hold
+    the weights; ``forward`` applies them through ``ops.nn``, as
+    ``dconv_forward`` does in the JAX package.
     """
 
     def __init__(self, s: DConvSpec):
@@ -276,6 +288,7 @@ class DConv(nn.Module):
         if s.lstm or s.attn:
             raise NotImplementedError(
                 "DConv LSTM / local attention come with the HDemucs slice of the port")
+        self.spec = s
         hidden = int(s.channels / s.compress)
         layers = []
         for d in range(abs(s.depth)):
@@ -293,8 +306,21 @@ class DConv(nn.Module):
         self.layers = nn.ModuleList(layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for layer in self.layers:
-            x = x + layer(x)
+        s = self.spec
+        act = ops.gelu if s.gelu else torch.relu
+        for d, (conv1, norm1, _, conv2, norm2, _, scale) in enumerate(self.layers):
+            dilation = 2 ** d if s.dilate else 1
+            # One step per line, so that each intermediate is freed as soon
+            # as the next exists (as in Sequential.forward): these are the
+            # largest activations of the freq branch.
+            y = ops.conv1d(x, conv1.weight, conv1.bias, dilation=dilation,
+                           padding=dilation * (s.kernel // 2))
+            y = _maybe_norm(norm1, y)
+            y = act(y)
+            y = ops.conv1d(y, conv2.weight, conv2.bias)
+            y = _maybe_norm(norm2, y)
+            y = ops.glu(y, axis=1)
+            x = x + scale(y)
         return x
 
 
@@ -339,23 +365,28 @@ class HEncLayer(nn.Module):
         if not s.freq and x.dim() == 4:
             B, C, Fr, T = x.shape
             x = x.reshape(B, -1, T)
-        if not s.freq:
+        if s.freq:
+            y = ops.conv2d(x, self.conv.weight, self.conv.bias, stride=(s.stride, 1),
+                           padding=(s.pad, 0))
+        else:
             le = x.shape[-1]
             if le % s.stride != 0:
                 x = nn.functional.pad(x, (0, s.stride - le % s.stride))
-        y = self.conv(x)
+            y = ops.conv1d(x, self.conv.weight, self.conv.bias, stride=s.stride, padding=s.pad)
         if s.empty:
             return y
         if inject is not None:
             if inject.dim() == 3 and y.dim() == 4:
                 inject = inject[:, :, None]
             y = y + inject
-        y = nn.functional.gelu(self.norm1(y))
+        y = ops.gelu(_maybe_norm(self.norm1, y))
         if s.dconv is not None:
             y = _dconv_on_branch(self.dconv, y, s.freq)
         if s.rewrite:
-            z = self.norm2(self.rewrite(y))
-            z = nn.functional.glu(z, dim=1)
+            conv = ops.conv2d if s.freq else ops.conv1d
+            z = _maybe_norm(self.norm2, conv(y, self.rewrite.weight, self.rewrite.bias,
+                                             padding=s.context))
+            z = ops.glu(z, axis=1)
         else:
             z = y
         return z
@@ -400,7 +431,15 @@ class HDecLayer(nn.Module):
         if not s.empty:
             x = x + skip
             if s.rewrite:
-                y = nn.functional.glu(self.norm1(self.rewrite(x)), dim=1)
+                w, b = self.rewrite.weight, self.rewrite.bias
+                if not s.freq:
+                    y = ops.conv1d(x, w, b, padding=s.context)
+                elif s.context_freq:
+                    y = ops.conv2d(x, w, b, padding=(s.context, s.context))
+                else:
+                    y = ops.conv2d(x, w, b, padding=(0, s.context))
+                y = _maybe_norm(self.norm1, y)
+                y = ops.glu(y, axis=1)
             else:
                 y = x
             if s.dconv is not None:
@@ -409,7 +448,12 @@ class HDecLayer(nn.Module):
             y = x
             if skip is not None:
                 raise ValueError("an empty decoder layer takes no skip")
-        z = self.norm2(self.conv_tr(y))
+        if s.freq:
+            z = ops.conv_transpose2d(y, self.conv_tr.weight, self.conv_tr.bias,
+                                     stride=(s.stride, 1))
+        else:
+            z = ops.conv_transpose1d(y, self.conv_tr.weight, self.conv_tr.bias, stride=s.stride)
+        z = _maybe_norm(self.norm2, z)
         if s.freq:
             if s.pad:
                 z = z[..., s.pad : -s.pad, :]
@@ -418,7 +462,7 @@ class HDecLayer(nn.Module):
             if z.shape[-1] != length:
                 raise AssertionError((z.shape[-1], length))
         if not s.last:
-            z = nn.functional.gelu(z)
+            z = ops.gelu(z)
         return z, y
 
 
@@ -432,4 +476,4 @@ class ScaledEmbedding(nn.Module):
         self.scale = scale
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding(ids) * self.scale
+        return ops.embedding(ids, self.embedding.weight) * self.scale

@@ -10,7 +10,9 @@ Every attention runs through kernel K3 (``demucs_tpu_torch.kernels.attention``):
 the CUDA kernel on the card, its plain version on the CPU. The attention
 module owns ``in_proj_weight``, ``in_proj_bias`` and ``out_proj`` under the
 names of ``nn.MultiheadAttention`` (so checkpoints load unchanged) but never
-calls it, nor ``scaled_dot_product_attention``.
+calls it, nor ``scaled_dot_product_attention``. Norms and linear maps keep
+their weights in ``torch.nn`` modules and apply them through
+``demucs_tpu_torch.ops.nn``.
 
 CAPE embeddings, the sparse attention masks, LSH sparsity and dropout come
 with later slices of the port and raise until then.
@@ -26,10 +28,10 @@ import typing as tp
 import numpy as np
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from demucs_tpu_torch.kernels.attention import flash_mha
 from demucs_tpu_torch.models.hlayers import LayerScale
+from demucs_tpu_torch.ops import nn as ops
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,7 +118,19 @@ class MyGroupNorm(nn.GroupNorm):
     """GroupNorm over ``(B, T, C)`` tokens: normalizes all of T and C per item."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.transpose(1, 2)).transpose(1, 2)
+        y = ops.group_norm(x.transpose(1, 2), self.num_groups, self.weight, self.bias)
+        return y.transpose(1, 2)
+
+
+def _layer_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``norm``'s weights applied through ``ops.nn`` (a MyGroupNorm does so itself)."""
+    if isinstance(norm, nn.LayerNorm):
+        return ops.layer_norm(x, norm.weight, norm.bias)
+    return norm(x)
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return ops.linear(x, lin.weight, lin.bias)
 
 
 class Attention(nn.Module):
@@ -132,9 +146,9 @@ class Attention(nn.Module):
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
         b_q, b_k, b_v = self.in_proj_bias.chunk(3)
-        out = flash_mha(F.linear(q, w_q, b_q), F.linear(k, w_k, b_k),
-                        F.linear(v, w_v, b_v), self.num_heads)
-        return self.out_proj(out)
+        out = flash_mha(ops.linear(q, w_q, b_q), ops.linear(k, w_k, b_k),
+                        ops.linear(v, w_v, b_v), self.num_heads)
+        return _linear(self.out_proj, out)
 
 
 class _Layer(nn.Module):
@@ -164,8 +178,8 @@ class _Layer(nn.Module):
         return getattr(self, name)(x) if self.spec.layer_scale else x
 
     def _ff(self, x: torch.Tensor) -> torch.Tensor:
-        act = F.gelu if self.spec.gelu else F.relu
-        return self.linear2(act(self.linear1(x)))
+        act = ops.gelu if self.spec.gelu else torch.relu
+        return _linear(self.linear2, act(_linear(self.linear1, x)))
 
 
 class SelfLayer(_Layer):
@@ -177,14 +191,14 @@ class SelfLayer(_Layer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.spec
         if s.norm_first:
-            y = self.norm1(x)
+            y = _layer_norm(self.norm1, x)
             x = x + self._gamma("gamma_1", self.self_attn(y, y, y))
-            x = x + self._gamma("gamma_2", self._ff(self.norm2(x)))
+            x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm2, x)))
             if s.norm_out:
                 x = self.norm_out(x)
             return x
-        x = self.norm1(x + self._gamma("gamma_1", self.self_attn(x, x, x)))
-        return self.norm2(x + self._gamma("gamma_2", self._ff(x)))
+        x = _layer_norm(self.norm1, x + self._gamma("gamma_1", self.self_attn(x, x, x)))
+        return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x)))
 
 
 class CrossLayer(_Layer):
@@ -196,14 +210,14 @@ class CrossLayer(_Layer):
     def forward(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         s = self.spec
         if s.norm_first:
-            kn = self.norm2(k)
-            x = q + self._gamma("gamma_1", self.cross_attn(self.norm1(q), kn, kn))
-            x = x + self._gamma("gamma_2", self._ff(self.norm3(x)))
+            kn = _layer_norm(self.norm2, k)
+            x = q + self._gamma("gamma_1", self.cross_attn(_layer_norm(self.norm1, q), kn, kn))
+            x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm3, x)))
             if s.norm_out:
                 x = self.norm_out(x)
             return x
-        x = self.norm1(q + self._gamma("gamma_1", self.cross_attn(q, k, k)))
-        return self.norm2(x + self._gamma("gamma_2", self._ff(x)))
+        x = _layer_norm(self.norm1, q + self._gamma("gamma_1", self.cross_attn(q, k, k)))
+        return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x)))
 
 
 class CrossTransformerEncoder(nn.Module):
@@ -250,7 +264,7 @@ class CrossTransformerEncoder(nn.Module):
         x = x.permute(0, 3, 2, 1).reshape(B, T1 * Fr, C)  # b c fr t1 -> b (t1 fr) c
         pos2d = pos2d.permute(2, 1, 0).reshape(1, T1 * Fr, C)
         if s.norm_in or s.norm_in_group:
-            x = self.norm_in(x)
+            x = _layer_norm(self.norm_in, x)
         x = x + s.weight_pos_embed * pos2d
 
         T2 = xt.shape[-1]
@@ -260,7 +274,7 @@ class CrossTransformerEncoder(nn.Module):
         else:
             pos_emb = (self.position_embeddings.embedding.weight[:T2] * 3.0)[None]
         if s.norm_in or s.norm_in_group:
-            xt = self.norm_in_t(xt)
+            xt = _layer_norm(self.norm_in_t, xt)
         xt = xt + s.weight_pos_embed * pos_emb
 
         for idx in range(s.num_layers):

@@ -121,7 +121,7 @@ def test_model_card_matches_cpu(cuda):
 
     cfg = HTDemucsConfig(channels=16, depth=4, nfft=2048, t_layers=3, t_heads=4, segment=0.5,
                          samplerate=8000)
-    model = init_htdemucs(cfg, seed=7).eval()
+    model = init_htdemucs(cfg, seed=7, layer_scale=1.0).eval()
     mix = _randn(2, 2, 4000, seed=10, device="cpu") * 0.1
     with torch.inference_mode():
         want = model(mix)

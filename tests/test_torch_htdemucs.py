@@ -1,6 +1,13 @@
 """Port's HTDemucs (demucs_tpu_torch.models.htdemucs) against demucs_tpu, with
 the JAX package's weights carried across by load_flat_state.
 
+Random weights start every LayerScale at its init (1e-4 in the transformer),
+which hides the transformer's branches below the tolerance. So the
+comparisons with the JAX forward set every LayerScale to 1.0 on both sides
+(``_unit_scales``), and one test shows that a fault planted in the port's
+transformer then fails the comparison. The golden case keeps the weights its
+committed output was made with.
+
 Tolerance: 2e-4 x peak of the output, the bound of tests/test_golden.py. Both
 sides compute in fp32 on the CPU, but convolutions, products and reductions
 sum in another order (XLA:CPU against oneDNN/ATen) through a deep network
@@ -23,8 +30,9 @@ import jax
 import jax.numpy as jnp
 
 from demucs_tpu.models import htdemucs as jht
-from demucs_tpu.zoo.torch_load import flatten_state
+from demucs_tpu.zoo.torch_load import flatten_state, nest_state
 from demucs_tpu_torch.models import htdemucs as tht
+from demucs_tpu_torch.models import transformer as ttr
 from demucs_tpu_torch.zoo.convert import load_flat_state
 
 sys.path.insert(0, str(Path(__file__).parent))
@@ -32,6 +40,7 @@ from test_golden import GOLDEN_DIR, SOURCES, _mix  # noqa: E402
 
 RELEASED = dict(channels=48, depth=4, nfft=4096, t_layers=5, t_heads=8, dconv_mode=3,
                 bottom_channels=512, samplerate=44100)
+RTOL = 2e-4  # x peak of the output
 
 
 def _golden_cfg():
@@ -43,6 +52,18 @@ def _port_model(jcfg, params):
     tcfg = tht.HTDemucsConfig(**dataclasses.asdict(jcfg))
     flat = {k: np.asarray(v) for k, v in flatten_state(params).items()}
     return load_flat_state(tht.HTDemucs(tcfg), flat).eval()
+
+
+def _unit_scales(params):
+    """Every LayerScale (transformer gamma_1/gamma_2 and DConv) at 1.0."""
+    flat = flatten_state(params)
+    return nest_state({k: np.ones_like(v) if k.endswith(".scale") else v
+                       for k, v in flat.items()})
+
+
+def _rel_err(got, want) -> float:
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max() / np.abs(want).max())
 
 
 def _jax_forward(params, mix, cfg):
@@ -59,28 +80,47 @@ def test_golden_htdemucs():
     model = _port_model(jcfg, jht.init_htdemucs(jcfg, seed=7))
     want = np.load(GOLDEN_DIR / "htdemucs.npz")["out"]
     got = _forward(model, _mix(jcfg.training_length))
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
+    assert _rel_err(got, want) < RTOL
 
 
 def test_released_widths_match_jax_forward():
     jcfg = jht.HTDemucsConfig(sources=SOURCES, segment=1.0, **RELEASED)
-    params = jht.init_htdemucs(jcfg, seed=3)
+    params = _unit_scales(jht.init_htdemucs(jcfg, seed=3))
     mix = (np.random.default_rng(0).standard_normal((1, 2, 44100)) * 0.1).astype(np.float32)
     want = np.asarray(_jax_forward(params, mix, jcfg))
     got = _forward(_port_model(jcfg, params), mix)
-    assert got.shape == want.shape == (1, 4, 2, 44100)
-    assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
+    assert got.shape == (1, 4, 2, 44100)
+    assert _rel_err(got, want) < RTOL
 
 
 def test_shorter_input_is_padded_to_the_training_segment():
     jcfg = _golden_cfg()
-    params = jht.init_htdemucs(jcfg, seed=7)
+    params = _unit_scales(jht.init_htdemucs(jcfg, seed=7))
     mix = _mix(3000)
     want = np.asarray(_jax_forward(params, mix, jcfg))
     got = _forward(_port_model(jcfg, params), mix)
     assert got.shape == (1, 4, 2, 3000)
-    assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
+    assert _rel_err(got, want) < RTOL
+
+
+@pytest.mark.parametrize("fault", ["attention_zeros", "keys_values_swapped",
+                                   "feed_forward_zeros"])
+def test_planted_transformer_fault_fails_the_comparison(fault, monkeypatch):
+    """With unit LayerScales the comparison sees every transformer layer."""
+    jcfg = _golden_cfg()
+    params = _unit_scales(jht.init_htdemucs(jcfg, seed=7))
+    mix = _mix(jcfg.training_length)
+    want = np.asarray(_jax_forward(params, mix, jcfg))
+    model = _port_model(jcfg, params)
+    assert _rel_err(_forward(model, mix), want) < RTOL
+    mha = ttr.flash_mha
+    if fault == "attention_zeros":
+        monkeypatch.setattr(ttr, "flash_mha", lambda q, k, v, heads: torch.zeros_like(q))
+    elif fault == "keys_values_swapped":
+        monkeypatch.setattr(ttr, "flash_mha", lambda q, k, v, heads: mha(q, v, k, heads))
+    else:
+        monkeypatch.setattr(ttr._Layer, "_ff", lambda self, x: torch.zeros_like(x))
+    assert _rel_err(_forward(model, mix), want) > 10 * RTOL
 
 
 @pytest.mark.parametrize("variant", [
@@ -91,12 +131,11 @@ def test_shorter_input_is_padded_to_the_training_segment():
 def test_transformer_variants_match_jax(variant):
     """The transformer options the port supports besides the released ones."""
     jcfg = dataclasses.replace(_golden_cfg(), **variant)
-    params = jht.init_htdemucs(jcfg, seed=11)
+    params = _unit_scales(jht.init_htdemucs(jcfg, seed=11))
     mix = _mix(jcfg.training_length)
     want = np.asarray(_jax_forward(params, mix, jcfg))
     got = _forward(_port_model(jcfg, params), mix)
-    assert got.shape == want.shape
-    assert np.abs(got - want).max() < 2e-4 * np.abs(want).max()
+    assert _rel_err(got, want) < RTOL
 
 
 def test_config_fields_and_defaults_equal_jax():

@@ -1,266 +1,341 @@
 // K1 and K2: the windowed STFT and the windowed inverse STFT with overlap-add,
-// as dense real-DFT products in fp32 on CUDA cores (sm_90a).
+// as fp32 FFTs in shared memory on CUDA cores (sm_90a).
 //
 // Replaces demucs_tpu/ops/pallas/stft.py: stft_chunk_dft (kernel _stft_kernel)
-// and istft_chunk_dft (kernel _istft_kernel).
+// and istft_chunk_dft (kernel _istft_kernel). The Pallas kernels took every
+// frame's DFT as a dense product with a windowed basis, to feed the TPU's
+// matrix unit: O(n_fft) operations per bin and a 67 MB basis read at n_fft
+// 4096. Here each frame is one real FFT of n = n_fft points:
 //
-// K1  z[m, n] = sum_k x[row(m) * row_len + frame(m) * hop + k] * G[k, n]
-//     with G = window * rDFT basis (n_fft, freqs), real and imaginary parts.
-//     The Pallas kernel fed 4 shifted copies of the hop-chunked signal because
-//     its blocks must be rectangular; here each output row m = (row, frame)
-//     reads its frame straight from the padded signal at offset frame * hop,
-//     so the A operand is a strided view (row stride hop) and no copy is made.
-// K2  out[row, c * hop + s] = sum_{j < n_fft / hop} sum_f
-//         Zr[row, c - j, f] * Mr[f, j * hop + s] + Zi[row, c - j, f] * Mi[f, j * hop + s]
-//     with M = window * inverse rDFT basis (freqs, n_fft). The Pallas kernel
-//     summed over frequency blocks by revisiting its output block along a
-//     sequential grid axis; CUDA blocks run in no order, so one block owns
-//     one output tile and loops over all shifts j and frequencies itself:
-//     no atomics, and the sum order is fixed (deterministic). Frames c - j
-//     out of range are skipped by the A loader instead of zero-padded copies.
+// K1  X_t[m] = sum_k w[k] x[row, t*hop + k] exp(-2 pi i mk / n), m = 0..n/2.
+//     One block per frame. The n windowed samples are packed into n/2
+//     complex points c[k] = y[2k] + i y[2k+1], transformed by a complex FFT
+//     of n/2 points, C, and split into the real DFT's bins:
+//         X[m] = E[m] + W^m O[m],  W = exp(-2 pi i / n),
+//         E[m] = (C[m] + conj C[n/2 - m]) / 2,  O[m] = (C[m] - conj C[n/2 - m]) / 2i.
+// K2  out[row, p] = sum_t w[p - t*hop] irfft(X_t)[p - t*hop], the inverse
+//     real DFT with numpy's convention: 1/n, and the imaginary parts of bins
+//     0 and n/2 ignored. One block owns one row and `group` consecutive output
+//     chunks of hop samples. It inverts, in order of t, every frame that
+//     reaches those chunks: it folds the bins back into c = E + iO (E and O
+//     from X as above, inverted), takes the inverse FFT as a forward FFT of
+//     conj c (x[2k] + i x[2k+1] = conj FFT(conj c)[k] / (n/2)), windows the n
+//     samples and adds them to an accumulator in shared memory. No atomics,
+//     and every output sample sums its frames in the same order (t rising).
+//     It recomputes (group + n/hop - 1) / group FFTs per frame instead of
+//     keeping windowed frames in device memory.
 //
-// Bound: at the released shape (n_fft 4096, 2049 freqs) both are
-// compute-bound products (about 11.4 GFLOP per signal row, against about
-// 11 MB of basis read once per tile column) on the card's fp32 FMA rate.
-// The design is the plain one: 64 x 64 output tiles, 16-deep K slices staged
-// in shared memory, 4 x 4 outputs per thread, fp32 accumulators. Tensor
-// cores (TF32 wgmma) and TMA are later work.
+// The FFT (fft_shared) is Stockham's autosort form, so the result comes out
+// in natural order with no bit reversal: one radix-2 stage when log2(n/2) is
+// odd, then radix-4 stages with the butterflies in registers. Each stage
+// reads its inputs into registers, syncs, and writes its outputs in place:
+// one buffer of shared memory (16 KB at n_fft 4096), not two, so that more
+// blocks fit on an SM, since one block's chain of stages is latency-bound.
+// Twiddles come from a table built in float64 and rounded to fp32 by the
+// wrapper: W^m = exp(-2 pi i m / n) for m = 0..n/2 (split and fold), then
+// each radix-4 stage's own run, laid out so that a warp's loads coalesce.
+// None comes from __sinf/__cosf, and this file is built without
+// --use_fast_math.
+//
+// Bound: bytes. At n_fft 4096 a frame moves 16 KB of signal in and 16 KB of
+// spectrum out (K1), or the reverse (K2), for about 1.3e5 operations: 4 FLOP
+// per byte, far below the card's 20 fp32 FLOP per byte of HBM. The kernels
+// read each input element from device memory once per frame that holds it
+// (hop = n/4: the signal 4 times, mostly from L2) and write each output once;
+// what remains is shared-memory traffic, syncs and the latency of one block's
+// chain of FFT stages, which enough blocks in flight hide.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int BM = 64;       // output rows per block
-constexpr int BN = 64;       // output columns per block
-constexpr int BK = 16;       // reduction slice staged in shared memory
-constexpr int TM = 4;        // rows per thread
-constexpr int TN = 4;        // columns per thread
-constexpr int THREADS = 256; // (BM / TM) * (BN / TN)
-constexpr int APAD = 4;      // keeps the transposed A tile 16-byte aligned, fewer bank conflicts
-constexpr int A_LOADS = BM * BK / THREADS;  // 4
-constexpr int B_LOADS = BK * BN / THREADS;  // 4
+constexpr int THREADS = 256;
+constexpr int MIN_LOG2_N = 8;   // n_fft 256
+constexpr int MAX_LOG2_N = 14;  // n_fft 16384
+constexpr int SMEM_DEFAULT = 48 * 1024;  // above this, opt in per kernel
+constexpr int SMEM_MAX = 232448;         // bytes of shared memory a block may use on sm_90
 
-__global__ void __launch_bounds__(THREADS)
-stft_dft_kernel(const float* __restrict__ x, const float* __restrict__ gr,
-                const float* __restrict__ gi, float* __restrict__ zr,
-                float* __restrict__ zi, int rows, int row_len, int n_frames,
-                int n_fft, int hop, int freqs) {
-  __shared__ __align__(16) float As[BK][BM + APAD];
-  __shared__ __align__(16) float Brs[BK][BN];
-  __shared__ __align__(16) float Bis[BK][BN];
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const long long M = (long long)rows * n_frames;
-  const long long m0 = (long long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
 
-  // Each thread loads A_LOADS elements of the A tile per slice: row r, column k.
-  const float* a_row[A_LOADS];
-  int a_r[A_LOADS], a_k[A_LOADS];
-#pragma unroll
-  for (int i = 0; i < A_LOADS; ++i) {
-    const int idx = tid + i * THREADS;
-    a_r[i] = idx / BK;
-    a_k[i] = idx % BK;
-    const long long m = m0 + a_r[i];
-    if (m < M) {
-      const long long row = m / n_frames;
-      const long long t = m % n_frames;
-      a_row[i] = x + row * row_len + t * hop;
-    } else {
-      a_row[i] = nullptr;
-    }
-  }
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
 
-  float accr[TM][TN], acci[TM][TN];
+// Forward complex FFT (exp(-2 pi i jk / h)) of the h = 2^log2h points in a,
+// in place. Every thread of the block calls it; tw is the wrapper's table
+// (see stft_dft_f32), whose stage part gives each radix-4 stage its twiddles
+// W^(r k), r = 1..3, as three runs over k, so that neighbouring threads read
+// neighbouring entries. BPT radix-4 butterflies per thread and stage cover
+// h / 4 <= BPT * THREADS. Each stage loads its inputs into registers, waits
+// for the whole block, then stores its outputs over them: one buffer of
+// shared memory instead of Stockham's two. Starts and ends with a
+// __syncthreads, so a is ready before and after.
+template <int BPT>
+__device__ void fft_shared(float2* a, int log2h, const float2* __restrict__ tw) {
+  const int h = 1 << log2h;
+  int ns = 1;  // length of the sub-transforms done so far
+  __syncthreads();
+  if (log2h & 1) {  // radix 2 at ns = 1: no twiddles, output index 2j + s
+    const int half = h >> 1;
+    float2 v[2 * BPT][2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      accr[i][j] = 0.f;
-      acci[i][j] = 0.f;
-    }
-
-  for (int k0 = 0; k0 < n_fft; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const int k = k0 + a_k[i];
-      As[a_k[i]][a_r[i]] = (a_row[i] != nullptr && k < n_fft) ? a_row[i][k] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < B_LOADS; ++i) {
-      const int idx = tid + i * THREADS;
-      const int k = idx / BN;
-      const int n = idx % BN;
-      const bool ok = (k0 + k < n_fft) && (n0 + n < freqs);
-      const long long off = (long long)(k0 + k) * freqs + n0 + n;
-      Brs[k][n] = ok ? gr[off] : 0.f;
-      Bis[k][n] = ok ? gi[off] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-      const float4 br = *reinterpret_cast<const float4*>(&Brs[k][tx * TN]);
-      const float4 bi = *reinterpret_cast<const float4*>(&Bis[k][tx * TN]);
-      const float av[TM] = {a.x, a.y, a.z, a.w};
-      const float brv[TN] = {br.x, br.y, br.z, br.w};
-      const float biv[TN] = {bi.x, bi.y, bi.z, bi.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          accr[i][j] = fmaf(av[i], brv[j], accr[i][j]);
-          acci[i][j] = fmaf(av[i], biv[j], acci[i][j]);
-        }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx * TN + j;
-      if (n < freqs) {
-        zr[m * freqs + n] = accr[i][j];
-        zi[m * freqs + n] = acci[i][j];
+    for (int i = 0; i < 2 * BPT; ++i) {
+      const int j = threadIdx.x + i * THREADS;
+      if (j < half) {
+        v[i][0] = a[j];
+        v[i][1] = a[j + half];
       }
     }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 2 * BPT; ++i) {
+      const int j = threadIdx.x + i * THREADS;
+      if (j < half) {
+        a[2 * j] = cadd(v[i][0], v[i][1]);
+        a[2 * j + 1] = csub(v[i][0], v[i][1]);
+      }
+    }
+    __syncthreads();
+    ns = 2;
+  }
+  const int q = h >> 2;
+  const float2* stage_tw = tw + h + 1;  // past the split's W^m, m = 0..h
+  for (; ns < h; stage_tw += 3 * ns, ns <<= 2) {
+    // stage_tw[(r - 1) * ns + k] = exp(-2 pi i r k / (4 ns))
+    float2 v[BPT][4];
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) {
+      const int j = threadIdx.x + i * THREADS;
+      if (j < q) {
+        const int k = j & (ns - 1);  // position inside the sub-transform
+#pragma unroll
+        for (int r = 0; r < 4; ++r) v[i][r] = a[j + r * q];
+        if (k != 0) {
+          v[i][1] = cmul(v[i][1], __ldg(&stage_tw[k]));
+          v[i][2] = cmul(v[i][2], __ldg(&stage_tw[ns + k]));
+          v[i][3] = cmul(v[i][3], __ldg(&stage_tw[2 * ns + k]));
+        }
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < BPT; ++i) {
+      const int j = threadIdx.x + i * THREADS;
+      if (j < q) {
+        const int k = j & (ns - 1);
+        const float2 s0 = cadd(v[i][0], v[i][2]), s1 = csub(v[i][0], v[i][2]);
+        const float2 s2 = cadd(v[i][1], v[i][3]), d13 = csub(v[i][1], v[i][3]);
+        const float2 s3 = make_float2(d13.y, -d13.x);  // -i (v1 - v3)
+        const int d = ((j - k) << 2) + k;
+        a[d] = cadd(s0, s2);
+        a[d + ns] = cadd(s1, s3);
+        a[d + 2 * ns] = csub(s0, s2);
+        a[d + 3 * ns] = csub(s1, s3);
+      }
+    }
+    __syncthreads();
   }
 }
 
+template <int BPT>
 __global__ void __launch_bounds__(THREADS)
-istft_dft_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
-                 const float* __restrict__ mr, const float* __restrict__ mi,
-                 float* __restrict__ out, int rows, int n_frames, int freqs,
-                 int n_fft, int hop) {
-  __shared__ __align__(16) float Ars[BK][BM + APAD];
-  __shared__ __align__(16) float Ais[BK][BM + APAD];
-  __shared__ __align__(16) float Brs[BK][BN];
-  __shared__ __align__(16) float Bis[BK][BN];
+stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ window,
+                const float2* __restrict__ tw, float* __restrict__ zr,
+                float* __restrict__ zi, int row_len, int n_frames, int hop, int log2h) {
+  extern __shared__ float2 a[];  // n_fft / 2 points
+  const int h = 1 << log2h;
+  const long long frame = blockIdx.x;  // row * n_frames + t
+  const float* src = x + (frame / n_frames) * row_len + (frame % n_frames) * hop;
+  const float2* win2 = reinterpret_cast<const float2*>(window);
 
-  const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int ratio = n_fft / hop;
-  const int n_chunks = n_frames - 1 + ratio;
-  const long long M = (long long)rows * n_chunks;
-  const long long m0 = (long long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-
-  long long a_row[A_LOADS];  // (row, chunk) of each A element this thread loads
-  int a_chunk[A_LOADS], a_r[A_LOADS], a_k[A_LOADS];
-#pragma unroll
-  for (int i = 0; i < A_LOADS; ++i) {
-    const int idx = tid + i * THREADS;
-    a_r[i] = idx / BK;
-    a_k[i] = idx % BK;
-    const long long m = m0 + a_r[i];
-    a_row[i] = m < M ? m / n_chunks : -1;
-    a_chunk[i] = m < M ? (int)(m % n_chunks) : 0;
-  }
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int j = 0; j < ratio; ++j) {
-    // Frame c - j feeds output chunk c with its j-th hop slice.
-    const float* ar[A_LOADS];
-    const float* ai[A_LOADS];
-#pragma unroll
-    for (int i = 0; i < A_LOADS; ++i) {
-      const int t = a_chunk[i] - j;
-      const bool ok = a_row[i] >= 0 && t >= 0 && t < n_frames;
-      const long long off = ok ? (a_row[i] * n_frames + t) * freqs : 0;
-      ar[i] = ok ? zr + off : nullptr;
-      ai[i] = ok ? zi + off : nullptr;
+  // Window, and pack sample pairs into complex points. A frame starts at any
+  // sample, so pairs load as float2 only where the frame is 8-byte aligned.
+  if ((reinterpret_cast<uintptr_t>(src) & 7) == 0) {
+    const float2* src2 = reinterpret_cast<const float2*>(src);
+    for (int k = threadIdx.x; k < h; k += THREADS) {
+      const float2 v = __ldg(&src2[k]), w = __ldg(&win2[k]);
+      a[k] = make_float2(v.x * w.x, v.y * w.y);
     }
-    for (int f0 = 0; f0 < freqs; f0 += BK) {
-#pragma unroll
-      for (int i = 0; i < A_LOADS; ++i) {
-        const int f = f0 + a_k[i];
-        const bool ok = ar[i] != nullptr && f < freqs;
-        Ars[a_k[i]][a_r[i]] = ok ? ar[i][f] : 0.f;
-        Ais[a_k[i]][a_r[i]] = ok ? ai[i][f] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < B_LOADS; ++i) {
-        const int idx = tid + i * THREADS;
-        const int k = idx / BN;
-        const int n = idx % BN;
-        const bool ok = (f0 + k < freqs) && (n0 + n < hop);
-        const long long off = (long long)(f0 + k) * n_fft + (long long)j * hop + n0 + n;
-        Brs[k][n] = ok ? mr[off] : 0.f;
-        Bis[k][n] = ok ? mi[off] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        const float4 a_r4 = *reinterpret_cast<const float4*>(&Ars[k][ty * TM]);
-        const float4 a_i4 = *reinterpret_cast<const float4*>(&Ais[k][ty * TM]);
-        const float4 b_r4 = *reinterpret_cast<const float4*>(&Brs[k][tx * TN]);
-        const float4 b_i4 = *reinterpret_cast<const float4*>(&Bis[k][tx * TN]);
-        const float arv[TM] = {a_r4.x, a_r4.y, a_r4.z, a_r4.w};
-        const float aiv[TM] = {a_i4.x, a_i4.y, a_i4.z, a_i4.w};
-        const float brv[TN] = {b_r4.x, b_r4.y, b_r4.z, b_r4.w};
-        const float biv[TN] = {b_i4.x, b_i4.y, b_i4.z, b_i4.w};
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int jj = 0; jj < TN; ++jj)
-            acc[i][jj] = fmaf(aiv[i], biv[jj], fmaf(arv[i], brv[jj], acc[i][jj]));
-      }
-      __syncthreads();
+  } else {
+    for (int k = threadIdx.x; k < h; k += THREADS) {
+      const float2 w = __ldg(&win2[k]);
+      a[k] = make_float2(__ldg(&src[2 * k]) * w.x, __ldg(&src[2 * k + 1]) * w.y);
     }
   }
+  fft_shared<BPT>(a, log2h, tw);
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int jj = 0; jj < TN; ++jj) {
-      const int n = n0 + tx * TN + jj;
-      if (n < hop) out[m * hop + n] = acc[i][jj];
+  // Split into bins 0..h; consecutive threads write consecutive bins.
+  const int freqs = h + 1;
+  float* out_r = zr + frame * freqs;
+  float* out_i = zi + frame * freqs;
+  for (int m = threadIdx.x; m < freqs; m += THREADS) {
+    const float2 p = a[m & (h - 1)], q = a[(h - m) & (h - 1)];
+    const float2 e = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
+    const float2 o = make_float2(0.5f * (p.y + q.y), 0.5f * (q.x - p.x));  // (p - conj q) / 2i
+    const float2 wo = cmul(o, __ldg(&tw[m]));
+    out_r[m] = e.x + wo.x;
+    out_i[m] = e.y + wo.y;
+  }
+}
+
+template <int BPT>
+__global__ void __launch_bounds__(THREADS)
+istft_fft_kernel(const float* __restrict__ zr, const float* __restrict__ zi,
+                 const float* __restrict__ window, const float2* __restrict__ tw,
+                 float* __restrict__ out, int n_frames, int hop, int log2h, int group,
+                 int blocks_per_row) {
+  extern __shared__ float2 a[];  // n_fft / 2 points, then the accumulator
+  const int h = 1 << log2h;
+  const int n_fft = 2 * h;
+  const int n_chunks = n_frames - 1 + n_fft / hop;
+  float* acc = reinterpret_cast<float*>(a + h);
+  const int row = blockIdx.x / blocks_per_row;
+  const int c0 = (blockIdx.x % blocks_per_row) * group;  // first chunk of this block
+  const int n_own = min(group, n_chunks - c0) * hop;      // samples this block writes
+
+  // Each thread owns the accumulator entries i = threadIdx.x (mod THREADS)
+  // for the whole kernel, so they need no syncs of their own.
+  for (int i = threadIdx.x; i < n_own; i += THREADS) acc[i] = 0.f;
+  const int freqs = h + 1;
+  const float inv_h = 1.0f / h;  // exact: h is a power of two
+  const int t_lo = max(0, c0 - n_fft / hop + 1);
+  const int t_hi = min(n_frames - 1, c0 + group - 1);
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const long long base = ((long long)row * n_frames + t) * freqs;
+    const float* fr = zr + base;
+    const float* fi = zi + base;
+    __syncthreads();  // the previous frame's result is read before a is overwritten
+    for (int m = threadIdx.x; m < h; m += THREADS) {
+      // p = X[m], q = X[h - m]; at m = 0 these are bins 0 and h, whose
+      // imaginary parts the inverse real DFT ignores.
+      const float2 p = make_float2(__ldg(&fr[m]), m == 0 ? 0.f : __ldg(&fi[m]));
+      const float2 q = make_float2(__ldg(&fr[h - m]), m == 0 ? 0.f : __ldg(&fi[h - m]));
+      const float2 e = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
+      const float2 dd = make_float2(0.5f * (p.x - q.x), 0.5f * (p.y + q.y));
+      const float2 w = __ldg(&tw[m]);
+      const float2 o = cmul(dd, make_float2(w.x, -w.y));  // (p - conj q) / (2 W^m)
+      a[m] = make_float2(e.x - o.y, -(e.y + o.x));         // conj(e + i o)
+    }
+    fft_shared<BPT>(a, log2h, tw);
+    // Frame sample k lands on output sample t*hop + k, local index k - shift.
+    const int shift = (c0 - t) * hop;
+    for (int i = threadIdx.x; i < n_own; i += THREADS) {
+      const int k = shift + i;
+      if (k >= 0 && k < n_fft) {
+        const float2 v = a[k >> 1];
+        const float s = (k & 1) ? -v.y : v.x;
+        acc[i] = fmaf(s * inv_h, __ldg(&window[k]), acc[i]);
+      }
     }
   }
+  float* dst = out + ((long long)row * n_chunks + c0) * hop;
+  for (int i = threadIdx.x; i < n_own; i += THREADS) dst[i] = acc[i];
+}
+
+// log2(n_fft / 2) for a power of two n_fft in [256, 16384], else -1.
+int half_log2(int n_fft) {
+  if (n_fft <= 0 || (n_fft & (n_fft - 1)) != 0) return -1;
+  int lg = 0;
+  while ((1 << lg) < n_fft) ++lg;
+  return (lg < MIN_LOG2_N || lg > MAX_LOG2_N) ? -1 : lg - 1;
+}
+
+cudaError_t reserve_smem(const void* kernel, size_t bytes) {
+  if (bytes <= SMEM_DEFAULT) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int BPT>
+cudaError_t launch_stft(const float* x, const float* window, const float2* tw, float* zr,
+                        float* zi, unsigned frames, int row_len, int n_frames, int hop,
+                        int log2h, cudaStream_t stream) {
+  const size_t smem = sizeof(float2) << log2h;
+  cudaError_t err = reserve_smem((const void*)stft_fft_kernel<BPT>, smem);
+  if (err != cudaSuccess) return err;
+  stft_fft_kernel<BPT><<<frames, THREADS, smem, stream>>>(x, window, tw, zr, zi, row_len,
+                                                         n_frames, hop, log2h);
+  return cudaGetLastError();
+}
+
+template <int BPT>
+cudaError_t launch_istft(const float* zr, const float* zi, const float* window,
+                         const float2* tw, float* out, unsigned blocks, size_t smem,
+                         int n_frames, int hop, int log2h, int group, int blocks_per_row,
+                         cudaStream_t stream) {
+  cudaError_t err = reserve_smem((const void*)istft_fft_kernel<BPT>, smem);
+  if (err != cudaSuccess) return err;
+  istft_fft_kernel<BPT><<<blocks, THREADS, smem, stream>>>(
+      zr, zi, window, tw, out, n_frames, hop, log2h, group, blocks_per_row);
+  return cudaGetLastError();
+}
+
+// Radix-4 butterflies per thread and FFT stage: 1, 2, 4 or 8.
+int butterflies_per_thread(int log2h) {
+  const int q = 1 << (log2h - 2);
+  return q <= THREADS ? 1 : q / THREADS;
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (rows, row_len) -> zr, zi (rows, n_frames, freqs); gr, gi (n_fft, freqs).
-int stft_dft_f32(const float* x, const float* gr, const float* gi, float* zr,
-                 float* zi, int rows, int row_len, int n_frames, int n_fft,
-                 int hop, int freqs, void* stream) {
-  const long long M = (long long)rows * n_frames;
-  if (M == 0 || freqs == 0) return (int)cudaGetLastError();
-  const dim3 grid((freqs + BN - 1) / BN, (unsigned)((M + BM - 1) / BM));
-  stft_dft_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      x, gr, gi, zr, zi, rows, row_len, n_frames, n_fft, hop, freqs);
-  return (int)cudaGetLastError();
+// x (rows, row_len) -> zr, zi (rows, n_frames, n_fft / 2 + 1); window (n_fft,);
+// n_fft a power of two in [256, 16384]. twiddle (_, 2), complex as re, im:
+// exp(-2 pi i m / n_fft) for m = 0..n_fft/2, then for each radix-4 stage of the
+// FFT of h = n_fft / 2 points, ns = 1 or 2 (h = 4^s or 2 * 4^s), 4 ns, ...,
+// h / 4 in turn, exp(-2 pi i r k / (4 ns)) for r = 1, 2, 3 and k = 0..ns-1.
+int stft_dft_f32(const float* x, const float* window, const float* twiddle, float* zr,
+                 float* zi, int rows, int row_len, int n_frames, int n_fft, int hop,
+                 void* stream) {
+  const int log2h = half_log2(n_fft);
+  if (log2h < 0 || hop <= 0) return (int)cudaErrorInvalidValue;
+  const long long frames = (long long)rows * n_frames;
+  if (frames == 0) return (int)cudaGetLastError();
+  const float2* tw = reinterpret_cast<const float2*>(twiddle);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int bpt = butterflies_per_thread(log2h);
+  const auto launch = bpt == 1   ? launch_stft<1>
+                      : bpt == 2 ? launch_stft<2>
+                      : bpt == 4 ? launch_stft<4>
+                                 : launch_stft<8>;
+  return (int)launch(x, window, tw, zr, zi, (unsigned)frames, row_len, n_frames, hop, log2h, s);
 }
 
-// zr, zi (rows, n_frames, freqs) -> out (rows, (n_frames - 1) * hop + n_fft);
-// mr, mi (freqs, n_fft); requires n_fft % hop == 0.
-int istft_dft_f32(const float* zr, const float* zi, const float* mr,
-                  const float* mi, float* out, int rows, int n_frames,
-                  int freqs, int n_fft, int hop, void* stream) {
-  const long long M = (long long)rows * (n_frames - 1 + n_fft / hop);
-  if (M == 0 || hop == 0) return (int)cudaGetLastError();
-  const dim3 grid((hop + BN - 1) / BN, (unsigned)((M + BM - 1) / BM));
-  istft_dft_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      zr, zi, mr, mi, out, rows, n_frames, freqs, n_fft, hop);
-  return (int)cudaGetLastError();
+// zr, zi (rows, n_frames, n_fft / 2 + 1) -> out (rows, (n_frames - 1) * hop + n_fft);
+// window, twiddle as above; n_fft % hop == 0; each block owns `group` chunks of
+// hop output samples of one row.
+int istft_dft_f32(const float* zr, const float* zi, const float* window,
+                  const float* twiddle, float* out, int rows, int n_frames, int n_fft,
+                  int hop, int group, void* stream) {
+  const int log2h = half_log2(n_fft);
+  if (log2h < 0 || hop <= 0 || n_fft % hop != 0 || group <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // the FFT buffer of n_fft / 2 points and the accumulator of group * hop samples
+  const long long smem =
+      (long long)(n_fft / 2) * sizeof(float2) + (long long)group * hop * sizeof(float);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (rows == 0 || n_frames == 0) return (int)cudaGetLastError();
+  const int n_chunks = n_frames - 1 + n_fft / hop;
+  const int per_row = (n_chunks + group - 1) / group;
+  const unsigned blocks = (unsigned)((long long)rows * per_row);
+  const float2* tw = reinterpret_cast<const float2*>(twiddle);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int bpt = butterflies_per_thread(log2h);
+  const auto launch = bpt == 1   ? launch_istft<1>
+                      : bpt == 2 ? launch_istft<2>
+                      : bpt == 4 ? launch_istft<4>
+                                 : launch_istft<8>;
+  return (int)launch(zr, zi, window, tw, out, blocks, (size_t)smem, n_frames, hop, log2h, group,
+                     per_row, s);
 }
 
 }  // extern "C"

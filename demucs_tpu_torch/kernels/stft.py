@@ -1,9 +1,9 @@
-"""K1 and K2: windowed STFT / inverse STFT as dense real-DFT products.
+"""K1 and K2: windowed STFT / inverse STFT, as FFT kernels on the card.
 
 Replaces ``demucs_tpu/ops/pallas/stft.py`` (``stft_chunk_dft``, kernel
 ``_stft_kernel``; ``istft_chunk_dft``, kernel ``_istft_kernel``) with the CUDA
-kernels of ``csrc/stft.cu``. The math is the Pallas kernels': with ``G`` the
-window times the real-DFT basis,
+kernels of ``csrc/stft.cu``. The functions are the Pallas kernels': with ``G``
+the window times the real-DFT basis,
 
     Z[t] = x[t*hop : t*hop + n_fft] @ G          (K1, real and imaginary)
 
@@ -12,9 +12,15 @@ overlap-adds ``Zr @ Mr + Zi @ Mi`` of every frame at stride ``hop`` (K2).
 Normalization by ``1/sqrt(n_fft)`` and the window-envelope division stay
 with the caller (``demucs_tpu_torch.ops.spec``), as in the JAX package.
 
-The windowed bases (``(n_fft, freqs)`` and ``(freqs, n_fft)``, re and im;
-67 MB in fp32 at n_fft 4096) are built once per (n_fft, device) in float64
-on the host, rounded to fp32 as the JAX package rounds them, and cached.
+On the card both run as real FFTs of each frame in shared memory (a complex
+FFT of ``n_fft / 2`` points with the half-length packing), for a power-of-two
+``n_fft`` from 256 to 16384; another ``n_fft`` on a CUDA tensor raises. They
+take the Hann window and a table of twiddles (:func:`_twiddles_np`), built
+once per (n_fft, device) in float64 and rounded to fp32, and cached. The plain
+versions, used on CPU tensors and as the kernels' oracle, are the dense
+products above; their windowed bases (``(n_fft, freqs)`` and ``(freqs,
+n_fft)``, re and im; 67 MB in fp32 at n_fft 4096) are built the same way and
+cached, and the card's path never builds them.
 """
 
 from __future__ import annotations
@@ -31,12 +37,15 @@ __all__ = ["stft_dft", "stft_dft_plain", "istft_dft", "istft_dft_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+N_FFT_RANGE = (256, 16384)  # power-of-two n_fft the kernels take
+SMEM_MAX = 232448  # bytes of shared memory one block may use on sm_90
+GROUP = 8  # K2: output chunks per block, the fastest at 1 and 6 segments on an H100
 
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("stft")
-    lib.stft_dft_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+    lib.stft_dft_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.stft_dft_f32.restype = _I
     lib.istft_dft_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.istft_dft_f32.restype = _I
@@ -67,7 +76,35 @@ def _istft_basis(n_fft: int, device: torch.device) -> tuple:
                      for m in (mr, mi))
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _twiddles_np(n_fft: int) -> np.ndarray:
+    """The kernels' twiddle table, complex128, in the layout ``csrc/stft.cu``
+    reads: ``exp(-2 pi i m / n_fft)`` for ``m = 0..n_fft/2`` (the split of
+    K1, the fold of K2), then for each radix-4 stage of the FFT of ``h =
+    n_fft / 2`` points, with sub-transforms of ``ns = 1 or 2, 4 ns, ..., h /
+    4`` points done, ``exp(-2 pi i r k / (4 ns))`` for ``r = 1, 2, 3`` and ``k <
+    ns``, one run per ``r``."""
+    h = n_fft // 2
+    parts = [np.exp(-2j * np.pi * np.arange(h + 1) / n_fft)]
+    ns = 2 if (h.bit_length() - 1) % 2 else 1  # after the radix-2 stage of an odd log2(h)
+    while ns < h:
+        parts += [np.exp(-2j * np.pi * r * np.arange(ns) / (4 * ns)) for r in (1, 2, 3)]
+        ns *= 4
+    return np.concatenate(parts)
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_tables(n_fft: int, device: torch.device) -> tuple:
+    """The kernels' tables: the Hann window ``(n_fft,)`` and the twiddles
+    of :func:`_twiddles_np` as ``(_, 2)`` = re, im, both fp32."""
+    from demucs_tpu_torch.ops.spec import _hann_np
+
+    tw = _twiddles_np(n_fft)
+    twiddle = np.stack([tw.real, tw.imag], axis=-1).astype(np.float32)
+    with torch.inference_mode(False):
+        return torch.from_numpy(_hann_np(n_fft)).to(device), torch.from_numpy(twiddle).to(device)
+
+
+def _check_cuda(name: str, n_fft: int, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors, got {t.device}")
@@ -75,6 +112,10 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous tensors")
+    lo, hi = N_FFT_RANGE
+    if not lo <= n_fft <= hi or n_fft & (n_fft - 1):
+        raise ValueError(f"{name}: the CUDA kernel takes a power-of-two n_fft from {lo} "
+                         f"to {hi}, got {n_fft}")
 
 
 def _n_frames(length: int, n_fft: int, hop: int) -> int:
@@ -102,18 +143,17 @@ def stft_dft(x: torch.Tensor, n_fft: int, hop: int) -> tuple:
         raise ValueError(f"stft_dft expects (rows, length), got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return stft_dft_plain(x, n_fft, hop)
-    _check_cuda("stft_dft", x)
+    _check_cuda("stft_dft", n_fft, x)
     rows, length = x.shape
     n_frames = _n_frames(length, n_fft, hop)
-    freqs = n_fft // 2 + 1
-    gr, gi = _stft_basis(n_fft, x.device)
+    window, twiddle = _fft_tables(n_fft, x.device)
 
     def launch(x):
-        zr = torch.empty(rows, n_frames, freqs, device=x.device, dtype=torch.float32)
+        zr = torch.empty(rows, n_frames, n_fft // 2 + 1, device=x.device, dtype=torch.float32)
         zi = torch.empty_like(zr)
         status = _lib().stft_dft_f32(
-            x.data_ptr(), gr.data_ptr(), gi.data_ptr(), zr.data_ptr(), zi.data_ptr(),
-            rows, length, n_frames, n_fft, hop, freqs, _build.stream_ptr(x.device))
+            x.data_ptr(), window.data_ptr(), twiddle.data_ptr(), zr.data_ptr(), zi.data_ptr(),
+            rows, length, n_frames, n_fft, hop, _build.stream_ptr(x.device))
         _build.check(status, "stft_dft_f32")
         return zr, zi
 
@@ -137,12 +177,24 @@ def istft_dft_plain(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, hop: int) ->
     return out.reshape(rows, -1)
 
 
+def istft_group(n_fft: int, hop: int) -> int:
+    """Output chunks per K2 block: ``GROUP``, or fewer where one block's shared
+    memory (the FFT buffer and the accumulator) would not fit. Each block
+    inverts ``group + n_fft / hop - 1`` frames for its ``group`` chunks: fewer
+    chunks recompute more FFTs, more chunks fit fewer blocks on an SM."""
+    group = GROUP
+    while group > 1 and 4 * n_fft + 4 * group * hop > SMEM_MAX:
+        group //= 2
+    return group
+
+
 def istft_dft(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """Windowed inverse real DFT of ``zr/zi (R, n_frames, n_fft // 2 + 1)`` plus
     overlap-add at stride ``hop`` -> ``(R, (n_frames - 1) * hop + n_fft)``.
 
-    Requires ``n_fft % hop == 0``. A CPU tensor takes :func:`istft_dft_plain`;
-    a CUDA tensor launches K2 or raises.
+    Requires ``n_fft % hop == 0``. The imaginary parts of bins 0 and
+    ``n_fft // 2`` contribute nothing (numpy's ``irfft``). A CPU tensor takes
+    :func:`istft_dft_plain`; a CUDA tensor launches K2 or raises.
     """
     if zr.dim() != 3 or zr.shape != zi.shape:
         raise ValueError(f"istft_dft expects matching (rows, frames, freqs), got "
@@ -153,16 +205,17 @@ def istft_dft(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, hop: int) -> torch
         raise ValueError(f"istft_dft needs n_fft % hop == 0, got {n_fft} % {hop}")
     if zr.device.type == "cpu":
         return istft_dft_plain(zr, zi, n_fft, hop)
-    _check_cuda("istft_dft", zr, zi)
-    rows, n_frames, freqs = zr.shape
-    mr, mi = _istft_basis(n_fft, zr.device)
+    _check_cuda("istft_dft", n_fft, zr, zi)
+    rows, n_frames, _ = zr.shape
+    n_chunks = n_frames - 1 + n_fft // hop
+    group = istft_group(n_fft, hop)
+    window, twiddle = _fft_tables(n_fft, zr.device)
 
     def launch(zr, zi):
-        out = torch.empty(rows, (n_frames - 1) * hop + n_fft, device=zr.device,
-                          dtype=torch.float32)
+        out = torch.empty(rows, n_chunks * hop, device=zr.device, dtype=torch.float32)
         status = _lib().istft_dft_f32(
-            zr.data_ptr(), zi.data_ptr(), mr.data_ptr(), mi.data_ptr(), out.data_ptr(),
-            rows, n_frames, freqs, n_fft, hop, _build.stream_ptr(zr.device))
+            zr.data_ptr(), zi.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+            out.data_ptr(), rows, n_frames, n_fft, hop, group, _build.stream_ptr(zr.device))
         _build.check(status, "istft_dft_f32")
         return out
 

@@ -313,7 +313,8 @@ class HTDemucs(nn.Module):
 
 
 def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
-                  layer_scale: tp.Optional[float] = None) -> HTDemucs:
+                  layer_scale: tp.Optional[float] = None,
+                  random_norms: bool = False) -> HTDemucs:
     """Random weights from a seeded ``torch.Generator``, with the distributions
     of ``demucs_tpu.models.htdemucs.init_htdemucs`` (not its numbers):
     ``U(+-1/sqrt(fan_in))`` for convolutions and linear maps, the Demucs
@@ -323,7 +324,11 @@ def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
     ``layer_scale`` sets every LayerScale (transformer and DConv) to that
     value instead. At the configured inits (1e-4 in the transformer) those
     branches reach the output at about 1e-4 of its size, below a 2e-4 x peak
-    comparison; checks of random weights pass 1.0 so that they count."""
+    comparison; checks of random weights pass 1.0 so that they count.
+    ``random_norms`` draws every GroupNorm and LayerNorm weight as
+    ``1 + 0.3 N(0, 1)`` and bias as ``0.3 N(0, 1)``: with unit weights and
+    zero biases a norm left out moves the output too little for a check to
+    see."""
     model = HTDemucs(cfg)
     gen = torch.Generator().manual_seed(seed)
 
@@ -353,4 +358,7 @@ def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
                 mod.in_proj_bias.zero_()
             elif isinstance(mod, hl.LayerScale) and layer_scale is not None:
                 mod.scale.fill_(layer_scale)
+            elif isinstance(mod, (nn.GroupNorm, nn.LayerNorm)) and random_norms:
+                mod.weight.copy_(1 + 0.3 * torch.randn(mod.weight.shape, generator=gen))
+                mod.bias.copy_(0.3 * torch.randn(mod.bias.shape, generator=gen))
     return model

@@ -5,10 +5,11 @@ window, ``center=True``, reflect padding and ``normalized=True``, and the
 Demucs pad/trim conventions of ``demucs_spec``/``demucs_ispec``.
 
 The transforms run through kernels K1 and K2 (``demucs_tpu_torch.kernels.stft``),
-the same chunk-DFT math as the JAX package's ``method="pallas"``: on the
-card the CUDA kernels, on the CPU their plain versions. The normalization by
-``1/sqrt(n_fft)`` and the window-envelope division stay here, outside the
-kernels, as in the JAX package.
+the functions of the JAX package's ``method="pallas"``: on the card the CUDA
+FFT kernels, on the CPU their plain versions, the Pallas kernels' dense
+chunk-DFT products. The normalization by ``1/sqrt(n_fft)`` and the
+window-envelope division stay here, outside the kernels, as in the JAX
+package.
 """
 
 from __future__ import annotations

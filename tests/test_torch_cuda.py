@@ -5,8 +5,8 @@ without them:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1/K2 1e-4 x peak (fp32 sums of thousands of products in
-another order), K3 atol 2e-5 rtol 1e-4 (the CPU tests' bound), the model
+Tolerances: K1/K2 1e-4 x peak (an fp32 FFT against fp32 dense DFT products,
+sums of thousands of terms), K3 atol 2e-5 rtol 1e-4 (the CPU tests' bound), the model
 2e-4 x peak — all with TF32 off.
 """
 
@@ -33,7 +33,12 @@ def _randn(*shape, seed=0, device="cuda"):
 
 
 @pytest.mark.parametrize("rows,length,n_fft,hop", [
-    (2, 351232, 4096, 1024), (3, 5000, 2048, 512), (1, 1000, 256, 100)])
+    (2, 351232, 4096, 1024),  # one 7.8 s segment, stereo
+    (12, 351232, 4096, 1024),  # the served batch of 6 segments
+    (3, 5000, 2048, 512), (2, 5000, 1024, 256), (2, 3000, 512, 128),
+    (1, 1000, 256, 100),  # hop does not divide n_fft
+    (3, 4097, 512, 129),  # odd hop and row length: frames start unaligned
+    (1, 40000, 16384, 4096)])
 def test_stft_kernel_matches_plain(cuda, rows, length, n_fft, hop):
     from demucs_tpu_torch.kernels import stft as K
 
@@ -48,12 +53,20 @@ def test_stft_kernel_matches_plain(cuda, rows, length, n_fft, hop):
         assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
 
 
-@pytest.mark.parametrize("rows,n_frames,n_fft,hop", [(8, 340, 4096, 1024), (3, 17, 2048, 512)])
-def test_istft_kernel_matches_plain(cuda, rows, n_frames, n_fft, hop):
+@pytest.mark.parametrize("rows,n_frames,n_fft,hop,edge_imag", [
+    (8, 340, 4096, 1024, None),  # one 7.8 s segment, 4 stems x stereo
+    (48, 340, 4096, 1024, None),  # the served batch of 6 segments
+    (3, 17, 2048, 512, None), (2, 30, 1024, 256, None), (3, 40, 512, 128, None),
+    (2, 25, 512, 64, None),  # 8 frames reach each output chunk
+    (8, 340, 4096, 1024, 50.0),  # large imaginary DC and Nyquist bins: ignored
+    (1, 9, 16384, 4096, None)])
+def test_istft_kernel_matches_plain(cuda, rows, n_frames, n_fft, hop, edge_imag):
     from demucs_tpu_torch.kernels import stft as K
 
     zr = _randn(rows, n_frames, n_fft // 2 + 1, seed=1)
     zi = _randn(rows, n_frames, n_fft // 2 + 1, seed=2)
+    if edge_imag is not None:
+        zi[..., 0] = zi[..., -1] = edge_imag
     got = K.istft_dft(zr, zi, n_fft, hop)
     want = K.istft_dft_plain(zr, zi, n_fft, hop)
     torch.cuda.synchronize()
@@ -114,6 +127,34 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         KS.istft_dft(zr, zi, 2048, 512).sum().backward()
 
 
+@pytest.mark.parametrize("n_fft", [1536, 128, 32768])
+def test_stft_kernels_raise_for_unsupported_n_fft(cuda, n_fft):
+    """Only a power-of-two n_fft from 256 to 16384: nothing falls back."""
+    from demucs_tpu_torch.kernels import stft as KS
+
+    before = (KS.stft_dft.launches, KS.istft_dft.launches)
+    with pytest.raises(ValueError, match="power-of-two n_fft"):
+        KS.stft_dft(_randn(2, 3 * n_fft), n_fft, n_fft // 4)
+    z = _randn(2, 5, n_fft // 2 + 1)
+    with pytest.raises(ValueError, match="power-of-two n_fft"):
+        KS.istft_dft(z, z, n_fft, n_fft // 4)
+    assert (KS.stft_dft.launches, KS.istft_dft.launches) == before
+
+
+def test_card_path_builds_no_dense_basis(cuda):
+    from demucs_tpu_torch.kernels import stft as KS
+    from demucs_tpu_torch.ops import spec
+
+    KS._stft_basis.cache_clear()
+    KS._istft_basis.cache_clear()
+    x = _randn(1, 2, 20000)
+    y = spec.demucs_ispec(spec.demucs_spec(x, 4096), 20000)
+    torch.cuda.synchronize()
+    assert y.shape == x.shape
+    assert KS._stft_basis.cache_info().currsize == 0
+    assert KS._istft_basis.cache_info().currsize == 0
+
+
 def test_model_card_matches_cpu(cuda):
     import copy
 
@@ -121,7 +162,7 @@ def test_model_card_matches_cpu(cuda):
 
     cfg = HTDemucsConfig(channels=16, depth=4, nfft=2048, t_layers=3, t_heads=4, segment=0.5,
                          samplerate=8000)
-    model = init_htdemucs(cfg, seed=7, layer_scale=1.0).eval()
+    model = init_htdemucs(cfg, seed=7, layer_scale=1.0, random_norms=True).eval()
     mix = _randn(2, 2, 4000, seed=10, device="cpu") * 0.1
     with torch.inference_mode():
         want = model(mix)

@@ -2,11 +2,13 @@
 the JAX package's weights carried across by load_flat_state.
 
 Random weights start every LayerScale at its init (1e-4 in the transformer),
-which hides the transformer's branches below the tolerance. So the
+which hides the transformer's branches below the tolerance, and every norm at
+weight 1 and bias 0, which makes a norm left out hard to see. So the
 comparisons with the JAX forward set every LayerScale to 1.0 on both sides
-(``_unit_scales``), and one test shows that a fault planted in the port's
-transformer then fails the comparison. The golden case keeps the weights its
-committed output was made with.
+(``_unit_scales``) and draw every GroupNorm and LayerNorm weight and bias at
+random (``_random_norms``), and one test shows that a fault planted in the
+port's transformer then fails the comparison. The golden case keeps the
+weights its committed output was made with.
 
 Tolerance: 2e-4 x peak of the output, the bound of tests/test_golden.py. Both
 sides compute in fp32 on the CPU, but convolutions, products and reductions
@@ -25,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 import jax
 import jax.numpy as jnp
@@ -61,6 +64,24 @@ def _unit_scales(params):
                        for k, v in flat.items()})
 
 
+def _random_norms(params, jcfg, seed=0):
+    """Every GroupNorm and LayerNorm weight 1 + 0.3 N(0, 1), bias 0.3 N(0, 1),
+    drawn with numpy in the order of the sorted parameter names."""
+    model = tht.HTDemucs(tht.HTDemucsConfig(**dataclasses.asdict(jcfg)))
+    norms = {f"{name}.{p}" for name, mod in model.named_modules()
+             if isinstance(mod, (nn.GroupNorm, nn.LayerNorm)) for p in ("weight", "bias")}
+    rng = np.random.default_rng(seed)
+    flat = dict(flatten_state(params))
+    for k in sorted(norms):
+        noise = 0.3 * rng.standard_normal(np.shape(flat[k]))
+        flat[k] = (noise + (k.endswith(".weight"))).astype(np.float32)
+    return nest_state(flat)
+
+
+def _test_params(jcfg, seed):
+    return _random_norms(_unit_scales(jht.init_htdemucs(jcfg, seed=seed)), jcfg)
+
+
 def _rel_err(got, want) -> float:
     assert got.shape == want.shape
     return float(np.abs(got - want).max() / np.abs(want).max())
@@ -83,11 +104,18 @@ def test_golden_htdemucs():
     assert _rel_err(got, want) < RTOL
 
 
-def test_released_widths_match_jax_forward():
+@pytest.fixture(scope="module")
+def released():
+    """The released widths at a 1.0 s segment (unit LayerScales, random norms),
+    a mix, and the JAX forward's output for it."""
     jcfg = jht.HTDemucsConfig(sources=SOURCES, segment=1.0, **RELEASED)
-    params = _unit_scales(jht.init_htdemucs(jcfg, seed=3))
+    params = _test_params(jcfg, 3)
     mix = (np.random.default_rng(0).standard_normal((1, 2, 44100)) * 0.1).astype(np.float32)
-    want = np.asarray(_jax_forward(params, mix, jcfg))
+    return jcfg, params, mix, np.asarray(_jax_forward(params, mix, jcfg))
+
+
+def test_released_widths_match_jax_forward(released):
+    jcfg, params, mix, want = released
     got = _forward(_port_model(jcfg, params), mix)
     assert got.shape == (1, 4, 2, 44100)
     assert _rel_err(got, want) < RTOL
@@ -95,7 +123,7 @@ def test_released_widths_match_jax_forward():
 
 def test_shorter_input_is_padded_to_the_training_segment():
     jcfg = _golden_cfg()
-    params = _unit_scales(jht.init_htdemucs(jcfg, seed=7))
+    params = _test_params(jcfg, 7)
     mix = _mix(3000)
     want = np.asarray(_jax_forward(params, mix, jcfg))
     got = _forward(_port_model(jcfg, params), mix)
@@ -104,13 +132,13 @@ def test_shorter_input_is_padded_to_the_training_segment():
 
 
 @pytest.mark.parametrize("fault", ["attention_zeros", "keys_values_swapped",
-                                   "feed_forward_zeros"])
-def test_planted_transformer_fault_fails_the_comparison(fault, monkeypatch):
-    """With unit LayerScales the comparison sees every transformer layer."""
-    jcfg = _golden_cfg()
-    params = _unit_scales(jht.init_htdemucs(jcfg, seed=7))
-    mix = _mix(jcfg.training_length)
-    want = np.asarray(_jax_forward(params, mix, jcfg))
+                                   "feed_forward_zeros", "norm_left_out"])
+def test_planted_transformer_fault_fails_the_comparison(fault, monkeypatch, released):
+    """With unit LayerScales and random norms the comparison sees every
+    transformer layer, and a norm left out. At the released widths: in the
+    golden config's small transformer a left-out norm3 moves the output by
+    less than 10x the tolerance."""
+    jcfg, params, mix, want = released
     model = _port_model(jcfg, params)
     assert _rel_err(_forward(model, mix), want) < RTOL
     mha = ttr.flash_mha
@@ -118,6 +146,12 @@ def test_planted_transformer_fault_fails_the_comparison(fault, monkeypatch):
         monkeypatch.setattr(ttr, "flash_mha", lambda q, k, v, heads: torch.zeros_like(q))
     elif fault == "keys_values_swapped":
         monkeypatch.setattr(ttr, "flash_mha", lambda q, k, v, heads: mha(q, v, k, heads))
+    elif fault == "norm_left_out":  # the cross layers' norm3 returns its input
+        norm3 = {id(layer.norm3) for layer in model.modules() if isinstance(layer, ttr.CrossLayer)}
+        assert norm3
+        layer_norm = ttr._layer_norm
+        monkeypatch.setattr(ttr, "_layer_norm",
+                            lambda norm, x: x if id(norm) in norm3 else layer_norm(norm, x))
     else:
         monkeypatch.setattr(ttr._Layer, "_ff", lambda self, x: torch.zeros_like(x))
     assert _rel_err(_forward(model, mix), want) > 10 * RTOL
@@ -131,7 +165,7 @@ def test_planted_transformer_fault_fails_the_comparison(fault, monkeypatch):
 def test_transformer_variants_match_jax(variant):
     """The transformer options the port supports besides the released ones."""
     jcfg = dataclasses.replace(_golden_cfg(), **variant)
-    params = _unit_scales(jht.init_htdemucs(jcfg, seed=11))
+    params = _test_params(jcfg, 11)
     mix = _mix(jcfg.training_length)
     want = np.asarray(_jax_forward(params, mix, jcfg))
     got = _forward(_port_model(jcfg, params), mix)

@@ -124,6 +124,99 @@ def test_k2_plain_matches_pallas_kernel():
     np.testing.assert_allclose(got, want, atol=2e-5)
 
 
+def _fft_model(c, tw):
+    """csrc/stft.cu::fft_shared, stage by stage: forward complex FFT of the
+    last axis (h points) by Stockham radix-2/4 stages, each radix-4 stage's
+    twiddles read from its run of the wrapper's table ``tw``."""
+    h = c.shape[-1]
+    log2h = h.bit_length() - 1
+    a, ns = c, 1
+    if log2h & 1:
+        v0, v1 = a[..., : h // 2], a[..., h // 2 :]
+        a, ns = torch.stack([v0 + v1, v0 - v1], dim=-1).reshape(c.shape), 2
+    q = h // 4
+    j = torch.arange(q)
+    off = h + 1  # past the split's W^m, m = 0..h
+    while ns < h:
+        k = j % ns
+        w = [1] + [tw[off + (r - 1) * ns + k] for r in (1, 2, 3)]
+        v0, v1, v2, v3 = (a[..., j + r * q] * w[r] for r in range(4))
+        s0, s1, s2, s3 = v0 + v2, v0 - v2, v1 + v3, -1j * (v1 - v3)
+        d = (j - k) * 4 + k
+        b = torch.empty_like(a)
+        b[..., d], b[..., d + ns], b[..., d + 2 * ns], b[..., d + 3 * ns] = (
+            s0 + s2, s1 + s3, s0 - s2, s1 - s3)
+        a, off, ns = b, off + 3 * ns, ns * 4
+    assert off == tw.shape[0]
+    return a
+
+
+def _k1_model(x, n_fft, hop):
+    """K1 as the kernel computes it: window, pack pairs, half-length FFT, split."""
+    win, tw = K._fft_tables(n_fft, x.device)
+    tw = torch.complex(tw[:, 0], tw[:, 1])
+    h = n_fft // 2
+    y = x.unfold(-1, n_fft, hop) * win
+    c = _fft_model(torch.complex(y[..., 0::2], y[..., 1::2]), tw)
+    m = torch.arange(h + 1)
+    p, q = c[..., m % h], c[..., (h - m) % h].conj()
+    z = (p + q) / 2 + tw[m] * (p - q) / 2j
+    return z.real, z.imag
+
+
+def _k2_model(zr, zi, n_fft, hop):
+    """K2 as the kernel computes it: fold the bins (imaginary DC and Nyquist
+    ignored), forward FFT of the conjugate, unpack, window, overlap-add in
+    order of frames."""
+    win, tw = K._fft_tables(n_fft, zr.device)
+    tw = torch.complex(tw[:, 0], tw[:, 1])
+    h = n_fft // 2
+    zi = zi.clone()
+    zi[..., 0] = zi[..., h] = 0
+    x = torch.complex(zr, zi)
+    m = torch.arange(h)
+    p, q = x[..., m], x[..., h - m].conj()
+    c = (p + q) / 2 + 1j * (p - q) / 2 * tw[m].conj()
+    f = _fft_model(c.conj(), tw).conj() / h
+    frames = torch.stack([f.real, f.imag], dim=-1).reshape(*zr.shape[:-1], n_fft) * win
+    rows, n_frames, _ = zr.shape
+    out = zr.new_zeros(rows, (n_frames - 1) * hop + n_fft)
+    for t in range(n_frames):
+        out[:, t * hop : t * hop + n_fft] += frames[:, t]
+    return out
+
+
+@pytest.mark.parametrize("n_fft,hop", [(256, 100), (512, 128), (2048, 512)])
+def test_fft_kernels_algorithm_matches_plain(n_fft, hop):
+    """The kernels' FFT algorithm (half-length packing, Stockham stages with
+    the wrapper's twiddle table, the split and the fold), modelled in torch
+    on the CPU, against the plain dense versions: 1e-4 x peak, the kernels'
+    tolerance on the card."""
+    x = torch.from_numpy(_signal((3, 9 * n_fft + 37), 9))
+    got, want = _k1_model(x, n_fft, hop), K.stft_dft_plain(x, n_fft, hop)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+    if n_fft % hop:
+        return
+    rng = np.random.default_rng(10)
+    zr, zi = (torch.from_numpy(rng.standard_normal((2, 11, n_fft // 2 + 1)).astype(np.float32))
+              for _ in range(2))
+    zi[..., 0] = zi[..., -1] = 5.0  # imaginary DC and Nyquist contribute nothing
+    got, want = _k2_model(zr, zi, n_fft, hop), K.istft_dft_plain(zr, zi, n_fft, hop)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("n_fft,hop,group", [(4096, 1024, 8), (512, 64, 8), (16384, 4096, 8),
+                                             (8192, 8192, 4), (16384, 16384, 2)])
+def test_istft_group_fits_shared_memory(n_fft, hop, group):
+    """K2's output chunks per block: 8, or fewer where the FFT buffer (4 n_fft
+    bytes) and the accumulator (4 group hop bytes) would pass 227 KB."""
+    assert K.istft_group(n_fft, hop) == group
+    assert 4 * n_fft + 4 * group * hop <= K.SMEM_MAX
+
+
 def test_cached_bases_outlive_inference_mode():
     """The bases and window envelope are cached on first use; a first use
     under torch.inference_mode must not leave inference tensors in the cache

@@ -2,8 +2,9 @@
 
 Each source is compiled on its own (one ``nvcc`` per source, all started
 together by :func:`build`) for ``sm_90a`` into ``build/kernels/`` at the root
-of the checkout, named by a hash of the source and the flags, so an edited
-source never loads a stale library. The build runs at the first CUDA call of
+of the checkout, named by a hash of the source, every header in ``csrc/``
+(``*.cuh``) and the flags, so an edited source or header never loads a
+stale library. The build runs at the first CUDA call of
 a kernel, or up front through :func:`build`. The libraries have a plain C
 interface: every pointer and the stream are passed as ``ctypes.c_void_p``,
 and every entry point returns ``cudaGetLastError()`` after its launch, which
@@ -45,9 +46,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES) -> dict:

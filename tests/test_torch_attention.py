@@ -2,11 +2,15 @@
 and the K3 wrapper on a CPU tensor) against demucs_tpu's multihead_attention
 and its Pallas flash_mha (interpret mode), on the cases of
 test_pallas_attention.py: aligned, ragged self, ragged cross, the static
-sparse masks, and a fully masked first key block.
+sparse masks, and a fully masked first key block. Then a model of the CUDA
+kernel's arithmetic (``_k3_model``: the TF32 cut, the three-term split, tiles
+of 64 keys, the online softmax in base 2, the key order of P V) against both.
 
 Tolerance: atol 2e-5, rtol 1e-4, the bound the JAX package holds its own
 kernel to (fp32 softmax and products summed in another order).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -108,3 +112,116 @@ def test_wrapper_contract_on_cpu():
     assert K.flash_mha.launches == before  # the plain version launches nothing
     with pytest.raises(NotImplementedError, match="training slice"):
         K.flash_mha(q, k, v, 2, dropout=0.1)
+
+
+# ---- the kernel's arithmetic (csrc/flash_mha.cu), modelled on the CPU ----
+# Change this model whenever the kernel changes.
+
+# Within each group of 8 keys of a tile the kernel's P V reads keys in this
+# order: k-position c is key 2c, k-position c + 4 is key 2c + 1.
+_KEY_ORDER = (torch.arange(K.KEY_TILE // 8)[:, None] * 8
+              + torch.tensor([0, 2, 4, 6, 1, 3, 5, 7])).flatten()
+
+
+def _tf32(x):
+    """The TF32 value the kernel gives the tensor core: the fp32 word with its
+    low 13 bits cleared (the hardware's own cut of a lo part is modelled the
+    same way)."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _product(a, b, lo):
+    """a @ b as the kernel's wgmma passes: hi.lo, then lo.hi, then hi.hi into
+    one fp32 accumulator (3xTF32); with ``lo=False`` only hi.hi (1xTF32)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if not lo:
+        return ah @ bh
+    return (ah @ _tf32(b - bh) + _tf32(a - ah) @ bh) + ah @ bh
+
+
+def _k3_model(q, k, v, num_heads, mask=None, lo=True):
+    """K3 as the kernel computes it, head by head: q scaled by log2(e)/sqrt(d)
+    in fp32, tiles of 64 keys (zero past Tk), S by three TF32 products,
+    masked scores -inf, the -inf-safe base-2 online softmax, each tile's P V
+    by three TF32 products in the kernel's key order into an accumulator of
+    its own, added to o as o * alpha + P V, and o / l at the end."""
+    B, Tq, C = q.shape
+    Tk, d, T = k.shape[1], C // num_heads, K.KEY_TILE
+    scale = torch.tensor(K.q_scale(d), dtype=torch.float32)
+    out = torch.empty_like(q)
+    for b in range(B):
+        for h in range(num_heads):
+            cols = slice(h * d, (h + 1) * d)
+            qs = q[b, :, cols] * scale
+            acc = torch.zeros(Tq, d)
+            m, l = torch.full((Tq,), -math.inf), torch.zeros(Tq)
+            for k0 in range(0, Tk, T):
+                kt, vt = (torch.zeros(T, d) for _ in range(2))
+                n = min(T, Tk - k0)
+                kt[:n], vt[:n] = k[b, k0:k0 + n, cols], v[b, k0:k0 + n, cols]
+                s = _product(qs, kt.T, lo)
+                keep = torch.arange(T) < n
+                if mask is not None:
+                    keep = keep & torch.nn.functional.pad(mask[:, k0:k0 + n], (0, T - n))
+                s = s.masked_fill(~keep, -math.inf)
+                m_new = torch.maximum(m, s.max(-1).values)
+                base = torch.where(torch.isneginf(m_new), 0.0, m_new)
+                alpha = torch.exp2(m - base)
+                p = torch.exp2(s - base[:, None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + _product(p[:, _KEY_ORDER], vt[_KEY_ORDER], lo)
+                m = m_new
+            out[b, :, cols] = acc / l[:, None]
+    return out
+
+
+def _dense_jax(q, k, v, H, mask=None):
+    jm = None if mask is None else jnp.asarray(mask)
+    return np.asarray(multihead_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H,
+                                          mask=jm))
+
+
+@pytest.mark.parametrize(
+    "B,Tq,Tk,C,H",
+    [
+        (1, 2688, 2688, 64, 1),   # one head of the released freq<-freq attention
+        (1, 300, 300, 128, 4),    # ragged self, head dim 32
+        (2, 260, 130, 256, 4),    # ragged cross (Tq != Tk), head dim 64
+        (1, 70, 90, 384, 8),      # head dim 48
+    ],
+)
+def test_kernel_model_matches_plain_and_jax(B, Tq, Tk, C, H):
+    q, k, v = _qkv(B, Tq, Tk, C, 5)
+    got = _k3_model(*(torch.from_numpy(a) for a in (q, k, v)), H).numpy()
+    np.testing.assert_allclose(got, _port(q, k, v, H), **TOL)
+    np.testing.assert_allclose(got, _dense_jax(q, k, v, H), **TOL)
+
+
+@pytest.mark.parametrize("mask_type", ["diag", "jmask", "random", "global", "first_tile_and_row"])
+def test_kernel_model_masks_match_plain_and_jax(mask_type):
+    q, k, v = _qkv(1, 300, 300, 128, 6)
+    if mask_type == "first_tile_and_row":
+        mask = np.ones((300, 300), bool)
+        mask[:, :K.KEY_TILE] = False  # the first key tile, fully masked for every row
+        mask[5] = False  # a row with no kept key: NaN
+    else:
+        mask = np.asarray(get_mask(300, 300, mask_type, sparse_attn_window=50,
+                                   global_window=20, mask_random_seed=42, sparsity=0.9))
+    got = _k3_model(*(torch.from_numpy(a) for a in (q, k, v)), 4,
+                    mask=torch.from_numpy(mask)).numpy()
+    plain, dense = _port(q, k, v, 4, mask), _dense_jax(q, k, v, 4, mask)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(plain))
+    assert np.isnan(got).any() == (mask_type == "first_tile_and_row")
+    np.testing.assert_allclose(got, plain, **TOL)
+    np.testing.assert_allclose(got, dense, **TOL)
+
+
+def test_kernel_model_without_lo_terms_misses_the_tolerance():
+    """One TF32 product per matmul (the lo terms dropped) misses atol 2e-5 at
+    the released shape: the tolerance tells 3xTF32 from 1xTF32."""
+    q, k, v = _qkv(1, 2688, 2688, 64, 5)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    want = _port(q, k, v, 1)
+    err_1x = np.abs(_k3_model(tq, tk, tv, 1, lo=False).numpy() - want).max()
+    err_3x = np.abs(_k3_model(tq, tk, tv, 1).numpy() - want).max()
+    assert err_1x > TOL["atol"] > 10 * err_3x

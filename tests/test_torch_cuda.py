@@ -6,8 +6,10 @@ without them:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1/K2 1e-4 x peak (an fp32 FFT against fp32 dense DFT products,
-sums of thousands of terms), K3 atol 2e-5 rtol 1e-4 (the CPU tests' bound), the model
-2e-4 x peak — all with TF32 off.
+sums of thousands of terms), K3 atol 2e-5 rtol 1e-4 (the CPU tests' bound,
+which one TF32 product per matmul would miss 20-30 times over; the kernel's
+three-term TF32 split keeps fp32 level), the model 2e-4 x peak — all with
+TF32 off.
 """
 
 import numpy as np
@@ -75,27 +77,60 @@ def test_istft_kernel_matches_plain(cuda, rows, n_frames, n_fft, hop, edge_imag)
 
 
 @pytest.mark.parametrize("B,Tq,Tk,C,H", [
-    (1, 2688, 2688, 512, 8), (2, 300, 130, 128, 4), (1, 70, 90, 384, 8), (2, 1, 33, 64, 1)])
+    (1, 2688, 2688, 512, 8), (2, 300, 130, 128, 4), (1, 70, 90, 384, 8), (2, 1, 33, 64, 1),
+    (6, 2688, 1344, 512, 8), (6, 1344, 2688, 512, 8),  # the served batch, freq<-time, time<-freq
+    (1, 1000, 700, 384, 8)])  # Tq not a multiple of the block's 64 or 128 rows, head dim 48
 def test_flash_mha_kernel_matches_plain(cuda, B, Tq, Tk, C, H):
     from demucs_tpu_torch.kernels import attention as K
 
     q, k, v = _randn(B, Tq, C, seed=3), _randn(B, Tk, C, seed=4), _randn(B, Tk, C, seed=5)
+    before = K.flash_mha.launches
     got = K.flash_mha(q, k, v, H)
-    want = K.flash_mha_plain(q, k, v, H)
     torch.cuda.synchronize()
+    assert K.flash_mha.launches == before + 1
+    want = K.flash_mha_plain(q, k, v, H)
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=1e-4)
 
 
-def test_flash_mha_kernel_masks(cuda):
+@pytest.mark.parametrize("rows", [64, 128])
+@pytest.mark.parametrize("C,H", [(128, 4), (384, 8), (512, 8)])
+def test_flash_mha_kernel_block_shapes(cuda, monkeypatch, rows, C, H):
+    """Every template instance (head dim x rows per block)."""
     from demucs_tpu_torch.kernels import attention as K
 
-    # 128 channels in 4 heads: head dim 32, as in the golden config
-    q, k, v = (_randn(1, 300, 128, seed=s) for s in (6, 7, 8))
-    mask = torch.rand(300, 300, generator=torch.Generator().manual_seed(9)) > 0.7
-    mask[:, :64] = False
-    mask[11] = False
-    got = K.flash_mha(q, k, v, 4, mask=mask.cuda()).cpu()
-    want = K.flash_mha_plain(q, k, v, 4, mask=mask.cuda()).cpu()
+    monkeypatch.setattr(K, "BLOCK_ROWS", rows)
+    q, k, v = _randn(2, 333, C, seed=13), _randn(2, 517, C, seed=14), _randn(2, 517, C, seed=15)
+    got = K.flash_mha(q, k, v, H)
+    want = K.flash_mha_plain(q, k, v, H)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=1e-4)
+
+
+def test_flash_mha_kernel_unaligned_views(cuda):
+    """Inputs that are views one float past a 16-byte boundary (the layout
+    pass reads k and v as float4s)."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v = (_randn(1, 200 * 128 + 1, seed=s)[0, 1:].view(1, 200, 128) for s in (16, 17, 18))
+    assert k.data_ptr() % 16 != 0
+    got = K.flash_mha(q, k, v, 4)
+    want = K.flash_mha_plain(q, k, v, 4)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("T,C,H", [(300, 128, 4), (2688, 512, 8)])
+def test_flash_mha_kernel_masks(cuda, T, C, H):
+    from demucs_tpu_torch.kernels import attention as K
+
+    # 128 channels in 4 heads: head dim 32, as in the golden config; then the
+    # released freq<-freq shape
+    q, k, v = (_randn(1, T, C, seed=s) for s in (6, 7, 8))
+    mask = torch.rand(T, T, generator=torch.Generator().manual_seed(9)) > 0.7
+    mask[:, :64] = False  # the first key tile, fully masked for every row
+    mask[11] = False  # a row with no kept key
+    before = K.flash_mha.launches
+    got = K.flash_mha(q, k, v, H, mask=mask.cuda()).cpu()
+    assert K.flash_mha.launches == before + 1
+    want = K.flash_mha_plain(q, k, v, H, mask=mask.cuda()).cpu()
     assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got[0, 11]).all()
     keep = torch.isfinite(want)
     np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), atol=2e-5, rtol=1e-4)

@@ -29,14 +29,34 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               on the card and on the CPU (plain versions).
 4. serving  — a Separator on the card with the 7.8 s model, loaded from a .dmx
               saved from the phase-3 weights, answers three requests (30 s, 12 s
-              and 5 s synthetic stereo tracks at 44.1 kHz, each 5 times) after one
-              warm-up request; every kernel's launch count must equal what the number
-              of batched forwards predicts (K1 and K2 once each, K3 ten times).
-              Then one more 30 s request: its batched forward of 6 segments is held
-              against the same weights on the CPU.
-   profile  — one more 30 s request under torch.profiler: device time by
-              kernel group and the device's busy share of the wall time.
-5. cli      — python -m demucs_tpu_torch on a WAV file with that .dmx.
+              and 5 s synthetic stereo tracks at 44.1 kHz, each 5 times) on each
+              engine, after one warm-up request of each length on each (cuDNN and
+              cuBLAS set-up, every CUDA graph captured): the device engine,
+              Separator's default, whose forwards must all be graph replays, and
+              the host engine (engine="host"). Per engine: audio-s/s, peak memory,
+              and every kernel's launches (the wrappers' counts plus each replay's
+              captured launches) equal to what the batched forwards predict (K1
+              and K2 once each, K3 ten times). Each device-engine request's stems
+              against the host engine's for the same shift, 1e-5 x peak. Then one
+              more 30 s request on the host engine: its batched forward of 6
+              segments is held against the same weights on the CPU.
+   graphs   — the graphs captured (count, warm-up and capture seconds, the
+              shared pool's bytes), and a replay at B = 6 and B = 1 against an
+              eager forward on a fresh input: bit-equal or not, 1e-6 x peak.
+   pipelined — three tracks through apply_model_tracks against one call per
+              track with the same random.Random: bit-equal.
+   wire     — a 30 s request on the device engine with the stems' int16 and
+              float16 wires (the CLI's defaults for 16-bit and for other
+              output) against the float32 wire: the error in steps of the
+              int16 grid (1/32766 of each stem channel's peak); int16 must
+              stay within half a step, plus float32 rounding (0.51).
+   profile  — a 30 s and a 5 s request per engine under torch.profiler: device
+              time by kernel group, the stems' copy to the host, and the
+              device's busy share of the wall time.
+5. bag      — 4 released-width members (distinct seeds, htdemucs_ft's one-hot
+              weights) on a 30 s track with shifts=2: the device engine against
+              the host engine, 1e-5 x peak, with launch counts for each.
+6. cli      — python -m demucs_tpu_torch on a WAV file with that .dmx.
 
 Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
@@ -57,6 +77,7 @@ the TF32 peak, which no fp32-accurate route reaches.
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 import math
 import subprocess
@@ -76,6 +97,8 @@ RELEASED = dict(channels=48, depth=4, nfft=4096, t_layers=5, t_heads=8, dconv_mo
 KERNEL_RTOL = 1e-4  # K1/K2: max |kernel - plain| <= 1e-4 x peak |plain| (fp32 sums of 4096+ terms)
 K3_ATOL = 2e-5  # K3: max |kernel - plain| (the card test's atol; 1xTF32 would miss it 20-30x)
 MODEL_RTOL = 2e-4  # card vs CPU forward, x peak (the repo's golden tolerance)
+ENGINE_RTOL = 1e-5  # device engine vs host engine stems, x peak (the CPU tests' bound)
+GRAPH_RTOL = 1e-6  # graph replay vs eager forward, x peak (the same kernels and inputs)
 N_TIMED = 10
 SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's clocks: longer than 10 calls' launches
 REPEATS = 5  # serving: each request size is answered this many times, median reported
@@ -334,13 +357,50 @@ def _track(seconds: float, seed: int):
     return (np.stack([tones, 0.8 * tones]) + noise).astype(np.float32)
 
 
+class Counts:
+    """The kernels' launches on one path: the wrappers' counts (eager launches)
+    plus each graph replay's captured launches, both zeroed by ``zero()``;
+    and the batched forwards: eager ones (a forward hook) plus replays."""
+
+    def __init__(self, *modules):
+        self.eager = []
+        for module in modules:
+            module.register_forward_pre_hook(
+                lambda mod, args: self.eager.append(args[0].shape[0]))
+
+    def zero(self) -> None:
+        from demucs_tpu_torch.inference.engine import GRAPHS, KERNELS
+
+        for kernel in KERNELS:
+            kernel.launches = 0
+        GRAPHS.reset_counts()
+        self.eager.clear()
+
+    def read(self, t_layers: int) -> dict:
+        from demucs_tpu_torch.inference.engine import GRAPHS, KERNELS
+
+        launches = {k.__name__: k.launches + GRAPHS.replayed_launches[k.__name__]
+                    for k in KERNELS}
+        n_fwd = len(self.eager) + GRAPHS.replays
+        # K1 and K2 once per batched forward; K3 once per attention: 2 branches
+        # x t_layers (5 x 2 = 10 at the released width)
+        want = {"stft_dft": n_fwd, "istft_dft": n_fwd, "flash_mha": 2 * t_layers * n_fwd}
+        return {"launches": launches, "expected": want, "eager_forwards": len(self.eager),
+                "graph_replays": GRAPHS.replays,
+                "replayed_launches": dict(GRAPHS.replayed_launches),
+                "ok": launches == want and min(launches.values()) > 0}
+
+
 def phase_serving(cpu_model, workdir: Path) -> dict:
+    """The three requests on each engine: the device engine (Separator's
+    default) and the host engine; each device-engine request's stems against
+    the host engine's for the same shift."""
+    import random
+
     import numpy as np
     import torch
 
     from demucs_tpu_torch.api import Separator
-    from demucs_tpu_torch.kernels import attention as KA
-    from demucs_tpu_torch.kernels import stft as KS
     from demucs_tpu_torch.models.htdemucs import HTDemucsConfig
     from demucs_tpu_torch.models.registry import Model
     from demucs_tpu_torch.zoo.native import save_model
@@ -350,48 +410,198 @@ def phase_serving(cpu_model, workdir: Path) -> dict:
     module.cfg = cfg
     save_model(Model("htdemucs", cfg, module), workdir / "htdemucs_smoke.dmx", half=False)
     sep = Separator("htdemucs_smoke", repo=workdir, shifts=1, overlap=0.25, batch_size=16)
-    forwards = []
-    sep.model.module.register_forward_pre_hook(lambda mod, args: forwards.append(
-        args[0].shape[0]))
-    sep.separate_tensor(_track(5.0, 99), SR)  # warm-up: cuDNN and cuBLAS set-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    KS.stft_dft.launches = KS.istft_dft.launches = KA.flash_mha.launches = 0
-    forwards.clear()
-    requests = []
-    for i, seconds in enumerate((30.0, 12.0, 5.0)):
-        wav = _track(seconds, i)
-        walls = []
-        for _ in range(REPEATS):
-            start = time.perf_counter()
-            _, stems = sep.separate_tensor(wav, SR)
-            walls.append(time.perf_counter() - start)
-            for name, stem in stems.items():
-                if stem.shape != wav.shape or not np.isfinite(stem).all():
-                    raise AssertionError(f"request {i}: stem {name} {stem.shape} is not "
-                                         "finite or not shaped like the mixture")
-        wall = float(np.median(walls))
-        requests.append({"seconds": seconds, "repeats": REPEATS, "median_wall_s": wall,
-                         "wall_s": walls, "audio_s_per_s": seconds / wall,
-                         "stems": sorted(stems)})
-    launches = {"stft_dft": KS.stft_dft.launches, "istft_dft": KS.istft_dft.launches,
-                "flash_mha": KA.flash_mha.launches}
-    n_fwd = len(forwards)
-    # K1 and K2 once per batched forward; K3 once per attention: 2 branches x
-    # t_layers (5 x 2 = 10 at the released width)
-    want = {"stft_dft": n_fwd, "istft_dft": n_fwd,
-            "flash_mha": 2 * sep.model.cfg.t_layers * n_fwd}
-    info = {"phase": "serving", "requests": requests, "forwards": n_fwd,
-            "segments": sum(forwards), "launches": launches, "expected": want,
-            "max_memory_allocated_GiB": torch.cuda.max_memory_allocated() / 2**30,
-            "ok": launches == want and n_fwd >= 3 * REPEATS}
+    counts = Counts(sep.model.module)
+    lengths = (30.0, 12.0, 5.0)
+    tracks = [_track(seconds, i) for i, seconds in enumerate(lengths)]
+    # warm-up: cuDNN and cuBLAS set-up, and every graph captured before the counts
+    for engine in ("host", "auto"):
+        sep.update_parameter(engine=engine)
+        for wav in tracks:
+            sep.separate_tensor(wav, SR)
+    info = {"phase": "serving", "engines": {}}
+    last = {}
+    for name, engine in (("device", "auto"), ("host", "host")):
+        sep.update_parameter(engine=engine)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.zero()
+        requests = []
+        for i, (seconds, wav) in enumerate(zip(lengths, tracks)):
+            walls = []
+            for r in range(REPEATS):
+                random.seed(100 * i + r)  # the same shift on both engines
+                start = time.perf_counter()
+                _, stems = sep.separate_tensor(wav, SR)
+                walls.append(time.perf_counter() - start)
+                for stem_name, stem in stems.items():
+                    if stem.shape != wav.shape or not np.isfinite(stem).all():
+                        raise AssertionError(f"{name} request {i}: stem {stem_name} is not "
+                                             "finite or not shaped like the mixture")
+            last[name, i] = stems
+            wall = float(np.median(walls))
+            requests.append({"seconds": seconds, "repeats": REPEATS, "median_wall_s": wall,
+                             "wall_s": walls, "audio_s_per_s": seconds / wall})
+        run = counts.read(cfg.t_layers)
+        run.update(requests=requests,
+                   max_memory_allocated_GiB=torch.cuda.max_memory_allocated() / 2**30)
+        info["engines"][name] = run
+    agree = []
+    for i, seconds in enumerate(lengths):
+        host = np.stack(list(last["host", i].values()))
+        dev = np.stack(list(last["device", i].values()))
+        peak = float(np.abs(host).max())
+        agree.append({"seconds": seconds, "max_abs_err_over_peak":
+                      float(np.abs(dev - host).max()) / peak, "tol": ENGINE_RTOL})
+    dev_run = info["engines"]["device"]
+    info.update(device_vs_host=agree, forwards=dev_run["graph_replays"],
+                ok=(all(run["ok"] for run in info["engines"].values())
+                    and all(a["max_abs_err_over_peak"] <= ENGINE_RTOL for a in agree)
+                    # the default serving path: every forward a graph replay
+                    and dev_run["eager_forwards"] == 0 and dev_run["graph_replays"] >= 3 * REPEATS))
     emit(info)
     if not info["ok"]:
-        raise AssertionError(f"launch counts {launches} != expected {want} ({n_fwd} forwards)")
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel was never launched on the main path: {launches}")
+        raise AssertionError(f"serving: launches, engines or graphs wrong: {info}")
+    sep.update_parameter(engine="host")
     info["batched_check"] = check_batched_forward(sep)
+    sep.update_parameter(engine="auto")
     return info, sep
+
+
+def phase_graphs(sep) -> dict:
+    """The graphs serving captured (30, 12 and 5 s requests: batches of 6, 3
+    and 1): count, capture time and pool, and a replay at B = 6 and B = 1
+    against an eager forward of the same module on a fresh input."""
+    import torch
+
+    from demucs_tpu_torch.inference.engine import GRAPHS
+
+    module = sep.model.module
+    target = int(sep.model.segment * SR)
+    checks = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for batch in (6, 1):
+        mix = torch.randn(batch, 2, target, device="cuda", generator=gen) * 0.1
+        captures = GRAPHS.captures
+        with torch.inference_mode():
+            got = GRAPHS.forward(module, mix).clone()
+            want = module(mix)
+        peak = want.abs().max().item()
+        checks[f"B={batch}"] = {
+            "bit_equal": bool(torch.equal(got, want)), "tol": GRAPH_RTOL,
+            "max_abs_err_over_peak": (got - want).abs().max().item() / peak,
+            "captured_now": GRAPHS.captures != captures}
+    info = dict(GRAPHS.stats(), phase="graphs", replay_vs_eager=checks)
+    info["pool_GiB"] = (info["pool_bytes"] / 2**30 if info["pool_bytes"] is not None
+                        else "not measured")
+    info["ok"] = all(c["max_abs_err_over_peak"] <= GRAPH_RTOL and not c["captured_now"]
+                     for c in checks.values())
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"graph replay vs eager: {checks}")
+    return info
+
+
+def phase_bag() -> dict:
+    """A bag of 4 released-width members of distinct random weights, with
+    htdemucs_ft's one-hot weights, on a 30 s track with shifts=2: the device
+    engine (apply_model's default on the card) against the host engine."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.inference.apply import apply_model
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import BagOfModels, Model
+
+    cfg = HTDemucsConfig(segment=7.8, **RELEASED)
+    members = [Model("htdemucs", cfg, init_htdemucs(cfg, seed=10 + k, layer_scale=1.0,
+                                                    random_norms=True).eval().cuda())
+               for k in range(4)]
+    weights = np.eye(4).tolist()
+    bag = BagOfModels(members, weights)
+    mix = _track(30.0, 40)[None]
+    counts = Counts(*(m.module for m in members))
+    info = {"phase": "bag", "members": 4, "shifts": 2, "seconds": 30.0, "weights": weights}
+    out = {}
+    for name, engine in (("device", "auto"), ("host", "host")):
+        apply_model(bag, mix, shifts=2, engine=engine, rng=random.Random(7))  # warm-up
+        torch.cuda.synchronize()
+        counts.zero()
+        start = time.perf_counter()
+        out[name] = apply_model(bag, mix, shifts=2, engine=engine, rng=random.Random(7))
+        wall = time.perf_counter() - start
+        info[name] = dict(counts.read(cfg.t_layers), wall_s=wall, audio_s_per_s=30.0 / wall)
+    peak = float(np.abs(out["host"]).max())
+    info["max_abs_err_over_peak"] = float(np.abs(out["device"] - out["host"]).max()) / peak
+    info["tol"] = ENGINE_RTOL
+    info["ok"] = (info["max_abs_err_over_peak"] <= ENGINE_RTOL and info["device"]["ok"]
+                  and info["host"]["ok"] and info["device"]["eager_forwards"] == 0
+                  and bool(np.isfinite(out["device"]).all()))
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"bag on the device engine vs the host engine: {info}")
+    return info
+
+
+def phase_pipelined(sep) -> dict:
+    """Three tracks through apply_model_tracks (each track's copy to the host
+    overlapping the next one's compute), against one call per track with the
+    same random.Random: bit-equal."""
+    import random
+
+    import numpy as np
+
+    from demucs_tpu_torch.inference.apply import apply_model, apply_model_tracks
+
+    tracks = [_track(seconds, 50 + i)[None] for i, seconds in enumerate((30.0, 12.0, 30.0))]
+    rng = random.Random(11)
+    start = time.perf_counter()
+    single = [apply_model(sep.model, t, rng=rng) for t in tracks]
+    single_s = time.perf_counter() - start
+    start = time.perf_counter()
+    piped = list(apply_model_tracks(sep.model, tracks, rng=random.Random(11)))
+    piped_s = time.perf_counter() - start
+    equal = [bool(np.array_equal(p, s)) for p, s in zip(piped, single)]
+    info = {"phase": "pipelined", "tracks_s": [30.0, 12.0, 30.0], "bit_equal": equal,
+            "single_calls_s": single_s, "pipelined_s": piped_s,
+            "ok": len(piped) == 3 and all(equal)}
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"pipelined tracks differ from single calls: {equal}")
+    return info
+
+
+def phase_wire(sep) -> dict:
+    """The reduced-precision wires against the bit-exact one, on one 30 s
+    request with the same shift."""
+    import random
+
+    import numpy as np
+
+    wav = _track(30.0, 60)
+    stems = {}
+    for wire in (None, "int16", "float16"):
+        sep.update_parameter(transfer_dtype=wire)
+        random.seed(3)
+        _, out = sep.separate_tensor(wav, SR)
+        stems[wire] = np.stack(list(out.values()))
+    sep.update_parameter(transfer_dtype=None)
+    exact = stems[None]
+    mean = wav.mean(axis=0).mean()  # Separator adds it back to the stems: the grid is of y * std
+    step = np.abs(exact - mean).max(axis=-1, keepdims=True) / 32766.0
+    info = {"phase": "wire", "seconds": 30.0}
+    for wire in ("int16", "float16"):
+        err = np.abs(stems[wire] - exact)
+        info[wire] = {"max_err_in_int16_steps": float((err / step).max()),
+                      "max_abs_err_over_peak": float(err.max() / np.abs(exact).max())}
+    # half a step, plus float32 rounding of the decode and of the rescale by
+    # std: 2**-24 of a sample is 32766 x 2**-24 = 0.002 steps at the peak
+    info["ok"] = info["int16"]["max_err_in_int16_steps"] <= 0.51
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"int16 wire beyond half a step of the float32 wire: {info}")
+    return info
 
 
 def check_batched_forward(sep) -> dict:
@@ -425,6 +635,10 @@ def check_batched_forward(sep) -> dict:
 
 def _kernel_group(name: str) -> str:
     low = name.lower()
+    if "memcpy dtoh" in low:
+        return "copy device->host"
+    if "memcpy htod" in low:
+        return "copy host->device"
     if "istft_fft_kernel" in low:
         return "K2 istft_dft"
     if "stft_fft_kernel" in low:
@@ -441,36 +655,45 @@ def _kernel_group(name: str) -> str:
 
 
 def phase_profile(sep) -> dict:
-    """One 30 s request under torch.profiler: device time by kernel group and
-    the device's busy share of the request's wall time."""
+    """One 30 s and one 5 s request per engine under torch.profiler: device
+    time by kernel group (the stems' copy to the host its own group) and the
+    device's busy share of the request's wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    wav = _track(30.0, 0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
+    info = {"phase": "profile"}
+    for (name, engine), seconds in itertools.product((("device", "auto"), ("host", "host")),
+                                                     (30.0, 5.0)):
+        wav = _track(seconds, 0)
+        sep.update_parameter(engine=engine)
         sep.separate_tensor(wav, SR)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - start
-    groups: dict = {}
-    top = []
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = evt.self_device_time_total
-        if us <= 0:
-            continue
-        key = _kernel_group(evt.key)
-        groups[key] = groups.get(key, 0.0) + us / 1e3
-        top.append((us / 1e3, evt.count, evt.key[:90]))
-    device_ms = sum(groups.values())
-    info = {"phase": "profile", "request_s": 30.0, "wall_ms": wall * 1e3,
-            "device_ms": device_ms,
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            sep.separate_tensor(wav, SR)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+        groups: dict = {}
+        top = []
+        for evt in prof.key_averages():
+            if evt.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            us = evt.self_device_time_total
+            if us <= 0:
+                continue
+            key = _kernel_group(evt.key)
+            groups[key] = groups.get(key, 0.0) + us / 1e3
+            top.append((us / 1e3, evt.count, evt.key[:90]))
+        device_ms = sum(groups.values())
+        info[f"{name} {seconds:.0f} s"] = {
+            "wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / (wall * 1e3) if device_ms else "not measured",
+            "idle_share": 1 - device_ms / (wall * 1e3) if device_ms else "not measured",
+            "d2h_copy_ms": groups.get("copy device->host", "not measured"),
             "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-            "top_kernels": [{"ms": ms, "calls": n, "name": name}
-                            for ms, n, name in sorted(top, reverse=True)[:12]]}
+            "top_kernels": [{"ms": ms, "calls": n, "name": key}
+                            for ms, n, key in sorted(top, reverse=True)[:12]]}
+    sep.update_parameter(engine="auto")
     emit(info)
     return info
 
@@ -525,8 +748,12 @@ def main() -> int:
         rows = phase_kernels()
         cpu_model = phase_model()
         serving, sep = phase_serving(cpu_model, workdir)
+        phase_graphs(sep)
+        phase_pipelined(sep)
+        phase_wire(sep)
         phase_profile(sep)
         del sep
+        phase_bag()
         phase_cli(workdir)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()
@@ -537,7 +764,9 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     kernels = []
     for row in rows:
-        row = dict(row, route="cuda", launches=serving["launches"][row["name"]])
+        # launches on the main path: Separator's default serving, the device engine
+        row = dict(row, route="cuda",
+                   launches=serving["engines"]["device"]["launches"][row["name"]])
         kernels.append({k: row[k] for k in keys})
     emit({"kernels": kernels})
     if not all(math.isfinite(k["ms"]) for k in kernels):

@@ -2,9 +2,10 @@
 reference ``demucs/api.py``).
 
 ``Separator`` holds a model on one device and the separation parameters;
-audio is numpy on the host, the model runs on the device through the host
-engine. The callback protocol and the ``NotProvided`` update sentinel match
-the reference.
+audio is numpy on the host. On the card a track goes through the
+device-resident engine by default (``engine="auto"``, as in the JAX
+package), on the CPU through the host engine. The callback protocol and the
+``NotProvided`` update sentinel match the reference.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 from demucs_tpu_torch import resolve_device
 from demucs_tpu_torch.audio import read_audio
-from demucs_tpu_torch.inference.apply import apply_model
+from demucs_tpu_torch.inference.apply import apply_model, apply_model_tracks
 from demucs_tpu_torch.zoo.native import get_model
 
 __all__ = ["Separator", "LoadAudioError", "LoadModelError", "NotProvided"]
@@ -52,13 +53,19 @@ class Separator:
         callback: tp.Optional[tp.Callable[[dict], None]] = None,
         callback_arg: tp.Optional[dict] = None,
         batch_size: int = 16,
+        engine: str = "auto",
+        transfer_dtype: tp.Optional[str] = None,
+        length_bucket_seconds: tp.Optional[float] = None,
+        tail_mode: str = "exact",
     ):
         """Load ``<repo>/<model>.dmx`` onto ``device`` and hold the separation
         parameters (``demucs/api.py:53-122``).
 
         ``device`` is ``"cuda"`` (default; raises without a card) or
         ``"cpu"``. ``jobs`` is accepted for compatibility: segments run in
-        batches of ``batch_size`` instead.
+        batches of ``batch_size`` instead. ``engine``, ``transfer_dtype``,
+        ``length_bucket_seconds`` and ``tail_mode`` are ``apply_model``'s; the
+        default wire (None) is bit-exact.
         """
         self._name = model
         self._repo = repo
@@ -71,19 +78,41 @@ class Separator:
         self._samplerate = self._model.samplerate
         self.update_parameter(shifts=shifts, overlap=overlap, split=split, segment=segment,
                               jobs=jobs, progress=progress, callback=callback,
-                              callback_arg=callback_arg, batch_size=batch_size)
+                              callback_arg=callback_arg, batch_size=batch_size, engine=engine,
+                              transfer_dtype=transfer_dtype,
+                              length_bucket_seconds=length_bucket_seconds,
+                              tail_mode=tail_mode)
 
     def update_parameter(self, shifts=NotProvided, overlap=NotProvided, split=NotProvided,
                          segment=NotProvided, jobs=NotProvided, progress=NotProvided,
                          callback=NotProvided, callback_arg=NotProvided,
-                         batch_size=NotProvided):
+                         batch_size=NotProvided, engine=NotProvided,
+                         transfer_dtype=NotProvided, length_bucket_seconds=NotProvided,
+                         tail_mode=NotProvided):
         """Update separation parameters (``demucs/api.py:124-201``)."""
         for name, value in dict(shifts=shifts, overlap=overlap, split=split,
                                 segment=segment, jobs=jobs, progress=progress,
                                 callback=callback, callback_arg=callback_arg,
-                                batch_size=batch_size).items():
+                                batch_size=batch_size, engine=engine,
+                                transfer_dtype=transfer_dtype,
+                                length_bucket_seconds=length_bucket_seconds,
+                                tail_mode=tail_mode).items():
             if not isinstance(value, _NotProvided):
                 setattr(self, f"_{name}", value)
+
+    def _engine_kwargs(self) -> dict:
+        return dict(segment=self._segment, shifts=self._shifts, split=self._split,
+                    overlap=self._overlap, progress=self._progress,
+                    batch_size=self._batch_size, engine=self._engine,
+                    transfer_dtype=self._transfer_dtype,
+                    length_bucket_seconds=self._length_bucket_seconds,
+                    tail_mode=self._tail_mode)
+
+    def _normalized(self, wav: np.ndarray) -> tp.Tuple[np.ndarray, float, float]:
+        """The mixture normalized by the mean and std of its mono downmix."""
+        ref = wav.mean(axis=0)
+        mean, std = ref.mean(), ref.std()
+        return (wav - mean) / (std + 1e-8), mean, std
 
     def _load_audio(self, track: Path) -> np.ndarray:
         try:
@@ -105,15 +134,11 @@ class Separator:
         if sr is not None and sr != self._samplerate:
             raise ValueError(f"audio at {sr} Hz, model at {self._samplerate} Hz: "
                              "resampling is not ported yet")
-        ref = wav.mean(axis=0)
-        mean, std = ref.mean(), ref.std()
-        wav = (wav - mean) / (std + 1e-8)
+        wav, mean, std = self._normalized(wav)
         callback_arg = dict(self._callback_arg or {})
         callback_arg["audio_length"] = wav.shape[1]
-        out = apply_model(self._model, wav[None], segment=self._segment, shifts=self._shifts,
-                          split=self._split, overlap=self._overlap, callback=self._callback,
-                          callback_arg=callback_arg, progress=self._progress,
-                          batch_size=self._batch_size)
+        out = apply_model(self._model, wav[None], callback=self._callback,
+                          callback_arg=callback_arg, **self._engine_kwargs())
         out = out * (std + 1e-8) + mean
         wav = wav * (std + 1e-8) + mean
         return wav, dict(zip(self._model.sources, out[0]))
@@ -121,6 +146,43 @@ class Separator:
     def separate_audio_file(self, file: Path):
         """Read and separate a file -> ``(origin, {stem: wav})`` (api.py:293-307)."""
         return self.separate_tensor(self._load_audio(file), self._samplerate)
+
+    def separate_audio_files(self, files: tp.Iterable[Path]):
+        """Separate files one after the other, yielding ``(file, origin, {stem:
+        wav})`` per file, in order, with the results of ``separate_audio_file``.
+
+        On the device engine each track's copy of its stems to the host (and
+        the next file's decoding) overlaps the next track's compute
+        (``apply_model_tracks``). Per-chunk callbacks are not called here: with
+        a callback set this raises. A file that fails to load stops the
+        pipeline; the tracks already queued are yielded first, then the error
+        is raised.
+        """
+        if self._callback is not None:
+            raise ValueError("separate_audio_files calls no per-chunk callback: use "
+                             "separate_audio_file, or update_parameter(callback=None)")
+        meta: tp.List[tp.Optional[tuple]] = []
+        load_error: tp.List[LoadAudioError] = []
+
+        def mixes():
+            for file in files:
+                try:
+                    wav = self._load_audio(file)
+                except LoadAudioError as err:
+                    load_error.append(err)
+                    return
+                norm, mean, std = self._normalized(wav)
+                meta.append((file, norm, mean, std))
+                yield norm[None]
+
+        for i, out in enumerate(apply_model_tracks(self._model, mixes(),
+                                                   **self._engine_kwargs())):
+            file, norm, mean, std = meta[i]
+            meta[i] = None  # release the decoded waveform
+            out = out * (std + 1e-8) + mean
+            yield file, norm * (std + 1e-8) + mean, dict(zip(self._model.sources, out[0]))
+        if load_error:
+            raise load_error[0]
 
     @property
     def samplerate(self):

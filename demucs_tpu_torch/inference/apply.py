@@ -12,8 +12,10 @@ trick and overlap-add split, with the same numerics:
   overlap-add stay on the host in fp32 numpy.
 
 Shifts are drawn from an explicit ``random.Random`` exactly as the JAX
-package draws them, so tests can pin them. The device-resident engine
-(``engine="device"``) comes with a later slice of the port.
+package draws them, so tests can pin them. ``apply_model`` routes a track to
+the device-resident engine (``demucs_tpu_torch.inference.engine``) as the JAX
+package does: by default whenever the model is on the card and the call
+allows it.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ import torch
 
 from demucs_tpu_torch.models.registry import AnyModel, BagOfModels, Model
 
-__all__ = ["apply_model", "Chunk", "center_trim"]
+__all__ = ["apply_model", "apply_model_tracks", "Chunk", "center_trim"]
 
 
 class Chunk:
@@ -78,6 +80,11 @@ def center_trim(arr: np.ndarray, length: int) -> np.ndarray:
     return arr
 
 
+def _on_card(model: AnyModel) -> bool:
+    first = model.models[0] if isinstance(model, BagOfModels) else model
+    return first.device.type == "cuda"
+
+
 def _triangle_weight(segment_length: int, transition_power: float) -> np.ndarray:
     # apply.py:271-276
     weight = np.concatenate([
@@ -126,20 +133,40 @@ def apply_model(
     callback_arg: tp.Optional[dict] = None,
     rng: tp.Optional[_random.Random] = None,
     batch_size: int = 16,
-    engine: str = "host",
+    engine: str = "auto",
+    transfer_dtype: tp.Optional[str] = None,
+    length_bucket_seconds: tp.Optional[float] = None,
+    tail_mode: str = "exact",
 ) -> np.ndarray:
     """Apply ``model`` to ``mix (B, C, L)`` -> ``(B, S, C, L)`` float32 numpy.
 
     Flags and semantics match ``demucs/apply.py:145-173``. ``engine``:
-    ``"host"`` (or ``"auto"``) is this engine; ``"device"`` raises until the
-    device-resident engine is ported.
+    ``"host"`` is this engine; ``"device"`` is the device-resident engine
+    (``demucs_tpu_torch.inference.engine``: the track stays on the model's
+    device, one copy of the stems back), on the card or the CPU, and raises
+    when the call does not allow it; ``"auto"`` takes the device engine when
+    the model is on the card and the call allows it: split mode, one ``(1, C,
+    L)`` track, no callback. ``transfer_dtype`` (the stems' wire format),
+    ``length_bucket_seconds`` and ``tail_mode`` apply to the device engine
+    only (``engine._dispatch_track``); the float32 default wire is bit-exact.
     """
-    if engine == "device":
-        raise NotImplementedError(
-            "engine='device' (the device-resident engine) comes with a later slice of "
-            "the port; use engine='host'")
-    if engine not in ("auto", "host"):
+    if engine not in ("auto", "host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
+    if engine != "host":
+        eligible = (split and callback is None and isinstance(mix, np.ndarray)
+                    and mix.ndim == 3 and mix.shape[0] == 1)
+        if engine == "device" or (eligible and _on_card(model)):
+            if not eligible:
+                raise ValueError("engine='device' requires split mode, a single (1, C, L) "
+                                 "track and no callback")
+            from demucs_tpu_torch.inference.engine import device_apply_model
+
+            return device_apply_model(
+                model, mix, shifts=shifts, overlap=overlap,
+                transition_power=transition_power, segment=segment,
+                batch_size=batch_size, rng=rng, transfer_dtype=transfer_dtype,
+                progress=progress, length_bucket_seconds=length_bucket_seconds,
+                tail_mode=tail_mode)
     if rng is None:
         rng = _random  # the module acts as a Random instance (reference parity)
     callback_arg = dict(callback_arg or {})
@@ -152,7 +179,7 @@ def apply_model(
 
     kwargs = dict(shifts=shifts, split=split, overlap=overlap,
                   transition_power=transition_power, progress=progress, segment=segment,
-                  rng=rng, batch_size=batch_size, callback=callback)
+                  rng=rng, batch_size=batch_size, callback=callback, engine="host")
 
     if isinstance(model, BagOfModels):
         # apply.py:201-229 — fresh random shifts per member.
@@ -255,3 +282,59 @@ def apply_model(
     if callback is not None:
         callback(dict(callback_arg, state="end"))
     return res
+
+
+def apply_model_tracks(
+    model: AnyModel,
+    tracks: tp.Iterable[np.ndarray],
+    *,
+    shifts: int = 1,
+    split: bool = True,
+    overlap: float = 0.25,
+    transition_power: float = 1.0,
+    progress: bool = False,
+    segment: tp.Optional[float] = None,
+    rng: tp.Optional[_random.Random] = None,
+    batch_size: int = 16,
+    engine: str = "auto",
+    transfer_dtype: tp.Optional[str] = None,
+    length_bucket_seconds: tp.Optional[float] = None,
+    tail_mode: str = "exact",
+) -> tp.Iterator[np.ndarray]:
+    """``apply_model`` over several tracks, each ``(1, C, L)`` float: yields
+    ``(1, S, C, L)`` stems per track, in order.
+
+    On the device engine (the same choice as ``apply_model``'s), each track's
+    copy of its stems to the host overlaps the next track's compute
+    (``engine.device_separate_tracks``); on the host engine the tracks run one
+    after the other. Set ``length_bucket_seconds`` so that tracks of other
+    lengths share the card's graphs.
+    """
+    if engine not in ("auto", "host", "device"):
+        raise ValueError(f"unknown engine {engine!r}")
+    use_device = engine == "device" or (engine == "auto" and split and _on_card(model))
+    if use_device and not split:
+        raise ValueError("engine='device' requires split mode")
+
+    def checked(items):
+        for mix in items:
+            mix = np.asarray(mix)
+            if mix.ndim != 3 or mix.shape[0] != 1 or mix.dtype.kind != "f":
+                raise ValueError("apply_model_tracks expects float (1, C, L) tracks, got "
+                                 f"shape {mix.shape} dtype {mix.dtype}; use apply_model "
+                                 "for batched input")
+            yield mix
+
+    if use_device:
+        from demucs_tpu_torch.inference.engine import device_separate_tracks
+
+        yield from device_separate_tracks(
+            model, checked(tracks), shifts=shifts, overlap=overlap,
+            transition_power=transition_power, segment=segment, batch_size=batch_size,
+            rng=rng, transfer_dtype=transfer_dtype, progress=progress,
+            length_bucket_seconds=length_bucket_seconds, tail_mode=tail_mode)
+        return
+    for mix in checked(tracks):
+        yield apply_model(model, mix, shifts=shifts, split=split, overlap=overlap,
+                          transition_power=transition_power, progress=progress,
+                          segment=segment, rng=rng, batch_size=batch_size, engine="host")

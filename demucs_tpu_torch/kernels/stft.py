@@ -31,7 +31,7 @@ import functools
 import numpy as np
 import torch
 
-from demucs_tpu_torch.kernels import NoBackward, _build
+from demucs_tpu_torch.kernels import NoBackward, _build, device_cache
 
 __all__ = ["stft_dft", "stft_dft_plain", "istft_dft", "istft_dft_plain"]
 
@@ -52,28 +52,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=4)
+@device_cache(maxsize=4)
 def _stft_basis(n_fft: int, device: torch.device) -> tuple:
     """``(Gr, Gi)``, each ``(n_fft, n_fft // 2 + 1)`` = window * rDFT basis."""
     from demucs_tpu_torch.ops.spec import _hann_np, _rdft_basis_np
 
     fr, fi = _rdft_basis_np(n_fft)
     win = _hann_np(n_fft)[:, None].astype(np.float64)
-    with torch.inference_mode(False):  # cached: must outlive an inference_mode caller
-        return tuple(torch.from_numpy((win * f).astype(np.float32)).to(device)
-                     for f in (fr, fi))
+    return tuple(torch.from_numpy((win * f).astype(np.float32)).to(device) for f in (fr, fi))
 
 
-@functools.lru_cache(maxsize=4)
+@device_cache(maxsize=4)
 def _istft_basis(n_fft: int, device: torch.device) -> tuple:
     """``(Mr, Mi)``, each ``(n_fft // 2 + 1, n_fft)`` = inverse rDFT basis * window."""
     from demucs_tpu_torch.ops.spec import _hann_np, _irdft_basis_np
 
     mr, mi = _irdft_basis_np(n_fft)
     win = _hann_np(n_fft)[None, :].astype(np.float64)
-    with torch.inference_mode(False):
-        return tuple(torch.from_numpy((m * win).astype(np.float32)).to(device)
-                     for m in (mr, mi))
+    return tuple(torch.from_numpy((m * win).astype(np.float32)).to(device) for m in (mr, mi))
 
 
 def _twiddles_np(n_fft: int) -> np.ndarray:
@@ -92,7 +88,7 @@ def _twiddles_np(n_fft: int) -> np.ndarray:
     return np.concatenate(parts)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _fft_tables(n_fft: int, device: torch.device) -> tuple:
     """The kernels' tables: the Hann window ``(n_fft,)`` and the twiddles
     of :func:`_twiddles_np` as ``(_, 2)`` = re, im, both fp32."""
@@ -100,8 +96,7 @@ def _fft_tables(n_fft: int, device: torch.device) -> tuple:
 
     tw = _twiddles_np(n_fft)
     twiddle = np.stack([tw.real, tw.imag], axis=-1).astype(np.float32)
-    with torch.inference_mode(False):
-        return torch.from_numpy(_hann_np(n_fft)).to(device), torch.from_numpy(twiddle).to(device)
+    return torch.from_numpy(_hann_np(n_fft)).to(device), torch.from_numpy(twiddle).to(device)
 
 
 def _check_cuda(name: str, n_fft: int, *tensors: torch.Tensor) -> None:

@@ -37,6 +37,16 @@ class Model:
     def segment(self) -> float:
         return float(self.cfg.segment)
 
+    @segment.setter
+    def segment(self, value: float) -> None:
+        # the module pads to its config's training length: both change together
+        self.cfg = dataclasses.replace(self.cfg, segment=value)
+        self.module.cfg = self.cfg
+
+    @property
+    def uses_train_segment(self) -> bool:
+        return self.kind == "htdemucs" and getattr(self.cfg, "use_train_segment", False)
+
     @property
     def device(self) -> torch.device:
         return next(self.module.parameters()).device

@@ -21,7 +21,6 @@ with later slices of the port and raise until then.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import math
 import typing as tp
 
@@ -29,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from demucs_tpu_torch.kernels import device_cache
 from demucs_tpu_torch.kernels.attention import flash_mha
 from demucs_tpu_torch.models.hlayers import LayerScale
 from demucs_tpu_torch.ops import nn as ops
@@ -67,28 +67,33 @@ class TransformerSpec:
 
 
 # ---------------------------------------------------------------------------
-# Positional embeddings (numpy, cached on static shapes; transformer.py:19-70)
+# Positional embeddings (transformer.py:19-70), built in numpy once per shape
+# and device and cached on the device: the forward copies nothing from the
+# host, which a CUDA graph's capture would refuse.
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _sin_embedding_np(length: int, dim: int, shift: int, max_period: float) -> np.ndarray:
+@device_cache(maxsize=16)
+def _sin_embedding(length: int, dim: int, shift: int, max_period: float,
+                   device) -> torch.Tensor:
     assert dim % 2 == 0
     pos = shift + np.arange(length, dtype=np.float64)[:, None]
     half_dim = dim // 2
     adim = np.arange(half_dim, dtype=np.float64)[None, :]
     phase = pos / (max_period ** (adim / (half_dim - 1)))
-    return np.concatenate([np.cos(phase), np.sin(phase)], axis=-1).astype(np.float32)
+    emb = np.concatenate([np.cos(phase), np.sin(phase)], axis=-1).astype(np.float32)
+    return torch.from_numpy(emb).to(device)
 
 
 def sin_embedding(length: int, dim: int, shift: int = 0, max_period: float = 10000.0,
                   device=None) -> torch.Tensor:
-    """1-D sinusoid embedding ``(length, dim)``."""
-    return torch.from_numpy(_sin_embedding_np(length, dim, shift, max_period)).to(device)
+    """1-D sinusoid embedding ``(length, dim)``, cached: do not write to it."""
+    return _sin_embedding(length, dim, shift, max_period, device)
 
 
-@functools.lru_cache(maxsize=None)
-def _sin_embedding_2d_np(d_model: int, height: int, width: int, max_period: float) -> np.ndarray:
+@device_cache(maxsize=16)
+def _sin_embedding_2d(d_model: int, height: int, width: int, max_period: float,
+                      device) -> torch.Tensor:
     if d_model % 4 != 0:
         raise ValueError("2-D sin embedding requires dim % 4 == 0")
     pe = np.zeros((d_model, height, width), dtype=np.float64)
@@ -100,13 +105,13 @@ def _sin_embedding_2d_np(d_model: int, height: int, width: int, max_period: floa
     pe[1:half:2] = np.cos(pos_w * div_term).T[:, None, :].repeat(height, axis=1)
     pe[half::2] = np.sin(pos_h * div_term).T[:, :, None].repeat(width, axis=2)
     pe[half + 1 :: 2] = np.cos(pos_h * div_term).T[:, :, None].repeat(width, axis=2)
-    return pe.astype(np.float32)
+    return torch.from_numpy(pe.astype(np.float32)).to(device)
 
 
 def sin_embedding_2d(d_model: int, height: int, width: int, max_period: float = 10000.0,
                      device=None) -> torch.Tensor:
-    """2-D sinusoid embedding ``(d_model, height, width)``."""
-    return torch.from_numpy(_sin_embedding_2d_np(d_model, height, width, max_period)).to(device)
+    """2-D sinusoid embedding ``(d_model, height, width)``, cached: do not write to it."""
+    return _sin_embedding_2d(d_model, height, width, max_period, device)
 
 
 # ---------------------------------------------------------------------------

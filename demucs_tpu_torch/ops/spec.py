@@ -21,6 +21,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from demucs_tpu_torch.kernels import device_cache
 from demucs_tpu_torch.kernels.stft import istft_dft, stft_dft
 
 __all__ = ["stft", "istft", "pad1d", "demucs_spec", "demucs_ispec", "cac_pack",
@@ -60,11 +61,10 @@ def _window_envelope_np(n_fft: int, hop: int, n_frames: int) -> np.ndarray:
     return env.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(maxsize=8)
 def _window_envelope(n_fft: int, hop: int, n_frames: int, device: torch.device) -> torch.Tensor:
-    with torch.inference_mode(False):  # cached: must outlive an inference_mode caller
-        env = torch.from_numpy(_window_envelope_np(n_fft, hop, n_frames)).to(device)
-        return env.clamp_min(1e-11)
+    env = torch.from_numpy(_window_envelope_np(n_fft, hop, n_frames)).to(device)
+    return env.clamp_min(1e-11)
 
 
 def _reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:

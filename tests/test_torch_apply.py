@@ -12,6 +12,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from demucs_tpu.inference.apply import apply_model as jax_apply
 from demucs_tpu.models import htdemucs as jht
@@ -26,9 +27,22 @@ from demucs_tpu_torch.zoo.convert import load_flat_state
 SOURCES = ("drums", "bass", "other", "vocals")
 
 
-def _pair(seed):
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """One intra-op thread for these small CPU forwards (imported by the other
+    port files that run them): they gain nothing from more, and the suite runs
+    several workers on one machine, where each worker's threads contend with
+    the others' (on an 8-core machine, three workers of the engine tests took
+    ten times as long with the default threads)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _pair(seed, **overrides):
     jcfg = jht.HTDemucsConfig(sources=SOURCES, channels=8, depth=4, nfft=2048, t_layers=2,
-                              t_heads=2, segment=0.5, samplerate=8000)
+                              t_heads=2, segment=0.5, samplerate=8000, **overrides)
     params = jht.init_htdemucs(jcfg, seed=seed)
     tcfg = tht.HTDemucsConfig(**dataclasses.asdict(jcfg))
     flat = {k: np.asarray(v) for k, v in flatten_state(params).items()}
@@ -76,5 +90,9 @@ def test_callbacks_and_engine_choice():
     assert [e["state"] for e in events].count("start") == 4  # 4 chunks at stride 0.375 s
     assert sorted(e["segment_offset"] for e in events if e["state"] == "end") == [
         0, 3000, 6000, 9000]
-    with pytest.raises(NotImplementedError, match="later slice"):
-        apply_model(tm, _track(), engine="device")
+    # the device engine runs on the CPU too, and only where the call allows it
+    want = apply_model(tm, _track(), shifts=0, batch_size=2, engine="host")
+    got = apply_model(tm, _track(), shifts=0, batch_size=2, engine="device")
+    _close(got, want)
+    with pytest.raises(ValueError, match="callback"):
+        apply_model(tm, _track(), engine="device", callback=events.append)

@@ -24,6 +24,8 @@ from demucs_tpu.ops.sparse import get_mask
 from demucs_tpu_torch.kernels import attention as K
 from demucs_tpu_torch.ops.attention import multihead_attention as port_mha
 
+from test_torch_apply import one_torch_thread  # noqa: F401 (autouse fixture)
+
 TOL = dict(atol=2e-5, rtol=1e-4)
 
 

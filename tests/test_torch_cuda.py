@@ -203,3 +203,89 @@ def test_model_card_matches_cpu(cuda):
         want = model(mix)
         got = copy.deepcopy(model).to(cuda)(mix.to(cuda)).cpu()
     assert (got - want).abs().max().item() <= 2e-4 * want.abs().max().item()
+
+
+def _small_model(seed=7):
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import Model
+
+    cfg = HTDemucsConfig(channels=16, depth=4, nfft=2048, t_layers=3, t_heads=4, segment=0.5,
+                         samplerate=8000)
+    module = init_htdemucs(cfg, seed=seed, layer_scale=1.0, random_norms=True).eval()
+    return Model("htdemucs", cfg, module.cuda())
+
+
+@pytest.mark.parametrize("batch", [1, 6])
+def test_graph_replay_matches_eager_forward(cuda, batch):
+    """The released width at its 7.8 s segment: a replay of the captured forward
+    against an eager forward of the same module (1e-6 x peak; the same
+    kernels on the same inputs, so bit-equal unless a library picks another
+    algorithm under capture)."""
+    from demucs_tpu_torch.inference.engine import GraphCache
+    from demucs_tpu_torch.kernels import stft as KS
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+
+    cfg = HTDemucsConfig(channels=48, depth=4, nfft=4096, t_layers=5, t_heads=8, dconv_mode=3,
+                         bottom_channels=512, segment=7.8)
+    module = init_htdemucs(cfg, seed=3, layer_scale=1.0, random_norms=True).eval().to(cuda)
+    mix = _randn(batch, 2, cfg.training_length, seed=20) * 0.1
+    graphs = GraphCache()
+    before = KS.stft_dft.launches
+    with torch.inference_mode():
+        want = module(mix).clone()
+        got = graphs.forward(module, mix).clone()
+        again = graphs.forward(module, mix * 0.5).clone()
+        half = module(mix * 0.5)
+    assert KS.stft_dft.launches == before + 3  # two eager forwards and the warm-up
+    assert graphs.captures == 1 and graphs.replays == 2
+    assert graphs.replayed_launches == {"stft_dft": 2, "istft_dft": 2, "flash_mha": 20}
+    peak = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-6 * peak
+    assert (again - half).abs().max().item() <= 1e-6 * half.abs().max().item()
+
+
+def test_graph_recaptured_when_segment_changes(cuda):
+    """A new segment changes how far the forward pads its input, at the same
+    input shape: the cached graph is captured again, not replayed stale."""
+    from demucs_tpu_torch.inference.engine import GraphCache
+
+    model = _small_model()
+    mix = _randn(2, 2, 1500, seed=40) * 0.1
+    graphs = GraphCache()
+    with torch.inference_mode():
+        graphs.forward(model.module, mix)
+        model.segment = 0.25  # training length 2000 samples instead of 4000
+        got = graphs.forward(model.module, mix).clone()
+        want = model.module(mix)
+    assert graphs.captures == 2 and graphs.replays == 2
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("overlap,shifts", [(0.25, 2), (0.6, 1)])
+def test_device_engine_matches_host_engine_on_card(cuda, overlap, shifts):
+    import random
+
+    from demucs_tpu_torch.inference.apply import apply_model
+
+    model = _small_model()
+    mix = _randn(1, 2, 9200, seed=21, device="cpu").numpy() * 0.1
+    kw = dict(shifts=shifts, overlap=overlap, batch_size=2)
+    want = apply_model(model, mix, engine="host", rng=random.Random(4), **kw)
+    got = apply_model(model, mix, rng=random.Random(4), **kw)  # "auto" on the card: device
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_pipelined_tracks_equal_single_calls_on_card(cuda):
+    import random
+
+    from demucs_tpu_torch.inference import engine
+
+    model = _small_model()
+    tracks = [_randn(1, 2, n, seed=30 + n, device="cpu").numpy() * 0.1
+              for n in (9200, 4800, 13000)]
+    rng = random.Random(8)
+    want = [engine.device_apply_model(model, t, batch_size=2, rng=rng) for t in tracks]
+    got = list(engine.device_separate_tracks(model, tracks, batch_size=2,
+                                             rng=random.Random(8)))
+    assert all(torch.equal(torch.from_numpy(g), torch.from_numpy(w)) for g, w in zip(got, want))

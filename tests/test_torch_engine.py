@@ -1,0 +1,158 @@
+"""Port's device-resident engine (demucs_tpu_torch.inference.engine) against the
+JAX package's device_apply_model (called directly, on the CPU) and against the
+port's host engine, at the small config of test_torch_apply.py: the same
+weights, the same mixtures (numpy, seeded) and the same pinned random.Random
+for the shifts.
+
+Tolerances: 1e-5 x peak for the float32 wire (the forward's own fp32
+deviation carried through the overlap-add, as in test_torch_apply.py);
+pipelined and prestaged calls equal to single calls, bit for bit. The
+engine's modes (tails, bags, buckets, wires): tests/test_torch_engine_modes.py.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from demucs_tpu.inference import engine as jeng
+from demucs_tpu_torch.inference import engine
+from demucs_tpu_torch.inference.apply import apply_model, apply_model_tracks
+from demucs_tpu_torch.kernels import retain_tables
+from demucs_tpu_torch.models import transformer
+
+from test_torch_apply import _pair, one_torch_thread  # noqa: F401 (autouse fixture)
+
+SEGMENT = 4000  # samples: 0.5 s at 8 kHz
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(7)
+
+
+@pytest.fixture(scope="module")
+def pair_exact():
+    """HTDemucs without the train segment: its tails run at their own length."""
+    return _pair(7, use_train_segment=False)
+
+
+def _mix(segments, seed=0):
+    n = int(segments * SEGMENT)
+    return (np.random.default_rng(seed).standard_normal((1, 2, n)) * 0.1).astype(np.float32)
+
+
+def _close(got, want, tol=1e-5):
+    assert got.shape == want.shape and got.dtype == np.float32
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.parametrize("segments,shifts,overlap,batch_size,power", [
+    (2.3, 1, 0.25, 2, 1.0), (2.3, 0, 0.25, 3, 1.0), (2.3, 2, 0.25, 2, 1.0),
+    (3.3, 2, 0.6, 3, 1.0), (1.2, 1, 0.6, 2, 1.0), (0.3, 1, 0.25, 2, 1.0),
+    (3.3, 1, 0.25, 2, 3.0)])
+def test_device_engine_matches_jax_and_host(pair, segments, shifts, overlap, batch_size, power):
+    jm, tm = pair
+    mix = _mix(segments)
+    kw = dict(shifts=shifts, overlap=overlap, batch_size=batch_size, transition_power=power)
+    want = jeng.device_apply_model(jm, mix, rng=random.Random(1234), **kw)
+    got = engine.device_apply_model(tm, mix, rng=random.Random(1234), **kw)
+    _close(got, want)
+    routed = apply_model(tm, mix, engine="device", rng=random.Random(1234), **kw)
+    assert np.array_equal(routed, got)
+    host = apply_model(tm, mix, engine="host", rng=random.Random(1234), **kw)
+    _close(got, host)
+    if power > 1:  # the edges, where the weight sums are tiny, at their own scale
+        edges = np.r_[0:5, mix.shape[-1] - 5 : mix.shape[-1]]
+        _close(got[..., edges], host[..., edges])
+
+
+def test_prestaged_track_equals_single_call(pair):
+    _, tm = pair
+    mix = _mix(2.3, seed=8)
+    want = engine.device_apply_model(tm, mix, shifts=2, batch_size=2, rng=random.Random(3))
+    staged = engine.stage_track(tm, mix, shifts=2)
+    assert list(staged) == [(SEGMENT, SEGMENT)]
+    got = engine.device_apply_model(tm, mix, shifts=2, batch_size=2, rng=random.Random(3),
+                                    prestaged=staged)
+    assert np.array_equal(got, want)
+
+
+def test_pipelined_tracks_equal_single_calls(pair):
+    _, tm = pair
+    tracks = [_mix(s, seed=10 + i) for i, s in enumerate((2.3, 1.2, 3.3))]
+    rng = random.Random(21)
+    want = [engine.device_apply_model(tm, t, batch_size=2, rng=rng) for t in tracks]
+    got = list(engine.device_separate_tracks(tm, tracks, batch_size=2, rng=random.Random(21)))
+    routed = list(apply_model_tracks(tm, tracks, engine="device", batch_size=2,
+                                     rng=random.Random(21)))
+    assert len(got) == len(routed) == 3
+    for w, g, r in zip(want, got, routed):
+        assert np.array_equal(g, w) and np.array_equal(r, w)
+    host = list(apply_model_tracks(tm, tracks, batch_size=2, rng=random.Random(21)))
+    for h, w in zip(host, want):  # on the CPU "auto" takes the host engine
+        _close(w, h)
+    with pytest.raises(ValueError, match="float"):
+        list(apply_model_tracks(tm, [np.zeros((2, 2, 100), np.float32)], engine="device"))
+
+
+def test_engine_routing(pair, monkeypatch):
+    _, tm = pair
+    mix = _mix(1.2, seed=2)
+    calls = []
+    monkeypatch.setattr(engine, "device_apply_model",
+                        lambda *a, **k: calls.append(k) or np.zeros(0))
+    apply_model(tm, mix, batch_size=2)  # the model is on the CPU: the host engine
+    assert calls == []
+    apply_model(tm, mix, engine="device", transfer_dtype="int16", tail_mode="uniform",
+                length_bucket_seconds=1.0)
+    assert calls and calls[0]["transfer_dtype"] == "int16"
+    assert (calls[0]["tail_mode"], calls[0]["length_bucket_seconds"]) == ("uniform", 1.0)
+    for bad in (dict(callback=print), dict(split=False)):
+        with pytest.raises(ValueError, match="engine='device'"):
+            apply_model(tm, mix, engine="device", **bad)
+    with pytest.raises(ValueError, match="engine='device'"):
+        apply_model(tm, np.concatenate([mix, mix]), engine="device")
+    with pytest.raises(ValueError, match="engine"):
+        apply_model(tm, mix, engine="tpu")
+
+
+@pytest.mark.parametrize("length,max_shift,stride,batch_size", [
+    (9200, 4000, 3000, 2), (9200, 4000, 3000, 16), (1200, 0, 3000, 3), (13200, 4000, 1600, 8)])
+def test_segment_grid_matches_jax(length, max_shift, stride, batch_size):
+    assert engine._segment_grid(length, max_shift, stride, batch_size) == \
+        jeng._segment_grid(length, max_shift, stride, batch_size)
+    assert engine._exact_obuf_len(length, max_shift, 4000, 4000, stride, batch_size) == \
+        jeng._exact_obuf_len(length, max_shift, 4000, 4000, stride, batch_size)
+
+
+def test_positional_embeddings_cached_outside_inference_mode():
+    """The forward reads its embeddings from a cache per shape and device,
+    built outside inference mode; a graph capture keeps what it read."""
+    transformer._sin_embedding.cache_clear()
+    with torch.inference_mode():
+        emb = transformer.sin_embedding(37, 16, device=torch.device("cpu"))
+        emb2d = transformer.sin_embedding_2d(16, 5, 7, device=torch.device("cpu"))
+    assert not emb.is_inference() and not emb2d.is_inference()
+    with retain_tables() as kept:
+        assert transformer.sin_embedding(37, 16, device=torch.device("cpu")) is emb
+        assert transformer.sin_embedding_2d(16, 5, 7, device=torch.device("cpu")) is emb2d
+    assert kept == [emb, emb2d]
+    assert transformer.sin_embedding(37, 16) is not emb  # another device key
+    assert transformer._sin_embedding.cache_info().hits == 1
+    w = torch.ones((), requires_grad=True)
+    (transformer.sin_embedding(37, 16, device=torch.device("cpu")) * w).sum().backward()
+    assert w.grad is not None
+
+
+def test_registry_segment_and_train_segment(pair, pair_exact):
+    _, tm = _pair(7)
+    assert tm.uses_train_segment and not pair_exact[1].uses_train_segment
+    state = engine._graph_state(tm.module)
+    assert engine._graph_state(tm.module) == state
+    tm.segment = 0.25
+    assert tm.segment == 0.25 and tm.module.cfg.segment == 0.25
+    assert tm.valid_length(100) == 2000  # the module pads to the new training length
+    assert engine._graph_state(tm.module) != state  # a captured graph is stale now

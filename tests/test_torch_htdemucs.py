@@ -40,6 +40,7 @@ from demucs_tpu_torch.zoo.convert import load_flat_state
 
 sys.path.insert(0, str(Path(__file__).parent))
 from test_golden import GOLDEN_DIR, SOURCES, _mix  # noqa: E402
+from test_torch_apply import one_torch_thread  # noqa: E402,F401 (autouse fixture)
 
 RELEASED = dict(channels=48, depth=4, nfft=4096, t_layers=5, t_heads=8, dconv_mode=3,
                 bottom_channels=512, samplerate=44100)

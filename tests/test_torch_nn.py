@@ -13,6 +13,8 @@ import jax.numpy as jnp
 from demucs_tpu.ops import nn as J
 from demucs_tpu_torch.ops import nn as T
 
+from test_torch_apply import one_torch_thread  # noqa: F401 (autouse fixture)
+
 ATOL = 1e-5
 
 

@@ -18,6 +18,8 @@ from demucs_tpu.ops.pallas import stft as PS
 from demucs_tpu_torch.kernels import stft as K
 from demucs_tpu_torch.ops import spec as T
 
+from test_torch_apply import one_torch_thread  # noqa: F401 (autouse fixture)
+
 METHODS = ["fft", "pallas"]
 
 

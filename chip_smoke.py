@@ -15,7 +15,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               number of output chunks per block; K3 at its four shapes (freq and
               time tokens, self and cross) at both batches, each at 64 and 128
               query rows per block, and with a keep-mask whose first key tile
-              and one query row are fully masked.
+              and one query row are fully masked. K1 and K2 also at one and two
+              44 s HDemucs segments (1899 frames).
               Times the kernel, the plain version and one PyTorch library call
               computing the same function (yardstick only: the port never calls
               it), with CUDA events. Then drops the plain versions' cached dense
@@ -56,9 +57,32 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 5. bag      — 4 released-width members (distinct seeds, htdemucs_ft's one-hot
               weights) on a 30 s track with shifts=2: the device engine against
               the host engine, 1e-5 x peak, with launch counts for each.
-6. cli      — python -m demucs_tpu_torch on a WAV file with that .dmx.
+6. hdemucs  — the released HDemucs (hdemucs_mmi's shape: channels 48, depth 6,
+              nfft 4096, BLSTM and LocalState in the DConv branches from depth
+              4) at the bags' 44 s segment, seeded random weights, unit
+              LayerScales, random norms: the forward on the card against a CPU
+              copy (2 s); a Separator from a .dmx answering a 30 s request (one
+              exact tail, eager) and a 60 s one (a graph replay of the full
+              windows and an eager tail) 3 times each on each engine, with
+              launches against the forwards, the device engine's stems against
+              the host engine's, graphs, peak memory, and one profiled 60 s
+              request per engine (cuDNN's RNN a group of its own).
+7. demucs_v2 — the same for the released Demucs v2 widths (channels 64, depth 6).
+8. wiener   — apply_wiener (1 iteration) at one 44 s segment's spectrogram, and
+              the MDX-era HDemucs (hybrid_old, cac=False, Wiener 1 iteration),
+              card against CPU.
+9. zoo      — a folder in the reference's formats with repro_mdx_a's shape: two
+              Demucs v2 and two MDX-era HDemucs .th packages (torch.save of
+              {klass, args, kwargs, state}, fp16 state, stub demucs classes), one
+              diffq-quantized, and a bag file (segment 44): Separator(model=bag,
+              repo=folder) on the card holds the written weights, and a 30 s
+              request gives the same stems on both engines.
+10. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
+              then -n <bag> --repo <folder> on a 48 kHz WAV (resampled).
 
-Then the ``kernels`` line and, last, ``{"ok": true, "device": {...}}``.
+Then the ``kernels`` line (each kernel's launches on every path: HTDemucs,
+HDemucs, Demucs v2 and the bag; ``launches`` is their sum) and, last,
+``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
 CUDA cores, 495 TFLOP/s in TF32 on the tensor cores and 3.35 TB/s of HBM;
 the card's power limit is printed beside. A bound is the larger of the
@@ -77,6 +101,7 @@ the TF32 peak, which no fp32-accurate route reaches.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import itertools
 import json
 import math
@@ -102,6 +127,11 @@ GRAPH_RTOL = 1e-6  # graph replay vs eager forward, x peak (the same kernels and
 N_TIMED = 10
 SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's clocks: longer than 10 calls' launches
 REPEATS = 5  # serving: each request size is answered this many times, median reported
+FAMILY_REPEATS = 3  # the same for the HDemucs and Demucs v2 requests
+FAMILY_LENGTHS = (30.0, 60.0)
+HDEMUCS = dict(channels=48, depth=6, nfft=4096, samplerate=SR)  # hdemucs_mmi (tests/common.py:64)
+DEMUCS = dict(channels=64, depth=6, samplerate=SR)  # tests/common.py:65
+MDX_HYBRID = dict(hybrid_old=True, cac=False, norm_starts=999)  # tools/convert.py:63-72
 
 
 def emit(obj) -> None:
@@ -172,12 +202,13 @@ def phase_kernels() -> list:
     n_fft, hop, freqs = 4096, 1024, 2049
     # One 7.8 s segment (343980 samples): demucs_spec pads it to 351232
     # samples -> 340 frames; stereo -> 2 rows; 4 stems x 2 channels -> 8 rows.
-    # The served 30 s request batches 6 segments: 12 and 48 rows.
-    length, n_frames = 351232, 340
+    # The served 30 s request batches 6 segments: 12 and 48 rows. One 44 s
+    # HDemucs segment (1940400 samples): 1947648 samples -> 1899 frames, and
+    # its 60 s request batches 2 segments.
     window = torch.hann_window(n_fft, device=dev)
     rows = []
 
-    def k1(batch):
+    def k1(batch, length=351232, n_frames=340):
         x = torch.randn(2 * batch, length, device=dev, generator=gen) * 0.3
         got = KS.stft_dft(x, n_fft, hop)
         want = KS.stft_dft_plain(x, n_fft, hop)
@@ -194,7 +225,7 @@ def phase_kernels() -> list:
             bytes=4 * (x.numel() + 2 * frames * freqs),
             shape=f"x {tuple(x.shape)} -> 2 x {tuple(got[0].shape)}")
 
-    def k2(batch):
+    def k2(batch, n_frames=340, sweep=True):
         zr = torch.randn(8 * batch, n_frames, freqs, device=dev, generator=gen)
         zi = torch.randn(8 * batch, n_frames, freqs, device=dev, generator=gen)
         got = KS.istft_dft(zr, zi, n_fft, hop)
@@ -205,7 +236,7 @@ def phase_kernels() -> list:
         by_group = {}
         pick = KS.istft_group
         try:  # the same kernel with each number of output chunks per block
-            for group in (1, 2, 4, 8, 16):
+            for group in (1, 2, 4, 8, 16) if sweep else ():
                 KS.istft_group = lambda *args, group=group: group
                 by_group[group] = cuda_ms(lambda: KS.istft_dft(zr, zi, n_fft, hop))
         finally:
@@ -221,6 +252,12 @@ def phase_kernels() -> list:
             bytes=4 * (2 * zr.numel() + got.numel()), group=chosen, ms_by_group=by_group,
             shape=f"2 x {tuple(zr.shape)} -> {tuple(got.shape)}")
 
+    def at_44s(fn, batch):
+        row = fn(batch, 1947648, 1899) if fn is k1 else fn(batch, 1899, sweep=False)
+        row["bound_ms"], row["bound_by"] = bound(row["flops"], row["bytes"])
+        torch.cuda.empty_cache()
+        return row
+
     with full_fp32():
         for name, fn, replaces, library in (
                 ("stft_dft", k1, "demucs_tpu/ops/pallas/stft.py:61", "torch.stft(center=False)"),
@@ -228,9 +265,11 @@ def phase_kernels() -> list:
                  "torch.istft(center=True), which adds the envelope division and crop")):
             b1, b6 = fn(1), fn(6)
             b6["bound_ms"], b6["bound_by"] = bound(b6["flops"], b6["bytes"])
+            hd = {f"B={b}": at_44s(fn, b) for b in (1, 2)}
             rows.append(dict(b1, name=name, source="demucs_tpu_torch/csrc/stft.cu",
-                             replaces=replaces, library=library, batch_6=b6,
-                             ok_6=b6["max_abs_err"] <= b6["tol"]))
+                             replaces=replaces, library=library, batch_6=b6, hdemucs_44s=hd,
+                             ok_6=all(r["max_abs_err"] <= r["tol"]
+                                      for r in (b6, *hd.values()))))
         # The dense bases of the plain versions (134 MB) are built only for the
         # comparisons above; serving must not find them allocated.
         KS._stft_basis.cache_clear()
@@ -318,31 +357,88 @@ def k3_checks(gen) -> dict:
         rows_sweep_ms=sweep, shape="q, k, v (1, 2688, 512), 8 heads (freq self)")
 
 
-def phase_model():
+def card_vs_cpu(cpu_model, seconds: float, seed: int = 1) -> dict:
+    """One forward of ``seconds`` of noise on a copy on the card and on the CPU."""
     import torch
 
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    mix = torch.randn(1, 2, int(seconds * SR), generator=torch.Generator().manual_seed(seed))
+    with torch.inference_mode():
+        got = gpu_model(mix.to("cuda") * 0.1).cpu()
+        start = time.perf_counter()
+        want = cpu_model(mix * 0.1)
+        cpu_s = time.perf_counter() - start
+    del gpu_model
+    peak = want.abs().max().item()
+    rel = (got - want).abs().max().item() / peak
+    return {"seconds": seconds, "max_abs_err_over_peak": rel, "tol": MODEL_RTOL, "peak": peak,
+            "cpu_forward_s": cpu_s,
+            "ok": bool(torch.isfinite(got).all()) and got.shape == want.shape
+            and rel <= MODEL_RTOL}
+
+
+def serve_both_engines(sep, counts, lengths, seed: int, repeats: int = FAMILY_REPEATS) -> dict:
+    """Each request length ``repeats`` times on each engine (after a warm-up
+    request of each, which captures every graph of the full windows):
+    audio-s/s, peak memory, launches against the forwards, and the device
+    engine's stems against the host engine's for the same shift."""
+    import random
+
+    import numpy as np
+    import torch
+
+    tracks = [_track(seconds, seed + i) for i, seconds in enumerate(lengths)]
+    for engine in ("host", "auto"):
+        sep.update_parameter(engine=engine)
+        for wav in tracks:
+            sep.separate_tensor(wav, SR)
+    info: dict = {"engines": {}}
+    last = {}
+    for name, engine in (("device", "auto"), ("host", "host")):
+        sep.update_parameter(engine=engine)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts.zero()
+        requests = []
+        for i, (seconds, wav) in enumerate(zip(lengths, tracks)):
+            walls = []
+            for r in range(repeats):
+                random.seed(100 * i + r)  # the same shift on both engines
+                start = time.perf_counter()
+                _, stems = sep.separate_tensor(wav, SR)
+                walls.append(time.perf_counter() - start)
+                if any(v.shape != wav.shape or not np.isfinite(v).all() for v in stems.values()):
+                    raise AssertionError(f"{name} {seconds} s: stems not finite or misshaped")
+            last[name, i] = np.stack(list(stems.values()))
+            wall = float(np.median(walls))
+            requests.append({"seconds": seconds, "repeats": repeats, "median_wall_s": wall,
+                             "wall_s": walls, "audio_s_per_s": seconds / wall})
+        run = counts.read()
+        run.update(requests=requests,
+                   max_memory_allocated_GiB=torch.cuda.max_memory_allocated() / 2**30)
+        info["engines"][name] = run
+    agree = []
+    for i, seconds in enumerate(lengths):
+        peak = float(np.abs(last["host", i]).max())
+        err = float(np.abs(last["device", i] - last["host", i]).max()) / peak
+        agree.append({"seconds": seconds, "max_abs_err_over_peak": err, "tol": ENGINE_RTOL})
+    info["device_vs_host"] = agree
+    info["ok"] = (all(run["ok"] for run in info["engines"].values())
+                  and all(a["max_abs_err_over_peak"] <= ENGINE_RTOL for a in agree))
+    sep.update_parameter(engine="auto")
+    return info
+
+
+def phase_model():
     from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
 
     cfg = HTDemucsConfig(segment=1.0, **RELEASED)
     cpu_model = init_htdemucs(cfg, seed=0, layer_scale=1.0, random_norms=True).eval()
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
-    gen = torch.Generator().manual_seed(1)
-    mix = torch.randn(1, 2, SR, generator=gen) * 0.1
-    with torch.inference_mode():
-        start = time.perf_counter()
-        got = gpu_model(mix.to("cuda")).cpu()
-        gpu_s = time.perf_counter() - start
-        start = time.perf_counter()
-        want = cpu_model(mix)
-        cpu_s = time.perf_counter() - start
-    peak = want.abs().max().item()
-    rel = (got - want).abs().max().item() / peak
-    ok = bool(torch.isfinite(got).all()) and got.shape == want.shape == (1, 4, 2, SR)
-    emit({"phase": "model", "params_M": sum(p.numel() for p in cpu_model.parameters()) / 1e6,
-          "segment_s": 1.0, "max_abs_err_over_peak": rel, "tol": MODEL_RTOL, "peak": peak,
-          "first_gpu_forward_s": gpu_s, "cpu_forward_s": cpu_s, "ok": ok and rel <= MODEL_RTOL})
-    if not ok or rel > MODEL_RTOL:
-        raise AssertionError(f"card vs CPU forward: {rel} x peak > {MODEL_RTOL}")
+    info = dict(card_vs_cpu(cpu_model, 1.0), phase="model",
+                params_M=sum(p.numel() for p in cpu_model.parameters()) / 1e6)
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"card vs CPU forward: {info}")
     return cpu_model
 
 
@@ -360,13 +456,28 @@ def _track(seconds: float, seed: int):
 class Counts:
     """The kernels' launches on one path: the wrappers' counts (eager launches)
     plus each graph replay's captured launches, both zeroed by ``zero()``;
-    and the batched forwards: eager ones (a forward hook) plus replays."""
+    and the batched forwards of each module: eager ones (a forward hook) plus
+    replays (recorded around ``GRAPHS.forward``). What a forward launches
+    follows from its module's config: K1 and K2 once if it has a spectrogram
+    (``nfft``: not Demucs v2), K3 once per attention, 2 branches x
+    ``t_layers`` (10 at the released HTDemucs width, 0 without a
+    transformer). The counted run must capture nothing: a capture calls the
+    module twice and launches once."""
 
     def __init__(self, *modules):
-        self.eager = []
+        from demucs_tpu_torch.inference.engine import GRAPHS
+
+        self.eager: list = []
+        self.replayed: list = []
         for module in modules:
-            module.register_forward_pre_hook(
-                lambda mod, args: self.eager.append(args[0].shape[0]))
+            module.register_forward_pre_hook(lambda mod, args: self.eager.append(mod))
+        forward = GRAPHS.forward
+
+        def recorded(module, batch):
+            self.replayed.append(module)
+            return forward(module, batch)
+
+        GRAPHS.forward = recorded
 
     def zero(self) -> None:
         from demucs_tpu_torch.inference.engine import GRAPHS, KERNELS
@@ -375,31 +486,28 @@ class Counts:
             kernel.launches = 0
         GRAPHS.reset_counts()
         self.eager.clear()
+        self.replayed.clear()
 
-    def read(self, t_layers: int) -> dict:
+    def read(self) -> dict:
         from demucs_tpu_torch.inference.engine import GRAPHS, KERNELS
 
         launches = {k.__name__: k.launches + GRAPHS.replayed_launches[k.__name__]
                     for k in KERNELS}
-        n_fwd = len(self.eager) + GRAPHS.replays
-        # K1 and K2 once per batched forward; K3 once per attention: 2 branches
-        # x t_layers (5 x 2 = 10 at the released width)
-        want = {"stft_dft": n_fwd, "istft_dft": n_fwd, "flash_mha": 2 * t_layers * n_fwd}
+        forwards = self.eager + self.replayed
+        k12 = sum(hasattr(m.cfg, "nfft") for m in forwards)
+        want = {"stft_dft": k12, "istft_dft": k12,
+                "flash_mha": sum(2 * getattr(m.cfg, "t_layers", 0) for m in forwards)}
         return {"launches": launches, "expected": want, "eager_forwards": len(self.eager),
-                "graph_replays": GRAPHS.replays,
+                "graph_replays": len(self.replayed),
                 "replayed_launches": dict(GRAPHS.replayed_launches),
-                "ok": launches == want and min(launches.values()) > 0}
+                "ok": launches == want and bool(forwards)
+                and len(self.replayed) == GRAPHS.replays}
 
 
 def phase_serving(cpu_model, workdir: Path) -> dict:
     """The three requests on each engine: the device engine (Separator's
     default) and the host engine; each device-engine request's stems against
     the host engine's for the same shift."""
-    import random
-
-    import numpy as np
-    import torch
-
     from demucs_tpu_torch.api import Separator
     from demucs_tpu_torch.models.htdemucs import HTDemucsConfig
     from demucs_tpu_torch.models.registry import Model
@@ -410,54 +518,13 @@ def phase_serving(cpu_model, workdir: Path) -> dict:
     module.cfg = cfg
     save_model(Model("htdemucs", cfg, module), workdir / "htdemucs_smoke.dmx", half=False)
     sep = Separator("htdemucs_smoke", repo=workdir, shifts=1, overlap=0.25, batch_size=16)
-    counts = Counts(sep.model.module)
-    lengths = (30.0, 12.0, 5.0)
-    tracks = [_track(seconds, i) for i, seconds in enumerate(lengths)]
-    # warm-up: cuDNN and cuBLAS set-up, and every graph captured before the counts
-    for engine in ("host", "auto"):
-        sep.update_parameter(engine=engine)
-        for wav in tracks:
-            sep.separate_tensor(wav, SR)
-    info = {"phase": "serving", "engines": {}}
-    last = {}
-    for name, engine in (("device", "auto"), ("host", "host")):
-        sep.update_parameter(engine=engine)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        counts.zero()
-        requests = []
-        for i, (seconds, wav) in enumerate(zip(lengths, tracks)):
-            walls = []
-            for r in range(REPEATS):
-                random.seed(100 * i + r)  # the same shift on both engines
-                start = time.perf_counter()
-                _, stems = sep.separate_tensor(wav, SR)
-                walls.append(time.perf_counter() - start)
-                for stem_name, stem in stems.items():
-                    if stem.shape != wav.shape or not np.isfinite(stem).all():
-                        raise AssertionError(f"{name} request {i}: stem {stem_name} is not "
-                                             "finite or not shaped like the mixture")
-            last[name, i] = stems
-            wall = float(np.median(walls))
-            requests.append({"seconds": seconds, "repeats": REPEATS, "median_wall_s": wall,
-                             "wall_s": walls, "audio_s_per_s": seconds / wall})
-        run = counts.read(cfg.t_layers)
-        run.update(requests=requests,
-                   max_memory_allocated_GiB=torch.cuda.max_memory_allocated() / 2**30)
-        info["engines"][name] = run
-    agree = []
-    for i, seconds in enumerate(lengths):
-        host = np.stack(list(last["host", i].values()))
-        dev = np.stack(list(last["device", i].values()))
-        peak = float(np.abs(host).max())
-        agree.append({"seconds": seconds, "max_abs_err_over_peak":
-                      float(np.abs(dev - host).max()) / peak, "tol": ENGINE_RTOL})
+    info = dict(serve_both_engines(sep, Counts(sep.model.module), (30.0, 12.0, 5.0), seed=0,
+                                   repeats=REPEATS), phase="serving")
     dev_run = info["engines"]["device"]
-    info.update(device_vs_host=agree, forwards=dev_run["graph_replays"],
-                ok=(all(run["ok"] for run in info["engines"].values())
-                    and all(a["max_abs_err_over_peak"] <= ENGINE_RTOL for a in agree)
-                    # the default serving path: every forward a graph replay
-                    and dev_run["eager_forwards"] == 0 and dev_run["graph_replays"] >= 3 * REPEATS))
+    info["forwards"] = dev_run["graph_replays"]
+    # the default serving path: every forward a graph replay
+    info["ok"] = (info["ok"] and dev_run["eager_forwards"] == 0
+                  and dev_run["graph_replays"] >= 3 * REPEATS)
     emit(info)
     if not info["ok"]:
         raise AssertionError(f"serving: launches, engines or graphs wrong: {info}")
@@ -531,7 +598,7 @@ def phase_bag() -> dict:
         start = time.perf_counter()
         out[name] = apply_model(bag, mix, shifts=2, engine=engine, rng=random.Random(7))
         wall = time.perf_counter() - start
-        info[name] = dict(counts.read(cfg.t_layers), wall_s=wall, audio_s_per_s=30.0 / wall)
+        info[name] = dict(counts.read(), wall_s=wall, audio_s_per_s=30.0 / wall)
     peak = float(np.abs(out["host"]).max())
     info["max_abs_err_over_peak"] = float(np.abs(out["device"] - out["host"]).max()) / peak
     info["tol"] = ENGINE_RTOL
@@ -645,6 +712,8 @@ def _kernel_group(name: str) -> str:
         return "K1 stft_dft"
     if "flash_mha_kernel" in low or "kv_image_kernel" in low:
         return "K3 flash_mha"
+    if any(w in low for w in ("rnn", "lstm")):  # cuDNN's LSTM cells and recurrence
+        return "cuDNN RNN (BLSTM)"
     if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "winograd", "implicit")):
         return "convolutions (cuDNN)"
     if any(w in low for w in ("gemm", "cutlass", "cublas")):
@@ -654,72 +723,315 @@ def _kernel_group(name: str) -> str:
     return "other (elementwise, copies, reductions)"
 
 
-def phase_profile(sep) -> dict:
-    """One 30 s and one 5 s request per engine under torch.profiler: device
-    time by kernel group (the stems' copy to the host its own group) and the
-    device's busy share of the request's wall time."""
+def profile_request(sep, wav) -> dict:
+    """One request under torch.profiler (after one unprofiled): device time
+    by kernel group, the top kernels, and the device's busy share of the wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    info = {"phase": "profile"}
-    for (name, engine), seconds in itertools.product((("device", "auto"), ("host", "host")),
-                                                     (30.0, 5.0)):
-        wav = _track(seconds, 0)
-        sep.update_parameter(engine=engine)
+    sep.separate_tensor(wav, SR)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
         sep.separate_tensor(wav, SR)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            start = time.perf_counter()
-            sep.separate_tensor(wav, SR)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - start
-        groups: dict = {}
-        top = []
-        for evt in prof.key_averages():
-            if evt.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            us = evt.self_device_time_total
-            if us <= 0:
-                continue
-            key = _kernel_group(evt.key)
-            groups[key] = groups.get(key, 0.0) + us / 1e3
-            top.append((us / 1e3, evt.count, evt.key[:90]))
-        device_ms = sum(groups.values())
-        info[f"{name} {seconds:.0f} s"] = {
-            "wall_ms": wall * 1e3, "device_ms": device_ms,
+        wall = time.perf_counter() - start
+    groups: dict = {}
+    top = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        if us <= 0:
+            continue
+        key = _kernel_group(evt.key)
+        groups[key] = groups.get(key, 0.0) + us / 1e3
+        top.append((us / 1e3, evt.count, evt.key[:90]))
+    device_ms = sum(groups.values())
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
             "busy_share": device_ms / (wall * 1e3) if device_ms else "not measured",
             "idle_share": 1 - device_ms / (wall * 1e3) if device_ms else "not measured",
             "d2h_copy_ms": groups.get("copy device->host", "not measured"),
             "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
             "top_kernels": [{"ms": ms, "calls": n, "name": key}
                             for ms, n, key in sorted(top, reverse=True)[:12]]}
+
+
+def phase_profile(sep) -> dict:
+    """One 30 s and one 5 s request per engine under torch.profiler: device
+    time by kernel group (the stems' copy to the host its own group) and the
+    device's busy share of the request's wall time."""
+    info = {"phase": "profile"}
+    for (name, engine), seconds in itertools.product((("device", "auto"), ("host", "host")),
+                                                     (30.0, 5.0)):
+        sep.update_parameter(engine=engine)
+        info[f"{name} {seconds:.0f} s"] = profile_request(sep, _track(seconds, 0))
     sep.update_parameter(engine="auto")
     emit(info)
     return info
 
 
-def phase_cli(workdir: Path) -> None:
-    import os
+def family_model(kind: str, seed: int, **kw):
+    """A released-width HDemucs (hdemucs_mmi's shape) or Demucs v2 at the
+    bags' 44 s segment, seeded random weights (the JAX package's numbers for
+    the seed), every LayerScale at 1.0 and random norms, on the CPU."""
+    from demucs_tpu_torch.models import demucs as D
+    from demucs_tpu_torch.models import hdemucs as H
 
-    wav = _track(5.0, 7)
-    track = workdir / "track.wav"
-    with wave.open(str(track), "wb") as w:
+    if kind == "hdemucs":
+        cfg = H.HDemucsConfig(**dict(HDEMUCS, segment=44.0, **kw))
+        return H.init_hdemucs(cfg, seed, layer_scale=1.0, random_norms=True).eval()
+    cfg = D.DemucsConfig(**dict(DEMUCS, segment=44.0, **kw))
+    return D.init_demucs(cfg, seed, layer_scale=1.0, random_norms=True).eval()
+
+
+def phase_family(kind: str, workdir: Path) -> dict:
+    """HDemucs (``kind="hdemucs"``, hdemucs_mmi's shape) or Demucs v2 on the
+    card: the forward against a CPU copy (2 s), then a Separator loaded from
+    a .dmx answering a 30 s and a 60 s request on each engine (the 44 s
+    segment: 30 s is one exact tail, eager; 60 s one graph replay of 2 full
+    windows plus an eager tail), graphs, and one profiled 60 s request each."""
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.inference.engine import GRAPHS
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.zoo.native import save_model
+
+    torch.cuda.reset_peak_memory_stats()
+    cpu_model = family_model(kind, seed=0)
+    info = {"phase": "demucs_v2" if kind == "demucs" else kind,
+            "params_M": sum(p.numel() for p in cpu_model.parameters()) / 1e6,
+            "card_vs_cpu": card_vs_cpu(cpu_model, 2.0)}
+    name = f"{kind}_smoke"
+    save_model(Model(kind, cpu_model.cfg, cpu_model), workdir / f"{name}.dmx", half=False)
+    del cpu_model
+    sep = Separator(name, repo=workdir, shifts=1, overlap=0.25, batch_size=16)
+    counts = Counts(sep.model.module)
+    before = GRAPHS.stats()
+    info["serving"] = serve_both_engines(sep, counts, FAMILY_LENGTHS, seed=70)
+    after = GRAPHS.stats()
+    info["graphs"] = {"captured_here": after["captures"] - before["captures"],
+                      "capture_s": after["capture_s"] - before["capture_s"],
+                      "warmup_s": after["warmup_s"] - before["warmup_s"],
+                      "device_engine_replays": info["serving"]["engines"]["device"][
+                          "graph_replays"],
+                      "device_engine_eager_forwards": info["serving"]["engines"]["device"][
+                          "eager_forwards"],
+                      "eager": "every exact tail (its own length); full windows replay",
+                      "stats": after}
+    info["profile"] = {}
+    for engine_name, engine in (("device", "auto"), ("host", "host")):
+        sep.update_parameter(engine=engine)
+        info["profile"][f"{engine_name} 60 s"] = profile_request(sep, _track(60.0, 0))
+    info["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
+    dev_run = info["serving"]["engines"]["device"]
+    info["ok"] = (info["card_vs_cpu"]["ok"] and info["serving"]["ok"]
+                  and dev_run["graph_replays"] > 0 and dev_run["eager_forwards"] > 0)
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"{kind}: card, engines, launches or graphs wrong")
+    del sep
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_wiener() -> dict:
+    """apply_wiener (1 EM iteration) on the card against the CPU, at one 44 s
+    segment's spectrogram (2048 bins x 1895 frames, 4 sources); and the
+    MDX-era HDemucs (hybrid_old, cac=False: magnitudes through Wiener) with
+    one iteration, card against CPU on 2 s."""
+    import torch
+
+    from demucs_tpu_torch.models.htdemucs import full_fp32
+    from demucs_tpu_torch.ops.wiener import apply_wiener
+
+    gen = torch.Generator().manual_seed(4)
+    mags = torch.rand(1, 4, 2, 2048, 1895, generator=gen) * 10
+    z = torch.complex(torch.randn(1, 2, 2048, 1895, generator=gen),
+                      torch.randn(1, 2, 2048, 1895, generator=gen)) * 10
+    with full_fp32():
+        want = apply_wiener(mags, z, 1)
+        got = apply_wiener(mags.cuda(), z.cuda(), 1)
+        ms = cuda_ms(lambda: apply_wiener(mags.cuda(), z.cuda(), 1), repeat=3, spin=False)
+    rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    info = {"phase": "wiener", "shape": "mags (1, 4, 2, 2048, 1895)", "iterations": 1,
+            "max_abs_err_over_peak": rel, "tol": ENGINE_RTOL, "card_ms": ms,
+            "cac_false_hdemucs": card_vs_cpu(family_model("hdemucs", 1, **MDX_HYBRID,
+                                                          wiener_iters=1), 2.0)}
+    info["ok"] = rel <= ENGINE_RTOL and info["cac_false_hdemucs"]["ok"]
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"wiener on the card vs the CPU: {info}")
+    return info
+
+
+def write_th(folder: Path, sig: str, kind: str, cfg, state: dict) -> Path:
+    """``<folder>/<sig>-<sha256[:8]>.th`` in the reference's format
+    (``demucs/states.py:121-132``): ``torch.save`` of ``{klass, args, kwargs,
+    state, training_args}``, the model class pickled by name from a stub
+    ``demucs.<family>`` module that exists only while the file is written."""
+    import hashlib
+    import io
+    import types
+
+    import torch
+
+    module_name, class_name = {"hdemucs": ("demucs.hdemucs", "HDemucs"),
+                               "demucs": ("demucs.demucs", "Demucs")}[kind]
+    stub = types.ModuleType(module_name)
+    klass = type(class_name, (), {"__module__": module_name})
+    setattr(stub, class_name, klass)
+    added = [name for name in ("demucs", module_name) if name not in sys.modules]
+    sys.modules.setdefault("demucs", types.ModuleType("demucs"))
+    sys.modules[module_name] = stub
+    kwargs = {k: v for k, v in dataclasses.asdict(cfg).items() if k != "sources"}
+    try:
+        buf = io.BytesIO()
+        torch.save({"klass": klass, "args": (list(cfg.sources),), "kwargs": kwargs,
+                    "state": state, "training_args": {}}, buf)
+    finally:
+        for name in added:
+            sys.modules.pop(name, None)
+    data = buf.getvalue()
+    path = folder / f"{sig}-{hashlib.sha256(data).hexdigest()[:8]}.th"
+    path.write_bytes(data)
+    return path
+
+
+def diffq_state(flat: dict, order, min_size_mb: float = 0.2, group: int = 8):
+    """A diffq container (``docs/diffq_format.md``) of ``flat``: parameters of
+    more than ``min_size_mb`` MB as 8-bit levels over each group's [min, max]
+    (uint8 levels, float32 (G, 2) scales, bits per group), in ``order``, the
+    others as float32; and the weights a reader must decode from it."""
+    import numpy as np
+    import torch
+
+    quantized, others, decoded = [], [], {}
+    for name, shape in order:
+        arr = flat[name].astype(np.float32)
+        if arr.size <= int(min_size_mb * 2**20) // 4:
+            others.append(torch.from_numpy(arr))
+            decoded[name] = arr
+            continue
+        g = arr.reshape(-1, group)
+        mn, mx = g.min(-1, keepdims=True), g.max(-1, keepdims=True)
+        span = np.where(mx > mn, mx - mn, 1.0)
+        levels = np.round((g - mn) / span * 255.0).astype(np.uint8)
+        scales = np.concatenate([mn, mx], axis=-1).astype(np.float32)
+        bits = np.full(g.shape[0], 8, np.uint8)
+        quantized.append((torch.from_numpy(levels), torch.from_numpy(scales),
+                          torch.from_numpy(bits)))
+        lo, hi = scales[:, :1].astype(np.float64), scales[:, 1:].astype(np.float64)
+        decoded[name] = (levels / 255.0 * (hi - lo) + lo).astype(np.float32).reshape(shape)
+    state = {"__quantized": True, "quantized": quantized, "others": others, "float16": [],
+             "meta": {"klass": "DiffQuantizer",
+                      "init_kwargs": {"min_size": min_size_mb, "group_size": group}}}
+    return state, decoded
+
+
+def phase_zoo(workdir: Path) -> tuple:
+    """A folder in the reference's formats, with the shape of repro_mdx_a
+    (repo.py:83): two Demucs v2 and two MDX-era HDemucs (hybrid_old, cac=False:
+    Wiener on the path) as .th packages of fp16 weights, the last one
+    diffq-quantized, and a bag file with segment 44. Separator(model=<bag>,
+    repo=folder) on the card: the weights equal the written ones (fp16
+    promoted to fp32, the quantized ones decoded), and a 30 s request gives the
+    same stems on both engines."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.zoo.convert import flat_state
+    from demucs_tpu_torch.zoo.diffq import param_order
+
+    folder = workdir / "zoo"
+    folder.mkdir()
+    sigs, expected = [], []
+    members = [("demucs", {}), ("demucs", {}), ("hdemucs", MDX_HYBRID), ("hdemucs", MDX_HYBRID)]
+    for i, (kind, kw) in enumerate(members):
+        model = family_model(kind, 20 + i, **kw)
+        cfg = dataclasses.replace(model.cfg, segment=40.0)
+        flat = flat_state(model)
+        del model
+        if i == len(members) - 1:
+            state, decoded = diffq_state(flat, param_order(kind, cfg))
+        else:
+            state = {k: torch.from_numpy(v).half() for k, v in flat.items()}
+            decoded = {k: v.astype(np.float16).astype(np.float32) for k, v in flat.items()}
+        sigs.append(f"{i:02d}{kind[:6]}")
+        write_th(folder, sigs[-1], kind, cfg, state)
+        expected.append(decoded)
+    bag = "repro_mdx_a_smoke"
+    (folder / f"{bag}.yaml").write_text(f"models: {sigs}\nsegment: 44\n")
+    start = time.perf_counter()
+    sep = Separator(bag, repo=folder, shifts=1, batch_size=16)
+    load_s = time.perf_counter() - start
+    members_ok = []
+    for model, want in zip(sep.model.models, expected):
+        state = {k: v.cpu().numpy() for k, v in model.module.state_dict().items()}
+        members_ok.append(set(state) == set(want) and all(
+            state[k].dtype == np.float32 and np.array_equal(state[k], want[k]) for k in want))
+    counts = Counts(*(m.module for m in sep.model.models))
+    serving = serve_both_engines(sep, counts, (30.0,), seed=90, repeats=1)
+    info = {"phase": "zoo", "files": sorted(p.name for p in folder.iterdir()), "load_s": load_s,
+            "kinds": [m.kind for m in sep.model.models],
+            "segments": [m.segment for m in sep.model.models],
+            "weights_equal_written": members_ok, "serving": serving}
+    info["ok"] = (all(members_ok) and serving["ok"] and info["segments"] == [44.0] * 4
+                  and info["kinds"] == ["demucs", "demucs", "hdemucs", "hdemucs"])
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"zoo: loading or serving the bag failed: {info}")
+    return info, folder, bag
+
+
+def _write_pcm16(path: Path, wav, samplerate: int) -> None:
+    with wave.open(str(path), "wb") as w:
         w.setnchannels(2)
         w.setsampwidth(2)
-        w.setframerate(SR)
+        w.setframerate(samplerate)
         w.writeframes((wav.T * (2**15 - 1)).astype("<i2").tobytes())
+
+
+def run_cli(workdir: Path, repo: Path, name: str, samplerate: int) -> dict:
+    """``python -m demucs_tpu_torch track.wav -n NAME --repo REPO`` on a 5 s WAV
+    at ``samplerate``: exit code 0 and four 16-bit stems of 5 s at 44.1 kHz."""
+    import os
+
+    import numpy as np
+
+    from demucs_tpu_torch.audio import read_wav
+
+    t = np.arange(5 * samplerate) / samplerate
+    tones = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * np.sin(2 * np.pi * 3000.0 * t)
+    wav = np.stack([tones, 0.8 * tones]).astype(np.float32)
+    track = workdir / f"track{samplerate}.wav"
+    _write_pcm16(track, wav, samplerate)
     out = workdir / "separated"
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     start = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "demucs_tpu_torch", str(track), "--repo",
-                           str(workdir), "-n", "htdemucs_smoke", "-o", str(out)],
+                           str(repo), "-n", name, "-o", str(out)],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    stems = sorted(p.name for p in (out / "htdemucs_smoke" / "track").glob("*.wav"))
-    ok = proc.returncode == 0 and stems == ["bass.wav", "drums.wav", "other.wav", "vocals.wav"]
-    emit({"phase": "cli", "rc": proc.returncode, "stems": stems,
-          "wall_s": time.perf_counter() - start, "ok": ok})
+    stems = sorted((out / name / track.stem).glob("*.wav"))
+    shapes = {p.name: (read_wav(p)[0].shape, read_wav(p)[1]) for p in stems}
+    ok = (proc.returncode == 0
+          and sorted(shapes) == ["bass.wav", "drums.wav", "other.wav", "vocals.wav"]
+          and all(v == ((2, 5 * SR), SR) for v in shapes.values()))
+    info = {"model": name, "input_sr": samplerate, "rc": proc.returncode,
+            "stems": {k: [list(v[0]), v[1]] for k, v in shapes.items()},
+            "wall_s": time.perf_counter() - start, "ok": ok}
     if not ok:
-        raise AssertionError(f"CLI failed:\n{proc.stdout}\n{proc.stderr}")
+        raise AssertionError(f"CLI failed: {info}\n{proc.stdout}\n{proc.stderr}")
+    return info
+
+
+def phase_cli(workdir: Path, zoo: Path, bag: str) -> None:
+    """The CLI with the HTDemucs .dmx at 44.1 kHz, then with the repro_mdx_a-shape
+    bag of .th files on a 48 kHz WAV, which it resamples."""
+    runs = [run_cli(workdir, workdir, "htdemucs_smoke", SR), run_cli(workdir, zoo, bag, 48000)]
+    emit({"phase": "cli", "runs": runs, "ok": all(r["ok"] for r in runs)})
 
 
 def main() -> int:
@@ -754,7 +1066,14 @@ def main() -> int:
         phase_profile(sep)
         del sep
         phase_bag()
-        phase_cli(workdir)
+        paths = {"htdemucs": serving["engines"]["device"]["launches"]}
+        for kind in ("hdemucs", "demucs"):
+            info = phase_family(kind, workdir)
+            paths[info["phase"]] = info["serving"]["engines"]["device"]["launches"]
+        phase_wiener()
+        zoo, zoo_dir, bag = phase_zoo(workdir)
+        paths["repro_mdx_a bag"] = zoo["serving"]["engines"]["device"]["launches"]
+        phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()
         return 1
@@ -764,10 +1083,12 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     kernels = []
     for row in rows:
-        # launches on the main path: Separator's default serving, the device engine
-        row = dict(row, route="cuda",
-                   launches=serving["engines"]["device"]["launches"][row["name"]])
-        kernels.append({k: row[k] for k in keys})
+        # launches on each path (Separator's default serving, the device engine,
+        # counted from 0 over that path's requests); "launches" is their sum
+        by_path = {path: counts[row["name"]] for path, counts in paths.items()}
+        row = dict(row, route="cuda", launches=sum(by_path.values()))
+        kernels.append(dict({k: row[k] for k in keys}, launches_by_path=by_path,
+                            hdemucs_44s=row.get("hdemucs_44s")))
     emit({"kernels": kernels})
     if not all(math.isfinite(k["ms"]) for k in kernels):
         return 1

@@ -16,11 +16,11 @@ from pathlib import Path
 import numpy as np
 
 from demucs_tpu_torch import resolve_device
-from demucs_tpu_torch.audio import read_audio
+from demucs_tpu_torch.audio import convert_audio, read_audio
 from demucs_tpu_torch.inference.apply import apply_model, apply_model_tracks
-from demucs_tpu_torch.zoo.native import get_model
+from demucs_tpu_torch.zoo.pretrained import get_model, list_models
 
-__all__ = ["Separator", "LoadAudioError", "LoadModelError", "NotProvided"]
+__all__ = ["Separator", "LoadAudioError", "LoadModelError", "NotProvided", "list_models"]
 
 
 class LoadAudioError(Exception):
@@ -58,8 +58,11 @@ class Separator:
         length_bucket_seconds: tp.Optional[float] = None,
         tail_mode: str = "exact",
     ):
-        """Load ``<repo>/<model>.dmx`` onto ``device`` and hold the separation
-        parameters (``demucs/api.py:53-122``).
+        """Load the model or bag ``model`` onto ``device`` and hold the
+        separation parameters (``demucs/api.py:53-122``). ``model`` is a bag
+        name or a signature in the folder ``repo`` (``.th``, ``.dmx``, bag
+        ``.yaml``), or in the released registry without one, or
+        ``demucs_unittest`` (``zoo/pretrained.py``).
 
         ``device`` is ``"cuda"`` (default; raises without a card) or
         ``"cpu"``. ``jobs`` is accepted for compatibility: segments run in
@@ -126,14 +129,15 @@ class Separator:
                         ) -> tp.Tuple[np.ndarray, tp.Dict[str, np.ndarray]]:
         """Separate a loaded ``(C, T)`` float32 array (``demucs/api.py:241-291``).
 
-        Returns ``(original, {stem: (C, T) array})``. The mixture is
-        normalized by the mean and std of its mono downmix before separation
-        and the stems are scaled back.
+        Returns ``(original, {stem: (C, T) array})``. Audio at another rate
+        ``sr`` is converted to the model's rate and channels first (so are
+        the original and the stems). The mixture is normalized by the mean
+        and std of its mono downmix before separation and the stems are
+        scaled back.
         """
         wav = np.asarray(wav, dtype=np.float32)
         if sr is not None and sr != self._samplerate:
-            raise ValueError(f"audio at {sr} Hz, model at {self._samplerate} Hz: "
-                             "resampling is not ported yet")
+            wav = convert_audio(wav, sr, self._samplerate, self._audio_channels)
         wav, mean, std = self._normalized(wav)
         callback_arg = dict(self._callback_arg or {})
         callback_arg["audio_length"] = wav.shape[1]

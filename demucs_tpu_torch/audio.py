@@ -1,10 +1,9 @@
 """WAV input and output in numpy (port of the WAV part of ``demucs_tpu/audio.py``).
 
 Reads and writes RIFF/WAVE files (PCM 16/24/32-bit and IEEE float32), with
-the channel conversion and clipping strategies of the reference's
-``demucs/audio.py``. Resampling (``ops/resample.py``) and the FLAC, mp3 and
-libavcodec codecs come with later slices of the port: a file at another
-sample rate than the model's raises.
+the channel conversion, resampling (``ops/resample.py``) and clipping
+strategies of the reference's ``demucs/audio.py``. The FLAC, mp3 and
+libavcodec codecs come with later slices of the port.
 """
 
 from __future__ import annotations
@@ -14,8 +13,11 @@ import typing as tp
 from pathlib import Path
 
 import numpy as np
+import torch
 
-__all__ = ["read_wav", "write_wav", "read_audio", "save_audio",
+from demucs_tpu_torch.ops.resample import resample_frac
+
+__all__ = ["read_wav", "write_wav", "read_audio", "save_audio", "resample", "convert_audio",
            "convert_audio_channels", "prevent_clip"]
 
 
@@ -133,13 +135,25 @@ def convert_audio_channels(wav: np.ndarray, channels: int = 2) -> np.ndarray:
     raise ValueError("The audio file has less channels than requested but is not mono.")
 
 
+def resample(wav: np.ndarray, from_sr: int, to_sr: int) -> np.ndarray:
+    """Resample float32 ``wav (..., T)`` on the host (``resample_frac``)."""
+    if from_sr == to_sr:
+        return wav
+    x = torch.from_numpy(np.ascontiguousarray(wav, dtype=np.float32))
+    return resample_frac(x, from_sr, to_sr).numpy()
+
+
+def convert_audio(wav: np.ndarray, from_samplerate: int, to_samplerate: int,
+                  channels: int) -> np.ndarray:
+    """Channel and rate conversion (``demucs/audio.py:169-172``)."""
+    wav = convert_audio_channels(wav, channels)
+    return resample(wav, from_samplerate, to_samplerate)
+
+
 def read_audio(path, samplerate: tp.Optional[int] = None,
                channels: tp.Optional[int] = None) -> tp.Tuple[np.ndarray, int]:
-    """Read a WAV file -> (float32 ``(C, T)``, sr), converted to ``channels``.
-
-    A sample rate other than ``samplerate`` raises: the resampler is not
-    ported yet.
-    """
+    """Read a WAV file -> (float32 ``(C, T)``, sr), converted to ``channels``
+    and resampled to ``samplerate`` (then the returned sr)."""
     path = Path(path)
     if path.suffix.lower() != ".wav":
         raise ValueError(f"{path}: the port reads WAV files only so far")
@@ -147,8 +161,8 @@ def read_audio(path, samplerate: tp.Optional[int] = None,
     if channels is not None:
         wav = convert_audio_channels(wav, channels)
     if samplerate is not None and samplerate != sr:
-        raise ValueError(f"{path} is at {sr} Hz but the model runs at {samplerate} Hz; "
-                         "resampling is not ported yet")
+        wav = resample(wav, sr, samplerate)
+        sr = samplerate
     return wav, sr
 
 

@@ -24,11 +24,13 @@ of K = ceil(target / stride) segment groups; at overlap <= 0.5 that is the
 host's sum). The geometry is plain Python here: the shift offset is drawn on
 the host, and the JAX engine traces it only to keep one executable per shape.
 
-Kinds whose leaf target depends on the chunk length (HTDemucs without
-``use_train_segment``) run the full windows in the uniform pass and each
-ragged tail chunk at its exact leaf target, eagerly (its shape varies with
-the shift offset); ``tail_mode="uniform"`` pads the tails to the uniform
-target instead (see ``_dispatch_track``).
+Kinds whose leaf target depends on the chunk length (HDemucs, which runs
+the chunk's own length, Demucs v2, its ``valid_length``, and HTDemucs
+without ``use_train_segment``) run the full windows in the uniform pass and
+each ragged tail chunk at its exact leaf target, eagerly (its shape varies
+with the shift offset); ``tail_mode="uniform"`` pads the tails to the
+uniform target instead (see ``_dispatch_track``). Bag members with other
+leaf targets get track buffers of their own.
 
 What the TPU deployment needed and the card does not: the JAX engine splits
 the upload into threaded 3 MB pieces and the fetch into 12 MB slices

@@ -1,7 +1,8 @@
-"""Layers of the hybrid Demucs family (port of ``demucs_tpu/models/hlayers.py``).
+"""Layers of the Demucs families (port of ``demucs_tpu/models/hlayers.py``).
 
-Behavioral reference: ``demucs/hdemucs.py`` (HEncLayer 69-157, HDecLayer
-256-335, ScaledEmbedding 43-66) and ``demucs/demucs.py`` (DConv 86-154).
+Behavioral reference: ``demucs/hdemucs.py`` (HEncLayer 69-157, MultiWrap
+160-253, HDecLayer 256-335, ScaledEmbedding 43-66) and ``demucs/demucs.py``
+(BLSTM 20-67, DConv 86-154, LocalState 157-216).
 
 The spec dataclasses and :func:`build_hybrid_layout` are copies of the JAX
 package's. The layers are ``nn.Module``s whose attribute names and
@@ -9,15 +10,16 @@ package's. The layers are ``nn.Module``s whose attribute names and
 example ``encoder.0.dconv.layers.1.3.weight``), so a flat checkpoint loads
 with ``load_state_dict(strict=True)``. The modules hold the weights and the
 ``forward`` methods apply them through ``demucs_tpu_torch.ops.nn``, call for
-call as the JAX package's ``*_forward`` functions do.
-
-The DConv LSTM and local-attention options and MultiWrap (per-band layer
-replicas) belong to the HDemucs slice of the port and raise until then.
+call as the JAX package's ``*_forward`` functions do. The BLSTM runs its
+``nn.LSTM`` (cuDNN on the card), whose parameter names are the reference's.
+Use :func:`enc_layer` and :func:`dec_layer` to build a layer: they return a
+MultiWrap (one layer replica per frequency band) where the spec asks for one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import typing as tp
 
 import torch
@@ -274,41 +276,137 @@ def _maybe_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return ops.group_norm(x, norm.num_groups, norm.weight, norm.bias)
 
 
+def unfold(x: torch.Tensor, kernel_size: int, stride: int) -> torch.Tensor:
+    """Frames ``(..., T) -> (..., F, kernel_size)`` with ``F = ceil(T / stride)``,
+    the tail zero-padded so that every frame is whole (``demucs/utils.py:20-35``)."""
+    length = x.shape[-1]
+    n_frames = math.ceil(length / stride)
+    x = nn.functional.pad(x, (0, (n_frames - 1) * stride + kernel_size - length))
+    return x.unfold(-1, kernel_size, stride)
+
+
+def _stitch_frames(frames: torch.Tensor, stride: int, length: int) -> torch.Tensor:
+    """Overlapping BLSTM frames ``(B, F, C, width)`` back to ``(B, C, length)``:
+    the first frame without its last ``stride // 2`` steps, the middle ones
+    without ``stride // 2`` on each side, the last without its first
+    (``demucs/demucs.py:55-64``)."""
+    B, nframes, C, width = frames.shape
+    limit = stride // 2
+    middle = frames[:, 1:-1, :, limit:-limit].permute(0, 2, 1, 3).reshape(B, C, -1)
+    out = torch.cat([frames[:, 0, :, :-limit], middle, frames[:, -1, :, limit:]], dim=-1)
+    return out[..., :length]
+
+
+class BLSTM(nn.Module):
+    """Bidirectional LSTM over ``x (B, C, T)`` then a linear map back to C
+    (``demucs/demucs.py:20-67``). With ``max_steps`` a longer input runs as
+    overlapping frames of ``max_steps`` steps at half that stride, stitched
+    back by :func:`_stitch_frames`; ``skip`` adds the input."""
+
+    def __init__(self, dim: int, layers: int = 1, max_steps: tp.Optional[int] = None,
+                 skip: bool = False):
+        super().__init__()
+        self.max_steps = max_steps
+        self.skip = skip
+        self.lstm = nn.LSTM(bidirectional=True, num_layers=layers, hidden_size=dim,
+                            input_size=dim)
+        self.linear = nn.Linear(2 * dim, dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T = x.shape
+        y = x
+        framed = self.max_steps is not None and T > self.max_steps
+        if framed:
+            width = self.max_steps
+            stride = width // 2
+            frames = unfold(x, width, stride)  # (B, C, F, width)
+            nframes = frames.shape[2]
+            x = frames.permute(0, 2, 1, 3).reshape(-1, C, width)
+        x = self.lstm(x.permute(2, 0, 1))[0]  # (T', B', 2C)
+        x = ops.linear(x, self.linear.weight, self.linear.bias).permute(1, 2, 0)
+        if framed:
+            x = _stitch_frames(x.reshape(B, nframes, C, width), stride, T)
+        if self.skip:
+            x = x + y
+        return x
+
+
+class LocalState(nn.Module):
+    """Content-based local attention with a decaying time penalty
+    (``demucs/demucs.py:157-216``), ``x (B, C, T)``; each step's own position
+    is masked with -100. Plain products (cuBLAS on the card), as the JAX
+    package's einsums."""
+
+    def __init__(self, channels: int, heads: int = 4, ndecay: int = 4):
+        super().__init__()
+        self.heads = heads
+        self.ndecay = ndecay
+        self.content = nn.Conv1d(channels, channels, 1)
+        self.query = nn.Conv1d(channels, channels, 1)
+        self.key = nn.Conv1d(channels, channels, 1)
+        if ndecay:
+            self.query_decay = nn.Conv1d(channels, heads * ndecay, 1)
+        self.proj = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, T = x.shape
+        heads = self.heads
+
+        def conv(mod: nn.Conv1d, v: torch.Tensor) -> torch.Tensor:
+            return ops.conv1d(v, mod.weight, mod.bias)
+
+        queries = conv(self.query, x).reshape(B, heads, -1, T)
+        keys = conv(self.key, x).reshape(B, heads, -1, T)
+        dots = torch.einsum("bhct,bhcs->bhts", keys, queries) / math.sqrt(keys.shape[2])
+        if self.ndecay:
+            indexes = torch.arange(T, device=x.device, dtype=x.dtype)
+            delta = (indexes[:, None] - indexes[None, :]).abs()
+            decays = torch.arange(1, self.ndecay + 1, device=x.device, dtype=x.dtype)
+            decay_q = torch.sigmoid(conv(self.query_decay, x).reshape(B, heads, -1, T)) / 2
+            decay_kernel = -decays[:, None, None] * delta / math.sqrt(self.ndecay)
+            dots = dots + torch.einsum("fts,bhfs->bhts", decay_kernel, decay_q)
+        eye = torch.eye(T, dtype=torch.bool, device=x.device)
+        dots = dots.masked_fill(eye, -100.0)
+        weights = torch.softmax(dots, dim=2)
+        content = conv(self.content, x).reshape(B, heads, -1, T)
+        result = torch.einsum("bhts,bhct->bhcs", weights, content).reshape(B, -1, T)
+        return x + conv(self.proj, result)
+
+
 class DConv(nn.Module):
     """Residual dilated-conv branch (``demucs/demucs.py:86-154``), ``x (B, C, T)``.
 
     ``layers[d]`` is a Sequential with the reference's indices: 0 conv1,
-    1 norm1, 2 GELU, 3 conv2, 4 norm2, 5 GLU, 6 LayerScale. The modules hold
-    the weights; ``forward`` applies them through ``ops.nn``, as
+    1 norm1, 2 GELU, then the BLSTM (``lstm``) and LocalState (``attn``)
+    where the spec has them, then conv2, norm2, GLU and LayerScale. The
+    modules hold the weights; ``forward`` applies them through ``ops.nn``, as
     ``dconv_forward`` does in the JAX package.
     """
 
     def __init__(self, s: DConvSpec):
         super().__init__()
-        if s.lstm or s.attn:
-            raise NotImplementedError(
-                "DConv LSTM / local attention come with the HDemucs slice of the port")
         self.spec = s
         hidden = int(s.channels / s.compress)
         layers = []
         for d in range(abs(s.depth)):
             dilation = 2 ** d if s.dilate else 1
             padding = dilation * (s.kernel // 2)
-            layers.append(nn.Sequential(
-                nn.Conv1d(s.channels, hidden, s.kernel, dilation=dilation, padding=padding),
-                _norm(s.norm, 1, hidden),
-                nn.GELU() if s.gelu else nn.ReLU(),
-                nn.Conv1d(hidden, 2 * s.channels, 1),
-                _norm(s.norm, 1, 2 * s.channels),
-                nn.GLU(1),
-                LayerScale(s.channels, s.init),
-            ))
+            mods = [nn.Conv1d(s.channels, hidden, s.kernel, dilation=dilation, padding=padding),
+                    _norm(s.norm, 1, hidden), nn.GELU() if s.gelu else nn.ReLU()]
+            if s.lstm:
+                mods.append(BLSTM(hidden, layers=2, max_steps=200, skip=True))
+            if s.attn:
+                mods.append(LocalState(hidden, heads=s.heads, ndecay=s.ndecay))
+            mods += [nn.Conv1d(hidden, 2 * s.channels, 1), _norm(s.norm, 1, 2 * s.channels),
+                     nn.GLU(1), LayerScale(s.channels, s.init)]
+            layers.append(nn.Sequential(*mods))
         self.layers = nn.ModuleList(layers)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         s = self.spec
         act = ops.gelu if s.gelu else torch.relu
-        for d, (conv1, norm1, _, conv2, norm2, _, scale) in enumerate(self.layers):
+        for d, layer in enumerate(self.layers):
+            conv1, norm1, _, *middle, conv2, norm2, _, scale = layer
             dilation = 2 ** d if s.dilate else 1
             # One step per line, so that each intermediate is freed as soon
             # as the next exists (as in Sequential.forward): these are the
@@ -317,6 +415,8 @@ class DConv(nn.Module):
                            padding=dilation * (s.kernel // 2))
             y = _maybe_norm(norm1, y)
             y = act(y)
+            for mod in middle:  # BLSTM, then LocalState
+                y = mod(y)
             y = ops.conv1d(y, conv2.weight, conv2.bias)
             y = _maybe_norm(norm2, y)
             y = ops.glu(y, axis=1)
@@ -341,7 +441,7 @@ class HEncLayer(nn.Module):
     def __init__(self, s: EncSpec):
         super().__init__()
         if s.multi_freqs:
-            raise NotImplementedError("MultiWrap comes with the HDemucs slice of the port")
+            raise ValueError("a spec with multi_freqs makes a MultiWrap: use enc_layer")
         self.spec = s
         if s.freq:
             self.conv = nn.Conv2d(s.chin, s.chout, (s.kernel, 1), (s.stride, 1), (s.pad, 0))
@@ -400,7 +500,7 @@ class HDecLayer(nn.Module):
     def __init__(self, s: DecSpec):
         super().__init__()
         if s.multi_freqs:
-            raise NotImplementedError("MultiWrap comes with the HDemucs slice of the port")
+            raise ValueError("a spec with multi_freqs makes a MultiWrap: use dec_layer")
         self.spec = s
         if s.freq:
             self.conv_tr = nn.ConvTranspose2d(s.chin, s.chout, (s.kernel, 1), (s.stride, 1))
@@ -464,6 +564,99 @@ class HDecLayer(nn.Module):
         if not s.last:
             z = ops.gelu(z)
         return z, y
+
+
+class MultiWrapEnc(nn.Module):
+    """Encoder MultiWrap (``demucs/hdemucs.py:160-224``): the frequency axis
+    split into bands at ``multi_freqs`` (then the rest), each band through its
+    own unpadded replica with explicit edge padding, the outputs concatenated.
+    The band limits are the JAX package's arithmetic (hlayers.py:537-568)."""
+
+    def __init__(self, s: EncSpec):
+        super().__init__()
+        self.spec = s
+        sub = dataclasses.replace(s, multi_freqs=(), pad=0)
+        self.layers = nn.ModuleList(HEncLayer(sub) for _ in range(len(s.multi_freqs) + 1))
+
+    def forward(self, x: torch.Tensor, inject: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        if inject is not None:
+            raise ValueError("a MultiWrap layer takes no injection")
+        s = self.spec
+        Fr = x.shape[2]
+        pad = s.kernel // 4
+        start = 0
+        outs = []
+        for layer, ratio in zip(self.layers, list(s.multi_freqs) + [1]):
+            if ratio == 1:
+                limit = Fr
+            else:
+                limit = int(round(Fr * ratio))
+                le = limit - start
+                if start == 0:
+                    le += pad
+                frames = round((le - s.kernel) / s.stride + 1)
+                limit = start + (frames - 1) * s.stride + s.kernel
+                if start == 0:
+                    limit -= pad
+            if not (0 < limit - start and limit <= Fr):
+                raise AssertionError((start, limit, Fr))
+            y = x[:, :, start:limit, :]
+            if start == 0:
+                y = nn.functional.pad(y, (0, 0, pad, 0))
+            if ratio == 1:
+                y = nn.functional.pad(y, (0, 0, 0, pad))
+            outs.append(layer(y))
+            start = limit - s.kernel + s.stride
+        return torch.cat(outs, dim=2)
+
+
+class MultiWrapDec(nn.Module):
+    """Decoder MultiWrap (``demucs/hdemucs.py:226-253``): per-band transposed
+    convolutions, unpadded and without their own GELU, stitched at the band
+    edges: each band's first ``stride`` rows are added to the previous band's
+    last ones, less the bias counted twice. ``forward`` returns ``(z, None)``."""
+
+    def __init__(self, s: DecSpec):
+        super().__init__()
+        self.spec = s
+        sub = dataclasses.replace(s, multi_freqs=(), pad=0, last=True)
+        self.layers = nn.ModuleList(HDecLayer(sub) for _ in range(len(s.multi_freqs) + 1))
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                length: int) -> tp.Tuple[torch.Tensor, None]:
+        s = self.spec
+        Fr = x.shape[2]
+        start = 0
+        outs: tp.List[torch.Tensor] = []
+        for layer, ratio in zip(self.layers, list(s.multi_freqs) + [1]):
+            limit = Fr if ratio == 1 else int(round(Fr * ratio))
+            out, _ = layer(x[:, :, start:limit], skip[:, :, start:limit], length)
+            if outs:
+                bias = layer.conv_tr.bias.reshape(1, -1, 1, 1)
+                prev = outs[-1]
+                edge = prev[:, :, -s.stride:] + out[:, :, :s.stride] - bias
+                outs[-1] = torch.cat([prev[:, :, :-s.stride], edge], dim=2)
+                out = out[:, :, s.stride:]
+            if ratio == 1:
+                out = out[:, :, :-s.stride // 2, :]
+            if start == 0:
+                out = out[:, :, s.stride // 2:, :]
+            outs.append(out)
+            start = limit
+        out = torch.cat(outs, dim=2)
+        if not s.last:
+            out = ops.gelu(out)
+        return out, None
+
+
+def enc_layer(s: EncSpec) -> nn.Module:
+    """The encoder layer of spec ``s``: a MultiWrap where ``s.multi_freqs`` is set."""
+    return MultiWrapEnc(s) if s.multi_freqs else HEncLayer(s)
+
+
+def dec_layer(s: DecSpec) -> nn.Module:
+    """The decoder layer of spec ``s``: a MultiWrap where ``s.multi_freqs`` is set."""
+    return MultiWrapDec(s) if s.multi_freqs else HDecLayer(s)
 
 
 class ScaledEmbedding(nn.Module):

@@ -8,7 +8,8 @@ STFT (K1) -> complex-as-channels -> dual encoders -> cross-transformer (K3)
 -> dual decoders -> iSTFT (K2) + time branch.
 
 Ported: ``cac=True`` in fp32. ``cac=False`` (magnitude masks and Wiener
-filtering), any ``compute_dtype`` other than ``"float32"``, ``bf16_stages``,
+filtering) and ``multi_freqs``, which HDemucs runs, are not wired into this
+model yet; they, any ``compute_dtype`` other than ``"float32"``, ``bf16_stages``,
 ``precision_stages`` and ``matmul_precision`` come with later slices and
 raise. ``t_flash_attn`` has no effect: the transformer always takes K3.
 
@@ -160,6 +161,7 @@ def transformer_spec(cfg: HTDemucsConfig) -> TransformerSpec:
 def _check_supported(cfg: HTDemucsConfig) -> None:
     later = {
         "cac=False (magnitude masks, Wiener filtering)": not cfg.cac,
+        "multi_freqs (MultiWrap)": bool(cfg.multi_freqs),
         f"compute_dtype={cfg.compute_dtype!r}": cfg.compute_dtype != "float32",
         "bf16_stages": bool(cfg.bf16_stages),
         "precision_stages": bool(cfg.precision_stages),
@@ -173,7 +175,7 @@ def _check_supported(cfg: HTDemucsConfig) -> None:
 
 @contextlib.contextmanager
 def full_fp32():
-    """TF32 off for cuDNN convolutions and cuBLAS matmuls; restored on exit."""
+    """TF32 off for cuDNN convolutions and RNNs and for cuBLAS matmuls; restored on exit."""
     mm = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:

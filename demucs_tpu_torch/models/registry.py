@@ -3,8 +3,8 @@
 ``Model`` pairs a config dataclass with its ``nn.Module`` and exposes the
 metadata surface of the reference's models (``sources``, ``samplerate``,
 ``audio_channels``, ``segment``, ``valid_length``); ``BagOfModels`` is the
-weighted ensemble (``demucs/apply.py:29-79``). Only HTDemucs is ported in
-this slice.
+weighted ensemble (``demucs/apply.py:29-79``). :data:`FAMILIES` maps each
+kind (htdemucs, hdemucs, demucs) to its config and module classes.
 """
 
 from __future__ import annotations
@@ -14,10 +14,30 @@ import typing as tp
 
 import torch
 
+from demucs_tpu_torch.models import demucs as m_d
+from demucs_tpu_torch.models import hdemucs as m_h
+from demucs_tpu_torch.models import htdemucs as m_ht
+
+
+# model kind -> (config dataclass, ``nn.Module`` class)
+FAMILIES: tp.Dict[str, tp.Tuple[type, type]] = {
+    "htdemucs": (m_ht.HTDemucsConfig, m_ht.HTDemucs),
+    "hdemucs": (m_h.HDemucsConfig, m_h.HDemucs),
+    "demucs": (m_d.DemucsConfig, m_d.Demucs)}
+
+
+def build_module(kind: str, cfg) -> torch.nn.Module:
+    """The module of ``kind`` for ``cfg``, with the constructor's weights."""
+    try:
+        _, module_cls = FAMILIES[kind]
+    except KeyError:
+        raise ValueError(f"unknown model kind {kind!r}") from None
+    return module_cls(cfg)
+
 
 @dataclasses.dataclass
 class Model:
-    kind: str  # "htdemucs"
+    kind: str  # "htdemucs" | "hdemucs" | "demucs"
     cfg: tp.Any
     module: torch.nn.Module
 
@@ -39,7 +59,7 @@ class Model:
 
     @segment.setter
     def segment(self, value: float) -> None:
-        # the module pads to its config's training length: both change together
+        # HTDemucs pads to its config's training length: both change together
         self.cfg = dataclasses.replace(self.cfg, segment=value)
         self.module.cfg = self.cfg
 
@@ -51,10 +71,17 @@ class Model:
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
 
+    def to(self, device) -> "Model":
+        self.module.to(device)
+        return self
+
     def valid_length(self, length: int) -> int:
-        """Leaf padding target (apply.py:302-309 dispatch)."""
+        """Leaf padding target (apply.py:302-309 dispatch): Demucs v2 pads to
+        its ``valid_length``, HDemucs runs the natural length."""
+        if self.kind == "demucs":
+            return m_d.valid_length(self.cfg, length)
         if self.kind != "htdemucs":
-            raise NotImplementedError(f"{self.kind!r} comes with a later slice of the port")
+            return length
         if self.cfg.use_train_segment:
             training_length = int(self.cfg.segment * self.cfg.samplerate)
             if training_length < length:
@@ -76,7 +103,11 @@ class BagOfModels:
     """Weighted ensemble (apply.py:29-79)."""
 
     def __init__(self, models: tp.Sequence[Model],
-                 weights: tp.Optional[tp.Sequence[tp.Sequence[float]]] = None):
+                 weights: tp.Optional[tp.Sequence[tp.Sequence[float]]] = None,
+                 segment: tp.Optional[float] = None):
+        """``segment`` (a bag definition's) raises the segment of every member
+        that is not HTDemucs to it, never lowers it (apply.py:50-56: the
+        reference checks the class, so an HTDemucs keeps its own)."""
         if not models:
             raise ValueError("a bag needs at least one model")
         first = models[0]
@@ -84,6 +115,8 @@ class BagOfModels:
             if (other.sources != first.sources or other.samplerate != first.samplerate
                     or other.audio_channels != first.audio_channels):
                 raise ValueError("bag members must share sources, samplerate and channels")
+            if segment is not None and other.kind != "htdemucs" and segment > other.segment:
+                other.segment = segment
         self.audio_channels = first.audio_channels
         self.samplerate = first.samplerate
         self.sources = first.sources
@@ -94,6 +127,17 @@ class BagOfModels:
                                                 for w in weights):
             raise ValueError("bag weights must be one list per model, one weight per source")
         self.weights = [list(w) for w in weights]
+
+    @property
+    def max_allowed_segment(self) -> float:
+        """The longest segment every member takes: the least HTDemucs segment."""
+        segments = [m.segment for m in self.models if m.kind == "htdemucs"]
+        return float(min(segments, default=float("inf")))
+
+    def to(self, device) -> "BagOfModels":
+        for model in self.models:
+            model.to(device)
+        return self
 
 
 AnyModel = tp.Union[Model, BagOfModels]

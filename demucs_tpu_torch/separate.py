@@ -1,9 +1,13 @@
 """CLI: separate the sources of the given WAV tracks
 (port of ``demucs_tpu/separate.py``; behavioral reference ``demucs/separate.py``).
 
-    python -m demucs_tpu_torch track.wav --repo DIR -n NAME [-o OUT] [-d cuda|cpu]
+    python -m demucs_tpu_torch track.wav -n NAME [--repo DIR] [-o OUT] [-d cuda|cpu]
+    python -m demucs_tpu_torch --list-models [--repo DIR]
 
-Models load from a local folder of ``.dmx`` files (``--repo``). Stems are
+``NAME`` (or ``-s SIG``) is a bag name or a model signature, in the folder
+``--repo`` (``.th``, ``.dmx`` and bag ``.yaml`` files) or, without it, in the
+released registry (download cache); ``demucs_unittest`` needs neither. A
+track at another sample rate is resampled to the model's. Stems are
 written as WAV to ``OUT/NAME/{track}/{stem}.wav`` by default. On the card
 the tracks go through the device-resident engine (``--engine auto``), one
 after the other with each track's copy to the host overlapping the next
@@ -18,8 +22,10 @@ from pathlib import Path
 
 import numpy as np
 
-from demucs_tpu_torch.api import LoadAudioError, LoadModelError, Separator
+from demucs_tpu_torch.api import LoadAudioError, LoadModelError, Separator, list_models
 from demucs_tpu_torch.audio import save_audio
+from demucs_tpu_torch.models.registry import BagOfModels
+from demucs_tpu_torch.zoo.pretrained import add_model_flags
 
 
 def fatal(msg: str) -> None:
@@ -30,11 +36,10 @@ def fatal(msg: str) -> None:
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         "demucs_tpu_torch", description="Separate the sources for the given tracks")
-    parser.add_argument("tracks", nargs="+", type=Path, help="Path to WAV tracks")
-    parser.add_argument("-n", "--name", default="htdemucs",
-                        help="Model name: <repo>/<name>.dmx. Default is htdemucs.")
-    parser.add_argument("--repo", type=Path, required=True,
-                        help="Folder holding the .dmx models.")
+    parser.add_argument("tracks", nargs="*", type=Path, default=[], help="Path to WAV tracks")
+    add_model_flags(parser)
+    parser.add_argument("--list-models", action="store_true",
+                        help="List the models and bags of the repo and exit.")
     parser.add_argument("-o", "--out", type=Path, default=Path("separated"),
                         help="Folder for the stems; a subfolder with the model name "
                         "is created.")
@@ -68,9 +73,9 @@ def get_parser() -> argparse.ArgumentParser:
                         "host on the CPU.")
     parser.add_argument("--tail-mode", default="exact", choices=["exact", "uniform"],
                         help="Ragged tail chunks on the device engine for models whose "
-                        "padding depends on the chunk length (HTDemucs without "
-                        "use_train_segment): exact (default) runs each at its own length "
-                        "as the reference does; uniform pads it to the full segment.")
+                        "padding depends on the chunk length (HDemucs, Demucs v2, HTDemucs "
+                        "without use_train_segment): exact (default) runs each at its own "
+                        "length as the reference does; uniform pads it to the full segment.")
     parser.add_argument("--length-bucket", type=float, default=None, metavar="SECONDS",
                         help="Pad each track with zeros to a multiple of this length on the "
                         "device engine, so tracks of other lengths share graphs (only the "
@@ -88,11 +93,21 @@ def get_parser() -> argparse.ArgumentParser:
 
 def main(opts=None):
     args = get_parser().parse_args(opts)
+    if args.list_models:
+        models = list_models(args.repo)
+        print("Bag of models:", end="\n    ")
+        print("\n    ".join(models["bag"]))
+        print("Single models:", end="\n    ")
+        print("\n    ".join(models["single"]))
+        return
+    if not args.tracks:
+        fatal("error: the following arguments are required: tracks")
+    name = args.sig or args.name
     wire = args.wire
     if wire == "auto":
         wire = "float16" if args.float32 or args.int24 else "int16"
     try:
-        separator = Separator(model=args.name, repo=args.repo, device=args.device,
+        separator = Separator(model=name, repo=args.repo, device=args.device,
                               shifts=args.shifts, split=args.split, overlap=args.overlap,
                               segment=args.segment, batch_size=args.batch_size,
                               engine=args.engine,
@@ -101,14 +116,18 @@ def main(opts=None):
                               tail_mode=args.tail_mode)
     except LoadModelError as error:
         fatal(str(error))
-    max_segment = separator.model.segment
+    model = separator.model
+    if isinstance(model, BagOfModels):
+        max_segment = model.max_allowed_segment
+    else:
+        max_segment = model.segment if model.kind == "htdemucs" else float("inf")
     if args.segment is not None and args.segment > max_segment:
         fatal("Cannot use a Transformer model with a longer segment than it was trained "
               f"for. Maximum segment is: {max_segment}")
     if args.stem is not None and args.stem not in separator.model.sources:
         fatal(f'error: stem "{args.stem}" is not in selected model. STEM must be one of '
               f'{", ".join(separator.model.sources)}.')
-    out = args.out / args.name
+    out = args.out / name
     out.mkdir(parents=True, exist_ok=True)
     print(f"Separated tracks will be stored in {out.resolve()}")
     kwargs = {"samplerate": separator.samplerate, "as_float": args.float32,

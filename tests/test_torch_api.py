@@ -22,7 +22,7 @@ from demucs_tpu_torch.api import LoadAudioError, LoadModelError, Separator
 from demucs_tpu_torch.audio import read_wav
 from demucs_tpu_torch.models.registry import Model
 from demucs_tpu_torch.separate import main
-from demucs_tpu_torch.zoo import native
+from demucs_tpu_torch.zoo import native, pretrained
 
 from test_torch_apply import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -98,7 +98,7 @@ def test_cli_two_stems(repo, tmp_path):
 
 
 def test_port_dmx_roundtrip_and_loading_errors(repo, tmp_path, monkeypatch):
-    model = native.get_model("tiny", repo, device="cpu")
+    model = pretrained.get_model("tiny", repo, device="cpu")
     assert isinstance(model, Model) and model.kind == "htdemucs"
     path = native.save_model(model, tmp_path / "copy.dmx", half=False)
     again = native.load_native_model(path, device="cpu")

@@ -289,3 +289,69 @@ def test_pipelined_tracks_equal_single_calls_on_card(cuda):
     got = list(engine.device_separate_tracks(model, tracks, batch_size=2,
                                              rng=random.Random(8)))
     assert all(torch.equal(torch.from_numpy(g), torch.from_numpy(w)) for g, w in zip(got, want))
+
+
+def _family_model(kind, seed=7, **kw):
+    """The released HDemucs (hdemucs_mmi's shape) or Demucs v2 widths, unit
+    LayerScales and random norms, on the CPU."""
+    from demucs_tpu_torch.models import demucs as D
+    from demucs_tpu_torch.models import hdemucs as H
+
+    if kind == "hdemucs":
+        cfg = H.HDemucsConfig(channels=48, depth=6, nfft=4096, segment=44, **kw)
+        return H.init_hdemucs(cfg, seed, layer_scale=1.0, random_norms=True).eval()
+    cfg = D.DemucsConfig(channels=64, depth=6, segment=44, **kw)
+    return D.init_demucs(cfg, seed, layer_scale=1.0, random_norms=True).eval()
+
+
+@pytest.mark.parametrize("kind,kw", [("hdemucs", {}), ("demucs", {}),
+                                     ("hdemucs", dict(hybrid_old=True, cac=False,
+                                                      wiener_iters=1))])
+def test_hdemucs_and_demucs_card_match_cpu(cuda, kind, kw):
+    """A 1.5 s input through the released widths: cuDNN's LSTM and the
+    LocalState products with TF32 off, 2e-4 x peak of the CPU forward."""
+    import copy
+
+    model = _family_model(kind, **kw)
+    mix = _randn(1, 2, 66150, seed=50, device="cpu") * 0.1
+    with torch.inference_mode():
+        want = model(mix)
+        got = copy.deepcopy(model).to(cuda)(mix.to(cuda)).cpu()
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["hdemucs", "demucs"])
+def test_lstm_forward_graph_replay_matches_eager(cuda, kind):
+    """A CUDA graph captured around cuDNN's LSTM (BLSTM in the DConv branches)
+    replays the eager forward at a 10 s segment, batch 2."""
+    from demucs_tpu_torch.inference.engine import GraphCache
+    from demucs_tpu_torch.models.demucs import valid_length
+
+    module = _family_model(kind, seed=3).to(cuda)
+    length = 441000 if kind == "hdemucs" else valid_length(module.cfg, 441000)
+    mix = _randn(2, 2, length, seed=51) * 0.1
+    graphs = GraphCache()
+    with torch.inference_mode():
+        want = module(mix).clone()
+        got = graphs.forward(module, mix).clone()
+    assert graphs.captures == 1 and graphs.replays == 1
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+def test_wiener_and_resampler_card_match_cpu(cuda):
+    from demucs_tpu_torch.ops.resample import resample_frac
+    from demucs_tpu_torch.ops.wiener import apply_wiener
+
+    g = torch.Generator().manual_seed(52)
+    mags = torch.rand(1, 4, 2, 512, 400, generator=g) * 20
+    z = torch.complex(torch.randn(1, 2, 512, 400, generator=g),
+                      torch.randn(1, 2, 512, 400, generator=g)) * 20
+    want = apply_wiener(mags, z, 2)
+    got = apply_wiener(mags.to(cuda), z.to(cuda), 2).cpu()
+    assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+    x = _randn(2, 2, 48000, seed=53, device="cpu")
+    for old, new in ((1, 2), (2, 1), (48000, 44100)):
+        want = resample_frac(x, old, new)
+        got = resample_frac(x.to(cuda), old, new).cpu()
+        assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()

@@ -156,3 +156,68 @@ def test_registry_segment_and_train_segment(pair, pair_exact):
     assert tm.segment == 0.25 and tm.module.cfg.segment == 0.25
     assert tm.valid_length(100) == 2000  # the module pads to the new training length
     assert engine._graph_state(tm.module) != state  # a captured graph is stale now
+
+
+def _family_pair(kind, seed):
+    """(JAX Model, port Model) of a small HDemucs or Demucs v2 (BLSTM and
+    LocalState from depth 4 and 3) at 8 kHz, segment 0.5 s, with the same
+    weights (the port's seeded init is the JAX package's)."""
+    import dataclasses
+
+    from demucs_tpu.models import demucs as jd
+    from demucs_tpu.models import hdemucs as jh
+    from demucs_tpu.models.registry import Model as JaxModel
+    from demucs_tpu_torch.models import demucs as td
+    from demucs_tpu_torch.models import hdemucs as th
+    from demucs_tpu_torch.models.registry import Model
+
+    sources = ("drums", "bass", "other", "vocals")
+    if kind == "hdemucs":
+        jcfg = jh.HDemucsConfig(sources=sources, channels=8, nfft=1024, samplerate=8000,
+                                segment=0.5)
+        jparams, tcfg = jh.init_hdemucs(jcfg, seed), th.HDemucsConfig(**dataclasses.asdict(jcfg))
+        module = th.init_hdemucs(tcfg, seed)
+    else:
+        jcfg = jd.DemucsConfig(sources=sources, channels=8, depth=4, samplerate=8000,
+                               segment=0.5, dconv_lstm=3, dconv_attn=3)
+        jparams, tcfg = jd.init_demucs(jcfg, seed), td.DemucsConfig(**dataclasses.asdict(jcfg))
+        module = td.init_demucs(tcfg, seed)
+    return JaxModel(kind, jcfg, jparams), Model(kind, tcfg, module.eval())
+
+
+@pytest.mark.parametrize("kind,segments,shifts", [("hdemucs", 1.3, 1), ("demucs", 2.3, 2),
+                                                  ("demucs", 0.7, 0)])
+def test_hdemucs_and_demucs_match_jax_and_host(kind, segments, shifts):
+    """Exact tails: each ragged tail chunk at its own leaf target (HDemucs the
+    chunk's length, Demucs v2 its valid_length), as the host engine pads it."""
+    jm, tm = _family_pair(kind, 3)
+    mix = _mix(segments, seed=4)
+    kw = dict(shifts=shifts, batch_size=2)
+    want = jeng.device_apply_model(jm, mix, rng=random.Random(8), **kw)
+    got = engine.device_apply_model(tm, mix, rng=random.Random(8), **kw)
+    _close(got, want)
+    host = apply_model(tm, mix, engine="host", rng=random.Random(8), **kw)
+    _close(got, host)
+
+
+def test_mixed_kind_bag_with_segment_override_matches_jax():
+    """HTDemucs, HDemucs and Demucs v2 in one bag whose segment (0.75 s)
+    raises the two others' 0.5 s, on one track with per-source weights: each
+    leaf target gets its own track buffer."""
+    from demucs_tpu.models.registry import BagOfModels as JaxBag
+    from demucs_tpu_torch.models.registry import BagOfModels
+
+    pairs = [_pair(7), _family_pair("hdemucs", 4), _family_pair("demucs", 5)]
+    weights = [[1.0, 0.5, 0.0, 1.0], [0.5, 1.0, 1.0, 0.0], [1.0, 1.0, 1.0, 2.0]]
+    jbag = JaxBag([p[0] for p in pairs], weights, segment=0.75)
+    bag = BagOfModels([p[1] for p in pairs], weights, segment=0.75)
+    assert [m.segment for m in bag.models] == [m.segment for m in jbag.models] == [0.5, 0.75,
+                                                                                   0.75]
+    mix = _mix(1.4, seed=6)
+    want = jeng.device_apply_model(jbag, mix, shifts=1, batch_size=2, rng=random.Random(9))
+    got = engine.device_apply_model(bag, mix, shifts=1, batch_size=2, rng=random.Random(9))
+    _close(got, want)
+    host = apply_model(bag, mix, engine="host", shifts=1, batch_size=2, rng=random.Random(9))
+    _close(got, host)
+    staged = engine.stage_track(bag, mix, shifts=1)
+    assert len(staged) == 3  # one buffer per (segment, leaf target)

@@ -8,7 +8,7 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 1. device   — the card (nvidia-smi name and power limit, printed as is on a
               line of its own) and the build of every CUDA kernel from
               demucs_tpu_torch/csrc, one nvcc per source, in parallel.
-2. kernels  — K1 (STFT), K2 (iSTFT) and K3 (attention) at the shapes the
+2. kernels  — K1 (STFT), K2 (iSTFT) and K3 (attention, fp32 and bf16) at the shapes the
               released HTDemucs gives them for one 7.8 s segment, on the card,
               against their plain PyTorch versions on the same inputs with TF32
               off; also at the shapes of the served 6-segment batch. K2 at each
@@ -16,7 +16,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               time tokens, self and cross) at both batches, each at 64 and 128
               query rows per block, and with a keep-mask whose first key tile
               and one query row are fully masked. K1 and K2 also at one and two
-              44 s HDemucs segments (1899 frames).
+              44 s HDemucs segments (1899 frames). K3's bf16 route: one S and
+              one P V tile alone (exact bf16 products), then the four shapes
+              at both batches on bf16 inputs against the plain version,
+              beside SDPA in bf16.
               Times the kernel, the plain version and one PyTorch library call
               computing the same function (yardstick only: the port never calls
               it), with CUDA events. Then drops the plain versions' cached dense
@@ -77,11 +80,25 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               diffq-quantized, and a bag file (segment 44): Separator(model=bag,
               repo=folder) on the card holds the written weights, and a 30 s
               request gives the same stems on both engines.
-10. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
+10. engines — the device engine against the host engine past one segment
+              (HDemucs and Demucs v2 at 60 s, the bag at 30 s, a pinned shift):
+              as served, each engine twice, and with the same windows per
+              forward under deterministic cuDNN; one full window's forward at
+              B = 1, B = 2 and from a graph at B = 2.
+11. presets — default, fast, balanced and quality (presets.py) on HTDemucs
+              (released widths, 30 s, median of 5) and on HDemucs and Demucs v2
+              (30 s, median of 3), device engine: audio-s/s, SER against the
+              family's fp32 forward (bounded per preset), peak memory, the
+              graph pool, launches (K3's bf16 route on HTDemucs's fast path).
+12. prewarm — HDemucs at 30 and 60 s, each part on a model loaded anew:
+              random shifts, a cold pinned offset, then prewarm() and requests
+              with the pinned set it warmed (no capture after it).
+13. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
               then -n <bag> --repo <folder> on a 48 kHz WAV (resampled).
 
-Then the ``kernels`` line (each kernel's launches on every path: HTDemucs,
-HDemucs, Demucs v2 and the bag; ``launches`` is their sum) and, last,
+Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, each kernel's
+launches on every path: HTDemucs, HDemucs, Demucs v2, the bag and each
+family's presets; ``launches`` is their sum) and, last,
 ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
 CUDA cores, 495 TFLOP/s in TF32 on the tensor cores and 3.35 TB/s of HBM;
@@ -95,7 +112,9 @@ lays out is its own cost, not the function's) and its route's operations,
 three TF32 products per matmul on the tensor cores (3xTF32, which keeps fp32
 accuracy): 3 x 4 B H Tq Tk d over 495 TFLOP/s. Beside it, each K3 shape
 also gives ``fn_bound_ms``, the function's own 4 B H Tq Tk d operations at
-the TF32 peak, which no fp32-accurate route reaches.
+the TF32 peak, which no fp32-accurate route reaches. K3's bf16 route counts
+4 B H Tq Tk d over 989 TFLOP/s (bf16 on the tensor cores) against its bf16
+bytes.
 """
 
 from __future__ import annotations
@@ -115,12 +134,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores, dense
+BF16_FLOPS = 989e12  # H100 SXM, bf16 on the tensor cores, dense
 HBM_BYTES = 3.35e12  # H100 SXM HBM3
 SR = 44100
 RELEASED = dict(channels=48, depth=4, nfft=4096, t_layers=5, t_heads=8, dconv_mode=3,
                 bottom_channels=512, samplerate=SR)
 KERNEL_RTOL = 1e-4  # K1/K2: max |kernel - plain| <= 1e-4 x peak |plain| (fp32 sums of 4096+ terms)
 K3_ATOL = 2e-5  # K3: max |kernel - plain| (the card test's atol; 1xTF32 would miss it 20-30x)
+# K3's bf16 route: |kernel - plain| <= atol + rtol |plain|, a few bf16 steps of the output
+# (tests/test_torch_attention.py BF16_FLASH, met by the model of the kernel's arithmetic)
+K3_BF16_TOL = 2.0 ** -6
 MODEL_RTOL = 2e-4  # card vs CPU forward, x peak (the repo's golden tolerance)
 ENGINE_RTOL = 1e-5  # device engine vs host engine stems, x peak (the CPU tests' bound)
 GRAPH_RTOL = 1e-6  # graph replay vs eager forward, x peak (the same kernels and inputs)
@@ -195,7 +218,7 @@ def phase_kernels() -> list:
     import torch
 
     from demucs_tpu_torch.kernels import stft as KS
-    from demucs_tpu_torch.models.htdemucs import full_fp32
+    from demucs_tpu_torch.models.htdemucs import precision_scope
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -258,7 +281,7 @@ def phase_kernels() -> list:
         torch.cuda.empty_cache()
         return row
 
-    with full_fp32():
+    with precision_scope(None):
         for name, fn, replaces, library in (
                 ("stft_dft", k1, "demucs_tpu/ops/pallas/stft.py:61", "torch.stft(center=False)"),
                 ("istft_dft", k2, "demucs_tpu/ops/pallas/stft.py:137",
@@ -276,10 +299,12 @@ def phase_kernels() -> list:
         KS._istft_basis.cache_clear()
         torch.cuda.empty_cache()
         rows.append(k3_checks(gen))
+        rows.append(k3_bf16_checks(gen))
     for row in rows:
         if "bound_ms" not in row:
             row["bound_ms"], row["bound_by"] = bound(row["flops"], row["bytes"])
-        row["ok"] = row["max_abs_err"] <= row["tol"] and row.get("ok_6", True)
+        row["ok"] = (row.get("within_tol", row["max_abs_err"] <= row["tol"])
+                     and row.get("ok_6", True))
     emit({"phase": "kernels", "rows": rows})
     bad = [r["name"] for r in rows if not r["ok"]]
     if bad:
@@ -355,6 +380,78 @@ def k3_checks(gen) -> dict:
         fn_bound_rule="max(4 B H Tq Tk d / 495 TFLOP/s, the same bytes / 3.35 TB/s)",
         rows=KA.BLOCK_ROWS, by_shape=by_shape,
         rows_sweep_ms=sweep, shape="q, k, v (1, 2688, 512), 8 heads (freq self)")
+
+
+def k3_bf16_checks(gen) -> dict:
+    """K3's bf16 route: first one S tile and one P V tile alone (the bring-up
+    check of its tile image and fragment maps: exact bf16 products in fp32),
+    then the four shapes at both batches on bf16 inputs against the plain
+    version on the same inputs (the JAX dense path's rounding), timed beside
+    SDPA in bf16 (yardstick only), and the masked case."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.kernels import attention as KA
+
+    dev = torch.device("cuda")
+    tiles = {}
+    for d in KA.HEAD_DIMS:
+        q, k, v = (torch.randn(64, d, device=dev, generator=gen).bfloat16() for _ in range(3))
+        p = torch.rand(64, 64, device=dev, generator=gen)
+        s_tile, o_tile = KA.bf16_tiles(q, k, v, p)
+        want_s, want_o = q.double() @ k.double().T, p.bfloat16().double() @ v.double()
+        tiles[f"d={d}"] = {
+            "S_err_over_peak": ((s_tile - want_s).abs().max() / want_s.abs().max()).item(),
+            "PV_err_over_peak": ((o_tile - want_o).abs().max() / want_o.abs().max()).item()}
+    tiles_ok = all(max(t.values()) <= 1e-5 for t in tiles.values())
+    C, H = 512, 8
+    d = C // H
+    tokens = {"freq": 2688, "time": 1344}
+    by_shape, excess = {}, 0.0
+    for batch in (1, 6):
+        for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
+                                 ("time", "freq")):
+            Tq, Tk = tokens[tq_name], tokens[tk_name]
+            q, k, v = (torch.randn(batch, T, C, device=dev, generator=gen).bfloat16()
+                       for T in (Tq, Tk, Tk))
+            got, want = KA.flash_mha(q, k, v, H).float(), KA.flash_mha_plain(q, k, v, H).float()
+            err = (got - want).abs()
+            excess = max(excess, (err - K3_BF16_TOL * (1 + want.abs())).max().item())
+            split = [t.view(batch, -1, H, d).transpose(1, 2) for t in (q, k, v)]
+            flops = 4 * batch * H * Tq * Tk * d
+            b_ms, b_by = bound(flops, 2 * 2 * batch * (Tq + Tk) * C, BF16_FLOPS)
+            key = f"B={batch} {tq_name}<-{tk_name}"
+            by_shape[key] = dict(max_abs_err=err.max().item(),
+                                 ms=cuda_ms(lambda: KA.flash_mha(q, k, v, H)),
+                                 sdpa_bf16_ms=cuda_ms(
+                                     lambda: F.scaled_dot_product_attention(*split)),
+                                 bound_ms=b_ms, bound_by=b_by)
+            if key == "B=1 freq<-freq":
+                by_shape[key]["plain_ms"] = cuda_ms(lambda: KA.flash_mha_plain(q, k, v, H))
+    q, k, v = (torch.randn(1, 2688, C, device=dev, generator=gen).bfloat16() for _ in range(3))
+    mask = torch.ones(2688, 2688, dtype=torch.bool, device=dev)
+    mask[:, :KA.KEY_TILE] = False
+    mask[7] = False
+    got = KA.flash_mha(q, k, v, H, mask=mask).float()
+    want = KA.flash_mha_plain(q, k, v, H, mask=mask).float()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)) or not torch.isnan(got[0, 7]).all():
+        raise AssertionError("K3 bf16: masked rows do not give NaN where the plain version does")
+    fin = torch.isfinite(want)
+    excess = max(excess, ((got[fin] - want[fin]).abs()
+                          - K3_BF16_TOL * (1 + want[fin].abs())).max().item())
+    main = by_shape["B=1 freq<-freq"]
+    return dict(
+        name="flash_mha_bf16", tol=K3_BF16_TOL, tol_rule="atol = rtol = 2**-6",
+        max_abs_err=max(r["max_abs_err"] for r in by_shape.values()),
+        within_tol=excess <= 0 and tiles_ok, tiles=tiles,
+        source="demucs_tpu_torch/csrc/flash_mha.cu",
+        replaces="demucs_tpu/ops/pallas/attention.py:103",
+        ms=main["ms"], plain_ms=main["plain_ms"], library_ms=main["sdpa_bf16_ms"],
+        library="F.scaled_dot_product_attention (bf16)",
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        bound_rule="max(4 B H Tq Tk d / 989 TFLOP/s (bf16 on the tensor cores), "
+                   "bytes of q, k, v and o in bf16 moved once / 3.35 TB/s)",
+        by_shape=by_shape, shape="q, k, v (1, 2688, 512) bf16, 8 heads (freq self)")
 
 
 def card_vs_cpu(cpu_model, seconds: float, seed: int = 1) -> dict:
@@ -453,6 +550,13 @@ def _track(seconds: float, seed: int):
     return (np.stack([tones, 0.8 * tones]) + noise).astype(np.float32)
 
 
+def _bf16_attention(module) -> bool:
+    """Whether the module's attention takes K3's bf16 route (a bf16 transformer stage)."""
+    from demucs_tpu_torch.models.htdemucs import _bf16_stage_set
+
+    return hasattr(module.cfg, "bf16_stages") and "transformer" in _bf16_stage_set(module.cfg)
+
+
 class Counts:
     """The kernels' launches on one path: the wrappers' counts (eager launches)
     plus each graph replay's captured launches, both zeroed by ``zero()``;
@@ -461,8 +565,9 @@ class Counts:
     follows from its module's config: K1 and K2 once if it has a spectrogram
     (``nfft``: not Demucs v2), K3 once per attention, 2 branches x
     ``t_layers`` (10 at the released HTDemucs width, 0 without a
-    transformer). The counted run must capture nothing: a capture calls the
-    module twice and launches once."""
+    transformer), on its bf16 route where the transformer stage is bf16.
+    The counted run must capture nothing: a capture calls the module twice
+    and launches once."""
 
     def __init__(self, *modules):
         from demucs_tpu_torch.inference.engine import GRAPHS
@@ -495,8 +600,10 @@ class Counts:
                     for k in KERNELS}
         forwards = self.eager + self.replayed
         k12 = sum(hasattr(m.cfg, "nfft") for m in forwards)
+        attn = [(2 * getattr(m.cfg, "t_layers", 0), _bf16_attention(m)) for m in forwards]
         want = {"stft_dft": k12, "istft_dft": k12,
-                "flash_mha": sum(2 * getattr(m.cfg, "t_layers", 0) for m in forwards)}
+                "flash_mha": sum(n for n, bf16 in attn if not bf16),
+                "flash_mha_bf16": sum(n for n, bf16 in attn if bf16)}
         return {"launches": launches, "expected": want, "eager_forwards": len(self.eager),
                 "graph_replays": len(self.replayed),
                 "replayed_launches": dict(GRAPHS.replayed_launches),
@@ -843,14 +950,14 @@ def phase_wiener() -> dict:
     one iteration, card against CPU on 2 s."""
     import torch
 
-    from demucs_tpu_torch.models.htdemucs import full_fp32
+    from demucs_tpu_torch.models.htdemucs import precision_scope
     from demucs_tpu_torch.ops.wiener import apply_wiener
 
     gen = torch.Generator().manual_seed(4)
     mags = torch.rand(1, 4, 2, 2048, 1895, generator=gen) * 10
     z = torch.complex(torch.randn(1, 2, 2048, 1895, generator=gen),
                       torch.randn(1, 2, 2048, 1895, generator=gen)) * 10
-    with full_fp32():
+    with precision_scope(None):
         want = apply_wiener(mags, z, 1)
         got = apply_wiener(mags.cuda(), z.cuda(), 1)
         ms = cuda_ms(lambda: apply_wiener(mags.cuda(), z.cuda(), 1), repeat=3, spin=False)
@@ -986,6 +1093,251 @@ def phase_zoo(workdir: Path) -> tuple:
     return info, folder, bag
 
 
+def _stems(sep, wav, seed: int = 7):
+    """One request's stems as an array, the shift drawn after ``random.seed(seed)``."""
+    import random
+
+    import numpy as np
+
+    random.seed(seed)
+    return np.stack(list(sep.separate_tensor(wav, SR)[1].values()))
+
+
+def _ser_db(ref, out):
+    """Signal-to-error ratio in dB, or "bit-equal"."""
+    import numpy as np
+
+    err = float(np.sum((ref.astype(np.float64) - out) ** 2))
+    return "bit-equal" if err == 0 else 10 * math.log10(float(np.sum(ref.astype(np.float64) ** 2))
+                                                         / err)
+
+
+def phase_engines(workdir: Path, zoo: Path, bag: str) -> dict:
+    """C1: the device and host engines past one segment. HDemucs and Demucs v2
+    at 60 s (one full 44 s window, then an eager tail) and the
+    repro_mdx_a-shape bag at 30 s, with a pinned shift offset:
+
+    - as served (batch_size 16): the device engine replays the full window in
+      a graph of 2 (one slot empty), the host engine runs it alone;
+    - each engine twice: is each deterministic?
+    - the same composition (batch_size 1: every forward one window, graph or
+      eager) under cudnn.deterministic=True and benchmark=False;
+    - one full window's forward eager at B = 1, eager at B = 2 (beside a zero
+      window) and replayed from a graph at B = 2: the batch shape's effect."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.inference.engine import GRAPHS
+
+    info = {"phase": "engines", "shift_offsets": [2500]}
+    cases = (("hdemucs", "hdemucs_smoke", workdir, 60.0),
+             ("demucs_v2", "demucs_smoke", workdir, 60.0),
+             ("repro_mdx_a bag", bag, zoo, 30.0))
+    ok = True
+    for label, name, repo, seconds in cases:
+        wav = _track(seconds, 110)
+        sep = Separator(name, repo=repo, shifts=1, batch_size=16, shift_offsets=(2500,))
+
+        def run(engine, batch_size):
+            sep.update_parameter(engine=engine, batch_size=batch_size)
+            return _stems(sep, wav)
+
+        served = {e: run(e, 16) for e in ("auto", "host")}
+        again = {e: run(e, 16) for e in ("auto", "host")}
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                        allow_tf32=False):
+            same = {e: run(e, 1) for e in ("auto", "host")}
+        peak = float(np.abs(served["host"]).max())
+
+        def diff(a, b):
+            return {"bit_equal": bool(np.array_equal(a, b)),
+                    "max_abs_err_over_peak": float(np.abs(a - b).max()) / peak}
+
+        case = {"seconds": seconds, "served (batch 16)": diff(served["auto"], served["host"]),
+                "device twice": diff(served["auto"], again["auto"]),
+                "host twice": diff(served["host"], again["host"]),
+                "same composition (batch 1), deterministic cuDNN": diff(same["auto"],
+                                                                        same["host"])}
+        model = sep.model.models[0] if hasattr(sep.model, "models") else sep.model
+        if label != "repro_mdx_a bag":
+            target = model.leaf_target(int(model.segment * SR), None)
+            window = torch.from_numpy(wav[None, :, :target]).cuda()
+            with torch.inference_mode():
+                b1 = model.module(window)[0]
+                pair = torch.cat([window, torch.zeros_like(window)])
+                b2 = model.module(pair)[0]
+                graph = GRAPHS.forward(model.module, pair)[0].clone()
+            fpeak = b1.abs().max().item()
+            case["one window"] = {
+                "eager B=1 vs eager B=2": (b1 - b2).abs().max().item() / fpeak,
+                "eager B=2 vs graph B=2": (b2 - graph).abs().max().item() / fpeak}
+        errs = [v["max_abs_err_over_peak"] for v in case.values() if isinstance(v, dict)
+                and "max_abs_err_over_peak" in v]
+        ok = ok and max(errs) <= ENGINE_RTOL
+        info[label] = case
+        del sep
+        torch.cuda.empty_cache()
+    info["tol"] = ENGINE_RTOL
+    info["ok"] = ok
+    emit(info)
+    if not ok:
+        raise AssertionError(f"engines: device and host differ beyond {ENGINE_RTOL} x peak")
+    return info
+
+
+PRESETS = ("default", "fast", "balanced", "quality")
+# Least SER of each preset's forward against the same family's fp32 forward on
+# the card, in dB (tests/test_torch_cuda.py::test_presets_ser_on_card states
+# the same): default and quality are the fp32 forward itself; balanced rounds
+# every convolution, LSTM and product operand to TF32's 10-bit mantissa; fast
+# stores HTDemucs's core in bf16 (7 bits), and leaves the other families fp32.
+PRESET_SER_DB = {"default": 100.0, "quality": 100.0, "balanced": 30.0, "fast": 20.0}
+
+
+def phase_presets(workdir: Path) -> tuple:
+    """Each preset on each family, through Separator(compute_dtype=,
+    matmul_precision=, transfer_dtype=) as the CLI's --preset resolves it for
+    16-bit WAV output: HTDemucs (released widths, 7.8 s segment) at 30 s,
+    median of 5; HDemucs and Demucs v2 (44 s segment) at 30 s, median of 3;
+    the device engine after one warm-up request. Per preset: audio-s/s, the
+    SER of its forward (float32 wire) and of its served stems against the
+    family's fp32 forward (the default preset) for the same shift, peak
+    allocated memory (and the requests' own, above what was allocated before
+    them), the graph pool, the kernels' launches."""
+    import warnings
+
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.inference.engine import GRAPHS
+    from demucs_tpu_torch.presets import resolve_preset
+
+    info = {"phase": "presets", "ser_bounds_db": PRESET_SER_DB}
+    paths = {}
+    ok = True
+    for label, name, repeats in (("htdemucs", "htdemucs_smoke", REPEATS),
+                                 ("hdemucs", "hdemucs_smoke", FAMILY_REPEATS),
+                                 ("demucs_v2", "demucs_smoke", FAMILY_REPEATS)):
+        wav = _track(30.0, 120)
+        ref = None
+        family = {}
+        for preset in PRESETS:
+            compute_dtype, matmul_precision, wire, _ = resolve_preset(preset, "auto")
+            wire = "int16" if wire == "auto" else wire  # the CLI's rule for 16-bit WAV
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                sep = Separator(name, repo=workdir, shifts=1, batch_size=16,
+                                compute_dtype=compute_dtype, matmul_precision=matmul_precision,
+                                transfer_dtype=None if wire == "float32" else wire)
+            counts = Counts(sep.model.module)
+            _stems(sep, wav)  # warm-up: captures the graphs
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            counts.zero()
+            walls = []
+            for _ in range(repeats):
+                start = time.perf_counter()
+                served = _stems(sep, wav)
+                walls.append(time.perf_counter() - start)
+            run = counts.read()
+            peak = torch.cuda.max_memory_allocated()
+            sep.update_parameter(transfer_dtype=None)
+            exact = _stems(sep, wav)
+            if preset == "default":
+                ref = exact
+            # fast leaves the other families fp32: held to the default's bound
+            bound_db = PRESET_SER_DB["default" if preset == "fast" and label != "htdemucs"
+                                     else preset]
+            ser = _ser_db(ref, exact)
+            wall = sorted(walls)[len(walls) // 2]
+            row = {"compute_dtype": compute_dtype, "matmul_precision": matmul_precision,
+                   "wire": wire, "median_wall_s": wall, "wall_s": walls,
+                   "audio_s_per_s": 30.0 / wall, "ser_db_forward": ser,
+                   "ser_db_served": _ser_db(ref, served), "ser_bound_db": bound_db,
+                   "max_memory_allocated_GiB": peak / 2**30,
+                   # above what was allocated before the requests (weights, earlier phases)
+                   "request_peak_GiB": (peak - held) / 2**30,
+                   "pool_GiB": (GRAPHS.pool_bytes() or 0) / 2**30,
+                   "warned": [str(w.message)[:80] for w in caught],
+                   "launches": run["launches"], "launches_ok": run["ok"]}
+            row["ok"] = run["ok"] and (ser == "bit-equal" or ser >= bound_db)
+            if preset == "fast" and label == "htdemucs":
+                row["ok"] = row["ok"] and run["launches"]["flash_mha_bf16"] > 0
+            ok = ok and row["ok"]
+            family[preset] = row
+            paths[f"{label} {preset}"] = run["launches"]
+            del sep, counts
+            torch.cuda.empty_cache()
+        info[label] = family
+    info["ok"] = ok
+    emit(info)
+    if not ok:
+        raise AssertionError("presets: a preset's SER, launches or route is wrong")
+    return info, paths
+
+
+COLD_OFFSET = 1234  # samples; a shift offset no earlier request drew
+PREWARM_OFFSETS = (4321, 17000)  # the pinned set prewarm() warms
+
+
+def phase_prewarm(workdir: Path) -> dict:
+    """HDemucs (44 s segment, exact tails) at 30 and 60 s on the device engine,
+    each part on a model loaded anew (its CUDA graphs not captured yet): 3
+    requests of each length with random shifts (each tail a new length);
+    1 request of each with a pinned offset (cold); prewarm() with another
+    pinned set, then 3 requests of each with it."""
+    import random
+
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.inference.engine import GRAPHS
+
+    lengths = (30.0, 60.0)
+    tracks = {s: _track(s, 130 + i) for i, s in enumerate(lengths)}
+
+    def walls(sep, n, seed=None):
+        out = {}
+        for s in lengths:
+            out[f"{s:.0f} s"] = []
+            for r in range(n):
+                if seed is not None:
+                    random.seed(seed + r)
+                start = time.perf_counter()
+                sep.separate_tensor(tracks[s], SR)
+                out[f"{s:.0f} s"].append(time.perf_counter() - start)
+        return out
+
+    def fresh(offsets=None):
+        return Separator("hdemucs_smoke", repo=workdir, shifts=1, batch_size=16,
+                         shift_offsets=offsets)
+
+    info = {"phase": "prewarm", "model": "hdemucs (44 s segment)"}
+    sep = fresh()
+    info["random shifts"] = walls(sep, 3, seed=2000)
+    sep = fresh((COLD_OFFSET,))
+    info[f"pinned, cold (offset {COLD_OFFSET})"] = walls(sep, 1)
+    sep = fresh(PREWARM_OFFSETS)
+    captures = GRAPHS.captures
+    start = time.perf_counter()
+    info["report"] = sep.prewarm(list(lengths))
+    info["prewarm_s"] = time.perf_counter() - start
+    info["captures_in_prewarm"] = GRAPHS.captures - captures
+    captures = GRAPHS.captures
+    info[f"pinned after prewarm (offsets {PREWARM_OFFSETS})"] = walls(sep, 3)
+    info["captures_after_prewarm"] = GRAPHS.captures - captures
+    info["ok"] = (info["captures_in_prewarm"] > 0 and info["captures_after_prewarm"] == 0
+                  and all(r["tails_warmed"] for r in info["report"]))
+    del sep
+    torch.cuda.empty_cache()
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"prewarm: requests after it captured graphs: {info}")
+    return info
+
+
 def _write_pcm16(path: Path, wav, samplerate: int) -> None:
     with wave.open(str(path), "wb") as w:
         w.setnchannels(2)
@@ -1073,6 +1425,10 @@ def main() -> int:
         phase_wiener()
         zoo, zoo_dir, bag = phase_zoo(workdir)
         paths["repro_mdx_a bag"] = zoo["serving"]["engines"]["device"]["launches"]
+        phase_engines(workdir, zoo_dir, bag)
+        _, preset_paths = phase_presets(workdir)
+        paths.update(preset_paths)
+        phase_prewarm(workdir)
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()
@@ -1083,8 +1439,9 @@ def main() -> int:
             "bound_ms", "bound_by", "library_ms")
     kernels = []
     for row in rows:
-        # launches on each path (Separator's default serving, the device engine,
-        # counted from 0 over that path's requests); "launches" is their sum
+        # launches on each path (Separator's default serving and each preset, the
+        # device engine, counted from 0 over that path's requests); "launches" is
+        # their sum
         by_path = {path: counts[row["name"]] for path, counts in paths.items()}
         row = dict(row, route="cuda", launches=sum(by_path.values()))
         kernels.append(dict({k: row[k] for k in keys}, launches_by_path=by_path,

@@ -5,8 +5,10 @@ The JAX package ``demucs_tpu`` stays the reference. This package imports
 JAX package, and its three TPU kernels (STFT, iSTFT, flash attention) are
 CUDA C++ kernels for ``sm_90a`` under ``csrc/``, built at their first CUDA
 call (``demucs_tpu_torch.kernels._build``). It runs the three model families
-(HTDemucs, HDemucs, Demucs v2) and loads the reference's ``.th`` packages,
-``.dmx`` archives and bag definitions (``zoo/``).
+(HTDemucs, HDemucs, Demucs v2) under the JAX package's precision policies
+(``presets.py``; ``models/htdemucs.py::precision_scope``) and loads the
+reference's ``.th`` packages, ``.dmx`` archives and bag definitions
+(``zoo/``).
 
 Entry points run on the card (``"cuda"``) unless the caller asks for the CPU;
 asking for ``"cuda"`` without a card raises.

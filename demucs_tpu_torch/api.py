@@ -18,6 +18,7 @@ import numpy as np
 from demucs_tpu_torch import resolve_device
 from demucs_tpu_torch.audio import convert_audio, read_audio
 from demucs_tpu_torch.inference.apply import apply_model, apply_model_tracks
+from demucs_tpu_torch.models.registry import AnyModel, BagOfModels, Model, reconfigured
 from demucs_tpu_torch.zoo.pretrained import get_model, list_models
 
 __all__ = ["Separator", "LoadAudioError", "LoadModelError", "NotProvided", "list_models"]
@@ -36,6 +37,44 @@ class _NotProvided:
 
 
 NotProvided = _NotProvided()
+
+
+def _apply_precision(model: AnyModel, compute_dtype: tp.Optional[str],
+                     matmul_precision: tp.Optional[str] = None) -> AnyModel:
+    """A loaded model (or bag) under a precision policy (the presets,
+    ``presets.py``): each member re-configured by :func:`reconfigured`.
+
+    ``matmul_precision`` applies to every family; ``compute_dtype`` (the bf16
+    storage of the fast preset) exists only on HTDemucs: a loud warning says
+    so where it cannot take effect, so the preset banner's contract is never
+    silently wrong for a family."""
+    import warnings
+
+    def one(m: Model) -> Model:
+        delta = {}
+        if compute_dtype:
+            if hasattr(m.cfg, "compute_dtype"):
+                if m.cfg.compute_dtype != compute_dtype:
+                    delta["compute_dtype"] = compute_dtype
+            else:
+                warnings.warn(
+                    f"compute_dtype={compute_dtype!r} has no effect on {m.kind!r} models "
+                    "(only HTDemucs has the bf16-storage knob); this member keeps its "
+                    "default numerics", stacklevel=3)
+        if matmul_precision:
+            if hasattr(m.cfg, "matmul_precision"):
+                if m.cfg.matmul_precision != matmul_precision:
+                    delta["matmul_precision"] = matmul_precision
+            else:
+                warnings.warn(
+                    f"matmul_precision={matmul_precision!r} has no effect on {m.kind!r} "
+                    "models; this member keeps its default numerics", stacklevel=3)
+        return reconfigured(m, **delta) if delta else m
+
+    if isinstance(model, BagOfModels):
+        # the members' segments are already the bag's: no segment override here
+        return BagOfModels([one(m) for m in model.models], model.weights)
+    return one(model)
 
 
 class Separator:
@@ -57,6 +96,9 @@ class Separator:
         transfer_dtype: tp.Optional[str] = None,
         length_bucket_seconds: tp.Optional[float] = None,
         tail_mode: str = "exact",
+        compute_dtype: tp.Optional[str] = None,
+        matmul_precision: tp.Optional[str] = None,
+        shift_offsets: tp.Optional[tp.Sequence[int]] = None,
     ):
         """Load the model or bag ``model`` onto ``device`` and hold the
         separation parameters (``demucs/api.py:53-122``). ``model`` is a bag
@@ -67,8 +109,11 @@ class Separator:
         ``device`` is ``"cuda"`` (default; raises without a card) or
         ``"cpu"``. ``jobs`` is accepted for compatibility: segments run in
         batches of ``batch_size`` instead. ``engine``, ``transfer_dtype``,
-        ``length_bucket_seconds`` and ``tail_mode`` are ``apply_model``'s; the
-        default wire (None) is bit-exact.
+        ``length_bucket_seconds``, ``tail_mode`` and ``shift_offsets`` (a
+        pinned set of shift offsets, consumed in order) are ``apply_model``'s;
+        the default wire (None) is bit-exact. ``compute_dtype`` and
+        ``matmul_precision`` re-configure the loaded model's precision policy
+        (the presets, ``presets.py``; ``models/htdemucs.py::precision_scope``).
         """
         self._name = model
         self._repo = repo
@@ -77,6 +122,8 @@ class Separator:
             self._model = get_model(model, repo, device=self._device)
         except (OSError, ValueError, RuntimeError) as err:
             raise LoadModelError(f"Failed to load model {model!r}: {err}") from err
+        if compute_dtype or matmul_precision:
+            self._model = _apply_precision(self._model, compute_dtype, matmul_precision)
         self._audio_channels = self._model.audio_channels
         self._samplerate = self._model.samplerate
         self.update_parameter(shifts=shifts, overlap=overlap, split=split, segment=segment,
@@ -84,22 +131,24 @@ class Separator:
                               callback_arg=callback_arg, batch_size=batch_size, engine=engine,
                               transfer_dtype=transfer_dtype,
                               length_bucket_seconds=length_bucket_seconds,
-                              tail_mode=tail_mode)
+                              tail_mode=tail_mode, shift_offsets=shift_offsets)
 
     def update_parameter(self, shifts=NotProvided, overlap=NotProvided, split=NotProvided,
                          segment=NotProvided, jobs=NotProvided, progress=NotProvided,
                          callback=NotProvided, callback_arg=NotProvided,
                          batch_size=NotProvided, engine=NotProvided,
                          transfer_dtype=NotProvided, length_bucket_seconds=NotProvided,
-                         tail_mode=NotProvided):
+                         tail_mode=NotProvided, shift_offsets=NotProvided):
         """Update separation parameters (``demucs/api.py:124-201``)."""
+        if shift_offsets is not None and not isinstance(shift_offsets, _NotProvided):
+            shift_offsets = tuple(int(o) for o in shift_offsets)
         for name, value in dict(shifts=shifts, overlap=overlap, split=split,
                                 segment=segment, jobs=jobs, progress=progress,
                                 callback=callback, callback_arg=callback_arg,
                                 batch_size=batch_size, engine=engine,
                                 transfer_dtype=transfer_dtype,
                                 length_bucket_seconds=length_bucket_seconds,
-                                tail_mode=tail_mode).items():
+                                tail_mode=tail_mode, shift_offsets=shift_offsets).items():
             if not isinstance(value, _NotProvided):
                 setattr(self, f"_{name}", value)
 
@@ -109,7 +158,7 @@ class Separator:
                     batch_size=self._batch_size, engine=self._engine,
                     transfer_dtype=self._transfer_dtype,
                     length_bucket_seconds=self._length_bucket_seconds,
-                    tail_mode=self._tail_mode)
+                    tail_mode=self._tail_mode, shift_offsets=self._shift_offsets)
 
     def _normalized(self, wav: np.ndarray) -> tp.Tuple[np.ndarray, float, float]:
         """The mixture normalized by the mean and std of its mono downmix."""
@@ -187,6 +236,22 @@ class Separator:
             yield file, norm * (std + 1e-8) + mean, dict(zip(self._model.sources, out[0]))
         if load_error:
             raise load_error[0]
+
+    def prewarm(self, durations, verbose: bool = False) -> tp.List[dict]:
+        """Run every shape this Separator's configuration needs for tracks of
+        the given duration(s) once, before traffic: on the card every CUDA
+        graph of the full windows is captured and, with ``shift_offsets``
+        pinned, every exact-tail shape runs (``inference/prewarm.py``).
+        Returns the per-duration report of ``prewarm.prewarm``
+        (``tails_warmed=False`` flags random shifts on exact-tail kinds)."""
+        from demucs_tpu_torch.inference.prewarm import prewarm
+
+        return prewarm(self._model, durations, shifts=self._shifts,
+                       shift_offsets=self._shift_offsets, overlap=self._overlap,
+                       segment=self._segment, batch_size=self._batch_size, engine=self._engine,
+                       transfer_dtype=self._transfer_dtype,
+                       length_bucket_seconds=self._length_bucket_seconds,
+                       tail_mode=self._tail_mode, verbose=verbose)
 
     @property
     def samplerate(self):

@@ -1,6 +1,7 @@
-// K3: multi-head attention over projected q/k/v with an online softmax, fp32
-// in and out, both products on the tensor cores (sm_90a wgmma) in the
-// three-term TF32 split.
+// K3: multi-head attention over projected q/k/v with an online softmax, both
+// products on the tensor cores (sm_90a wgmma). Two routes: fp32 in and out
+// in the three-term TF32 split (below), and bf16 in and out with one bf16
+// product each (flash_mha_bf16_kernel, further down).
 //
 // Replaces demucs_tpu/ops/pallas/attention.py: flash_mha (kernel _attn_kernel).
 //
@@ -62,6 +63,7 @@
 //   other's products run. Templated on D in {32, 48, 64} and NWG in {1, 2}
 //   (64 or 128 query rows per block).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -408,6 +410,322 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
              : launch<D, 2>(q, k, v, mask, image, o, B, Tq, Tk, H, q_scale, stream);
 }
 
+// ===========================================================================
+// The bf16 route: q, k, v and o in bf16, every sum and the softmax in fp32.
+//
+// Bound: operations, 4 Tq Tk D flops per head at the dense bf16 rate (989
+// TFLOP/s), one wgmma product each where the fp32 route needs three.
+//
+// Design (what 16-bit wgmma changes against the fp32 route):
+// - No layout pass. A K or V tile of 64 keys sits in shared memory as core
+//   matrices of 8 keys x 8 channels (16-byte rows): core matrix (key block
+//   rb, channel block cb) at ((rb * D/8) + cb) * 128 bytes. Each 16-byte
+//   chunk of a key row lands there by its own cp.async, so the producer
+//   warpgroup copies k and v from their (B, Tk, H*D) layout directly (zero
+//   past Tk). For S = Q K^T that image is B K-major (channels are the
+//   reduction); for O = P V the same image of V is B MN-major (keys are the
+//   reduction, channels contiguous), which 16-bit wgmma reads with its
+//   transpose bit. No V^T, no hi/lo split, no scratch tensor. The producer
+//   closes one cp.async group per tile and announces tile i (its copies
+//   landed, a proxy fence, then the full barrier) after issuing tile i + LAG,
+//   so LAG + 1 tiles are in flight in a ring of STAGES_BF16 (4 x 16 KB at
+//   D = 64).
+// - S (64 x 64 per warpgroup) = Q K^T: D/16 wgmma m64n64k16, A = Q from
+//   registers (bf16 pairs loaded from global as they are), fp32 accumulator.
+//   The softmax scale log2(e)/sqrt(D) multiplies S in fp32: q is never
+//   rounded after scaling. Each tile's S, softmax and P V run one after the
+//   other in a warpgroup; the block's two consumer warpgroups overlap.
+//   (Issuing S of tile i + 1 before the softmax of tile i, into a second set
+//   of registers, ran slower on the H100: PERF.md.)
+// - P = exp2(S - m) in fp32, packed pairwise to bf16: the accumulator of a
+//   16-bit product is the A fragment of the next one (MmaBf16), so P goes to
+//   P V with no shuffle and keys stay in their order.
+// - O (64 x D) += P V: 4 wgmma m64nDk16 into o itself, rescaled by alpha
+//   first (the accumulation's truncation is far below bf16's step).
+// - A fully masked row keeps l == 0 and gives 0 / 0 = NaN, as in the fp32
+//   route. 128 query rows per block: two consumer warpgroups and one
+//   producer warpgroup.
+// ===========================================================================
+
+constexpr int ROWS_BF16 = 2 * ROWS_WG;  // query rows per block of the bf16 route
+constexpr int STAGES_BF16 = 4;          // K/V tile pairs in the ring
+constexpr int LAG_BF16 = 2;             // tiles issued ahead of the one announced
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Copies keys [key0, key0 + 64) of one head (src = k or v at (b, 0, h*D),
+// row stride C) into a tile image at `dst` (shared), 16 bytes per cp.async,
+// zero past Tk. The image is walked linearly (thread f writes bytes
+// 16 f .. 16 f + 15: no bank conflicts): chunk f is row f % 8 of core matrix
+// f / 8, i.e. key 8 (f / 8 / (D/8)) + f % 8, channels 8 ((f / 8) % (D/8)) + 0..7.
+template <int D>
+__device__ __forceinline__ void copy_tile_bf16(uint32_t dst, const __nv_bfloat16* src, int key0,
+                                               int Tk, int C, int tid, int nthreads) {
+  constexpr int CHUNKS = BK * D / 8;
+  for (int f = tid; f < CHUNKS; f += nthreads) {
+    const int cm = f >> 3;
+    const int key = key0 + 8 * (cm / (D / 8)) + (f & 7), cb = cm % (D / 8);
+    const bool ok = key < Tk;
+    cp_async_16(dst + 16 * f, src + (size_t)(ok ? key : 0) * C + 8 * cb, ok ? 16 : 0);
+  }
+}
+
+// Byte strides of the tile image for wgmma's descriptors: next 8 channels,
+// next 8 keys.
+template <int D>
+struct TileStrides {
+  static constexpr uint32_t CHANNELS = 128, KEYS = 16 * D;
+};
+
+// Issues S = Q K^T of one tile into s (raw scores, fp32, accumulator layout)
+// as one wgmma group; s is valid after a wgmma wait that covers the group.
+template <int D>
+__device__ __forceinline__ void score_issue_bf16(float (&s)[BK / 2], const uint32_t (&qa)[D / 16][4],
+                                                 uint32_t k_tile) {
+  // B K-major: LBO = along the reduction (channels), SBO = along N (keys)
+  constexpr uint32_t LBO = TileStrides<D>::CHANNELS, SBO = TileStrides<D>::KEYS;
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) fence_operand(s[e]);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    MmaBf16<BK, 0>::run(s, qa[ks], smem_desc(k_tile + 2 * 128 * ks, LBO, SBO), ks > 0);
+  }
+  wgmma_commit();
+}
+
+// Issues o += P V of one tile as one wgmma group; pa holds P as bf16 A fragments.
+template <int D>
+__device__ __forceinline__ void value_issue_bf16(float (&o)[D / 2], const uint32_t (&pa)[BK / 16][4],
+                                                 uint32_t v_tile) {
+  // B = V MN-major (transposed): LBO along the reduction (keys), SBO along N (channels)
+  constexpr uint32_t LBO = TileStrides<D>::KEYS, SBO = TileStrides<D>::CHANNELS;
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) fence_operand(o[e]);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    MmaBf16<D, 1>::run(o, pa[kk], smem_desc(v_tile + 2 * TileStrides<D>::KEYS * kk, LBO, SBO), 1);
+  }
+  wgmma_commit();
+}
+
+template <int N>
+__device__ __forceinline__ void fence_all(float (&v)[N]) {
+#pragma unroll
+  for (int e = 0; e < N; ++e) fence_operand(v[e]);
+}
+
+template <int D>
+__device__ __forceinline__ void load_q_bf16(uint32_t (&qa)[D / 16][4], const __nv_bfloat16* q0,
+                                            bool ok0, bool ok1, int C, int c) {
+  const __nv_bfloat16* q1 = q0 + (size_t)8 * C;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    const int col = 16 * ks + 2 * c;
+    qa[ks][0] = ok0 ? *reinterpret_cast<const uint32_t*>(q0 + col) : 0u;
+    qa[ks][1] = ok1 ? *reinterpret_cast<const uint32_t*>(q1 + col) : 0u;
+    qa[ks][2] = ok0 ? *reinterpret_cast<const uint32_t*>(q0 + col + 8) : 0u;
+    qa[ks][3] = ok1 ? *reinterpret_cast<const uint32_t*>(q1 + col + 8) : 0u;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(3 * 128, 1)
+flash_mha_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const unsigned char* __restrict__ mask,
+                      __nv_bfloat16* __restrict__ o, int Tq, int Tk, int H, float scale) {
+  constexpr uint32_t TILE_BYTES = BK * D * 2;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES_BF16 * 2 * TILE_BYTES);
+  uint64_t* empty = full + STAGES_BF16;
+  const uint32_t ring = smem_addr(smem);  // stage s: K tile, then V tile
+
+  const int b = blockIdx.z, h = blockIdx.y, C = H * D;
+  const int n_tiles = (Tk + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES_BF16; ++s) {
+      mbar_init(&full[s], 128);   // every producer thread, after its copies landed
+      mbar_init(&empty[s], 8);    // every consumer warp, after its products read the tiles
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the producer warpgroup
+    const int tid = threadIdx.x - 256;
+    const size_t head = (size_t)b * Tk * C + (size_t)h * D;
+    for (int i = 0; i < n_tiles + LAG_BF16; ++i) {
+      if (i < n_tiles) {
+        const int s = i % STAGES_BF16;
+        if (i >= STAGES_BF16) mbar_wait(&empty[s], ((i / STAGES_BF16) - 1) & 1);
+        const uint32_t dst = ring + s * 2 * TILE_BYTES;
+        copy_tile_bf16<D>(dst, k + head, i * BK, Tk, C, tid, 128);
+        copy_tile_bf16<D>(dst + TILE_BYTES, v + head, i * BK, Tk, C, tid, 128);
+      }
+      cp_async_commit();  // one group per tile (empty past the last one)
+      if (i >= LAG_BF16) {
+        // tile i - LAG landed: make the copies visible to wgmma, then announce it
+        cp_async_wait_group<LAG_BF16>();
+        fence_proxy_async();
+        mbar_arrive(&full[(i - LAG_BF16) % STAGES_BF16]);
+      }
+    }
+    return;
+  }
+
+  const int g = lane / 4, c = lane % 4;
+  const int row = blockIdx.x * ROWS_BF16 + warp * 16 + g;
+  uint32_t qa[D / 16][4];
+  load_q_bf16<D>(qa, q + ((size_t)b * Tq + row) * C + h * D, row < Tq, row + 8 < Tq, C, c);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % STAGES_BF16;
+    mbar_wait(&full[st], (i / STAGES_BF16) & 1);
+    const uint32_t tile = ring + st * 2 * TILE_BYTES;
+    float s[BK / 2];
+    score_issue_bf16<D>(s, qa, tile);
+    wgmma_wait_all();
+    fence_all(s);
+
+    const int k0 = i * BK;
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) s[e] *= scale;
+    if (mask != nullptr || k0 + BK > Tk) {
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        const int r = row + 8 * ((e >> 1) & 1);
+        bool keep = key < Tk;
+        if (keep && mask != nullptr && r < Tq) keep = mask[(size_t)r * Tk + key] != 0;
+        if (!keep) s[e] = -INFINITY;
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    float base[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL_MASK, mx[hf], 1));
+      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL_MASK, mx[hf], 2));
+      const float m_new = fmaxf(m[hf], mx[hf]);
+      base[hf] = m_new == -INFINITY ? 0.f : m_new;  // -inf-safe, as in the fp32 route
+      alpha[hf] = exp2f(m[hf] - base[hf]);
+      m[hf] = m_new;
+    }
+#pragma unroll
+    for (int e = 0; e < BK / 2; ++e) {
+      s[e] = exp2f(s[e] - base[(e >> 1) & 1]);
+      sum[(e >> 1) & 1] += s[e];
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + sum[hf];
+#pragma unroll
+    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+    }
+    value_issue_bf16<D>(acc, pa, tile + TILE_BYTES);
+    wgmma_wait_all();
+    fence_all(acc);
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 1);
+    l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 2);
+    const int r = row + 8 * hf;
+    if (r < Tq) {
+      __nv_bfloat16* dst = o + ((size_t)b * Tq + r) * C + h * D + 2 * c;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * hf] / l[hf], acc[4 * j + 2 * hf + 1] / l[hf]);
+      }
+    }
+  }
+}
+
+template <int D>
+constexpr size_t SMEM_BYTES_BF16 = STAGES_BF16 * 2 * BK * D * 2 + 2 * STAGES_BF16 * sizeof(uint64_t);
+static_assert(SMEM_BYTES_BF16<64> <= 227 * 1024, "the bf16 ring exceeds a block's shared memory");
+// The producer announces tile i at its turn i + LAG, after waiting for the
+// stage of tile i + LAG - STAGES_BF16 to be free: that tile must be before i.
+static_assert(LAG_BF16 < STAGES_BF16, "the bf16 pipeline would deadlock");
+
+template <int D>
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                        const unsigned char* mask, __nv_bfloat16* o, int B, int Tq, int Tk, int H,
+                        float scale, cudaStream_t stream) {
+  constexpr size_t smem = SMEM_BYTES_BF16<D>;
+  cudaError_t err = cudaFuncSetAttribute(flash_mha_bf16_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  flash_mha_bf16_kernel<D><<<dim3((Tq + ROWS_BF16 - 1) / ROWS_BF16, H, B), 3 * 128, smem, stream>>>(
+      q, k, v, mask, o, Tq, Tk, H, scale);
+  return cudaGetLastError();
+}
+
+// Bring-up: one S tile and one P V tile alone, for one warpgroup, through
+// the functions the kernel runs (tile image, descriptors, fragment maps).
+// q, k, v (64, D) bf16, p (64, 64) fp32 -> s_out = Q K^T (64, 64) and
+// o_out = bf16(P) V (64, D), fp32.
+template <int D>
+__global__ void __launch_bounds__(128)
+bf16_tiles_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                  const float* p, float* s_out, float* o_out) {
+  __shared__ __align__(128) unsigned char tiles[2 * BK * D * 2];
+  const uint32_t k_tile = smem_addr(tiles), v_tile = k_tile + BK * D * 2;
+  copy_tile_bf16<D>(k_tile, k, 0, BK, D, threadIdx.x, 128);
+  copy_tile_bf16<D>(v_tile, v, 0, BK, D, threadIdx.x, 128);
+  cp_async_wait_all();
+  fence_proxy_async();
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  const int row = warp * 16 + g;
+  uint32_t qa[D / 16][4];
+  load_q_bf16<D>(qa, q + (size_t)row * D, true, true, D, c);
+  float s[BK / 2];
+  score_issue_bf16<D>(s, qa, k_tile);
+  wgmma_wait_all();
+  fence_all(s);
+  uint32_t pa[BK / 16][4];
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int r = row + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * c + (e & 1);
+    s_out[r * BK + col] = s[e];
+    s[e] = p[r * BK + col];
+  }
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+  value_issue_bf16<D>(acc, pa, v_tile);
+  wgmma_wait_all();
+  fence_all(acc);
+#pragma unroll
+  for (int e = 0; e < D / 2; ++e) {
+    o_out[(row + 8 * ((e >> 1) & 1)) * D + 8 * (e >> 2) + 2 * c + (e & 1)] = acc[e];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -431,6 +749,50 @@ int flash_mha_f32(const float* q, const float* k, const float* v, const unsigned
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 route: q (B, Tq, H*D), k/v (B, Tk, H*D), o (B, Tq, H*D), all bf16
+// with 16-byte aligned rows; mask as for flash_mha_f32. scale = log2(e) /
+// sqrt(D), applied to the fp32 scores.
+int flash_mha_bf16(const void* q, const void* k, const void* v, const unsigned char* mask,
+                   void* o, int B, int Tq, int Tk, int H, int D, float scale, void* stream) {
+  if (Tk <= 0) return (int)cudaErrorInvalidValue;
+  if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();
+  using bf = __nv_bfloat16;
+  const bf *qb = (const bf*)q, *kb = (const bf*)k, *vb = (const bf*)v;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      return (int)launch_bf16<32>(qb, kb, vb, mask, (bf*)o, B, Tq, Tk, H, scale, s);
+    case 48:
+      return (int)launch_bf16<48>(qb, kb, vb, mask, (bf*)o, B, Tq, Tk, H, scale, s);
+    case 64:
+      return (int)launch_bf16<64>(qb, kb, vb, mask, (bf*)o, B, Tq, Tk, H, scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// One S tile and one P V tile of the bf16 route alone (bf16_tiles_kernel).
+int flash_mha_bf16_tiles(const void* q, const void* k, const void* v, const float* p,
+                         float* s_out, float* o_out, int D, void* stream) {
+  using bf = __nv_bfloat16;
+  const bf *qb = (const bf*)q, *kb = (const bf*)k, *vb = (const bf*)v;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 32:
+      bf16_tiles_kernel<32><<<1, 128, 0, s>>>(qb, kb, vb, p, s_out, o_out);
+      break;
+    case 48:
+      bf16_tiles_kernel<48><<<1, 128, 0, s>>>(qb, kb, vb, p, s_out, o_out);
+      break;
+    case 64:
+      bf16_tiles_kernel<64><<<1, 128, 0, s>>>(qb, kb, vb, p, s_out, o_out);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,8 +1,10 @@
-// PTX helpers for sm_90a kernels: mbarriers, bulk copies into shared memory,
-// warpgroup MMA (wgmma) with TF32 inputs, and the TF32 split of an fp32 value.
+// PTX helpers for sm_90a kernels: mbarriers, bulk and 16-byte asynchronous
+// copies into shared memory, warpgroup MMA (wgmma) with TF32 or bf16 inputs,
+// and the TF32 split of an fp32 value.
 //
 // Names and operand orders follow the PTX ISA (8.x): mbarrier.*,
-// cp.async.bulk, wgmma.mma_async and its fence / commit_group / wait_group.
+// cp.async(.bulk), fence.proxy.async, wgmma.mma_async and its fence /
+// commit_group / wait_group.
 
 #pragma once
 
@@ -68,6 +70,34 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
           "r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// 16 bytes global -> shared by the issuing thread's async copy unit; the
+// bytes past `src_bytes` (0 or 16) are written as zeros. Completion: the same
+// thread waits with cp_async_wait_all() or, per committed group,
+// cp_async_wait_group<N>().
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
+}
+// Closes this thread's group of cp.async operations issued since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+// Waits until at most N of this thread's most recent groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy writes to shared memory (stores,
+// cp.async) before later async-proxy reads of it (wgmma operands).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // ---- registers ----
@@ -184,6 +214,57 @@ struct MmaTf32<32> {
   }
 };
 
+// d (64 x N, fp32) += a (64 x 16, bf16, registers) . b (16 x N, bf16, shared),
+// for one warpgroup. TRANS_B == 0: b is K-major (core matrices of 8 N-rows x
+// 8 K-values); TRANS_B == 1: b is MN-major (core matrices of 8 K-rows x 8
+// N-values). scale_d == 0 ignores the old d.
+//
+// Register fragments (PTX ISA, wgmma .m64nNk16 with 16-bit A): lane l of
+// warp w, g = l / 4, c = l % 4, rows relative to the warp's 16, each
+// register two values, the lower column in the low half:
+//   a[0] = A[g][2c, 2c+1], a[1] = A[g+8][2c, 2c+1],
+//   a[2] = A[g][2c+8, 2c+9], a[3] = A[g+8][2c+8, 2c+9];
+// d as for MmaTf32. So the fp32 accumulator of one product, packed pairwise
+// (d[8k + 2r], d[8k + 2r + 1]) -> a[r], is the A fragment of columns
+// 16k..16k+15 with no shuffle.
+template <int N, int TRANS_B>
+struct MmaBf16;
+
+#define HOPPER_BF16_A "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define HOPPER_MMA_BF16(N, T, NREG, DREGS, AIDX, ...)                                          \
+  template <>                                                                                  \
+  struct MmaBf16<N, T> {                                                                       \
+    static __device__ __forceinline__ void run(float (&d)[NREG], const uint32_t (&a)[4],      \
+                                               uint64_t b, int scale_d) {                      \
+      asm volatile("{\n"                                                                       \
+                   ".reg .pred p;\n"                                                           \
+                   "setp.ne.b32 p, %" #AIDX ", 0;\n"                                           \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " DREGS        \
+                   ", p, 1, 1, " #T ";\n"                                                      \
+                   "}\n"                                                                       \
+                   : __VA_ARGS__                                                               \
+                   : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));        \
+    }                                                                                          \
+  };
+
+#define HOPPER_D64 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36"
+#define HOPPER_D48 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, " \
+  "%27}, %28"
+#define HOPPER_D32 HOPPER_BF16_A "}, {%16, %17, %18, %19}, %20"
+
+HOPPER_MMA_BF16(64, 0, 32, HOPPER_D64, 37, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
+                HOPPER_ACC8(24))
+HOPPER_MMA_BF16(64, 1, 32, HOPPER_D64, 37, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
+                HOPPER_ACC8(24))
+HOPPER_MMA_BF16(48, 1, 24, HOPPER_D48, 29, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16))
+HOPPER_MMA_BF16(32, 1, 16, HOPPER_D32, 21, HOPPER_ACC8(0), HOPPER_ACC8(8))
+
+#undef HOPPER_D32
+#undef HOPPER_D48
+#undef HOPPER_D64
+#undef HOPPER_MMA_BF16
+#undef HOPPER_BF16_A
 #undef HOPPER_ACC8
 #undef HOPPER_ACC4
 

@@ -12,7 +12,8 @@ trick and overlap-add split, with the same numerics:
   overlap-add stay on the host in fp32 numpy.
 
 Shifts are drawn from an explicit ``random.Random`` exactly as the JAX
-package draws them, so tests can pin them. ``apply_model`` routes a track to
+package draws them, so tests can pin them; ``shift_offsets`` pins them for
+serving (``inference/prewarm.py``). ``apply_model`` routes a track to
 the device-resident engine (``demucs_tpu_torch.inference.engine``) as the JAX
 package does: by default whenever the model is on the card and the call
 allows it.
@@ -80,6 +81,18 @@ def center_trim(arr: np.ndarray, length: int) -> np.ndarray:
     return arr
 
 
+def _pinned(rng: tp.Optional[_random.Random],
+            shift_offsets: tp.Optional[tp.Sequence[int]]) -> tp.Optional[_random.Random]:
+    """``rng``, or a ``PinnedShifts`` of ``shift_offsets``; not both."""
+    if shift_offsets is None:
+        return rng
+    if rng is not None:
+        raise ValueError("pass either rng or shift_offsets, not both")
+    from demucs_tpu_torch.inference.prewarm import PinnedShifts
+
+    return PinnedShifts(shift_offsets)
+
+
 def _on_card(model: AnyModel) -> bool:
     first = model.models[0] if isinstance(model, BagOfModels) else model
     return first.device.type == "cuda"
@@ -137,6 +150,7 @@ def apply_model(
     transfer_dtype: tp.Optional[str] = None,
     length_bucket_seconds: tp.Optional[float] = None,
     tail_mode: str = "exact",
+    shift_offsets: tp.Optional[tp.Sequence[int]] = None,
 ) -> np.ndarray:
     """Apply ``model`` to ``mix (B, C, L)`` -> ``(B, S, C, L)`` float32 numpy.
 
@@ -149,9 +163,12 @@ def apply_model(
     L)`` track, no callback. ``transfer_dtype`` (the stems' wire format),
     ``length_bucket_seconds`` and ``tail_mode`` apply to the device engine
     only (``engine._dispatch_track``); the float32 default wire is bit-exact.
+    ``shift_offsets``: a pinned set of shift offsets consumed in order
+    (``PinnedShifts``) instead of draws from ``rng``; pass one or the other.
     """
     if engine not in ("auto", "host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
+    rng = _pinned(rng, shift_offsets)
     if engine != "host":
         eligible = (split and callback is None and isinstance(mix, np.ndarray)
                     and mix.ndim == 3 and mix.shape[0] == 1)
@@ -300,6 +317,7 @@ def apply_model_tracks(
     transfer_dtype: tp.Optional[str] = None,
     length_bucket_seconds: tp.Optional[float] = None,
     tail_mode: str = "exact",
+    shift_offsets: tp.Optional[tp.Sequence[int]] = None,
 ) -> tp.Iterator[np.ndarray]:
     """``apply_model`` over several tracks, each ``(1, C, L)`` float: yields
     ``(1, S, C, L)`` stems per track, in order.
@@ -308,7 +326,8 @@ def apply_model_tracks(
     copy of its stems to the host overlaps the next track's compute
     (``engine.device_separate_tracks``); on the host engine the tracks run one
     after the other. Set ``length_bucket_seconds`` so that tracks of other
-    lengths share the card's graphs.
+    lengths share the card's graphs. With ``shift_offsets`` every track
+    consumes the same pinned offsets from the start of the set.
     """
     if engine not in ("auto", "host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
@@ -325,16 +344,27 @@ def apply_model_tracks(
                                  "for batched input")
             yield mix
 
+    tracks = checked(tracks)
+    rng = _pinned(rng, shift_offsets)
+    if shift_offsets is not None:
+        # one pinned source, reset as each track is pulled: the engines draw
+        # a track's offsets before they pull the next one
+        def resetting(items, pinned=rng):
+            for mix in items:
+                pinned.reset()
+                yield mix
+
+        tracks = resetting(tracks)
     if use_device:
         from demucs_tpu_torch.inference.engine import device_separate_tracks
 
         yield from device_separate_tracks(
-            model, checked(tracks), shifts=shifts, overlap=overlap,
+            model, tracks, shifts=shifts, overlap=overlap,
             transition_power=transition_power, segment=segment, batch_size=batch_size,
             rng=rng, transfer_dtype=transfer_dtype, progress=progress,
             length_bucket_seconds=length_bucket_seconds, tail_mode=tail_mode)
         return
-    for mix in checked(tracks):
+    for mix in tracks:
         yield apply_model(model, mix, shifts=shifts, split=split, overlap=overlap,
                           transition_power=transition_power, progress=progress,
                           segment=segment, rng=rng, batch_size=batch_size, engine="host")

@@ -58,7 +58,7 @@ import torch
 
 from demucs_tpu_torch.inference.apply import _triangle_weight
 from demucs_tpu_torch.kernels import device_cache, retain_tables
-from demucs_tpu_torch.kernels.attention import flash_mha
+from demucs_tpu_torch.kernels.attention import flash_mha, flash_mha_bf16
 from demucs_tpu_torch.kernels.stft import istft_dft, stft_dft
 from demucs_tpu_torch.models.registry import AnyModel, BagOfModels, Model
 
@@ -66,7 +66,8 @@ __all__ = ["device_apply_model", "device_separate_tracks", "stage_track", "GRAPH
 
 WIRE_DTYPES = (None, "float32", "float16", "int16", "int8")
 _INT8_BLOCK = 1024
-KERNELS = (stft_dft, istft_dft, flash_mha)  # the kernel wrappers a forward launches
+# the kernel wrappers a forward launches (K3's two routes count apart)
+KERNELS = (stft_dft, istft_dft, flash_mha, flash_mha_bf16)
 
 
 def _segment_grid(length: int, max_shift: int, stride: int,
@@ -170,8 +171,11 @@ def _graph_state(module: torch.nn.Module) -> tuple:
     """What a captured forward depends on besides its input shape: the
     addresses of the parameters it reads, and the module's config, on which
     the forward branches (HTDemucs pads its input to the config's training
-    length, which ``Model.segment`` sets). The config is a frozen dataclass:
-    a change is a new config, which compares unequal."""
+    length, which ``Model.segment`` sets) and which sets its precision policy
+    (the TF32 flags, the bf16 stages: a graph bakes in the kernels chosen
+    under them). The config is a frozen dataclass: a change is a new config,
+    which compares unequal, so no graph captured under one policy replays
+    under another."""
     return tuple(p.data_ptr() for p in module.parameters()), getattr(module, "cfg", None)
 
 
@@ -356,11 +360,15 @@ def _tail_forward(model: Model, track_buf: torch.Tensor, margin: int, offset: in
     ``offset`` is the chunk's start in the shift-padded track (``[max_shift
     zeros | track | max_shift zeros]``); the window is ``Chunk.padded``'s, cut
     from the device buffer, whose margins hold the zeros that ``padded`` adds.
-    Eager: the target changes with the shift offset."""
+    Eager: the target changes with the shift offset. The window is copied into
+    a fresh contiguous tensor, as the host engine uploads it: over the
+    buffer's view (its strides, an offset base) HDemucs's input mean sums in
+    another order, a few fp32 ulps of the output."""
     start = margin + offset - (tail_target - chunk_len) // 2
     if start < 0 or start + tail_target > track_buf.shape[-1]:
         raise AssertionError(f"tail window [{start}, {start + tail_target}) outside the buffer")
-    window = track_buf[None, :, start : start + tail_target]
+    window = track_buf[None, :, start : start + tail_target].clone(
+        memory_format=torch.contiguous_format)
     with torch.inference_mode():
         out = model.module(window)[0]  # (S, C, tail_target)
     trim = (tail_target - chunk_len) // 2

@@ -8,8 +8,9 @@ pad to :func:`valid_length`, the sinc resampler x2 on the way in and x1/2 on
 the way out (``ops/resample.py``), and an optional BLSTM at the bottom
 (``lstm_layers``). The layers are ``nn.Sequential`` s with the reference's
 numeric indices (``encoder.0.3.layers.0.4.lstm.weight_ih_l0``); the forward
-applies their weights through ``ops.nn``, as the JAX forward does.
-``matmul_precision`` comes with the presets and raises.
+applies their weights through ``ops.nn``, as the JAX forward does, under
+``precision_scope(cfg.matmul_precision)`` (``models/htdemucs.py``). There is
+no ``compute_dtype``: the model stays fp32.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from torch import nn
 
 from demucs_tpu_torch.models import hlayers as hl
-from demucs_tpu_torch.models.htdemucs import full_fp32
+from demucs_tpu_torch.models.htdemucs import check_precision, precision_scope
 from demucs_tpu_torch.models.initializers import Init
 from demucs_tpu_torch.ops import nn as ops
 from demucs_tpu_torch.ops.resample import resample_frac
@@ -55,7 +56,7 @@ class DemucsConfig:
     rescale: float = 0.1
     samplerate: int = 44100
     segment: float = 40.0
-    # Kept for config compatibility; set, it raises (presets come later).
+    # The JAX package's matmul precision string (models/htdemucs.py::precision_scope)
     matmul_precision: tp.Optional[str] = None
 
 
@@ -115,8 +116,7 @@ class Demucs(nn.Module):
 
     def __init__(self, cfg: DemucsConfig):
         super().__init__()
-        if cfg.matmul_precision is not None:
-            raise NotImplementedError("matmul_precision comes with the presets slice of the port")
+        check_precision(cfg.matmul_precision)
         self.cfg = cfg
         lay = layout(cfg)
         self.layout = lay
@@ -165,7 +165,7 @@ class Demucs(nn.Module):
             self.lstm = hl.BLSTM(lay.channels[-1], cfg.lstm_layers)
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
-        with full_fp32():
+        with precision_scope(self.cfg.matmul_precision):
             return self._forward(mix)
 
     def _forward(self, mix: torch.Tensor) -> torch.Tensor:

@@ -11,10 +11,13 @@ through the skips), the DConv branches gain a BLSTM and LocalState from
 ``hybrid_old`` (the MDX-era padding), ``hybrid=False`` (the plain STFT
 without its Nyquist row), ``cac=False`` (magnitude masks with Wiener EM or,
 with ``wiener_iters < 0``, the mixture's phase) and ``multi_freqs``
-(MultiWrap). ``matmul_precision`` comes with the presets and raises.
+(MultiWrap).
 
-The forward runs under ``full_fp32()`` (TF32 off for cuDNN convolutions and
-RNNs and for cuBLAS), the spectrogram through K1 and K2.
+The forward runs under ``precision_scope(cfg.matmul_precision)``
+(``models/htdemucs.py``; ``None``, the default, is full fp32 with TF32 off
+for cuDNN convolutions and RNNs and for cuBLAS), the spectrogram (K1, K2)
+and Wiener filtering in full fp32 outside it. There is no ``compute_dtype``:
+the model stays fp32, its BLSTM included.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 
 from demucs_tpu_torch.models import hlayers as hl
-from demucs_tpu_torch.models.htdemucs import full_fp32
+from demucs_tpu_torch.models.htdemucs import check_precision, precision_scope
 from demucs_tpu_torch.models.initializers import Init
 from demucs_tpu_torch.ops import nn as ops
 from demucs_tpu_torch.ops.spec import cac_pack, cac_unpack, demucs_ispec, demucs_spec, istft, stft
@@ -78,7 +81,7 @@ class HDemucsConfig:
     # Metadata
     samplerate: int = 44100
     segment: float = 40.0
-    # Kept for config compatibility; set, it raises (presets come later).
+    # The JAX package's matmul precision string (models/htdemucs.py::precision_scope)
     matmul_precision: tp.Optional[str] = None
 
     @property
@@ -109,8 +112,7 @@ class HDemucs(nn.Module):
 
     def __init__(self, cfg: HDemucsConfig):
         super().__init__()
-        if cfg.matmul_precision is not None:
-            raise NotImplementedError("matmul_precision comes with the presets slice of the port")
+        check_precision(cfg.matmul_precision)
         self.cfg = cfg
         lay = layout(cfg)
         self.layout = lay
@@ -123,16 +125,17 @@ class HDemucs(nn.Module):
                                                scale=cfg.emb_scale)
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
-        with full_fp32():
+        with precision_scope(self.cfg.matmul_precision):
             return self._forward(mix)
 
     def _forward(self, mix: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         length = mix.shape[-1]
-        if cfg.hybrid:
-            z = demucs_spec(mix, cfg.nfft, hybrid_old=cfg.hybrid_old)
-        else:
-            z = stft(mix, cfg.nfft, cfg.hop_length)[..., :-1, :]
+        with precision_scope(None):
+            if cfg.hybrid:
+                z = demucs_spec(mix, cfg.nfft, hybrid_old=cfg.hybrid_old)
+            else:
+                z = stft(mix, cfg.nfft, cfg.hop_length)[..., :-1, :]
         x = cac_pack(z) if cfg.cac else z.abs()
         B, C, Fq, T = x.shape
         mean = x.mean(dim=(1, 2, 3), keepdim=True)
@@ -183,22 +186,23 @@ class HDemucs(nn.Module):
 
         S = len(cfg.sources)
         x = x.reshape(B, S, -1, Fq, T) * std[:, None] + mean[:, None]
-        if cfg.cac:
-            zout = cac_unpack(x)
-        else:
-            niters = cfg.end_iters if self.training else cfg.wiener_iters
-            if niters < 0:  # the mixture's phase on the estimated magnitudes
-                zout = z[:, None] / (1e-8 + z.abs()[:, None]) * x
+        with precision_scope(None):
+            if cfg.cac:
+                zout = cac_unpack(x)
             else:
-                zout = apply_wiener(x, z, niters, residual=cfg.wiener_residual)
-        if cfg.hybrid:
-            out = demucs_ispec(zout, length, hybrid_old=cfg.hybrid_old)
-            xt = xt.reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]
-            return xt + out
-        # the plain centered iSTFT, with the Nyquist row put back as zeros
-        nyquist = zout.new_zeros(*zout.shape[:-2], 1, zout.shape[-1])
-        return istft(torch.cat([zout, nyquist], dim=-2), cfg.nfft, cfg.hop_length,
-                     length=length)
+                niters = cfg.end_iters if self.training else cfg.wiener_iters
+                if niters < 0:  # the mixture's phase on the estimated magnitudes
+                    zout = z[:, None] / (1e-8 + z.abs()[:, None]) * x
+                else:
+                    zout = apply_wiener(x, z, niters, residual=cfg.wiener_residual)
+            if cfg.hybrid:
+                out = demucs_ispec(zout, length, hybrid_old=cfg.hybrid_old)
+                xt = xt.reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]
+                return xt + out
+            # the plain centered iSTFT, with the Nyquist row put back as zeros
+            nyquist = zout.new_zeros(*zout.shape[:-2], 1, zout.shape[-1])
+            return istft(torch.cat([zout, nyquist], dim=-2), cfg.nfft, cfg.hop_length,
+                         length=length)
 
 
 def init_hdemucs(cfg: HDemucsConfig, seed: int = 0, layer_scale: tp.Optional[float] = None,

@@ -252,6 +252,13 @@ def build_hybrid_layout(
 # ---------------------------------------------------------------------------
 
 
+def scalar(value: float, dtype: torch.dtype) -> float:
+    """``value`` rounded to ``dtype``: a Python constant multiplying a bf16
+    tensor rounds to bf16 first in JAX (a weak-typed scalar); in PyTorch it
+    would not. A no-op for fp32 tensors."""
+    return value if dtype == torch.float32 else torch.tensor(value, dtype=dtype).item()
+
+
 class LayerScale(nn.Module):
     """Per-channel rescale of a residual branch (``demucs/demucs.py:70-83``)."""
 
@@ -334,8 +341,8 @@ class BLSTM(nn.Module):
 class LocalState(nn.Module):
     """Content-based local attention with a decaying time penalty
     (``demucs/demucs.py:157-216``), ``x (B, C, T)``; each step's own position
-    is masked with -100. Plain products (cuBLAS on the card), as the JAX
-    package's einsums."""
+    is masked with -100. Plain products (cuBLAS on the card, through
+    ``ops.matmul``), as the JAX package's einsums."""
 
     def __init__(self, channels: int, heads: int = 4, ndecay: int = 4):
         super().__init__()
@@ -357,19 +364,19 @@ class LocalState(nn.Module):
 
         queries = conv(self.query, x).reshape(B, heads, -1, T)
         keys = conv(self.key, x).reshape(B, heads, -1, T)
-        dots = torch.einsum("bhct,bhcs->bhts", keys, queries) / math.sqrt(keys.shape[2])
+        dots = ops.matmul("bhct,bhcs->bhts", keys, queries) / math.sqrt(keys.shape[2])
         if self.ndecay:
             indexes = torch.arange(T, device=x.device, dtype=x.dtype)
             delta = (indexes[:, None] - indexes[None, :]).abs()
             decays = torch.arange(1, self.ndecay + 1, device=x.device, dtype=x.dtype)
             decay_q = torch.sigmoid(conv(self.query_decay, x).reshape(B, heads, -1, T)) / 2
             decay_kernel = -decays[:, None, None] * delta / math.sqrt(self.ndecay)
-            dots = dots + torch.einsum("fts,bhfs->bhts", decay_kernel, decay_q)
+            dots = dots + ops.matmul("fts,bhfs->bhts", decay_kernel, decay_q)
         eye = torch.eye(T, dtype=torch.bool, device=x.device)
         dots = dots.masked_fill(eye, -100.0)
         weights = torch.softmax(dots, dim=2)
         content = conv(self.content, x).reshape(B, heads, -1, T)
-        result = torch.einsum("bhts,bhct->bhcs", weights, content).reshape(B, -1, T)
+        result = ops.matmul("bhts,bhct->bhcs", weights, content).reshape(B, -1, T)
         return x + conv(self.proj, result)
 
 

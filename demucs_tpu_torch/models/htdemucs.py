@@ -7,15 +7,18 @@ fields and defaults, so ``.dmx`` configs load unchanged. The forward is
 STFT (K1) -> complex-as-channels -> dual encoders -> cross-transformer (K3)
 -> dual decoders -> iSTFT (K2) + time branch.
 
-Ported: ``cac=True`` in fp32. ``cac=False`` (magnitude masks and Wiener
-filtering) and ``multi_freqs``, which HDemucs runs, are not wired into this
-model yet; they, any ``compute_dtype`` other than ``"float32"``, ``bf16_stages``,
-``precision_stages`` and ``matmul_precision`` come with later slices and
-raise. ``t_flash_attn`` has no effect: the transformer always takes K3.
+Ported: ``cac=True``. ``cac=False`` (magnitude masks and Wiener filtering)
+and ``multi_freqs``, which HDemucs runs, are not wired into this model yet
+and raise. ``t_flash_attn`` has no effect: the transformer always takes K3.
 
-Precision: :meth:`HTDemucs.forward` runs with TF32 off for cuDNN
-convolutions and cuBLAS matmuls (restored on exit), so the card computes in
-full fp32 and is compared with the CPU at fp32 tolerances.
+Precision, as in the JAX package (``htdemucs.py:215-395``): the core's
+stages (``_STAGES``) run in bf16 where ``compute_dtype="bfloat16"`` or
+``bf16_stages`` says so, with their parameters held in bf16 (converted once,
+when the module is built for its config) and fp32 statistics, softmax and
+accumulation; the others in fp32. ``matmul_precision`` (or
+``compute_dtype="mixed"``, which implies ``"tensorfloat32"``) sets
+:func:`precision_scope` around the core and ``precision_stages`` per stage.
+The DSP (K1, K2) runs in full fp32 outside the scope.
 """
 
 from __future__ import annotations
@@ -112,7 +115,8 @@ class HTDemucsConfig:
     use_train_segment: bool = True
     # Kept for config compatibility; the port's transformer always takes K3.
     t_flash_attn: bool = False
-    # Precision policy; the port supports "float32" only in this slice.
+    # Precision policy (the module docstring): "float32", "mixed" (fp32 with
+    # matmul_precision "tensorfloat32") or "bfloat16" (every core stage bf16).
     compute_dtype: str = "float32"
     bf16_stages: tp.Tuple[str, ...] = ()
     matmul_precision: tp.Optional[str] = None
@@ -158,34 +162,86 @@ def transformer_spec(cfg: HTDemucsConfig) -> TransformerSpec:
     )
 
 
-def _check_supported(cfg: HTDemucsConfig) -> None:
-    later = {
-        "cac=False (magnitude masks, Wiener filtering)": not cfg.cac,
-        "multi_freqs (MultiWrap)": bool(cfg.multi_freqs),
-        f"compute_dtype={cfg.compute_dtype!r}": cfg.compute_dtype != "float32",
-        "bf16_stages": bool(cfg.bf16_stages),
-        "precision_stages": bool(cfg.precision_stages),
-        "matmul_precision": cfg.matmul_precision is not None,
-    }
-    missing = [name for name, on in later.items() if on]
-    if missing:
-        raise NotImplementedError(f"HTDemucs options {missing} come with later slices "
-                                  "of the port")
+# The JAX package's matmul precision strings and their meaning on the card.
+PRECISIONS = {None: "float32", "highest": "float32", "float32": "float32",
+              "high": "tensorfloat32", "tensorfloat32": "tensorfloat32",
+              "default": "bfloat16", "bfloat16": "bfloat16"}
+
+
+def check_precision(precision: tp.Optional[str]) -> str:
+    """The card's mode for a JAX matmul precision string; raises on a name it
+    has no counterpart for (the dot-algorithm names such as
+    ``"BF16_BF16_F32_X3"``)."""
+    try:
+        return PRECISIONS[precision]
+    except (KeyError, TypeError):
+        names = ", ".join(repr(p) for p in PRECISIONS)
+        raise ValueError(f"unknown matmul_precision {precision!r}: the card takes {names} "
+                         "(dot-algorithm names have no counterpart here)") from None
 
 
 @contextlib.contextmanager
-def full_fp32():
-    """TF32 off for cuDNN convolutions and RNNs and for cuBLAS matmuls; restored on exit."""
+def precision_scope(precision: tp.Optional[str] = None):
+    """The card's form of ``jax.default_matmul_precision(precision)`` for the
+    fp32 operations in the block (restored on exit):
+
+    - ``None``, ``"highest"``, ``"float32"``: TF32 off for cuDNN convolutions
+      and RNNs and for cuBLAS, full fp32;
+    - ``"high"``, ``"tensorfloat32"``: TF32 on for all three;
+    - ``"default"``, ``"bfloat16"``: the operands of convolutions and products
+      rounded to bf16 (``ops.nn.bf16_operands``) on the TF32 tensor cores:
+      fp32 accumulation and results.
+
+    Anything else raises ``ValueError``. On the CPU every string computes true
+    fp32, as JAX does there. K3's route follows its inputs' dtype only: its
+    fp32 route keeps fp32 accuracy under every string.
+    """
+    mode = check_precision(precision)
+    tf32 = mode != "float32"
     mm = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     try:
         with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
                                         benchmark=torch.backends.cudnn.benchmark,
                                         deterministic=torch.backends.cudnn.deterministic,
-                                        allow_tf32=False):
+                                        allow_tf32=tf32), ops.bf16_operands(mode == "bfloat16"):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+_STAGES = ("encoder", "tencoder", "transformer", "decoder", "tdecoder")
+
+
+def _bf16_stage_set(cfg: HTDemucsConfig) -> frozenset:
+    """Which core stages run with bf16 activations and parameters."""
+    if cfg.bf16_stages:
+        unknown = set(cfg.bf16_stages) - set(_STAGES)
+        if unknown:
+            raise ValueError(f"unknown bf16_stages {sorted(unknown)}")
+        return frozenset(cfg.bf16_stages)
+    if cfg.compute_dtype == "bfloat16":
+        return frozenset(_STAGES)
+    if cfg.compute_dtype in ("float32", "mixed"):
+        return frozenset()
+    raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
+
+
+def _matmul_precision(cfg: HTDemucsConfig) -> tp.Optional[str]:
+    if cfg.matmul_precision:
+        return cfg.matmul_precision
+    if cfg.compute_dtype == "mixed":
+        return "tensorfloat32"
+    return None
+
+
+def _precision_overrides(cfg: HTDemucsConfig) -> tp.Dict[str, str]:
+    over = dict(cfg.precision_stages)
+    if set(over) - set(_STAGES):
+        raise ValueError(f"unknown precision_stages {sorted(set(over) - set(_STAGES))}")
+    for p in over.values():
+        check_precision(p)
+    return over
 
 
 def _conv1x1(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
@@ -193,11 +249,18 @@ def _conv1x1(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 
 
 class HTDemucs(nn.Module):
-    """HTDemucs. ``forward(mix (B, C, L)) -> stems (B, S, C, L)``."""
+    """HTDemucs. ``forward(mix (B, C, L)) -> stems (B, S, C, L)``, fp32 in and out."""
 
     def __init__(self, cfg: HTDemucsConfig):
         super().__init__()
-        _check_supported(cfg)
+        later = {"cac=False (magnitude masks, Wiener filtering)": not cfg.cac,
+                 "multi_freqs (MultiWrap)": bool(cfg.multi_freqs)}
+        if any(later.values()):
+            raise NotImplementedError(f"HTDemucs options {[k for k, on in later.items() if on]} "
+                                      "come with later slices of the port")
+        _bf16_stage_set(cfg)
+        _precision_overrides(cfg)
+        check_precision(_matmul_precision(cfg))
         self.cfg = cfg
         lay = layout(cfg)
         self.layout = lay
@@ -216,14 +279,39 @@ class HTDemucs(nn.Module):
             self.channel_downsampler_t = nn.Conv1d(cfg.bottom_channels, tc, 1)
         if cfg.t_layers > 0:
             self.crosstransformer = CrossTransformerEncoder(transformer_spec(cfg))
+        self._stage_dtypes()
+
+    def stage_modules(self, stage: str) -> tp.List[nn.Module]:
+        """The modules whose parameters a core stage reads."""
+        names = {"encoder": ("encoder", "freq_emb"), "tencoder": ("tencoder",),
+                 "transformer": ("channel_upsampler", "channel_upsampler_t",
+                                 "channel_downsampler", "channel_downsampler_t",
+                                 "crosstransformer"),
+                 "decoder": ("decoder",), "tdecoder": ("tdecoder",)}[stage]
+        return [getattr(self, n) for n in names if hasattr(self, n)]
+
+    def _stage_dtypes(self) -> None:
+        """Hold each bf16 stage's parameters in bf16, once (the JAX package casts
+        them on every forward); the other stages keep fp32."""
+        bf16 = _bf16_stage_set(self.cfg)
+        for stage in _STAGES:
+            for mod in self.stage_modules(stage):
+                mod.to(torch.bfloat16 if stage in bf16 else torch.float32)
 
     def forward_core(self, mag: torch.Tensor, mix: torch.Tensor) -> tp.Tuple[torch.Tensor,
                                                                             torch.Tensor]:
-        """Encoder / transformer / decoder core (htdemucs.py:677-759).
+        """Encoder / transformer / decoder core (htdemucs.py:677-759), under
+        the config's precision policy (JAX ``_core``).
 
         ``mag (B, C[*2], F, T)`` spectrogram-as-channels, ``mix (B, C, L)``
-        waveform -> ``(spec_out (B, S, C*2, F, T), time_out (B, S, C, L))``.
+        waveform -> ``(spec_out (B, S, C*2, F, T), time_out (B, S, C, L))``, fp32.
         """
+        cfg = self.cfg
+        with precision_scope(_matmul_precision(cfg)):
+            return self._core(mag, mix)
+
+    def _core(self, mag: torch.Tensor, mix: torch.Tensor) -> tp.Tuple[torch.Tensor,
+                                                                     torch.Tensor]:
         cfg = self.cfg
         x = mag
         B, C, Fq, T = x.shape
@@ -237,6 +325,16 @@ class HTDemucs(nn.Module):
         stdt = ops.std_unbiased(xt, axis=(1, 2))
         xt = (xt - meant) / (1e-5 + stdt)
 
+        bf16 = _bf16_stage_set(cfg)
+        prec_over = _precision_overrides(cfg)
+
+        def cast(stage: str, a: torch.Tensor) -> torch.Tensor:
+            return a.to(torch.bfloat16 if stage in bf16 else torch.float32)
+
+        def prec(stage: str):
+            p = prec_over.get(stage)
+            return precision_scope(p) if p else contextlib.nullcontext()
+
         saved, saved_t, lengths, lengths_t = [], [], [], []
         for idx, encode in enumerate(self.encoder):
             lengths.append(x.shape[-1])
@@ -244,48 +342,63 @@ class HTDemucs(nn.Module):
             if idx < len(self.tencoder):
                 lengths_t.append(xt.shape[-1])
                 tenc = self.tencoder[idx]
-                xt = tenc(xt)
+                xt = cast("tencoder", xt)
+                with prec("tencoder"):
+                    xt = tenc(xt)
                 if not tenc.spec.empty:
                     saved_t.append(xt)
                 else:
                     inject = xt
-            x = encode(x, inject)
+            x = cast("encoder", x)
+            if inject is not None:
+                inject = cast("encoder", inject)
+            with prec("encoder"):
+                x = encode(x, inject)
             if idx == 0 and self.layout.freq_emb_bins:
                 frs = torch.arange(x.shape[-2], device=x.device)
-                emb = self.freq_emb(frs).t()[None, :, :, None]
-                x = x + cfg.freq_emb * emb
+                emb = self.freq_emb(frs).t()[None, :, :, None].to(x.dtype)
+                x = x + hl.scalar(cfg.freq_emb, x.dtype) * emb
             saved.append(x)
 
         if cfg.t_layers > 0:
-            if cfg.bottom_channels:
-                b, c, f, t = x.shape
-                x = _conv1x1(self.channel_upsampler, x.reshape(b, c, f * t)).reshape(b, -1, f, t)
-                xt = _conv1x1(self.channel_upsampler_t, xt)
-            x, xt = self.crosstransformer(x, xt)
-            if cfg.bottom_channels:
-                b, c, f, t = x.shape
-                x = _conv1x1(self.channel_downsampler, x.reshape(b, c, f * t))
-                x = x.reshape(b, -1, f, t)
-                xt = _conv1x1(self.channel_downsampler_t, xt)
+            x = cast("transformer", x)
+            xt = cast("transformer", xt)
+            with prec("transformer"):
+                if cfg.bottom_channels:
+                    b, c, f, t = x.shape
+                    x = _conv1x1(self.channel_upsampler, x.reshape(b, c, f * t))
+                    x = x.reshape(b, -1, f, t)
+                    xt = _conv1x1(self.channel_upsampler_t, xt)
+                x, xt = self.crosstransformer(x, xt)
+                if cfg.bottom_channels:
+                    b, c, f, t = x.shape
+                    x = _conv1x1(self.channel_downsampler, x.reshape(b, c, f * t))
+                    x = x.reshape(b, -1, f, t)
+                    xt = _conv1x1(self.channel_downsampler_t, xt)
 
+        x = cast("decoder", x)
+        xt = cast("tdecoder", xt)
         offset = cfg.depth - len(self.tdecoder)
         for idx, decode in enumerate(self.decoder):
-            x, pre = decode(x, saved.pop(-1), lengths.pop(-1))
+            skip = cast("decoder", saved.pop(-1))
+            with prec("decoder"):
+                x, pre = decode(x, skip, lengths.pop(-1))
             if idx >= offset:
                 tdec = self.tdecoder[idx - offset]
                 length_t = lengths_t.pop(-1)
-                if tdec.spec.empty:
-                    if pre.shape[2] != 1:
-                        raise AssertionError(tuple(pre.shape))
-                    xt, _ = tdec(pre[:, :, 0], None, length_t)
-                else:
-                    xt, _ = tdec(xt, saved_t.pop(-1), length_t)
+                with prec("tdecoder"):
+                    if tdec.spec.empty:
+                        if pre.shape[2] != 1:
+                            raise AssertionError(tuple(pre.shape))
+                        xt, _ = tdec(cast("tdecoder", pre[:, :, 0]), None, length_t)
+                    else:
+                        xt, _ = tdec(xt, cast("tdecoder", saved_t.pop(-1)), length_t)
         if saved or saved_t or lengths_t:
             raise AssertionError("unbalanced encoder / decoder skips")
 
         S = len(cfg.sources)
-        x = x.reshape(B, S, -1, Fq, T) * std[:, None] + mean[:, None]
-        xt = xt.reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]
+        x = x.float().reshape(B, S, -1, Fq, T) * std[:, None] + mean[:, None]
+        xt = xt.float().reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]
         return x, xt
 
     def forward(self, mix: torch.Tensor) -> torch.Tensor:
@@ -305,9 +418,10 @@ class HTDemucs(nn.Module):
             elif length > training_length:
                 raise ValueError(
                     f"Input length {length} exceeds training length {training_length}")
-        with full_fp32():
+        with precision_scope(None):
             z = demucs_spec(mix, cfg.nfft)
-            x, xt = self.forward_core(cac_pack(z), mix)
+        x, xt = self.forward_core(cac_pack(z), mix)
+        with precision_scope(None):
             out = xt + demucs_ispec(cac_unpack(x), mix.shape[-1])
         if length_pre_pad:
             out = out[..., :length_pre_pad]
@@ -331,7 +445,8 @@ def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
     ``1 + 0.3 N(0, 1)`` and bias as ``0.3 N(0, 1)``: with unit weights and
     zero biases a norm left out moves the output too little for a check to
     see."""
-    model = HTDemucs(cfg)
+    # drawn in fp32, then each bf16 stage rounded once, as a loaded checkpoint is
+    model = HTDemucs(dataclasses.replace(cfg, compute_dtype="float32", bf16_stages=()))
     gen = torch.Generator().manual_seed(seed)
 
     def uniform_(t: torch.Tensor, bound: float) -> None:
@@ -363,4 +478,6 @@ def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
             elif isinstance(mod, (nn.GroupNorm, nn.LayerNorm)) and random_norms:
                 mod.weight.copy_(1 + 0.3 * torch.randn(mod.weight.shape, generator=gen))
                 mod.bias.copy_(0.3 * torch.randn(mod.bias.shape, generator=gen))
+    model.cfg = cfg
+    model._stage_dtypes()
     return model

@@ -4,7 +4,9 @@
 metadata surface of the reference's models (``sources``, ``samplerate``,
 ``audio_channels``, ``segment``, ``valid_length``); ``BagOfModels`` is the
 weighted ensemble (``demucs/apply.py:29-79``). :data:`FAMILIES` maps each
-kind (htdemucs, hdemucs, demucs) to its config and module classes.
+kind (htdemucs, hdemucs, demucs) to its config and module classes, and
+:func:`reconfigured` gives a model under another config (a precision
+policy, ``dataclasses.replace`` of its ``cfg`` as in the JAX package).
 """
 
 from __future__ import annotations
@@ -97,6 +99,18 @@ class Model:
         if self.kind == "htdemucs" and segment is not None:
             return int(segment * self.samplerate)
         return self.valid_length(length)
+
+
+def reconfigured(model: Model, **changes) -> Model:
+    """``model`` with ``dataclasses.replace(model.cfg, **changes)``: a new
+    module built for the new config (so a bf16 stage holds its parameters in
+    bf16, converted once here) with ``model``'s weights, on its device and in
+    its mode. ``model`` itself is left as it was."""
+    cfg = dataclasses.replace(model.cfg, **changes)
+    module = build_module(model.kind, cfg)
+    module.load_state_dict(model.module.state_dict())
+    module.to(model.device).train(model.module.training)
+    return Model(model.kind, cfg, module)
 
 
 class BagOfModels:

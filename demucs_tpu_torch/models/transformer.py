@@ -7,7 +7,10 @@ layers (each domain queries the other), per the reference's
 ``demucs/transformer.py:526-719``.
 
 Every attention runs through kernel K3 (``demucs_tpu_torch.kernels.attention``):
-the CUDA kernel on the card, its plain version on the CPU. The attention
+the CUDA kernel on the card (its fp32 or its bf16 route, by the dtype of the
+transformer stage), its plain version on the CPU. The positional embeddings
+are cached in fp32 on the device and cast to the tokens' dtype where they
+are added. The attention
 module owns ``in_proj_weight``, ``in_proj_bias`` and ``out_proj`` under the
 names of ``nn.MultiheadAttention`` (so checkpoints load unchanged) but never
 calls it, nor ``scaled_dot_product_attention``. Norms and linear maps keep
@@ -30,7 +33,7 @@ from torch import nn
 
 from demucs_tpu_torch.kernels import device_cache
 from demucs_tpu_torch.kernels.attention import flash_mha
-from demucs_tpu_torch.models.hlayers import LayerScale
+from demucs_tpu_torch.models.hlayers import LayerScale, scalar
 from demucs_tpu_torch.ops import nn as ops
 
 
@@ -270,7 +273,7 @@ class CrossTransformerEncoder(nn.Module):
         pos2d = pos2d.permute(2, 1, 0).reshape(1, T1 * Fr, C)
         if s.norm_in or s.norm_in_group:
             x = _layer_norm(self.norm_in, x)
-        x = x + s.weight_pos_embed * pos2d
+        x = x + scalar(s.weight_pos_embed, x.dtype) * pos2d.to(x.dtype)
 
         T2 = xt.shape[-1]
         xt = xt.transpose(1, 2)  # (B, T2, C)
@@ -280,7 +283,7 @@ class CrossTransformerEncoder(nn.Module):
             pos_emb = (self.position_embeddings.embedding.weight[:T2] * 3.0)[None]
         if s.norm_in or s.norm_in_group:
             xt = _layer_norm(self.norm_in_t, xt)
-        xt = xt + s.weight_pos_embed * pos_emb
+        xt = xt + scalar(s.weight_pos_embed, xt.dtype) * pos_emb.to(xt.dtype)
 
         for idx in range(s.num_layers):
             if idx % 2 == s.classic_parity:

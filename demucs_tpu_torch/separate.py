@@ -2,6 +2,7 @@
 (port of ``demucs_tpu/separate.py``; behavioral reference ``demucs/separate.py``).
 
     python -m demucs_tpu_torch track.wav -n NAME [--repo DIR] [-o OUT] [-d cuda|cpu]
+        [--preset default|fast|balanced|quality] [--shift-offsets 2500,8000]
     python -m demucs_tpu_torch --list-models [--repo DIR]
 
 ``NAME`` (or ``-s SIG``) is a bag name or a model signature, in the folder
@@ -11,7 +12,9 @@ track at another sample rate is resampled to the model's. Stems are
 written as WAV to ``OUT/NAME/{track}/{stem}.wav`` by default. On the card
 the tracks go through the device-resident engine (``--engine auto``), one
 after the other with each track's copy to the host overlapping the next
-track's compute.
+track's compute. ``--preset`` picks a precision policy and stems wire
+(``presets.py``; an explicit ``--wire`` wins) and prints its contract;
+``--shift-offsets`` pins the shift offsets (``inference/prewarm.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 from demucs_tpu_torch.api import LoadAudioError, LoadModelError, Separator, list_models
 from demucs_tpu_torch.audio import save_audio
 from demucs_tpu_torch.models.registry import BagOfModels
+from demucs_tpu_torch.presets import resolve_preset
 from demucs_tpu_torch.zoo.pretrained import add_model_flags
 
 
@@ -40,6 +44,8 @@ def get_parser() -> argparse.ArgumentParser:
     add_model_flags(parser)
     parser.add_argument("--list-models", action="store_true",
                         help="List the models and bags of the repo and exit.")
+    parser.add_argument("-v", "--verbose", action="store_true",
+                        help="Show the separation's progress.")
     parser.add_argument("-o", "--out", type=Path, default=Path("separated"),
                         help="Folder for the stems; a subfolder with the model name "
                         "is created.")
@@ -50,6 +56,10 @@ def get_parser() -> argparse.ArgumentParser:
                         help="cuda (default) or cpu.")
     parser.add_argument("--shifts", default=1, type=int,
                         help="Number of random shifts for equivariant stabilization.")
+    parser.add_argument("--shift-offsets", default=None,
+                        help="Comma-separated pinned shift offsets (samples), consumed in "
+                        "order instead of random draws: the reference's numerics for those "
+                        "draws, and a bounded set of tail shapes that a prewarm can run.")
     parser.add_argument("--overlap", default=0.25, type=float,
                         help="Overlap between the splits.")
     split_group = parser.add_mutually_exclusive_group()
@@ -64,6 +74,10 @@ def get_parser() -> argparse.ArgumentParser:
     depth_group = parser.add_mutually_exclusive_group()
     depth_group.add_argument("--int24", action="store_true", help="Save wav as 24 bits.")
     depth_group.add_argument("--float32", action="store_true", help="Save wav as float32.")
+    parser.add_argument("--clip-mode", default="rescale", choices=["rescale", "clamp", "none"],
+                        help="Clipping strategy: rescale | clamp | none.")
+    parser.add_argument("-j", "--jobs", default=0, type=int,
+                        help="Number of jobs (compatibility; see --batch-size).")
     parser.add_argument("--batch-size", default=16, type=int,
                         help="Segments per forward on the device.")
     parser.add_argument("--engine", default="auto", choices=["auto", "host", "device"],
@@ -80,6 +94,12 @@ def get_parser() -> argparse.ArgumentParser:
                         help="Pad each track with zeros to a multiple of this length on the "
                         "device engine, so tracks of other lengths share graphs (only the "
                         "last chunk's context changes).")
+    parser.add_argument("--preset", default="default",
+                        choices=["default", "fast", "balanced", "quality"],
+                        help="Precision policy and stems wire (presets.py): 'fast' = bf16 "
+                        "storage in HTDemucs's core stages + int8 wire; default = full fp32; "
+                        "'balanced' = TF32 tensor cores in cuDNN and cuBLAS; 'quality' = "
+                        "full fp32 + the bit-exact wire. An explicit --wire wins.")
     parser.add_argument("--wire", default="auto",
                         choices=["auto", "float32", "float16", "int16", "int8"],
                         help="Format of the stems' copy from the device engine: auto = "
@@ -103,17 +123,22 @@ def main(opts=None):
     if not args.tracks:
         fatal("error: the following arguments are required: tracks")
     name = args.sig or args.name
-    wire = args.wire
+    compute_dtype, matmul_precision, wire, banner = resolve_preset(args.preset, args.wire)
+    if banner:
+        print(banner)
     if wire == "auto":
         wire = "float16" if args.float32 or args.int24 else "int16"
     try:
         separator = Separator(model=name, repo=args.repo, device=args.device,
                               shifts=args.shifts, split=args.split, overlap=args.overlap,
-                              segment=args.segment, batch_size=args.batch_size,
-                              engine=args.engine,
+                              segment=args.segment, jobs=args.jobs, progress=args.verbose,
+                              batch_size=args.batch_size, engine=args.engine,
                               transfer_dtype=None if wire == "float32" else wire,
                               length_bucket_seconds=args.length_bucket,
-                              tail_mode=args.tail_mode)
+                              tail_mode=args.tail_mode, compute_dtype=compute_dtype,
+                              matmul_precision=matmul_precision,
+                              shift_offsets=(tuple(int(x) for x in args.shift_offsets.split(","))
+                                             if args.shift_offsets else None))
     except LoadModelError as error:
         fatal(str(error))
     model = separator.model
@@ -130,8 +155,8 @@ def main(opts=None):
     out = args.out / name
     out.mkdir(parents=True, exist_ok=True)
     print(f"Separated tracks will be stored in {out.resolve()}")
-    kwargs = {"samplerate": separator.samplerate, "as_float": args.float32,
-              "bits_per_sample": 24 if args.int24 else 16}
+    kwargs = {"samplerate": separator.samplerate, "clip": args.clip_mode,
+              "as_float": args.float32, "bits_per_sample": 24 if args.int24 else 16}
 
     def announced(tracks):
         for track in tracks:

@@ -46,8 +46,10 @@ def load_flat_state(module: torch.nn.Module, flat: tp.Mapping[str, tp.Any]) -> t
 
 
 def flat_state(module: torch.nn.Module) -> tp.Dict[str, np.ndarray]:
-    """``{dotted name: float32 array}`` of a module's parameters and buffers."""
-    return {name: t.detach().cpu().numpy() for name, t in module.state_dict().items()}
+    """``{dotted name: float32 array}`` of a module's parameters and buffers
+    (a bf16 stage's parameters widened exactly: numpy has no bf16)."""
+    return {name: (t.float() if t.is_floating_point() else t).detach().cpu().numpy()
+            for name, t in module.state_dict().items()}
 
 
 _MODEL_CLASS_NAMES = {"HTDemucs": "htdemucs", "HDemucs": "hdemucs", "Demucs": "demucs",

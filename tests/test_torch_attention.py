@@ -227,3 +227,107 @@ def test_kernel_model_without_lo_terms_misses_the_tolerance():
     err_1x = np.abs(_k3_model(tq, tk, tv, 1, lo=False).numpy() - want).max()
     err_3x = np.abs(_k3_model(tq, tk, tv, 1).numpy() - want).max()
     assert err_1x > TOL["atol"] > 10 * err_3x
+
+
+# ---- the bf16 route ----
+# The plain twin on bf16 inputs follows the JAX package's dense path rounding
+# for rounding (q scaled in bf16, fp32 scores and softmax, weights rounded to
+# bf16, fp32 P V, output rounded to bf16): it equals JAX's dense
+# multihead_attention on the same bf16 inputs up to the fp32 order of the
+# sums, which moves a rare output by one bf16 step (BF16_DENSE). The Pallas
+# kernel (interpret mode) scales q in fp32 and never rounds P, so it differs
+# from both by a few bf16 steps of the output (BF16_FLASH). _k3_bf16_model is
+# the CUDA kernel's arithmetic (csrc/flash_mha.cu, flash_mha_bf16_kernel):
+# the scale on the fp32 scores, unnormalized P rounded to bf16 per tile, o / l
+# rounded once; it is held to BF16_FLASH against the twin, the tolerance
+# tests/test_torch_cuda.py holds the kernel to.
+
+BF16_DENSE = dict(atol=2 ** -8, rtol=0)  # one bf16 step at |out| < 1, on a rare element
+BF16_FLASH = dict(atol=2 ** -6, rtol=2 ** -6)  # a few bf16 steps of |out|
+
+
+def _bf16(*arrays):
+    return [torch.from_numpy(a).bfloat16() for a in arrays]
+
+
+def _jax_bf16(*tensors):
+    return [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in tensors]
+
+
+def _k3_bf16_model(q, k, v, num_heads, mask=None):
+    B, Tq, C = q.shape
+    Tk, d, T = k.shape[1], C // num_heads, K.KEY_TILE
+    scale = torch.tensor(K.q_scale(d), dtype=torch.float32)
+    out = torch.empty(B, Tq, C, dtype=torch.bfloat16)
+    for b in range(B):
+        for h in range(num_heads):
+            cols = slice(h * d, (h + 1) * d)
+            acc = torch.zeros(Tq, d)
+            m, l = torch.full((Tq,), -math.inf), torch.zeros(Tq)
+            for k0 in range(0, Tk, T):
+                n = min(T, Tk - k0)
+                s = (q[b, :, cols].float() @ k[b, k0:k0 + n, cols].float().T) * scale
+                if mask is not None:
+                    s = s.masked_fill(~mask[:, k0:k0 + n], -math.inf)
+                m_new = torch.maximum(m, s.max(-1).values)
+                base = torch.where(torch.isneginf(m_new), 0.0, m_new)
+                alpha = torch.exp2(m - base)
+                p = torch.exp2(s - base[:, None])
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[:, None] + p.bfloat16().float() @ v[b, k0:k0 + n, cols].float()
+                m = m_new
+            out[b, :, cols] = (acc / l[:, None]).bfloat16()
+    return out
+
+
+@pytest.mark.parametrize("B,Tq,Tk,C,H,masked", [
+    (1, 200, 200, 64, 2, False),   # head dim 32
+    (2, 130, 70, 96, 2, True),     # head dim 48, ragged cross, masked
+    (1, 300, 300, 128, 2, False),  # head dim 64
+    (1, 150, 260, 128, 2, True),   # head dim 64, masked
+])
+def test_bf16_twin_matches_jax_dense_and_pallas(B, Tq, Tk, C, H, masked):
+    q, k, v = _bf16(*_qkv(B, Tq, Tk, C, 11))
+    mask = None
+    if masked:
+        mask = torch.rand(Tq, Tk, generator=torch.Generator().manual_seed(3)) > 0.3
+        mask[:, :K.KEY_TILE] = False  # a fully masked first key tile
+    jq, jk, jv = _jax_bf16(q, k, v)
+    jm = None if mask is None else jnp.asarray(mask.numpy())
+    got = port_mha(q, k, v, H, mask=mask)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(K.flash_mha(q, k, v, H, mask=mask), got)  # the wrapper on the CPU
+    assert torch.equal(K.flash_mha_bf16(q, k, v, H, mask=mask), got)
+    dense = multihead_attention(jq, jk, jv, H, mask=jm)
+    flash = jax_flash_mha(jq, jk, jv, H, mask=jm, block_q=128, block_k=128, interpret=True)
+    assert dense.dtype == flash.dtype == jnp.bfloat16
+    got = got.float().numpy()
+    dense, flash = (np.asarray(a.astype(jnp.float32)) for a in (dense, flash))
+    assert np.mean(got != dense) < 1e-3
+    np.testing.assert_allclose(got, dense, **BF16_DENSE)
+    np.testing.assert_allclose(got, flash, **BF16_FLASH)
+    model = _k3_bf16_model(q, k, v, H, mask=mask).float().numpy()
+    np.testing.assert_allclose(model, got, **BF16_FLASH)
+    np.testing.assert_allclose(model, flash, **BF16_FLASH)
+
+
+def test_bf16_fully_masked_row_is_nan():
+    q, k, v = _bf16(*_qkv(1, 64, 64, 64, 12))
+    mask = torch.ones(64, 64, dtype=torch.bool)
+    mask[5] = False
+    got = port_mha(q, k, v, 1, mask=mask)
+    model = _k3_bf16_model(q, k, v, 1, mask=mask)
+    assert torch.isnan(got[0, 5]).all() and torch.isnan(model[0, 5]).all()
+    assert torch.isfinite(got[0, 6:]).all() and torch.isfinite(model[0, 6:]).all()
+
+
+def test_bf16_model_tells_the_routes_apart():
+    """The bf16 route's error against the fp32 twin is bf16's (about 1e-3 at
+    the released head), two orders over the fp32 route's 2e-5: a card test
+    at BF16_FLASH shows the bf16 kernel ran, and K3's fp32 tolerance would
+    refuse it."""
+    q, k, v = _qkv(1, 512, 512, 64, 13)
+    want = _port(q, k, v, 1)
+    got = _k3_bf16_model(*_bf16(q, k, v), 1).float().numpy()
+    err = np.abs(got - want).max()
+    assert 100 * TOL["atol"] < err < BF16_FLASH["atol"] + BF16_FLASH["rtol"] * np.abs(want).max()

@@ -8,8 +8,11 @@ without them:
 Tolerances: K1/K2 1e-4 x peak (an fp32 FFT against fp32 dense DFT products,
 sums of thousands of terms), K3 atol 2e-5 rtol 1e-4 (the CPU tests' bound,
 which one TF32 product per matmul would miss 20-30 times over; the kernel's
-three-term TF32 split keeps fp32 level), the model 2e-4 x peak — all with
-TF32 off.
+three-term TF32 split keeps fp32 level), K3's bf16 route atol = rtol = 2**-6
+(a few bf16 steps of the output: tests/test_torch_attention.py's BF16_FLASH,
+which its model of the kernel's arithmetic meets against the same plain
+version), the model 2e-4 x peak — all with TF32 off unless a test sets a
+precision policy.
 """
 
 import numpy as np
@@ -23,9 +26,9 @@ pytestmark = pytest.mark.cuda
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
-    from demucs_tpu_torch.models.htdemucs import full_fp32
+    from demucs_tpu_torch.models.htdemucs import precision_scope
 
-    with full_fp32():
+    with precision_scope(None):
         yield torch.device("cuda")
 
 
@@ -238,7 +241,8 @@ def test_graph_replay_matches_eager_forward(cuda, batch):
         half = module(mix * 0.5)
     assert KS.stft_dft.launches == before + 3  # two eager forwards and the warm-up
     assert graphs.captures == 1 and graphs.replays == 2
-    assert graphs.replayed_launches == {"stft_dft": 2, "istft_dft": 2, "flash_mha": 20}
+    assert graphs.replayed_launches == {"stft_dft": 2, "istft_dft": 2, "flash_mha": 20,
+                                        "flash_mha_bf16": 0}
     peak = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-6 * peak
     assert (again - half).abs().max().item() <= 1e-6 * half.abs().max().item()
@@ -355,3 +359,147 @@ def test_wiener_and_resampler_card_match_cpu(cuda):
         want = resample_frac(x, old, new)
         got = resample_frac(x.to(cuda), old, new).cpu()
         assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+# ---- K3's bf16 route ----
+
+BF16_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
+
+
+def _bf16_close(got, want):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("d", [32, 48, 64])
+def test_flash_mha_bf16_tiles(cuda, d):
+    """One S tile and one P V tile alone, through the kernel's tile image,
+    descriptors and fragment maps: exact products of bf16 values, summed in
+    fp32 (1e-5 of the sums' size)."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v = (_randn(64, d, seed=s).bfloat16() for s in (60, 61, 62))
+    p = torch.rand(64, 64, generator=torch.Generator().manual_seed(63)).to(cuda)
+    s_tile, o_tile = K.bf16_tiles(q, k, v, p)
+    torch.cuda.synchronize()
+    want_s = q.double() @ k.double().T
+    want_o = p.bfloat16().double() @ v.double()
+    assert (s_tile.double() - want_s).abs().max().item() <= 1e-5 * want_s.abs().max().item()
+    assert (o_tile.double() - want_o).abs().max().item() <= 1e-5 * want_o.abs().max().item()
+
+
+@pytest.mark.parametrize("B,Tq,Tk,C,H", [
+    (1, 2688, 2688, 512, 8), (6, 2688, 2688, 512, 8),  # freq<-freq, one segment and the batch
+    (1, 1344, 1344, 512, 8), (6, 2688, 1344, 512, 8), (6, 1344, 2688, 512, 8),
+    (2, 300, 130, 128, 4), (1, 70, 90, 384, 8), (2, 1, 33, 64, 1),
+    (1, 1000, 700, 384, 8)])  # Tq not a multiple of the block's 128 rows, head dim 48
+def test_flash_mha_bf16_kernel_matches_plain(cuda, monkeypatch, B, Tq, Tk, C, H):
+    """bf16 CUDA inputs launch the bf16 kernel and never reach the plain version."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v = (_randn(B, T, C, seed=s).bfloat16() for s, T in ((64, Tq), (65, Tk), (66, Tk)))
+    want = K.flash_mha_plain(q, k, v, H)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(K, "flash_mha_plain", refuse)
+    before = (K.flash_mha.launches, K.flash_mha_bf16.launches)
+    got = K.flash_mha(q, k, v, H)
+    torch.cuda.synchronize()
+    assert (K.flash_mha.launches, K.flash_mha_bf16.launches) == (before[0], before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    _bf16_close(got, want)
+
+
+def test_flash_mha_bf16_kernel_masks(cuda):
+    from demucs_tpu_torch.kernels import attention as K
+
+    T, C, H = 2688, 512, 8
+    q, k, v = (_randn(1, T, C, seed=s).bfloat16() for s in (67, 68, 69))
+    mask = torch.rand(T, T, generator=torch.Generator().manual_seed(70)) > 0.7
+    mask[:, :64] = False  # the first key tile, fully masked for every row
+    mask[11] = False  # a row with no kept key
+    got = K.flash_mha_bf16(q, k, v, H, mask=mask.cuda()).float().cpu()
+    want = K.flash_mha_plain(q, k, v, H, mask=mask.cuda()).float().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got[0, 11]).all()
+    keep = torch.isfinite(want)
+    np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), **BF16_TOL)
+
+
+def test_flash_mha_other_dtypes_raise(cuda):
+    from demucs_tpu_torch.kernels import attention as K
+
+    q = _randn(1, 16, 64)
+    with pytest.raises(TypeError):
+        K.flash_mha(q.half(), q.half(), q.half(), 1)
+    with pytest.raises(TypeError):
+        K.flash_mha_bf16(q, q, q, 1)  # fp32 on the bf16 route
+    with pytest.raises(TypeError):
+        K.flash_mha(q.bfloat16(), q, q, 1)  # mixed dtypes
+
+
+@pytest.mark.parametrize("precision,flags", [
+    (None, (False, False, False)), ("tensorfloat32", (True, True, False)),
+    ("bfloat16", (True, True, True))])
+def test_precision_scope_inside_a_captured_graph(cuda, precision, flags):
+    """The policy's flags are in force while the forward is captured (a graph
+    bakes in the kernels chosen under them), and the replay equals the eager
+    forward under the same policy."""
+    from demucs_tpu_torch.inference.engine import GraphCache
+    from demucs_tpu_torch.models.registry import reconfigured
+    from demucs_tpu_torch.ops import nn as ops
+
+    model = reconfigured(_small_model(), matmul_precision=precision)
+    seen = []
+    model.module.encoder[0].register_forward_pre_hook(lambda *_: seen.append((
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+        ops._BF16_OPERANDS, torch.cuda.is_current_stream_capturing())))
+    mix = _randn(2, 2, 4000, seed=71) * 0.1
+    graphs = GraphCache()
+    with torch.inference_mode():
+        got = graphs.forward(model.module, mix).clone()
+        want = model.module(mix)
+    assert (flags + (True,)) in seen  # the capture
+    assert all(s[:3] == flags for s in seen)
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+    assert torch.backends.cuda.matmul.allow_tf32 is False  # restored
+
+
+def test_fast_policy_on_card(cuda):
+    """compute_dtype="bfloat16" on the card: K3's bf16 route in every attention,
+    output fp32 and close to the fp32 forward (SER over 20 dB, random weights)."""
+    from demucs_tpu_torch.kernels import attention as K
+    from demucs_tpu_torch.models.registry import reconfigured
+
+    model = _small_model()
+    fast = reconfigured(model, compute_dtype="bfloat16")
+    mix = _randn(2, 2, 4000, seed=72) * 0.1
+    before = (K.flash_mha.launches, K.flash_mha_bf16.launches)
+    with torch.inference_mode():
+        want = model.module(mix)
+        got = fast.module(mix)
+    assert (K.flash_mha.launches - before[0], K.flash_mha_bf16.launches - before[1]) == (6, 6)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    ser = 10 * torch.log10(want.pow(2).sum() / (want - got).pow(2).sum()).item()
+    assert ser > 20
+
+
+# Least SER of each preset's forward against the fp32 forward on the card, dB
+# (chip_smoke.py PRESET_SER_DB: a preset under its bound fails that run too).
+PRESET_SER_DB = {"default": 100.0, "quality": 100.0, "balanced": 30.0, "fast": 20.0}
+
+
+@pytest.mark.parametrize("preset", ["default", "fast", "balanced", "quality"])
+def test_presets_ser_on_card(cuda, preset):
+    from demucs_tpu_torch.api import _apply_precision
+    from demucs_tpu_torch.presets import resolve_preset
+
+    model = _small_model()
+    compute_dtype, matmul_precision, _, _ = resolve_preset(preset, None)
+    policy = _apply_precision(model, compute_dtype, matmul_precision)
+    mix = _randn(2, 2, 4000, seed=73) * 0.1
+    with torch.inference_mode():
+        want = model.module(mix)
+        got = policy.module(mix)
+    err = (want - got).pow(2).sum().item()
+    assert err == 0 or 10 * np.log10(want.pow(2).sum().item() / err) >= PRESET_SER_DB[preset]

@@ -121,5 +121,8 @@ def test_config_fields_and_defaults_equal_jax():
 
     assert fields(th.HDemucsConfig) == fields(jh.HDemucsConfig)
     assert th.HDemucsConfig().hop_length == 1024
-    with pytest.raises(NotImplementedError):
-        th.HDemucs(th.HDemucsConfig(matmul_precision="highest"))
+    # matmul_precision is ported (tests/test_torch_precision.py); a dot-algorithm
+    # name, which JAX's config takes, has no counterpart on the card
+    assert th.HDemucs(th.HDemucsConfig(matmul_precision="highest")).cfg.matmul_precision
+    with pytest.raises(ValueError, match="dot-algorithm"):
+        th.HDemucs(th.HDemucsConfig(matmul_precision="BF16_BF16_F32_X3"))

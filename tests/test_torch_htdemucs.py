@@ -212,11 +212,15 @@ def test_load_flat_state_is_strict():
 
 
 def test_unported_options_raise():
-    for kw in (dict(cac=False), dict(compute_dtype="bfloat16"), dict(t_emb="cape"),
-               dict(t_sparse_self_attn=True), dict(multi_freqs=(0.5,))):
+    for kw in (dict(cac=False), dict(t_emb="cape"), dict(t_sparse_self_attn=True),
+               dict(multi_freqs=(0.5,)), dict(t_dropout=0.1)):
         with pytest.raises(NotImplementedError):
             tht.HTDemucs(tht.HTDemucsConfig(sources=SOURCES, channels=8, nfft=512,
                                             segment=0.5, samplerate=8000, **kw))
+    # the precision policies are ported (tests/test_torch_precision.py)
+    for kw in (dict(compute_dtype="bfloat16"), dict(matmul_precision="highest")):
+        tht.HTDemucs(tht.HTDemucsConfig(sources=SOURCES, channels=8, nfft=512, segment=0.5,
+                                        samplerate=8000, **kw))
 
 
 def test_random_init_is_seeded():

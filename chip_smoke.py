@@ -93,12 +93,34 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 12. prewarm — HDemucs at 30 and 60 s, each part on a model loaded anew:
               random shifts, a cold pinned offset, then prewarm() and requests
               with the pinned set it warmed (no capture after it).
-13. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
-              then -n <bag> --repo <folder> on a 48 kHz WAV (resampled).
+13. codecs  — on the host: which of libmp3lame, libmpg123, the libavcodec
+              headers and libraries (the avio shim) and the ffmpeg binaries this
+              machine has (absent is printed, not failed); a 30 s stereo track
+              written and read as FLAC at 16 and 24 bits (bit-exact) and, with
+              LAME, as mp3; the ms of each step.
+14. serve   — SeparationService (the phase-4 HTDemucs .dmx, pinned shift
+              offsets) behind make_server on 127.0.0.1, port 0, in a thread: 30 s
+              bodies as WAV, FLAC and (with LAME and a decoder) mp3, and
+              responses as wav, flac and (with LAME) mp3, each twice after a
+              warm-up: audio-s/s and the wall split into body decode, separation,
+              and encode plus zip; launches over them. The float32 WAV response
+              against Separator.separate_tensor on the decoded body, bit for bit;
+              ?shifts=0 then a parameterless request (nothing leaks); a truncated
+              and an ADTS-headed body get error statuses and the next request is
+              answered.
+15. streaming — StreamSeparator over HTDemucs (30 s) and Demucs v2 (44 s
+              segment, 60 s) fed in ragged chunks from a seed: against
+              apply_model(shifts=0) on the card (1e-5 x peak) and its graph
+              replays against an all-eager stream (1e-6 x peak); replays and
+              eager tails, ms per segment, latency, real-time factor, launches.
+16. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
+              then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
+              the .dmx on a FLAC file with --flac and (with LAME) --mp3.
 
 Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, each kernel's
-launches on every path: HTDemucs, HDemucs, Demucs v2, the bag and each
-family's presets; ``launches`` is their sum) and, last,
+launches on every path: HTDemucs, HDemucs, Demucs v2, the bag, each
+family's presets, the server and each stream; ``launches`` is their sum)
+and, last,
 ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
 CUDA cores, 495 TFLOP/s in TF32 on the tensor cores and 3.35 TB/s of HBM;
@@ -128,6 +150,7 @@ import subprocess
 import sys
 import time
 import traceback
+import typing as tp
 import wave
 from pathlib import Path
 
@@ -152,6 +175,8 @@ SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's clocks: longer than 10 cal
 REPEATS = 5  # serving: each request size is answered this many times, median reported
 FAMILY_REPEATS = 3  # the same for the HDemucs and Demucs v2 requests
 FAMILY_LENGTHS = (30.0, 60.0)
+CODEC_SECONDS = 30.0  # the codecs phase's track
+SERVE_REPEATS = 2  # each served request kind, median reported
 HDEMUCS = dict(channels=48, depth=6, nfft=4096, samplerate=SR)  # hdemucs_mmi (tests/common.py:64)
 DEMUCS = dict(channels=64, depth=6, samplerate=SR)  # tests/common.py:65
 MDX_HYBRID = dict(hybrid_old=True, cac=False, norm_starts=999)  # tools/convert.py:63-72
@@ -1338,6 +1363,308 @@ def phase_prewarm(workdir: Path) -> dict:
     return info
 
 
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def _ms_since(start: float) -> float:
+    return (time.perf_counter() - start) * 1e3
+
+
+def codec_libraries() -> dict:
+    """Which codec libraries and binaries this machine has (absent is no failure)."""
+    import ctypes.util
+    import shutil
+
+    from demucs_tpu_torch import audio, avio, mp3io
+
+    return {"libmp3lame": mp3io.lame_available(), "libmpg123": mp3io.mpg123_available(),
+            "libavcodec_headers": any(Path(d, "libavcodec", "avcodec.h").exists() for d in (
+                "/usr/include", "/usr/include/x86_64-linux-gnu", "/usr/local/include")),
+            "libavcodec_libraries": {n: ctypes.util.find_library(n)
+                                     for n in ("avcodec", "avformat", "avutil")},
+            "avio_shim": avio.available(),
+            "avio_shim_absent_because": avio.unavailable_reason().splitlines()[:1],
+            "ffmpeg_binaries": audio.ffmpeg_available(), "g++": shutil.which("g++")}
+
+
+def phase_codecs(workdir: Path) -> dict:
+    """The codecs on the host of the card's machine, on a 30 s stereo track: FLAC
+    write then read at 16 and 24 bits (bit-exact against the quantized
+    samples), and an mp3 write then read where LAME (and libmpg123) exist; the
+    ms of each step."""
+    import numpy as np
+
+    from demucs_tpu_torch import flacio, mp3io
+
+    begin = time.perf_counter()
+    libs = codec_libraries()
+    print(f"codec libraries: {json.dumps(libs)}", flush=True)
+    wav = _track(CODEC_SECONDS, 150)
+    info = {"phase": "codecs", "card": card_line(), "libraries": libs, "seconds": CODEC_SECONDS,
+            "flac": {}}
+    ok = True
+    for bits in (16, 24):
+        path = workdir / f"codec{bits}.flac"
+        start = time.perf_counter()
+        flacio.write_flac(path, wav, SR, bits_per_sample=bits)
+        write_ms = _ms_since(start)
+        start = time.perf_counter()
+        got, sr = flacio.read_flac(path)
+        read_ms = _ms_since(start)
+        lim = (1 << (bits - 1)) - 1
+        want = np.clip(np.round(wav.astype(np.float64) * lim), -lim - 1, lim)
+        exact = bool(sr == SR and np.array_equal(got.astype(np.float64) * (1 << (bits - 1)), want))
+        info["flac"][f"{bits} bit"] = {"write_ms": write_ms, "read_ms": read_ms,
+                                       "bytes": path.stat().st_size, "bit_exact": exact}
+        ok = ok and exact
+    if libs["libmp3lame"]:
+        path = workdir / "codec.mp3"
+        start = time.perf_counter()
+        mp3io.write_mp3(path, wav, SR, bitrate=320, quality=2)
+        row = {"write_ms": _ms_since(start), "bytes": path.stat().st_size}
+        if libs["libmpg123"]:
+            start = time.perf_counter()
+            got, sr = mp3io.read_mp3(path)
+            row["read_ms"] = _ms_since(start)
+            row["snr_db"] = float(10 * np.log10(np.mean(wav**2) / np.mean((got - wav) ** 2)))
+            row["ok"] = sr == SR and got.shape == wav.shape and row["snr_db"] > 20
+            ok = ok and row["ok"]
+        info["mp3"] = row
+    else:
+        info["mp3"] = "absent: libmp3lame is not installed on this machine"
+    info["ok"] = ok
+    info["phase_s"] = time.perf_counter() - begin
+    emit(info)
+    if not ok:
+        raise AssertionError(f"codecs: a round trip is wrong: {info}")
+    return info
+
+
+SERVE_OFFSETS = (2500, 8000)  # the server's pinned --shift-offsets
+
+
+def phase_serve(workdir: Path) -> tuple:
+    """SeparationService with the released-width HTDemucs (the serving phase's
+    .dmx) on the card, pinned shift offsets, make_server on 127.0.0.1 port 0
+    in a thread. After a warm-up request (graph captures), 30 s bodies as WAV,
+    FLAC and (with LAME and a decoder) mp3, and WAV bodies answered as wav,
+    flac and (with LAME) mp3, each twice: audio-s/s per request and response
+    format and the wall split into decode, separation and encode plus zip,
+    with the kernels' launches counted over them. Then: the float32 WAV
+    response against Separator.separate_tensor on the decoded body, bit for
+    bit; a ?shifts=0 request followed by a parameterless one, which must equal
+    the earlier parameterless response; a truncated and an ADTS-headed body,
+    which must get error statuses, and a request after them."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from demucs_tpu_torch import audio, mp3io
+    from demucs_tpu_torch.serve import SeparationService, make_server
+
+    begin = time.perf_counter()
+    libs = codec_libraries()
+    service = SeparationService("htdemucs_smoke", repo=workdir, device="cuda", shifts=1,
+                                shift_offsets=SERVE_OFFSETS, batch_size=16)
+    sep = service.separator
+    counts = Counts(sep.model.module)
+    wav = _track(30.0, 140)
+    bodies = {}
+    for kind in ("wav", "flac", "mp3"):
+        path = workdir / f"serve_body.{kind}"
+        if kind == "mp3" and not (libs["libmp3lame"] and (libs["libmpg123"] or libs["avio_shim"])):
+            continue
+        audio.save_audio(wav, path, SR, clip="none", as_float=kind == "wav")
+        bodies[kind] = path.read_bytes()
+    formats = ["wav", "flac"] + (["mp3"] if libs["libmp3lame"] else [])
+
+    server = make_server(service, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(query: str, body: bytes) -> tuple:
+        start = time.perf_counter()
+        req = urllib.request.Request(f"{base}/separate{query}", data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status, resp.read(), time.perf_counter() - start
+        except urllib.error.HTTPError as err:
+            return err.code, err.read(), time.perf_counter() - start
+
+    def stems(blob: bytes, fmt: str = "wav") -> dict:
+        import io
+        import zipfile
+
+        out = {}
+        with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+            for name in sorted(zf.namelist()):
+                path = workdir / f"served_{name}"
+                path.write_bytes(zf.read(name))
+                out[name] = audio.read_audio(path)[0] if fmt != "mp3" or libs["libmpg123"] \
+                    else path.stat().st_size
+        return out
+
+    info = {"phase": "serve", "card": card_line(), "model": "htdemucs (released widths, 7.8 s)",
+            "shift_offsets": SERVE_OFFSETS, "seconds": 30.0, "requests": {}}
+    try:
+        health = json.loads(urllib.request.urlopen(f"{base}/healthz", timeout=60).read())
+        n_models = len(json.loads(urllib.request.urlopen(f"{base}/models", timeout=60).read())[
+            "models"])
+        status, _, wall = post("?float32=1&clip=none", bodies["wav"])  # warm-up: captures
+        info["warmup_s"] = wall
+        if status != 200:
+            raise AssertionError(f"serve: the warm-up request got {status}")
+        counts.zero()
+        plan = [(f"{b} body -> wav", b, "wav") for b in bodies] + [
+            (f"wav body -> {f}", "wav", f) for f in formats if f != "wav"]
+        first_wav = None
+        for label, body, fmt in plan:
+            query = f"?format={fmt}" + ("&float32=1&clip=none" if body == fmt == "wav" else "")
+            walls, splits = [], []
+            for _ in range(SERVE_REPEATS):
+                status, blob, wall = post(query, bodies[body])
+                if status != 200:
+                    raise AssertionError(f"serve: {label} got {status}: {blob[:300]!r}")
+                walls.append(wall)
+                splits.append(dict(service.last_timing))
+            if body == fmt == "wav":
+                first_wav = blob
+            got = stems(blob, fmt)
+            if len(got) != 4 or not all(isinstance(v, int) or (v.shape == wav.shape and
+                                                               np.isfinite(v).all())
+                                        for v in got.values()):
+                raise AssertionError(f"serve: {label} gave wrong stems")
+            median = sorted(walls)[len(walls) // 2]
+            info["requests"][label] = {
+                "wall_s": walls, "audio_s_per_s": 30.0 / median,
+                "split_s": {k: sorted(s[k] for s in splits)[len(splits) // 2]
+                            for k in splits[0]},
+                "response_bytes": len(blob)}
+        run = counts.read()
+        info["launches"] = run["launches"]
+        info["launches_ok"] = run["ok"] and run["eager_forwards"] == 0
+        info["graph_replays"] = run["graph_replays"]
+
+        decoded, _ = audio.read_audio(workdir / "serve_body.wav", samplerate=SR, channels=2)
+        _, want = sep.separate_tensor(decoded)
+        served = stems(first_wav)
+        info["stems_bit_equal"] = all(np.array_equal(served[f"{k}.wav"], v)
+                                      for k, v in want.items())
+
+        status, _, _ = post("?shifts=0&float32=1&clip=none", bodies["wav"])
+        _, after, _ = post("?float32=1&clip=none", bodies["wav"])
+        info["overrides"] = {"shifts=0 status": status, "shifts after": sep._shifts,
+                             "parameterless unchanged": all(
+                                 np.array_equal(a, b) for a, b in zip(
+                                     stems(after).values(), served.values()))}
+        adts = b"\xff\xf1\x50\x80\x2e\x7f\xfc" + np.random.default_rng(0).integers(
+            0, 256, 4000, dtype=np.uint8).tobytes()
+        bad = {"truncated flac": post("", bodies["flac"][: len(bodies["flac"]) // 2])[0],
+               "adts header": post("", adts)[0]}
+        bad["next request"] = post("?float32=1&clip=none", bodies["wav"])[0]
+        info["bad_bodies"] = bad
+        info["healthz"] = health
+        info["models_listed"] = n_models
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    info["ok"] = (info["launches_ok"] and info["stems_bit_equal"]
+                  and info["overrides"]["shifts=0 status"] == 200
+                  and info["overrides"]["shifts after"] == 1
+                  and info["overrides"]["parameterless unchanged"]
+                  and bad["truncated flac"] >= 400 and bad["adts header"] >= 400
+                  and bad["next request"] == 200 and not thread.is_alive())
+    info["phase_s"] = time.perf_counter() - begin
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"serve: {info}")
+    return info, run["launches"]
+
+
+def _streamed(stream, mix, sizes) -> tuple:
+    """Feed ``mix (C, T)`` to ``stream`` in chunks of ``sizes``, flush: (stems, wall s)."""
+    import numpy as np
+
+    parts, pos = [], 0
+    start = time.perf_counter()
+    for n in sizes:
+        parts.append(stream.feed(mix[:, pos:pos + n]))
+        pos += n
+    parts.append(stream.flush())
+    return np.concatenate(parts, axis=-1)[None], time.perf_counter() - start
+
+
+def phase_streaming(workdir: Path) -> tuple:
+    """StreamSeparator on the card: HTDemucs (released widths, 7.8 s) over 30 s
+    and Demucs v2 (44 s segment) over 60 s, fed in ragged chunks drawn from a
+    seed. A first run captures the graph of the full segments; the second is
+    timed and counted; a third runs every segment eagerly. The streamed stems
+    against apply_model(shifts=0) on the card (1e-5 x peak, ENGINE_RTOL) and
+    the graph replays against the eager run (1e-6 x peak, GRAPH_RTOL)."""
+    import numpy as np
+
+    from demucs_tpu_torch.inference import streaming
+    from demucs_tpu_torch.inference.apply import apply_model
+    from demucs_tpu_torch.zoo.pretrained import get_model
+
+    begin = time.perf_counter()
+    info = {"phase": "streaming", "card": card_line()}
+    paths = {}
+    ok = True
+    for label, name, seconds in (("htdemucs", "htdemucs_smoke", 30.0),
+                                 ("demucs_v2", "demucs_smoke", 60.0)):
+        model = get_model(name, workdir, device="cuda")
+        counts = Counts(model.module)
+        mix = _track(seconds, 160)
+        rng = np.random.default_rng(161)
+        sizes, left = [], mix.shape[-1]
+        while left:
+            sizes.append(int(min(left, rng.integers(1000, 100000))))
+            left -= sizes[-1]
+        _streamed(streaming.StreamSeparator(model), mix, sizes)  # captures the graph
+        counts.zero()
+        stream = streaming.StreamSeparator(model)
+        got, wall = _streamed(stream, mix, sizes)
+        run = counts.read()
+        forward = streaming._forward
+        streaming._forward = lambda module, batch: module(batch)
+        try:
+            eager, _ = _streamed(streaming.StreamSeparator(model), mix, sizes)
+        finally:
+            streaming._forward = forward
+        want = apply_model(model, mix[None], shifts=0)
+        peak = float(np.abs(want).max())
+        row = {"chunks": len(sizes), "graph_replays": stream.graph_segments,
+               "eager_tails": stream.eager_segments,
+               "ms_per_segment": wall * 1e3 / (stream.graph_segments + stream.eager_segments),
+               "wall_s": wall, "latency_s": stream.latency_samples / SR,
+               "real_time_factor": seconds / wall,
+               "vs_apply_model": float(np.abs(got - want).max()) / peak, "tol": ENGINE_RTOL,
+               "replay_vs_eager": float(np.abs(got - eager).max()) / peak,
+               "replay_tol": GRAPH_RTOL, "launches": run["launches"],
+               "launches_ok": run["ok"] and run["graph_replays"] == stream.graph_segments}
+        row["ok"] = (got.shape == want.shape and row["vs_apply_model"] <= ENGINE_RTOL
+                     and row["replay_vs_eager"] <= GRAPH_RTOL and row["launches_ok"]
+                     and stream.graph_segments > 0 and stream.eager_segments > 0)
+        ok = ok and row["ok"]
+        info[label] = row
+        paths[f"streaming {label}"] = run["launches"]
+        del model, counts
+    info["ok"] = ok
+    info["phase_s"] = time.perf_counter() - begin
+    emit(info)
+    if not ok:
+        raise AssertionError(f"streaming: {info}")
+    return info, paths
+
+
 def _write_pcm16(path: Path, wav, samplerate: int) -> None:
     with wave.open(str(path), "wb") as w:
         w.setnchannels(2)
@@ -1346,32 +1673,42 @@ def _write_pcm16(path: Path, wav, samplerate: int) -> None:
         w.writeframes((wav.T * (2**15 - 1)).astype("<i2").tobytes())
 
 
-def run_cli(workdir: Path, repo: Path, name: str, samplerate: int) -> dict:
-    """``python -m demucs_tpu_torch track.wav -n NAME --repo REPO`` on a 5 s WAV
-    at ``samplerate``: exit code 0 and four 16-bit stems of 5 s at 44.1 kHz."""
+def run_cli(workdir: Path, repo: Path, name: str, samplerate: int, fmt: str = "wav",
+            out_flag: tp.Optional[str] = None) -> dict:
+    """``python -m demucs_tpu_torch track.<fmt> -n NAME --repo REPO [--flac|--mp3]``
+    on a 5 s track at ``samplerate`` (WAV or FLAC): exit code 0 and four stems
+    of 5 s at 44.1 kHz in the output format."""
     import os
 
     import numpy as np
 
-    from demucs_tpu_torch.audio import read_wav
+    from demucs_tpu_torch import audio, mp3io
 
     t = np.arange(5 * samplerate) / samplerate
     tones = 0.3 * np.sin(2 * np.pi * 220.0 * t) + 0.1 * np.sin(2 * np.pi * 3000.0 * t)
     wav = np.stack([tones, 0.8 * tones]).astype(np.float32)
-    track = workdir / f"track{samplerate}.wav"
-    _write_pcm16(track, wav, samplerate)
+    track = workdir / f"track{samplerate}.{fmt}"
+    if fmt == "wav":
+        _write_pcm16(track, wav, samplerate)
+    else:
+        audio.save_audio(wav, track, samplerate)
     out = workdir / "separated"
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     start = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", "demucs_tpu_torch", str(track), "--repo",
-                           str(repo), "-n", name, "-o", str(out)],
+                           str(repo), "-n", name, "-o", str(out), *([out_flag] if out_flag else [])],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
-    stems = sorted((out / name / track.stem).glob("*.wav"))
-    shapes = {p.name: (read_wav(p)[0].shape, read_wav(p)[1]) for p in stems}
+    ext = out_flag[2:] if out_flag else "wav"
+    stems = sorted((out / name / track.stem).glob(f"*.{ext}"))
+    readable = ext != "mp3" or mp3io.mpg123_available()
+    shapes = {p.name: ((audio.read_audio(p)[0].shape, audio.read_audio(p)[1]) if readable
+                       else ((2, 5 * SR), SR)) for p in stems}
     ok = (proc.returncode == 0
-          and sorted(shapes) == ["bass.wav", "drums.wav", "other.wav", "vocals.wav"]
-          and all(v == ((2, 5 * SR), SR) for v in shapes.values()))
-    info = {"model": name, "input_sr": samplerate, "rc": proc.returncode,
+          and sorted(shapes) == [f"{s}.{ext}" for s in ("bass", "drums", "other", "vocals")]
+          and all(v == ((2, 5 * SR), SR) for v in shapes.values())
+          and all(p.stat().st_size > 0 for p in stems))
+    info = {"model": name, "input": f"{fmt} at {samplerate} Hz", "output": ext,
+            "read_back": readable, "rc": proc.returncode,
             "stems": {k: [list(v[0]), v[1]] for k, v in shapes.items()},
             "wall_s": time.perf_counter() - start, "ok": ok}
     if not ok:
@@ -1381,9 +1718,18 @@ def run_cli(workdir: Path, repo: Path, name: str, samplerate: int) -> dict:
 
 def phase_cli(workdir: Path, zoo: Path, bag: str) -> None:
     """The CLI with the HTDemucs .dmx at 44.1 kHz, then with the repro_mdx_a-shape
-    bag of .th files on a 48 kHz WAV, which it resamples."""
-    runs = [run_cli(workdir, workdir, "htdemucs_smoke", SR), run_cli(workdir, zoo, bag, 48000)]
-    emit({"phase": "cli", "runs": runs, "ok": all(r["ok"] for r in runs)})
+    bag of .th files on a 48 kHz WAV, which it resamples; then the .dmx on a
+    FLAC input with --flac output, and with --mp3 where LAME exists."""
+    from demucs_tpu_torch import mp3io
+
+    runs = [run_cli(workdir, workdir, "htdemucs_smoke", SR), run_cli(workdir, zoo, bag, 48000),
+            run_cli(workdir, workdir, "htdemucs_smoke", SR, "flac", "--flac")]
+    if mp3io.lame_available():
+        runs.append(run_cli(workdir, workdir, "htdemucs_smoke", SR, "flac", "--mp3"))
+    else:
+        runs.append({"output": "mp3", "ok": True,
+                     "skipped": "libmp3lame is not installed on this machine"})
+    emit({"phase": "cli", "card": card_line(), "runs": runs, "ok": all(r["ok"] for r in runs)})
 
 
 def main() -> int:
@@ -1404,6 +1750,7 @@ def main() -> int:
         return 2
     import shutil
 
+    begin = time.perf_counter()
     workdir = ROOT / "build" / "chip_smoke"
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
@@ -1429,6 +1776,10 @@ def main() -> int:
         _, preset_paths = phase_presets(workdir)
         paths.update(preset_paths)
         phase_prewarm(workdir)
+        phase_codecs(workdir)
+        _, paths["serve"] = phase_serve(workdir)
+        _, stream_paths = phase_streaming(workdir)
+        paths.update(stream_paths)
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()
@@ -1446,6 +1797,7 @@ def main() -> int:
         row = dict(row, route="cuda", launches=sum(by_path.values()))
         kernels.append(dict({k: row[k] for k in keys}, launches_by_path=by_path,
                             hdemucs_44s=row.get("hdemucs_44s")))
+    emit({"phase": "total", "script_s": time.perf_counter() - begin})
     emit({"kernels": kernels})
     if not all(math.isfinite(k["ms"]) for k in kernels):
         return 1

@@ -107,14 +107,22 @@ def _triangle_weight(segment_length: int, transition_power: float) -> np.ndarray
     return (weight / weight.max()) ** transition_power
 
 
+def _eager(module: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
+    return module(batch)
+
+
 def _run_batched(model: Model, chunks: tp.Sequence[Chunk], target_length: int,
                  batch_size: int,
-                 on_chunk: tp.Optional[tp.Callable[[int, str], None]] = None
+                 on_chunk: tp.Optional[tp.Callable[[int, str], None]] = None,
+                 forward: tp.Callable[[torch.nn.Module, torch.Tensor], torch.Tensor] = _eager
                  ) -> tp.List[np.ndarray]:
     """Forward the chunks, each padded to ``target_length``, in batches of
     ``batch_size`` on the model's device; returns each chunk's center-trimmed
     ``(B, S, C, chunk length)`` output on the host. The last batch is not
-    padded: an eager forward has no executable to reuse."""
+    padded: an eager forward has no executable to reuse. ``forward(module,
+    batch)`` runs one batch (eagerly by default; the stream passes the CUDA
+    graph cache's replay for its full segments), under inference mode, and its
+    output is copied to the host before the next batch."""
     device = model.device
     results: tp.List[np.ndarray] = []
     for i in range(0, len(chunks), batch_size):
@@ -125,7 +133,7 @@ def _run_batched(model: Model, chunks: tp.Sequence[Chunk], target_length: int,
             for j in range(len(group)):
                 on_chunk(i + j, "start")
         with torch.inference_mode():
-            out = model.module(torch.from_numpy(stacked).to(device)).cpu().numpy()
+            out = forward(model.module, torch.from_numpy(stacked).to(device)).cpu().numpy()
         for j, chunk in enumerate(group):
             results.append(center_trim(out[j * item_b : (j + 1) * item_b], chunk.length))
             if on_chunk is not None:

@@ -1,15 +1,18 @@
-"""CLI: separate the sources of the given WAV tracks
+"""CLI: separate the sources of the given tracks
 (port of ``demucs_tpu/separate.py``; behavioral reference ``demucs/separate.py``).
 
-    python -m demucs_tpu_torch track.wav -n NAME [--repo DIR] [-o OUT] [-d cuda|cpu]
+    python -m demucs_tpu_torch track.mp3 -n NAME [--repo DIR] [-o OUT] [-d cuda|cpu]
+        [--flac | --mp3 [--mp3-bitrate 320] [--mp3-preset 2]] [--int24 | --float32]
         [--preset default|fast|balanced|quality] [--shift-offsets 2500,8000]
     python -m demucs_tpu_torch --list-models [--repo DIR]
 
 ``NAME`` (or ``-s SIG``) is a bag name or a model signature, in the folder
 ``--repo`` (``.th``, ``.dmx`` and bag ``.yaml`` files) or, without it, in the
 released registry (download cache); ``demucs_unittest`` needs neither. A
-track at another sample rate is resampled to the model's. Stems are
-written as WAV to ``OUT/NAME/{track}/{stem}.wav`` by default. On the card
+track is read in any format ``audio.read_audio`` knows (WAV, FLAC, mp3, and
+what libavcodec or ffmpeg decode), and a track at another sample rate is
+resampled to the model's. Stems are written as WAV, FLAC (``--flac``) or mp3
+(``--mp3``) to ``OUT/NAME/{track}/{stem}.{ext}`` by default. On the card
 the tracks go through the device-resident engine (``--engine auto``), one
 after the other with each track's copy to the host overlapping the next
 track's compute. ``--preset`` picks a precision policy and stems wire
@@ -37,10 +40,18 @@ def fatal(msg: str) -> None:
     sys.exit(1)
 
 
+def auto_wire(args: argparse.Namespace) -> str:
+    """The stems' wire for ``--wire auto``: int16 only for 16-bit PCM WAV output
+    (its rounding stays under half a step of that file), float16 otherwise
+    (24-bit or float WAV, FLAC, mp3)."""
+    pcm16_wav = not (args.float32 or args.int24 or args.mp3 or args.flac)
+    return "int16" if pcm16_wav else "float16"
+
+
 def get_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         "demucs_tpu_torch", description="Separate the sources for the given tracks")
-    parser.add_argument("tracks", nargs="*", type=Path, default=[], help="Path to WAV tracks")
+    parser.add_argument("tracks", nargs="*", type=Path, default=[], help="Path to tracks")
     add_model_flags(parser)
     parser.add_argument("--list-models", action="store_true",
                         help="List the models and bags of the repo and exit.")
@@ -76,6 +87,12 @@ def get_parser() -> argparse.ArgumentParser:
     depth_group.add_argument("--float32", action="store_true", help="Save wav as float32.")
     parser.add_argument("--clip-mode", default="rescale", choices=["rescale", "clamp", "none"],
                         help="Clipping strategy: rescale | clamp | none.")
+    format_group = parser.add_mutually_exclusive_group()
+    format_group.add_argument("--flac", action="store_true", help="Output flac.")
+    format_group.add_argument("--mp3", action="store_true", help="Output mp3.")
+    parser.add_argument("--mp3-bitrate", default=320, type=int, help="mp3 bitrate (kb/s).")
+    parser.add_argument("--mp3-preset", choices=range(2, 8), type=int, default=2,
+                        help="mp3 encoder preset, 2 = highest quality, 7 = fastest.")
     parser.add_argument("-j", "--jobs", default=0, type=int,
                         help="Number of jobs (compatibility; see --batch-size).")
     parser.add_argument("--batch-size", default=16, type=int,
@@ -103,7 +120,7 @@ def get_parser() -> argparse.ArgumentParser:
     parser.add_argument("--wire", default="auto",
                         choices=["auto", "float32", "float16", "int16", "int8"],
                         help="Format of the stems' copy from the device engine: auto = "
-                        "int16 when writing 16-bit PCM (scaled to each stem channel's "
+                        "int16 when writing 16-bit PCM WAV (scaled to each stem channel's "
                         "peak: it rounds by at most half of 1/32766 of that peak, under "
                         "half a step of the file), else float16; float32 = bit-exact; "
                         "int8 = half the bytes at about 44 dB SNR. The track goes to the "
@@ -127,7 +144,7 @@ def main(opts=None):
     if banner:
         print(banner)
     if wire == "auto":
-        wire = "float16" if args.float32 or args.int24 else "int16"
+        wire = auto_wire(args)
     try:
         separator = Separator(model=name, repo=args.repo, device=args.device,
                               shifts=args.shifts, split=args.split, overlap=args.overlap,
@@ -155,8 +172,10 @@ def main(opts=None):
     out = args.out / name
     out.mkdir(parents=True, exist_ok=True)
     print(f"Separated tracks will be stored in {out.resolve()}")
-    kwargs = {"samplerate": separator.samplerate, "clip": args.clip_mode,
-              "as_float": args.float32, "bits_per_sample": 24 if args.int24 else 16}
+    ext = "mp3" if args.mp3 else "flac" if args.flac else "wav"
+    kwargs = {"samplerate": separator.samplerate, "bitrate": args.mp3_bitrate,
+              "preset": args.mp3_preset, "clip": args.clip_mode, "as_float": args.float32,
+              "bits_per_sample": 24 if args.int24 else 16}
 
     def announced(tracks):
         for track in tracks:
@@ -170,7 +189,7 @@ def main(opts=None):
         def _path(stem_name: str) -> Path:
             path = out / args.filename.format(track=track.name.rsplit(".", 1)[0],
                                               trackext=track.name.rsplit(".", 1)[-1],
-                                              stem=stem_name, ext="wav")
+                                              stem=stem_name, ext=ext)
             path.parent.mkdir(parents=True, exist_ok=True)
             return path
 

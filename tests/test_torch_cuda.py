@@ -503,3 +503,61 @@ def test_presets_ser_on_card(cuda, preset):
         got = policy.module(mix)
     err = (want - got).pow(2).sum().item()
     assert err == 0 or 10 * np.log10(want.pow(2).sum().item() / err) >= PRESET_SER_DB[preset]
+
+
+def test_stream_graph_replays_match_eager_on_card(cuda, monkeypatch):
+    """StreamSeparator on the card: its full segments replay one CUDA graph,
+    against the same stream with every segment eager (1e-6 x peak) and against
+    apply_model(shifts=0) (1e-5 x peak: other batches, other cuDNN choices)."""
+    from demucs_tpu_torch.inference import streaming
+    from demucs_tpu_torch.inference.apply import apply_model
+    from demucs_tpu_torch.inference.engine import GRAPHS
+
+    model = _small_model()
+    mix = _randn(1, 2, 13200, seed=80, device="cpu").numpy() * 0.1
+    sizes = [3000, 777, 5000, 1234, 3189]
+
+    def run():
+        stream = streaming.StreamSeparator(model)
+        parts, pos = [], 0
+        for n in sizes:
+            parts.append(stream.feed(mix[0, :, pos:pos + n]))
+            pos += n
+        parts.append(stream.flush())
+        return np.concatenate(parts, axis=-1)[None], stream
+
+    replays = GRAPHS.replays
+    got, stream = run()
+    assert GRAPHS.replays - replays == stream.graph_segments > 0 and stream.eager_segments > 0
+    monkeypatch.setattr(streaming, "_forward", lambda module, batch: module(batch))
+    eager, _ = run()
+    peak = np.abs(eager).max()
+    assert np.abs(got - eager).max() <= 1e-6 * peak
+    want = apply_model(model, mix, shifts=0)
+    assert np.abs(got - want).max() <= 1e-5 * peak
+
+
+def test_served_request_equals_separate_tensor_on_card(cuda, tmp_path):
+    """A float32 WAV request through SeparationService on the card gives the
+    stems of Separator.separate_tensor on the decoded body, bit for bit."""
+    import io
+    import zipfile
+
+    from demucs_tpu_torch import audio
+    from demucs_tpu_torch.serve import SeparationService
+    from demucs_tpu_torch.zoo.native import save_model
+
+    model = _small_model()
+    save_model(model, tmp_path / "small.dmx", half=False)
+    service = SeparationService(model="small", repo=tmp_path, device="cuda", shifts=0)
+    wav = _randn(2, 11000, seed=81, device="cpu").numpy() * 0.1
+    audio.save_audio(wav, tmp_path / "in.wav", 8000, as_float=True, clip="none")
+    blob = service.separate_bytes((tmp_path / "in.wav").read_bytes(), float32=True,
+                                  clip="none")
+    decoded, _ = audio.read_audio(tmp_path / "in.wav", samplerate=8000, channels=2)
+    _, want = service.separator.separate_tensor(decoded)
+    with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+        for name, stem in want.items():
+            (tmp_path / f"{name}.wav").write_bytes(zf.read(f"{name}.wav"))
+            got, _ = audio.read_audio(tmp_path / f"{name}.wav")
+            assert np.array_equal(got, stem), name

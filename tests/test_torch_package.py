@@ -35,7 +35,21 @@ def test_port_imports_no_jax_and_no_reference_package(path):
 
 def test_scan_sees_the_whole_package():
     names = {p.name for p in _port_files()}
-    assert {"chip_smoke.py", "htdemucs.py", "attention.py", "stft.py", "api.py"} <= names
+    assert {"chip_smoke.py", "htdemucs.py", "attention.py", "stft.py", "api.py", "native.py",
+            "flacio.py", "mp3io.py", "avio.py", "audio.py", "streaming.py", "serve.py"} <= names
+
+
+def test_port_builds_its_own_native_sources():
+    """The C++ of the port's codecs is its own (csrc/), never the JAX package's
+    native/ folder: no module of the port names that folder in a path."""
+    from demucs_tpu_torch import native
+
+    assert native.CSRC == REPO / "demucs_tpu_torch" / "csrc"
+    assert {"codec.cpp", "avio.cpp"} <= {p.name for p in native.CSRC.glob("*.cpp")}
+    for path in _port_files():
+        text = path.read_text()
+        assert '/ "native"' not in text and "'native/" not in text and '"native/' not in text, \
+            path.name
 
 
 def test_resolve_device_raises_without_cuda(monkeypatch):

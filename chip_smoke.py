@@ -17,9 +17,13 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               query rows per block, and with a keep-mask whose first key tile
               and one query row are fully masked. K1 and K2 also at one and two
               44 s HDemucs segments (1899 frames). K3's bf16 route: one S and
-              one P V tile alone (exact bf16 products), then the four shapes
-              at both batches on bf16 inputs against the plain version,
-              beside SDPA in bf16.
+              one P V tile alone at each head dim and key tile (exact bf16
+              products), then the four shapes at both batches on bf16 inputs
+              against the plain version, beside SDPA in bf16, with the sweep of
+              its plans (keys per tile x rows per block x the persistent
+              schedule or a block per row block) and the plan chosen, a ragged
+              batch, the masked case, and each instance's registers and
+              spills (nvcc's report kept beside the library).
               Times the kernel, the plain version and one PyTorch library call
               computing the same function (yardstick only: the port never calls
               it), with CUDA events. Then drops the plain versions' cached dense
@@ -89,7 +93,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               (released widths, 30 s, median of 5) and on HDemucs and Demucs v2
               (30 s, median of 3), device engine: audio-s/s, SER against the
               family's fp32 forward (bounded per preset), peak memory, the
-              graph pool, launches (K3's bf16 route on HTDemucs's fast path).
+              graph pool, launches (K3's bf16 route on HTDemucs's fast path);
+              one profiled 30 s request on HTDemucs's fast preset (K3 bf16's
+              share of the device time).
 12. prewarm — HDemucs at 30 and 60 s, each part on a model loaded anew:
               random shifts, a cold pinned offset, then prewarm() and requests
               with the pinned set it warmed (no capture after it).
@@ -141,6 +147,7 @@ bytes.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import itertools
@@ -180,6 +187,7 @@ SERVE_REPEATS = 2  # each served request kind, median reported
 HDEMUCS = dict(channels=48, depth=6, nfft=4096, samplerate=SR)  # hdemucs_mmi (tests/common.py:64)
 DEMUCS = dict(channels=64, depth=6, samplerate=SR)  # tests/common.py:65
 MDX_HYBRID = dict(hybrid_old=True, cac=False, norm_starts=999)  # tools/convert.py:63-72
+
 
 
 def emit(obj) -> None:
@@ -233,7 +241,8 @@ def phase_device() -> dict:
             "cuda": torch.version.cuda, "build_s": build_s,
             "built": {k: {"seconds": round(v["seconds"], 2),
                           "ptxas": [line.strip() for line in v["ptxas"].splitlines()
-                                    if "registers" in line or "spill" in line]}
+                                    if "registers" in line or "spill" in line
+                                    or "warning" in line.lower()]}
                       for k, v in report.items()}}
     emit(info)
     return info
@@ -407,68 +416,158 @@ def k3_checks(gen) -> dict:
         rows_sweep_ms=sweep, shape="q, k, v (1, 2688, 512), 8 heads (freq self)")
 
 
+BF16_PLANS = tuple(itertools.product((64, 128), (128, 192), (True, False)))
+
+
+@contextlib.contextmanager
+def bf16_plan(**plan):
+    """K3 bf16's plan forced inside the block (module constants of
+    kernels/attention.py: KEY_TILE_BF16, BF16_ROWS, BF16_PERSISTENT),
+    restored after."""
+    from demucs_tpu_torch.kernels import attention as KA
+
+    old = {name: getattr(KA, name) for name in plan}
+    try:
+        for name, value in plan.items():
+            setattr(KA, name, value)
+        yield
+    finally:
+        for name, value in old.items():
+            setattr(KA, name, value)
+
+
+def ptxas_kernels(report: str, pattern: str) -> dict:
+    """Registers and spills of each kernel whose mangled name matches
+    ``pattern`` (groups: its template arguments), from nvcc -Xptxas=-v."""
+    import re
+
+    found, name = {}, None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            args = re.search(pattern, entry.group(1))
+            name = " ".join(args.groups()) if args else None
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if spill:
+            found.setdefault(name, {}).update(spill_stores=int(spill.group(1)),
+                                              spill_loads=int(spill.group(2)))
+        if regs:
+            found.setdefault(name, {})["registers_at_launch"] = int(regs.group(1))
+    return found
+
+
 def k3_bf16_checks(gen) -> dict:
-    """K3's bf16 route: first one S tile and one P V tile alone (the bring-up
-    check of its tile image and fragment maps: exact bf16 products in fp32),
-    then the four shapes at both batches on bf16 inputs against the plain
-    version on the same inputs (the JAX dense path's rounding), timed beside
-    SDPA in bf16 (yardstick only), and the masked case."""
+    """K3's bf16 route: first one S tile and one P V tile alone at each head
+    dim and key tile (the bring-up check of its tensor-map copies, swizzled
+    image and fragment maps: exact bf16 products in fp32), then the four
+    shapes at both batches on bf16 inputs against the plain version on the
+    same inputs (the JAX dense path's rounding), timed beside SDPA in bf16
+    (yardstick only); every plan of the sweep (keys per tile x rows per
+    block x the persistent schedule or a block per row block) is timed and
+    held to the tolerance too. Then a ragged batch (Tk not a multiple of the
+    tile, B > 1) on both schedules, the masked case, and the registers and
+    spills of each instance from nvcc's report of the library loaded."""
     import torch
     import torch.nn.functional as F
 
+    from demucs_tpu_torch.kernels import _build
     from demucs_tpu_torch.kernels import attention as KA
 
     dev = torch.device("cuda")
+
+    def excess(got, want):
+        """max of |got - want| - tol (1 + |want|) over finite want; NaN where want is."""
+        got, want = got.float(), want.float()
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            return math.inf
+        fin = torch.isfinite(want)
+        return ((got[fin] - want[fin]).abs() - K3_BF16_TOL * (1 + want[fin].abs())).max().item()
+
     tiles = {}
-    for d in KA.HEAD_DIMS:
-        q, k, v = (torch.randn(64, d, device=dev, generator=gen).bfloat16() for _ in range(3))
-        p = torch.rand(64, 64, device=dev, generator=gen)
+    for d, n in itertools.product(KA.HEAD_DIMS, (64, 128)):
+        q = torch.randn(64, d, device=dev, generator=gen).bfloat16()
+        k, v = (torch.randn(n, d, device=dev, generator=gen).bfloat16() for _ in range(2))
+        p = torch.rand(64, n, device=dev, generator=gen)
         s_tile, o_tile = KA.bf16_tiles(q, k, v, p)
         want_s, want_o = q.double() @ k.double().T, p.bfloat16().double() @ v.double()
-        tiles[f"d={d}"] = {
+        tiles[f"d={d} keys={n}"] = {
             "S_err_over_peak": ((s_tile - want_s).abs().max() / want_s.abs().max()).item(),
             "PV_err_over_peak": ((o_tile - want_o).abs().max() / want_o.abs().max()).item()}
     tiles_ok = all(max(t.values()) <= 1e-5 for t in tiles.values())
     C, H = 512, 8
     d = C // H
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     tokens = {"freq": 2688, "time": 1344}
-    by_shape, excess = {}, 0.0
+    by_shape, sweep, worst = {}, {}, -math.inf
     for batch in (1, 6):
         for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
                                  ("time", "freq")):
             Tq, Tk = tokens[tq_name], tokens[tk_name]
             q, k, v = (torch.randn(batch, T, C, device=dev, generator=gen).bfloat16()
                        for T in (Tq, Tk, Tk))
-            got, want = KA.flash_mha(q, k, v, H).float(), KA.flash_mha_plain(q, k, v, H).float()
-            err = (got - want).abs()
-            excess = max(excess, (err - K3_BF16_TOL * (1 + want.abs())).max().item())
+            want = KA.flash_mha_plain(q, k, v, H)
+            got = KA.flash_mha(q, k, v, H)
+            worst = max(worst, excess(got, want))
             split = [t.view(batch, -1, H, d).transpose(1, 2) for t in (q, k, v)]
             flops = 4 * batch * H * Tq * Tk * d
             b_ms, b_by = bound(flops, 2 * 2 * batch * (Tq + Tk) * C, BF16_FLOPS)
             key = f"B={batch} {tq_name}<-{tk_name}"
-            by_shape[key] = dict(max_abs_err=err.max().item(),
+            rows, ctas = KA.bf16_plan(batch, Tq, Tk, H, sm)
+            by_shape[key] = dict(max_abs_err=(got.float() - want.float()).abs().max().item(),
                                  ms=cuda_ms(lambda: KA.flash_mha(q, k, v, H)),
                                  sdpa_bf16_ms=cuda_ms(
                                      lambda: F.scaled_dot_product_attention(*split)),
-                                 bound_ms=b_ms, bound_by=b_by)
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 plan=f"{KA.KEY_TILE_BF16} keys, {rows} rows, {ctas} blocks")
             if key == "B=1 freq<-freq":
                 by_shape[key]["plain_ms"] = cuda_ms(lambda: KA.flash_mha_plain(q, k, v, H))
+            for bk, r, persistent in BF16_PLANS:
+                with bf16_plan(KEY_TILE_BF16=bk, BF16_ROWS=r, BF16_PERSISTENT=persistent):
+                    worst = max(worst, excess(KA.flash_mha(q, k, v, H), want))
+                    sweep.setdefault(key, {})[
+                        f"{bk} keys {r} rows {'persistent' if persistent else 'grid'}"] = cuda_ms(
+                            lambda: KA.flash_mha(q, k, v, H))
+            chosen = (f"{KA.KEY_TILE_BF16} keys {rows} rows "
+                      f"{'grid' if ctas == -(-Tq // rows) * H * batch else 'persistent'}")
+            by_shape[key]["chosen_over_fastest_in_sweep"] = (sweep[key][chosen]
+                                                            / min(sweep[key].values()))
+    # a ragged batch: Tk not a multiple of the tile, B > 1 (a box reading the
+    # next item's keys would show), on both schedules
+    q, k, v = (torch.randn(3, T, C, device=dev, generator=gen).bfloat16() for T in (200, 130, 130))
+    want = KA.flash_mha_plain(q, k, v, H)
+    ragged = {}
+    for persistent in (False, True):
+        with bf16_plan(BF16_PERSISTENT=persistent):
+            ragged[f"persistent={persistent}"] = excess(KA.flash_mha(q, k, v, H), want)
+    worst = max(worst, *ragged.values())
     q, k, v = (torch.randn(1, 2688, C, device=dev, generator=gen).bfloat16() for _ in range(3))
     mask = torch.ones(2688, 2688, dtype=torch.bool, device=dev)
-    mask[:, :KA.KEY_TILE] = False
+    mask[:, :KA.KEY_TILE_BF16] = False  # the first key tile, fully masked for every row
     mask[7] = False
     got = KA.flash_mha(q, k, v, H, mask=mask).float()
     want = KA.flash_mha_plain(q, k, v, H, mask=mask).float()
     if not torch.equal(torch.isnan(got), torch.isnan(want)) or not torch.isnan(got[0, 7]).all():
         raise AssertionError("K3 bf16: masked rows do not give NaN where the plain version does")
-    fin = torch.isfinite(want)
-    excess = max(excess, ((got[fin] - want[fin]).abs()
-                          - K3_BF16_TOL * (1 + want[fin].abs())).max().item())
+    masked = excess(got, want)
+    worst = max(worst, masked)
     main = by_shape["B=1 freq<-freq"]
+    instances = ptxas_kernels(_build.ptxas_report("flash_mha"),
+                              r"flash_mha_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
+    instances = {"d={} keys={} rows={}".format(dd, bk, 64 * int(nwg)): v
+                 for (dd, bk, nwg), v in ((k.split(), v) for k, v in instances.items())}
+    if len(instances) != len(KA.HEAD_DIMS) * 4 or not all(
+            {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
+            for v in instances.values()):
+        raise AssertionError(f"K3 bf16: nvcc's report lacks instances: {sorted(instances)}")
     return dict(
         name="flash_mha_bf16", tol=K3_BF16_TOL, tol_rule="atol = rtol = 2**-6",
         max_abs_err=max(r["max_abs_err"] for r in by_shape.values()),
-        within_tol=excess <= 0 and tiles_ok, tiles=tiles,
+        worst_excess_over_tol=worst, ragged_batch_excess=ragged, masked_excess=masked,
+        within_tol=worst <= 0 and tiles_ok, tiles=tiles,
         source="demucs_tpu_torch/csrc/flash_mha.cu",
         replaces="demucs_tpu/ops/pallas/attention.py:103",
         ms=main["ms"], plain_ms=main["plain_ms"], library_ms=main["sdpa_bf16_ms"],
@@ -476,7 +575,8 @@ def k3_bf16_checks(gen) -> dict:
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         bound_rule="max(4 B H Tq Tk d / 989 TFLOP/s (bf16 on the tensor cores), "
                    "bytes of q, k, v and o in bf16 moved once / 3.35 TB/s)",
-        by_shape=by_shape, shape="q, k, v (1, 2688, 512) bf16, 8 heads (freq self)")
+        by_shape=by_shape, plan_sweep_ms=sweep, instances=instances,
+        shape="q, k, v (1, 2688, 512) bf16, 8 heads (freq self)")
 
 
 def card_vs_cpu(cpu_model, seconds: float, seed: int = 1) -> dict:
@@ -842,6 +942,8 @@ def _kernel_group(name: str) -> str:
         return "K2 istft_dft"
     if "stft_fft_kernel" in low:
         return "K1 stft_dft"
+    if "flash_mha_bf16" in low:  # the kernel and its key-run merge
+        return "K3 flash_mha_bf16"
     if "flash_mha_kernel" in low or "kv_image_kernel" in low:
         return "K3 flash_mha"
     if any(w in low for w in ("rnn", "lstm")):  # cuDNN's LSTM cells and recurrence
@@ -1229,7 +1331,9 @@ def phase_presets(workdir: Path) -> tuple:
     SER of its forward (float32 wire) and of its served stems against the
     family's fp32 forward (the default preset) for the same shift, peak
     allocated memory (and the requests' own, above what was allocated before
-    them), the graph pool, the kernels' launches."""
+    them), the graph pool, the kernels' launches; for HTDemucs's fast preset
+    one more request under torch.profiler (device time by kernel group, K3
+    bf16's share)."""
     import warnings
 
     import torch
@@ -1268,6 +1372,12 @@ def phase_presets(workdir: Path) -> tuple:
                 walls.append(time.perf_counter() - start)
             run = counts.read()
             peak = torch.cuda.max_memory_allocated()
+            prof = None
+            if preset == "fast" and label == "htdemucs":  # K3 bf16's share, as served
+                prof = profile_request(sep, wav)
+                k3 = prof["by_group_ms"].get("K3 flash_mha_bf16", 0.0)
+                prof["k3_bf16_share"] = k3 / prof["device_ms"] if prof["device_ms"] else \
+                    "not measured"
             sep.update_parameter(transfer_dtype=None)
             exact = _stems(sep, wav)
             if preset == "default":
@@ -1287,6 +1397,8 @@ def phase_presets(workdir: Path) -> tuple:
                    "pool_GiB": (GRAPHS.pool_bytes() or 0) / 2**30,
                    "warned": [str(w.message)[:80] for w in caught],
                    "launches": run["launches"], "launches_ok": run["ok"]}
+            if prof is not None:
+                row["profile"] = prof
             row["ok"] = run["ok"] and (ser == "bit-equal" or ser >= bound_db)
             if preset == "fast" and label == "htdemucs":
                 row["ok"] = row["ok"] and run["launches"]["flash_mha_bf16"] > 0

@@ -63,6 +63,7 @@
 //   other's products run. Templated on D in {32, 48, 64} and NWG in {1, 2}
 //   (64 or 128 query rows per block).
 
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is reached at run time)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -413,104 +414,83 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 // ===========================================================================
 // The bf16 route: q, k, v and o in bf16, every sum and the softmax in fp32.
 //
-// Bound: operations, 4 Tq Tk D flops per head at the dense bf16 rate (989
-// TFLOP/s), one wgmma product each where the fp32 route needs three.
+// Bound: operations. A head does 4 Tq Tk D flops (two products) on
+// 2 (Tq + Tk) D bf16 values in and Tq D out, several hundred flops per byte
+// at the released shapes: the bound is 4 B H Tq Tk D at the dense bf16 rate
+// (989 TFLOP/s), one wgmma product per matmul. Beside the products, the
+// softmax takes one exp2 per score on the special-function unit, 16 per clock
+// per SM against the tensor cores' 4096 flops per clock: at D = 64 a score's
+// exp2 (1/16 clock) takes as long as its 4 D = 256 flops, so the kernel nears
+// its bound only where the exponentials run under the products.
 //
-// Design (what 16-bit wgmma changes against the fp32 route):
-// - No layout pass. A K or V tile of 64 keys sits in shared memory as core
-//   matrices of 8 keys x 8 channels (16-byte rows): core matrix (key block
-//   rb, channel block cb) at ((rb * D/8) + cb) * 128 bytes. Each 16-byte
-//   chunk of a key row lands there by its own cp.async, so the producer
-//   warpgroup copies k and v from their (B, Tk, H*D) layout directly (zero
-//   past Tk). For S = Q K^T that image is B K-major (channels are the
-//   reduction); for O = P V the same image of V is B MN-major (keys are the
-//   reduction, channels contiguous), which 16-bit wgmma reads with its
-//   transpose bit. No V^T, no hi/lo split, no scratch tensor. The producer
-//   closes one cp.async group per tile and announces tile i (its copies
-//   landed, a proxy fence, then the full barrier) after issuing tile i + LAG,
-//   so LAG + 1 tiles are in flight in a ring of STAGES_BF16 (4 x 16 KB at
-//   D = 64).
-// - S (64 x 64 per warpgroup) = Q K^T: D/16 wgmma m64n64k16, A = Q from
-//   registers (bf16 pairs loaded from global as they are), fp32 accumulator.
-//   The softmax scale log2(e)/sqrt(D) multiplies S in fp32: q is never
-//   rounded after scaling. Each tile's S, softmax and P V run one after the
-//   other in a warpgroup; the block's two consumer warpgroups overlap.
-//   (Issuing S of tile i + 1 before the softmax of tile i, into a second set
-//   of registers, ran slower on the H100: PERF.md.)
-// - P = exp2(S - m) in fp32, packed pairwise to bf16: the accumulator of a
-//   16-bit product is the A fragment of the next one (MmaBf16), so P goes to
-//   P V with no shuffle and keys stay in their order.
-// - O (64 x D) += P V: 4 wgmma m64nDk16 into o itself, rescaled by alpha
-//   first (the accumulation's truncation is far below bf16's step).
-// - A fully masked row keeps l == 0 and gives 0 / 0 = NaN, as in the fp32
-//   route. 128 query rows per block: two consumer warpgroups and one
-//   producer warpgroup.
+// Design, against what held the first bf16 kernel back (PERF.md):
+// 1. The softmax under the products. Inside a consumer warpgroup the loop is
+//    software-pipelined: tile i's S = Q K^T is issued together with tile
+//    i - 1's O += P V, and tile i's softmax runs while that P V is on the
+//    tensor cores (registers: S in fp32, the previous P as packed bf16 A
+//    fragments, O; 64 + 32 + 32 at 128 keys and D = 64). Between the block's
+//    warpgroups, named barriers pass the turn to issue products round robin,
+//    so one warpgroup's softmax runs under another's products.
+// 2. Tile widths: BK = 64 or 128 keys a tile (KEY_TILE_BF16 in
+//    kernels/attention.py) and 128 or 192 query rows a block (two or three
+//    consumer warpgroups of 64), all templated; chip_smoke.py sweeps them.
+// 3. Loads: one producer thread issues tensor-memory-accelerator copies, a K
+//    and a V tile per stage of a 4-stage ring against one mbarrier's byte
+//    count, and each row block's Q into one of two buffers; no thread spends
+//    instructions or registers on addresses. The tensor maps are 3-D,
+//    (C, T, B), so a box past Tk (or Tq) is zero-filled instead of reading
+//    the next item's rows. The producer warpgroup gives its registers to the
+//    consumers (setmaxnreg 24 / 240 with two consumer warpgroups, 32 / 160
+//    with three); no instance spills.
+// 4. Per score: one FFMA and one exp2, p = 2^(s scale - m scale) with m the
+//    raw row max (the scale folded in), then a max and an add; the keep
+//    test only on a tile with a mask or past Tk; the -inf-safe rescale once
+//    per row and tile.
+// 5. The wave tail. With ctas = the number of SMs the grid is persistent:
+//    block c walks range c of the (row block, key tile) units, cut as evenly
+//    as they come (Schedule), so every SM does the same work whatever the
+//    number of row blocks; a row block that two ranges share is written as
+//    partial pieces (unnormalised o, scaled row max, row sum) to fp32
+//    scratch and merged by flash_mha_bf16_combine_kernel. With ctas = the
+//    number of row blocks, each block takes one, whole (the host's choice,
+//    kernels/attention.py bf16_plan).
+//
+// Shared memory: a head's slice of a row is W bytes (W = 128 at D = 64, 64 at
+// D = 32, and 32 at D = 48 in three boxes of 16 channels), swizzled at W by
+// the tensor map and read by wgmma through descriptors of the same swizzle:
+// K-major for Q and K (S = Q K^T, both operands from shared memory), and
+// V MN-major with the transpose bit (O = P V, keys the reduction). P goes
+// from the S accumulator to the A fragment by pairwise packing (MmaBf16).
+// A fully masked row keeps l == 0 and gives 0 / 0 = NaN, as in the fp32 route.
 // ===========================================================================
 
-constexpr int ROWS_BF16 = 2 * ROWS_WG;  // query rows per block of the bf16 route
-constexpr int STAGES_BF16 = 4;          // K/V tile pairs in the ring
-constexpr int LAG_BF16 = 2;             // tiles issued ahead of the one announced
+// The shared-memory image of a head slice: rows of W bytes, BOXES boxes of
+// W / 2 channels side by side, wgmma's layout type for W.
+template <int D>
+struct HeadImage {
+  static constexpr int W = (2 * D) % 128 == 0 ? 128 : (2 * D) % 64 == 0 ? 64 : 32;
+  static constexpr int BOXES = 2 * D / W;
+  static constexpr uint64_t LAYOUT = W == 128 ? 1 : W == 64 ? 2 : 3;
+};
+
+template <int D, int BK, int NWG>
+struct Bf16Cfg {
+  static constexpr int ROWS = ROWS_WG * NWG;     // query rows per block
+  static constexpr uint32_t TILE = BK * D * 2;   // bytes of one K or V tile
+  static constexpr uint32_t Q_BYTES = ROWS * D * 2;
+  static constexpr int STAGES = 4;               // K/V tile pairs in the ring
+  static constexpr int THREADS = (NWG + 1) * 128;
+  static constexpr int PRODUCER_REGS = NWG == 2 ? 24 : 32;
+  static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * TILE + (2 * STAGES + 4) * 8;
+  // Over half the SM's shared memory: one block per SM, so that the
+  // consumers' setmaxnreg.inc finds the registers the producer gave up.
+  static constexpr size_t SMEM_LAUNCH = SMEM > 118 * 1024 ? SMEM : 118 * 1024;
+};
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// Copies keys [key0, key0 + 64) of one head (src = k or v at (b, 0, h*D),
-// row stride C) into a tile image at `dst` (shared), 16 bytes per cp.async,
-// zero past Tk. The image is walked linearly (thread f writes bytes
-// 16 f .. 16 f + 15: no bank conflicts): chunk f is row f % 8 of core matrix
-// f / 8, i.e. key 8 (f / 8 / (D/8)) + f % 8, channels 8 ((f / 8) % (D/8)) + 0..7.
-template <int D>
-__device__ __forceinline__ void copy_tile_bf16(uint32_t dst, const __nv_bfloat16* src, int key0,
-                                               int Tk, int C, int tid, int nthreads) {
-  constexpr int CHUNKS = BK * D / 8;
-  for (int f = tid; f < CHUNKS; f += nthreads) {
-    const int cm = f >> 3;
-    const int key = key0 + 8 * (cm / (D / 8)) + (f & 7), cb = cm % (D / 8);
-    const bool ok = key < Tk;
-    cp_async_16(dst + 16 * f, src + (size_t)(ok ? key : 0) * C + 8 * cb, ok ? 16 : 0);
-  }
-}
-
-// Byte strides of the tile image for wgmma's descriptors: next 8 channels,
-// next 8 keys.
-template <int D>
-struct TileStrides {
-  static constexpr uint32_t CHANNELS = 128, KEYS = 16 * D;
-};
-
-// Issues S = Q K^T of one tile into s (raw scores, fp32, accumulator layout)
-// as one wgmma group; s is valid after a wgmma wait that covers the group.
-template <int D>
-__device__ __forceinline__ void score_issue_bf16(float (&s)[BK / 2], const uint32_t (&qa)[D / 16][4],
-                                                 uint32_t k_tile) {
-  // B K-major: LBO = along the reduction (channels), SBO = along N (keys)
-  constexpr uint32_t LBO = TileStrides<D>::CHANNELS, SBO = TileStrides<D>::KEYS;
-#pragma unroll
-  for (int e = 0; e < BK / 2; ++e) fence_operand(s[e]);
-  wgmma_fence();
-#pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    MmaBf16<BK, 0>::run(s, qa[ks], smem_desc(k_tile + 2 * 128 * ks, LBO, SBO), ks > 0);
-  }
-  wgmma_commit();
-}
-
-// Issues o += P V of one tile as one wgmma group; pa holds P as bf16 A fragments.
-template <int D>
-__device__ __forceinline__ void value_issue_bf16(float (&o)[D / 2], const uint32_t (&pa)[BK / 16][4],
-                                                 uint32_t v_tile) {
-  // B = V MN-major (transposed): LBO along the reduction (keys), SBO along N (channels)
-  constexpr uint32_t LBO = TileStrides<D>::KEYS, SBO = TileStrides<D>::CHANNELS;
-#pragma unroll
-  for (int e = 0; e < D / 2; ++e) fence_operand(o[e]);
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    MmaBf16<D, 1>::run(o, pa[kk], smem_desc(v_tile + 2 * TileStrides<D>::KEYS * kk, LBO, SBO), 1);
-  }
-  wgmma_commit();
 }
 
 template <int N>
@@ -518,212 +498,563 @@ __device__ __forceinline__ void fence_all(float (&v)[N]) {
 #pragma unroll
   for (int e = 0; e < N; ++e) fence_operand(v[e]);
 }
-
-template <int D>
-__device__ __forceinline__ void load_q_bf16(uint32_t (&qa)[D / 16][4], const __nv_bfloat16* q0,
-                                            bool ok0, bool ok1, int C, int c) {
-  const __nv_bfloat16* q1 = q0 + (size_t)8 * C;
+template <int N>
+__device__ __forceinline__ void fence_all(uint32_t (&v)[N][4]) {
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) {
-    const int col = 16 * ks + 2 * c;
-    qa[ks][0] = ok0 ? *reinterpret_cast<const uint32_t*>(q0 + col) : 0u;
-    qa[ks][1] = ok1 ? *reinterpret_cast<const uint32_t*>(q1 + col) : 0u;
-    qa[ks][2] = ok0 ? *reinterpret_cast<const uint32_t*>(q0 + col + 8) : 0u;
-    qa[ks][3] = ok1 ? *reinterpret_cast<const uint32_t*>(q1 + col + 8) : 0u;
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) fence_operand(v[i][r]);
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(3 * 128, 1)
-flash_mha_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                      const __nv_bfloat16* __restrict__ v, const unsigned char* __restrict__ mask,
-                      __nv_bfloat16* __restrict__ o, int Tq, int Tk, int H, float scale) {
-  constexpr uint32_t TILE_BYTES = BK * D * 2;
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES_BF16 * 2 * TILE_BYTES);
-  uint64_t* empty = full + STAGES_BF16;
-  const uint32_t ring = smem_addr(smem);  // stage s: K tile, then V tile
+// Issues S = Q K^T of one tile into s (raw scores, fp32, accumulator layout)
+// as one wgmma group. q_wg: the warpgroup's 64 rows of Q's image, whose
+// boxes lie q_box bytes apart; k_tile: the tile's K image.
+template <int D, int BK>
+__device__ __forceinline__ void score_issue(float (&s)[BK / 2], uint32_t q_wg, uint32_t q_box,
+                                            uint32_t k_tile) {
+  using I = HeadImage<D>;
+  fence_all(s);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    // channels 16 ks..16 ks + 15: box 32 ks / W, 32 ks % W bytes into its rows
+    const uint32_t box = 32 * ks / I::W, inner = 32 * ks % I::W;
+    MmaBf16SS<BK>::run(s, swizzled_desc(q_wg + box * q_box + inner, 16, 8 * I::W, I::LAYOUT),
+                       swizzled_desc(k_tile + box * BK * I::W + inner, 16, 8 * I::W, I::LAYOUT),
+                       ks > 0);
+  }
+  wgmma_commit();
+}
 
-  const int b = blockIdx.z, h = blockIdx.y, C = H * D;
-  const int n_tiles = (Tk + BK - 1) / BK;
+// Issues o += P V of one tile as one wgmma group; pa holds P as bf16 A
+// fragments, one per 16 keys (they must stay untouched until the group is done).
+template <int D, int BK>
+__device__ __forceinline__ void value_issue(float (&o)[D / 2], uint32_t (&pa)[BK / 16][4],
+                                            uint32_t v_tile) {
+  using I = HeadImage<D>;
+  fence_all(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    // keys 16 kk..16 kk + 15: rows 16 kk.. of the tile; N (channels) runs over the boxes
+    MmaBf16<D, 1>::run(o, pa[kk],
+                       swizzled_desc(v_tile + kk * 16 * I::W, BK * I::W, 8 * I::W, I::LAYOUT), 1);
+  }
+  wgmma_commit();
+}
+
+// P (fp32, S accumulator layout) -> bf16 A fragments: columns 16 kk..16 kk + 15
+// of the accumulator are registers 8 kk..8 kk + 7, pairwise.
+template <int BK>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (&p)[BK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
+  }
+}
+
+// Sets the scores of dropped keys (past Tk, or masked) to -inf. Lane (g, c)
+// of a warp holds rows `row` and `row + 8`, columns 8 j + 2c and 8 j + 2c + 1.
+template <int BK>
+__device__ __forceinline__ void mask_tile(float (&s)[BK / 2],
+                                          const unsigned char* __restrict__ mask, int k0, int row,
+                                          int c, int Tq, int Tk) {
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+    const int r = row + 8 * ((e >> 1) & 1);
+    bool keep = key < Tk;
+    if (keep && mask != nullptr && r < Tq) keep = mask[(size_t)r * Tk + key] != 0;
+    if (!keep) s[e] = -INFINITY;
+  }
+}
+
+// The online softmax of one tile for a thread's two rows: s (raw scores)
+// becomes p = 2^(s scale - m scale) in place, m the running raw row max;
+// alpha = 2^((m_old - m) scale) rescales the earlier o and l. -inf-safe: a
+// row with no kept key so far keeps m = -inf, l = 0 (its base is 0).
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], float scale) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+  float base[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    // the four lanes of a row are adjacent
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL_MASK, mx[hf], 1));
+    mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL_MASK, mx[hf], 2));
+    base[hf] = mx[hf] == -INFINITY ? 0.f : mx[hf] * scale;
+    alpha[hf] = ex2(fmaf(m[hf], scale, -base[hf]));  // 2^-inf = 0
+    m[hf] = mx[hf];
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    s[e] = ex2(fmaf(s[e], scale, -base[(e >> 1) & 1]));
+    sum[(e >> 1) & 1] += s[e];
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + sum[hf];
+}
+
+// Row `row + 8 hf` of a thread's accumulator (columns 8 j + 2c, + 1), divided
+// by its row sum, to bf16 at dst (that row's columns h D + 2c). 0 / 0 = NaN
+// for a row with no kept key.
+template <int D>
+__device__ __forceinline__ void store_o(__nv_bfloat16* dst, const float (&v)[D / 2], int hf,
+                                        float l) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+        pack_bf16(v[4 * j + 2 * hf] / l, v[4 * j + 2 * hf + 1] / l);
+  }
+}
+
+// The persistent schedule. The R = B H ceil(Tq / ROWS) row blocks (x
+// fastest, then the head, then the item) of n_tiles key tiles each make U =
+// R n_tiles units, cut into G contiguous ranges as even as they come (the
+// first U % G ranges one unit longer), one per block of the grid. A block
+// walks its range row block by row block: all of a row block's tiles are a
+// whole piece, written to o; the part of a row block where a range starts or
+// ends is a partial piece, written unnormalised to a scratch slot (slot 2c
+// for range c's first row block, 2c + 1 for its last) and merged by
+// flash_mha_bf16_combine_kernel. G = R is the plain grid: a row block each.
+struct Schedule {
+  int n_tiles, q, rem;  // 32-bit: the host keeps R n_tiles under 2^31
+  __host__ __device__ Schedule(int R, int n_tiles, int G)
+      : n_tiles(n_tiles), q(R * n_tiles / G), rem(R * n_tiles % G) {}
+  // the first unit of range c
+  __host__ __device__ int lo(int c) const { return c * q + (c < rem ? c : rem); }
+  // the range that holds unit u
+  __host__ __device__ int range_of(int u) const {
+    return u < rem * (q + 1) ? u / (q + 1) : rem + (u - rem * (q + 1)) / q;
+  }
+  // range c's scratch slot for row block r
+  __host__ __device__ int slot(int c, int r) const {
+    return r == lo(c) / n_tiles ? 2 * c : 2 * c + 1;
+  }
+};
+
+// Grid (G): range blockIdx.x of the schedule. A scratch slot holds ROWS x D
+// of unnormalised o, then ROWS x (the scaled row max, the row sum), fp32.
+template <int D, int BK, int NWG>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
+                      const unsigned char* __restrict__ mask, __nv_bfloat16* __restrict__ o,
+                      float* __restrict__ part, int B, int Tq, int Tk, int H, float scale) {
+  using Cfg = Bf16Cfg<D, BK, NWG>;
+  using I = HeadImage<D>;
+  constexpr int STAGES = Cfg::STAGES, ROWS = Cfg::ROWS, SLOT = ROWS * (D + 2);
+  extern __shared__ __align__(1024) unsigned char bf16_smem[];
+  // two Q images, then the ring (stage s: K tile, V tile), then the
+  // barriers; every image 1024-byte aligned (the swizzle atoms' alignment).
+  unsigned char* base = bf16_smem + ((1024 - (smem_addr(bf16_smem) & 1023)) & 1023);
+  const uint32_t q_img = smem_addr(base), ring = q_img + 2 * Cfg::Q_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * Cfg::Q_BYTES + STAGES * 2 * Cfg::TILE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+  uint64_t* q_empty = q_full + 2;
+
+  const int n_x = (Tq + ROWS - 1) / ROWS, n_tiles = (Tk + BK - 1) / BK;
+  const Schedule sched(n_x * H * B, n_tiles, gridDim.x);
+  const int u0 = sched.lo(blockIdx.x), u1 = sched.lo(blockIdx.x + 1);
+  const int r0 = u0 / n_tiles, r1 = (u1 - 1) / n_tiles;  // the row blocks it touches
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES_BF16; ++s) {
-      mbar_init(&full[s], 128);   // every producer thread, after its copies landed
-      mbar_init(&empty[s], 8);    // every consumer warp, after its products read the tiles
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);          // the producer's arrival, plus the bytes
+      mbar_init(&empty[s], 4 * NWG);  // every consumer warp, after its products read the tiles
+    }
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(&q_full[qb], 1);
+      mbar_init(&q_empty[qb], 4 * NWG);  // every consumer warp, after its last S of the piece
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp >= 8) {  // the producer warpgroup
-    const int tid = threadIdx.x - 256;
-    const size_t head = (size_t)b * Tk * C + (size_t)h * D;
-    for (int i = 0; i < n_tiles + LAG_BF16; ++i) {
-      if (i < n_tiles) {
-        const int s = i % STAGES_BF16;
-        if (i >= STAGES_BF16) mbar_wait(&empty[s], ((i / STAGES_BF16) - 1) & 1);
-        const uint32_t dst = ring + s * 2 * TILE_BYTES;
-        copy_tile_bf16<D>(dst, k + head, i * BK, Tk, C, tid, 128);
-        copy_tile_bf16<D>(dst + TILE_BYTES, v + head, i * BK, Tk, C, tid, 128);
-      }
-      cp_async_commit();  // one group per tile (empty past the last one)
-      if (i >= LAG_BF16) {
-        // tile i - LAG landed: make the copies visible to wgmma, then announce it
-        cp_async_wait_group<LAG_BF16>();
-        fence_proxy_async();
-        mbar_arrive(&full[(i - LAG_BF16) % STAGES_BF16]);
-      }
-    }
-    return;
-  }
-
-  const int g = lane / 4, c = lane % 4;
-  const int row = blockIdx.x * ROWS_BF16 + warp * 16 + g;
-  uint32_t qa[D / 16][4];
-  load_q_bf16<D>(qa, q + ((size_t)b * Tq + row) * C + h * D, row < Tq, row + 8 < Tq, C, c);
-
-  float acc[D / 2];
+  if (warp >= 4 * NWG) {  // the producer warpgroup: one thread issues the copies
+    setmaxnreg_dec<Cfg::PRODUCER_REGS>();
+    if (threadIdx.x == 128 * NWG) {
+      prefetch_tensormap(&q_map);
+      prefetch_tensormap(&k_map);
+      prefetch_tensormap(&v_map);
+      int it = 0;  // tiles streamed through the ring so far
+      for (int r = r0; r <= r1; ++r) {
+        const int p = r - r0, qb = p & 1;
+        const int x = r % n_x, h = r / n_x % H, b = r / (n_x * H);
+        const int tb = max(u0, r * n_tiles) - r * n_tiles;
+        const int te = min(u1, (r + 1) * n_tiles) - r * n_tiles;
+        if (p >= 2) mbar_wait(&q_empty[qb], ((p >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(&q_full[qb], Cfg::Q_BYTES);
 #pragma unroll
-  for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i % STAGES_BF16;
-    mbar_wait(&full[st], (i / STAGES_BF16) & 1);
-    const uint32_t tile = ring + st * 2 * TILE_BYTES;
-    float s[BK / 2];
-    score_issue_bf16<D>(s, qa, tile);
-    wgmma_wait_all();
-    fence_all(s);
-
-    const int k0 = i * BK;
+        for (int j = 0; j < I::BOXES; ++j) {
+          tma_load_3d(q_img + qb * Cfg::Q_BYTES + j * ROWS * I::W, &q_map, h * D + j * (I::W / 2),
+                      x * ROWS, b, &q_full[qb]);
+        }
+        for (int t = tb; t < te; ++t, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], 2 * Cfg::TILE);
+          const uint32_t k_dst = ring + s * 2 * Cfg::TILE, v_dst = k_dst + Cfg::TILE;
 #pragma unroll
-    for (int e = 0; e < BK / 2; ++e) s[e] *= scale;
-    if (mask != nullptr || k0 + BK > Tk) {
-#pragma unroll
-      for (int e = 0; e < BK / 2; ++e) {
-        const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
-        const int r = row + 8 * ((e >> 1) & 1);
-        bool keep = key < Tk;
-        if (keep && mask != nullptr && r < Tq) keep = mask[(size_t)r * Tk + key] != 0;
-        if (!keep) s[e] = -INFINITY;
+          for (int j = 0; j < I::BOXES; ++j) {
+            tma_load_3d(k_dst + j * BK * I::W, &k_map, h * D + j * (I::W / 2), t * BK, b, &full[s]);
+            tma_load_3d(v_dst + j * BK * I::W, &v_map, h * D + j * (I::W / 2), t * BK, b, &full[s]);
+          }
+        }
       }
     }
-    float mx[2] = {-INFINITY, -INFINITY};
+  } else {  // NWG consumer warpgroups of 64 query rows
+    setmaxnreg_inc<Cfg::CONSUMER_REGS>();
+    const int wg = warp / 4, g = lane / 4, c = lane % 4;
+    const int rr = wg * ROWS_WG + (warp % 4) * 16 + g;  // the thread's first row in the block
+    // The turn to issue products passes round robin between the warpgroups:
+    // warpgroup w waits at barrier 1 + w, then opens 1 + (w + 1) % NWG (two
+    // warpgroups' threads each); warpgroup 0 opens its own first.
+    if (wg == 0) named_bar_arrive(1, 256);
+    const int next_bar = 1 + (wg + 1) % NWG;
+    const bool masked = mask != nullptr;
+    const int C = H * D;
+    int it = 0;
+    for (int r = r0; r <= r1; ++r) {
+      const int p = r - r0, qb = p & 1;
+      const int x = r % n_x, h = r / n_x % H, b = r / (n_x * H);
+      const int tb = max(u0, r * n_tiles) - r * n_tiles;
+      const int te = min(u1, (r + 1) * n_tiles) - r * n_tiles;
+      const int n = te - tb, row = x * ROWS + rr;
+      const uint32_t q_wg = q_img + qb * Cfg::Q_BYTES + wg * ROWS_WG * I::W;
+
+      float acc[D / 2];
 #pragma unroll
-    for (int e = 0; e < BK / 2; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
-    float base[2], alpha[2], sum[2] = {0.f, 0.f};
+      for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+      float s[BK / 2];
+      uint32_t pa[BK / 16][4];
+
+      mbar_wait(&q_full[qb], (p >> 1) & 1);
+      mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+      named_bar_sync(1 + wg, 256);
+      score_issue<D, BK>(s, q_wg, ROWS * I::W, ring + (it % STAGES) * 2 * Cfg::TILE);
+      named_bar_arrive(next_bar, 256);
+      wgmma_wait<0>();
+      fence_all(s);
+      if (masked || (tb + 1) * BK > Tk) mask_tile<BK>(s, mask, tb * BK, row, c, Tq, Tk);
+      softmax_tile<BK>(s, m, l, alpha, scale);
+      pack_p<BK>(pa, s);
+      for (int i = 1; i < n; ++i) {
+        const int j = it + i, st = j % STAGES, prev = (j - 1) % STAGES;
+        mbar_wait(&full[st], (j / STAGES) & 1);
+        named_bar_sync(1 + wg, 256);
+        score_issue<D, BK>(s, q_wg, ROWS * I::W, ring + st * 2 * Cfg::TILE);
+        value_issue<D, BK>(acc, pa, ring + prev * 2 * Cfg::TILE + Cfg::TILE);
+        named_bar_arrive(next_bar, 256);
+        wgmma_wait<1>();  // this tile's S; the previous tile's P V still runs
+        fence_all(s);
+        const int k0 = (tb + i) * BK;
+        if (masked || k0 + BK > Tk) mask_tile<BK>(s, mask, k0, row, c, Tq, Tk);
+        softmax_tile<BK>(s, m, l, alpha, scale);
+        wgmma_wait<0>();
+        fence_all(acc);
+        fence_all(pa);
+        if (lane == 0) mbar_arrive(&empty[prev]);
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL_MASK, mx[hf], 1));
-      mx[hf] = fmaxf(mx[hf], __shfl_xor_sync(FULL_MASK, mx[hf], 2));
-      const float m_new = fmaxf(m[hf], mx[hf]);
-      base[hf] = m_new == -INFINITY ? 0.f : m_new;  // -inf-safe, as in the fp32 route
-      alpha[hf] = exp2f(m[hf] - base[hf]);
-      m[hf] = m_new;
-    }
-#pragma unroll
-    for (int e = 0; e < BK / 2; ++e) {
-      s[e] = exp2f(s[e] - base[(e >> 1) & 1]);
-      sum[(e >> 1) & 1] += s[e];
-    }
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + sum[hf];
-#pragma unroll
-    for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
-    uint32_t pa[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-    }
-    value_issue_bf16<D>(acc, pa, tile + TILE_BYTES);
-    wgmma_wait_all();
-    fence_all(acc);
-    if (lane == 0) mbar_arrive(&empty[st]);
-  }
+        for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+        pack_p<BK>(pa, s);
+      }
+      if (lane == 0) mbar_arrive(&q_empty[qb]);  // every S of the piece is done
+      const int last = (it + n - 1) % STAGES;
+      named_bar_sync(1 + wg, 256);
+      value_issue<D, BK>(acc, pa, ring + last * 2 * Cfg::TILE + Cfg::TILE);
+      named_bar_arrive(next_bar, 256);
+      wgmma_wait<0>();
+      fence_all(acc);
+      fence_all(pa);
+      if (lane == 0) mbar_arrive(&empty[last]);
+      it += n;
 
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 1);
-    l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 2);
-    const int r = row + 8 * hf;
-    if (r < Tq) {
-      __nv_bfloat16* dst = o + ((size_t)b * Tq + r) * C + h * D + 2 * c;
+      for (int hf = 0; hf < 2; ++hf) {  // the row sums over the row's four lanes
+        l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 1);
+        l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 2);
+      }
+      if (tb == 0 && te == n_tiles) {  // a whole row block: o = acc / l
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-            pack_bf16(acc[4 * j + 2 * hf] / l[hf], acc[4 * j + 2 * hf + 1] / l[hf]);
+        for (int hf = 0; hf < 2; ++hf) {
+          if (row + 8 * hf < Tq) store_o<D>(o + ((size_t)b * Tq + row + 8 * hf) * C + h * D + 2 * c,
+                                            acc, hf, l[hf]);
+        }
+        continue;
+      }
+      // a partial piece: unnormalised, to its scratch slot
+      float* mine = part + (size_t)sched.slot(blockIdx.x, r) * SLOT;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float* dst = mine + (rr + 8 * hf) * D + 2 * c;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<float2*>(dst + 8 * jj) =
+              make_float2(acc[4 * jj + 2 * hf], acc[4 * jj + 2 * hf + 1]);
+        }
+        if (c == 0) {
+          *reinterpret_cast<float2*>(mine + ROWS * D + (rr + 8 * hf) * 2) =
+              make_float2(m[hf] == -INFINITY ? -INFINITY : m[hf] * scale, l[hf]);
+        }
       }
     }
   }
 }
 
-template <int D>
-constexpr size_t SMEM_BYTES_BF16 = STAGES_BF16 * 2 * BK * D * 2 + 2 * STAGES_BF16 * sizeof(uint64_t);
-static_assert(SMEM_BYTES_BF16<64> <= 227 * 1024, "the bf16 ring exceeds a block's shared memory");
-// The producer announces tile i at its turn i + LAG, after waiting for the
-// stage of tile i + LAG - STAGES_BF16 to be free: that tile must be before i.
-static_assert(LAG_BF16 < STAGES_BF16, "the bf16 pipeline would deadlock");
+// Merges the partial pieces of each row block that two or more ranges of
+// the schedule share: per row, M = the max of the pieces' scaled maxima, w =
+// 2^(M_piece - M) (base 0 where every M is -inf: 0 / 0 = NaN, as a fully
+// masked row gives), o = sum w o_piece / sum w l_piece, rounded to bf16.
+// Grid (G - 1, ceil(ROWS D / (2 ITEMS 256))): blockIdx.x + 1 is a range
+// boundary c; the first boundary inside a row block merges it (the others
+// return). A thread takes ITEMS (row, channel pair) items and issues the
+// loads of all their pieces before it waits on any.
+constexpr int COMBINE_ITEMS = 4;
 
-template <int D>
-cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                        const unsigned char* mask, __nv_bfloat16* o, int B, int Tq, int Tk, int H,
-                        float scale, cudaStream_t stream) {
-  constexpr size_t smem = SMEM_BYTES_BF16<D>;
-  cudaError_t err = cudaFuncSetAttribute(flash_mha_bf16_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  flash_mha_bf16_kernel<D><<<dim3((Tq + ROWS_BF16 - 1) / ROWS_BF16, H, B), 3 * 128, smem, stream>>>(
-      q, k, v, mask, o, Tq, Tk, H, scale);
-  return cudaGetLastError();
+template <int D, int ROWS>
+__global__ void __launch_bounds__(256)
+flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ o,
+                              int B, int Tq, int H, int n_tiles, int G) {
+  constexpr int SLOT = ROWS * (D + 2), PAIRS = ROWS * (D / 2), N = COMBINE_ITEMS;
+  const int n_x = (Tq + ROWS - 1) / ROWS;
+  const Schedule sched(n_x * H * B, n_tiles, G);
+  const int c = blockIdx.x + 1, start = sched.lo(c), r = start / n_tiles;
+  if (start % n_tiles == 0 || sched.lo(c - 1) > r * n_tiles) return;
+  const int x = r % n_x, h = r / n_x % H, b = r / (n_x * H);
+  // range c - 1's piece is its last (slot 2c - 1) unless it starts at this
+  // row block's first tile; every later range starts in the row block (slot 2c')
+  const int c0 = c - 1, c1 = sched.range_of((r + 1) * n_tiles - 1);
+  const float* first = part + (size_t)(sched.lo(c0) == r * n_tiles ? 2 * c0 : 2 * c0 + 1) * SLOT;
+  int rr[N], pair[N];
+  float top[N], l[N];
+  float2 v[N], ml[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {  // items i: consecutive blocks of 256 (row, pair)s
+    const int idx = min(((int)blockIdx.y * N + i) * (int)blockDim.x + (int)threadIdx.x, PAIRS - 1);
+    rr[i] = idx / (D / 2);
+    pair[i] = idx % (D / 2);
+    ml[i] = __ldcg(reinterpret_cast<const float2*>(first + ROWS * D + rr[i] * 2));
+    v[i] = __ldcg(reinterpret_cast<const float2*>(first + rr[i] * D + 2 * pair[i]));
+    top[i] = ml[i].x;
+  }
+  for (int cc = c0 + 1; cc <= c1; ++cc) {  // usually one more piece
+    const float* piece = part + (size_t)(2 * cc) * SLOT;
+    float2 mlc[N], vc[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      mlc[i] = __ldcg(reinterpret_cast<const float2*>(piece + ROWS * D + rr[i] * 2));
+      vc[i] = __ldcg(reinterpret_cast<const float2*>(piece + rr[i] * D + 2 * pair[i]));
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {  // rescale the running sums to the new max
+      const float t = fmaxf(top[i], mlc[i].x), base = t == -INFINITY ? 0.f : t;
+      const float w0 = ex2((cc == c0 + 1 ? ml[i].x : top[i]) - base), w = ex2(mlc[i].x - base);
+      const float l0 = cc == c0 + 1 ? ml[i].y : l[i];
+      l[i] = fmaf(w, mlc[i].y, w0 * l0);
+      v[i] = make_float2(fmaf(w, vc[i].x, w0 * v[i].x), fmaf(w, vc[i].y, w0 * v[i].y));
+      top[i] = t;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int idx = ((int)blockIdx.y * N + i) * (int)blockDim.x + (int)threadIdx.x;
+    const int row = x * ROWS + rr[i];
+    if (idx < PAIRS && row < Tq) {
+      *reinterpret_cast<uint32_t*>(o + ((size_t)b * Tq + row) * H * D + h * D + 2 * pair[i]) =
+          pack_bf16(v[i].x / l[i], v[i].y / l[i]);
+    }
+  }
 }
 
-// Bring-up: one S tile and one P V tile alone, for one warpgroup, through
-// the functions the kernel runs (tile image, descriptors, fragment maps).
-// q, k, v (64, D) bf16, p (64, 64) fp32 -> s_out = Q K^T (64, 64) and
-// o_out = bf16(P) V (64, D), fp32.
-template <int D>
+// Bring-up: one S tile (64 x BK) and one P V tile alone, for one warpgroup,
+// through the kernel's copies (tensor maps), image, descriptors and fragment
+// maps. q (64, D), k and v (BK, D) bf16, p (64, BK) fp32 -> s_out = Q K^T
+// (64, BK) and o_out = bf16(P) V (64, D), fp32.
+template <int D, int BK>
 __global__ void __launch_bounds__(128)
-bf16_tiles_kernel(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-                  const float* p, float* s_out, float* o_out) {
-  __shared__ __align__(128) unsigned char tiles[2 * BK * D * 2];
-  const uint32_t k_tile = smem_addr(tiles), v_tile = k_tile + BK * D * 2;
-  copy_tile_bf16<D>(k_tile, k, 0, BK, D, threadIdx.x, 128);
-  copy_tile_bf16<D>(v_tile, v, 0, BK, D, threadIdx.x, 128);
-  cp_async_wait_all();
-  fence_proxy_async();
+flash_mha_bf16_tiles_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map, const float* p,
+                            float* s_out, float* o_out) {
+  using I = HeadImage<D>;
+  constexpr uint32_t Q_BYTES = ROWS_WG * D * 2, TILE = BK * D * 2;
+  extern __shared__ __align__(1024) unsigned char bf16_smem[];
+  unsigned char* base = bf16_smem + ((1024 - (smem_addr(bf16_smem) & 1023)) & 1023);
+  const uint32_t q_img = smem_addr(base), k_img = q_img + Q_BYTES, v_img = k_img + TILE;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + Q_BYTES + 2 * TILE);
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_arrive_expect_tx(bar, Q_BYTES + 2 * TILE);
+    for (int j = 0; j < I::BOXES; ++j) {
+      tma_load_3d(q_img + j * ROWS_WG * I::W, &q_map, j * (I::W / 2), 0, 0, bar);
+      tma_load_3d(k_img + j * BK * I::W, &k_map, j * (I::W / 2), 0, 0, bar);
+      tma_load_3d(v_img + j * BK * I::W, &v_map, j * (I::W / 2), 0, 0, bar);
+    }
+  }
+  mbar_wait(bar, 0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
   const int row = warp * 16 + g;
-  uint32_t qa[D / 16][4];
-  load_q_bf16<D>(qa, q + (size_t)row * D, true, true, D, c);
   float s[BK / 2];
-  score_issue_bf16<D>(s, qa, k_tile);
-  wgmma_wait_all();
+  score_issue<D, BK>(s, q_img, ROWS_WG * I::W, k_img);
+  wgmma_wait<0>();
   fence_all(s);
-  uint32_t pa[BK / 16][4];
 #pragma unroll
   for (int e = 0; e < BK / 2; ++e) {
     const int r = row + 8 * ((e >> 1) & 1), col = 8 * (e >> 2) + 2 * c + (e & 1);
     s_out[r * BK + col] = s[e];
     s[e] = p[r * BK + col];
   }
-#pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-  }
+  uint32_t pa[BK / 16][4];
+  pack_p<BK>(pa, s);
   float acc[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
-  value_issue_bf16<D>(acc, pa, v_tile);
-  wgmma_wait_all();
+  value_issue<D, BK>(acc, pa, v_img);
+  wgmma_wait<0>();
   fence_all(acc);
+  fence_all(pa);
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) {
     o_out[(row + 8 * ((e >> 1) & 1)) * D + 8 * (e >> 2) + 2 * c + (e & 1)] = acc[e];
   }
+}
+
+// ---- host side of the bf16 route ----
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A failed encode returns ENCODE_FAILED + its CUresult (kernels/attention.py
+// raises on it); no copy falls back to another path.
+constexpr int ENCODE_FAILED = 10000;
+
+// The tensor map of x (B, T, C) bf16 as the 3-D tensor (C, T, B), innermost
+// first: boxes of W / 2 channels x `rows` rows x 1 item, swizzled at W,
+// zero-filled outside the tensor.
+template <int D>
+int head_map(CUtensorMap* map, const void* x, int B, int T, int C, int rows) {
+  using I = HeadImage<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return ENCODE_FAILED + (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {I::W / 2, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swizzle = I::W == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : I::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+using bf16 = __nv_bfloat16;
+
+template <int D, int BK, int NWG>
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char* mask, bf16* o,
+                float* part, int B, int Tq, int Tk, int H, float scale, int ctas,
+                cudaStream_t stream) {
+  using Cfg = Bf16Cfg<D, BK, NWG>;
+  const int C = H * D, n_tiles = (Tk + BK - 1) / BK;
+  const long long R = (long long)((Tq + Cfg::ROWS - 1) / Cfg::ROWS) * H * B;
+  if (ctas < 1 || ctas > R * n_tiles || R * n_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const Schedule sched((int)R, n_tiles, ctas);
+  bool pieces = false;  // does a range start inside a row block?
+  for (int c = 1; c < ctas && !pieces; ++c) pieces = sched.lo(c) % n_tiles != 0;
+  if (pieces && part == nullptr) return (int)cudaErrorInvalidValue;
+  CUtensorMap qm, km, vm;
+  int err = head_map<D>(&qm, q, B, Tq, C, Cfg::ROWS);
+  if (err == 0) err = head_map<D>(&km, k, B, Tk, C, BK);
+  if (err == 0) err = head_map<D>(&vm, v, B, Tk, C, BK);
+  if (err != 0) return err;
+  auto kernel = flash_mha_bf16_kernel<D, BK, NWG>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)Cfg::SMEM_LAUNCH);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<ctas, Cfg::THREADS, Cfg::SMEM_LAUNCH, stream>>>(qm, km, vm, mask, o, part, B, Tq, Tk, H,
+                                                           scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || !pieces) return (int)e;
+  constexpr int PER_BLOCK = COMBINE_ITEMS * 256, PAIRS = Cfg::ROWS * (D / 2);
+  flash_mha_bf16_combine_kernel<D, Cfg::ROWS>
+      <<<dim3(ctas - 1, (PAIRS + PER_BLOCK - 1) / PER_BLOCK), 256, 0, stream>>>(
+          part, o, B, Tq, H, n_tiles, ctas);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch_bf16(int key_tile, int block_rows, const bf16* q, const bf16* k, const bf16* v,
+                  const unsigned char* mask, bf16* o, float* part, int B, int Tq, int Tk, int H,
+                  float scale, int ctas, cudaStream_t s) {
+  if (key_tile == 64 && block_rows == 128)
+    return launch_bf16<D, 64, 2>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+  if (key_tile == 64 && block_rows == 192)
+    return launch_bf16<D, 64, 3>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+  if (key_tile == 128 && block_rows == 128)
+    return launch_bf16<D, 128, 2>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+  if (key_tile == 128 && block_rows == 192)
+    return launch_bf16<D, 128, 3>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <int D, int BK>
+int launch_tiles(const bf16* q, const bf16* k, const bf16* v, const float* p, float* s_out,
+                 float* o_out, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int err = head_map<D>(&qm, q, 1, ROWS_WG, D, ROWS_WG);
+  if (err == 0) err = head_map<D>(&km, k, 1, BK, D, BK);
+  if (err == 0) err = head_map<D>(&vm, v, 1, BK, D, BK);
+  if (err != 0) return err;
+  constexpr int smem = 1024 + (ROWS_WG + 2 * BK) * D * 2 + 8;
+  auto kernel = flash_mha_bf16_tiles_kernel<D, BK>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<1, 128, smem, stream>>>(qm, km, vm, p, s_out, o_out);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int dispatch_tiles(int key_tile, const bf16* q, const bf16* k, const bf16* v, const float* p,
+                   float* s_out, float* o_out, cudaStream_t s) {
+  if (key_tile == 64) return launch_tiles<D, 64>(q, k, v, p, s_out, o_out, s);
+  if (key_tile == 128) return launch_tiles<D, 128>(q, k, v, p, s_out, o_out, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -752,47 +1083,52 @@ int flash_mha_f32(const float* q, const float* k, const float* v, const unsigned
 }
 
 // The bf16 route: q (B, Tq, H*D), k/v (B, Tk, H*D), o (B, Tq, H*D), all bf16
-// with 16-byte aligned rows; mask as for flash_mha_f32. scale = log2(e) /
-// sqrt(D), applied to the fp32 scores.
+// with 16-byte aligned bases; mask as for flash_mha_f32. scale = log2(e) /
+// sqrt(D), applied to the fp32 scores. key_tile 64 or 128 keys, block_rows
+// 128 or 192 query rows; ctas blocks in the grid, each a range of the
+// persistent schedule (Schedule; part: fp32 scratch of 2 ctas block_rows
+// (D + 2) floats, which may be null when no range starts inside a row
+// block). Returns a cudaError_t, or ENCODE_FAILED + the CUresult of a failed
+// tensor-map encode.
 int flash_mha_bf16(const void* q, const void* k, const void* v, const unsigned char* mask,
-                   void* o, int B, int Tq, int Tk, int H, int D, float scale, void* stream) {
+                   void* o, float* part, int B, int Tq, int Tk, int H, int D, float scale,
+                   int key_tile, int block_rows, int ctas, void* stream) {
   if (Tk <= 0) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();
-  using bf = __nv_bfloat16;
-  const bf *qb = (const bf*)q, *kb = (const bf*)k, *vb = (const bf*)v;
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
+  bf16* ob = (bf16*)o;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 32:
-      return (int)launch_bf16<32>(qb, kb, vb, mask, (bf*)o, B, Tq, Tk, H, scale, s);
+      return dispatch_bf16<32>(key_tile, block_rows, qb, kb, vb, mask, ob, part, B, Tq, Tk, H,
+                               scale, ctas, s);
     case 48:
-      return (int)launch_bf16<48>(qb, kb, vb, mask, (bf*)o, B, Tq, Tk, H, scale, s);
+      return dispatch_bf16<48>(key_tile, block_rows, qb, kb, vb, mask, ob, part, B, Tq, Tk, H,
+                               scale, ctas, s);
     case 64:
-      return (int)launch_bf16<64>(qb, kb, vb, mask, (bf*)o, B, Tq, Tk, H, scale, s);
+      return dispatch_bf16<64>(key_tile, block_rows, qb, kb, vb, mask, ob, part, B, Tq, Tk, H,
+                               scale, ctas, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// One S tile and one P V tile of the bf16 route alone (bf16_tiles_kernel).
+// One S tile and one P V tile of the bf16 route alone (flash_mha_bf16_tiles_kernel):
+// q (64, D), k and v (key_tile, D) bf16, p (64, key_tile) fp32.
 int flash_mha_bf16_tiles(const void* q, const void* k, const void* v, const float* p,
-                         float* s_out, float* o_out, int D, void* stream) {
-  using bf = __nv_bfloat16;
-  const bf *qb = (const bf*)q, *kb = (const bf*)k, *vb = (const bf*)v;
+                         float* s_out, float* o_out, int D, int key_tile, void* stream) {
+  const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 32:
-      bf16_tiles_kernel<32><<<1, 128, 0, s>>>(qb, kb, vb, p, s_out, o_out);
-      break;
+      return dispatch_tiles<32>(key_tile, qb, kb, vb, p, s_out, o_out, s);
     case 48:
-      bf16_tiles_kernel<48><<<1, 128, 0, s>>>(qb, kb, vb, p, s_out, o_out);
-      break;
+      return dispatch_tiles<48>(key_tile, qb, kb, vb, p, s_out, o_out, s);
     case 64:
-      bf16_tiles_kernel<64><<<1, 128, 0, s>>>(qb, kb, vb, p, s_out, o_out);
-      break;
+      return dispatch_tiles<64>(key_tile, qb, kb, vb, p, s_out, o_out, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

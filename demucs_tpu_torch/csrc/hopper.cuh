@@ -1,10 +1,11 @@
-// PTX helpers for sm_90a kernels: mbarriers, bulk and 16-byte asynchronous
-// copies into shared memory, warpgroup MMA (wgmma) with TF32 or bf16 inputs,
-// and the TF32 split of an fp32 value.
+// PTX helpers for sm_90a kernels: mbarriers, bulk and tensor (TMA)
+// asynchronous copies into shared memory, named barriers, warpgroup MMA
+// (wgmma) with TF32 or bf16 inputs and swizzled operand descriptors, the
+// special-function exp2, and the TF32 split of an fp32 value.
 //
 // Names and operand orders follow the PTX ISA (8.x): mbarrier.*,
-// cp.async(.bulk), fence.proxy.async, wgmma.mma_async and its fence /
-// commit_group / wait_group.
+// cp.async.bulk(.tensor), bar.sync / bar.arrive, ex2.approx,
+// wgmma.mma_async and its fence / commit_group / wait_group.
 
 #pragma once
 
@@ -72,32 +73,34 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// 16 bytes global -> shared by the issuing thread's async copy unit; the
-// bytes past `src_bytes` (0 or 16) are written as zeros. Completion: the same
-// thread waits with cp_async_wait_all() or, per committed group,
-// cp_async_wait_group<N>().
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-// Closes this thread's group of cp.async operations issued since the last one.
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-// Waits until at most N of this thread's most recent groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+// A box of a 3-D tensor map (innermost coordinate first) global -> shared
+// by the tensor memory accelerator, in the map's swizzle; elements outside
+// the tensor land as zeros, and the barrier counts the whole box's bytes.
+// `map` is the address of a __grid_constant__ CUtensorMap kernel parameter.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
 }
 
-// Orders this thread's generic-proxy writes to shared memory (stores,
-// cp.async) before later async-proxy reads of it (wgmma operands).
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+// Brings a tensor map into the descriptor cache ahead of its first copy.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---- named barriers (ids 1..15; 0 is __syncthreads) ----
+
+// Waits until `threads` threads (a multiple of 32) have arrived at barrier
+// `id`, this warp included.
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+// Counts this warp at barrier `id` without waiting.
+__device__ __forceinline__ void named_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ---- registers ----
@@ -111,6 +114,16 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 template <int N>
 __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+
+// ---- special functions ----
+
+// 2^x on the special-function unit (one MUFU op); results below 2^-126
+// flush to zero, and 2^-inf = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---- TF32 ----
@@ -133,10 +146,19 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// Waits until at most N of this warpgroup's committed wgmma groups are
+// pending (groups complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // Keeps the compiler from moving reads or writes of v across this point
 // (accumulators are written asynchronously by wgmma).
 __device__ __forceinline__ void fence_operand(float& v) { asm volatile("" : "+f"(v)::"memory"); }
+// The same for a register operand (an A fragment) that an issued wgmma
+// still reads: fenced after the wait, it stays in its register until then.
+__device__ __forceinline__ void fence_operand(uint32_t& v) { asm volatile("" : "+r"(v)::"memory"); }
 
 // Shared-memory matrix descriptor, no swizzle: the operand is stored as core
 // matrices of 8 rows x 16 bytes (128 contiguous bytes each). `lbo` is the
@@ -145,6 +167,19 @@ __device__ __forceinline__ void fence_operand(float& v) { asm volatile("" : "+f"
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// Shared-memory matrix descriptor of a swizzled operand: rows of W = 32,
+// 64 or 128 bytes (`layout` 3, 2 or 1: wgmma's 32-, 64- and 128-byte
+// swizzle, the pattern a tensor map of the same swizzle writes), in atoms
+// of 8 rows x W bytes aligned to 8 W. K-major (the reduction along the
+// row): `sbo` = 8 W (the next 8 rows), `lbo` unused (16); a k-slice of 16
+// bf16 values inside the row starts 32 bytes further. MN-major (the
+// reduction down the rows, read with the transpose bit): `sbo` = 8 W (the
+// next 8 reduction rows), `lbo` the byte stride to the next atom along N.
+__device__ __forceinline__ uint64_t swizzled_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                                  uint64_t layout) {
+  return smem_desc(addr, lbo, sbo) | (layout << 62);
 }
 
 // d (64 x N, fp32) += a (64 x 8, TF32, registers) . b (8 x N, TF32, shared,
@@ -215,9 +250,8 @@ struct MmaTf32<32> {
 };
 
 // d (64 x N, fp32) += a (64 x 16, bf16, registers) . b (16 x N, bf16, shared),
-// for one warpgroup. TRANS_B == 0: b is K-major (core matrices of 8 N-rows x
-// 8 K-values); TRANS_B == 1: b is MN-major (core matrices of 8 K-rows x 8
-// N-values). scale_d == 0 ignores the old d.
+// for one warpgroup. TRANS_B == 1: b is MN-major (N contiguous, read with the
+// transpose bit; only this form is instantiated). scale_d == 0 ignores the old d.
 //
 // Register fragments (PTX ISA, wgmma .m64nNk16 with 16-bit A): lane l of
 // warp w, g = l / 4, c = l % 4, rows relative to the warp's 16, each
@@ -253,13 +287,48 @@ struct MmaBf16;
   "%27}, %28"
 #define HOPPER_D32 HOPPER_BF16_A "}, {%16, %17, %18, %19}, %20"
 
-HOPPER_MMA_BF16(64, 0, 32, HOPPER_D64, 37, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
-                HOPPER_ACC8(24))
 HOPPER_MMA_BF16(64, 1, 32, HOPPER_D64, 37, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
                 HOPPER_ACC8(24))
 HOPPER_MMA_BF16(48, 1, 24, HOPPER_D48, 29, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16))
 HOPPER_MMA_BF16(32, 1, 16, HOPPER_D32, 21, HOPPER_ACC8(0), HOPPER_ACC8(8))
 
+// d (64 x N, fp32) (+)= a (64 x 16, bf16, shared) . b (16 x N, bf16, shared),
+// both K-major, operands by descriptor; d as for MmaTf32.
+template <int N>
+struct MmaBf16SS;
+
+#define HOPPER_MMA_BF16_SS(N, NREG, DREGS, PIDX, ...)                                        \
+  template <>                                                                              \
+  struct MmaBf16SS<N> {                                                                    \
+    static __device__ __forceinline__ void run(float (&d)[NREG], uint64_t a, uint64_t b,   \
+                                               int scale_d) {                              \
+      asm volatile("{\n"                                                                   \
+                   ".reg .pred p;\n"                                                       \
+                   "setp.ne.b32 p, %" #PIDX ", 0;\n"                                       \
+                   "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " DREGS    \
+                   ", p, 1, 1, 0, 0;\n"                                                    \
+                   "}\n"                                                                   \
+                   : __VA_ARGS__                                                           \
+                   : "l"(a), "l"(b), "r"(scale_d));                                        \
+    }                                                                                      \
+  };
+
+#define HOPPER_SS64 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
+  "%28, %29, %30, %31}, %32, %33"
+#define HOPPER_SS128 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+  "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+  "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, " \
+  "%63}, %64, %65"
+
+HOPPER_MMA_BF16_SS(64, 32, HOPPER_SS64, 34, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
+                   HOPPER_ACC8(24))
+HOPPER_MMA_BF16_SS(128, 64, HOPPER_SS128, 66, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
+                   HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48),
+                   HOPPER_ACC8(56))
+
+#undef HOPPER_SS128
+#undef HOPPER_SS64
+#undef HOPPER_MMA_BF16_SS
 #undef HOPPER_D32
 #undef HOPPER_D48
 #undef HOPPER_D64

@@ -53,11 +53,23 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
+def ptxas_path(name: str) -> Path:
+    """The compiler report kept beside the library of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".ptxas.txt")
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's report (``-Xptxas=-v``: registers, shared memory, spills) of the
+    library of ``csrc/<name>.cu`` as it stands, whichever call built it."""
+    return ptxas_path(name).read_text()
+
+
 def build(names=SOURCES) -> dict:
     """Compile every named source that is not built yet, in parallel.
 
     Returns ``{name: {"seconds": wall time, "ptxas": compiler report}}`` for
-    the sources compiled by this call (registers, shared memory, spills).
+    the sources compiled by this call (registers, shared memory, spills); the
+    report is also kept beside the library (:func:`ptxas_report`).
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).exists()]
@@ -79,6 +91,7 @@ def build(names=SOURCES) -> dict:
             Path(tmp).unlink(missing_ok=True)
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{out}")
             continue
+        ptxas_path(name).write_text(out)  # before the library: a built one has its report
         os.replace(tmp, library_path(name))  # atomic: readers never see a partial file
         report[name] = {"seconds": time.perf_counter() - start, "ptxas": out}
     if errors:

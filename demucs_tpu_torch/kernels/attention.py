@@ -11,14 +11,21 @@ the inputs (the Pallas kernel takes any float dtype):
   and with V transposed, as the shared-memory image the products read, in a
   scratch tensor.
 - bf16 (:func:`flash_mha_bf16`): one bf16 ``wgmma`` per product with fp32
-  accumulation, K and V copied into shared memory as they are (no layout
-  pass), the softmax scale applied to the fp32 scores, P packed to bf16 in
-  registers; the output in bf16.
+  accumulation; one producer thread brings K and V in by the tensor memory
+  accelerator (3-D tensor maps encoded per call); each consumer warpgroup
+  issues a tile's S with the previous tile's P V and runs the softmax while
+  that P V is on the tensor cores, and the warpgroups take turns to issue;
+  the softmax scale folded into one FFMA per score; P packed to bf16 in
+  registers; the output in bf16. Either a block per row block, or one block
+  per SM walking an even share of the (row block, key tile) units, with a
+  second small kernel merging the partial sums of the row blocks that two
+  blocks share; a cost model picks (:func:`bf16_plan`, :func:`bf16_schedule`).
 
-Both: an online softmax over tiles of 64 keys with fp32 accumulators; an
-optional ``(Tq, Tk)`` boolean keep-mask shared by batch and heads; the
--inf-safe rescale (a fully masked row gives NaN, as the plain softmax does).
-Head dims 32, 48 and 64. The plain version is
+Both: an online softmax over tiles of keys (64 on the fp32 route,
+``KEY_TILE_BF16`` on the bf16 route) with fp32 accumulators; an optional
+``(Tq, Tk)`` boolean keep-mask shared by batch and heads; the -inf-safe
+rescale (a fully masked row gives NaN, as the plain softmax does). Head dims
+32, 48 and 64. The plain version is
 :func:`demucs_tpu_torch.ops.attention.multihead_attention`. Any other dtype
 on the card raises.
 
@@ -38,15 +45,33 @@ from demucs_tpu_torch.kernels import NoBackward, _build
 from demucs_tpu_torch.ops.attention import multihead_attention
 
 __all__ = ["flash_mha", "flash_mha_bf16", "flash_mha_plain", "HEAD_DIMS", "KEY_TILE",
-           "q_scale", "bf16_tiles"]
+           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles"]
 
 HEAD_DIMS = (32, 48, 64)
-KEY_TILE = 64  # keys per tile of the kernel's loop
+KEY_TILE = 64  # keys per tile of the fp32 route's loop
 # Query rows per block of the fp32 route: 64 (one consumer warpgroup) or 128
 # (two, which overlap one's softmax with the other's products; the faster at
-# every released shape and batch on the H100, PERF.md). The bf16 route runs
-# 128.
+# every released shape and batch on the H100, PERF.md).
 BLOCK_ROWS = 128
+# The bf16 route's plan (chip_smoke.py sweeps every part on the H100,
+# PERF.md): keys per tile (64 or 128); query rows per block, 128 or 192 (two
+# or three consumer warpgroups); whether one block per SM walks an even share
+# of all the work (the persistent schedule) or each block takes a row block.
+# None leaves the choice to bf16_plan.
+KEY_TILE_BF16 = 128
+BF16_ROWS = None
+BF16_PERSISTENT = None
+# bf16_plan's model of the kernel's time, in units of one key tile against
+# 128 query rows on one SM. The constants are fitted to chip_smoke.py's sweep
+# on the H100 (PERF.md), where the model picks the fastest plan at every
+# released shape, at one segment and at six.
+_ROWS_COST = {128: 1.0, 192: 1.3}  # a key tile at 128 and at 192 rows
+_BLOCK_START = 3.0  # a block of the plain grid: its Q, first S and softmax, last P V, stores
+_PIECE_START = 1.5  # a row block inside a persistent block, whose loads run ahead
+_MERGE = 5.0  # the second kernel, which merges the row blocks that two blocks share
+# A status at or above this from flash_mha_bf16 is a failed tensor-map
+# encode (csrc/flash_mha.cu ENCODE_FAILED), plus the driver's CUresult.
+_ENCODE_FAILED = 10000
 
 
 # The plain version of K3, used for CPU tensors and as the kernel's oracle.
@@ -55,7 +80,8 @@ flash_mha_plain = multihead_attention
 
 def q_scale(head_dim: int) -> float:
     """The softmax scale in base 2, log2(e)/sqrt(d): the fp32 route multiplies
-    q by it before the split, the bf16 route the fp32 scores."""
+    q by it before the split, the bf16 route folds it into each fp32 score's
+    FFMA with the row max."""
     return math.log2(math.e) / math.sqrt(head_dim)
 
 
@@ -71,9 +97,9 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_mha_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
     lib.flash_mha_f32.restype = i
-    lib.flash_mha_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.flash_mha_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
     lib.flash_mha_bf16.restype = i
-    lib.flash_mha_bf16_tiles.argtypes = [p, p, p, p, p, p, i, p]
+    lib.flash_mha_bf16_tiles.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.flash_mha_bf16_tiles.restype = i
     return lib
 
@@ -141,24 +167,114 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     return out
 
 
+def _ranges(units: int, ctas: int) -> list:
+    """The first unit of each of the persistent schedule's ``ctas`` ranges,
+    then ``units``: as even as they come, the first ``units % ctas`` one
+    longer (csrc/flash_mha.cu ``Schedule::lo``)."""
+    q, rem = divmod(units, ctas)
+    return [c * q + min(c, rem) for c in range(ctas + 1)]
+
+
+def _splits(lo: list, n_tiles: int) -> bool:
+    """Whether a range starts inside a row block: then the kernel writes
+    partial sums and the merge kernel runs."""
+    return any(u % n_tiles for u in lo[1:-1])
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_cost(blocks: int, n_tiles: int, rows: int, ctas: int, persistent: bool,
+               sm_count: int) -> float:
+    """The modelled time of a plan: the plain grid's waves, or the persistent
+    schedule's longest range with a start for each row block it touches."""
+    if not persistent:
+        return -(-blocks // sm_count) * (n_tiles + _BLOCK_START) * _ROWS_COST[rows]
+    lo = _ranges(blocks * n_tiles, ctas)
+    longest = max(lo[c + 1] - lo[c] + _PIECE_START * ((lo[c + 1] - 1) // n_tiles
+                                                      - lo[c] // n_tiles + 1)
+                  for c in range(ctas))
+    return (longest + _MERGE * _splits(lo, n_tiles)) * _ROWS_COST[rows]
+
+
+def bf16_plan(B: int, Tq: int, Tk: int, num_heads: int, sm_count: int) -> tuple:
+    """(query rows per block, blocks in the grid) of the bf16 route.
+
+    Of 128 or 192 rows, each on the plain grid (a block per row block) or on
+    the persistent schedule (one block per SM of the card's ``sm_count``,
+    each walking an even share of the (row block, key tile) units,
+    :func:`bf16_schedule`), the plan the model above prices lowest.
+    ``BF16_ROWS`` and ``BF16_PERSISTENT`` fix either choice.
+    """
+    n_tiles = -(-Tk // KEY_TILE_BF16)
+    best = None
+    for rows in (BF16_ROWS,) if BF16_ROWS else (128, 192):
+        blocks = -(-Tq // rows) * num_heads * B
+        for persistent in (False, True) if BF16_PERSISTENT is None else (BF16_PERSISTENT,):
+            ctas = min(sm_count, blocks * n_tiles) if persistent else blocks
+            cost = _plan_cost(blocks, n_tiles, rows, ctas, persistent, sm_count)
+            if best is None or cost < best[0]:
+                best = (cost, rows, ctas)
+    return best[1:]
+
+
+def bf16_schedule(blocks: int, n_tiles: int, ctas: int) -> list:
+    """The persistent schedule of csrc/flash_mha.cu (``Schedule``): the
+    ``blocks x n_tiles`` (row block, key tile) units, row block by row block,
+    cut into ``ctas`` contiguous ranges (:func:`_ranges`). Returns, per row
+    block, its runs of key tiles ``[(t0, t1), ...]`` in key order, one per
+    range that takes part of it; a row block of more than one run is merged
+    from their partial sums."""
+    lo = _ranges(blocks * n_tiles, ctas)
+    runs: list = [[] for _ in range(blocks)]
+    for c in range(ctas):
+        u = lo[c]
+        while u < lo[c + 1]:
+            r = u // n_tiles
+            end = min(lo[c + 1], (r + 1) * n_tiles)
+            runs[r].append((u - r * n_tiles, end - r * n_tiles))
+            u = end
+    return runs
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check_bf16(status: int, what: str) -> None:
+    if status >= _ENCODE_FAILED:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed (CUresult "
+                           f"{status - _ENCODE_FAILED})")
+    _build.check(status, what)
+
+
 def flash_mha_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                    *, mask: torch.Tensor | None = None) -> torch.Tensor:
     """K3's bf16 route: bf16 ``q (B, Tq, C)``, ``k, v (B, Tk, C)`` -> bf16
     ``(B, Tq, C)``. A CPU tensor takes the plain version; a bf16 CUDA tensor
-    launches the kernel, anything else on the card raises.
-    ``flash_mha_bf16.launches`` counts its launches."""
+    launches the kernel, anything else on the card raises; an empty batch or
+    query launches nothing. ``flash_mha_bf16.launches`` counts its launches."""
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, num_heads, mask=mask)
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.bfloat16)
+    if B * Tq == 0:
+        return torch.empty_like(q)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
+    rows, ctas = bf16_plan(B, Tq, Tk, num_heads, _sm_count(q.device.index or 0))
+    n_tiles = -(-Tk // KEY_TILE_BF16)
+    pieces = _splits(_ranges(-(-Tq // rows) * num_heads * B * n_tiles, ctas), n_tiles)
 
     def launch(q, k, v):
         out = torch.empty_like(q)
+        part = None
+        if pieces:  # two slots per range: rows x (o, then the scaled max and the sum)
+            part = torch.empty(2 * ctas * rows * (d + 2), device=q.device)
         status = _lib().flash_mha_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if keep is None else keep.data_ptr(), out.data_ptr(),
-            B, Tq, Tk, num_heads, d, q_scale(d), _build.stream_ptr(q.device))
-        _build.check(status, "flash_mha_bf16")
+            None if part is None else part.data_ptr(),
+            B, Tq, Tk, num_heads, d, q_scale(d), KEY_TILE_BF16, rows, ctas,
+            _build.stream_ptr(q.device))
+        _check_bf16(status, "flash_mha_bf16")
         return out
 
     out = NoBackward.apply("flash_mha_bf16", launch, q, k, v)
@@ -173,20 +289,23 @@ flash_mha_bf16.launches = 0
 def bf16_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                p: torch.Tensor) -> tuple:
     """Bring-up check of the bf16 route's two products alone, on the card:
-    bf16 ``q, k, v (64, d)`` and fp32 ``p (64, 64)`` -> fp32 ``(Q K^T, bf16(P) V)``
-    by one warpgroup's ``wgmma`` s through the kernel's tile image,
-    descriptors and fragment maps (a wrong one gives wrong numbers, no error)."""
-    d = q.shape[1]
-    if d not in HEAD_DIMS or q.shape != (KEY_TILE, d) or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"bf16_tiles takes (64, d) tiles, d in {HEAD_DIMS}")
-    if p.shape != (KEY_TILE, KEY_TILE) or p.dtype != torch.float32:
-        raise ValueError("p must be a (64, 64) float32 tensor")
+    bf16 ``q (64, d)``, ``k, v (n, d)`` and fp32 ``p (64, n)``, n = 64 or 128
+    keys -> fp32 ``(Q K^T, bf16(P) V)`` by one warpgroup's ``wgmma`` s through
+    the kernel's tensor-map copies, swizzled tile image, descriptors and
+    fragment maps (a wrong one gives wrong numbers, no error)."""
+    d, n = q.shape[1], k.shape[0]
+    if d not in HEAD_DIMS or q.shape != (64, d) or n not in (64, 128):
+        raise ValueError(f"bf16_tiles takes q (64, d), d in {HEAD_DIMS}, and 64 or 128 keys")
+    if k.shape != (n, d) or v.shape != k.shape:
+        raise ValueError(f"k and v must be ({n}, {d})")
+    if p.shape != (64, n) or p.dtype != torch.float32:
+        raise ValueError(f"p must be a (64, {n}) float32 tensor")
     q, k, v = (_aligned(t) for t in (q, k, v))
     p = p.contiguous()
-    s_out = torch.empty(KEY_TILE, KEY_TILE, device=q.device)
-    o_out = torch.empty(KEY_TILE, d, device=q.device)
+    s_out = torch.empty(64, n, device=q.device)
+    o_out = torch.empty(64, d, device=q.device)
     status = _lib().flash_mha_bf16_tiles(q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
-                                         s_out.data_ptr(), o_out.data_ptr(), d,
+                                         s_out.data_ptr(), o_out.data_ptr(), d, n,
                                          _build.stream_ptr(q.device))
-    _build.check(status, "flash_mha_bf16_tiles")
+    _check_bf16(status, "flash_mha_bf16_tiles")
     return s_out, o_out

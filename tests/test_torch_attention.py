@@ -238,12 +238,18 @@ def test_kernel_model_without_lo_terms_misses_the_tolerance():
 # kernel (interpret mode) scales q in fp32 and never rounds P, so it differs
 # from both by a few bf16 steps of the output (BF16_FLASH). _k3_bf16_model is
 # the CUDA kernel's arithmetic (csrc/flash_mha.cu, flash_mha_bf16_kernel):
-# the scale on the fp32 scores, unnormalized P rounded to bf16 per tile, o / l
-# rounded once; it is held to BF16_FLASH against the twin, the tolerance
+# tiles of KEY_TILE_BF16 keys, raw fp32 scores, p = 2^(s scale - m scale) in
+# one FFMA (m the raw row max), unnormalized P rounded to bf16 per tile, each
+# tile's P V added to o before o is rescaled by the next tile's alpha (the
+# kernel's software pipeline), o / l rounded once; each row block in the runs
+# of key tiles of the wrapper's plan on a 132-SM card (K.bf16_plan,
+# K.bf16_schedule), a block of several runs merged by their scaled maxima as
+# the kernel's combine does. It is held to BF16_FLASH against the twin, the tolerance
 # tests/test_torch_cuda.py holds the kernel to.
 
 BF16_DENSE = dict(atol=2 ** -8, rtol=0)  # one bf16 step at |out| < 1, on a rare element
 BF16_FLASH = dict(atol=2 ** -6, rtol=2 ** -6)  # a few bf16 steps of |out|
+SMS = 132  # the H100's SMs, for the schedule
 
 
 def _bf16(*arrays):
@@ -254,30 +260,67 @@ def _jax_bf16(*tensors):
     return [jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in tensors]
 
 
-def _k3_bf16_model(q, k, v, num_heads, mask=None):
+def _ffma(x, scale, base):
+    """fp32 fma(x, scale, -base): the product exact in float64, one rounding."""
+    return (x.double() * scale - base.double()).float()
+
+
+def _k3_bf16_run(q, k, v, scale, mask, t0, t1):
+    """Key tiles [t0, t1) of one row block: (unnormalized o, scaled max, l)."""
+    T = K.KEY_TILE_BF16
+    acc, pending = torch.zeros(q.shape[0], v.shape[1]), None
+    m, l = torch.full((q.shape[0],), -math.inf), torch.zeros(q.shape[0])
+    for k0 in range(t0 * T, min(t1 * T, k.shape[0]), T):
+        s = q.float() @ k[k0:k0 + T].float().T
+        if mask is not None:
+            s = s.masked_fill(~mask[:, k0:k0 + T], -math.inf)
+        m_new = torch.maximum(m, s.max(-1).values)
+        base = torch.where(torch.isneginf(m_new), 0.0, m_new * scale)
+        alpha = torch.exp2(_ffma(m, scale, base))
+        p = torch.exp2(_ffma(s, scale, base[:, None]))
+        if pending is not None:
+            acc = (acc + pending) * alpha[:, None]
+        l = l * alpha + p.sum(-1)
+        pending = p.bfloat16().float() @ v[k0:k0 + T].float()
+        m = m_new
+    return acc + pending, torch.where(torch.isneginf(m), -math.inf, m * scale), l
+
+
+def _k3_bf16_model(q, k, v, num_heads, mask=None, persistent=None):
+    """``persistent``: force the schedule (True) or a block per row block
+    (False); None takes the wrapper's plan."""
     B, Tq, C = q.shape
-    Tk, d, T = k.shape[1], C // num_heads, K.KEY_TILE
+    Tk, d = k.shape[1], C // num_heads
     scale = torch.tensor(K.q_scale(d), dtype=torch.float32)
+    rows, ctas = K.bf16_plan(B, Tq, Tk, num_heads, SMS)
+    n_x, n_tiles = -(-Tq // rows), -(-Tk // K.KEY_TILE_BF16)
+    blocks = B * num_heads * n_x
+    if persistent is not None:
+        ctas = min(SMS, blocks * n_tiles) if persistent else blocks
+    runs = K.bf16_schedule(blocks, n_tiles, ctas)
     out = torch.empty(B, Tq, C, dtype=torch.bfloat16)
-    for b in range(B):
-        for h in range(num_heads):
-            cols = slice(h * d, (h + 1) * d)
-            acc = torch.zeros(Tq, d)
-            m, l = torch.full((Tq,), -math.inf), torch.zeros(Tq)
-            for k0 in range(0, Tk, T):
-                n = min(T, Tk - k0)
-                s = (q[b, :, cols].float() @ k[b, k0:k0 + n, cols].float().T) * scale
-                if mask is not None:
-                    s = s.masked_fill(~mask[:, k0:k0 + n], -math.inf)
-                m_new = torch.maximum(m, s.max(-1).values)
-                base = torch.where(torch.isneginf(m_new), 0.0, m_new)
-                alpha = torch.exp2(m - base)
-                p = torch.exp2(s - base[:, None])
-                l = l * alpha + p.sum(-1)
-                acc = acc * alpha[:, None] + p.bfloat16().float() @ v[b, k0:k0 + n, cols].float()
-                m = m_new
-            out[b, :, cols] = (acc / l[:, None]).bfloat16()
+    for r, block_runs in enumerate(runs):
+        x, h, b = r % n_x, r // n_x % num_heads, r // (n_x * num_heads)
+        qs, cols = slice(x * rows, (x + 1) * rows), slice(h * d, (h + 1) * d)
+        keep = None if mask is None else mask[qs]
+        parts = [_k3_bf16_run(q[b, qs, cols], k[b, :, cols], v[b, :, cols], scale, keep, t0, t1)
+                 for t0, t1 in block_runs]
+        if len(parts) == 1:
+            acc, _, l = parts[0]
+        else:  # the kernel's combine: weights 2^(M_run - M), base 0 if every M is -inf
+            top = torch.stack([pt[1] for pt in parts]).max(0).values
+            top = torch.where(torch.isneginf(top), 0.0, top)
+            w = [torch.exp2(pt[1] - top) for pt in parts]
+            acc = sum(wi[:, None] * pt[0] for wi, pt in zip(w, parts))
+            l = sum(wi * pt[2] for wi, pt in zip(w, parts))
+        out[b, qs, cols] = (acc / l[:, None]).bfloat16()
     return out
+
+
+def _first_tile(Tk):
+    """Keys of the bf16 route's first tile, fully masked in the masked cases;
+    the fp32 route's 64 where the bf16 tile would cover every key."""
+    return K.KEY_TILE_BF16 if Tk > K.KEY_TILE_BF16 else K.KEY_TILE
 
 
 @pytest.mark.parametrize("B,Tq,Tk,C,H,masked", [
@@ -285,13 +328,15 @@ def _k3_bf16_model(q, k, v, num_heads, mask=None):
     (2, 130, 70, 96, 2, True),     # head dim 48, ragged cross, masked
     (1, 300, 300, 128, 2, False),  # head dim 64
     (1, 150, 260, 128, 2, True),   # head dim 64, masked
+    (3, 70, 130, 128, 2, False),   # B > 1, Tk not a multiple of the tile: the last tile ragged
+    (3, 40, 260, 96, 2, True),     # the same at head dim 48, masked
 ])
 def test_bf16_twin_matches_jax_dense_and_pallas(B, Tq, Tk, C, H, masked):
     q, k, v = _bf16(*_qkv(B, Tq, Tk, C, 11))
     mask = None
     if masked:
         mask = torch.rand(Tq, Tk, generator=torch.Generator().manual_seed(3)) > 0.3
-        mask[:, :K.KEY_TILE] = False  # a fully masked first key tile
+        mask[:, :_first_tile(Tk)] = False  # a fully masked first key tile
     jq, jk, jv = _jax_bf16(q, k, v)
     jm = None if mask is None else jnp.asarray(mask.numpy())
     got = port_mha(q, k, v, H, mask=mask)
@@ -331,3 +376,78 @@ def test_bf16_model_tells_the_routes_apart():
     got = _k3_bf16_model(*_bf16(q, k, v), 1).float().numpy()
     err = np.abs(got - want).max()
     assert 100 * TOL["atol"] < err < BF16_FLASH["atol"] + BF16_FLASH["rtol"] * np.abs(want).max()
+
+
+@pytest.mark.parametrize("B,Tq,Tk,C,H,masked", [
+    (1, 100, 300, 128, 2, False),  # 3 tiles in 1 row block: one run of one tile per range
+    (2, 290, 260, 96, 2, True),    # head dim 48, masked, ragged last tile
+    (3, 64, 530, 64, 2, False),    # 6 row blocks of 5 tiles, 30 ranges of one; ragged
+])
+def test_bf16_model_schedule_matches_plain_grid_and_pallas(B, Tq, Tk, C, H, masked):
+    """Row blocks cut into runs of key tiles by the persistent schedule and
+    merged by their scaled maxima (the kernel's combine) give the plain
+    grid's output (one run per row block) within BF16_FLASH, and the Pallas
+    kernel's."""
+    q, k, v = _bf16(*_qkv(B, Tq, Tk, C, 14))
+    mask = None
+    if masked:
+        mask = torch.rand(Tq, Tk, generator=torch.Generator().manual_seed(4)) > 0.3
+        mask[:, :_first_tile(Tk)] = False
+        mask[3] = False  # a row with no kept key: NaN from both
+    one = _k3_bf16_model(q, k, v, H, mask=mask, persistent=False).float().numpy()
+    split = _k3_bf16_model(q, k, v, H, mask=mask, persistent=True).float().numpy()
+    np.testing.assert_array_equal(np.isnan(one), np.isnan(split))
+    np.testing.assert_allclose(split, one, **BF16_FLASH)
+    jq, jk, jv = _jax_bf16(q, k, v)
+    jm = None if mask is None else jnp.asarray(mask.numpy())
+    flash = np.asarray(jax_flash_mha(jq, jk, jv, H, mask=jm, block_q=128, block_k=128,
+                                     interpret=True).astype(jnp.float32))
+    np.testing.assert_allclose(split, flash, **BF16_FLASH)
+
+
+@pytest.mark.parametrize("blocks,n_tiles,ctas", [
+    (672, 21, 132),  # freq<-freq, six segments: 106 or 107 tiles per range
+    (88, 11, 132),   # time<-time, one segment: more ranges than row blocks
+    (6, 3, 18),      # one tile per range
+    (7, 5, 7),       # the plain grid: one row block per range
+    (5, 1, 3),       # one tile per row block
+])
+def test_bf16_schedule_covers_every_tile_once(blocks, n_tiles, ctas):
+    """The schedule against a unit-by-unit construction: even shares (the
+    longer first), each row block's tiles grouped by the range that owns them."""
+    units = blocks * n_tiles
+    share = [units // ctas + (c < units % ctas) for c in range(ctas)]
+    owner = np.repeat(np.arange(ctas), share)
+    want = [[] for _ in range(blocks)]
+    for u in range(units):
+        r, t = divmod(u, n_tiles)
+        if t > 0 and owner[u] == owner[u - 1]:
+            want[r][-1] = (want[r][-1][0], t + 1)
+        else:
+            want[r].append((t, t + 1))
+    assert K.bf16_schedule(blocks, n_tiles, ctas) == want
+
+
+@pytest.mark.parametrize("B,Tq,Tk,rows_set,persistent,want", [
+    # the released shapes (freq 2688, time 1344 tokens) at one segment and at
+    # six: the plan that was the fastest of chip_smoke.py's sweep on the H100
+    (1, 2688, 2688, None, None, (192, 112)),  # freq<-freq: 112 row blocks, the plain grid
+    (1, 1344, 1344, None, None, (128, 88)),   # time<-time: 56 of 192 rows would leave 76 SMs idle
+    (1, 2688, 1344, None, None, (192, 112)),  # freq<-time: 11 key tiles, too few to split
+    (1, 1344, 2688, None, None, (128, 132)),  # time<-freq: 21 key tiles, split over every SM
+    (6, 2688, 2688, None, None, (192, 132)),  # the served batch: persistent
+    (6, 1344, 1344, None, None, (128, 132)),  # 528 row blocks of 128, 4 whole ones per SM
+    (6, 2688, 1344, None, None, (192, 132)),
+    (6, 1344, 2688, None, None, (192, 132)),
+    (6, 2688, 2688, None, False, (192, 672)),  # forced: a block per row block
+    (1, 2688, 2688, None, True, (192, 132)),   # forced: persistent
+    (1, 64, 100, None, True, (128, 8)),        # 8 units: a block each
+    (6, 2688, 2688, 128, None, (128, 132)),    # forced rows
+])
+def test_bf16_plan(monkeypatch, B, Tq, Tk, rows_set, persistent, want):
+    """Rows per block and blocks in the grid of the bf16 route on a 132-SM
+    card (8 heads, 128-key tiles)."""
+    monkeypatch.setattr(K, "KEY_TILE_BF16", 128)
+    monkeypatch.setattr(K, "BF16_ROWS", rows_set)
+    monkeypatch.setattr(K, "BF16_PERSISTENT", persistent)
+    assert K.bf16_plan(B, Tq, Tk, 8, SMS) == want

@@ -9,6 +9,7 @@ nothing is compiled here.
 import ctypes
 import importlib
 import re
+import sys
 import types
 
 import pytest
@@ -46,6 +47,27 @@ def test_library_path_changes_with_the_flags(tmp_path, monkeypatch):
     before = _build.library_path("k")
     monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-lineinfo"))
     assert _build.library_path("k") != before
+
+
+def test_build_keeps_the_compiler_report_beside_the_library(tmp_path, monkeypatch):
+    """The registers and spills of a library built by an earlier process stay
+    readable: the report lives beside the library, named by the same hash."""
+    csrc, out = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// k\n")
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\nimport sys\n"
+                    "open(sys.argv[sys.argv.index('-o') + 1], 'w').write('lib')\n"
+                    "print('ptxas info    : Used 40 registers')\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", out)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: str(nvcc))
+    report = _build.build(("k",))
+    assert "Used 40 registers" in report["k"]["ptxas"]
+    assert _build.library_path("k").is_file()
+    assert _build.build(("k",)) == {}  # built: nothing compiled, the report still there
+    assert _build.ptxas_report("k") == report["k"]["ptxas"]
 
 
 @pytest.mark.parametrize("name", _build.SOURCES)

@@ -370,15 +370,17 @@ def _bf16_close(got, want):
     np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **BF16_TOL)
 
 
+@pytest.mark.parametrize("keys", [64, 128])
 @pytest.mark.parametrize("d", [32, 48, 64])
-def test_flash_mha_bf16_tiles(cuda, d):
-    """One S tile and one P V tile alone, through the kernel's tile image,
-    descriptors and fragment maps: exact products of bf16 values, summed in
-    fp32 (1e-5 of the sums' size)."""
+def test_flash_mha_bf16_tiles(cuda, d, keys):
+    """One S tile and one P V tile alone, through the kernel's tensor-map
+    copies, swizzled tile image, descriptors and fragment maps: exact
+    products of bf16 values, summed in fp32 (1e-5 of the sums' size)."""
     from demucs_tpu_torch.kernels import attention as K
 
-    q, k, v = (_randn(64, d, seed=s).bfloat16() for s in (60, 61, 62))
-    p = torch.rand(64, 64, generator=torch.Generator().manual_seed(63)).to(cuda)
+    q = _randn(64, d, seed=60).bfloat16()
+    k, v = (_randn(keys, d, seed=s).bfloat16() for s in (61, 62))
+    p = torch.rand(64, keys, generator=torch.Generator().manual_seed(63)).to(cuda)
     s_tile, o_tile = K.bf16_tiles(q, k, v, p)
     torch.cuda.synchronize()
     want_s = q.double() @ k.double().T
@@ -391,7 +393,8 @@ def test_flash_mha_bf16_tiles(cuda, d):
     (1, 2688, 2688, 512, 8), (6, 2688, 2688, 512, 8),  # freq<-freq, one segment and the batch
     (1, 1344, 1344, 512, 8), (6, 2688, 1344, 512, 8), (6, 1344, 2688, 512, 8),
     (2, 300, 130, 128, 4), (1, 70, 90, 384, 8), (2, 1, 33, 64, 1),
-    (1, 1000, 700, 384, 8)])  # Tq not a multiple of the block's 128 rows, head dim 48
+    (1, 1000, 700, 384, 8),  # Tq not a multiple of the block's rows, head dim 48
+    (3, 200, 130, 512, 8)])  # B > 1, Tk not a multiple of the key tile: a box past Tk
 def test_flash_mha_bf16_kernel_matches_plain(cuda, monkeypatch, B, Tq, Tk, C, H):
     """bf16 CUDA inputs launch the bf16 kernel and never reach the plain version."""
     from demucs_tpu_torch.kernels import attention as K
@@ -411,17 +414,55 @@ def test_flash_mha_bf16_kernel_matches_plain(cuda, monkeypatch, B, Tq, Tk, C, H)
     _bf16_close(got, want)
 
 
+@pytest.mark.parametrize("B,Tq", [(0, 33), (2, 0)])
+def test_flash_mha_bf16_empty_launches_nothing(cuda, B, Tq):
+    """An empty batch or query gives an empty bf16 output and launches nothing."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q = _randn(B, Tq, 64).bfloat16()
+    k = _randn(B, 33, 64).bfloat16()
+    before = K.flash_mha_bf16.launches
+    got = K.flash_mha(q, k, k, 1)
+    assert got.shape == (B, Tq, 64) and got.dtype == torch.bfloat16
+    assert K.flash_mha_bf16.launches == before
+
+
 def test_flash_mha_bf16_kernel_masks(cuda):
     from demucs_tpu_torch.kernels import attention as K
 
     T, C, H = 2688, 512, 8
     q, k, v = (_randn(1, T, C, seed=s).bfloat16() for s in (67, 68, 69))
     mask = torch.rand(T, T, generator=torch.Generator().manual_seed(70)) > 0.7
-    mask[:, :64] = False  # the first key tile, fully masked for every row
+    mask[:, :K.KEY_TILE_BF16] = False  # the first key tile, fully masked for every row
     mask[11] = False  # a row with no kept key
     got = K.flash_mha_bf16(q, k, v, H, mask=mask.cuda()).float().cpu()
     want = K.flash_mha_plain(q, k, v, H, mask=mask.cuda()).float().cpu()
     assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got[0, 11]).all()
+    keep = torch.isfinite(want)
+    np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), **BF16_TOL)
+
+
+@pytest.mark.parametrize("key_tile,rows,persistent", [
+    (64, 128, False), (64, 192, False), (128, 128, True), (128, 192, True), (64, 192, True),
+    (128, 128, False)])
+def test_flash_mha_bf16_plans_match_plain(cuda, monkeypatch, key_tile, rows, persistent):
+    """Every plan of the bf16 route (chip_smoke.py sweeps them): keys per tile,
+    rows per block, the persistent schedule (row blocks shared by two ranges
+    and merged) or a block per row block, on a ragged batch with a mask and a
+    fully masked row."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    monkeypatch.setattr(K, "KEY_TILE_BF16", key_tile)
+    monkeypatch.setattr(K, "BF16_ROWS", rows)
+    monkeypatch.setattr(K, "BF16_PERSISTENT", persistent)
+    B, Tq, Tk, C, H = 3, 300, 390, 384, 8
+    q, k, v = (_randn(B, T, C, seed=s).bfloat16() for s, T in ((72, Tq), (73, Tk), (74, Tk)))
+    mask = torch.rand(Tq, Tk, generator=torch.Generator().manual_seed(75)) > 0.5
+    mask[:, :key_tile] = False
+    mask[5] = False
+    got = K.flash_mha_bf16(q, k, v, H, mask=mask.cuda()).float().cpu()
+    want = K.flash_mha_plain(q, k, v, H, mask=mask.cuda()).float().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and torch.isnan(got[:, 5]).all()
     keep = torch.isfinite(want)
     np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), **BF16_TOL)
 

@@ -24,6 +24,12 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               schedule or a block per row block) and the plan chosen, a ragged
               batch, the masked case, and each instance's registers and
               spills (nvcc's report kept beside the library).
+   sparse_kernels — K3 under each static sparse mask (diag, global, jmask,
+              random, diag_jmask_random at the reference's window 500, global
+              100, sparsity 0.95) at the four shapes and both batches: the fp32
+              route and every bf16 plan against the plain version (NaN only
+              where it has NaN), ms beside the unmasked ms and SDPA with the
+              same mask.
               Times the kernel, the plain version and one PyTorch library call
               computing the same function (yardstick only: the port never calls
               it), with CUDA events. Then drops the plain versions' cached dense
@@ -119,13 +125,33 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               apply_model(shifts=0) on the card (1e-5 x peak) and its graph
               replays against an all-eager stream (1e-6 x peak); replays and
               eager tails, ms per segment, latency, real-time factor, launches.
-16. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
+16. variants — the released-width HTDemucs with each remaining option
+              (VARIANTS: static sparse self- and cross-attention with the diag
+              mask and with diag_jmask_random, LSH, CAPE, cac=False with Wiener,
+              multi_freqs), one 7.8 s segment on the card against the CPU
+              (2e-4 x peak); the LSH variant instead by the share of keep-mask
+              entries the card flips against the CPU on the same q and k, two
+              card forwards bit-equal and finite stems. Then a 30 s request on
+              the device engine for the dense, both sparse, the LSH and the
+              fast-preset sparse model (K3's bf16 route): audio-s/s, launches
+              (K3 10 a forward on the sparse paths, none on LSH's dense route),
+              memory.
+17. memory  — pass_memory_analysis for a 30 s request against the same
+              request measured cold and warm; the graphs' pool before and after
+              GRAPHS.clear() with torch.cuda.empty_cache(), and a request after
+              it (recaptured, the same stems).
+18. evaluate — evaluate(compute_sdr=True) on a synthetic 2-track x 10 s
+              MusdbHQ folder with the phase-4 model: each track's nsdr against
+              eval_track on Separator's stems, seconds per track for the
+              separation on the card and BSS-eval on the host.
+19. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
               then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
               the .dmx on a FLAC file with --flac and (with LAME) --mp3.
 
 Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, each kernel's
 launches on every path: HTDemucs, HDemucs, Demucs v2, the bag, each
-family's presets, the server and each stream; ``launches`` is their sum)
+family's presets, the server, each stream and each variant request;
+``launches`` is their sum)
 and, last,
 ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
@@ -397,10 +423,9 @@ def k3_checks(gen) -> dict:
     mask[7] = False  # a query row with no kept key: NaN, as the plain softmax gives
     got = KA.flash_mha(q, k, v, H, mask=mask)
     want = KA.flash_mha_plain(q, k, v, H, mask=mask)
-    if not torch.equal(torch.isnan(got), torch.isnan(want)) or not torch.isnan(got[0, 7]).all():
-        raise AssertionError("K3: masked rows do not give NaN where the plain version does")
-    fin = torch.isfinite(want)
-    mask_err = (got[fin] - want[fin]).abs().max().item()
+    if not torch.isnan(got[0, 7]).all():
+        raise AssertionError("K3: a fully masked row does not give NaN")
+    mask_err = fp32_err(got, want)  # inf where NaN is not where the plain version has it
     main = by_shape["B=1 freq<-freq"]
     return dict(
         name="flash_mha", tol=K3_ATOL, max_abs_err=max(err, mask_err), masked_err=mask_err,
@@ -460,6 +485,30 @@ def ptxas_kernels(report: str, pattern: str) -> dict:
     return found
 
 
+def bf16_excess(got, want) -> float:
+    """K3 bf16 against its plain version: the max over finite ``want`` of
+    |got - want| - tol (1 + |want|) (<= 0 passes); inf unless NaN appears
+    exactly where ``want`` has it."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return math.inf
+    fin = torch.isfinite(want)
+    return ((got[fin] - want[fin]).abs() - K3_BF16_TOL * (1 + want[fin].abs())).max().item()
+
+
+def fp32_err(got, want) -> float:
+    """K3 fp32 against its plain version: the max |got - want| over finite
+    ``want``; inf unless NaN appears exactly where ``want`` has it."""
+    import torch
+
+    if not torch.equal(torch.isnan(got), torch.isnan(want)):
+        return math.inf
+    fin = torch.isfinite(want)
+    return (got[fin] - want[fin]).abs().max().item()
+
+
 def k3_bf16_checks(gen) -> dict:
     """K3's bf16 route: first one S tile and one P V tile alone at each head
     dim and key tile (the bring-up check of its tensor-map copies, swizzled
@@ -478,15 +527,7 @@ def k3_bf16_checks(gen) -> dict:
     from demucs_tpu_torch.kernels import attention as KA
 
     dev = torch.device("cuda")
-
-    def excess(got, want):
-        """max of |got - want| - tol (1 + |want|) over finite want; NaN where want is."""
-        got, want = got.float(), want.float()
-        if not torch.equal(torch.isnan(got), torch.isnan(want)):
-            return math.inf
-        fin = torch.isfinite(want)
-        return ((got[fin] - want[fin]).abs() - K3_BF16_TOL * (1 + want[fin].abs())).max().item()
-
+    excess = bf16_excess
     tiles = {}
     for d, n in itertools.product(KA.HEAD_DIMS, (64, 128)):
         q = torch.randn(64, d, device=dev, generator=gen).bfloat16()
@@ -682,6 +723,17 @@ def _bf16_attention(module) -> bool:
     return hasattr(module.cfg, "bf16_stages") and "transformer" in _bf16_stage_set(module.cfg)
 
 
+def k3_per_forward(cfg) -> int:
+    """K3's launches in one forward: one per attention of each branch (2 x
+    ``t_layers``), less the LSH layers', which take the dense route."""
+    layers = getattr(cfg, "t_layers", 0)
+    if not (getattr(cfg, "t_auto_sparsity", False) and cfg.t_sparsity):
+        return 2 * layers
+    parity = 1 if cfg.t_cross_first else 0
+    return sum(0 if (cfg.t_sparse_self_attn if idx % 2 == parity else cfg.t_sparse_cross_attn)
+               else 2 for idx in range(layers))
+
+
 class Counts:
     """The kernels' launches on one path: the wrappers' counts (eager launches)
     plus each graph replay's captured launches, both zeroed by ``zero()``;
@@ -690,7 +742,8 @@ class Counts:
     follows from its module's config: K1 and K2 once if it has a spectrogram
     (``nfft``: not Demucs v2), K3 once per attention, 2 branches x
     ``t_layers`` (10 at the released HTDemucs width, 0 without a
-    transformer), on its bf16 route where the transformer stage is bf16.
+    transformer) less the LSH layers (``k3_per_forward``), on its bf16 route
+    where the transformer stage is bf16.
     The counted run must capture nothing: a capture calls the module twice
     and launches once."""
 
@@ -725,7 +778,7 @@ class Counts:
                     for k in KERNELS}
         forwards = self.eager + self.replayed
         k12 = sum(hasattr(m.cfg, "nfft") for m in forwards)
-        attn = [(2 * getattr(m.cfg, "t_layers", 0), _bf16_attention(m)) for m in forwards]
+        attn = [(k3_per_forward(m.cfg), _bf16_attention(m)) for m in forwards]
         want = {"stft_dft": k12, "istft_dft": k12,
                 "flash_mha": sum(n for n, bf16 in attn if not bf16),
                 "flash_mha_bf16": sum(n for n, bf16 in attn if bf16)}
@@ -954,6 +1007,8 @@ def _kernel_group(name: str) -> str:
         return "matmuls (cuBLAS)"
     if "norm" in low or "moments" in low:  # GroupNorm statistics: RowwiseMomentsCUDAKernel
         return "normalizations"
+    if any(w in low for w in ("topk", "sort", "radix")):  # the LSH masks' top-k
+        return "top-k (LSH masks)"
     return "other (elementwise, copies, reductions)"
 
 
@@ -1844,6 +1899,437 @@ def phase_cli(workdir: Path, zoo: Path, bag: str) -> None:
     emit({"phase": "cli", "card": card_line(), "runs": runs, "ok": all(r["ok"] for r in runs)})
 
 
+# ---------------------------------------------------------------------------
+# HTDemucs's remaining options: K3 under the static sparse masks, the
+# variants end to end, the memory report, test-set evaluation
+# ---------------------------------------------------------------------------
+
+SPARSE_MASKS = ("diag", "global", "jmask", "random", "diag_jmask_random")
+# the reference's mask defaults (HTDemucsConfig): window 500, global 100, sparsity 0.95
+MASK_DEFAULTS = dict(sparse_attn_window=500, global_window=100, mask_random_seed=42,
+                     sparsity=0.95)
+SPARSE = dict(t_sparse_self_attn=True, t_sparse_cross_attn=True)
+VARIANTS = {  # released widths, 7.8 s segment
+    "sparse diag": SPARSE,
+    "sparse diag_jmask_random": dict(SPARSE, t_mask_type="diag_jmask_random"),
+    "lsh": dict(SPARSE, t_auto_sparsity=True),
+    "cape": dict(t_emb="cape"),
+    "cac=False wiener 1": dict(cac=False, wiener_iters=1),
+    "multi_freqs": dict(multi_freqs=(0.25, 0.5)),
+}
+VARIANT_REPEATS = 3  # each 30 s variant request, median reported
+LSH_MASK_DIFF = 1e-3  # share of LSH keep-mask entries the card may flip against the CPU
+EVAL_TRACKS, EVAL_SECONDS = 2, 10.0
+EVAL_NSDR_TOL = 1e-4  # dB: evaluate()'s nsdr against eval_track on Separator's stems
+
+
+def phase_sparse_kernels() -> dict:
+    """K3 under each static mask (diag, global, jmask, random and their union
+    diag_jmask_random, at the reference's window 500, global 100, sparsity
+    0.95; built by ops/sparse.py as the transformer caches them) at the four
+    released shapes and B = 1 and 6: the fp32 route and the bf16 route on
+    every plan of its sweep against the plain version on the same inputs
+    (NaN only where the plain version has it), timed (the bf16 route on its
+    chosen plan) beside the same shape unmasked and beside SDPA with the
+    same boolean mask (yardstick only). Bounds count the kept scores only
+    (a masked score is work the function need not do) and the mask's bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.models.htdemucs import precision_scope
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    C, H = 512, 8
+    d = C // H
+    tokens = {"freq": 2688, "time": 1344}
+    rows = {}
+    worst_fp32, worst_bf16 = 0.0, -math.inf
+    with precision_scope(None):
+        for batch in (1, 6):
+            for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
+                                     ("time", "freq")):
+                Tq, Tk = tokens[tq_name], tokens[tk_name]
+                q, k, v = (torch.randn(batch, T, C, device=dev, generator=gen)
+                           for T in (Tq, Tk, Tk))
+                qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+                split = [t.view(batch, -1, H, d).transpose(1, 2) for t in (q, k, v)]
+                split_b = [t.view(batch, -1, H, d).transpose(1, 2) for t in (qb, kb, vb)]
+                key = f"B={batch} {tq_name}<-{tk_name}"
+                unmasked = {"ms": cuda_ms(lambda: KA.flash_mha(q, k, v, H)),
+                            "bf16_ms": cuda_ms(lambda: KA.flash_mha(qb, kb, vb, H))}
+                for mask_type in SPARSE_MASKS:
+                    mask = keep_mask(Tq, Tk, mask_type, device=dev, **MASK_DEFAULTS)
+                    keep = mask.bool()
+                    kept = int(keep.sum().item())
+                    err = fp32_err(KA.flash_mha(q, k, v, H, mask=mask),
+                                   KA.flash_mha_plain(q, k, v, H, mask=mask))
+                    want = KA.flash_mha_plain(qb, kb, vb, H, mask=mask)
+                    by_plan = {}
+                    for bk, r, persistent in BF16_PLANS:
+                        with bf16_plan(KEY_TILE_BF16=bk, BF16_ROWS=r, BF16_PERSISTENT=persistent):
+                            by_plan[f"{bk} keys {r} rows "
+                                    f"{'persistent' if persistent else 'grid'}"] = bf16_excess(
+                                KA.flash_mha(qb, kb, vb, H, mask=mask), want)
+                    excess = max(by_plan.values())
+                    worst_fp32, worst_bf16 = max(worst_fp32, err), max(worst_bf16, excess)
+                    flops = 4 * batch * H * d * kept  # the kept scores' two products
+                    mask_bytes = Tq * Tk
+                    b32, by32 = bound(3 * flops, 4 * 2 * batch * (Tq + Tk) * C + mask_bytes,
+                                      TF32_FLOPS)
+                    b16, by16 = bound(flops, 2 * 2 * batch * (Tq + Tk) * C + mask_bytes,
+                                      BF16_FLOPS)
+                    row = dict(
+                        kept_share=kept / (Tq * Tk), max_abs_err=err,
+                        bf16_worst_excess_over_tol=excess, bf16_excess_by_plan=by_plan,
+                        ms=cuda_ms(lambda: KA.flash_mha(q, k, v, H, mask=mask)),
+                        unmasked_ms=unmasked["ms"],
+                        sdpa_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                            *split, attn_mask=keep)),
+                        bound_ms=b32, bound_by=by32,
+                        bf16_ms=cuda_ms(lambda: KA.flash_mha(qb, kb, vb, H, mask=mask)),
+                        bf16_unmasked_ms=unmasked["bf16_ms"],
+                        sdpa_bf16_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                            *split_b, attn_mask=keep)),
+                        bf16_bound_ms=b16, bf16_bound_by=by16)
+                    if key == "B=1 freq<-freq":
+                        row["plain_ms"] = cuda_ms(
+                            lambda: KA.flash_mha_plain(q, k, v, H, mask=mask))
+                        row["bf16_plain_ms"] = cuda_ms(
+                            lambda: KA.flash_mha_plain(qb, kb, vb, H, mask=mask))
+                    rows[f"{key} {mask_type}"] = row
+                del q, k, v, qb, kb, vb, split, split_b
+                torch.cuda.empty_cache()
+    ratios = [r["ms"] / r["unmasked_ms"] for r in rows.values()]
+    ratios_b = [r["bf16_ms"] / r["bf16_unmasked_ms"] for r in rows.values()]
+    info = {"phase": "sparse_kernels", "card": card_line(), "masks": list(SPARSE_MASKS),
+            "mask_options": MASK_DEFAULTS, "fp32_tol": K3_ATOL, "bf16_tol": K3_BF16_TOL,
+            "worst_fp32_err": worst_fp32, "worst_bf16_excess_over_tol": worst_bf16,
+            "masked_over_unmasked": {"fp32": [min(ratios), max(ratios)],
+                                     "bf16": [min(ratios_b), max(ratios_b)]},
+            "bound_rule": "kept scores only: fp32 max(3 x 4 B H d kept / 495 TFLOP/s, bytes / "
+                          "3.35 TB/s), bf16 max(4 B H d kept / 989 TFLOP/s, bf16 bytes / "
+                          "3.35 TB/s); bytes: q, k, v, o once and the uint8 mask",
+            "rows": rows}
+    info["ok"] = worst_fp32 <= K3_ATOL and worst_bf16 <= 0
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"K3 under sparse masks disagrees with the plain version: "
+                             f"fp32 {worst_fp32}, bf16 excess {worst_bf16}")
+    return info
+
+
+def variant_model(kw: dict, seed: int = 0, **extra):
+    """The released-width HTDemucs with options ``kw`` at the 7.8 s segment,
+    seeded random weights, unit LayerScales, random norms, on the CPU."""
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+
+    cfg = HTDemucsConfig(segment=7.8, **RELEASED, **kw, **extra)
+    return init_htdemucs(cfg, seed=seed, layer_scale=1.0, random_norms=True).eval()
+
+
+def lsh_checks(cpu_model) -> dict:
+    """The LSH variant, whose keep-masks are data-dependent top-k sets: the
+    share of mask entries that flip between the card and the CPU on the same
+    projected q and k (a score within rounding of the threshold may flip), two
+    card forwards bit-equal, and finite stems."""
+    import torch
+
+    from demucs_tpu_torch.ops.sparse import dynamic_sparse_keep_mask
+
+    enc = cpu_model.crosstransformer
+    R = enc.lsh_projections
+    gen = torch.Generator().manual_seed(21)
+    flips = {}
+    for name, (Tq, Tk) in (("freq<-freq", (2688, 2688)), ("time<-freq", (1344, 2688))):
+        q = torch.randn(1, Tq, 512, generator=gen)
+        k = q if Tq == Tk else torch.randn(1, Tk, 512, generator=gen)
+        want = dynamic_sparse_keep_mask(q, k, 8, cpu_model.cfg.t_sparsity, R)
+        got = dynamic_sparse_keep_mask(q.cuda(), k.cuda(), 8, cpu_model.cfg.t_sparsity,
+                                       R.cuda()).cpu()
+        flips[name] = (got != want).float().mean().item()
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    mix = torch.randn(1, 2, int(7.8 * SR), generator=torch.Generator().manual_seed(1)) * 0.1
+    with torch.inference_mode():
+        a = gpu_model(mix.cuda()).cpu()
+        b = gpu_model(mix.cuda()).cpu()
+        start = time.perf_counter()
+        want = cpu_model(mix)
+        cpu_s = time.perf_counter() - start
+    del gpu_model
+    peak = want.abs().max().item()
+    return {"mask_flip_share": flips, "mask_flip_tol": LSH_MASK_DIFF,
+            "card_runs_bit_equal": bool(torch.equal(a, b)), "finite": bool(torch.isfinite(a).all()),
+            "max_abs_err_over_peak_info": (a - want).abs().max().item() / peak,
+            "cpu_forward_s": cpu_s,
+            "ok": max(flips.values()) <= LSH_MASK_DIFF and bool(torch.equal(a, b))
+            and bool(torch.isfinite(a).all()) and a.shape == want.shape}
+
+
+def variant_requests(workdir: Path, models: dict) -> tp.Tuple[dict, dict]:
+    """A 30 s request on the device engine (Separator's default on the card)
+    for the dense model and the sparse, LSH and fast-preset sparse variants,
+    each after a warm-up request (graphs captured), median of
+    ``VARIANT_REPEATS``: audio-s/s, launches (K3 10 a forward on the sparse
+    paths, none on the LSH path), one profiled request of the dense, the
+    diag-sparse and the LSH model, peak memory above what was allocated
+    before (over the warm-up request, which captures, and over the timed
+    ones, which replay), the graphs' pool."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.inference.engine import GRAPHS
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.presets import resolve_preset
+    from demucs_tpu_torch.zoo.native import save_model
+
+    wav = _track(30.0, 130)
+    fast = resolve_preset("fast", "auto")[:2]
+    runs = (("dense", "dense", None), ("sparse diag", "sparse diag", None),
+            ("sparse diag_jmask_random", "sparse diag_jmask_random", None),
+            ("lsh", "lsh", None), ("sparse diag fast", "sparse diag", fast))
+    info, paths = {}, {}
+    for label, variant, preset in runs:
+        name = "htd_" + variant.replace(" ", "_").replace("=", "")
+        if not (workdir / f"{name}.dmx").exists():
+            module = models[variant]
+            save_model(Model("htdemucs", module.cfg, module), workdir / f"{name}.dmx", half=False)
+        kw = dict(compute_dtype=preset[0], matmul_precision=preset[1]) if preset else {}
+        sep = Separator(name, repo=workdir, shifts=1, batch_size=16, **kw)
+        counts = Counts(sep.model.module)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _stems(sep, wav)  # warm-up: captures the graphs
+        torch.cuda.synchronize()
+        capture_peak = torch.cuda.max_memory_allocated() - held
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        counts.zero()
+        walls = []
+        for _ in range(VARIANT_REPEATS):
+            start = time.perf_counter()
+            stems = _stems(sep, wav)
+            walls.append(time.perf_counter() - start)
+        run = counts.read()
+        wall = sorted(walls)[len(walls) // 2]
+        row = {"median_wall_s": wall, "wall_s": walls, "audio_s_per_s": 30.0 / wall,
+               "launches": run["launches"], "expected": run["expected"],
+               "graph_replays": run["graph_replays"], "eager_forwards": run["eager_forwards"],
+               # a replay writes its activations into the graphs' pool unseen by
+               # the allocator: the warm-up request, which captures, shows them
+               "capture_request_peak_GiB": capture_peak / 2**30,
+               "request_peak_GiB": (torch.cuda.max_memory_allocated() - held) / 2**30,
+               "pool_GiB": (GRAPHS.pool_bytes() or 0) / 2**30,
+               "finite": bool(all(np.isfinite(s).all() for s in stems))}
+        if label in ("dense", "sparse diag", "lsh"):
+            row["profile"] = profile_request(sep, wav)
+        route = "flash_mha_bf16" if preset else "flash_mha"
+        k3 = run["launches"][route]
+        row["k3_per_forward"] = k3 / max(1, run["graph_replays"] + run["eager_forwards"])
+        row["ok"] = (run["ok"] and row["finite"] and run["eager_forwards"] == 0
+                     and (k3 == 0 if variant == "lsh" else k3 > 0))
+        info[label] = row
+        paths[f"htdemucs {label}"] = run["launches"]
+        del sep, counts
+        torch.cuda.empty_cache()
+    return info, paths
+
+
+def phase_variants(workdir: Path) -> tp.Tuple[dict, dict]:
+    """The released-width HTDemucs with each remaining option (VARIANTS), one
+    7.8 s segment on the card against the CPU (2e-4 x peak; the LSH variant
+    by lsh_checks instead), then the 30 s requests (variant_requests)."""
+    import torch
+
+    info = {"phase": "variants", "card": card_line(), "tol": MODEL_RTOL, "forward": {}}
+    models = {"dense": variant_model({})}
+    for name, kw in VARIANTS.items():
+        cpu_model = variant_model(kw)
+        if name == "lsh":
+            row = lsh_checks(cpu_model)
+        else:
+            row = card_vs_cpu(cpu_model, 7.8)
+        info["forward"][name] = row
+        if name in ("sparse diag", "sparse diag_jmask_random", "lsh"):
+            models[name] = cpu_model
+        torch.cuda.empty_cache()
+    info["requests"], paths = variant_requests(workdir, models)
+    info["ok"] = (all(r["ok"] for r in info["forward"].values())
+                  and all(r["ok"] for r in info["requests"].values()))
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError("variants: a forward, a route or a launch count is wrong")
+    return info, paths
+
+
+def phase_memory(workdir: Path) -> dict:
+    """pass_memory_analysis for a 30 s request of the served HTDemucs (the
+    JAX engine's report, here from a run of the pass) against what the same
+    request measures: cold (the graphs captured inside it, so every
+    activation passes through the allocator) and warm (the allocator's peak
+    above what was held before, plus the graphs' pool, which replays write
+    without the allocator). Then the pool all earlier phases filled, before
+    and after GRAPHS.clear() + torch.cuda.empty_cache(), and a request after
+    it: it captures its graphs again and gives the same stems."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.inference.engine import GRAPHS, pass_memory_analysis
+
+    gib = 2**30
+    sep = Separator("htdemucs_smoke", repo=workdir, shifts=1, batch_size=16)
+    model = sep.model
+    weights = sum(p.numel() * p.element_size() for p in model.module.parameters())
+    wav = _track(30.0, 140)
+    sep.separate_tensor(wav, SR)  # warm-up: captures this model's graphs
+    start = time.perf_counter()
+    mem = pass_memory_analysis(model, wav.shape[-1], shifts=1)
+    analysis_s = time.perf_counter() - start
+    random.seed(5)
+    _, stems = sep.separate_tensor(wav, SR)
+    torch.cuda.synchronize()
+    pool_before = GRAPHS.pool_bytes() or 0
+    graphs_before = len(GRAPHS.entries)
+    reserved_before = torch.cuda.memory_reserved()
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    reserved_after = torch.cuda.memory_reserved()
+    allocated_after = torch.cuda.memory_allocated()
+    pool_after = GRAPHS.pool_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    captures = GRAPHS.captures
+    random.seed(5)
+    _, again = sep.separate_tensor(wav, SR)  # cold: its graphs captured again inside it
+    torch.cuda.synchronize()
+    cold = torch.cuda.max_memory_allocated() - held + weights
+    recaptured = GRAPHS.captures - captures
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    random.seed(5)
+    sep.separate_tensor(wav, SR)  # warm: the pool now holds this request's graphs only
+    torch.cuda.synchronize()
+    warm = torch.cuda.max_memory_allocated() - held + weights + (GRAPHS.pool_bytes() or 0)
+    same = all(np.array_equal(stems[k], again[k]) for k in stems)
+    info = {"phase": "memory", "card": card_line(), "seconds": 30.0,
+            "pass_memory_analysis": mem, "analysis_s": analysis_s,
+            "measured_cold_GiB": cold / gib, "measured_warm_GiB": warm / gib,
+            "estimate_over_cold": mem["peak_estimate_gb"] * gib / cold,
+            "estimate_over_warm": mem["peak_estimate_gb"] * gib / warm,
+            "pool_before_clear_GiB": pool_before / gib, "graphs_before_clear": graphs_before,
+            "pool_after_clear_GiB": (pool_after or 0) / gib,
+            "reserved_before_clear_GiB": reserved_before / gib,
+            "reserved_after_clear_GiB": reserved_after / gib,
+            "allocated_after_clear_GiB": allocated_after / gib,
+            "recaptured": recaptured, "stems_equal_after_clear": same}
+    info["ok"] = (mem is not None and pool_after == 0 and recaptured > 0 and same
+                  and reserved_before - reserved_after >= pool_before
+                  and mem["peak_estimate_gb"] > 0)
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"memory: {info}")
+    return info
+
+
+def _musdb_folder(root: Path, tracks: int, seconds: float) -> Path:
+    """A MusdbHQ-shaped folder of synthetic tracks: each stem a few tones and
+    noise from a seed, the mixture their sum, 16-bit WAVs at 44.1 kHz."""
+    import numpy as np
+
+    from demucs_tpu_torch.audio import write_wav
+
+    sources = ("drums", "bass", "other", "vocals")
+    t = np.arange(int(seconds * SR)) / SR
+    for i in range(tracks):
+        folder = root / "test" / f"Synthetic {i}"
+        folder.mkdir(parents=True)
+        rng = np.random.default_rng(200 + i)
+        stems = []
+        for j, _ in enumerate(sources):
+            tone = 0.15 * np.sin(2 * np.pi * 55.0 * (j + 1) * (i + 1) * t + j)
+            stems.append(np.stack([tone, 0.8 * tone]) + 0.02 * rng.standard_normal((2, t.size)))
+        for name, wav in zip(sources, stems):
+            write_wav(folder / f"{name}.wav", wav.astype(np.float32), SR)
+        write_wav(folder / "mixture.wav", np.sum(stems, axis=0).astype(np.float32), SR)
+    return root
+
+
+def phase_evaluate(workdir: Path) -> dict:
+    """evaluate(compute_sdr=True) on the card (the served HTDemucs, shifts 0,
+    workers 0, museval where installed, else the port's bss_eval_images) over
+    a synthetic 2-track x 10 s MusdbHQ folder: each track's nsdr against
+    eval_track on Separator's stems for that track (EVAL_NSDR_TOL; Separator
+    normalizes by std + 1e-8, evaluate by std), seconds per track for the
+    separation on the card and for BSS-eval on the host."""
+    import types
+
+    import numpy as np
+
+    from demucs_tpu_torch import evaluate as ev
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.audio import read_wav
+    from demucs_tpu_torch.run_sdr import eval_args
+
+    musdb = _musdb_folder(workdir / "musdbhq", EVAL_TRACKS, EVAL_SECONDS)
+    sep = Separator("htdemucs_smoke", repo=workdir, shifts=0, batch_size=16)
+    seen, eval_s = [], []
+    real = ev.eval_track
+
+    def recorded(references, estimates, **kw):
+        start = time.perf_counter()
+        scores = real(references, estimates, **kw)
+        eval_s.append(time.perf_counter() - start)
+        seen.append(scores[1])
+        return scores
+
+    solver = types.SimpleNamespace(args=eval_args(musdb, shifts=0, workers=0), model=sep.model,
+                                   folder=workdir / "eval")
+    ev.eval_track = recorded
+    try:
+        start = time.perf_counter()
+        result = ev.evaluate(solver, compute_sdr=True)
+        wall = time.perf_counter() - start
+    finally:
+        ev.eval_track = real
+    per_track, sep_s = [], []
+    for i, track in enumerate(sorted((musdb / "test").iterdir())):
+        mix, _ = read_wav(track / "mixture.wav")
+        start = time.perf_counter()
+        _, stems = sep.separate_tensor(mix)
+        sep_s.append(time.perf_counter() - start)
+        refs = np.stack([read_wav(track / f"{s}.wav")[0] for s in sep.model.sources])
+        want = real(refs, np.stack([stems[s] for s in sep.model.sources]), win=SR, hop=SR,
+                    compute_sdr=False)[1]
+        per_track.append(float(np.abs(seen[i] - want).max()))
+    info = {"phase": "evaluate", "card": card_line(), "tracks": EVAL_TRACKS,
+            "seconds_each": EVAL_SECONDS,
+            "bss_eval": "museval" if _has_museval() else "demucs_tpu_torch.ops.bsseval",
+            "scores": result, "evaluate_wall_s": wall, "bss_eval_s_per_track": eval_s,
+            "separation_s_per_track": sep_s, "nsdr_vs_separator_db": per_track,
+            "tol_db": EVAL_NSDR_TOL}
+    info["ok"] = (len(seen) == EVAL_TRACKS and max(per_track) <= EVAL_NSDR_TOL
+                  and all(np.isfinite(result[k]) for k in ("nsdr", "sdr", "sdr_med")))
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"evaluate: {info}")
+    return info
+
+
+def _has_museval() -> bool:
+    try:
+        import museval  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
 def main() -> int:
     try:
         import torch
@@ -1869,6 +2355,7 @@ def main() -> int:
     try:
         phase_device()
         rows = phase_kernels()
+        phase_sparse_kernels()
         cpu_model = phase_model()
         serving, sep = phase_serving(cpu_model, workdir)
         phase_graphs(sep)
@@ -1892,6 +2379,10 @@ def main() -> int:
         _, paths["serve"] = phase_serve(workdir)
         _, stream_paths = phase_streaming(workdir)
         paths.update(stream_paths)
+        _, variant_paths = phase_variants(workdir)
+        paths.update(variant_paths)
+        phase_memory(workdir)
+        phase_evaluate(workdir)
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()

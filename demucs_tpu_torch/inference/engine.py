@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import collections
 import functools
+import itertools
 import math
 import random as _random
 import time
@@ -62,7 +63,8 @@ from demucs_tpu_torch.kernels.attention import flash_mha, flash_mha_bf16
 from demucs_tpu_torch.kernels.stft import istft_dft, stft_dft
 from demucs_tpu_torch.models.registry import AnyModel, BagOfModels, Model
 
-__all__ = ["device_apply_model", "device_separate_tracks", "stage_track", "GRAPHS"]
+__all__ = ["device_apply_model", "device_separate_tracks", "stage_track", "GRAPHS",
+           "pass_memory_analysis"]
 
 WIRE_DTYPES = (None, "float32", "float16", "int16", "int8")
 _INT8_BLOCK = 1024
@@ -226,6 +228,20 @@ class GraphCache:
             self.replayed_launches[name] += n
         return out
 
+    def clear(self) -> None:
+        """Drop every graph and the pools' handles. Once no output of a replay
+        is held elsewhere, the pools' memory goes back to PyTorch's caching
+        allocator, and ``torch.cuda.empty_cache()`` returns it to the card.
+        The next forward of a shape captures its graph again."""
+        had_pools = bool(self.pools)
+        self.entries.clear()
+        self.pools.clear()
+        if had_pools and torch.cuda.is_available():
+            # cuBLAS keeps the workspace it took inside the last capture (32
+            # MiB, measured on the H100), which lies in the graphs' pool and
+            # would pin that pool's segment; the next product takes a new one
+            torch._C._cuda_clearCublasWorkspaces()
+
     def pool_bytes(self) -> tp.Optional[int]:
         """Device memory the graphs' pools hold (``torch.cuda.memory_snapshot``
         segments of those pools), or None where the snapshot does not say."""
@@ -248,7 +264,8 @@ GRAPHS = GraphCache()
 
 
 def _forward(module: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
-    """``module(batch)``: a graph replay on the card, eager on the CPU."""
+    """``module(batch)``: a graph replay on the card (from ``GRAPHS``, looked
+    up at the call), eager on the CPU."""
     if batch.device.type == "cuda":
         return GRAPHS.forward(module, batch)
     with torch.inference_mode():
@@ -512,6 +529,75 @@ def stage_track(model: AnyModel, mix: np.ndarray, *, shifts: int = 1,
             out[key] = _upload_track(mix[0], first.audio_channels, mix.shape[-1], key[1],
                                      max_shift, device)
     return out
+
+
+def pass_memory_analysis(model: AnyModel, length: int, *, shifts: int = 1,
+                         overlap: float = 0.25, transition_power: float = 1.0,
+                         segment: tp.Optional[float] = None,
+                         batch_size: int = 16) -> tp.Optional[dict]:
+    """Device memory of one pass of the device engine over a ``length``-sample
+    track (the JAX engine's ``pass_memory_analysis``, engine.py:715, without
+    ``mesh``), in GiB: ``argument_gb`` (the first member's weights and its
+    padded track buffer), ``output_gb`` (the stems, ``(S, C, length)`` fp32),
+    ``temp_gb`` (what the pass needs besides: the CUDA graphs' pool captured
+    for its shapes plus the peak of ``torch.cuda.max_memory_allocated`` over a
+    warm pass above what was allocated before it, less the track buffer and
+    the stems), ``alias_gb`` (0: no buffer is donated), ``peak_estimate_gb``
+    (their sum) and ``generated_code_mb`` (the kernel libraries loaded).
+
+    The JAX engine reads XLA's buffer assignment; here the pass runs, twice,
+    on a zero track: once to capture its graphs into a cache of its own (the
+    caller's ``GRAPHS`` is left as it was, and the analysis's pool is freed
+    after), then warm. A graph's replay writes into its pool without the
+    allocator seeing it, which is why the pool is counted apart. None on the
+    CPU, as the JAX engine returns None where the backend has no analysis.
+    """
+    global GRAPHS
+    from demucs_tpu_torch.kernels import _build
+
+    models, _ = _members(model)
+    first = models[0]
+    device = first.device
+    if device.type != "cuda":
+        return None
+    S, C = len(first.sources), first.audio_channels
+    seg_len = int(first.samplerate * (segment if segment is not None else first.segment))
+    target = first.leaf_target(seg_len, segment)
+    max_shift = int(0.5 * first.samplerate) if shifts else 0
+    track_bytes = 4 * C * (2 * target + 2 * max_shift + length)
+    out_bytes = 4 * S * C * length
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in itertools.chain(first.module.parameters(),
+                                                first.module.buffers()))
+    mix = np.zeros((1, C, length), np.float32)
+    kw = dict(shifts=shifts, overlap=overlap, transition_power=transition_power,
+              segment=segment, batch_size=batch_size)
+    outer, GRAPHS = GRAPHS, GraphCache()
+    try:
+        device_apply_model(first, mix, rng=_random.Random(0), **kw)  # captures
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+        device_apply_model(first, mix, rng=_random.Random(0), **kw)
+        torch.cuda.synchronize(device)
+        above = torch.cuda.max_memory_allocated(device) - before
+        pool = GRAPHS.pool_bytes() or 0
+    finally:
+        GRAPHS.clear()
+        GRAPHS = outer
+        torch.cuda.empty_cache()
+    arg = weight_bytes + track_bytes
+    tmp = max(0, pool + above - track_bytes - out_bytes)
+    code = sum(_build.library_path(name).stat().st_size for name in _build._LOADED)
+    gib = float(2**30)
+    return {
+        "argument_gb": round(arg / gib, 3),
+        "output_gb": round(out_bytes / gib, 3),
+        "temp_gb": round(tmp / gib, 3),
+        "alias_gb": 0.0,
+        "peak_estimate_gb": round((arg + out_bytes + tmp) / gib, 3),
+        "generated_code_mb": round(code / 2**20, 2),
+    }
 
 
 def device_apply_model(model: AnyModel, mix: np.ndarray, **kw) -> np.ndarray:

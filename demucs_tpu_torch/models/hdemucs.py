@@ -33,7 +33,7 @@ from demucs_tpu_torch.models.htdemucs import check_precision, precision_scope
 from demucs_tpu_torch.models.initializers import Init
 from demucs_tpu_torch.ops import nn as ops
 from demucs_tpu_torch.ops.spec import cac_pack, cac_unpack, demucs_ispec, demucs_spec, istft, stft
-from demucs_tpu_torch.ops.wiener import apply_wiener
+from demucs_tpu_torch.ops.wiener import magnitude_output
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,10 +191,7 @@ class HDemucs(nn.Module):
                 zout = cac_unpack(x)
             else:
                 niters = cfg.end_iters if self.training else cfg.wiener_iters
-                if niters < 0:  # the mixture's phase on the estimated magnitudes
-                    zout = z[:, None] / (1e-8 + z.abs()[:, None]) * x
-                else:
-                    zout = apply_wiener(x, z, niters, residual=cfg.wiener_residual)
+                zout = magnitude_output(x, z, niters, residual=cfg.wiener_residual)
             if cfg.hybrid:
                 out = demucs_ispec(zout, length, hybrid_old=cfg.hybrid_old)
                 xt = xt.reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]

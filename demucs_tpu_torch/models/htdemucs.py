@@ -7,9 +7,12 @@ fields and defaults, so ``.dmx`` configs load unchanged. The forward is
 STFT (K1) -> complex-as-channels -> dual encoders -> cross-transformer (K3)
 -> dual decoders -> iSTFT (K2) + time branch.
 
-Ported: ``cac=True``. ``cac=False`` (magnitude masks and Wiener filtering)
-and ``multi_freqs``, which HDemucs runs, are not wired into this model yet
-and raise. ``t_flash_attn`` has no effect: the transformer always takes K3.
+Options: ``cac=False`` (magnitude masks; the stems' phase from Wiener EM or,
+with ``wiener_iters < 0``, from the mixture), ``multi_freqs`` (MultiWrap
+encoders and decoders, as in HDemucs), and every transformer variant of
+``models/transformer.py`` (static sparse attention through K3, LSH sparsity
+on the dense route, CAPE), at eval. ``t_flash_attn`` has no effect: the
+transformer always takes K3 where its mask allows.
 
 Precision, as in the JAX package (``htdemucs.py:215-395``): the core's
 stages (``_STAGES``) run in bf16 where ``compute_dtype="bfloat16"`` or
@@ -36,6 +39,7 @@ from demucs_tpu_torch.models import hlayers as hl
 from demucs_tpu_torch.models.transformer import CrossTransformerEncoder, TransformerSpec
 from demucs_tpu_torch.ops import nn as ops
 from demucs_tpu_torch.ops.spec import cac_pack, cac_unpack, demucs_ispec, demucs_spec
+from demucs_tpu_torch.ops.wiener import magnitude_output
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,9 +160,13 @@ def transformer_spec(cfg: HTDemucsConfig) -> TransformerSpec:
         max_period=cfg.t_max_period, layer_scale=cfg.t_layer_scale, gelu=cfg.t_gelu,
         weight_pos_embed=cfg.t_weight_pos_embed,
         sin_random_shift=cfg.t_sin_random_shift,
+        cape_mean_normalize=cfg.t_cape_mean_normalize, cape_augment=cfg.t_cape_augment,
+        cape_glob_loc_scale=cfg.t_cape_glob_loc_scale,
         sparse_self_attn=cfg.t_sparse_self_attn,
-        sparse_cross_attn=cfg.t_sparse_cross_attn,
-        auto_sparsity=cfg.t_auto_sparsity, dropout=cfg.t_dropout,
+        sparse_cross_attn=cfg.t_sparse_cross_attn, mask_type=cfg.t_mask_type,
+        mask_random_seed=cfg.t_mask_random_seed,
+        sparse_attn_window=cfg.t_sparse_attn_window, global_window=cfg.t_global_window,
+        sparsity=cfg.t_sparsity, auto_sparsity=cfg.t_auto_sparsity, dropout=cfg.t_dropout,
     )
 
 
@@ -253,20 +261,15 @@ class HTDemucs(nn.Module):
 
     def __init__(self, cfg: HTDemucsConfig):
         super().__init__()
-        later = {"cac=False (magnitude masks, Wiener filtering)": not cfg.cac,
-                 "multi_freqs (MultiWrap)": bool(cfg.multi_freqs)}
-        if any(later.values()):
-            raise NotImplementedError(f"HTDemucs options {[k for k, on in later.items() if on]} "
-                                      "come with later slices of the port")
         _bf16_stage_set(cfg)
         _precision_overrides(cfg)
         check_precision(_matmul_precision(cfg))
         self.cfg = cfg
         lay = layout(cfg)
         self.layout = lay
-        self.encoder = nn.ModuleList(hl.HEncLayer(s) for s in lay.enc)
+        self.encoder = nn.ModuleList(hl.enc_layer(s) for s in lay.enc)
         self.tencoder = nn.ModuleList(hl.HEncLayer(s) for s in lay.tenc)
-        self.decoder = nn.ModuleList(hl.HDecLayer(s) for s in lay.dec)
+        self.decoder = nn.ModuleList(hl.dec_layer(s) for s in lay.dec)
         self.tdecoder = nn.ModuleList(hl.HDecLayer(s) for s in lay.tdec)
         if lay.freq_emb_bins:
             self.freq_emb = hl.ScaledEmbedding(lay.freq_emb_bins, lay.freq_emb_dim,
@@ -420,9 +423,14 @@ class HTDemucs(nn.Module):
                     f"Input length {length} exceeds training length {training_length}")
         with precision_scope(None):
             z = demucs_spec(mix, cfg.nfft)
-        x, xt = self.forward_core(cac_pack(z), mix)
+        x, xt = self.forward_core(cac_pack(z) if cfg.cac else z.abs(), mix)
         with precision_scope(None):
-            out = xt + demucs_ispec(cac_unpack(x), mix.shape[-1])
+            if cfg.cac:
+                zout = cac_unpack(x)
+            else:  # magnitude masks (htdemucs.py:436-452)
+                niters = cfg.end_iters if self.training else cfg.wiener_iters
+                zout = magnitude_output(x, z, niters, residual=cfg.wiener_residual)
+            out = xt + demucs_ispec(zout, mix.shape[-1])
         if length_pre_pad:
             out = out[..., :length_pre_pad]
         return out

@@ -1,24 +1,31 @@
 """Cross-domain transformer (port of ``demucs_tpu/models/transformer.py``).
 
 Two token streams — spectrogram tokens (the flattened ``(t, f)`` grid with a
-2-D sinusoid embedding) and waveform tokens (1-D sinusoid) — go through
-alternating self-attention layers (each domain on its own) and cross-attention
-layers (each domain queries the other), per the reference's
-``demucs/transformer.py:526-719``.
+2-D sinusoid embedding) and waveform tokens (1-D sinusoid, CAPE or a learned
+scaled embedding) — go through alternating self-attention layers (each
+domain on its own) and cross-attention layers (each domain queries the
+other), per the reference's ``demucs/transformer.py:526-719``.
 
 Every attention runs through kernel K3 (``demucs_tpu_torch.kernels.attention``):
 the CUDA kernel on the card (its fp32 or its bf16 route, by the dtype of the
-transformer stage), its plain version on the CPU. The positional embeddings
-are cached in fp32 on the device and cast to the tokens' dtype where they
-are added. The attention
+transformer stage), its plain version on the CPU. The static sparse variants
+(``sparse_self_attn`` / ``sparse_cross_attn``) hand K3 their ``(Tq, Tk)``
+keep-mask (``ops/sparse.py``), cached on the device. The LSH variant
+(``auto_sparsity``) builds a keep-mask per (batch, head), which K3 does not
+take (its mask is shared by batch and heads, as the Pallas kernel's is): its
+layers take the dense route, ``ops/attention.py::multihead_attention``, which
+is the JAX package's own route for that mask (``transformer.py:209-220``).
+The positional embeddings are cached in fp32 on the device and cast to the
+tokens' dtype where they are added. The attention
 module owns ``in_proj_weight``, ``in_proj_bias`` and ``out_proj`` under the
 names of ``nn.MultiheadAttention`` (so checkpoints load unchanged) but never
 calls it, nor ``scaled_dot_product_attention``. Norms and linear maps keep
 their weights in ``torch.nn`` modules and apply them through
 ``demucs_tpu_torch.ops.nn``.
 
-CAPE embeddings, the sparse attention masks, LSH sparsity and dropout come
-with later slices of the port and raise until then.
+Eval only, as in the JAX package at ``train=False``: dropout is not applied,
+``sin_random_shift`` takes shift 0 and CAPE is not augmented (the train-time
+draws come with the training slice of the port).
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from demucs_tpu_torch.kernels import device_cache
 from demucs_tpu_torch.kernels.attention import flash_mha
 from demucs_tpu_torch.models.hlayers import LayerScale, scalar
 from demucs_tpu_torch.ops import nn as ops
+from demucs_tpu_torch.ops.attention import multihead_attention
+from demucs_tpu_torch.ops.sparse import dynamic_sparse_keep_mask, keep_mask, lsh_projections
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,12 +62,24 @@ class TransformerSpec:
     layer_scale: bool = True
     gelu: bool = True
     weight_pos_embed: float = 1.0
-    # Options of later slices: the encoder raises when one is set.
-    sin_random_shift: int = 0
+    sin_random_shift: int = 0  # train-time only: shift 0 at eval
+    cape_mean_normalize: bool = True
+    cape_augment: bool = True  # train-time only: no augment at eval
+    cape_glob_loc_scale: tp.Tuple[float, float, float] = (5000.0, 1.0, 1.4)
     sparse_self_attn: bool = False
     sparse_cross_attn: bool = False
+    mask_type: str = "diag"
+    mask_random_seed: int = 42
+    sparse_attn_window: int = 500
+    global_window: int = 50
+    sparsity: float = 0.95
     auto_sparsity: bool = False
-    dropout: float = 0.0
+    dropout: float = 0.0  # train-time only
+
+    def mask(self, Tq: int, Tk: int, device) -> torch.Tensor:
+        """The static sparse keep-mask ``(Tq, Tk)``, uint8, cached on ``device``."""
+        return keep_mask(Tq, Tk, self.mask_type, self.sparse_attn_window, self.global_window,
+                         self.mask_random_seed, self.sparsity, device)
 
     @property
     def hidden_dim(self) -> int:
@@ -117,6 +138,28 @@ def sin_embedding_2d(d_model: int, height: int, width: int, max_period: float = 
     return _sin_embedding_2d(d_model, height, width, max_period, device)
 
 
+@device_cache(maxsize=16)
+def _cape_embedding(length: int, dim: int, mean_normalize: bool, max_period: float,
+                    device) -> torch.Tensor:
+    assert dim % 2 == 0
+    # float32 throughout, as the JAX package computes it
+    pos = np.arange(length, dtype=np.float32)[:, None]
+    if mean_normalize:
+        pos = pos - pos.mean(axis=0, keepdims=True)
+    half_dim = dim // 2
+    adim = np.arange(half_dim, dtype=np.float32)[None, :]
+    phase = pos / (np.float32(max_period) ** (adim / np.float32(half_dim - 1)))
+    emb = np.concatenate([np.cos(phase), np.sin(phase)], axis=-1).astype(np.float32)
+    return torch.from_numpy(emb).to(device)
+
+
+def cape_embedding(length: int, dim: int, mean_normalize: bool = True,
+                   max_period: float = 10000.0, device=None) -> torch.Tensor:
+    """CAPE positional embedding ``(length, dim)`` at eval (transformer.py:73-115
+    with no augment: the same for every batch item), cached: do not write to it."""
+    return _cape_embedding(length, dim, mean_normalize, max_period, device)
+
+
 # ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------
@@ -151,11 +194,21 @@ class Attention(nn.Module):
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: tp.Optional[torch.Tensor] = None, lsh_sparsity: float = 0.0,
+                lsh_R: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask``: a static ``(Tq, Tk)`` keep-mask for K3. ``lsh_sparsity`` > 0:
+        the LSH keep-mask of the projected q and k under projections
+        ``lsh_R``, on the dense route (K3 takes no per-(batch, head) mask)."""
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
         b_q, b_k, b_v = self.in_proj_bias.chunk(3)
-        out = flash_mha(ops.linear(q, w_q, b_q), ops.linear(k, w_k, b_k),
-                        ops.linear(v, w_v, b_v), self.num_heads)
+        qh, kh, vh = (ops.linear(q, w_q, b_q), ops.linear(k, w_k, b_k),
+                      ops.linear(v, w_v, b_v))
+        if lsh_sparsity:
+            keep = dynamic_sparse_keep_mask(qh, kh, self.num_heads, lsh_sparsity, lsh_R)
+            out = multihead_attention(qh, kh, vh, self.num_heads, mask=keep)
+        else:
+            out = flash_mha(qh, kh, vh, self.num_heads, mask=mask)
         return _linear(self.out_proj, out)
 
 
@@ -165,6 +218,11 @@ class _Layer(nn.Module):
     def __init__(self, s: TransformerSpec, cross: bool):
         super().__init__()
         self.spec = s
+        sparse = s.sparse_cross_attn if cross else s.sparse_self_attn
+        # the JAX package's rule (transformer.py:266, :299): LSH where
+        # auto_sparsity is on with a nonzero sparsity, else the static mask
+        self.lsh_sparsity = s.sparsity if (s.auto_sparsity and sparse) else 0.0
+        self.static_mask = sparse and not self.lsh_sparsity
         attn = Attention(s.dim, s.num_heads)
         if cross:
             self.cross_attn = attn
@@ -189,6 +247,12 @@ class _Layer(nn.Module):
         act = ops.gelu if self.spec.gelu else torch.relu
         return _linear(self.linear2, act(_linear(self.linear1, x)))
 
+    def _attend(self, attn: Attention, q: torch.Tensor, k: torch.Tensor,
+                lsh_R: tp.Optional[torch.Tensor]) -> torch.Tensor:
+        mask = (self.spec.mask(q.shape[1], k.shape[1], q.device) if self.static_mask
+                else None)
+        return attn(q, k, k, mask=mask, lsh_sparsity=self.lsh_sparsity, lsh_R=lsh_R)
+
 
 class SelfLayer(_Layer):
     """MyTransformerEncoderLayer (transformer.py:339-377)."""
@@ -196,16 +260,18 @@ class SelfLayer(_Layer):
     def __init__(self, s: TransformerSpec):
         super().__init__(s, cross=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                lsh_R: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         s = self.spec
         if s.norm_first:
             y = _layer_norm(self.norm1, x)
-            x = x + self._gamma("gamma_1", self.self_attn(y, y, y))
+            x = x + self._gamma("gamma_1", self._attend(self.self_attn, y, y, lsh_R))
             x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm2, x)))
             if s.norm_out:
                 x = self.norm_out(x)
             return x
-        x = _layer_norm(self.norm1, x + self._gamma("gamma_1", self.self_attn(x, x, x)))
+        x = _layer_norm(self.norm1,
+                        x + self._gamma("gamma_1", self._attend(self.self_attn, x, x, lsh_R)))
         return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x)))
 
 
@@ -215,16 +281,19 @@ class CrossLayer(_Layer):
     def __init__(self, s: TransformerSpec):
         super().__init__(s, cross=True)
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor,
+                lsh_R: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
         s = self.spec
         if s.norm_first:
             kn = _layer_norm(self.norm2, k)
-            x = q + self._gamma("gamma_1", self.cross_attn(_layer_norm(self.norm1, q), kn, kn))
+            x = q + self._gamma("gamma_1", self._attend(self.cross_attn,
+                                                        _layer_norm(self.norm1, q), kn, lsh_R))
             x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm3, x)))
             if s.norm_out:
                 x = self.norm_out(x)
             return x
-        x = _layer_norm(self.norm1, q + self._gamma("gamma_1", self.cross_attn(q, k, k)))
+        x = _layer_norm(self.norm1,
+                        q + self._gamma("gamma_1", self._attend(self.cross_attn, q, k, lsh_R)))
         return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x)))
 
 
@@ -233,20 +302,16 @@ class CrossTransformerEncoder(nn.Module):
 
     def __init__(self, s: TransformerSpec):
         super().__init__()
-        unsupported = {
-            "emb='cape'": s.emb == "cape",
-            "sparse attention": s.sparse_self_attn or s.sparse_cross_attn,
-            "auto_sparsity": s.auto_sparsity,
-            "dropout": s.dropout > 0.0,
-            "sin_random_shift": s.sin_random_shift != 0,
-        }
-        missing = [name for name, on in unsupported.items() if on]
-        if missing:
-            raise NotImplementedError(
-                f"transformer options {missing} come with later slices of the port")
-        if s.emb not in ("sin", "scaled"):
+        if s.emb not in ("sin", "cape", "scaled"):
             raise ValueError(f"unknown transformer embedding {s.emb}")
         self.spec = s
+        if s.auto_sparsity:
+            # The LSH projections, one draw for every layer as in the JAX
+            # package, kept as the fp32 words' bits: an int buffer moves with
+            # .to(device) and is left alone by .to(bfloat16), and the hashing
+            # is fp32 whatever the stage's dtype.
+            R = lsh_projections(s.dim // s.num_heads, s.mask_random_seed)
+            self.register_buffer("lsh_bits", R.view(torch.int32), persistent=False)
         if s.norm_in:
             self.norm_in = nn.LayerNorm(s.dim)
             self.norm_in_t = nn.LayerNorm(s.dim)
@@ -264,6 +329,21 @@ class CrossTransformerEncoder(nn.Module):
             self.layers.append(kind(s))
             self.layers_t.append(kind(s))
 
+    @property
+    def lsh_projections(self) -> tp.Optional[torch.Tensor]:
+        """The LSH projections ``(head_dim, 32, 2)``, fp32 (None without LSH);
+        ``set_lsh_projections`` replaces them."""
+        bits = getattr(self, "lsh_bits", None)
+        return None if bits is None else bits.view(torch.float32)
+
+    def set_lsh_projections(self, R) -> None:
+        """Replace the LSH projections by ``R`` (a tensor or array of their shape)."""
+        R = torch.as_tensor(R, dtype=torch.float32).contiguous()
+        if self.lsh_projections is None or R.shape != self.lsh_projections.shape:
+            raise ValueError(f"LSH projections of shape {tuple(R.shape)} do not fit this "
+                             "transformer")
+        self.lsh_bits.copy_(R.view(torch.int32))
+
     def forward(self, x: torch.Tensor, xt: torch.Tensor) -> tp.Tuple[torch.Tensor, torch.Tensor]:
         """``x (B, C, Fr, T1)`` spectrogram branch, ``xt (B, C, T2)`` waveform branch."""
         s = self.spec
@@ -278,21 +358,26 @@ class CrossTransformerEncoder(nn.Module):
         T2 = xt.shape[-1]
         xt = xt.transpose(1, 2)  # (B, T2, C)
         if s.emb == "sin":
+            # sin_random_shift draws a shift at training only (shift 0 at eval)
             pos_emb = sin_embedding(T2, C, 0, s.max_period, device=xt.device)[None]
+        elif s.emb == "cape":
+            pos_emb = cape_embedding(T2, C, s.cape_mean_normalize, s.max_period,
+                                     device=xt.device)[None]
         else:
             pos_emb = (self.position_embeddings.embedding.weight[:T2] * 3.0)[None]
         if s.norm_in or s.norm_in_group:
             xt = _layer_norm(self.norm_in_t, xt)
         xt = xt + scalar(s.weight_pos_embed, xt.dtype) * pos_emb.to(xt.dtype)
 
+        R = self.lsh_projections
         for idx in range(s.num_layers):
             if idx % 2 == s.classic_parity:
-                x = self.layers[idx](x)
-                xt = self.layers_t[idx](xt)
+                x = self.layers[idx](x, lsh_R=R)
+                xt = self.layers_t[idx](xt, lsh_R=R)
             else:
                 old_x = x
-                x = self.layers[idx](x, xt)
-                xt = self.layers_t[idx](xt, old_x)
+                x = self.layers[idx](x, xt, lsh_R=R)
+                xt = self.layers_t[idx](xt, old_x, lsh_R=R)
 
         x = x.reshape(B, T1, Fr, C).permute(0, 3, 2, 1)
         return x, xt.transpose(1, 2)

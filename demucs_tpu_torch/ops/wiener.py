@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["wiener", "apply_wiener"]
+__all__ = ["wiener", "apply_wiener", "magnitude_output"]
 
 _EPS = 1e-10  # openunmix's eps; the E-step adds sqrt(eps) * I
 
@@ -102,3 +102,14 @@ def apply_wiener(mag_out: torch.Tensor, mix_stft: torch.Tensor, niters: int,
     if residual:
         out = out[..., :-1]
     return out.permute(0, 4, 3, 2, 1)
+
+
+def magnitude_output(mag_out: torch.Tensor, mix_stft: torch.Tensor, niters: int,
+                     residual: bool = False) -> torch.Tensor:
+    """The complex stems of a ``cac=False`` model (``demucs/hdemucs.py:644-687``,
+    ``htdemucs.py:463-509``) from its magnitudes ``mag_out (B, S, C, F, T)``
+    and the mixture's spectrogram ``mix_stft (B, C, F, T)``: the mixture's
+    phase where ``niters < 0``, else Wiener EM (:func:`apply_wiener`)."""
+    if niters < 0:
+        return mix_stft[:, None] / (1e-8 + mix_stft.abs()[:, None]) * mag_out
+    return apply_wiener(mag_out, mix_stft, niters, residual=residual)

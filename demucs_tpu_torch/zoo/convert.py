@@ -110,8 +110,7 @@ def load_th_model(path) -> Model:
 
     No code from the file runs (``zoo/thpickle.py``); fp16 weights are
     promoted to fp32; a diffq state (``__quantized``) is dequantized
-    (``zoo/diffq.py``); Demucs v2's legacy names are renamed. HTDemucs
-    options of later slices raise, as they do for any HTDemucs."""
+    (``zoo/diffq.py``); Demucs v2's legacy names are renamed."""
     from demucs_tpu_torch.zoo.diffq import dequantize_state
     from demucs_tpu_torch.zoo.thpickle import read_th
 

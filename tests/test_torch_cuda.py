@@ -15,6 +15,8 @@ version), the model 2e-4 x peak — all with TF32 off unless a test sets a
 precision policy.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -602,3 +604,123 @@ def test_served_request_equals_separate_tensor_on_card(cuda, tmp_path):
             (tmp_path / f"{name}.wav").write_bytes(zf.read(f"{name}.wav"))
             got, _ = audio.read_audio(tmp_path / f"{name}.wav")
             assert np.array_equal(got, stem), name
+
+
+# ---- K3 under HTDemucs's static sparse masks; the variants and the memory report ----
+
+SPARSE_MASKS = ("diag", "global", "jmask", "random", "diag_jmask_random")
+TOKEN_SHAPES = ((2688, 2688), (1344, 1344), (2688, 1344), (1344, 2688))  # (Tq, Tk)
+
+
+def _sparse_case(mask_type, Tq, Tk, bf16, B=2):
+    """Released q, k, v widths (512 channels, 8 heads) and the cached keep-mask
+    at the reference's defaults (window 500, global 100, sparsity 0.95)."""
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    q, k, v = (_randn(B, T, 512, seed=s) for s, T in ((90, Tq), (91, Tk), (92, Tk)))
+    if bf16:
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    return q, k, v, keep_mask(Tq, Tk, mask_type, 500, 100, 42, 0.95, "cuda")
+
+
+def _masked_close(got, want, tol):
+    got, want = got.float().cpu(), want.float().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))  # NaN only where the plain has it
+    keep = torch.isfinite(want)
+    np.testing.assert_allclose(got[keep].numpy(), want[keep].numpy(), **tol)
+
+
+@pytest.mark.parametrize("Tq,Tk", TOKEN_SHAPES)
+@pytest.mark.parametrize("mask_type", SPARSE_MASKS)
+def test_flash_mha_kernel_sparse_masks(cuda, mask_type, Tq, Tk):
+    """K3's fp32 route under each static mask at the four released shapes."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v, mask = _sparse_case(mask_type, Tq, Tk, bf16=False)
+    before = K.flash_mha.launches
+    got = K.flash_mha(q, k, v, 8, mask=mask)
+    assert K.flash_mha.launches == before + 1
+    _masked_close(got, K.flash_mha_plain(q, k, v, 8, mask=mask), dict(atol=2e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("Tq,Tk", TOKEN_SHAPES)
+@pytest.mark.parametrize("mask_type", SPARSE_MASKS)
+def test_flash_mha_bf16_sparse_masks(cuda, monkeypatch, mask_type, Tq, Tk):
+    """K3's bf16 route under each static mask at the four released shapes, on
+    every plan: 64 or 128 keys a tile, 128 or 192 rows, the persistent
+    schedule (pieces of a row, some fully masked for a row that keeps keys in
+    another, merged) or a block per row block."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v, mask = _sparse_case(mask_type, Tq, Tk, bf16=True)
+    want = K.flash_mha_plain(q, k, v, 8, mask=mask)
+    for key_tile, rows, persistent in itertools.product((64, 128), (128, 192), (True, False)):
+        monkeypatch.setattr(K, "KEY_TILE_BF16", key_tile)
+        monkeypatch.setattr(K, "BF16_ROWS", rows)
+        monkeypatch.setattr(K, "BF16_PERSISTENT", persistent)
+        _masked_close(K.flash_mha(q, k, v, 8, mask=mask), want, BF16_TOL)
+
+
+@pytest.mark.parametrize("variant", [
+    dict(t_sparse_self_attn=True, t_sparse_cross_attn=True, t_mask_type="diag_jmask_random",
+         t_sparse_attn_window=8, t_global_window=4),
+    dict(t_sparse_self_attn=True, t_sparse_cross_attn=True, t_auto_sparsity=True),
+    dict(t_emb="cape"), dict(cac=False, wiener_iters=1), dict(multi_freqs=(0.25, 0.5))])
+def test_variants_card_match_cpu(cuda, variant):
+    """Each HTDemucs option on the card against the same weights on the CPU
+    (2e-4 x peak; the LSH masks hash the same projections on both)."""
+    import copy
+
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+
+    cfg = HTDemucsConfig(channels=16, depth=4, nfft=2048, t_layers=3, t_heads=4, segment=0.5,
+                         samplerate=8000, **variant)
+    model = init_htdemucs(cfg, seed=7, layer_scale=1.0, random_norms=True).eval()
+    mix = _randn(2, 2, 4000, seed=10, device="cpu") * 0.1
+    with torch.inference_mode():
+        want = model(mix)
+        got = copy.deepcopy(model).to(cuda)(mix.to(cuda)).cpu()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 2e-4 * want.abs().max().item()
+
+
+def test_sparse_graph_replay_matches_eager(cuda):
+    """A static-sparse model captures into a graph (its masks are cached
+    tables, built by the warm-up forward) and replays as its eager forward."""
+    from demucs_tpu_torch.inference.engine import GraphCache
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+
+    cfg = HTDemucsConfig(channels=16, depth=4, nfft=2048, t_layers=3, t_heads=4, segment=0.5,
+                         samplerate=8000, t_sparse_self_attn=True, t_sparse_cross_attn=True,
+                         t_sparse_attn_window=8)
+    module = init_htdemucs(cfg, seed=7, layer_scale=1.0, random_norms=True).eval().to(cuda)
+    mix = _randn(2, 2, 4000, seed=11) * 0.1
+    graphs = GraphCache()
+    with torch.inference_mode():
+        want = module(mix).clone()
+        got = graphs.forward(module, mix).clone()
+    assert graphs.replayed_launches["flash_mha"] == 6
+    assert (got - want).abs().max().item() <= 1e-6 * want.abs().max().item()
+
+
+def test_pass_memory_analysis_and_pool_release(cuda):
+    """pass_memory_analysis on the card: every key, a peak at least the
+    arguments and the stems, the caller's graphs untouched; then clear()
+    gives the graphs' pool back to the card through empty_cache()."""
+    from demucs_tpu_torch.inference import engine
+
+    model = _small_model()
+    graphs = engine.GRAPHS
+    mem = engine.pass_memory_analysis(model, 20000)
+    assert engine.GRAPHS is graphs
+    assert set(mem) == {"argument_gb", "output_gb", "temp_gb", "alias_gb", "peak_estimate_gb",
+                        "generated_code_mb"}
+    assert mem["peak_estimate_gb"] >= mem["argument_gb"] + mem["output_gb"] > 0
+    assert mem["alias_gb"] == 0 and mem["generated_code_mb"] > 0
+    engine.device_apply_model(model, _randn(1, 2, 20000, device="cpu").numpy() * 0.1)
+    held = graphs.pool_bytes()
+    assert held > 0
+    reserved = torch.cuda.memory_reserved()
+    graphs.clear()
+    torch.cuda.empty_cache()
+    assert graphs.pool_bytes() == 0 and torch.cuda.memory_reserved() <= reserved - held

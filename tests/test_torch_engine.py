@@ -239,3 +239,28 @@ def test_exact_tails_bit_equal_to_host_engine(kind, seconds, shifts):
     got = engine.device_apply_model(tm, mix, rng=random.Random(3), **kw)
     want = apply_model(tm, mix, engine="host", rng=random.Random(3), **kw)
     assert np.array_equal(got, want)
+
+
+def test_pass_memory_analysis_is_none_on_the_cpu(pair):
+    """As the JAX engine's where the backend gives no analysis; the caller's
+    graph cache is left as it was."""
+    _, tm = pair
+    before = engine.GRAPHS
+    assert engine.pass_memory_analysis(tm, 3 * SEGMENT) is None
+    assert engine.pass_memory_analysis(tm, 3 * SEGMENT, shifts=0, segment=0.4) is None
+    assert engine.GRAPHS is before
+
+
+def test_graph_cache_clear_drops_every_graph_and_pool():
+    """clear() forgets the graphs and the pools' handles (on the card their
+    memory then goes back with torch.cuda.empty_cache(); the card test and
+    chip_smoke.py's memory phase measure it); counts are kept and the next
+    forward of a shape captures again."""
+    cache = engine.GraphCache(maxsize=4)
+    cache.entries[("module", (6, 2, 8), "cuda:0")] = object()
+    cache.entries[("module", (1, 2, 8), "cuda:0")] = object()
+    cache.pools["cuda:0"] = (0, 1)
+    cache.captures = 2
+    cache.clear()
+    assert not cache.entries and not cache.pools and cache.pool_bytes() == 0
+    assert cache.captures == 2 and cache.stats()["graphs"] == 0

@@ -144,9 +144,11 @@ def test_planted_transformer_fault_fails_the_comparison(fault, monkeypatch, rele
     assert _rel_err(_forward(model, mix), want) < RTOL
     mha = ttr.flash_mha
     if fault == "attention_zeros":
-        monkeypatch.setattr(ttr, "flash_mha", lambda q, k, v, heads: torch.zeros_like(q))
+        monkeypatch.setattr(ttr, "flash_mha",
+                            lambda q, k, v, heads, mask=None: torch.zeros_like(q))
     elif fault == "keys_values_swapped":
-        monkeypatch.setattr(ttr, "flash_mha", lambda q, k, v, heads: mha(q, v, k, heads))
+        monkeypatch.setattr(ttr, "flash_mha",
+                            lambda q, k, v, heads, mask=None: mha(q, v, k, heads, mask=mask))
     elif fault == "norm_left_out":  # the cross layers' norm3 returns its input
         norm3 = {id(layer.norm3) for layer in model.modules() if isinstance(layer, ttr.CrossLayer)}
         assert norm3
@@ -212,15 +214,23 @@ def test_load_flat_state_is_strict():
 
 
 def test_unported_options_raise():
+    """Every option builds at eval (tests/test_torch_transformer_variants.py
+    holds each against JAX); what is left unported raises: train-time
+    attention dropout inside K3, and an option the JAX package has not."""
+    from demucs_tpu_torch.kernels.attention import flash_mha
+
     for kw in (dict(cac=False), dict(t_emb="cape"), dict(t_sparse_self_attn=True),
-               dict(multi_freqs=(0.5,)), dict(t_dropout=0.1)):
-        with pytest.raises(NotImplementedError):
-            tht.HTDemucs(tht.HTDemucsConfig(sources=SOURCES, channels=8, nfft=512,
-                                            segment=0.5, samplerate=8000, **kw))
-    # the precision policies are ported (tests/test_torch_precision.py)
-    for kw in (dict(compute_dtype="bfloat16"), dict(matmul_precision="highest")):
+               dict(multi_freqs=(0.5,)), dict(t_dropout=0.1),
+               dict(t_sparse_self_attn=True, t_auto_sparsity=True),
+               dict(compute_dtype="bfloat16"), dict(matmul_precision="highest")):
+        tht.HTDemucs(tht.HTDemucsConfig(sources=SOURCES, channels=8, nfft=512,
+                                        segment=0.5, samplerate=8000, **kw))
+    x = torch.zeros(1, 4, 8)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        flash_mha(x, x, x, 2, dropout=0.1)
+    with pytest.raises(ValueError, match="unknown transformer embedding"):
         tht.HTDemucs(tht.HTDemucsConfig(sources=SOURCES, channels=8, nfft=512, segment=0.5,
-                                        samplerate=8000, **kw))
+                                        samplerate=8000, t_emb="rotary"))
 
 
 def test_random_init_is_seeded():

@@ -36,7 +36,8 @@ def test_port_imports_no_jax_and_no_reference_package(path):
 def test_scan_sees_the_whole_package():
     names = {p.name for p in _port_files()}
     assert {"chip_smoke.py", "htdemucs.py", "attention.py", "stft.py", "api.py", "native.py",
-            "flacio.py", "mp3io.py", "avio.py", "audio.py", "streaming.py", "serve.py"} <= names
+            "flacio.py", "mp3io.py", "avio.py", "audio.py", "streaming.py", "serve.py",
+            "sparse.py", "bsseval.py", "evaluate.py", "distrib.py", "run_sdr.py"} <= names
 
 
 def test_port_builds_its_own_native_sources():

@@ -144,14 +144,30 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               MusdbHQ folder with the phase-4 model: each track's nsdr against
               eval_track on Separator's stems, seconds per track for the
               separation on the card and BSS-eval on the host.
-19. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
+19. train   — training: K3's backward kernel (flash_mha_bwd) and K3's forward
+              with the hashed dropout against their plain versions at the four
+              shapes, B = 1 and 8, unmasked and under the diag mask, at dropout 0
+              and 0.1, timed beside SDPA's fp32 backward; K2's backward (K1's
+              kernel with the per-bin scale) and K1's (K2's kernel) against
+              their plain versions and autograd through the plain twins, at the
+              training shapes and the HDemucs 44 s ones; one train step of the
+              released-width HTDemucs at batch 1 on the card against the CPU
+              (loss, reco, the gradient's global norm, every gradient); the
+              training rate: train_step at batch 8 (4 if 8 does not fit), 12
+              steps with every launch counted (the train path), training
+              audio-s/s over steps 3-12, the forward / backward / optimizer
+              split, peak memory and one profiled step; then python -m
+              demucs_tpu_torch.train on a synthetic wav folder, killed after
+              epoch 2's checkpoint and resumed for epoch 3, and the best model
+              separating a 10 s track through Separator on the card.
+20. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
               then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
               the .dmx on a FLAC file with --flac and (with LAME) --mp3.
 
-Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, each kernel's
-launches on every path: HTDemucs, HDemucs, Demucs v2, the bag, each
-family's presets, the server, each stream and each variant request;
-``launches`` is their sum)
+Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, K3's backward
+and K2's backward, each kernel's launches on every path: HTDemucs,
+HDemucs, Demucs v2, the bag, each family's presets, the server, each stream,
+each variant request and the train path; ``launches`` is their sum)
 and, last,
 ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
@@ -216,7 +232,13 @@ MDX_HYBRID = dict(hybrid_old=True, cac=False, norm_starts=999)  # tools/convert.
 
 
 
+_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``at_s``, the script's seconds so far."""
+    if "phase" in obj:
+        obj = dict(obj, at_s=time.perf_counter() - _START)
     print(json.dumps(obj), flush=True)
 
 
@@ -999,6 +1021,10 @@ def _kernel_group(name: str) -> str:
         return "K3 flash_mha_bf16"
     if "flash_mha_kernel" in low or "kv_image_kernel" in low:
         return "K3 flash_mha"
+    if "bwd_dkdv_kernel" in low or "bwd_dq_kernel" in low or "bwd_rowdot_kernel" in low:
+        return "K3 flash_mha_bwd"
+    if "adam" in low or "multi_tensor" in low:  # the optimizer's fused updates
+        return "optimizer (Adam)"
     if any(w in low for w in ("rnn", "lstm")):  # cuDNN's LSTM cells and recurrence
         return "cuDNN RNN (BLSTM)"
     if any(w in low for w in ("conv", "cudnn", "fprop", "dgrad", "winograd", "implicit")):
@@ -2322,6 +2348,504 @@ def phase_evaluate(workdir: Path) -> dict:
     return info
 
 
+# ---------------------------------------------------------------------------
+# Training: K3's dropout and backward kernel, K2's backward (K1's kernel),
+# the card's train step against the CPU's, the training rate, the entry point
+# ---------------------------------------------------------------------------
+
+TRAIN_DROPOUT = 0.1  # K3's dropout checks and the entry point's t_dropout
+K3_BWD_RTOL = 1e-4  # K3's backward: each gradient's max error over its peak
+TRAIN_RTOL = 2e-4  # card vs CPU train step: loss, reco, the gradient's global norm, x peak
+# card vs CPU, each gradient: x the largest gradient's peak. The time decoder's last bias
+# sums the output's gradient over every sample (343980 at 7.8 s): fp32 sums of sign terms
+# that cancel, which the card and the CPU take in other orders
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_BATCH = 8  # the throughput loop's batch (4 where 8 does not fit)
+TRAIN_STEPS = 12  # steps 3-12 timed
+TRAIN_SEGMENT = 7.8  # the released HTDemucs's training segment, seconds
+ENTRY_BATCH = 4  # the entry point's batch (the remix augment's group size)
+TRAIN_KERNELS = ("stft_dft", "istft_dft", "flash_mha", "flash_mha_bwd", "istft_dft_backward",
+                 "stft_dft_backward")
+
+
+def _train_counters():
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.kernels import stft as KS
+
+    return {"stft_dft": KS.stft_dft, "istft_dft": KS.istft_dft, "flash_mha": KA.flash_mha,
+            "flash_mha_bwd": KA.flash_mha_bwd, "istft_dft_backward": KS.istft_dft_backward,
+            "stft_dft_backward": KS.stft_dft_backward}
+
+
+def _zero_train_counts() -> None:
+    for fn in _train_counters().values():
+        fn.launches = 0
+
+
+def _read_train_counts() -> dict:
+    return {name: fn.launches for name, fn in _train_counters().items()}
+
+
+def _grad_err(got, want) -> float:
+    """Max |got - want| over want's peak."""
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def train_k3_checks(gen) -> dict:
+    """K3 forward with dropout and K3's backward kernel at the transformer's four
+    shapes, B = 1 and 8, unmasked and under the diag mask, at dropout 0 and
+    TRAIN_DROPOUT: the forward against the plain version with the same seed
+    (K3_ATOL), dQ, dK, dV against the plain backward formula (K3_BWD_RTOL x
+    each gradient's peak). Times the backward kernel (unmasked, dropout 0 and
+    TRAIN_DROPOUT), the plain backward and SDPA's fp32 backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    dev = torch.device("cuda")
+    C, H = 512, 8
+    d = C // H
+    tokens = {"freq": 2688, "time": 1344}
+    cases, by_shape, worst_fwd, worst_bwd = [], {}, 0.0, 0.0
+    for batch in (1, 8):
+        for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
+                                 ("time", "freq")):
+            Tq, Tk = tokens[tq_name], tokens[tk_name]
+            q = torch.randn(batch, Tq, C, device=dev, generator=gen)
+            k = torch.randn(batch, Tk, C, device=dev, generator=gen)
+            v = torch.randn(batch, Tk, C, device=dev, generator=gen)
+            do = torch.randn(batch, Tq, C, device=dev, generator=gen)
+            key = f"B={batch} {tq_name}<-{tk_name}"
+            for masked, rate in itertools.product((False, True), (0.0, TRAIN_DROPOUT)):
+                mask = keep_mask(Tq, Tk, "diag", device=dev, **MASK_DEFAULTS) if masked else None
+                seed = 1000 + len(cases)
+                o, lse = KA._forward_f32(q, k, v, H, mask, rate, seed, True)
+                want_o = KA.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate,
+                                            dropout_seed=seed)
+                got = KA.flash_mha_bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
+                                       dropout_seed=seed)
+                want = KA.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask, dropout=rate,
+                                              dropout_seed=seed)
+                errs = [_grad_err(g, w) for g, w in zip(got, want)]
+                fwd = (o - want_o).abs().max().item()
+                worst_fwd, worst_bwd = max(worst_fwd, fwd), max(worst_bwd, *errs)
+                cases.append({"case": key, "mask": "diag" if masked else None, "dropout": rate,
+                              "fwd_max_abs_err": fwd, "dq_dk_dv_err_over_peak": errs})
+                del o, lse, want_o, got, want
+            o, lse = KA._forward_f32(q, k, v, H, None, 0.0, 0, True)
+            flops = 5 * 2 * batch * H * Tq * Tk * d
+            nbytes = 4 * (batch * (3 * Tq + 4 * Tk) * C + batch * H * Tq)
+            b_ms, b_by = bound(3 * flops, nbytes, TF32_FLOPS)
+            split = [t.view(batch, -1, H, d).transpose(1, 2).detach().clone().requires_grad_()
+                     for t in (q, k, v)]
+            so = F.scaled_dot_product_attention(*split)
+            sdo = do.view(batch, Tq, H, d).transpose(1, 2)
+            row = dict(
+                ms=cuda_ms(lambda: KA.flash_mha_bwd(q, k, v, o, do, H, lse=lse)),
+                ms_dropout=cuda_ms(lambda: KA.flash_mha_bwd(
+                    q, k, v, o, do, H, lse=lse, dropout=TRAIN_DROPOUT, dropout_seed=5)),
+                fwd_ms=cuda_ms(lambda: KA.flash_mha(q, k, v, H)),
+                fwd_ms_dropout=cuda_ms(lambda: KA.flash_mha(q, k, v, H, dropout=TRAIN_DROPOUT,
+                                                            dropout_seed=5)),
+                sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
+                                                                retain_graph=True)),
+                bound_ms=b_ms, bound_by=b_by, fn_bound_ms=bound(flops, nbytes, TF32_FLOPS)[0])
+            if tq_name == tk_name == "freq":
+                row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(q, k, v, o, do, H),
+                                          repeat=3)
+            by_shape[key] = row
+            del q, k, v, do, o, lse, split, so
+            torch.cuda.empty_cache()
+    main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
+    return dict(
+        name="flash_mha_bwd", tol=K3_BWD_RTOL, max_abs_err=worst_bwd,
+        max_err_is="over each gradient's peak", fwd_dropout_max_abs_err=worst_fwd,
+        fwd_tol=K3_ATOL, within_tol=worst_bwd <= K3_BWD_RTOL and worst_fwd <= K3_ATOL,
+        source="demucs_tpu_torch/csrc/flash_mha_bwd.cu",
+        replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function; the "
+                 "Pallas kernel has no backward, JAX trains through XLA's dense attention)",
+        ms=main["ms"], plain_ms=main["plain_ms"], library_ms=main["sdpa_bwd_ms"],
+        library="autograd.grad of F.scaled_dot_product_attention (fp32)",
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        bound_rule="max(3 x 5 x 2 B H Tq Tk d / 495 TFLOP/s (five products in 3xTF32), bytes "
+                   "of q, k, v, o, dO, lse in and dQ, dK, dV out / 3.35 TB/s)",
+        shape=f"q, k, v (B={TRAIN_BATCH}, 2688, 512), 8 heads (freq self)",
+        by_shape=by_shape, cases=cases)
+
+
+def train_stft_checks(gen) -> dict:
+    """K2's backward (K1's kernel on the output gradient, scaled per bin) and
+    K1's (K2's kernel on the scaled gradients) at the training step's
+    HTDemucs shape (B = 1 and TRAIN_BATCH, 340 frames) and at one and two 44 s
+    HDemucs segments: against their plain versions on the same inputs and
+    against autograd through the plain K2 / K1 (KERNEL_RTOL x peak). Times
+    K2's backward, its plain version and torch.stft on the same gradient."""
+    import torch
+
+    from demucs_tpu_torch.kernels import stft as KS
+
+    dev = torch.device("cuda")
+    n_fft, hop, freqs = 4096, 1024, 2049
+    window = torch.hann_window(n_fft, device=dev)
+    shapes, worst, k1_worst = {}, 0.0, 0.0
+    for name, rows, frames in (("B=1", 8, 340), (f"B={TRAIN_BATCH}", 8 * TRAIN_BATCH, 340),
+                               ("HDemucs 44 s B=1", 8, 1899), ("HDemucs 44 s B=2", 16, 1899)):
+        length = (frames - 1) * hop + n_fft
+        g = torch.randn(rows, length, device=dev, generator=gen)
+        got = KS.istft_dft_backward(g, n_fft, hop)
+        want = KS.istft_dft_backward_plain(g, n_fft, hop)
+        zr = torch.zeros(rows, frames, freqs, device=dev, requires_grad=True)
+        zi = torch.zeros(rows, frames, freqs, device=dev, requires_grad=True)
+        auto = torch.autograd.grad(KS.istft_dft_plain(zr, zi, n_fft, hop), (zr, zi), g)
+        err = max(_grad_err(a, b) for a, b in zip(got + got, want + auto))
+        del zr, zi, auto
+        gr, gi = want  # K1's backward at an input 77 samples past its last frame
+        k1 = KS.stft_dft_backward(gr, gi, n_fft, hop, length + 77)
+        x = torch.zeros(rows, length + 77, device=dev, requires_grad=True)
+        pr, pi = KS.stft_dft_plain(x, n_fft, hop)
+        (auto,) = torch.autograd.grad((pr * gr).sum() + (pi * gi).sum(), x)
+        k1_err = max(_grad_err(k1, KS.stft_dft_backward_plain(gr, gi, n_fft, hop, length + 77)),
+                     _grad_err(k1, auto))
+        del x, pr, pi, auto
+        worst, k1_worst = max(worst, err), max(k1_worst, k1_err)
+        nframes = rows * frames
+        flops = nframes * (n_fft + fft_flops(n_fft) + 2 * freqs)  # window, real FFT, scale
+        b_ms, b_by = bound(flops, 4 * (g.numel() + 2 * nframes * freqs))
+        shapes[name] = dict(
+            max_err_over_peak=err, ms=cuda_ms(lambda: KS.istft_dft_backward(g, n_fft, hop)),
+            plain_ms=cuda_ms(lambda: KS.istft_dft_backward_plain(g, n_fft, hop), repeat=3),
+            library_ms=cuda_ms(lambda: torch.stft(g, n_fft, hop, window=window, center=False,
+                                                  return_complex=True)),
+            bound_ms=b_ms, bound_by=b_by, k1_backward_err_over_peak=k1_err,
+            k1_backward_ms=cuda_ms(lambda: KS.stft_dft_backward(gr, gi, n_fft, hop, length)),
+            shape=f"g {tuple(g.shape)} -> 2 x ({rows}, {frames}, {freqs})")
+        del g, got, want, gr, gi, k1
+        torch.cuda.empty_cache()
+    KS._stft_basis.cache_clear()
+    KS._istft_basis.cache_clear()
+    main = shapes[f"B={TRAIN_BATCH}"]
+    return dict(
+        name="istft_dft_backward", tol=KERNEL_RTOL, max_abs_err=worst,
+        max_err_is="over the gradient's peak", stft_dft_backward_err=k1_worst,
+        within_tol=worst <= KERNEL_RTOL and k1_worst <= KERNEL_RTOL,
+        source="demucs_tpu_torch/csrc/stft.cu (K1's kernel)",
+        replaces="demucs_tpu/ops/pallas/stft.py:137 (the gradient of istft_chunk_dft)",
+        ms=main["ms"], plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+        library="torch.stft(center=False) of the gradient, without the per-bin scale",
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"], shape=main["shape"],
+        by_shape=shapes)
+
+
+def _released_training_model(seed: int = 0, **kw):
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import Model
+
+    cfg = HTDemucsConfig(segment=TRAIN_SEGMENT, **RELEASED, **kw)
+    return Model("htdemucs", cfg, init_htdemucs(cfg, seed=seed, layer_scale=1.0,
+                                                 random_norms=True).train())
+
+
+def _optimizer(model, lr: float):
+    """``train/step.py::make_optimizer`` (Adam) at ``lr``."""
+    from demucs_tpu_torch.train.config import TrainArgs
+    from demucs_tpu_torch.train.step import make_optimizer
+
+    args = TrainArgs()
+    args.optim.lr = lr
+    return make_optimizer(args, model)
+
+
+def train_card_vs_cpu() -> dict:
+    """One train step of the released-width HTDemucs at batch 1 (its 7.8 s
+    training segment, dropout 0, no augment, lr 0) on the card and on the
+    CPU from the same weights and batch: loss, per-source reco and the
+    gradient's global norm within TRAIN_RTOL x their peak, and every
+    parameter's gradient within TRAIN_GRAD_RTOL x the largest gradient's peak.
+    Each gradient's error over its own peak is reported beside the card's own
+    spread between two identical steps (cuDNN's weight gradients sum with
+    atomics, in another order each run)."""
+    import torch
+
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train.step import train_step
+
+    cpu = _released_training_model(seed=3)
+    card = Model("htdemucs", cpu.cfg, copy.deepcopy(cpu.module).to("cuda"))
+    sources = 0.2 * torch.randn(1, 4, 2, cpu.cfg.training_length,
+                                generator=torch.Generator().manual_seed(4))
+    runs = []
+    for _ in range(2):
+        got = train_step(card, _optimizer(card, 0.0), sources.to("cuda"))
+        runs.append({n: p.grad.cpu() for n, p in card.module.named_parameters()})
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    want = train_step(cpu, _optimizer(cpu, 0.0), sources)
+    cpu_s = time.perf_counter() - start
+    errs = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+            for k in ("loss", "reco", "grad_norm")}
+    grads = {n: p.grad for n, p in cpu.module.named_parameters()}
+    peak = max(g.abs().max().item() for g in grads.values())
+
+    def worst(a, b):
+        rel = {n: ((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item()
+               for n in b}
+        name = max(rel, key=rel.get)
+        return {"name": name, "err_over_its_peak": rel[name],
+                "its_peak_over_largest": grads[name].abs().max().item() / peak}
+
+    abs_errs = {n: (runs[-1][n] - g).abs().max().item() / peak for n, g in grads.items()}
+    grad_err = max(abs_errs.values())
+    info = {"batch": 1, "segment_s": TRAIN_SEGMENT, "loss": want["loss"].item(),
+            "errs_over_peak": errs, "grad_err_over_largest_peak": grad_err,
+            "largest_errs_over_largest_peak": dict(sorted(abs_errs.items(),
+                                                          key=lambda kv: -kv[1])[:6]),
+            "largest_grad": max(grads, key=lambda n: grads[n].abs().max().item()),
+            "worst_grad_vs_cpu": worst(runs[-1], grads),
+            "worst_grad_card_vs_card": worst(runs[0], runs[1]), "n_grads": len(grads),
+            "tol": TRAIN_RTOL, "grad_tol": TRAIN_GRAD_RTOL, "cpu_step_s": cpu_s,
+            "cpu_threads": torch.get_num_threads()}
+    info["ok"] = (max(errs.values()) <= TRAIN_RTOL and grad_err <= TRAIN_GRAD_RTOL
+                  and all(torch.isfinite(g).all() for g in runs[-1].values()))
+    del card, cpu
+    torch.cuda.empty_cache()
+    return info
+
+
+def _profile_step(step) -> dict:
+    """One call of ``step`` under torch.profiler: device time by kernel group,
+    the top kernels and the device's idle share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    groups: dict = {}
+    top = []
+    for evt in prof.key_averages():
+        us = evt.self_device_time_total
+        if evt.device_type != torch.autograd.DeviceType.CUDA or us <= 0:
+            continue
+        key = _kernel_group(evt.key)
+        groups[key] = groups.get(key, 0.0) + us / 1e3
+        top.append((us / 1e3, evt.count, evt.key[:90]))
+    device_ms = sum(groups.values())
+    return {"wall_ms": wall * 1e3, "device_ms": device_ms,
+            "idle_share": 1 - device_ms / (wall * 1e3) if device_ms else "not measured",
+            "by_group_ms": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+            "top_kernels": [{"ms": ms, "calls": n, "name": key}
+                            for ms, n, key in sorted(top, reverse=True)[:12]]}
+
+
+def train_throughput() -> tp.Tuple[dict, dict]:
+    """The main training path: ``train_step`` at the released width, batch
+    TRAIN_BATCH (4 if 8 does not fit), 7.8 s, fp32 with TF32 off, TRAIN_STEPS
+    steps with every launch counted from 0; training audio-s/s over steps
+    3-12; then the forward / backward / optimizer split (CUDA events, 3
+    steps), the peak memory and one profiled step."""
+    import statistics
+
+    import torch
+
+    from demucs_tpu_torch.train.step import (backward_precision, clip_and_step, forward_loss,
+                                             train_step)
+
+    for batch in (TRAIN_BATCH, 4):
+        model = _released_training_model(seed=5)
+        model.module.to("cuda")
+        opt = _optimizer(model, 3e-4)
+        sources = 0.2 * torch.randn(batch, 4, 2, model.cfg.training_length, device="cuda",
+                                    generator=torch.Generator(device="cuda").manual_seed(6))
+        held = torch.cuda.memory_allocated() / 2**30  # with the weights, before any step
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            _zero_train_counts()
+            walls, losses = [], []
+            for _ in range(TRAIN_STEPS):
+                start = time.perf_counter()
+                m = train_step(model, opt, sources)
+                losses.append(m["loss"].item())  # synchronizes
+                walls.append(time.perf_counter() - start)
+            counts = _read_train_counts()
+            break
+        except torch.cuda.OutOfMemoryError:
+            del model, opt, sources
+            torch.cuda.empty_cache()
+            if batch == 4:
+                raise
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    split = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        value, _ = forward_loss(model, sources, "l1", (1.0,) * 4)
+        ev[1].record()
+        with backward_precision(model):
+            value.backward()
+        ev[2].record()
+        clip_and_step(opt, 0.0)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for (name, a, b) in (("forward", 0, 1), ("backward", 1, 2), ("optimizer", 2, 3)):
+            split[name].append(ev[a].elapsed_time(ev[b]))
+    profile = _profile_step(lambda: train_step(model, opt, sources))
+    timed = walls[2:]
+    median = statistics.median(timed)
+    info = {"batch": batch, "batch_8_fit": batch == TRAIN_BATCH, "segment_s": TRAIN_SEGMENT,
+            "steps": TRAIN_STEPS, "step_walls_s": walls, "median_step_s": median,
+            "train_audio_s_per_s": batch * TRAIN_SEGMENT / median,
+            "losses": losses, "peak_memory_gib": peak, "held_before_gib": held,
+            "peak_above_held_gib": peak - held,
+            "split_ms_median": {k: statistics.median(v) for k, v in split.items()},
+            "split_ms": split, "launches": counts,
+            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+            "profile": profile}
+    info["ok"] = (all(math.isfinite(x) for x in losses)
+                  and all(counts[name] > 0 for name in TRAIN_KERNELS if name != "stft_dft_backward"))
+    del model, opt, sources
+    torch.cuda.empty_cache()
+    return info, counts
+
+
+def _train_folder(root: Path) -> Path:
+    """A wav dataset (train/ and valid/ folders of tracks, one WAV per stem,
+    16-bit at 44.1 kHz, the mixture left for the dataset to write): two 20 s
+    training tracks and one 10 s valid track of tones and noise from a seed."""
+    import numpy as np
+
+    from demucs_tpu_torch.audio import write_wav
+
+    for split, tracks, seconds in (("train", 2, 20.0), ("valid", 1, 10.0)):
+        t = np.arange(int(seconds * SR)) / SR
+        for i in range(tracks):
+            folder = root / split / f"track{i}"
+            folder.mkdir(parents=True)
+            rng = np.random.default_rng(300 + 10 * i + len(split))
+            for j, name in enumerate(("drums", "bass", "other", "vocals")):
+                tone = 0.15 * np.sin(2 * np.pi * 55.0 * (j + 1) * (i + 2) * t + j)
+                wav = np.stack([tone, 0.7 * tone]) + 0.02 * rng.standard_normal((2, t.size))
+                write_wav(folder / f"{name}.wav", wav.astype(np.float32), SR)
+    return root
+
+
+def train_entry_point(workdir: Path) -> dict:
+    """``python -m demucs_tpu_torch.train`` on a synthetic wav folder at the
+    released width (t_dropout TRAIN_DROPOUT, batch ENTRY_BATCH, 8.8 s windows
+    shifted by up to 1 s: 7.8 s inputs, every augment but repitch), 2 batches
+    an epoch, 3 epochs: the process is killed once epoch 2's checkpoint is
+    written (a preempted job), and the same command resumes it for epoch 3.
+    The loss is finite, the history continues, and the best model separates
+    a 10 s track through Separator on the card."""
+    import json
+    import os
+
+    import numpy as np
+
+    from demucs_tpu_torch.api import Separator
+
+    data = _train_folder(workdir / "trainset")
+    out = workdir / "train_out"
+    model_args = ("{" + ", ".join(f"{k}: {v}" for k, v in RELEASED.items() if k != "samplerate")
+                  + f", t_dropout: {TRAIN_DROPOUT}" + "}")
+    cmd = [sys.executable, "-m", "demucs_tpu_torch.train", f"dset.wav={data}",
+           "dset.use_musdb=false", "dset.segment=8.8", "dset.shift=1", f"dset.samplerate={SR}",
+           f"dset.metadata={workdir / 'train_meta'}", f"model_segment={TRAIN_SEGMENT}",
+           f"model_args={model_args}", f"batch_size={ENTRY_BATCH}", "epochs=3", "max_batches=1",
+           "augment.repitch.proba=0", f"out_dir={out}", "misc.num_workers=4", "ema.epoch=[0.9]"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    start = time.perf_counter()
+    first = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+                             stderr=subprocess.PIPE, text=True)
+    log1 = []
+    for line in first.stderr:
+        log1.append(line.rstrip())
+        if "Checkpoint written: epoch 2" in line:
+            first.kill()
+            break
+    first.wait(timeout=60)
+    first.stderr.close()
+    killed_s = time.perf_counter() - start
+    if not any("Checkpoint written: epoch 2" in line for line in log1):
+        raise AssertionError("the training entry point ended before epoch 2's checkpoint:\n"
+                             + "\n".join(log1[-40:]))
+    (folder,) = (out / "xps").iterdir()
+    history1 = json.loads((folder / "history.json").read_text())
+    start = time.perf_counter()
+    second = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    resumed_s = time.perf_counter() - start
+    log2 = second.stderr.splitlines()
+    history = json.loads((folder / "history.json").read_text())
+    sep = Separator("best", repo=folder, shifts=0)
+    mix = _track(10.0, 5)
+    _, stems = sep.separate_tensor(mix, SR)
+    loading = [line.split("| ")[-1] if "| " in line else line.split(":", 2)[-1]
+               for line in log1 + log2 if "waiting for data" in line]
+    info = {"command": " ".join(cmd[1:]), "first_run_s": killed_s,
+            "epochs_before_kill": len(history1), "resume_rc": second.returncode,
+            "resume_run_s": resumed_s, "epochs_after_resume": len(history),
+            "train_loss_by_epoch": [h["train"]["loss"] for h in history],
+            "valid_loss_by_epoch": [h["valid"]["loss"] for h in history],
+            "data_loading": loading, "best_model": str(folder / "best.dmx"),
+            "separated_10s_stems": sorted(stems),
+            "replayed_epoch_1": any("Replay | Epoch 1" in x for x in log2)}
+    info["ok"] = (second.returncode == 0 and len(history1) == 2 and len(history) == 3
+                  and history[:2] == history1 and info["replayed_epoch_1"]
+                  and all(math.isfinite(x) for x in info["train_loss_by_epoch"])
+                  and sorted(stems) == ["bass", "drums", "other", "vocals"]
+                  and all(np.isfinite(s).all() and s.shape == mix.shape for s in stems.values()))
+    if not info["ok"]:
+        info["log_tail"] = (log1 + log2)[-40:]
+    return info
+
+
+def phase_train(workdir: Path) -> tp.Tuple[list, dict]:
+    """K3's backward and dropout and K2's backward against their plain
+    versions, the card's train step against the CPU's, the training rate at
+    the released width, and the training entry point with a resume. Returns
+    the backward kernels' rows and the train path's launches."""
+    import torch
+
+    from demucs_tpu_torch.inference.engine import GRAPHS
+
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    start = time.perf_counter()
+    info = {"phase": "train", "card": card_line()}
+    with _fp32():
+        rows = [train_k3_checks(gen), train_stft_checks(gen)]
+        info["kernels_s"] = time.perf_counter() - start
+        info["card_vs_cpu_step"] = train_card_vs_cpu()
+        info["throughput"], counts = train_throughput()
+    info["entry_point"] = train_entry_point(workdir)
+    info["wall_s"] = time.perf_counter() - start
+    for row in rows:
+        row["ok"] = row["within_tol"]
+    info["kernel_rows"] = {r["name"]: {k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
+                                                          "library_ms", "bound_ms", "ok")}
+                           for r in rows}
+    emit(dict(info, k3_backward=rows[0], stft_backward=rows[1]))
+    bad = [r["name"] for r in rows if not r["ok"]]
+    bad += [k for k in ("card_vs_cpu_step", "throughput", "entry_point") if not info[k]["ok"]]
+    if bad:
+        raise AssertionError(f"train: {bad}")
+    return rows, counts
+
+
+@contextlib.contextmanager
+def _fp32():
+    """TF32 off for cuBLAS and cuDNN (the kernels' plain versions, the step)."""
+    from demucs_tpu_torch.models.htdemucs import precision_scope
+
+    with precision_scope(None):
+        yield
+
+
 def _has_museval() -> bool:
     try:
         import museval  # noqa: F401
@@ -2383,6 +2907,8 @@ def main() -> int:
         paths.update(variant_paths)
         phase_memory(workdir)
         phase_evaluate(workdir)
+        train_rows, paths["train"] = phase_train(workdir)
+        rows += train_rows
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()
@@ -2396,7 +2922,7 @@ def main() -> int:
         # launches on each path (Separator's default serving and each preset, the
         # device engine, counted from 0 over that path's requests); "launches" is
         # their sum
-        by_path = {path: counts[row["name"]] for path, counts in paths.items()}
+        by_path = {path: counts.get(row["name"], 0) for path, counts in paths.items()}
         row = dict(row, route="cuda", launches=sum(by_path.values()))
         kernels.append(dict({k: row[k] for k in keys}, launches_by_path=by_path,
                             hdemucs_44s=row.get("hdemucs_44s")))

@@ -62,6 +62,12 @@
 // - With two consumer warpgroups, one computes its softmax while the
 //   other's products run. Templated on D in {32, 48, 64} and NWG in {1, 2}
 //   (64 or 128 query rows per block).
+// - Train-time dropout on the attention probabilities, the Pallas kernel's
+//   own (attention_dropout.cuh): a counter hash of (global query row, key,
+//   seed + batch-head salt), so the pattern does not depend on the tiles.
+//   The row sum l takes p before the drop, o the dropped p / (1 - rate).
+//   Where the caller asks, each row's log-sum-exp (base 2, of the scaled
+//   scores: m + log2 l) goes to `lse` for the backward (flash_mha_bwd.cu).
 
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is reached at run time)
 #include <cuda_bf16.h>
@@ -70,6 +76,7 @@
 
 #include <cstdint>
 
+#include "attention_dropout.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -238,8 +245,8 @@ template <int D, int NWG>
 __device__ __forceinline__ void consume(const float* __restrict__ q, const float* ring,
                                         uint64_t* full, uint64_t* empty,
                                         const unsigned char* __restrict__ mask,
-                                        float* __restrict__ o, int Tq, int Tk, int H,
-                                        float q_scale) {
+                                        float* __restrict__ o, float* __restrict__ lse,
+                                        int Tq, int Tk, int H, float q_scale, Dropout drop) {
   constexpr int TILE = BK * D;
   const int b = blockIdx.z, h = blockIdx.y;
   const int n_tiles = (Tk + BK - 1) / BK;
@@ -312,6 +319,15 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
     }
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + sum[hf];
+    if (drop.rate > 0.f) {  // after the sum: l counts every p, o only the kept
+      const uint32_t salt = drop.salt(b * H + h);
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+        const int r = row + 8 * ((e >> 1) & 1);
+        s[e] = drop.keep(r, key, salt) ? s[e] * drop.scale : 0.f;
+      }
+    }
 
     // The tile's P V in an accumulator of its own, added to o in fp32: the
     // tensor core's accumulation truncates, and over all tiles of a long
@@ -328,6 +344,9 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
     l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 1);
     l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 2);
     const int r = row + 8 * hf;
+    if (lse != nullptr && c == 0 && r < Tq) {
+      lse[((size_t)b * H + h) * Tq + r] = m[hf] + log2f(l[hf]);
+    }
     if (r < Tq) {
       float* dst = o + ((size_t)b * Tq + r) * C + h * D + 2 * c;
 #pragma unroll
@@ -342,8 +361,8 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
 template <int D, int NWG>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_mha_kernel(const float* __restrict__ q, const float* __restrict__ image,
-                 const unsigned char* __restrict__ mask, float* __restrict__ o, int Tq, int Tk,
-                 int H, float q_scale) {
+                 const unsigned char* __restrict__ mask, float* __restrict__ o,
+                 float* __restrict__ lse, int Tq, int Tk, int H, float q_scale, Dropout drop) {
   constexpr int TILE = BK * D;  // floats of one part of a tile's image
   constexpr uint32_t STAGE_BYTES = 4 * TILE * sizeof(float);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -376,7 +395,7 @@ flash_mha_kernel(const float* __restrict__ q, const float* __restrict__ image,
     }
   } else {
     if constexpr (NWG == 2) setmaxnreg_inc<240>();
-    consume<D, NWG>(q, ring, full, empty, mask, o, Tq, Tk, H, q_scale);
+    consume<D, NWG>(q, ring, full, empty, mask, o, lse, Tq, Tk, H, q_scale, drop);
   }
 }
 
@@ -386,8 +405,8 @@ static_assert(SMEM_BYTES<64> <= 227 * 1024, "the ring exceeds a block's shared m
 
 template <int D, int NWG>
 cudaError_t launch(const float* q, const float* k, const float* v, const unsigned char* mask,
-                   float* image, float* o, int B, int Tq, int Tk, int H, float q_scale,
-                   cudaStream_t stream) {
+                   float* image, float* o, float* lse, int B, int Tq, int Tk, int H,
+                   float q_scale, Dropout drop, cudaStream_t stream) {
   const int n_tiles = (Tk + BK - 1) / BK;
   kv_image_kernel<D><<<dim3(n_tiles, H, B), 256, 0, stream>>>(k, v, image, Tk, H);
   cudaError_t err = cudaGetLastError();
@@ -398,17 +417,18 @@ cudaError_t launch(const float* q, const float* k, const float* v, const unsigne
   if (err != cudaSuccess) return err;
   const int rows = ROWS_WG * NWG;
   flash_mha_kernel<D, NWG><<<dim3((Tq + rows - 1) / rows, H, B), (NWG + 1) * 128, smem, stream>>>(
-      q, image, mask, o, Tq, Tk, H, q_scale);
+      q, image, mask, o, lse, Tq, Tk, H, q_scale, drop);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_rows(int block_rows, const float* q, const float* k, const float* v,
-                        const unsigned char* mask, float* image, float* o, int B, int Tq,
-                        int Tk, int H, float q_scale, cudaStream_t stream) {
+                        const unsigned char* mask, float* image, float* o, float* lse, int B,
+                        int Tq, int Tk, int H, float q_scale, Dropout drop,
+                        cudaStream_t stream) {
   return block_rows == 64
-             ? launch<D, 1>(q, k, v, mask, image, o, B, Tq, Tk, H, q_scale, stream)
-             : launch<D, 2>(q, k, v, mask, image, o, B, Tq, Tk, H, q_scale, stream);
+             ? launch<D, 1>(q, k, v, mask, image, o, lse, B, Tq, Tk, H, q_scale, drop, stream)
+             : launch<D, 2>(q, k, v, mask, image, o, lse, B, Tq, Tk, H, q_scale, drop, stream);
 }
 
 // ===========================================================================
@@ -1063,20 +1083,27 @@ extern "C" {
 
 // q (B, Tq, H*D), k/v (B, Tk, H*D), mask (Tq, Tk) bytes or null -> o (B, Tq, H*D).
 // image: scratch of B * H * ceil(Tk / 64) * 4 * 64 * D floats. q_scale =
-// log2(e) / sqrt(D); block_rows 64 or 128 query rows per block.
+// log2(e) / sqrt(D); block_rows 64 or 128 query rows per block. lse: null, or
+// (B * H, Tq) floats for each row's base-2 log-sum-exp. Dropout of the
+// probabilities at `rate` (0: none) under `seed` (attention_dropout.cuh).
 int flash_mha_f32(const float* q, const float* k, const float* v, const unsigned char* mask,
-                  float* image, float* o, int B, int Tq, int Tk, int H, int D, float q_scale,
-                  int block_rows, void* stream) {
+                  float* image, float* o, float* lse, int B, int Tq, int Tk, int H, int D,
+                  float q_scale, int block_rows, float rate, int seed, void* stream) {
   if (Tk <= 0 || (block_rows != 64 && block_rows != 128)) return (int)cudaErrorInvalidValue;
+  if (!(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
+  const Dropout drop = Dropout::make(rate, (uint32_t)seed);
   switch (D) {
     case 32:
-      return (int)launch_rows<32>(block_rows, q, k, v, mask, image, o, B, Tq, Tk, H, q_scale, s);
+      return (int)launch_rows<32>(block_rows, q, k, v, mask, image, o, lse, B, Tq, Tk, H,
+                                  q_scale, drop, s);
     case 48:
-      return (int)launch_rows<48>(block_rows, q, k, v, mask, image, o, B, Tq, Tk, H, q_scale, s);
+      return (int)launch_rows<48>(block_rows, q, k, v, mask, image, o, lse, B, Tq, Tk, H,
+                                  q_scale, drop, s);
     case 64:
-      return (int)launch_rows<64>(block_rows, q, k, v, mask, image, o, B, Tq, Tk, H, q_scale, s);
+      return (int)launch_rows<64>(block_rows, q, k, v, mask, image, o, lse, B, Tq, Tk, H,
+                                  q_scale, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -148,8 +148,9 @@ __device__ void fft_shared(float2* a, int log2h, const float2* __restrict__ tw) 
 template <int BPT>
 __global__ void __launch_bounds__(THREADS)
 stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ window,
-                const float2* __restrict__ tw, float* __restrict__ zr,
-                float* __restrict__ zi, int row_len, int n_frames, int hop, int log2h) {
+                const float2* __restrict__ tw, const float* __restrict__ scale,
+                float* __restrict__ zr, float* __restrict__ zi, int row_len, int n_frames,
+                int hop, int log2h) {
   extern __shared__ float2 a[];  // n_fft / 2 points
   const int h = 1 << log2h;
   const long long frame = blockIdx.x;  // row * n_frames + t
@@ -181,8 +182,13 @@ stft_fft_kernel(const float* __restrict__ x, const float* __restrict__ window,
     const float2 e = make_float2(0.5f * (p.x + q.x), 0.5f * (p.y - q.y));
     const float2 o = make_float2(0.5f * (p.y + q.y), 0.5f * (q.x - p.x));  // (p - conj q) / 2i
     const float2 wo = cmul(o, __ldg(&tw[m]));
-    out_r[m] = e.x + wo.x;
-    out_i[m] = e.y + wo.y;
+    if (scale == nullptr) {
+      out_r[m] = e.x + wo.x;
+      out_i[m] = e.y + wo.y;
+    } else {  // K2's backward: a scale per bin, real then imaginary parts
+      out_r[m] = (e.x + wo.x) * __ldg(&scale[m]);
+      out_i[m] = (e.y + wo.y) * __ldg(&scale[freqs + m]);
+    }
   }
 }
 
@@ -254,14 +260,14 @@ cudaError_t reserve_smem(const void* kernel, size_t bytes) {
 }
 
 template <int BPT>
-cudaError_t launch_stft(const float* x, const float* window, const float2* tw, float* zr,
-                        float* zi, unsigned frames, int row_len, int n_frames, int hop,
-                        int log2h, cudaStream_t stream) {
+cudaError_t launch_stft(const float* x, const float* window, const float2* tw,
+                        const float* scale, float* zr, float* zi, unsigned frames, int row_len,
+                        int n_frames, int hop, int log2h, cudaStream_t stream) {
   const size_t smem = sizeof(float2) << log2h;
   cudaError_t err = reserve_smem((const void*)stft_fft_kernel<BPT>, smem);
   if (err != cudaSuccess) return err;
-  stft_fft_kernel<BPT><<<frames, THREADS, smem, stream>>>(x, window, tw, zr, zi, row_len,
-                                                         n_frames, hop, log2h);
+  stft_fft_kernel<BPT><<<frames, THREADS, smem, stream>>>(x, window, tw, scale, zr, zi,
+                                                         row_len, n_frames, hop, log2h);
   return cudaGetLastError();
 }
 
@@ -292,8 +298,10 @@ extern "C" {
 // exp(-2 pi i m / n_fft) for m = 0..n_fft/2, then for each radix-4 stage of the
 // FFT of h = n_fft / 2 points, ns = 1 or 2 (h = 4^s or 2 * 4^s), 4 ns, ...,
 // h / 4 in turn, exp(-2 pi i r k / (4 ns)) for r = 1, 2, 3 and k = 0..ns-1.
-int stft_dft_f32(const float* x, const float* window, const float* twiddle, float* zr,
-                 float* zi, int rows, int row_len, int n_frames, int n_fft, int hop,
+// scale: null, or 2 (n_fft / 2 + 1) floats that multiply each bin's real and
+// then imaginary part (K2's backward: c_k / n_fft, kernels/stft.py).
+int stft_dft_f32(const float* x, const float* window, const float* twiddle, const float* scale,
+                 float* zr, float* zi, int rows, int row_len, int n_frames, int n_fft, int hop,
                  void* stream) {
   const int log2h = half_log2(n_fft);
   if (log2h < 0 || hop <= 0) return (int)cudaErrorInvalidValue;
@@ -306,7 +314,8 @@ int stft_dft_f32(const float* x, const float* window, const float* twiddle, floa
                       : bpt == 2 ? launch_stft<2>
                       : bpt == 4 ? launch_stft<4>
                                  : launch_stft<8>;
-  return (int)launch(x, window, tw, zr, zi, (unsigned)frames, row_len, n_frames, hop, log2h, s);
+  return (int)launch(x, window, tw, scale, zr, zi, (unsigned)frames, row_len, n_frames, hop,
+                     log2h, s);
 }
 
 // zr, zi (rows, n_frames, n_fft / 2 + 1) -> out (rows, (n_frames - 1) * hop + n_fft);

@@ -62,10 +62,12 @@ def retain_tables():
 class NoBackward(torch.autograd.Function):
     """Run a kernel launch as an autograd node whose backward raises.
 
-    The kernels have no backward yet. A launch that wrote into a fresh tensor
-    would otherwise cut the graph silently, and training would run on wrong
-    gradients; with this node the forward works in any grad mode and a
-    backward through the kernel fails loudly.
+    For a kernel without a backward kernel: only K3's bf16 route now (K1, K2
+    and K3's fp32 route are autograd functions whose backward launches a
+    kernel). A launch that wrote into a fresh tensor would otherwise cut the
+    graph silently, and training would run on wrong gradients; with this node
+    the forward works in any grad mode and a backward through the kernel
+    fails loudly.
     """
 
     @staticmethod
@@ -75,5 +77,5 @@ class NoBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        raise NotImplementedError(f"{ctx.name} has no backward kernel: gradients through it "
-                                  "come with the training slice of the port")
+        raise NotImplementedError(f"{ctx.name} has no backward kernel: bf16 training comes "
+                                  "with a later slice of the port")

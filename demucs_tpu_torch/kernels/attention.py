@@ -29,8 +29,15 @@ rescale (a fully masked row gives NaN, as the plain softmax does). Head dims
 :func:`demucs_tpu_torch.ops.attention.multihead_attention`. Any other dtype
 on the card raises.
 
-Train-time attention dropout (the Pallas kernel's hashed dropout) comes with
-the training slice of the port; ``dropout > 0`` raises until then.
+Training (fp32 route): the Pallas kernel's hashed dropout of the
+probabilities (``dropout``, ``dropout_seed``; ``csrc/attention_dropout.cuh``,
+bit for bit the pattern of the plain version's
+:func:`~demucs_tpu_torch.ops.attention.dropout_keep`), and a gradient:
+:func:`flash_mha` is an autograd function whose forward also keeps each
+row's log-sum-exp and whose backward launches the hand-written backward
+kernel :func:`flash_mha_bwd` (``csrc/flash_mha_bwd.cu``). The bf16 route has
+neither: dropout raises and its launch is a :class:`~demucs_tpu_torch.kernels.NoBackward`
+node (bf16 training comes with a later slice of the port).
 """
 
 from __future__ import annotations
@@ -42,10 +49,11 @@ import math
 import torch
 
 from demucs_tpu_torch.kernels import NoBackward, _build
-from demucs_tpu_torch.ops.attention import multihead_attention
+from demucs_tpu_torch.ops.attention import _split_heads, dropout_keep, multihead_attention
 
-__all__ = ["flash_mha", "flash_mha_bf16", "flash_mha_plain", "HEAD_DIMS", "KEY_TILE",
-           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles"]
+__all__ = ["flash_mha", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
+           "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE", "KEY_TILE_BF16", "q_scale",
+           "bf16_plan", "bf16_schedule", "bf16_tiles"]
 
 HEAD_DIMS = (32, 48, 64)
 KEY_TILE = 64  # keys per tile of the fp32 route's loop
@@ -95,13 +103,39 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_mha")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_mha_f32.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, p]
+    lib.flash_mha_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, f, i, p]
     lib.flash_mha_f32.restype = i
     lib.flash_mha_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
     lib.flash_mha_bf16.restype = i
     lib.flash_mha_bf16_tiles.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.flash_mha_bf16_tiles.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_mha_bwd")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.flash_mha_bwd_f32.argtypes = [p] * 11 + [i] * 5 + [f, f, f, i, p]
+    lib.flash_mha_bwd_f32.restype = i
+    return lib
+
+
+def _seed32(rate: float, seed) -> int:
+    """The dropout seed's 32 bits, as a uint32 (the Pallas kernel casts its
+    int32 seed to uint32; the C entry points take them as an int)."""
+    if rate <= 0.0:
+        return 0
+    if seed is None:
+        raise ValueError("dropout > 0 requires dropout_seed")
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    return int(seed) & 0xFFFFFFFF
+
+
+def _int32(bits: int) -> int:
+    """A uint32 as the C int of the same bits."""
+    return bits - (1 << 32) if bits >= 1 << 31 else bits
 
 
 def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
@@ -132,39 +166,143 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
 
 
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-              *, mask: torch.Tensor | None = None, dropout: float = 0.0) -> torch.Tensor:
+              *, mask: torch.Tensor | None = None, dropout: float = 0.0,
+              dropout_seed: int | None = None) -> torch.Tensor:
     """Attention of ``q (B, Tq, C)`` over ``k, v (B, Tk, C)`` with ``num_heads``
     heads -> ``(B, Tq, C)`` in their dtype (before the output projection).
 
-    ``mask``: optional boolean keep-mask ``(Tq, Tk)``. A CPU tensor takes the
+    ``mask``: optional boolean keep-mask ``(Tq, Tk)``. ``dropout`` /
+    ``dropout_seed`` (a host int, which the caller draws from its generator):
+    the hashed train-time dropout of the probabilities. A CPU tensor takes the
     plain version; a CUDA tensor launches K3 (fp32 here, bf16 through
-    :func:`flash_mha_bf16`) or raises. ``flash_mha.launches`` counts the
-    fp32 route's launches.
+    :func:`flash_mha_bf16`) or raises. On the fp32 route the result carries a
+    gradient through :func:`flash_mha_bwd`. ``flash_mha.launches`` counts the
+    fp32 route's forward launches.
     """
-    if dropout > 0.0:
-        raise NotImplementedError(
-            "attention dropout comes with the training slice of the port")
+    seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
-        return flash_mha_plain(q, k, v, num_heads, mask=mask)
+        return flash_mha_plain(q, k, v, num_heads, mask=mask, dropout=dropout,
+                               dropout_seed=seed)
     if q.dtype == torch.bfloat16:
+        if dropout > 0.0:
+            raise NotImplementedError("K3's bf16 route has no dropout: bf16 training comes "
+                                      "with a later slice of the port")
         return flash_mha_bf16(q, k, v, num_heads, mask=mask)
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.float32)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    n_tiles = -(-Tk // KEY_TILE)
-
-    def launch(q, k, v):
-        out = torch.empty_like(q)
-        image = torch.empty(B, num_heads, n_tiles, 4, KEY_TILE * d, device=q.device)
-        status = _lib().flash_mha_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if keep is None else keep.data_ptr(), image.data_ptr(), out.data_ptr(),
-            B, Tq, Tk, num_heads, d, q_scale(d), BLOCK_ROWS, _build.stream_ptr(q.device))
-        _build.check(status, "flash_mha_f32")
-        return out
-
-    out = NoBackward.apply("flash_mha", launch, q, k, v)
+    want_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    out = _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, want_lse)
     flash_mha.launches += 1
     return out
+
+
+def _forward_f32(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse: bool):
+    """One launch of the fp32 route -> (o, lse or None)."""
+    B, Tq, C = q.shape
+    Tk = k.shape[1]
+    d = C // num_heads
+    out = torch.empty_like(q)
+    image = torch.empty(B, num_heads, -(-Tk // KEY_TILE), 4, KEY_TILE * d, device=q.device)
+    lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
+    status = _lib().flash_mha_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if keep is None else keep.data_ptr(), image.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        B, Tq, Tk, num_heads, d, q_scale(d), BLOCK_ROWS, rate, _int32(seed),
+        _build.stream_ptr(q.device))
+    _build.check(status, "flash_mha_f32")
+    return out, lse
+
+
+class _FlashMHA(torch.autograd.Function):
+    """K3's fp32 route as an autograd node: the forward kernel (keeping each
+    row's log-sum-exp when a gradient is wanted), the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads, keep, rate, seed, want_lse):
+        out, lse = _forward_f32(q, k, v, num_heads, keep, rate, seed, want_lse)
+        if want_lse:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.args = (num_heads, keep, rate, seed)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        num_heads, keep, rate, seed = ctx.args
+        dq, dk, dv = flash_mha_bwd(q, k, v, out, dout, num_heads, lse=lse, mask=keep,
+                                   dropout=rate, dropout_seed=seed)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor | None = None,
+                        mask: torch.Tensor | None = None, dropout: float = 0.0,
+                        dropout_seed: int | None = None) -> tuple:
+    """The plain version of :func:`flash_mha_bwd`, the backward formula
+    written out in fp32 (it recomputes the softmax and does not read ``lse``):
+    with ``P = softmax(S)``, ``Z`` the dropout's keep / (1 - rate) (or 1) and
+    ``D = rowsum(dO o)``: ``dV = (Z P)^T dO``, ``dS = P (Z dO V^T - D)``,
+    ``dQ = dS K / sqrt(d)``, ``dK = dS^T Q / sqrt(d)``."""
+    B, Tq, C = q.shape
+    Tk = k.shape[1]
+    d = C // num_heads
+    scale = 1.0 / math.sqrt(d)
+    qh, kh, vh, oh, dh = (_split_heads(t.float(), num_heads) for t in (q, k, v, o, dout))
+    scores = (qh * scale) @ kh.transpose(-1, -2)
+    if mask is not None:
+        scores = scores.masked_fill(~mask.to(device=q.device, dtype=torch.bool), float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    z = None
+    if dropout > 0.0:
+        keep = dropout_keep(B * num_heads, Tq, Tk, dropout, _seed32(dropout, dropout_seed),
+                            q.device).view(B, num_heads, Tq, Tk)
+        z = keep.float() / (1.0 - dropout)
+    pz = p if z is None else p * z
+    dp = dh @ vh.transpose(-1, -2)
+    if z is not None:
+        dp = dp * z
+    ds = p * (dp - (dh * oh).sum(-1, keepdim=True))
+    merge = lambda t: t.permute(0, 2, 1, 3).reshape(t.shape[0], t.shape[2], C)  # noqa: E731
+    dq = merge(ds @ kh * scale)
+    dk = merge(ds.transpose(-1, -2) @ qh * scale)
+    dv = merge(pz.transpose(-1, -2) @ dh)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                  dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor,
+                  mask: torch.Tensor | None = None, dropout: float = 0.0,
+                  dropout_seed: int | None = None) -> tuple:
+    """K3's backward on the fp32 route: ``(dq, dk, dv)`` of :func:`flash_mha`
+    at ``q, k, v`` with output ``o`` and its gradient ``dout``, from the
+    forward's ``lse (B * H, Tq)`` and its ``mask``, ``dropout`` and
+    ``dropout_seed``. A CPU tensor takes :func:`flash_mha_bwd_plain`; an fp32
+    CUDA tensor launches ``csrc/flash_mha_bwd.cu`` (three kernels: the row
+    dots, dK and dV, dQ); anything else raises. ``flash_mha_bwd.launches``
+    counts its launches."""
+    seed = _seed32(dropout, dropout_seed)
+    if q.device.type == "cpu":
+        return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
+                                   dropout_seed=seed)
+    B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.float32)
+    for name, t in (("o", o), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"flash_mha_bwd: {name} must be a float32 {tuple(q.shape)} "
+                             f"tensor on {q.device}")
+    if lse.shape != (B * num_heads, Tq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_mha_bwd: lse must be float32 {(B * num_heads, Tq)}")
+    q, k, v, o, dout, lse = (_aligned(t) for t in (q, k, v, o, dout, lse))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    rowdot = torch.empty(B * num_heads, Tq, device=q.device)
+    status = _bwd_lib().flash_mha_bwd_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), None if keep is None else keep.data_ptr(), rowdot.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
+        1.0 / math.sqrt(d), float(dropout), _int32(seed), _build.stream_ptr(q.device))
+    _build.check(status, "flash_mha_bwd_f32")
+    flash_mha_bwd.launches += 1
+    return dq, dk, dv
 
 
 def _ranges(units: int, ctas: int) -> list:
@@ -283,6 +421,7 @@ def flash_mha_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
 
 
 flash_mha.launches = 0
+flash_mha_bwd.launches = 0
 flash_mha_bf16.launches = 0
 
 

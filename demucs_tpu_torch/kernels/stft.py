@@ -21,6 +21,17 @@ versions, used on CPU tensors and as the kernels' oracle, are the dense
 products above; their windowed bases (``(n_fft, freqs)`` and ``(freqs,
 n_fft)``, re and im; 67 MB in fp32 at n_fft 4096) are built the same way and
 cached, and the card's path never builds them.
+
+Gradients. Each is the other's adjoint, windowed bases and all
+(``ops/spec.py``: ``M[k, n] = c_k / n_fft * G[n, k]``, with ``c_k`` 1 at bins
+0 and ``n_fft / 2`` and 2 elsewhere, and K2 ignoring the imaginary parts of
+those two bins). So K2's backward is one K1 launch on the output gradient
+times a scale per bin that the kernel applies to its output
+(:func:`istft_dft_backward`), and K1's is one K2 launch on the
+gradients scaled by ``n_fft / c_k``, zero-padded to the input's length
+(:func:`stft_dft_backward`; off the training path, where the mixture carries
+no gradient, but a launch never cuts a graph). On the CPU the same formulas
+run through the plain versions.
 """
 
 from __future__ import annotations
@@ -31,9 +42,10 @@ import functools
 import numpy as np
 import torch
 
-from demucs_tpu_torch.kernels import NoBackward, _build, device_cache
+from demucs_tpu_torch.kernels import _build, device_cache
 
-__all__ = ["stft_dft", "stft_dft_plain", "istft_dft", "istft_dft_plain"]
+__all__ = ["stft_dft", "stft_dft_plain", "istft_dft", "istft_dft_plain", "stft_dft_backward",
+           "stft_dft_backward_plain", "istft_dft_backward", "istft_dft_backward_plain"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,7 +57,7 @@ GROUP = 8  # K2: output chunks per block, the fastest at 1 and 6 segments on an 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     lib = _build.load("stft")
-    lib.stft_dft_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+    lib.stft_dft_f32.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.stft_dft_f32.restype = _I
     lib.istft_dft_f32.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     lib.istft_dft_f32.restype = _I
@@ -99,6 +111,19 @@ def _fft_tables(n_fft: int, device: torch.device) -> tuple:
     return torch.from_numpy(_hann_np(n_fft)).to(device), torch.from_numpy(twiddle).to(device)
 
 
+@device_cache(maxsize=8)
+def _bin_scales(n_fft: int, device: torch.device) -> torch.Tensor:
+    """``(2, freqs)`` fp32: ``c_k / n_fft``, and the same with 0 at bins 0 and
+    ``n_fft / 2``: the per-bin scales of K2's adjoint on the real and the
+    imaginary parts (in this layout K1's kernel applies them)."""
+    c = np.full(n_fft // 2 + 1, 2.0)
+    c[0] = c[-1] = 1.0
+    re = c / n_fft
+    im = re.copy()
+    im[0] = im[-1] = 0.0
+    return torch.from_numpy(np.stack([re, im]).astype(np.float32)).to(device)
+
+
 def _check_cuda(name: str, n_fft: int, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda":
@@ -139,24 +164,74 @@ def stft_dft(x: torch.Tensor, n_fft: int, hop: int) -> tuple:
     if x.device.type == "cpu":
         return stft_dft_plain(x, n_fft, hop)
     _check_cuda("stft_dft", n_fft, x)
-    rows, length = x.shape
-    n_frames = _n_frames(length, n_fft, hop)
-    window, twiddle = _fft_tables(n_fft, x.device)
-
-    def launch(x):
-        zr = torch.empty(rows, n_frames, n_fft // 2 + 1, device=x.device, dtype=torch.float32)
-        zi = torch.empty_like(zr)
-        status = _lib().stft_dft_f32(
-            x.data_ptr(), window.data_ptr(), twiddle.data_ptr(), zr.data_ptr(), zi.data_ptr(),
-            rows, length, n_frames, n_fft, hop, _build.stream_ptr(x.device))
-        _build.check(status, "stft_dft_f32")
-        return zr, zi
-
-    zr, zi = NoBackward.apply("stft_dft", launch, x)
+    zr, zi = _Stft.apply(x, n_fft, hop)
     stft_dft.launches += 1
     return zr, zi
 
 
+def _launch_stft(x: torch.Tensor, n_fft: int, hop: int,
+                 scale: torch.Tensor | None = None) -> tuple:
+    rows, length = x.shape
+    n_frames = _n_frames(length, n_fft, hop)
+    window, twiddle = _fft_tables(n_fft, x.device)
+    zr = torch.empty(rows, n_frames, n_fft // 2 + 1, device=x.device, dtype=torch.float32)
+    zi = torch.empty_like(zr)
+    status = _lib().stft_dft_f32(
+        x.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+        None if scale is None else scale.data_ptr(), zr.data_ptr(), zi.data_ptr(),
+        rows, length, n_frames, n_fft, hop, _build.stream_ptr(x.device))
+    _build.check(status, "stft_dft_f32")
+    return zr, zi
+
+
+class _Stft(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, n_fft, hop):
+        ctx.args = (n_fft, hop, x.shape[-1])
+        return _launch_stft(x, n_fft, hop)
+
+    @staticmethod
+    def backward(ctx, gr, gi):
+        n_fft, hop, length = ctx.args
+        return stft_dft_backward(gr, gi, n_fft, hop, length), None, None
+
+
+def stft_dft_backward(gr: torch.Tensor | None, gi: torch.Tensor | None, n_fft: int, hop: int,
+                      length: int) -> torch.Tensor:
+    """The gradient of :func:`stft_dft` at an input of ``length`` samples, from
+    the gradients of ``(zr, zi)`` (either may be None: zero): K2 on them
+    scaled by ``n_fft / c_k``, zero-padded to ``length``. Needs ``n_fft % hop
+    == 0``. A CPU tensor takes the plain K2; a CUDA tensor launches K2's
+    kernel or raises (``stft_dft_backward.launches`` counts them)."""
+    ar, ai = _adjoint_inputs(gr, gi, n_fft)
+    if ar.device.type == "cpu":
+        y = istft_dft_plain(ar, ai, n_fft, hop)
+    else:
+        if n_fft % hop:
+            raise ValueError(f"stft_dft_backward needs n_fft % hop == 0, got {n_fft} % {hop}")
+        _check_cuda("stft_dft_backward", n_fft, ar, ai)
+        y = _launch_istft(ar, ai, n_fft, hop)
+        stft_dft_backward.launches += 1
+    return torch.nn.functional.pad(y, (0, length - y.shape[-1]))
+
+
+def _adjoint_inputs(gr, gi, n_fft: int) -> tuple:
+    """K2's inputs for K1's adjoint: the gradients (None: zero) times n_fft / c_k."""
+    like = gr if gr is not None else gi
+    gr = torch.zeros_like(like) if gr is None else gr
+    gi = torch.zeros_like(like) if gi is None else gi
+    re = _bin_scales(n_fft, like.device)[0]
+    return (gr / re).contiguous(), (gi / re).contiguous()
+
+
+def stft_dft_backward_plain(gr: torch.Tensor | None, gi: torch.Tensor | None, n_fft: int,
+                            hop: int, length: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`stft_dft_backward` (the plain K2)."""
+    y = istft_dft_plain(*_adjoint_inputs(gr, gi, n_fft), n_fft, hop)
+    return torch.nn.functional.pad(y, (0, length - y.shape[-1]))
+
+
+stft_dft_backward.launches = 0
 stft_dft.launches = 0
 
 
@@ -201,22 +276,59 @@ def istft_dft(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, hop: int) -> torch
     if zr.device.type == "cpu":
         return istft_dft_plain(zr, zi, n_fft, hop)
     _check_cuda("istft_dft", n_fft, zr, zi)
-    rows, n_frames, _ = zr.shape
-    n_chunks = n_frames - 1 + n_fft // hop
-    group = istft_group(n_fft, hop)
-    window, twiddle = _fft_tables(n_fft, zr.device)
-
-    def launch(zr, zi):
-        out = torch.empty(rows, n_chunks * hop, device=zr.device, dtype=torch.float32)
-        status = _lib().istft_dft_f32(
-            zr.data_ptr(), zi.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
-            out.data_ptr(), rows, n_frames, n_fft, hop, group, _build.stream_ptr(zr.device))
-        _build.check(status, "istft_dft_f32")
-        return out
-
-    out = NoBackward.apply("istft_dft", launch, zr, zi)
+    out = _Istft.apply(zr, zi, n_fft, hop)
     istft_dft.launches += 1
     return out
 
 
+def _launch_istft(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    rows, n_frames, _ = zr.shape
+    n_chunks = n_frames - 1 + n_fft // hop
+    window, twiddle = _fft_tables(n_fft, zr.device)
+    out = torch.empty(rows, n_chunks * hop, device=zr.device, dtype=torch.float32)
+    status = _lib().istft_dft_f32(
+        zr.data_ptr(), zi.data_ptr(), window.data_ptr(), twiddle.data_ptr(),
+        out.data_ptr(), rows, n_frames, n_fft, hop, istft_group(n_fft, hop),
+        _build.stream_ptr(zr.device))
+    _build.check(status, "istft_dft_f32")
+    return out
+
+
+class _Istft(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, zr, zi, n_fft, hop):
+        ctx.args = (n_fft, hop)
+        return _launch_istft(zr, zi, n_fft, hop)
+
+    @staticmethod
+    def backward(ctx, g):
+        n_fft, hop = ctx.args
+        gr, gi = istft_dft_backward(g, n_fft, hop)
+        return gr, gi, None, None
+
+
+def istft_dft_backward(g: torch.Tensor, n_fft: int, hop: int) -> tuple:
+    """The gradients of :func:`istft_dft`'s ``(zr, zi)`` from the gradient
+    ``g (R, (n_frames - 1) * hop + n_fft)`` of its output: ``c_k / n_fft``
+    times the real part of K1 on ``g`` and the same times its imaginary part,
+    0 at bins 0 and ``n_fft / 2`` (which K2 ignores). A CPU tensor takes the
+    plain K1; a CUDA tensor launches K1's kernel or raises
+    (``istft_dft_backward.launches`` counts them)."""
+    g = g.contiguous()
+    if g.device.type == "cpu":
+        return istft_dft_backward_plain(g, n_fft, hop)
+    _check_cuda("istft_dft_backward", n_fft, g)
+    out = _launch_stft(g, n_fft, hop, _bin_scales(n_fft, g.device))  # the scale in the kernel
+    istft_dft_backward.launches += 1
+    return out
+
+
+def istft_dft_backward_plain(g: torch.Tensor, n_fft: int, hop: int) -> tuple:
+    """Plain PyTorch version of :func:`istft_dft_backward` (the plain K1)."""
+    zr, zi = stft_dft_plain(g, n_fft, hop)
+    re, im = _bin_scales(n_fft, g.device)
+    return zr * re, zi * im
+
+
+istft_dft_backward.launches = 0
 istft_dft.launches = 0

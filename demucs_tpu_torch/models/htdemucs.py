@@ -7,11 +7,18 @@ fields and defaults, so ``.dmx`` configs load unchanged. The forward is
 STFT (K1) -> complex-as-channels -> dual encoders -> cross-transformer (K3)
 -> dual decoders -> iSTFT (K2) + time branch.
 
+Train mode (``module.train()``): ``forward(mix, generator=...)`` runs the
+input at its own length (no padding to the training segment), ``end_iters``
+for the magnitude masks of ``cac=False``, and the transformer's dropout and
+draws from the generator passed in. ``remat = True`` (the training config's
+``remat``) recomputes each encoder and decoder layer in the backward
+(``torch.utils.checkpoint``) under the precision of its forward.
+
 Options: ``cac=False`` (magnitude masks; the stems' phase from Wiener EM or,
 with ``wiener_iters < 0``, from the mixture), ``multi_freqs`` (MultiWrap
 encoders and decoders, as in HDemucs), and every transformer variant of
 ``models/transformer.py`` (static sparse attention through K3, LSH sparsity
-on the dense route, CAPE), at eval. ``t_flash_attn`` has no effect: the
+on the dense route, CAPE). ``t_flash_attn`` has no effect: the
 transformer always takes K3 where its mask allows.
 
 Precision, as in the JAX package (``htdemucs.py:215-395``): the core's
@@ -34,6 +41,7 @@ import typing as tp
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from demucs_tpu_torch.models import hlayers as hl
 from demucs_tpu_torch.models.transformer import CrossTransformerEncoder, TransformerSpec
@@ -259,6 +267,8 @@ def _conv1x1(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
 class HTDemucs(nn.Module):
     """HTDemucs. ``forward(mix (B, C, L)) -> stems (B, S, C, L)``, fp32 in and out."""
 
+    remat = False  # recompute the encoder and decoder layers in the backward (training)
+
     def __init__(self, cfg: HTDemucsConfig):
         super().__init__()
         _bf16_stage_set(cfg)
@@ -301,8 +311,9 @@ class HTDemucs(nn.Module):
             for mod in self.stage_modules(stage):
                 mod.to(torch.bfloat16 if stage in bf16 else torch.float32)
 
-    def forward_core(self, mag: torch.Tensor, mix: torch.Tensor) -> tp.Tuple[torch.Tensor,
-                                                                            torch.Tensor]:
+    def forward_core(self, mag: torch.Tensor, mix: torch.Tensor,
+                     generator: tp.Optional[torch.Generator] = None
+                     ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
         """Encoder / transformer / decoder core (htdemucs.py:677-759), under
         the config's precision policy (JAX ``_core``).
 
@@ -311,10 +322,23 @@ class HTDemucs(nn.Module):
         """
         cfg = self.cfg
         with precision_scope(_matmul_precision(cfg)):
-            return self._core(mag, mix)
+            return self._core(mag, mix, generator)
 
-    def _core(self, mag: torch.Tensor, mix: torch.Tensor) -> tp.Tuple[torch.Tensor,
-                                                                     torch.Tensor]:
+    def _layer(self, layer: nn.Module, precision: tp.Optional[str], *args):
+        """``layer(*args)``, recomputed in the backward when training with
+        ``remat``, under the same precision scope as in the forward."""
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return layer(*args)
+
+        def run(*inputs):
+            with precision_scope(precision):
+                return layer(*inputs)
+
+        return checkpoint(run, *args, use_reentrant=False)
+
+    def _core(self, mag: torch.Tensor, mix: torch.Tensor,
+              generator: tp.Optional[torch.Generator] = None
+              ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         x = mag
         B, C, Fq, T = x.shape
@@ -338,6 +362,9 @@ class HTDemucs(nn.Module):
             p = prec_over.get(stage)
             return precision_scope(p) if p else contextlib.nullcontext()
 
+        def layer_prec(stage: str) -> tp.Optional[str]:
+            return prec_over.get(stage, _matmul_precision(cfg))
+
         saved, saved_t, lengths, lengths_t = [], [], [], []
         for idx, encode in enumerate(self.encoder):
             lengths.append(x.shape[-1])
@@ -347,7 +374,7 @@ class HTDemucs(nn.Module):
                 tenc = self.tencoder[idx]
                 xt = cast("tencoder", xt)
                 with prec("tencoder"):
-                    xt = tenc(xt)
+                    xt = self._layer(tenc, layer_prec("tencoder"), xt)
                 if not tenc.spec.empty:
                     saved_t.append(xt)
                 else:
@@ -356,7 +383,7 @@ class HTDemucs(nn.Module):
             if inject is not None:
                 inject = cast("encoder", inject)
             with prec("encoder"):
-                x = encode(x, inject)
+                x = self._layer(encode, layer_prec("encoder"), x, inject)
             if idx == 0 and self.layout.freq_emb_bins:
                 frs = torch.arange(x.shape[-2], device=x.device)
                 emb = self.freq_emb(frs).t()[None, :, :, None].to(x.dtype)
@@ -372,7 +399,7 @@ class HTDemucs(nn.Module):
                     x = _conv1x1(self.channel_upsampler, x.reshape(b, c, f * t))
                     x = x.reshape(b, -1, f, t)
                     xt = _conv1x1(self.channel_upsampler_t, xt)
-                x, xt = self.crosstransformer(x, xt)
+                x, xt = self.crosstransformer(x, xt, generator=generator)
                 if cfg.bottom_channels:
                     b, c, f, t = x.shape
                     x = _conv1x1(self.channel_downsampler, x.reshape(b, c, f * t))
@@ -385,7 +412,7 @@ class HTDemucs(nn.Module):
         for idx, decode in enumerate(self.decoder):
             skip = cast("decoder", saved.pop(-1))
             with prec("decoder"):
-                x, pre = decode(x, skip, lengths.pop(-1))
+                x, pre = self._layer(decode, layer_prec("decoder"), x, skip, lengths.pop(-1))
             if idx >= offset:
                 tdec = self.tdecoder[idx - offset]
                 length_t = lengths_t.pop(-1)
@@ -393,9 +420,11 @@ class HTDemucs(nn.Module):
                     if tdec.spec.empty:
                         if pre.shape[2] != 1:
                             raise AssertionError(tuple(pre.shape))
-                        xt, _ = tdec(cast("tdecoder", pre[:, :, 0]), None, length_t)
+                        xt, _ = self._layer(tdec, layer_prec("tdecoder"),
+                                            cast("tdecoder", pre[:, :, 0]), None, length_t)
                     else:
-                        xt, _ = tdec(xt, cast("tdecoder", saved_t.pop(-1)), length_t)
+                        xt, _ = self._layer(tdec, layer_prec("tdecoder"), xt,
+                                            cast("tdecoder", saved_t.pop(-1)), length_t)
         if saved or saved_t or lengths_t:
             raise AssertionError("unbalanced encoder / decoder skips")
 
@@ -404,11 +433,14 @@ class HTDemucs(nn.Module):
         xt = xt.float().reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]
         return x, xt
 
-    def forward(self, mix: torch.Tensor) -> torch.Tensor:
+    def forward(self, mix: torch.Tensor,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
         """``mix (B, C, L)`` -> stems ``(B, S, C, L)`` (htdemucs.py:527-660).
 
         With ``use_train_segment`` in eval mode the input is right-padded
         with zeros to the training segment and the output cropped back.
+        ``generator``: the train mode's draws (the transformer's dropout,
+        shift and CAPE augment), a CPU ``torch.Generator``.
         """
         cfg = self.cfg
         length = mix.shape[-1]
@@ -423,7 +455,7 @@ class HTDemucs(nn.Module):
                     f"Input length {length} exceeds training length {training_length}")
         with precision_scope(None):
             z = demucs_spec(mix, cfg.nfft)
-        x, xt = self.forward_core(cac_pack(z) if cfg.cac else z.abs(), mix)
+        x, xt = self.forward_core(cac_pack(z) if cfg.cac else z.abs(), mix, generator)
         with precision_scope(None):
             if cfg.cac:
                 zout = cac_unpack(x)

@@ -23,9 +23,17 @@ calls it, nor ``scaled_dot_product_attention``. Norms and linear maps keep
 their weights in ``torch.nn`` modules and apply them through
 ``demucs_tpu_torch.ops.nn``.
 
-Eval only, as in the JAX package at ``train=False``: dropout is not applied,
-``sin_random_shift`` takes shift 0 and CAPE is not augmented (the train-time
-draws come with the training slice of the port).
+Train mode (``module.train()``, a ``generator`` passed to ``forward``), as
+the JAX package at ``train=True``: dropout at ``spec.dropout`` on the
+attention probabilities (K3's hashed dropout, seeded by a host int drawn per
+attention; none on the LSH layers, as in the reference), after the attention
+(``dropout1``; the sparse layers also after the out-projection, the
+reference's ``proj_drop``), inside the feed-forward and after it
+(``dropout2``); ``sin_random_shift``'s shift and CAPE's augment drawn per
+forward. Every draw comes from the ``generator`` passed in (a CPU
+``torch.Generator``), never from the global RNG; training with a draw to
+make and no generator raises. In eval mode nothing is drawn: shift 0, no
+augment, no dropout.
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ from demucs_tpu_torch.kernels import device_cache
 from demucs_tpu_torch.kernels.attention import flash_mha
 from demucs_tpu_torch.models.hlayers import LayerScale, scalar
 from demucs_tpu_torch.ops import nn as ops
-from demucs_tpu_torch.ops.attention import multihead_attention
+from demucs_tpu_torch.ops.attention import apply_dropout, multihead_attention
 from demucs_tpu_torch.ops.sparse import dynamic_sparse_keep_mask, keep_mask, lsh_projections
 
 
@@ -62,9 +70,9 @@ class TransformerSpec:
     layer_scale: bool = True
     gelu: bool = True
     weight_pos_embed: float = 1.0
-    sin_random_shift: int = 0  # train-time only: shift 0 at eval
+    sin_random_shift: int = 0  # train-time draw of the shift: 0 at eval
     cape_mean_normalize: bool = True
-    cape_augment: bool = True  # train-time only: no augment at eval
+    cape_augment: bool = True  # train-time draws: no augment at eval
     cape_glob_loc_scale: tp.Tuple[float, float, float] = (5000.0, 1.0, 1.4)
     sparse_self_attn: bool = False
     sparse_cross_attn: bool = False
@@ -74,7 +82,7 @@ class TransformerSpec:
     global_window: int = 50
     sparsity: float = 0.95
     auto_sparsity: bool = False
-    dropout: float = 0.0  # train-time only
+    dropout: float = 0.0  # train-time dropout (attention probabilities and blocks)
 
     def mask(self, Tq: int, Tk: int, device) -> torch.Tensor:
         """The static sparse keep-mask ``(Tq, Tk)``, uint8, cached on ``device``."""
@@ -160,6 +168,44 @@ def cape_embedding(length: int, dim: int, mean_normalize: bool = True,
     return _cape_embedding(length, dim, mean_normalize, max_period, device)
 
 
+def cape_draws(length: int, batch: int, glob_loc_scale: tp.Sequence[float],
+               generator: torch.Generator) -> tuple:
+    """CAPE's train-time draws, fp32 on the CPU: the global shift ``(1, B,
+    1)``, the local shifts ``(length, B, 1)`` and the log-scales ``(1, B, 1)``,
+    uniform in +-(global, local, log scale) (the JAX package's three
+    ``jax.random.uniform`` draws)."""
+    glob, loc, scale = glob_loc_scale
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+
+    return (uniform((1, batch, 1), glob), uniform((length, batch, 1), loc),
+            uniform((1, batch, 1), math.log(scale)))
+
+
+def cape_embedding_augmented(length: int, dim: int, draws: tuple, mean_normalize: bool = True,
+                             max_period: float = 10000.0, device=None) -> torch.Tensor:
+    """CAPE at training (transformer.py:73-115): positions shifted by
+    ``draws`` (:func:`cape_draws`) and scaled, per batch item -> ``(B,
+    length, dim)`` on ``device``."""
+    delta, delta_local, log_lambdas = (d.to(device=device, dtype=torch.float32) for d in draws)
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None, None]
+    if mean_normalize:
+        pos = pos - pos.mean(dim=0, keepdim=True)
+    pos = (pos + delta + delta_local) * torch.exp(log_lambdas)
+    half_dim = dim // 2
+    adim = torch.arange(half_dim, dtype=torch.float32, device=device)[None, None, :]
+    phase = pos / (max_period ** (adim / (half_dim - 1)))
+    return torch.cat([torch.cos(phase), torch.sin(phase)], dim=-1).transpose(0, 1)
+
+
+def _need(generator: tp.Optional[torch.Generator], what: str) -> torch.Generator:
+    if generator is None:
+        raise ValueError(f"training the transformer with {what} needs a generator: pass "
+                         "generator= to forward")
+    return generator
+
+
 # ---------------------------------------------------------------------------
 # Layers
 # ---------------------------------------------------------------------------
@@ -196,10 +242,14 @@ class Attention(nn.Module):
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: tp.Optional[torch.Tensor] = None, lsh_sparsity: float = 0.0,
-                lsh_R: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                lsh_R: tp.Optional[torch.Tensor] = None, dropout: float = 0.0,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
         """``mask``: a static ``(Tq, Tk)`` keep-mask for K3. ``lsh_sparsity`` > 0:
         the LSH keep-mask of the projected q and k under projections
-        ``lsh_R``, on the dense route (K3 takes no per-(batch, head) mask)."""
+        ``lsh_R``, on the dense route (K3 takes no per-(batch, head) mask).
+        ``dropout`` > 0 (training): K3's dropout of the probabilities under a
+        seed drawn from ``generator`` (not on the LSH route, as in the
+        reference), and a masked layer's dropout after the out-projection."""
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
         b_q, b_k, b_v = self.in_proj_bias.chunk(3)
         qh, kh, vh = (ops.linear(q, w_q, b_q), ops.linear(k, w_k, b_k),
@@ -208,8 +258,15 @@ class Attention(nn.Module):
             keep = dynamic_sparse_keep_mask(qh, kh, self.num_heads, lsh_sparsity, lsh_R)
             out = multihead_attention(qh, kh, vh, self.num_heads, mask=keep)
         else:
-            out = flash_mha(qh, kh, vh, self.num_heads, mask=mask)
-        return _linear(self.out_proj, out)
+            drop = {}
+            if dropout > 0.0:
+                drop = dict(dropout=dropout,
+                            dropout_seed=int(torch.randint(0, 2**31 - 1, (), generator=generator)))
+            out = flash_mha(qh, kh, vh, self.num_heads, mask=mask, **drop)
+        out = _linear(self.out_proj, out)
+        if mask is not None or lsh_sparsity:  # the sparse attention's proj_drop
+            out = apply_dropout(out, dropout, generator)
+        return out
 
 
 class _Layer(nn.Module):
@@ -243,15 +300,31 @@ class _Layer(nn.Module):
     def _gamma(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return getattr(self, name)(x) if self.spec.layer_scale else x
 
-    def _ff(self, x: torch.Tensor) -> torch.Tensor:
+    def _drop(self, x: torch.Tensor, generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+        return apply_dropout(x, self._rate(generator), generator)
+
+    def _rate(self, generator: tp.Optional[torch.Generator]) -> float:
+        """The dropout rate of this forward: the spec's in train mode, else 0."""
+        if not (self.training and self.spec.dropout > 0.0):
+            return 0.0
+        _need(generator, "dropout")
+        return self.spec.dropout
+
+    def _ff(self, x: torch.Tensor, generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+        """linear2(dropout(act(linear1(x)))), then dropout2."""
         act = ops.gelu if self.spec.gelu else torch.relu
-        return _linear(self.linear2, act(_linear(self.linear1, x)))
+        y = self._drop(act(_linear(self.linear1, x)), generator)
+        return self._drop(_linear(self.linear2, y), generator)
 
     def _attend(self, attn: Attention, q: torch.Tensor, k: torch.Tensor,
-                lsh_R: tp.Optional[torch.Tensor]) -> torch.Tensor:
+                lsh_R: tp.Optional[torch.Tensor],
+                generator: tp.Optional[torch.Generator]) -> torch.Tensor:
+        """The attention, then dropout1."""
         mask = (self.spec.mask(q.shape[1], k.shape[1], q.device) if self.static_mask
                 else None)
-        return attn(q, k, k, mask=mask, lsh_sparsity=self.lsh_sparsity, lsh_R=lsh_R)
+        out = attn(q, k, k, mask=mask, lsh_sparsity=self.lsh_sparsity, lsh_R=lsh_R,
+                   dropout=self._rate(generator), generator=generator)
+        return self._drop(out, generator)
 
 
 class SelfLayer(_Layer):
@@ -260,19 +333,19 @@ class SelfLayer(_Layer):
     def __init__(self, s: TransformerSpec):
         super().__init__(s, cross=False)
 
-    def forward(self, x: torch.Tensor,
-                lsh_R: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
-        s = self.spec
+    def forward(self, x: torch.Tensor, lsh_R: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
+        s, gen = self.spec, generator
         if s.norm_first:
             y = _layer_norm(self.norm1, x)
-            x = x + self._gamma("gamma_1", self._attend(self.self_attn, y, y, lsh_R))
-            x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm2, x)))
+            x = x + self._gamma("gamma_1", self._attend(self.self_attn, y, y, lsh_R, gen))
+            x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm2, x), gen))
             if s.norm_out:
                 x = self.norm_out(x)
             return x
-        x = _layer_norm(self.norm1,
-                        x + self._gamma("gamma_1", self._attend(self.self_attn, x, x, lsh_R)))
-        return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x)))
+        x = _layer_norm(self.norm1, x + self._gamma(
+            "gamma_1", self._attend(self.self_attn, x, x, lsh_R, gen)))
+        return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x, gen)))
 
 
 class CrossLayer(_Layer):
@@ -282,23 +355,24 @@ class CrossLayer(_Layer):
         super().__init__(s, cross=True)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor,
-                lsh_R: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
-        s = self.spec
+                lsh_R: tp.Optional[torch.Tensor] = None,
+                generator: tp.Optional[torch.Generator] = None) -> torch.Tensor:
+        s, gen = self.spec, generator
         if s.norm_first:
             kn = _layer_norm(self.norm2, k)
-            x = q + self._gamma("gamma_1", self._attend(self.cross_attn,
-                                                        _layer_norm(self.norm1, q), kn, lsh_R))
-            x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm3, x)))
+            x = q + self._gamma("gamma_1", self._attend(
+                self.cross_attn, _layer_norm(self.norm1, q), kn, lsh_R, gen))
+            x = x + self._gamma("gamma_2", self._ff(_layer_norm(self.norm3, x), gen))
             if s.norm_out:
                 x = self.norm_out(x)
             return x
-        x = _layer_norm(self.norm1,
-                        q + self._gamma("gamma_1", self._attend(self.cross_attn, q, k, lsh_R)))
-        return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x)))
+        x = _layer_norm(self.norm1, q + self._gamma(
+            "gamma_1", self._attend(self.cross_attn, q, k, lsh_R, gen)))
+        return _layer_norm(self.norm2, x + self._gamma("gamma_2", self._ff(x, gen)))
 
 
 class CrossTransformerEncoder(nn.Module):
-    """CrossTransformerEncoder (transformer.py:648-676), eval mode."""
+    """CrossTransformerEncoder (transformer.py:648-676)."""
 
     def __init__(self, s: TransformerSpec):
         super().__init__()
@@ -344,8 +418,11 @@ class CrossTransformerEncoder(nn.Module):
                              "transformer")
         self.lsh_bits.copy_(R.view(torch.int32))
 
-    def forward(self, x: torch.Tensor, xt: torch.Tensor) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-        """``x (B, C, Fr, T1)`` spectrogram branch, ``xt (B, C, T2)`` waveform branch."""
+    def forward(self, x: torch.Tensor, xt: torch.Tensor,
+                generator: tp.Optional[torch.Generator] = None
+                ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+        """``x (B, C, Fr, T1)`` spectrogram branch, ``xt (B, C, T2)`` waveform
+        branch; ``generator``: the train mode's draws (module docstring)."""
         s = self.spec
         B, C, Fr, T1 = x.shape
         pos2d = sin_embedding_2d(C, Fr, T1, s.max_period, device=x.device)
@@ -358,8 +435,15 @@ class CrossTransformerEncoder(nn.Module):
         T2 = xt.shape[-1]
         xt = xt.transpose(1, 2)  # (B, T2, C)
         if s.emb == "sin":
-            # sin_random_shift draws a shift at training only (shift 0 at eval)
-            pos_emb = sin_embedding(T2, C, 0, s.max_period, device=xt.device)[None]
+            shift = 0  # transformer.py:635: a random shift at training only
+            if self.training and s.sin_random_shift:
+                shift = int(torch.randint(0, s.sin_random_shift + 1, (),
+                                          generator=_need(generator, "sin_random_shift")))
+            pos_emb = sin_embedding(T2, C, shift, s.max_period, device=xt.device)[None]
+        elif s.emb == "cape" and self.training and s.cape_augment:
+            draws = cape_draws(T2, B, s.cape_glob_loc_scale, _need(generator, "CAPE's augment"))
+            pos_emb = cape_embedding_augmented(T2, C, draws, s.cape_mean_normalize,
+                                               s.max_period, device=xt.device)
         elif s.emb == "cape":
             pos_emb = cape_embedding(T2, C, s.cape_mean_normalize, s.max_period,
                                      device=xt.device)[None]
@@ -370,14 +454,15 @@ class CrossTransformerEncoder(nn.Module):
         xt = xt + scalar(s.weight_pos_embed, xt.dtype) * pos_emb.to(xt.dtype)
 
         R = self.lsh_projections
+        gen = generator
         for idx in range(s.num_layers):
             if idx % 2 == s.classic_parity:
-                x = self.layers[idx](x, lsh_R=R)
-                xt = self.layers_t[idx](xt, lsh_R=R)
+                x = self.layers[idx](x, lsh_R=R, generator=gen)
+                xt = self.layers_t[idx](xt, lsh_R=R, generator=gen)
             else:
                 old_x = x
-                x = self.layers[idx](x, xt, lsh_R=R)
-                xt = self.layers_t[idx](xt, old_x, lsh_R=R)
+                x = self.layers[idx](x, xt, lsh_R=R, generator=gen)
+                xt = self.layers_t[idx](xt, old_x, lsh_R=R, generator=gen)
 
         x = x.reshape(B, T1, Fr, C).permute(0, 3, 2, 1)
         return x, xt.transpose(1, 2)

@@ -11,6 +11,12 @@ scalar is), the scores and the softmax are fp32, the weights are cast to v's
 dtype, P V accumulates in fp32 and the output is cast to q's dtype. A
 product of two bf16 values is exact in fp32, so the fp32 products of the
 upcast operands are the bf16 products with fp32 accumulation.
+
+Train-time dropout: the attention probabilities take the Pallas kernel's
+hashed dropout (:func:`dropout_keep`, the pattern of
+``demucs_tpu/ops/pallas/attention.py::_attn_kernel``), so the CPU path and
+K3 on the card drop the same scores for the same seed; the blocks' dropout
+is :func:`apply_dropout`, inverted dropout drawn from a generator.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import math
 
 import torch
 
-__all__ = ["multihead_attention"]
+__all__ = ["multihead_attention", "dropout_keep", "apply_dropout"]
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -27,8 +33,58 @@ def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     return x.reshape(B, T, num_heads, C // num_heads).permute(0, 2, 1, 3)
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, const: int) -> torch.Tensor:
+    """``x * const mod 2**32`` for int64 ``x`` in [0, 2**32): two products of
+    at most 48 bits, so nothing overflows int64."""
+    lo, hi = const & 0xFFFF, const >> 16
+    return (x * lo + ((x * hi) & 0xFFFF) * 65536) & _M32
+
+
+def dropout_keep(batch_heads: int, Tq: int, Tk: int, rate: float, seed: int,
+                 device=None) -> torch.Tensor:
+    """The hashed dropout's keep-mask ``(batch_heads, Tq, Tk)``, bool, of the
+    Pallas kernel (``_attn_kernel``, ``_uniform_hash``): the score of query
+    row ``r`` and key ``j`` in batch-head ``bh = b * H + h`` is kept where
+    murmur3's finalizer of ``r * 0x9E3779B1 ^ j * 0x85EBCA77 ^ (seed + bh *
+    0x27D4EB2F)`` (uint32), shifted right by 8 and scaled by 2**-24, is at
+    least ``rate`` (in fp32). ``csrc/attention_dropout.cuh`` is the card's."""
+    rows = _mul32(torch.arange(Tq, dtype=torch.int64, device=device), 0x9E3779B1)
+    cols = _mul32(torch.arange(Tk, dtype=torch.int64, device=device), 0x85EBCA77)
+    base = rows[:, None] ^ cols[None, :]
+    threshold = torch.tensor(rate, dtype=torch.float32)
+    keep = torch.empty(batch_heads, Tq, Tk, dtype=torch.bool, device=device)
+    for bh in range(batch_heads):
+        x = base ^ ((seed + bh * 0x27D4EB2F) & _M32)
+        x = x ^ (x >> 16)
+        x = _mul32(x, 0x85EBCA6B)
+        x = x ^ (x >> 13)
+        x = _mul32(x, 0xC2B2AE35)
+        x = x ^ (x >> 16)
+        keep[bh] = (x >> 8).to(torch.float32) * (2.0 ** -24) >= threshold.to(x.device)
+    return keep
+
+
+def apply_dropout(x: torch.Tensor, rate: float,
+                  generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (``demucs_tpu/ops/attention.py::apply_dropout``):
+    ``x * keep / (1 - rate)``, ``keep`` drawn on ``x``'s device from a
+    generator there seeded by one draw of ``generator`` (a CPU generator: a
+    step's draws all come from it, never from the global RNG). Identity when
+    ``generator`` is None (eval) or ``rate <= 0``."""
+    if generator is None or rate <= 0.0:
+        return x
+    seed = int(torch.randint(0, 2**62, (), generator=generator))
+    local = torch.Generator(device=x.device).manual_seed(seed)
+    keep = torch.rand(x.shape, device=x.device, generator=local) >= rate
+    return x * keep.to(x.dtype) / (1.0 - rate)
+
+
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        num_heads: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+                        num_heads: int, mask: torch.Tensor | None = None,
+                        dropout: float = 0.0, dropout_seed: int | None = None) -> torch.Tensor:
     """Scaled dot-product attention over already-projected q/k/v.
 
     Args:
@@ -36,6 +92,9 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask: optional boolean keep-mask ``(Tq, Tk)`` (or broadcastable to
             ``(B, H, Tq, Tk)``); masked-out scores get -inf, so a row with
             no kept key gives NaN.
+        dropout, dropout_seed: train-time dropout of the probabilities at
+            that rate, the scores of :func:`dropout_keep` kept and scaled by
+            ``1 / (1 - dropout)``.
     Returns:
         ``(B, Tq, C)`` in q's dtype (before the output projection).
     """
@@ -52,5 +111,11 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         keep = mask.to(device=scores.device, dtype=torch.bool)
         scores = scores.masked_fill(~keep, float("-inf"))
     weights = torch.softmax(scores, dim=-1).to(vh.dtype)
+    if dropout > 0.0:
+        if dropout_seed is None:
+            raise ValueError("dropout > 0 requires dropout_seed")
+        keep = dropout_keep(B * num_heads, Tq, k.shape[1], dropout, dropout_seed,
+                            scores.device).view(B, num_heads, Tq, -1)
+        weights = weights * keep.to(weights.dtype) / (1.0 - dropout)
     out = (weights.float() @ vh.float()).to(q.dtype)
     return out.permute(0, 2, 1, 3).reshape(B, Tq, C)

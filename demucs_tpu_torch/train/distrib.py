@@ -1,6 +1,6 @@
-"""Ranks for test-set evaluation (the part of ``demucs_tpu/train/distrib.py``
-that ``evaluate`` needs; the rest comes with the parallelism slice of the
-port).
+"""Ranks and the batch loader (the parts of ``demucs_tpu/train/distrib.py``
+that evaluation and one-process training need; training on several processes
+comes with the parallelism slice of the port).
 
 Behavioral reference: ``demucs/distrib.py``. The processes are those of
 ``torch.distributed`` where it is initialized (Gloo on the CPU, NCCL on the
@@ -13,7 +13,7 @@ import typing as tp
 
 import torch.distributed as dist
 
-__all__ = ["world_size", "rank", "share", "shard_indices"]
+__all__ = ["world_size", "rank", "share", "shard_indices", "DataLoader"]
 
 
 def _initialized() -> bool:
@@ -41,3 +41,48 @@ def share(obj: tp.Any = None, src: int = 0) -> tp.Any:
 def shard_indices(n: int) -> range:
     """Round-robin share of ``range(n)`` for this rank (evaluate.py:94)."""
     return range(rank(), n, world_size())
+
+
+
+class DataLoader:
+    """Batches of a map-style dataset as stacked numpy arrays, for one process
+    (the reference's DataLoader, distrib.py:84-100): a shuffle seeded by
+    ``seed + epoch`` (``set_epoch``); with ``num_workers`` the items of a
+    batch load on a thread pool."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = True,
+                 num_workers: int = 0, seed: int = 42):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = num_workers
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __iter__(self):
+        import numpy as np
+
+        n = len(self.dataset)
+        order = (np.random.default_rng(self.seed + self.epoch).permutation(n) if self.shuffle
+                 else np.arange(n))
+        batches = [[int(i) for i in order[k: k + self.batch_size]]
+                   for k in range(0, n, self.batch_size)]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        if self.num_workers > 0:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(self.num_workers) as pool:
+                for ids in batches:
+                    yield np.stack(list(pool.map(self.dataset.__getitem__, ids)))
+        else:
+            for ids in batches:
+                yield np.stack([self.dataset[i] for i in ids])

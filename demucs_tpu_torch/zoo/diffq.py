@@ -20,7 +20,8 @@ put in the reference's order of those groups (a stable sort, as the JAX
 package sorts its parameter tree). An entry is ``(levels,
 scales[, bits])``, decoded group-wise as ``levels / (2**bits - 1) * (max -
 min) + min``, or ``levels * scale / (2**(bits-1) - 1)`` for signed levels
-with one scale per group. The quantize side waits for the training slice.
+with one scale per group. The quantize side comes with quantization-aware
+training.
 """
 
 from __future__ import annotations

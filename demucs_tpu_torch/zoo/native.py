@@ -6,7 +6,8 @@ parameters (fp16 by default, as the released zoo ships them) or a diffq
 container (``quant.npz``: ``q{i}.levels``/``.scales``/``.bits`` per quantized
 entry and ``o{i}`` per other tensor, ``meta.json["quantized"]`` with the
 counts and the quantizer's meta). The JAX package and the port read and
-write the same files; writing quantized archives comes with training.
+write the same files; writing quantized archives comes with quantization-aware
+training.
 """
 
 from __future__ import annotations

@@ -111,8 +111,9 @@ def test_wrapper_contract_on_cpu():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 16, 64, 4))
     before = K.flash_mha.launches
     K.flash_mha(q, k, v, 2)
+    K.flash_mha(q, k, v, 2, dropout=0.1, dropout_seed=3)
     assert K.flash_mha.launches == before  # the plain version launches nothing
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         K.flash_mha(q, k, v, 2, dropout=0.1)
 
 

@@ -1,0 +1,191 @@
+"""The training side of the port's kernels, on the CPU: K3's hashed dropout
+(the plain version, which a CPU tensor takes) against the JAX package's
+Pallas kernel in interpret mode with the same seed; K3's backward formula
+(``flash_mha_bwd_plain``, the plain twin of ``csrc/flash_mha_bwd.cu``)
+against autograd through the plain forward with the same dropout pattern,
+and at dropout 0 against ``jax.grad`` of the JAX package's dense attention;
+the adjoint formulas of K1 and K2 (``stft_dft_backward``,
+``istft_dft_backward``) against autograd through their plain versions.
+
+Tolerances: the keep-mask is bit-equal (uint32 hash); the forward atol 2e-5,
+rtol 1e-4 (test_torch_attention.py's, fp32 sums in another order); the
+gradients 1e-5 x each gradient's peak against autograd of the same plain
+forward (the same products, written out) and 2e-5 x peak against JAX
+(another framework's fp32 softmax and products); the STFT adjoints 1e-5 x
+peak (fp32 sums of 512 terms in another order).
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from demucs_tpu.ops.attention import multihead_attention as jax_mha
+from demucs_tpu.ops.pallas.attention import _uniform_hash
+from demucs_tpu.ops.pallas.attention import flash_mha as jax_flash_mha
+from demucs_tpu.ops.sparse import get_mask
+from demucs_tpu_torch.kernels import attention as K
+from demucs_tpu_torch.kernels import stft as KS
+from demucs_tpu_torch.ops.attention import apply_dropout, dropout_keep
+
+from test_torch_apply import one_torch_thread  # noqa: F401 (autouse fixture)
+
+TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _qkv(B, Tq, Tk, C, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(s).astype(np.float32)
+                 for s in ((B, Tq, C), (B, Tk, C), (B, Tk, C), (B, Tq, C)))
+
+
+def _rel(got, want):
+    got, want = np.asarray(got), np.asarray(want)
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def test_dropout_keep_is_the_pallas_hash():
+    """The keep-mask's counters through JAX's own _uniform_hash, bit for bit."""
+    BH, Tq, Tk, rate, seed = 3, 37, 50, 0.3, 2**31 - 5
+    rows = jnp.arange(Tq, dtype=jnp.uint32)[:, None]
+    cols = jnp.arange(Tk, dtype=jnp.uint32)[None, :]
+    want = []
+    for bh in range(BH):
+        ctr = rows * jnp.uint32(0x9E3779B1) ^ cols * jnp.uint32(0x85EBCA77)
+        ctr ^= jnp.uint32(seed) + jnp.uint32(bh) * jnp.uint32(0x27D4EB2F)
+        want.append(np.asarray(_uniform_hash(ctr) >= rate))
+    got = dropout_keep(BH, Tq, Tk, rate, seed).numpy()
+    np.testing.assert_array_equal(got, np.stack(want))
+    assert 0.6 < got.mean() < 0.8
+
+
+@pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [
+    (2, 130, 130, 64, 4, 0.1, False),
+    (1, 140, 90, 128, 8, 0.25, True),
+    (1, 70, 90, 96, 2, 0.5, False),   # head dim 48
+])
+def test_hashed_dropout_matches_pallas(B, Tq, Tk, C, H, rate, masked):
+    q, k, v, _ = _qkv(B, Tq, Tk, C, 0)
+    seed = 1234567
+    mask = (np.asarray(get_mask(Tk, Tq, "diag", 20, 5, 42, 0.9)) if masked else None)
+    want = np.asarray(jax_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H,
+                                    mask=None if mask is None else jnp.asarray(mask),
+                                    dropout=rate, dropout_seed=jnp.int32(seed), block_q=64,
+                                    block_k=64, interpret=True))
+    tm = None if mask is None else torch.from_numpy(np.array(mask))
+    got = K.flash_mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), H,
+                      mask=tm, dropout=rate, dropout_seed=seed).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    undropped = K.flash_mha(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), H,
+                            mask=tm).numpy()
+    assert np.abs(got - undropped).max() > 0.05  # the drop is there
+
+
+@pytest.mark.parametrize("rate,masked", [(0.0, False), (0.0, True), (0.2, False), (0.2, True)])
+def test_backward_formula_matches_autograd(rate, masked):
+    B, Tq, Tk, C, H = 2, 70, 90, 64, 2
+    q, k, v, do = (torch.from_numpy(a) for a in _qkv(B, Tq, Tk, C, 1))
+    mask = torch.rand(Tq, Tk, generator=torch.Generator().manual_seed(0)) > 0.3 if masked else None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = K.flash_mha(*leaves, H, mask=mask, dropout=rate, dropout_seed=99)
+    want = torch.autograd.grad(out, leaves, do)
+    got = K.flash_mha_bwd_plain(q, k, v, out.detach(), do, H, mask=mask, dropout=rate,
+                                dropout_seed=99)
+    before = K.flash_mha_bwd.launches
+    wrapped = K.flash_mha_bwd(q, k, v, out.detach(), do, H, lse=None, mask=mask, dropout=rate,
+                              dropout_seed=99)
+    assert K.flash_mha_bwd.launches == before  # a CPU tensor launches nothing
+    for g, w, x in zip(got, want, wrapped):
+        assert _rel(g, w) < 1e-5
+        torch.testing.assert_close(x, g, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_backward_matches_jax_grad(masked):
+    """At dropout 0 the gradients are those of the JAX package's dense attention."""
+    B, Tq, Tk, C, H = 1, 96, 80, 128, 4
+    q, k, v, do = _qkv(B, Tq, Tk, C, 2)
+    mask = np.asarray(get_mask(Tk, Tq, "diag", 10, 4, 42, 0.9)) if masked else None
+
+    def f(q, k, v):
+        out = jax_mha(q, k, v, H, mask=None if mask is None else jnp.asarray(mask))
+        return jnp.sum(out * jnp.asarray(do))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    tm = None if mask is None else torch.from_numpy(np.array(mask))
+    out = K.flash_mha(*t, H, mask=tm)
+    got = K.flash_mha_bwd_plain(*t, out, torch.from_numpy(do), H, mask=tm)
+    for g, w in zip(got, want):
+        assert _rel(g.numpy(), w) < 2e-5
+
+
+def test_training_contract_on_cpu():
+    q, k, v, _ = (torch.from_numpy(a) for a in _qkv(1, 16, 16, 64, 4))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        K.flash_mha(q, k, v, 2, dropout=0.1)
+    with pytest.raises(ValueError, match="rate"):
+        K.flash_mha(q, k, v, 2, dropout=1.0, dropout_seed=1)
+    a = K.flash_mha(q, k, v, 2, dropout=0.1, dropout_seed=5)
+    b = K.flash_mha(q, k, v, 2, dropout=0.1, dropout_seed=5)
+    c = K.flash_mha(q, k, v, 2, dropout=0.1, dropout_seed=6)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert not torch.equal(a, c)
+    x = torch.ones(4000)
+    assert apply_dropout(x, 0.1, None) is x and apply_dropout(x, 0.0, torch.Generator()) is x
+    y = apply_dropout(x, 0.25, torch.Generator().manual_seed(0))
+    assert set(np.unique(y.numpy())) <= {np.float32(0.0), np.float32(1 / 0.75)}
+    assert 0.2 < (y == 0).float().mean() < 0.3
+    z = apply_dropout(x, 0.25, torch.Generator().manual_seed(0))
+    torch.testing.assert_close(y, z, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_fft,hop,length", [(512, 128, 4096), (512, 128, 4001),
+                                              (1024, 256, 6000)])
+def test_stft_backward_formulas(n_fft, hop, length):
+    """K1's gradient (K2 on scaled inputs, zero-padded) and K2's (K1 on the
+    output gradient, scaled per bin) against autograd through the plain versions."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(3, length, generator=gen).requires_grad_()
+    zr, zi = KS.stft_dft(x, n_fft, hop)  # a CPU tensor: the plain version
+    gr, gi = torch.randn(zr.shape, generator=gen), torch.randn(zi.shape, generator=gen)
+    (want,) = torch.autograd.grad((zr * gr).sum() + (zi * gi).sum(), x)
+    got = KS.stft_dft_backward(gr, gi, n_fft, hop, length)
+    assert got.shape == x.shape and _rel(got, want) < 1e-5
+    only_re = KS.stft_dft_backward(gr, None, n_fft, hop, length)
+    (want_re,) = torch.autograd.grad((KS.stft_dft(x, n_fft, hop)[0] * gr).sum(), x)
+    assert _rel(only_re, want_re) < 1e-5
+
+    zr = torch.randn(2, 11, n_fft // 2 + 1, generator=gen).requires_grad_()
+    zi = torch.randn(2, 11, n_fft // 2 + 1, generator=gen).requires_grad_()
+    y = KS.istft_dft(zr, zi, n_fft, hop)
+    g = torch.randn(y.shape, generator=gen)
+    want = torch.autograd.grad(y, (zr, zi), g)
+    got = KS.istft_dft_backward(g, n_fft, hop)
+    for a, b in zip(got, want):
+        assert _rel(a, b) < 1e-5
+    assert not got[1][..., 0].any() and not got[1][..., -1].any()  # bins K2 ignores
+
+
+def test_backward_argtypes_match_the_c_signature(monkeypatch):
+    """The backward library's ctypes declaration against csrc/flash_mha_bwd.cu's
+    exports (test_torch_build.py's check, for the library it does not load)."""
+    from demucs_tpu_torch.kernels import _build
+    from test_torch_build import _exported, _FakeLib
+
+    fake = _FakeLib()
+    monkeypatch.setattr(_build, "load", lambda name: fake)
+    K._bwd_lib.cache_clear()
+    try:
+        K._bwd_lib()
+    finally:
+        K._bwd_lib.cache_clear()
+    exported = _exported((_build.CSRC / "flash_mha_bwd.cu").read_text())
+    assert set(fake.functions) == set(exported) == {"flash_mha_bwd_f32"}
+    for name, kinds in exported.items():
+        assert fake.functions[name].argtypes == kinds
+        assert fake.functions[name].restype is ctypes.c_int

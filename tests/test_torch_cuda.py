@@ -153,18 +153,26 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     q = _randn(1, 16, 80)
     with pytest.raises(ValueError, match="head dims"):
         KA.flash_mha(q, q, q, 1)  # head dim 80 has no kernel
-    with pytest.raises(NotImplementedError):
-        KA.flash_mha(_randn(1, 16, 64), _randn(1, 16, 64), _randn(1, 16, 64), 1, dropout=0.1)
-    # no backward kernels yet: a backward through a launch raises, never detaches
+    qb = _randn(1, 16, 64).bfloat16()
+    with pytest.raises(NotImplementedError, match="bf16 route has no dropout"):
+        KA.flash_mha(qb, qb, qb, 1, dropout=0.1, dropout_seed=1)
+    # the bf16 route has no backward kernel: a backward through it raises, never detaches
+    qb.requires_grad_()
+    with pytest.raises(NotImplementedError, match="flash_mha_bf16 has no backward"):
+        KA.flash_mha(qb, qb, qb, 1).float().sum().backward()
+    # K1, K2 and K3's fp32 route launch their backward kernels
     q = _randn(1, 16, 64).requires_grad_()
-    with pytest.raises(NotImplementedError, match="flash_mha has no backward"):
-        KA.flash_mha(q, q, q, 1).sum().backward()
+    before = KA.flash_mha_bwd.launches
+    KA.flash_mha(q, q, q, 1).sum().backward()
+    assert KA.flash_mha_bwd.launches == before + 1 and q.grad is not None
+    before = KS.stft_dft_backward.launches
     zr, _ = KS.stft_dft(x.requires_grad_(), 2048, 512)
-    with pytest.raises(NotImplementedError, match="^stft_dft has no backward"):
-        zr.sum().backward()
+    zr.sum().backward()
+    assert KS.stft_dft_backward.launches == before + 1
     zr, zi = _randn(2, 13, 1025, seed=11).requires_grad_(), _randn(2, 13, 1025, seed=12)
-    with pytest.raises(NotImplementedError, match="^istft_dft has no backward"):
-        KS.istft_dft(zr, zi, 2048, 512).sum().backward()
+    before = KS.istft_dft_backward.launches
+    KS.istft_dft(zr, zi, 2048, 512).sum().backward()
+    assert KS.istft_dft_backward.launches == before + 1
 
 
 @pytest.mark.parametrize("n_fft", [1536, 128, 32768])
@@ -724,3 +732,83 @@ def test_pass_memory_analysis_and_pool_release(cuda):
     graphs.clear()
     torch.cuda.empty_cache()
     assert graphs.pool_bytes() == 0 and torch.cuda.memory_reserved() <= reserved - held
+
+
+# ---- training: K3's dropout and backward kernel, K1/K2's backward, a train step ----
+# Gradients 1e-4 x each gradient's peak against the plain backward formula
+# (fp32 sums of up to 2688 terms with the cancellation of dS = P (dP - D));
+# the train step's loss, reco and global norm 2e-4 x peak against the CPU (the
+# model's bound); every gradient 1e-3 x the largest gradient's peak (the last
+# bias sums the output's gradient over every sample: cancelling fp32 sums that
+# the card and the CPU take in other orders).
+
+
+@pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [
+    (1, 64, 64, 64, 1, 0.0, False), (2, 70, 90, 96, 2, 0.1, True),
+    (1, 130, 200, 128, 4, 0.1, False), (1, 300, 257, 256, 8, 0.0, True),
+    (2, 333, 190, 512, 8, 0.3, True)])
+def test_flash_mha_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, masked):
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v, do = (_randn(B, T, C, seed=s) for s, T in enumerate((Tq, Tk, Tk, Tq)))
+    mask = (_randn(Tq, Tk, seed=9) > -0.5) if masked else None
+    want_o = K.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate, dropout_seed=77)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = K.flash_mha_bwd.launches
+    out = K.flash_mha(*leaves, H, mask=mask, dropout=rate, dropout_seed=77)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert K.flash_mha_bwd.launches == before + 1
+    torch.testing.assert_close(out.detach(), want_o, atol=2e-5, rtol=1e-4)
+    want = K.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask, dropout=rate,
+                                 dropout_seed=77)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max() <= 1e-4 * w.abs().max()
+
+
+@pytest.mark.parametrize("n_fft,hop,frames,extra", [(4096, 1024, 340, 0), (512, 128, 30, 77)])
+def test_stft_backward_kernels_match_plain(cuda, n_fft, hop, frames, extra):
+    from demucs_tpu_torch.kernels import stft as KS
+
+    zr = _randn(4, frames, n_fft // 2 + 1, seed=1).requires_grad_()
+    zi = _randn(4, frames, n_fft // 2 + 1, seed=2).requires_grad_()
+    y = KS.istft_dft(zr, zi, n_fft, hop)
+    g = _randn(*y.shape, seed=3)
+    got = torch.autograd.grad(y, (zr, zi), g)
+    want = KS.istft_dft_backward(g.cpu(), n_fft, hop)
+    for a, b in zip(got, want):
+        assert (a.cpu() - b).abs().max() <= 1e-4 * b.abs().max()
+    x = _randn(3, (frames - 1) * hop + n_fft + extra, seed=4).requires_grad_()
+    zr, zi = KS.stft_dft(x, n_fft, hop)
+    gr, gi = _randn(*zr.shape, seed=5), _randn(*zr.shape, seed=6)
+    (got,) = torch.autograd.grad((zr * gr).sum() + (zi * gi).sum(), x)
+    want = KS.stft_dft_backward(gr.cpu(), gi.cpu(), n_fft, hop, x.shape[-1])
+    assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_train_step_card_matches_cpu(cuda):
+    import copy
+
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train.config import TrainArgs
+    from demucs_tpu_torch.train.step import make_optimizer, train_step
+
+    # the transformer at width 64, two heads of 32: a head dim K3 takes
+    cfg = HTDemucsConfig(channels=16, depth=3, nfft=1024, t_layers=2, t_heads=2, segment=1.0,
+                         samplerate=8000)
+    module = init_htdemucs(cfg, seed=2, layer_scale=1.0, random_norms=True).train()
+    sources = _randn(2, 4, 2, cfg.training_length, seed=8, device="cpu") * 0.2
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = Model("htdemucs", cfg, copy.deepcopy(module).to(dev))
+        args = TrainArgs()
+        args.optim.lr = 0.0
+        m = train_step(model, make_optimizer(args, model), sources.to(dev))
+        out[dev] = (m, {n: p.grad.cpu() for n, p in model.module.named_parameters()})
+    (mc, gc), (mg, gg) = out["cpu"], out["cuda"]
+    for key in ("loss", "reco", "grad_norm"):
+        assert (mg[key].cpu() - mc[key]).abs().max() <= 2e-4 * mc[key].abs().max()
+    peak = max(g.abs().max() for g in gc.values())
+    for n, g in gc.items():
+        assert (gg[n] - g).abs().max() <= 1e-3 * peak, n

@@ -159,15 +159,26 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               split, peak memory and one profiled step; then python -m
               demucs_tpu_torch.train on a synthetic wav folder, killed after
               epoch 2's checkpoint and resumed for epoch 3, and the best model
-              separating a 10 s track through Separator on the card.
+              separating a 10 s track through Separator on the card. bf16
+              mixed precision beside it: K3's bf16 forward with the hashed
+              dropout and each row's log-sum-exp, its drop pattern bit for bit
+              and its backward kernel (flash_mha_bwd_bf16) against the plain
+              versions at the same shapes, timed beside SDPA in bf16; the bf16
+              step of the same model and batch, card against CPU; C2's probe
+              (the fp32 step's gradients on the card, with cuDNN deterministic
+              and with remat, and on the CPU, against the step in float64 on
+              the CPU); the bf16 training rate (the train bf16 path's
+              launches); and the entry point for one epoch with
+              compute_dtype bfloat16 and t_dropout 0.1.
 20. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
               then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
               the .dmx on a FLAC file with --flac and (with LAME) --mp3.
 
 Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, K3's backward
-and K2's backward, each kernel's launches on every path: HTDemucs,
-HDemucs, Demucs v2, the bag, each family's presets, the server, each stream,
-each variant request and the train path; ``launches`` is their sum)
+on each route and K2's backward, each kernel's launches on every path:
+HTDemucs, HDemucs, Demucs v2, the bag, each family's presets, the server,
+each stream, each variant request and the fp32 and bf16 train paths;
+``launches`` is their sum)
 and, last,
 ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
@@ -184,7 +195,8 @@ accuracy): 3 x 4 B H Tq Tk d over 495 TFLOP/s. Beside it, each K3 shape
 also gives ``fn_bound_ms``, the function's own 4 B H Tq Tk d operations at
 the TF32 peak, which no fp32-accurate route reaches. K3's bf16 route counts
 4 B H Tq Tk d over 989 TFLOP/s (bf16 on the tensor cores) against its bf16
-bytes.
+bytes; its backward 5 x 2 B H Tq Tk d over 989 TFLOP/s (the fp32 backward:
+three times that over 495).
 """
 
 from __future__ import annotations
@@ -2356,16 +2368,40 @@ def phase_evaluate(workdir: Path) -> dict:
 TRAIN_DROPOUT = 0.1  # K3's dropout checks and the entry point's t_dropout
 K3_BWD_RTOL = 1e-4  # K3's backward: each gradient's max error over its peak
 TRAIN_RTOL = 2e-4  # card vs CPU train step: loss, reco, the gradient's global norm, x peak
-# card vs CPU, each gradient: x the largest gradient's peak. The time decoder's last bias
-# sums the output's gradient over every sample (343980 at 7.8 s): fp32 sums of sign terms
-# that cancel, which the card and the CPU take in other orders
-TRAIN_GRAD_RTOL = 1e-3
+# card vs CPU, each gradient: TRAIN_GRAD_RTOL x its own peak plus TRAIN_GRAD_FLOOR x the
+# largest gradient's peak (a bias before a norm has a zero true gradient), on the mse loss:
+# l1's gradient is the sign of each residual, and the few residuals within the devices'
+# fp32 differences of zero flip between them (C2, train_c2_probe)
+TRAIN_CHECK_LOSS = "mse"
+TRAIN_GRAD_RTOL = 2e-4
+TRAIN_GRAD_FLOOR = 1e-5
 TRAIN_BATCH = 8  # the throughput loop's batch (4 where 8 does not fit)
 TRAIN_STEPS = 12  # steps 3-12 timed
 TRAIN_SEGMENT = 7.8  # the released HTDemucs's training segment, seconds
 ENTRY_BATCH = 4  # the entry point's batch (the remix augment's group size)
 TRAIN_KERNELS = ("stft_dft", "istft_dft", "flash_mha", "flash_mha_bwd", "istft_dft_backward",
                  "stft_dft_backward")
+# the bf16 training path (compute_dtype="bfloat16"): K3 on its bf16 route, forward and backward
+TRAIN_BF16_KERNELS = ("stft_dft", "istft_dft", "flash_mha_bf16", "flash_mha_bwd_bf16",
+                      "istft_dft_backward")
+# K3's bf16 backward: each gradient's max error over its peak. bf16 outputs (2^-9
+# relative), and Z P and dS rounded to bf16 for their products: the CPU model of the
+# kernel's arithmetic (tests/test_torch_attention_train.py) reads up to 6.7e-3 at
+# these shapes
+K3_BF16_BWD_RTOL = 2.0 ** -6
+K3_BF16_LSE_ATOL = 1e-4  # the bf16 forward's base-2 log-sum-exp: fp32 sums of up to 2688 terms
+# bf16 train step, card vs CPU (tests/test_torch_train.py's CPU anchor against JAX): loss
+# and reco relative, the global norm relative; each gradient within twice the CPU's own gap
+# between its bf16 and fp32 steps plus this share of the largest gradient's peak
+TRAIN_BF16_RTOL = 1e-3
+TRAIN_BF16_NORM_RTOL = 1e-2
+TRAIN_BF16_GRAD_FLOOR = 2e-3
+# C2: the card alone is far off where a gradient (of a tensor whose true peak is at least
+# C2_PEAK_SHARE of the largest) is off the float64 truth by more than C2_RATIO times the
+# CPU's error and by more than C2_FLOOR of its own peak
+C2_PEAK_SHARE = 1e-3
+C2_RATIO = 10.0
+C2_FLOOR = 1e-4
 
 
 def _train_counters():
@@ -2374,7 +2410,8 @@ def _train_counters():
 
     return {"stft_dft": KS.stft_dft, "istft_dft": KS.istft_dft, "flash_mha": KA.flash_mha,
             "flash_mha_bwd": KA.flash_mha_bwd, "istft_dft_backward": KS.istft_dft_backward,
-            "stft_dft_backward": KS.stft_dft_backward}
+            "stft_dft_backward": KS.stft_dft_backward, "flash_mha_bf16": KA.flash_mha_bf16,
+            "flash_mha_bwd_bf16": KA.flash_mha_bwd_bf16}
 
 
 def _zero_train_counts() -> None:
@@ -2475,6 +2512,157 @@ def train_k3_checks(gen) -> dict:
         by_shape=by_shape, cases=cases)
 
 
+def _lse_plain(q, k, num_heads: int, mask):
+    """Each row's base-2 log-sum-exp of the scores scaled by log2(e)/sqrt(d),
+    from the bf16 q and k in fp32 (B * H, Tq)."""
+    import torch
+
+    from demucs_tpu_torch.kernels import attention as KA
+
+    B, Tq, C = q.shape
+    d = C // num_heads
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float().view(B, Tq, num_heads, d),
+                     k.float().view(B, -1, num_heads, d)) * KA.q_scale(d)
+    if mask is not None:
+        s = s.masked_fill(~mask.bool(), float("-inf"))
+    return (torch.logsumexp(s * math.log(2), -1) / math.log(2)).reshape(B * num_heads, Tq)
+
+
+def _drop_pattern_mismatches(q, k, num_heads: int, rate: float, seed: int) -> int:
+    """Scores the bf16 kernel drops other than ``dropout_keep``'s, over three
+    windows of 64 keys (first, middle, last): with one-hot values on a window
+    (key j of each head writes channel j of the head) the output there is Z P
+    / l, zero exactly where a score was dropped. q and k are scaled by 0.3, so
+    that no kept probability comes near underflow."""
+    import torch
+
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.ops.attention import dropout_keep
+
+    B, Tq, C = q.shape
+    Tk, d = k.shape[1], C // num_heads
+    qs, ks = (0.3 * q.float()).bfloat16(), (0.3 * k.float()).bfloat16()
+    keep = dropout_keep(B * num_heads, Tq, Tk, rate, seed, q.device).view(B, num_heads, Tq, Tk)
+    idx = torch.arange(d, device=q.device)
+    bad = 0
+    for start in (0, (Tk // 2 // d) * d, Tk - d):
+        v = torch.zeros(B, Tk, C, device=q.device, dtype=torch.bfloat16)
+        for h in range(num_heads):
+            v[:, start + idx, h * d + idx] = 1
+        out = KA.flash_mha_bf16(qs, ks, v, num_heads, dropout=rate, dropout_seed=seed)
+        dropped = (out.view(B, Tq, num_heads, d) == 0).permute(0, 2, 1, 3)
+        bad += (dropped != ~keep[..., start:start + d]).sum().item()
+    return bad
+
+
+def train_k3_bf16_checks(gen) -> dict:
+    """K3's bf16 route as bf16 training runs it, at the transformer's four
+    shapes, B = 1 and 8, unmasked and under the diag mask, at dropout 0 and
+    TRAIN_DROPOUT: the forward with each row's log-sum-exp against the plain
+    version (K3_BF16_TOL) and the plain scores' log-sum-exp
+    (K3_BF16_LSE_ATOL); the drop pattern bit for bit against dropout_keep
+    (_drop_pattern_mismatches); dQ, dK, dV of the bf16 backward kernel against
+    the plain formula (K3_BF16_BWD_RTOL x each gradient's peak). Times the
+    backward kernel and the forward, each with and without dropout, beside
+    SDPA in bf16 (forward with and without its dropout, backward), and the
+    plain versions at freq self."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    dev = torch.device("cuda")
+    C, H = 512, 8
+    d = C // H
+    tokens = {"freq": 2688, "time": 1344}
+    cases, by_shape = [], {}
+    worst = {"fwd_excess": -math.inf, "lse": 0.0, "bwd": 0.0, "pattern_mismatches": 0}
+    for batch in (1, 8):
+        for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
+                                 ("time", "freq")):
+            Tq, Tk = tokens[tq_name], tokens[tk_name]
+            q, k, v, do = (torch.randn(batch, T, C, device=dev, generator=gen).bfloat16()
+                           for T in (Tq, Tk, Tk, Tq))
+            key = f"B={batch} {tq_name}<-{tk_name}"
+            for masked, rate in itertools.product((False, True), (0.0, TRAIN_DROPOUT)):
+                mask = keep_mask(Tq, Tk, "diag", device=dev, **MASK_DEFAULTS) if masked else None
+                seed = 2000 + len(cases)
+                o, lse = KA._forward_bf16(q, k, v, H, mask, rate, seed, True)
+                want_o = KA.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate,
+                                            dropout_seed=seed)
+                lse_err = (lse - _lse_plain(q, k, H, mask)).abs().max().item()
+                got = KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
+                                            dropout_seed=seed)
+                want = KA.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask, dropout=rate,
+                                              dropout_seed=seed)
+                errs = [_grad_err(g.float(), w.float()) for g, w in zip(got, want)]
+                fwd = bf16_excess(o, want_o)
+                worst["fwd_excess"] = max(worst["fwd_excess"], fwd)
+                worst["lse"] = max(worst["lse"], lse_err)
+                worst["bwd"] = max(worst["bwd"], *errs)
+                cases.append({"case": key, "mask": "diag" if masked else None, "dropout": rate,
+                              "fwd_excess_over_tol": fwd, "lse_max_abs_err": lse_err,
+                              "dq_dk_dv_err_over_peak": errs})
+                del o, lse, want_o, got, want
+            pattern = _drop_pattern_mismatches(q, k, H, TRAIN_DROPOUT, 77 + batch)
+            worst["pattern_mismatches"] += pattern
+            o, lse = KA._forward_bf16(q, k, v, H, None, 0.0, 0, True)
+            flops = 5 * 2 * batch * H * Tq * Tk * d
+            nbytes = 2 * batch * (4 * Tq + 4 * Tk) * C + 4 * batch * H * Tq
+            b_ms, b_by = bound(flops, nbytes, BF16_FLOPS)
+            split = [t.view(batch, -1, H, d).transpose(1, 2).detach().clone().requires_grad_()
+                     for t in (q, k, v)]
+            so = F.scaled_dot_product_attention(*split)
+            sdo = do.view(batch, Tq, H, d).transpose(1, 2)
+
+            def sdpa(p=0.0):
+                with torch.no_grad():
+                    return F.scaled_dot_product_attention(*split, dropout_p=p)
+
+            row = dict(
+                ms=cuda_ms(lambda: KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse)),
+                ms_dropout=cuda_ms(lambda: KA.flash_mha_bwd_bf16(
+                    q, k, v, o, do, H, lse=lse, dropout=TRAIN_DROPOUT, dropout_seed=5)),
+                fwd_ms=cuda_ms(lambda: KA.flash_mha_bf16(q, k, v, H)),
+                fwd_ms_dropout=cuda_ms(lambda: KA.flash_mha_bf16(
+                    q, k, v, H, dropout=TRAIN_DROPOUT, dropout_seed=5)),
+                sdpa_fwd_ms=cuda_ms(sdpa),
+                sdpa_fwd_ms_dropout=cuda_ms(lambda: sdpa(TRAIN_DROPOUT)),
+                sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
+                                                                retain_graph=True)),
+                bound_ms=b_ms, bound_by=b_by,
+                fwd_bound_ms=bound(flops * 2 / 5, 2 * 2 * batch * (Tq + Tk) * C, BF16_FLOPS)[0],
+                drop_pattern_mismatches=pattern)
+            row["fwd_dropout_over_fwd"] = row["fwd_ms_dropout"] / row["fwd_ms"] - 1
+            if tq_name == tk_name == "freq":
+                row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(q, k, v, o, do, H),
+                                          repeat=3)
+                row["fwd_plain_ms_dropout"] = cuda_ms(lambda: KA.flash_mha_plain(
+                    q, k, v, H, dropout=TRAIN_DROPOUT, dropout_seed=5), repeat=3)
+            by_shape[key] = row
+            del q, k, v, do, o, lse, split, so
+            torch.cuda.empty_cache()
+    main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
+    ok = (worst["fwd_excess"] <= 0 and worst["lse"] <= K3_BF16_LSE_ATOL
+          and worst["bwd"] <= K3_BF16_BWD_RTOL and worst["pattern_mismatches"] == 0)
+    return dict(
+        name="flash_mha_bwd_bf16", tol=K3_BF16_BWD_RTOL, max_abs_err=worst["bwd"],
+        max_err_is="over each gradient's peak", worst=worst, within_tol=ok,
+        fwd_tol=K3_BF16_TOL, lse_tol=K3_BF16_LSE_ATOL,
+        source="demucs_tpu_torch/csrc/flash_mha_bwd.cu",
+        replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function on bf16 "
+                 "inputs; the Pallas kernel has no backward, JAX trains through XLA's dense "
+                 "attention)",
+        ms=main["ms"], plain_ms=main["plain_ms"], library_ms=main["sdpa_bwd_ms"],
+        library="autograd.grad of F.scaled_dot_product_attention (bf16)",
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        bound_rule="max(5 x 2 B H Tq Tk d / 989 TFLOP/s (five bf16 products), bytes of q, k, "
+                   "v, o, dO, lse in and dQ, dK, dV out / 3.35 TB/s)",
+        shape=f"q, k, v (B={TRAIN_BATCH}, 2688, 512) bf16, 8 heads (freq self)",
+        by_shape=by_shape, cases=cases)
+
+
 def train_stft_checks(gen) -> dict:
     """K2's backward (K1's kernel on the output gradient, scaled per bin) and
     K1's (K2's kernel on the scaled gradients) at the training step's
@@ -2539,12 +2727,14 @@ def train_stft_checks(gen) -> dict:
 
 
 def _released_training_model(seed: int = 0, **kw):
+    """The released HTDemucs for training: seeded weights, every parameter an
+    fp32 master (a bf16 stage casts them on each forward)."""
     from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
     from demucs_tpu_torch.models.registry import Model
 
     cfg = HTDemucsConfig(segment=TRAIN_SEGMENT, **RELEASED, **kw)
     return Model("htdemucs", cfg, init_htdemucs(cfg, seed=seed, layer_scale=1.0,
-                                                 random_norms=True).train())
+                                                 random_norms=True, fp32_masters=True).train())
 
 
 def _optimizer(model, lr: float):
@@ -2557,15 +2747,21 @@ def _optimizer(model, lr: float):
     return make_optimizer(args, model)
 
 
-def train_card_vs_cpu() -> dict:
+def _grads(model) -> dict:
+    return {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
+
+
+def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
     """One train step of the released-width HTDemucs at batch 1 (its 7.8 s
-    training segment, dropout 0, no augment, lr 0) on the card and on the
-    CPU from the same weights and batch: loss, per-source reco and the
-    gradient's global norm within TRAIN_RTOL x their peak, and every
-    parameter's gradient within TRAIN_GRAD_RTOL x the largest gradient's peak.
-    Each gradient's error over its own peak is reported beside the card's own
-    spread between two identical steps (cuDNN's weight gradients sum with
-    atomics, in another order each run)."""
+    training segment, dropout 0, no augment, lr 0, TRAIN_CHECK_LOSS) on the
+    card and on the CPU from the same weights and batch: loss, per-source
+    reco and the gradient's global norm within TRAIN_RTOL x their peak, and
+    every parameter's gradient within TRAIN_GRAD_RTOL x its own peak plus
+    TRAIN_GRAD_FLOOR x the largest gradient's peak. Each gradient's error
+    over its own peak is reported beside the card's own spread between two
+    identical steps (cuDNN's weight gradients sum with atomics, in another
+    order each run). Returns the report and the step's model, batch and
+    gradients, which the bf16 step and the C2 probe reuse."""
     import torch
 
     from demucs_tpu_torch.models.registry import Model
@@ -2577,11 +2773,11 @@ def train_card_vs_cpu() -> dict:
                                 generator=torch.Generator().manual_seed(4))
     runs = []
     for _ in range(2):
-        got = train_step(card, _optimizer(card, 0.0), sources.to("cuda"))
+        got = train_step(card, _optimizer(card, 0.0), sources.to("cuda"), loss=TRAIN_CHECK_LOSS)
         runs.append({n: p.grad.cpu() for n, p in card.module.named_parameters()})
     torch.cuda.synchronize()
     start = time.perf_counter()
-    want = train_step(cpu, _optimizer(cpu, 0.0), sources)
+    want = train_step(cpu, _optimizer(cpu, 0.0), sources, loss=TRAIN_CHECK_LOSS)
     cpu_s = time.perf_counter() - start
     errs = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
             for k in ("loss", "reco", "grad_norm")}
@@ -2595,22 +2791,156 @@ def train_card_vs_cpu() -> dict:
         return {"name": name, "err_over_its_peak": rel[name],
                 "its_peak_over_largest": grads[name].abs().max().item() / peak}
 
-    abs_errs = {n: (runs[-1][n] - g).abs().max().item() / peak for n, g in grads.items()}
-    grad_err = max(abs_errs.values())
-    info = {"batch": 1, "segment_s": TRAIN_SEGMENT, "loss": want["loss"].item(),
-            "errs_over_peak": errs, "grad_err_over_largest_peak": grad_err,
-            "largest_errs_over_largest_peak": dict(sorted(abs_errs.items(),
-                                                          key=lambda kv: -kv[1])[:6]),
+    # each gradient's error over its allowance (<= 1 passes)
+    over = {n: (runs[-1][n] - g).abs().max().item()
+            / (TRAIN_GRAD_RTOL * g.abs().max().item() + TRAIN_GRAD_FLOOR * peak)
+            for n, g in grads.items()}
+    info = {"batch": 1, "segment_s": TRAIN_SEGMENT, "loss_kind": TRAIN_CHECK_LOSS,
+            "loss": want["loss"].item(), "errs_over_peak": errs,
+            "grad_err_over_allowance": max(over.values()),
+            "largest_errs_over_allowance": dict(sorted(over.items(), key=lambda kv: -kv[1])[:6]),
             "largest_grad": max(grads, key=lambda n: grads[n].abs().max().item()),
             "worst_grad_vs_cpu": worst(runs[-1], grads),
             "worst_grad_card_vs_card": worst(runs[0], runs[1]), "n_grads": len(grads),
-            "tol": TRAIN_RTOL, "grad_tol": TRAIN_GRAD_RTOL, "cpu_step_s": cpu_s,
+            "tol": TRAIN_RTOL, "grad_tol": f"{TRAIN_GRAD_RTOL} x its peak + {TRAIN_GRAD_FLOOR} "
+                                          "x the largest peak", "cpu_step_s": cpu_s,
             "cpu_threads": torch.get_num_threads()}
-    info["ok"] = (max(errs.values()) <= TRAIN_RTOL and grad_err <= TRAIN_GRAD_RTOL
+    info["ok"] = (max(errs.values()) <= TRAIN_RTOL and max(over.values()) <= 1
                   and all(torch.isfinite(g).all() for g in runs[-1].values()))
+    del card
+    torch.cuda.empty_cache()
+    return info, {"cpu": cpu, "sources": sources, "grads": grads, "card_grads": runs[-1],
+                  "metrics": want}
+
+
+def train_bf16_card_vs_cpu(step: dict) -> dict:
+    """One bf16 mixed-precision step (compute_dtype="bfloat16": fp32 masters,
+    each stage cast to bf16 on the forward) of train_card_vs_cpu's model and
+    batch (its TRAIN_CHECK_LOSS) on the card and on the CPU. The CPU anchor's bound
+    (tests/test_torch_train.py, against JAX), with the CPU's bf16 step in
+    JAX's place: loss and reco within TRAIN_BF16_RTOL, the global norm within
+    TRAIN_BF16_NORM_RTOL (relative), each gradient within twice the CPU's own
+    gap between its bf16 and fp32 steps plus TRAIN_BF16_GRAD_FLOOR x the
+    largest gradient's peak. The card's gradients and Adam state are fp32."""
+    import torch
+
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train.step import train_step
+
+    cfg = dataclasses.replace(step["cpu"].cfg, compute_dtype="bfloat16")
+    models = []
+    for device in ("cuda", "cpu"):
+        module = copy.deepcopy(step["cpu"].module).to(device)
+        module.cfg = cfg
+        models.append(Model("htdemucs", cfg, module))
+    card, cpu = models
+    opt = _optimizer(card, 0.0)
+    got = train_step(card, opt, step["sources"].to("cuda"), loss=TRAIN_CHECK_LOSS)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    want = train_step(cpu, _optimizer(cpu, 0.0), step["sources"], loss=TRAIN_CHECK_LOSS)
+    cpu_s = time.perf_counter() - start
+    errs = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+            for k in ("loss", "reco", "grad_norm")}
+    g_card, g_cpu, g_cpu32 = _grads(card), _grads(cpu), step["grads"]
+    peak = max(g.abs().max().item() for g in g_cpu.values())
+    excess = {}
+    for n, g in g_cpu.items():
+        gap = (g_card[n] - g).abs().max().item()
+        allowed = 2 * (g - g_cpu32[n]).abs().max().item() + TRAIN_BF16_GRAD_FLOOR * peak
+        excess[n] = {"gap_over_largest_peak": gap / peak, "allowed_over_largest_peak":
+                     allowed / peak, "ok": gap <= allowed}
+    fp32 = (all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                for p in card.module.parameters())
+            and all(t.dtype == torch.float32 for st in opt.state.values() for t in st.values()
+                    if t.dim() > 0))
+    worst = sorted(excess, key=lambda n: -excess[n]["gap_over_largest_peak"])[:6]
+    info = {"batch": 1, "segment_s": TRAIN_SEGMENT, "compute_dtype": "bfloat16",
+            "loss_kind": TRAIN_CHECK_LOSS,
+            "loss": want["loss"].item(), "loss_fp32": step["metrics"]["loss"].item(),
+            "errs_rel": errs, "largest_gaps": {n: excess[n] for n in worst},
+            "grads_over_bound": [n for n, e in excess.items() if not e["ok"]],
+            "masters_grads_adam_fp32": fp32, "cpu_step_s": cpu_s,
+            "tol": {"loss_reco": TRAIN_BF16_RTOL, "grad_norm": TRAIN_BF16_NORM_RTOL,
+                    "grad": f"2 x |cpu bf16 - cpu fp32| + {TRAIN_BF16_GRAD_FLOOR} x peak"}}
+    info["ok"] = (errs["loss"] <= TRAIN_BF16_RTOL and errs["reco"] <= TRAIN_BF16_RTOL
+                  and errs["grad_norm"] <= TRAIN_BF16_NORM_RTOL
+                  and not info["grads_over_bound"] and fp32)
     del card, cpu
     torch.cuda.empty_cache()
     return info
+
+
+def train_c2_probe(step: dict) -> dict:
+    """C2 (ROADMAP.md Queue C): train_card_vs_cpu's step, on the l1 loss (the
+    training default: its gradient is the sign of each residual) and on mse,
+    on the card (l1 also with cuDNN deterministic and with remat) and on the
+    CPU in fp32, each against the same step in float64 on the CPU (the
+    truth), tensor by tensor, over each tensor's true peak (tensors whose true
+    peak is at least C2_PEAK_SHARE of the largest; the others, biases before a
+    norm, have zero true gradients); with the residuals whose sign each run
+    flips against the truth. A run is "far off" on a tensor where its error
+    exceeds C2_RATIO times the CPU's and C2_FLOOR."""
+    import torch
+
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train.step import train_step
+
+    def run(device, dtype, loss, deterministic=False, remat=False):
+        module = copy.deepcopy(step["cpu"].module).to(device, dtype)
+        module.remat = remat
+        model = Model("htdemucs", step["cpu"].cfg, module)
+        out = {}
+        hook = module.register_forward_hook(lambda m, a, y: out.__setitem__("y", y.detach()))
+        with torch.backends.cudnn.flags(enabled=True, benchmark=torch.backends.cudnn.benchmark,
+                                        deterministic=deterministic, allow_tf32=False):
+            start = time.perf_counter()
+            train_step(model, _optimizer(model, 0.0), step["sources"].to(device, dtype),
+                       loss=loss)
+            seconds = time.perf_counter() - start
+        hook.remove()
+        residual = (out["y"].double().cpu() - step["sources"].double())
+        grads = _grads(model)
+        del model, module
+        torch.cuda.empty_cache()
+        return grads, residual, seconds
+
+    report = {"truth": "float64 on the CPU"}
+    for loss in ("l1", "mse"):
+        g64, r64, truth_s = run("cpu", torch.float64, loss)
+        runs = {"cpu": run("cpu", torch.float32, loss), "card": run("cuda", torch.float32, loss)}
+        if loss == "l1":
+            runs["card_deterministic"] = run("cuda", torch.float32, loss, deterministic=True)
+            runs["card_remat"] = run("cuda", torch.float32, loss, remat=True)
+        largest = max(g.abs().max().item() for g in g64.values())
+        peaks = {n: g.abs().max().item() for n, g in g64.items()}
+        kept = [n for n in g64 if peaks[n] >= C2_PEAK_SHARE * largest]
+        err = {name: {n: (g[n].double() - g64[n]).abs().max().item() / peaks[n] for n in kept}
+               for name, (g, _, _) in runs.items()}
+        far = {name: sum(1 for n in kept if e[n] > C2_RATIO * err["cpu"][n] and e[n] > C2_FLOOR)
+               for name, e in err.items() if name != "cpu"}
+        top = sorted(kept, key=lambda n: -err["card"][n])[:4]
+        watch = [n for n in ("encoder.2.conv.weight",) if n in kept and n not in top]
+        report[loss] = {
+            "truth_step_s": truth_s, "tensors": len(kept),
+            "median_err_over_true_peak": {k: sorted(e.values())[len(e) // 2]
+                                          for k, e in err.items()},
+            "max_err_over_true_peak": {k: max(e.values()) for k, e in err.items()},
+            "largest_card_errs": {n: {k: err[k][n] for k in err} for n in top + watch},
+            "tensors_far_off": far,
+            "residual_signs_flipped": {k: int(((r.sign() != r64.sign()) & (r64 != 0)).sum())
+                                       for k, (_, r, _) in runs.items()},
+            "smallest_true_residual": r64.abs().min().item(),
+            "output_err_over_peak": {k: ((r - r64).abs().max() / (r64 + step["sources"].double())
+                                         .abs().max()).item() for k, (_, r, _) in runs.items()}}
+    card_far = report["mse"]["tensors_far_off"]["card"] > 0
+    report["verdict"] = ("card" if card_far else "l1 sign flips"
+                         if report["l1"]["tensors_far_off"]["card"] else "summation order")
+    report["rule"] = (f"far off: > {C2_RATIO} x the CPU's error and > {C2_FLOOR}, over the true "
+                      f"peak of each tensor whose true peak is >= {C2_PEAK_SHARE} x the largest")
+    report["ok"] = all(math.isfinite(v) for loss in ("l1", "mse")
+                       for e in report[loss]["max_err_over_true_peak"].values() for v in [e])
+    return report
 
 
 def _profile_step(step) -> dict:
@@ -2641,12 +2971,14 @@ def _profile_step(step) -> dict:
                             for ms, n, key in sorted(top, reverse=True)[:12]]}
 
 
-def train_throughput() -> tp.Tuple[dict, dict]:
+def train_throughput(compute_dtype: str = "float32") -> tp.Tuple[dict, dict]:
     """The main training path: ``train_step`` at the released width, batch
-    TRAIN_BATCH (4 if 8 does not fit), 7.8 s, fp32 with TF32 off, TRAIN_STEPS
+    TRAIN_BATCH (4 if 8 does not fit), 7.8 s, fp32 with TF32 off (or bf16
+    mixed precision: fp32 masters, every core stage in bf16), TRAIN_STEPS
     steps with every launch counted from 0; training audio-s/s over steps
     3-12; then the forward / backward / optimizer split (CUDA events, 3
-    steps), the peak memory and one profiled step."""
+    steps), the peak memory and one profiled step. The bf16 path must launch
+    K3's bf16 kernels and no fp32 K3 kernel."""
     import statistics
 
     import torch
@@ -2655,7 +2987,7 @@ def train_throughput() -> tp.Tuple[dict, dict]:
                                              train_step)
 
     for batch in (TRAIN_BATCH, 4):
-        model = _released_training_model(seed=5)
+        model = _released_training_model(seed=5, compute_dtype=compute_dtype)
         model.module.to("cuda")
         opt = _optimizer(model, 3e-4)
         sources = 0.2 * torch.randn(batch, 4, 2, model.cfg.training_length, device="cuda",
@@ -2696,7 +3028,8 @@ def train_throughput() -> tp.Tuple[dict, dict]:
     profile = _profile_step(lambda: train_step(model, opt, sources))
     timed = walls[2:]
     median = statistics.median(timed)
-    info = {"batch": batch, "batch_8_fit": batch == TRAIN_BATCH, "segment_s": TRAIN_SEGMENT,
+    info = {"compute_dtype": compute_dtype, "batch": batch, "batch_8_fit": batch == TRAIN_BATCH,
+            "segment_s": TRAIN_SEGMENT,
             "steps": TRAIN_STEPS, "step_walls_s": walls, "median_step_s": median,
             "train_audio_s_per_s": batch * TRAIN_SEGMENT / median,
             "losses": losses, "peak_memory_gib": peak, "held_before_gib": held,
@@ -2705,8 +3038,17 @@ def train_throughput() -> tp.Tuple[dict, dict]:
             "split_ms": split, "launches": counts,
             "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
             "profile": profile}
-    info["ok"] = (all(math.isfinite(x) for x in losses)
-                  and all(counts[name] > 0 for name in TRAIN_KERNELS if name != "stft_dft_backward"))
+    if compute_dtype == "bfloat16":
+        launched = (all(counts[name] > 0 for name in TRAIN_BF16_KERNELS)
+                    and counts["flash_mha"] == counts["flash_mha_bwd"] == 0)
+        info["masters_grads_adam_fp32"] = (
+            all(p.dtype == p.grad.dtype == torch.float32 for p in model.module.parameters())
+            and all(t.dtype == torch.float32 for st in opt.state.values() for t in st.values()
+                    if t.dim() > 0))
+        launched = launched and info["masters_grads_adam_fp32"]
+    else:
+        launched = all(counts[name] > 0 for name in TRAIN_KERNELS if name != "stft_dft_backward")
+    info["ok"] = all(math.isfinite(x) for x in losses) and launched
     del model, opt, sources
     torch.cuda.empty_cache()
     return info, counts
@@ -2803,11 +3145,72 @@ def train_entry_point(workdir: Path) -> dict:
     return info
 
 
-def phase_train(workdir: Path) -> tp.Tuple[list, dict]:
+def train_entry_point_bf16(workdir: Path) -> dict:
+    """``python -m demucs_tpu_torch.train`` as a user trains in bf16 mixed
+    precision, ``model_args={..., compute_dtype: bfloat16, t_dropout: 0.1}``
+    (K3's bf16 dropout and backward run), one epoch of 2 batches on the
+    synthetic wav folder (train_entry_point's epoch): the loss is finite, the checkpoint holds fp32
+    weights, and the best model, read back with its bf16 compute_dtype,
+    separates a 10 s track through Separator on the card."""
+    import json
+    import os
+    import pickle
+
+    import numpy as np
+
+    from demucs_tpu_torch.api import Separator
+
+    data = workdir / "trainset"
+    if not data.exists():
+        _train_folder(data)
+    out = workdir / "train_out_bf16"
+    model_args = ("{" + ", ".join(f"{k}: {v}" for k, v in RELEASED.items() if k != "samplerate")
+                  + f", t_dropout: {TRAIN_DROPOUT}, compute_dtype: bfloat16" + "}")
+    cmd = [sys.executable, "-m", "demucs_tpu_torch.train", f"dset.wav={data}",
+           "dset.use_musdb=false", "dset.segment=8.8", "dset.shift=1", f"dset.samplerate={SR}",
+           f"dset.metadata={workdir / 'train_meta'}", f"model_segment={TRAIN_SEGMENT}",
+           f"model_args={model_args}", f"batch_size={ENTRY_BATCH}", "epochs=1", "max_batches=1",
+           "augment.repitch.proba=0", f"out_dir={out}", "misc.num_workers=4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    start = time.perf_counter()
+    run = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - start
+    (folder,) = (out / "xps").iterdir()
+    history = json.loads((folder / "history.json").read_text())
+    with open(folder / "checkpoint.pkl", "rb") as f:
+        state = pickle.load(f)["state"]
+    sep = Separator("best", repo=folder, shifts=0)
+    module = sep.model.module
+    mix = _track(10.0, 6)
+    _, stems = sep.separate_tensor(mix, SR)
+    info = {"command": " ".join(cmd[1:]), "rc": run.returncode, "wall_s": wall,
+            "train_loss": [h["train"]["loss"] for h in history],
+            "valid_loss": [h["valid"]["loss"] for h in history],
+            "checkpoint_dtypes": sorted({str(v.dtype) for v in state.values()}),
+            "served_compute_dtype": module.cfg.compute_dtype,
+            "served_param_dtypes": sorted({str(p.dtype) for p in module.parameters()}),
+            "separated_10s_stems": sorted(stems)}
+    info["ok"] = (run.returncode == 0 and len(history) == 1
+                  and all(math.isfinite(x) for x in info["train_loss"])
+                  and all(v.dtype != np.float16 for v in state.values())
+                  and "float32" in info["checkpoint_dtypes"]
+                  and info["served_compute_dtype"] == "bfloat16"
+                  and "torch.bfloat16" in info["served_param_dtypes"]
+                  and sorted(stems) == ["bass", "drums", "other", "vocals"]
+                  and all(np.isfinite(s).all() and s.shape == mix.shape for s in stems.values()))
+    if not info["ok"]:
+        info["log_tail"] = run.stderr.splitlines()[-40:]
+    return info
+
+
+def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict]:
     """K3's backward and dropout and K2's backward against their plain
-    versions, the card's train step against the CPU's, the training rate at
-    the released width, and the training entry point with a resume. Returns
-    the backward kernels' rows and the train path's launches."""
+    versions, on fp32 and (K3) on bf16 inputs; the card's train step against
+    the CPU's, in fp32 and in bf16 mixed precision, and C2's float64 probe;
+    the training rate at the released width in fp32 and in bf16; the
+    training entry point with a resume, and once in bf16. Returns the
+    backward kernels' rows and the launches of the fp32 and the bf16 train
+    paths."""
     import torch
 
     from demucs_tpu_torch.inference.engine import GRAPHS
@@ -2818,23 +3221,30 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict]:
     start = time.perf_counter()
     info = {"phase": "train", "card": card_line()}
     with _fp32():
-        rows = [train_k3_checks(gen), train_stft_checks(gen)]
+        rows = [train_k3_checks(gen), train_stft_checks(gen), train_k3_bf16_checks(gen)]
         info["kernels_s"] = time.perf_counter() - start
-        info["card_vs_cpu_step"] = train_card_vs_cpu()
+        info["card_vs_cpu_step"], step = train_card_vs_cpu()
+        info["bf16_card_vs_cpu_step"] = train_bf16_card_vs_cpu(step)
+        info["c2_probe"] = train_c2_probe(step)
+        del step
+        info["steps_s"] = time.perf_counter() - start
         info["throughput"], counts = train_throughput()
+        info["throughput_bf16"], counts_bf16 = train_throughput("bfloat16")
     info["entry_point"] = train_entry_point(workdir)
+    info["entry_point_bf16"] = train_entry_point_bf16(workdir)
     info["wall_s"] = time.perf_counter() - start
     for row in rows:
         row["ok"] = row["within_tol"]
     info["kernel_rows"] = {r["name"]: {k: r[k] for k in ("max_abs_err", "tol", "ms", "plain_ms",
                                                           "library_ms", "bound_ms", "ok")}
                            for r in rows}
-    emit(dict(info, k3_backward=rows[0], stft_backward=rows[1]))
+    emit(dict(info, k3_backward=rows[0], stft_backward=rows[1], k3_bf16_backward=rows[2]))
     bad = [r["name"] for r in rows if not r["ok"]]
-    bad += [k for k in ("card_vs_cpu_step", "throughput", "entry_point") if not info[k]["ok"]]
+    bad += [k for k in ("card_vs_cpu_step", "bf16_card_vs_cpu_step", "c2_probe", "throughput",
+                        "throughput_bf16", "entry_point", "entry_point_bf16") if not info[k]["ok"]]
     if bad:
         raise AssertionError(f"train: {bad}")
-    return rows, counts
+    return rows, counts, counts_bf16
 
 
 @contextlib.contextmanager
@@ -2907,7 +3317,7 @@ def main() -> int:
         paths.update(variant_paths)
         phase_memory(workdir)
         phase_evaluate(workdir)
-        train_rows, paths["train"] = phase_train(workdir)
+        train_rows, paths["train"], paths["train bf16"] = phase_train(workdir)
         rows += train_rows
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line

@@ -482,6 +482,15 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 // V MN-major with the transpose bit (O = P V, keys the reduction). P goes
 // from the S accumulator to the A fragment by pairwise packing (MmaBf16).
 // A fully masked row keeps l == 0 and gives 0 / 0 = NaN, as in the fp32 route.
+//
+// Training, as on the fp32 route: the Pallas kernel's hashed dropout of the
+// probabilities (attention_dropout.cuh: global query row, key and batch-head
+// salt, so every plan and schedule drops the same scores), applied to the
+// unnormalised P after the row sum has taken it, before P is packed for
+// P V; at rate 0 no hash runs. Where the caller asks, each row's
+// log-sum-exp (base 2, of the scaled scores: m scale + log2 l) goes to `lse`
+// for the backward (flash_mha_bwd.cu): from the store of a whole row block,
+// or from flash_mha_bf16_combine_kernel for a merged one.
 // ===========================================================================
 
 // The shared-memory image of a head slice: rows of W bytes, BOXES boxes of
@@ -621,6 +630,18 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], 
   for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + sum[hf];
 }
 
+// The dropout of one tile of P (after its row sums): lane (g, c) holds rows
+// `row` and `row + 8` (global query rows), keys k0 + 8 j + 2c and + 1.
+template <int BK>
+__device__ __forceinline__ void drop_tile(float (&p)[BK / 2], const Dropout& drop, uint32_t salt,
+                                          int k0, int row, int c) {
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+    p[e] = drop.keep(row + 8 * ((e >> 1) & 1), key, salt) ? p[e] * drop.scale : 0.f;
+  }
+}
+
 // Row `row + 8 hf` of a thread's accumulator (columns 8 j + 2c, + 1), divided
 // by its row sum, to bf16 at dst (that row's columns h D + 2c). 0 / 0 = NaN
 // for a row with no kept key.
@@ -661,13 +682,15 @@ struct Schedule {
 
 // Grid (G): range blockIdx.x of the schedule. A scratch slot holds ROWS x D
 // of unnormalised o, then ROWS x (the scaled row max, the row sum), fp32.
+// lse: null, or (B H, Tq) fp32.
 template <int D, int BK, int NWG>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const unsigned char* __restrict__ mask, __nv_bfloat16* __restrict__ o,
-                      float* __restrict__ part, int B, int Tq, int Tk, int H, float scale) {
+                      float* __restrict__ part, float* __restrict__ lse, int B, int Tq, int Tk,
+                      int H, float scale, Dropout drop) {
   using Cfg = Bf16Cfg<D, BK, NWG>;
   using I = HeadImage<D>;
   constexpr int STAGES = Cfg::STAGES, ROWS = Cfg::ROWS, SLOT = ROWS * (D + 2);
@@ -750,6 +773,7 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       const int te = min(u1, (r + 1) * n_tiles) - r * n_tiles;
       const int n = te - tb, row = x * ROWS + rr;
       const uint32_t q_wg = q_img + qb * Cfg::Q_BYTES + wg * ROWS_WG * I::W;
+      const uint32_t salt = drop.salt(b * H + h);
 
       float acc[D / 2];
 #pragma unroll
@@ -767,6 +791,7 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_all(s);
       if (masked || (tb + 1) * BK > Tk) mask_tile<BK>(s, mask, tb * BK, row, c, Tq, Tk);
       softmax_tile<BK>(s, m, l, alpha, scale);
+      if (drop.rate > 0.f) drop_tile<BK>(s, drop, salt, tb * BK, row, c);
       pack_p<BK>(pa, s);
       for (int i = 1; i < n; ++i) {
         const int j = it + i, st = j % STAGES, prev = (j - 1) % STAGES;
@@ -780,6 +805,7 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         const int k0 = (tb + i) * BK;
         if (masked || k0 + BK > Tk) mask_tile<BK>(s, mask, k0, row, c, Tq, Tk);
         softmax_tile<BK>(s, m, l, alpha, scale);
+        if (drop.rate > 0.f) drop_tile<BK>(s, drop, salt, k0, row, c);
         wgmma_wait<0>();
         fence_all(acc);
         fence_all(pa);
@@ -807,8 +833,12 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       if (tb == 0 && te == n_tiles) {  // a whole row block: o = acc / l
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
-          if (row + 8 * hf < Tq) store_o<D>(o + ((size_t)b * Tq + row + 8 * hf) * C + h * D + 2 * c,
-                                            acc, hf, l[hf]);
+          const int r = row + 8 * hf;
+          if (r >= Tq) continue;
+          store_o<D>(o + ((size_t)b * Tq + r) * C + h * D + 2 * c, acc, hf, l[hf]);
+          if (lse != nullptr && c == 0) {
+            lse[((size_t)b * H + h) * Tq + r] = m[hf] * scale + log2f(l[hf]);
+          }
         }
         continue;
       }
@@ -838,13 +868,14 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 // Grid (G - 1, ceil(ROWS D / (2 ITEMS 256))): blockIdx.x + 1 is a range
 // boundary c; the first boundary inside a row block merges it (the others
 // return). A thread takes ITEMS (row, channel pair) items and issues the
-// loads of all their pieces before it waits on any.
+// loads of all their pieces before it waits on any. The thread of a row's
+// first pair also writes its log-sum-exp, base + log2 l, where lse is given.
 constexpr int COMBINE_ITEMS = 4;
 
 template <int D, int ROWS>
 __global__ void __launch_bounds__(256)
 flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ o,
-                              int B, int Tq, int H, int n_tiles, int G) {
+                              float* __restrict__ lse, int B, int Tq, int H, int n_tiles, int G) {
   constexpr int SLOT = ROWS * (D + 2), PAIRS = ROWS * (D / 2), N = COMBINE_ITEMS;
   const int n_x = (Tq + ROWS - 1) / ROWS;
   const Schedule sched(n_x * H * B, n_tiles, G);
@@ -856,7 +887,7 @@ flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __r
   const int c0 = c - 1, c1 = sched.range_of((r + 1) * n_tiles - 1);
   const float* first = part + (size_t)(sched.lo(c0) == r * n_tiles ? 2 * c0 : 2 * c0 + 1) * SLOT;
   int rr[N], pair[N];
-  float top[N], l[N];
+  float top[N], l[N], base[N];
   float2 v[N], ml[N];
 #pragma unroll
   for (int i = 0; i < N; ++i) {  // items i: consecutive blocks of 256 (row, pair)s
@@ -877,8 +908,10 @@ flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __r
     }
 #pragma unroll
     for (int i = 0; i < N; ++i) {  // rescale the running sums to the new max
-      const float t = fmaxf(top[i], mlc[i].x), base = t == -INFINITY ? 0.f : t;
-      const float w0 = ex2((cc == c0 + 1 ? ml[i].x : top[i]) - base), w = ex2(mlc[i].x - base);
+      const float t = fmaxf(top[i], mlc[i].x);
+      base[i] = t == -INFINITY ? 0.f : t;
+      const float w0 = ex2((cc == c0 + 1 ? ml[i].x : top[i]) - base[i]);
+      const float w = ex2(mlc[i].x - base[i]);
       const float l0 = cc == c0 + 1 ? ml[i].y : l[i];
       l[i] = fmaf(w, mlc[i].y, w0 * l0);
       v[i] = make_float2(fmaf(w, vc[i].x, w0 * v[i].x), fmaf(w, vc[i].y, w0 * v[i].y));
@@ -892,6 +925,9 @@ flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __r
     if (idx < PAIRS && row < Tq) {
       *reinterpret_cast<uint32_t*>(o + ((size_t)b * Tq + row) * H * D + h * D + 2 * pair[i]) =
           pack_bf16(v[i].x / l[i], v[i].y / l[i]);
+      if (lse != nullptr && pair[i] == 0) {
+        lse[((size_t)b * H + h) * Tq + row] = base[i] + log2f(l[i]);
+      }
     }
   }
 }
@@ -1008,8 +1044,8 @@ using bf16 = __nv_bfloat16;
 
 template <int D, int BK, int NWG>
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char* mask, bf16* o,
-                float* part, int B, int Tq, int Tk, int H, float scale, int ctas,
-                cudaStream_t stream) {
+                float* part, float* lse, int B, int Tq, int Tk, int H, float scale, int ctas,
+                Dropout drop, cudaStream_t stream) {
   using Cfg = Bf16Cfg<D, BK, NWG>;
   const int C = H * D, n_tiles = (Tk + BK - 1) / BK;
   const long long R = (long long)((Tq + Cfg::ROWS - 1) / Cfg::ROWS) * H * B;
@@ -1027,29 +1063,31 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)Cfg::SMEM_LAUNCH);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<ctas, Cfg::THREADS, Cfg::SMEM_LAUNCH, stream>>>(qm, km, vm, mask, o, part, B, Tq, Tk, H,
-                                                           scale);
+  kernel<<<ctas, Cfg::THREADS, Cfg::SMEM_LAUNCH, stream>>>(qm, km, vm, mask, o, part, lse, B, Tq,
+                                                           Tk, H, scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess || !pieces) return (int)e;
   constexpr int PER_BLOCK = COMBINE_ITEMS * 256, PAIRS = Cfg::ROWS * (D / 2);
   flash_mha_bf16_combine_kernel<D, Cfg::ROWS>
       <<<dim3(ctas - 1, (PAIRS + PER_BLOCK - 1) / PER_BLOCK), 256, 0, stream>>>(
-          part, o, B, Tq, H, n_tiles, ctas);
+          part, o, lse, B, Tq, H, n_tiles, ctas);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch_bf16(int key_tile, int block_rows, const bf16* q, const bf16* k, const bf16* v,
-                  const unsigned char* mask, bf16* o, float* part, int B, int Tq, int Tk, int H,
-                  float scale, int ctas, cudaStream_t s) {
+                  const unsigned char* mask, bf16* o, float* part, float* lse, int B, int Tq,
+                  int Tk, int H, float scale, int ctas, Dropout drop, cudaStream_t s) {
   if (key_tile == 64 && block_rows == 128)
-    return launch_bf16<D, 64, 2>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+    return launch_bf16<D, 64, 2>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop, s);
   if (key_tile == 64 && block_rows == 192)
-    return launch_bf16<D, 64, 3>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+    return launch_bf16<D, 64, 3>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop, s);
   if (key_tile == 128 && block_rows == 128)
-    return launch_bf16<D, 128, 2>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+    return launch_bf16<D, 128, 2>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop,
+                                  s);
   if (key_tile == 128 && block_rows == 192)
-    return launch_bf16<D, 128, 3>(q, k, v, mask, o, part, B, Tq, Tk, H, scale, ctas, s);
+    return launch_bf16<D, 128, 3>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop,
+                                  s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1115,26 +1153,29 @@ int flash_mha_f32(const float* q, const float* k, const float* v, const unsigned
 // 128 or 192 query rows; ctas blocks in the grid, each a range of the
 // persistent schedule (Schedule; part: fp32 scratch of 2 ctas block_rows
 // (D + 2) floats, which may be null when no range starts inside a row
-// block). Returns a cudaError_t, or ENCODE_FAILED + the CUresult of a failed
-// tensor-map encode.
+// block). lse and the dropout's rate and seed as for flash_mha_f32. Returns
+// a cudaError_t, or ENCODE_FAILED + the CUresult of a failed tensor-map
+// encode.
 int flash_mha_bf16(const void* q, const void* k, const void* v, const unsigned char* mask,
-                   void* o, float* part, int B, int Tq, int Tk, int H, int D, float scale,
-                   int key_tile, int block_rows, int ctas, void* stream) {
-  if (Tk <= 0) return (int)cudaErrorInvalidValue;
+                   void* o, float* part, float* lse, int B, int Tq, int Tk, int H, int D,
+                   float scale, int key_tile, int block_rows, int ctas, float rate, int seed,
+                   void* stream) {
+  if (Tk <= 0 || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
   const cudaStream_t s = (cudaStream_t)stream;
+  const Dropout drop = Dropout::make(rate, (uint32_t)seed);
   switch (D) {
     case 32:
-      return dispatch_bf16<32>(key_tile, block_rows, qb, kb, vb, mask, ob, part, B, Tq, Tk, H,
-                               scale, ctas, s);
+      return dispatch_bf16<32>(key_tile, block_rows, qb, kb, vb, mask, ob, part, lse, B, Tq, Tk,
+                               H, scale, ctas, drop, s);
     case 48:
-      return dispatch_bf16<48>(key_tile, block_rows, qb, kb, vb, mask, ob, part, B, Tq, Tk, H,
-                               scale, ctas, s);
+      return dispatch_bf16<48>(key_tile, block_rows, qb, kb, vb, mask, ob, part, lse, B, Tq, Tk,
+                               H, scale, ctas, drop, s);
     case 64:
-      return dispatch_bf16<64>(key_tile, block_rows, qb, kb, vb, mask, ob, part, B, Tq, Tk, H,
-                               scale, ctas, s);
+      return dispatch_bf16<64>(key_tile, block_rows, qb, kb, vb, mask, ob, part, lse, B, Tq, Tk,
+                               H, scale, ctas, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -2,7 +2,8 @@
 
 Each wrapper takes its plain version for a tensor on the CPU only; for a CUDA
 tensor it launches its kernel or raises. Each wrapper carries an integer
-``launches`` attribute, incremented once per kernel launch.
+``launches`` attribute, incremented once per kernel launch. A kernel on a
+training path is an autograd function whose backward launches a kernel too.
 
 Tables that the kernels and the forward read (windows, twiddles, envelopes,
 positional embeddings) are built on the host once per shape and device and
@@ -57,25 +58,3 @@ def retain_tables():
         yield _RETAINED
     finally:
         _RETAINED = outer
-
-
-class NoBackward(torch.autograd.Function):
-    """Run a kernel launch as an autograd node whose backward raises.
-
-    For a kernel without a backward kernel: only K3's bf16 route now (K1, K2
-    and K3's fp32 route are autograd functions whose backward launches a
-    kernel). A launch that wrote into a fresh tensor would otherwise cut the
-    graph silently, and training would run on wrong gradients; with this node
-    the forward works in any grad mode and a backward through the kernel
-    fails loudly.
-    """
-
-    @staticmethod
-    def forward(ctx, name, launch, *inputs):
-        ctx.name = name
-        return launch(*inputs)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(f"{ctx.name} has no backward kernel: bf16 training comes "
-                                  "with a later slice of the port")

@@ -29,15 +29,14 @@ rescale (a fully masked row gives NaN, as the plain softmax does). Head dims
 :func:`demucs_tpu_torch.ops.attention.multihead_attention`. Any other dtype
 on the card raises.
 
-Training (fp32 route): the Pallas kernel's hashed dropout of the
+Training, on both routes: the Pallas kernel's hashed dropout of the
 probabilities (``dropout``, ``dropout_seed``; ``csrc/attention_dropout.cuh``,
 bit for bit the pattern of the plain version's
-:func:`~demucs_tpu_torch.ops.attention.dropout_keep`), and a gradient:
-:func:`flash_mha` is an autograd function whose forward also keeps each
-row's log-sum-exp and whose backward launches the hand-written backward
-kernel :func:`flash_mha_bwd` (``csrc/flash_mha_bwd.cu``). The bf16 route has
-neither: dropout raises and its launch is a :class:`~demucs_tpu_torch.kernels.NoBackward`
-node (bf16 training comes with a later slice of the port).
+:func:`~demucs_tpu_torch.ops.attention.dropout_keep`), and a gradient: each
+route's launch is an autograd node (:class:`_FlashMHA`) whose forward also
+keeps each row's log-sum-exp when a gradient is wanted and whose backward
+launches the hand-written backward kernel of ``csrc/flash_mha_bwd.cu`` in
+the inputs' type (:func:`flash_mha_bwd`, :func:`flash_mha_bwd_bf16`).
 """
 
 from __future__ import annotations
@@ -48,12 +47,12 @@ import math
 
 import torch
 
-from demucs_tpu_torch.kernels import NoBackward, _build
+from demucs_tpu_torch.kernels import _build
 from demucs_tpu_torch.ops.attention import _split_heads, dropout_keep, multihead_attention
 
 __all__ = ["flash_mha", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
-           "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE", "KEY_TILE_BF16", "q_scale",
-           "bf16_plan", "bf16_schedule", "bf16_tiles"]
+           "flash_mha_bwd_bf16", "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE",
+           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles"]
 
 HEAD_DIMS = (32, 48, 64)
 KEY_TILE = 64  # keys per tile of the fp32 route's loop
@@ -105,7 +104,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_mha_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, f, i, p]
     lib.flash_mha_f32.restype = i
-    lib.flash_mha_bf16.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, p]
+    lib.flash_mha_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, f, i, p]
     lib.flash_mha_bf16.restype = i
     lib.flash_mha_bf16_tiles.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.flash_mha_bf16_tiles.restype = i
@@ -116,8 +115,9 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_mha_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_mha_bwd_f32.argtypes = [p] * 11 + [i] * 5 + [f, f, f, i, p]
-    lib.flash_mha_bwd_f32.restype = i
+    for name in ("flash_mha_bwd_f32", "flash_mha_bwd_bf16"):
+        getattr(lib, name).argtypes = [p] * 11 + [i] * 5 + [f, f, f, i, p]
+        getattr(lib, name).restype = i
     return lib
 
 
@@ -175,25 +175,28 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     ``dropout_seed`` (a host int, which the caller draws from its generator):
     the hashed train-time dropout of the probabilities. A CPU tensor takes the
     plain version; a CUDA tensor launches K3 (fp32 here, bf16 through
-    :func:`flash_mha_bf16`) or raises. On the fp32 route the result carries a
-    gradient through :func:`flash_mha_bwd`. ``flash_mha.launches`` counts the
-    fp32 route's forward launches.
+    :func:`flash_mha_bf16`) or raises. On the card the result carries a
+    gradient through the backward kernel of its route. ``flash_mha.launches``
+    counts the fp32 route's forward launches.
     """
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, num_heads, mask=mask, dropout=dropout,
                                dropout_seed=seed)
     if q.dtype == torch.bfloat16:
-        if dropout > 0.0:
-            raise NotImplementedError("K3's bf16 route has no dropout: bf16 training comes "
-                                      "with a later slice of the port")
-        return flash_mha_bf16(q, k, v, num_heads, mask=mask)
+        return flash_mha_bf16(q, k, v, num_heads, mask=mask, dropout=dropout,
+                              dropout_seed=seed)
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.float32)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    want_lse = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
-    out = _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, want_lse)
+    out = _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
     flash_mha.launches += 1
     return out
+
+
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    """Whether autograd will ask for the launch's gradient (then the forward
+    keeps each row's log-sum-exp for the backward kernel)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def _forward_f32(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse: bool):
@@ -215,12 +218,14 @@ def _forward_f32(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse
 
 
 class _FlashMHA(torch.autograd.Function):
-    """K3's fp32 route as an autograd node: the forward kernel (keeping each
-    row's log-sum-exp when a gradient is wanted), the backward kernel."""
+    """K3 as an autograd node, on the route of its inputs' dtype: the forward
+    kernel (keeping each row's log-sum-exp when a gradient is wanted), then
+    the backward kernel of the same route (:func:`flash_mha_bwd`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, num_heads, keep, rate, seed, want_lse):
-        out, lse = _forward_f32(q, k, v, num_heads, keep, rate, seed, want_lse)
+        route = _forward_bf16 if q.dtype == torch.bfloat16 else _forward_f32
+        out, lse = route(q, k, v, num_heads, keep, rate, seed, want_lse)
         if want_lse:
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.args = (num_heads, keep, rate, seed)
@@ -274,34 +279,65 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
                   dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor,
                   mask: torch.Tensor | None = None, dropout: float = 0.0,
                   dropout_seed: int | None = None) -> tuple:
-    """K3's backward on the fp32 route: ``(dq, dk, dv)`` of :func:`flash_mha`
-    at ``q, k, v`` with output ``o`` and its gradient ``dout``, from the
-    forward's ``lse (B * H, Tq)`` and its ``mask``, ``dropout`` and
-    ``dropout_seed``. A CPU tensor takes :func:`flash_mha_bwd_plain`; an fp32
-    CUDA tensor launches ``csrc/flash_mha_bwd.cu`` (three kernels: the row
-    dots, dK and dV, dQ); anything else raises. ``flash_mha_bwd.launches``
-    counts its launches."""
+    """K3's backward: ``(dq, dk, dv)`` of :func:`flash_mha` at ``q, k, v``
+    with output ``o`` and its gradient ``dout``, from the forward's ``lse (B
+    * H, Tq)`` and its ``mask``, ``dropout`` and ``dropout_seed``. A CPU
+    tensor takes :func:`flash_mha_bwd_plain`; an fp32 CUDA tensor launches
+    ``csrc/flash_mha_bwd.cu`` (three kernels: the row dots, dK and dV, dQ), a
+    bf16 one :func:`flash_mha_bwd_bf16`; anything else raises.
+    ``flash_mha_bwd.launches`` counts the fp32 route's launches."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
                                    dropout_seed=seed)
-    B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.float32)
+    if q.dtype == torch.bfloat16:
+        return flash_mha_bwd_bf16(q, k, v, o, dout, num_heads, lse=lse, mask=mask,
+                                  dropout=dropout, dropout_seed=seed)
+    grads = _launch_bwd("flash_mha_bwd_f32", torch.float32, q, k, v, o, dout, num_heads, lse,
+                        mask, dropout, seed)
+    flash_mha_bwd.launches += 1
+    return grads
+
+
+def flash_mha_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                       dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor,
+                       mask: torch.Tensor | None = None, dropout: float = 0.0,
+                       dropout_seed: int | None = None) -> tuple:
+    """K3's backward on the bf16 route: as :func:`flash_mha_bwd`, bf16 in and
+    out (fp32 ``lse``), bf16 ``mma.sync`` products with fp32 accumulation. A
+    CPU tensor takes :func:`flash_mha_bwd_plain`; a bf16 CUDA tensor launches
+    ``csrc/flash_mha_bwd.cu``; anything else raises.
+    ``flash_mha_bwd_bf16.launches`` counts its launches."""
+    seed = _seed32(dropout, dropout_seed)
+    if q.device.type == "cpu":
+        return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
+                                   dropout_seed=seed)
+    grads = _launch_bwd("flash_mha_bwd_bf16", torch.bfloat16, q, k, v, o, dout, num_heads, lse,
+                        mask, dropout, seed)
+    flash_mha_bwd_bf16.launches += 1
+    return grads
+
+
+def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int, lse, mask,
+                rate: float, seed: int) -> tuple:
+    """One launch of ``csrc/flash_mha_bwd.cu``'s C entry ``entry`` on ``dtype``
+    CUDA tensors -> ``(dq, dk, dv)``."""
+    B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, dtype)
     for name, t in (("o", o), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != torch.float32 or t.device != q.device:
-            raise ValueError(f"flash_mha_bwd: {name} must be a float32 {tuple(q.shape)} "
-                             f"tensor on {q.device}")
-    if lse.shape != (B * num_heads, Tq) or lse.dtype != torch.float32:
-        raise ValueError(f"flash_mha_bwd: lse must be float32 {(B * num_heads, Tq)}")
+        if t.shape != q.shape or t.dtype != dtype or t.device != q.device:
+            raise ValueError(f"{entry}: {name} must be a {dtype} {tuple(q.shape)} tensor on "
+                             f"{q.device}")
+    if lse is None or lse.shape != (B * num_heads, Tq) or lse.dtype != torch.float32:
+        raise ValueError(f"{entry}: lse must be float32 {(B * num_heads, Tq)}")
     q, k, v, o, dout, lse = (_aligned(t) for t in (q, k, v, o, dout, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     rowdot = torch.empty(B * num_heads, Tq, device=q.device)
-    status = _bwd_lib().flash_mha_bwd_f32(
+    status = getattr(_bwd_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), None if keep is None else keep.data_ptr(), rowdot.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
-        1.0 / math.sqrt(d), float(dropout), _int32(seed), _build.stream_ptr(q.device))
-    _build.check(status, "flash_mha_bwd_f32")
-    flash_mha_bwd.launches += 1
+        1.0 / math.sqrt(d), float(rate), _int32(seed), _build.stream_ptr(q.device))
+    _build.check(status, entry)
     return dq, dk, dv
 
 
@@ -386,43 +422,54 @@ def _check_bf16(status: int, what: str) -> None:
 
 
 def flash_mha_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
-                   *, mask: torch.Tensor | None = None) -> torch.Tensor:
+                   *, mask: torch.Tensor | None = None, dropout: float = 0.0,
+                   dropout_seed: int | None = None) -> torch.Tensor:
     """K3's bf16 route: bf16 ``q (B, Tq, C)``, ``k, v (B, Tk, C)`` -> bf16
-    ``(B, Tq, C)``. A CPU tensor takes the plain version; a bf16 CUDA tensor
-    launches the kernel, anything else on the card raises; an empty batch or
-    query launches nothing. ``flash_mha_bf16.launches`` counts its launches."""
+    ``(B, Tq, C)``, with :func:`flash_mha`'s ``mask`` and dropout. A CPU
+    tensor takes the plain version; a bf16 CUDA tensor launches the kernel
+    (its result carries a gradient through :func:`flash_mha_bwd_bf16`),
+    anything else on the card raises; an empty batch or query launches
+    nothing. ``flash_mha_bf16.launches`` counts its launches."""
+    seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
-        return flash_mha_plain(q, k, v, num_heads, mask=mask)
+        return flash_mha_plain(q, k, v, num_heads, mask=mask, dropout=dropout,
+                               dropout_seed=seed)
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.bfloat16)
     if B * Tq == 0:
         return torch.empty_like(q)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    rows, ctas = bf16_plan(B, Tq, Tk, num_heads, _sm_count(q.device.index or 0))
-    n_tiles = -(-Tk // KEY_TILE_BF16)
-    pieces = _splits(_ranges(-(-Tq // rows) * num_heads * B * n_tiles, ctas), n_tiles)
-
-    def launch(q, k, v):
-        out = torch.empty_like(q)
-        part = None
-        if pieces:  # two slots per range: rows x (o, then the scaled max and the sum)
-            part = torch.empty(2 * ctas * rows * (d + 2), device=q.device)
-        status = _lib().flash_mha_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            None if keep is None else keep.data_ptr(), out.data_ptr(),
-            None if part is None else part.data_ptr(),
-            B, Tq, Tk, num_heads, d, q_scale(d), KEY_TILE_BF16, rows, ctas,
-            _build.stream_ptr(q.device))
-        _check_bf16(status, "flash_mha_bf16")
-        return out
-
-    out = NoBackward.apply("flash_mha_bf16", launch, q, k, v)
+    out = _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
     flash_mha_bf16.launches += 1
     return out
+
+
+def _forward_bf16(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse: bool):
+    """One launch of the bf16 route (and its merge kernel where the plan
+    splits a row block) -> (o, lse or None)."""
+    B, Tq, C = q.shape
+    Tk = k.shape[1]
+    d = C // num_heads
+    rows, ctas = bf16_plan(B, Tq, Tk, num_heads, _sm_count(q.device.index or 0))
+    n_tiles = -(-Tk // KEY_TILE_BF16)
+    out = torch.empty_like(q)
+    part = None
+    if _splits(_ranges(-(-Tq // rows) * num_heads * B * n_tiles, ctas), n_tiles):
+        # two slots per range: rows x (o, then the scaled max and the sum)
+        part = torch.empty(2 * ctas * rows * (d + 2), device=q.device)
+    lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
+    status = _lib().flash_mha_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if keep is None else keep.data_ptr(),
+        out.data_ptr(), None if part is None else part.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
+        KEY_TILE_BF16, rows, ctas, rate, _int32(seed), _build.stream_ptr(q.device))
+    _check_bf16(status, "flash_mha_bf16")
+    return out, lse
 
 
 flash_mha.launches = 0
 flash_mha_bwd.launches = 0
 flash_mha_bf16.launches = 0
+flash_mha_bwd_bf16.launches = 0
 
 
 def bf16_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -146,7 +146,7 @@ def _n_frames(length: int, n_fft: int, hop: int) -> int:
 
 def stft_dft_plain(x: torch.Tensor, n_fft: int, hop: int) -> tuple:
     """Plain PyTorch version of :func:`stft_dft` (frames times the basis)."""
-    gr, gi = _stft_basis(n_fft, x.device)
+    gr, gi = (b.to(x.dtype) for b in _stft_basis(n_fft, x.device))  # float64: a reference run
     frames = x.unfold(-1, n_fft, hop)  # (R, n_frames, n_fft), frame t at t*hop
     return frames @ gr, frames @ gi
 
@@ -237,7 +237,7 @@ stft_dft.launches = 0
 
 def istft_dft_plain(zr: torch.Tensor, zi: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`istft_dft` (frames, then overlap-add)."""
-    mr, mi = _istft_basis(n_fft, zr.device)
+    mr, mi = (b.to(zr.dtype) for b in _istft_basis(n_fft, zr.device))
     rows, n_frames, _ = zr.shape
     ratio = n_fft // hop
     frames = (zr @ mr + zi @ mi).reshape(rows, n_frames, ratio, hop)

@@ -23,9 +23,20 @@ transformer always takes K3 where its mask allows.
 
 Precision, as in the JAX package (``htdemucs.py:215-395``): the core's
 stages (``_STAGES``) run in bf16 where ``compute_dtype="bfloat16"`` or
-``bf16_stages`` says so, with their parameters held in bf16 (converted once,
-when the module is built for its config) and fp32 statistics, softmax and
-accumulation; the others in fp32. ``matmul_precision`` (or
+``bf16_stages`` says so, with fp32 statistics, softmax and accumulation; the
+others in fp32. A bf16 stage computes with bf16 copies of its parameters,
+made one of two ways, with the same values:
+
+- serving: the module holds them in bf16, converted once when it is built
+  for its config (presets, the device engine and its graphs read them);
+- training: every parameter is an fp32 master (``module.float()`` before
+  the weights are loaded, or ``init_htdemucs(..., fp32_masters=True)``), and
+  each forward casts a bf16 stage's parameters to bf16 (JAX's
+  ``stage_params``), differentiably, so the gradients, the optimizer's
+  state and the checkpoints stay fp32.
+
+The forward tells the two apart by the dtype of the parameters it finds.
+``matmul_precision`` (or
 ``compute_dtype="mixed"``, which implies ``"tensorfloat32"``) sets
 :func:`precision_scope` around the core and ``precision_stages`` per stage.
 The DSP (K1, K2) runs in full fp32 outside the scope.
@@ -260,8 +271,31 @@ def _precision_overrides(cfg: HTDemucsConfig) -> tp.Dict[str, str]:
     return over
 
 
-def _conv1x1(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    return ops.conv1d(x, conv.weight, conv.bias)
+def _casts(stage: str, bf16: frozenset, mod: nn.Module) -> bool:
+    """Whether ``mod``, of a bf16 stage, holds fp32 masters to cast per forward."""
+    return stage in bf16 and any(p.dtype == torch.float32 for p in mod.parameters())
+
+
+def _bf16_params(mod: nn.Module) -> tp.Dict[str, torch.Tensor]:
+    """bf16 copies of ``mod``'s parameters (JAX's ``stage_params``); their
+    gradients reach the fp32 masters through the cast."""
+    return {n: p.to(torch.bfloat16) for n, p in mod.named_parameters()}
+
+
+def _staged(stage: str, bf16: frozenset, mod: nn.Module) -> tp.Callable:
+    """``mod`` as the core calls it: on bf16 copies of its fp32 masters in a
+    bf16 stage (training), made afresh on every call, else ``mod`` itself."""
+    if not _casts(stage, bf16, mod):
+        return mod
+    return lambda *args, **kwargs: torch.func.functional_call(mod, _bf16_params(mod), args,
+                                                              kwargs)
+
+
+def _conv1x1(conv: nn.Conv1d, x: torch.Tensor, cast: bool) -> torch.Tensor:
+    w, b = conv.weight, conv.bias
+    if cast:
+        w, b = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    return ops.conv1d(x, w, b)
 
 
 class HTDemucs(nn.Module):
@@ -304,8 +338,9 @@ class HTDemucs(nn.Module):
         return [getattr(self, n) for n in names if hasattr(self, n)]
 
     def _stage_dtypes(self) -> None:
-        """Hold each bf16 stage's parameters in bf16, once (the JAX package casts
-        them on every forward); the other stages keep fp32."""
+        """Hold each bf16 stage's parameters in bf16, once (serving); the other
+        stages keep fp32. ``module.float()`` undoes it for training: the
+        forward then casts fp32 masters on every call, as JAX does."""
         bf16 = _bf16_stage_set(self.cfg)
         for stage in _STAGES:
             for mod in self.stage_modules(stage):
@@ -324,9 +359,10 @@ class HTDemucs(nn.Module):
         with precision_scope(_matmul_precision(cfg)):
             return self._core(mag, mix, generator)
 
-    def _layer(self, layer: nn.Module, precision: tp.Optional[str], *args):
+    def _layer(self, layer: tp.Callable, precision: tp.Optional[str], *args):
         """``layer(*args)``, recomputed in the backward when training with
-        ``remat``, under the same precision scope as in the forward."""
+        ``remat``, under the same precision scope (and the same casts of a
+        bf16 stage's masters, :func:`_staged`) as in the forward."""
         if not (self.remat and self.training and torch.is_grad_enabled()):
             return layer(*args)
 
@@ -354,9 +390,14 @@ class HTDemucs(nn.Module):
 
         bf16 = _bf16_stage_set(cfg)
         prec_over = _precision_overrides(cfg)
+        # fp32, or float64 for a float64 module and input (a reference run on the CPU)
+        full = torch.float64 if mag.dtype == torch.float64 else torch.float32
 
         def cast(stage: str, a: torch.Tensor) -> torch.Tensor:
-            return a.to(torch.bfloat16 if stage in bf16 else torch.float32)
+            return a.to(torch.bfloat16 if stage in bf16 else full)
+
+        def staged(stage: str, mod: nn.Module) -> tp.Callable:
+            return _staged(stage, bf16, mod)
 
         def prec(stage: str):
             p = prec_over.get(stage)
@@ -374,7 +415,7 @@ class HTDemucs(nn.Module):
                 tenc = self.tencoder[idx]
                 xt = cast("tencoder", xt)
                 with prec("tencoder"):
-                    xt = self._layer(tenc, layer_prec("tencoder"), xt)
+                    xt = self._layer(staged("tencoder", tenc), layer_prec("tencoder"), xt)
                 if not tenc.spec.empty:
                     saved_t.append(xt)
                 else:
@@ -383,10 +424,10 @@ class HTDemucs(nn.Module):
             if inject is not None:
                 inject = cast("encoder", inject)
             with prec("encoder"):
-                x = self._layer(encode, layer_prec("encoder"), x, inject)
+                x = self._layer(staged("encoder", encode), layer_prec("encoder"), x, inject)
             if idx == 0 and self.layout.freq_emb_bins:
                 frs = torch.arange(x.shape[-2], device=x.device)
-                emb = self.freq_emb(frs).t()[None, :, :, None].to(x.dtype)
+                emb = staged("encoder", self.freq_emb)(frs).t()[None, :, :, None].to(x.dtype)
                 x = x + hl.scalar(cfg.freq_emb, x.dtype) * emb
             saved.append(x)
 
@@ -395,16 +436,17 @@ class HTDemucs(nn.Module):
             xt = cast("transformer", xt)
             with prec("transformer"):
                 if cfg.bottom_channels:
+                    cast_t = _casts("transformer", bf16, self.channel_upsampler)
                     b, c, f, t = x.shape
-                    x = _conv1x1(self.channel_upsampler, x.reshape(b, c, f * t))
+                    x = _conv1x1(self.channel_upsampler, x.reshape(b, c, f * t), cast_t)
                     x = x.reshape(b, -1, f, t)
-                    xt = _conv1x1(self.channel_upsampler_t, xt)
-                x, xt = self.crosstransformer(x, xt, generator=generator)
+                    xt = _conv1x1(self.channel_upsampler_t, xt, cast_t)
+                x, xt = staged("transformer", self.crosstransformer)(x, xt, generator=generator)
                 if cfg.bottom_channels:
                     b, c, f, t = x.shape
-                    x = _conv1x1(self.channel_downsampler, x.reshape(b, c, f * t))
+                    x = _conv1x1(self.channel_downsampler, x.reshape(b, c, f * t), cast_t)
                     x = x.reshape(b, -1, f, t)
-                    xt = _conv1x1(self.channel_downsampler_t, xt)
+                    xt = _conv1x1(self.channel_downsampler_t, xt, cast_t)
 
         x = cast("decoder", x)
         xt = cast("tdecoder", xt)
@@ -412,7 +454,8 @@ class HTDemucs(nn.Module):
         for idx, decode in enumerate(self.decoder):
             skip = cast("decoder", saved.pop(-1))
             with prec("decoder"):
-                x, pre = self._layer(decode, layer_prec("decoder"), x, skip, lengths.pop(-1))
+                x, pre = self._layer(staged("decoder", decode), layer_prec("decoder"), x, skip,
+                                     lengths.pop(-1))
             if idx >= offset:
                 tdec = self.tdecoder[idx - offset]
                 length_t = lengths_t.pop(-1)
@@ -420,17 +463,17 @@ class HTDemucs(nn.Module):
                     if tdec.spec.empty:
                         if pre.shape[2] != 1:
                             raise AssertionError(tuple(pre.shape))
-                        xt, _ = self._layer(tdec, layer_prec("tdecoder"),
+                        xt, _ = self._layer(staged("tdecoder", tdec), layer_prec("tdecoder"),
                                             cast("tdecoder", pre[:, :, 0]), None, length_t)
                     else:
-                        xt, _ = self._layer(tdec, layer_prec("tdecoder"), xt,
+                        xt, _ = self._layer(staged("tdecoder", tdec), layer_prec("tdecoder"), xt,
                                             cast("tdecoder", saved_t.pop(-1)), length_t)
         if saved or saved_t or lengths_t:
             raise AssertionError("unbalanced encoder / decoder skips")
 
         S = len(cfg.sources)
-        x = x.float().reshape(B, S, -1, Fq, T) * std[:, None] + mean[:, None]
-        xt = xt.float().reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]
+        x = x.to(full).reshape(B, S, -1, Fq, T) * std[:, None] + mean[:, None]
+        xt = xt.to(full).reshape(B, S, -1, length) * stdt[:, None] + meant[:, None]
         return x, xt
 
     def forward(self, mix: torch.Tensor,
@@ -470,7 +513,7 @@ class HTDemucs(nn.Module):
 
 def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
                   layer_scale: tp.Optional[float] = None,
-                  random_norms: bool = False) -> HTDemucs:
+                  random_norms: bool = False, fp32_masters: bool = False) -> HTDemucs:
     """Random weights from a seeded ``torch.Generator``, with the distributions
     of ``demucs_tpu.models.htdemucs.init_htdemucs`` (not its numbers):
     ``U(+-1/sqrt(fan_in))`` for convolutions and linear maps, the Demucs
@@ -484,7 +527,8 @@ def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
     ``random_norms`` draws every GroupNorm and LayerNorm weight as
     ``1 + 0.3 N(0, 1)`` and bias as ``0.3 N(0, 1)``: with unit weights and
     zero biases a norm left out moves the output too little for a check to
-    see."""
+    see. ``fp32_masters`` keeps every parameter fp32 (training: a bf16
+    stage casts them on each forward) where a bf16 stage would hold bf16."""
     # drawn in fp32, then each bf16 stage rounded once, as a loaded checkpoint is
     model = HTDemucs(dataclasses.replace(cfg, compute_dtype="float32", bf16_stages=()))
     gen = torch.Generator().manual_seed(seed)
@@ -519,5 +563,6 @@ def init_htdemucs(cfg: HTDemucsConfig, seed: int = 0,
                 mod.weight.copy_(1 + 0.3 * torch.randn(mod.weight.shape, generator=gen))
                 mod.bias.copy_(0.3 * torch.randn(mod.bias.shape, generator=gen))
     model.cfg = cfg
-    model._stage_dtypes()
+    if not fp32_masters:
+        model._stage_dtypes()
     return model

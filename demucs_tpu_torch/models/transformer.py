@@ -25,8 +25,9 @@ their weights in ``torch.nn`` modules and apply them through
 
 Train mode (``module.train()``, a ``generator`` passed to ``forward``), as
 the JAX package at ``train=True``: dropout at ``spec.dropout`` on the
-attention probabilities (K3's hashed dropout, seeded by a host int drawn per
-attention; none on the LSH layers, as in the reference), after the attention
+attention probabilities (K3's hashed dropout on either route, fp32 or the
+bf16 of a bf16 stage, seeded by a host int drawn per attention; none on the
+LSH layers, as in the reference), after the attention
 (``dropout1``; the sparse layers also after the out-projection, the
 reference's ``proj_drop``), inside the feed-forward and after it
 (``dropout2``); ``sin_random_shift``'s shift and CAPE's augment drawn per

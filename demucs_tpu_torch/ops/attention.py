@@ -101,12 +101,13 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Tq, C = q.shape
     head_dim = C // num_heads
     scale = 1.0 / math.sqrt(head_dim)
-    if q.dtype != torch.float32:
+    if q.dtype not in (torch.float32, torch.float64):
         scale = torch.tensor(scale, dtype=q.dtype).item()
+    acc = torch.promote_types(q.dtype, torch.float32)  # float64: a reference run
     qh = _split_heads(q, num_heads) * scale
     kh = _split_heads(k, num_heads)
     vh = _split_heads(v, num_heads)
-    scores = qh.float() @ kh.float().transpose(-1, -2)
+    scores = qh.to(acc) @ kh.to(acc).transpose(-1, -2)
     if mask is not None:
         keep = mask.to(device=scores.device, dtype=torch.bool)
         scores = scores.masked_fill(~keep, float("-inf"))
@@ -117,5 +118,5 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         keep = dropout_keep(B * num_heads, Tq, k.shape[1], dropout, dropout_seed,
                             scores.device).view(B, num_heads, Tq, -1)
         weights = weights * keep.to(weights.dtype) / (1.0 - dropout)
-    out = (weights.float() @ vh.float()).to(q.dtype)
+    out = (weights.to(acc) @ vh.to(acc)).to(q.dtype)
     return out.permute(0, 2, 1, 3).reshape(B, Tq, C)

@@ -12,7 +12,13 @@
 
 bf16 inputs (a bf16 stage of HTDemucs) follow the JAX package's rounding
 points: a convolution or linear map rounds its product to bf16 and adds the
-bias in bf16 after it (fp32 accumulation inside the product); the norms
+bias in bf16 after it (fp32 accumulation inside the product: the library's
+on the card; on the CPU the product runs in fp32 over the bf16 values and is
+rounded once, which is the same function, since a product of two bf16
+values is exact in fp32, and its backward is JAX's, whose cast transposes
+round each gradient once; oneDNN's bf16 convolution gives wrong values for
+some shapes, e.g. 8 to 16 channels at kernel 8, stride 4, padding 2, the
+fault that ROADMAP.md records as C3); the norms
 take their statistics in fp32, round the normalized values to the input's
 dtype, then apply the affine weights in that dtype; GELU and GLU round each
 step of JAX's formula.
@@ -27,6 +33,7 @@ exactly, so the result is the bf16 product with fp32 accumulation, in fp32.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import typing as tp
 
@@ -39,6 +46,9 @@ __all__ = ["conv1d", "conv2d", "conv_transpose1d", "conv_transpose2d", "linear",
 
 _Int2 = tp.Union[int, tp.Tuple[int, int]]
 _BF16_OPERANDS = False
+# full-precision dtypes take the library's op as it is (float64: a reference
+# run on the CPU); 16-bit ones round where JAX does (module docstring)
+_FULL = (torch.float32, torch.float64)
 
 
 @contextlib.contextmanager
@@ -65,6 +75,15 @@ def _bias_after(x: torch.Tensor) -> bool:
     return x.dtype in (torch.bfloat16, torch.float16)
 
 
+def _product16(fn: tp.Callable, x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
+    """``fn(x, w, **kw)`` (a product without its bias) of 16-bit operands, in
+    their dtype: the library's on the card, in fp32 rounded once on the CPU
+    (module docstring)."""
+    if x.is_cuda:
+        return fn(x, w, **kw)
+    return fn(x.float(), w.float(), **kw).to(x.dtype)
+
+
 def _add_bias(out: torch.Tensor, b: tp.Optional[torch.Tensor]) -> torch.Tensor:
     if b is None:
         return out
@@ -74,7 +93,7 @@ def _add_bias(out: torch.Tensor, b: tp.Optional[torch.Tensor]) -> torch.Tensor:
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU. A 16-bit input rounds where ``jax.nn.gelu`` does:
     ``(0.5 x) * erfc(-x * sqrt(0.5))``, each step in its dtype."""
-    if x.dtype == torch.float32:
+    if x.dtype in _FULL:
         return F.gelu(x)
     # the constant rounded to x's dtype, as JAX rounds it; a Python number, so
     # that the forward copies nothing from the host (a graph capture refuses it)
@@ -86,7 +105,7 @@ def glu(x: torch.Tensor, axis: int = 1) -> torch.Tensor:
     """Gated linear unit along ``axis``. A 16-bit input rounds each step of
     the JAX package's ``a * sigmoid(b)``, whose sigmoid XLA expands to
     ``1 / (1 + exp(-b))``."""
-    if x.dtype == torch.float32:
+    if x.dtype in _FULL:
         return F.glu(x, dim=axis)
     a, b = x.chunk(2, dim=axis)
     return a * (1 / (1 + torch.exp(-b)))
@@ -103,8 +122,8 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: tp.Optional[torch.Tensor] = None
     """1-D convolution. ``x (B, C, L)``, ``w (O, I/groups, K)``."""
     x, w = _operands(x, w)
     if _bias_after(x):
-        return _add_bias(F.conv1d(x, w, None, stride=stride, padding=padding,
-                                  dilation=dilation, groups=groups), b)
+        return _add_bias(_product16(F.conv1d, x, w, stride=stride, padding=padding,
+                                    dilation=dilation, groups=groups), b)
     return F.conv1d(x, w, b, stride=stride, padding=padding, dilation=dilation,
                     groups=groups)
 
@@ -115,8 +134,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: tp.Optional[torch.Tensor] = None
     """2-D convolution. ``x (B, C, H, W)``, ``w (O, I/groups, Kh, Kw)``."""
     x, w = _operands(x, w)
     if _bias_after(x):
-        return _add_bias(F.conv2d(x, w, None, stride=stride, padding=padding,
-                                  dilation=dilation, groups=groups), b)
+        return _add_bias(_product16(F.conv2d, x, w, stride=stride, padding=padding,
+                                    dilation=dilation, groups=groups), b)
     return F.conv2d(x, w, b, stride=stride, padding=padding, dilation=dilation,
                     groups=groups)
 
@@ -127,7 +146,8 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     """1-D transposed convolution. ``w (I, O, K)``; out_len = (L-1)*stride - 2*padding + K."""
     x, w = _operands(x, w)
     if _bias_after(x):
-        return _add_bias(F.conv_transpose1d(x, w, None, stride=stride, padding=padding), b)
+        return _add_bias(_product16(F.conv_transpose1d, x, w, stride=stride, padding=padding),
+                         b)
     return F.conv_transpose1d(x, w, b, stride=stride, padding=padding)
 
 
@@ -137,7 +157,8 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
     """2-D transposed convolution. ``w (I, O, Kh, Kw)``."""
     x, w = _operands(x, w)
     if _bias_after(x):
-        return _add_bias(F.conv_transpose2d(x, w, None, stride=stride, padding=padding), b)
+        return _add_bias(_product16(F.conv_transpose2d, x, w, stride=stride, padding=padding),
+                         b)
     return F.conv_transpose2d(x, w, b, stride=stride, padding=padding)
 
 
@@ -145,21 +166,24 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: tp.Optional[torch.Tensor] = None
     """Affine map on the last axis. ``w (out, in)``."""
     x, w = _operands(x, w)
     if _bias_after(x):
-        out = F.linear(x, w)
+        out = _product16(F.linear, x, w)
         return out if b is None else out + b.to(out.dtype)
     return F.linear(x, w, b)
 
 
 def matmul(equation: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``torch.einsum(equation, a, b)``, a product under :func:`bf16_operands`."""
-    return torch.einsum(equation, *_operands(a, b))
+    a, b = _operands(a, b)
+    if _bias_after(a):
+        return _product16(functools.partial(torch.einsum, equation), a, b)
+    return torch.einsum(equation, a, b)
 
 
 def group_norm(x: torch.Tensor, num_groups: int, w: tp.Optional[torch.Tensor] = None,
                b: tp.Optional[torch.Tensor] = None, *, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over ``x (B, C, *spatial)`` with biased variance. A 16-bit
     input is normalized in fp32 and returned in its own dtype."""
-    if x.dtype == torch.float32:
+    if x.dtype in _FULL:
         return F.group_norm(x, num_groups, w, b, eps=eps)
     B, C = x.shape[:2]
     xg = x.reshape(B, num_groups, -1).float()
@@ -172,7 +196,7 @@ def layer_norm(x: torch.Tensor, w: tp.Optional[torch.Tensor] = None,
                b: tp.Optional[torch.Tensor] = None, *, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis. A 16-bit input is normalized in fp32 and
     returned in its own dtype."""
-    if x.dtype == torch.float32:
+    if x.dtype in _FULL:
         return F.layer_norm(x, (x.shape[-1],), w, b, eps=eps)
     xf = x.float()
     var, mean = torch.var_mean(xf, dim=-1, keepdim=True, correction=0)

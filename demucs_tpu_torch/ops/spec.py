@@ -67,6 +67,11 @@ def _window_envelope(n_fft: int, hop: int, n_frames: int, device: torch.device) 
     return env.clamp_min(1e-11)
 
 
+def _real(x: torch.Tensor) -> torch.Tensor:
+    """fp32, the DSP's type; float64 stays (a reference run on the CPU)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _reflect_pad(x: torch.Tensor, left: int, right: int) -> torch.Tensor:
     lead = x.shape[:-1]
     flat = x.reshape(-1, 1, x.shape[-1])
@@ -82,7 +87,7 @@ def stft(x: torch.Tensor, n_fft: int, hop: int, *, normalized: bool = True,
     if center:
         x = _reflect_pad(x, n_fft // 2, n_fft // 2)
     lead = x.shape[:-1]
-    zr, zi = stft_dft(x.reshape(-1, x.shape[-1]).float().contiguous(), n_fft, hop)
+    zr, zi = stft_dft(_real(x.reshape(-1, x.shape[-1])).contiguous(), n_fft, hop)
     if normalized:
         scale = 1.0 / math.sqrt(n_fft)
         zr, zi = zr * scale, zi * scale
@@ -106,7 +111,7 @@ def istft(z: torch.Tensor, n_fft: int, hop: int, *, length: int | None = None,
     zi = zt.imag.reshape(-1, n_frames, freqs)
     if normalized:
         zr, zi = zr * math.sqrt(n_fft), zi * math.sqrt(n_fft)
-    y = istft_dft(zr.float().contiguous(), zi.float().contiguous(), n_fft, hop)
+    y = istft_dft(_real(zr).contiguous(), _real(zi).contiguous(), n_fft, hop)
     y = y.reshape(*lead, y.shape[-1])
     y = y / _window_envelope(n_fft, hop, n_frames, y.device)
     if center:

@@ -172,7 +172,9 @@ class Solver:
         if self.best_changed and self.best_state is not None:
             from demucs_tpu_torch.zoo.native import save_model
 
-            best = load_flat_state(build_module(self.model.kind, self.model.cfg), self.best_state)
+            # the fp32 masters, as trained (a bf16 stage rounds them when it is served)
+            best = load_flat_state(build_module(self.model.kind, self.model.cfg).float(),
+                                   self.best_state)
             tmp = self.best_file.with_suffix(".tmp")
             save_model(Model(self.model.kind, self.model.cfg, best), tmp,
                        training_args=dataclasses.asdict(self.args))

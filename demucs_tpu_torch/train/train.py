@@ -47,10 +47,6 @@ def check_supported(args: TrainArgs) -> None:
     if args.augment.repitch.proba > 0:
         raise NotImplementedError(f"augment.repitch.proba > 0: the repitch augment {later}; "
                                   "set augment.repitch.proba=0")
-    dtype = args.model_args.get("compute_dtype", "float32")
-    if dtype == "bfloat16" or args.model_args.get("bf16_stages"):
-        raise NotImplementedError(f"compute_dtype='bfloat16': bf16 training (K3's bf16 route "
-                                  f"has no dropout and no backward) {later}")
     if distrib.world_size() > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training on more than one process comes with the "
                                   "parallelism slice of the port")
@@ -58,7 +54,11 @@ def check_supported(args: TrainArgs) -> None:
 
 def get_model(args: TrainArgs, device="cuda") -> Model:
     """The model of ``args.model`` with its extras (train.py:57-72), seeded
-    random weights, on ``device``, with ``args.remat``."""
+    random weights, on ``device``, with ``args.remat``. Every parameter is
+    fp32: an HTDemucs with bf16 stages (``compute_dtype="bfloat16"`` or
+    ``bf16_stages`` in ``model_args``) casts them on each forward, as the
+    JAX package trains, so gradients, optimizer state and checkpoints are
+    fp32."""
     kw = dict(args.model_args)
     kw.update(sources=tuple(args.dset.sources), audio_channels=args.dset.channels,
               samplerate=args.dset.samplerate,
@@ -68,13 +68,16 @@ def get_model(args: TrainArgs, device="cuda") -> Model:
     except KeyError:
         raise ValueError(f"Unknown model {args.model}") from None
     cfg = cfg_cls(**kw)
+    kw = {}
     if args.model == "htdemucs":
         from demucs_tpu_torch.models.htdemucs import init_htdemucs as init
+
+        kw["fp32_masters"] = True
     elif args.model == "hdemucs":
         from demucs_tpu_torch.models.hdemucs import init_hdemucs as init
     else:
         from demucs_tpu_torch.models.demucs import init_demucs as init
-    module = init(cfg, seed=args.seed)
+    module = init(cfg, seed=args.seed, **kw)
     module.remat = args.remat
     return Model(args.model, cfg, module.to(resolve_device(device)))
 

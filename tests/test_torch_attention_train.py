@@ -7,15 +7,28 @@ and at dropout 0 against ``jax.grad`` of the JAX package's dense attention;
 the adjoint formulas of K1 and K2 (``stft_dft_backward``,
 ``istft_dft_backward``) against autograd through their plain versions.
 
+The same on bf16 inputs (K3's bf16 route, which training in bf16 takes): the
+dropout against the Pallas kernel on bf16 inputs, its drop pattern read out
+bit for bit through one-hot values, the backward formula against autograd
+through the plain bf16 forward and against ``jax.grad`` on bf16 inputs, and
+a model of the bf16 backward kernel's arithmetic (bf16 products of P Z and
+dS, fp32 sums, bf16 out) against the formula.
+
 Tolerances: the keep-mask is bit-equal (uint32 hash); the forward atol 2e-5,
 rtol 1e-4 (test_torch_attention.py's, fp32 sums in another order); the
 gradients 1e-5 x each gradient's peak against autograd of the same plain
 forward (the same products, written out) and 2e-5 x peak against JAX
 (another framework's fp32 softmax and products); the STFT adjoints 1e-5 x
-peak (fp32 sums of 512 terms in another order).
+peak (fp32 sums of 512 terms in another order). bf16: the forward 2^-6 abs
++ 2^-6 rel (the bf16 route's tolerance, test_torch_attention.py's
+``BF16_FLASH``: the plain version rounds P to bf16 where the Pallas kernel
+keeps it fp32), the gradients 2^-6 x each gradient's peak (bf16 outputs,
+2^-9 relative, and P, Z P and dS rounded to bf16 at different points on
+each side).
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -35,6 +48,9 @@ from demucs_tpu_torch.ops.attention import apply_dropout, dropout_keep
 from test_torch_apply import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = dict(atol=2e-5, rtol=1e-4)
+BF16_TOL = dict(atol=2 ** -6, rtol=2 ** -6)
+BF16_GRAD_RTOL = 2 ** -6
+BF16 = torch.bfloat16
 
 
 def _qkv(B, Tq, Tk, C, seed):
@@ -144,6 +160,130 @@ def test_training_contract_on_cpu():
     torch.testing.assert_close(y, z, rtol=0, atol=0)
 
 
+def _bf16(*arrays):
+    """numpy fp32 -> (torch bf16, jax bf16) of the same values."""
+    ts = [torch.from_numpy(a).to(BF16) for a in arrays]
+    return ts, [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in ts]
+
+
+@pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [
+    (2, 130, 130, 64, 4, 0.1, False),
+    (1, 140, 90, 128, 8, 0.25, True),
+    (1, 70, 90, 96, 2, 0.5, False),   # head dim 48
+])
+def test_bf16_hashed_dropout_matches_pallas(B, Tq, Tk, C, H, rate, masked):
+    """bf16 inputs: the plain version's dropout against the Pallas kernel's,
+    which keeps q's dtype in its output (attention.py:184)."""
+    (q, k, v), (jq, jk, jv) = _bf16(*_qkv(B, Tq, Tk, C, 0)[:3])
+    seed = 7654321
+    mask = (np.asarray(get_mask(Tk, Tq, "diag", 20, 5, 42, 0.9)) if masked else None)
+    want = jax_flash_mha(jq, jk, jv, H, mask=None if mask is None else jnp.asarray(mask),
+                         dropout=rate, dropout_seed=jnp.int32(seed), block_q=64, block_k=64,
+                         interpret=True)
+    assert want.dtype == jnp.bfloat16
+    tm = None if mask is None else torch.from_numpy(np.array(mask))
+    got = K.flash_mha(q, k, v, H, mask=tm, dropout=rate, dropout_seed=seed)
+    assert got.dtype == BF16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+    undropped = K.flash_mha(q, k, v, H, mask=tm)
+    assert (got.float() - undropped.float()).abs().max() > 0.05  # the drop is there
+
+
+@pytest.mark.parametrize("B,Tq,Tk,H,d", [(2, 150, 64, 2, 64), (1, 90, 48, 3, 48),
+                                         (2, 70, 32, 2, 32)])
+def test_bf16_drop_pattern_is_the_pallas_one(B, Tq, Tk, H, d):
+    """With one-hot values (key j of each head writes channel j alone) the
+    output is P Z itself: it is zero exactly where a score was dropped, on
+    the port's bf16 route as in the Pallas kernel on bf16 inputs, and there
+    as dropout_keep says."""
+    rng = np.random.default_rng(3)
+    qk = [0.3 * rng.standard_normal((B, T, H * d)).astype(np.float32) for T in (Tq, Tk)]
+    onehot = np.zeros((B, Tk, H * d), np.float32)
+    for h in range(H):
+        onehot[:, np.arange(Tk), h * d + np.arange(Tk)] = 1.0
+    (q, k, v), (jq, jk, jv) = _bf16(*qk, onehot)
+    rate, seed = 0.3, 2**31 - 11
+    got = K.flash_mha(q, k, v, H, dropout=rate, dropout_seed=seed).float().numpy()
+    want = np.asarray(jax_flash_mha(jq, jk, jv, H, dropout=rate, dropout_seed=jnp.int32(seed),
+                                    block_q=64, block_k=64, interpret=True).astype(jnp.float32))
+    dropped = got.reshape(B, Tq, H, d)[..., :Tk] == 0
+    np.testing.assert_array_equal(dropped, want.reshape(B, Tq, H, d)[..., :Tk] == 0)
+    keep = dropout_keep(B * H, Tq, Tk, rate, seed).numpy().reshape(B, H, Tq, Tk)
+    np.testing.assert_array_equal(dropped, ~keep.transpose(0, 2, 1, 3))
+    assert 0.2 < dropped.mean() < 0.4
+
+
+def _bwd_bf16_model(q, k, v, o, do, H, mask, rate, seed):
+    """The bf16 backward kernel's arithmetic (csrc/flash_mha_bwd.cu with T =
+    bf16): S from the bf16 q and k in fp32, P = 2^(S log2(e)/sqrt(d) - lse)
+    from the forward's base-2 log-sum-exp, D = dO . o, dS = P (Z dO V^T - D)
+    in fp32, then Z P and dS rounded to bf16 for the products with dO, Q and
+    K (fp32 sums), the gradients out in bf16."""
+    B, Tq, C = q.shape
+    d = C // H
+    split = lambda t: t.float().reshape(B, -1, H, d).permute(0, 2, 1, 3)  # noqa: E731
+    qh, kh, vh, oh, dh = (split(t) for t in (q, k, v, o, do))
+    s = (qh @ kh.transpose(-1, -2)) * K.q_scale(d)
+    if mask is not None:
+        s = s.masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(s * math.log(2), -1, keepdim=True) / math.log(2)
+    p = torch.exp2(s - lse)
+    z = (torch.ones_like(p) if rate == 0 else
+         dropout_keep(B * H, Tq, k.shape[1], rate, seed).view(p.shape).float() / (1 - rate))
+    ds = p * ((dh @ vh.transpose(-1, -2)) * z - (dh * oh).sum(-1, keepdim=True))
+    r = lambda t: t.to(BF16).float()  # noqa: E731
+    merge = lambda t: t.permute(0, 2, 1, 3).reshape(B, -1, C).to(BF16)  # noqa: E731
+    return (merge(r(ds) @ kh / math.sqrt(d)), merge(r(ds).transpose(-1, -2) @ qh / math.sqrt(d)),
+            merge(r(p * z).transpose(-1, -2) @ dh))
+
+
+@pytest.mark.parametrize("rate,masked", [(0.0, False), (0.0, True), (0.2, False), (0.2, True)])
+def test_bf16_backward_formula_matches_autograd(rate, masked):
+    """The backward formula on bf16 inputs (it computes in fp32, returns bf16)
+    against autograd through the plain bf16 forward with the same drop, and
+    the bf16 kernel's arithmetic against the formula."""
+    B, Tq, Tk, C, H = 2, 70, 90, 64, 2
+    q, k, v, do = (torch.from_numpy(a).to(BF16) for a in _qkv(B, Tq, Tk, C, 1))
+    mask = torch.rand(Tq, Tk, generator=torch.Generator().manual_seed(0)) > 0.3 if masked else None
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = K.flash_mha(*leaves, H, mask=mask, dropout=rate, dropout_seed=99)
+    want = torch.autograd.grad(out, leaves, do)
+    got = K.flash_mha_bwd_plain(q, k, v, out.detach(), do, H, mask=mask, dropout=rate,
+                                dropout_seed=99)
+    before = K.flash_mha_bwd_bf16.launches
+    wrapped = K.flash_mha_bwd_bf16(q, k, v, out.detach(), do, H, lse=None, mask=mask,
+                                   dropout=rate, dropout_seed=99)
+    assert K.flash_mha_bwd_bf16.launches == before  # a CPU tensor launches nothing
+    model = _bwd_bf16_model(q, k, v, out.detach(), do, H, mask, rate, 99)
+    for g, w, x, m in zip(got, want, wrapped, model):
+        assert g.dtype == BF16
+        assert _rel(g.float(), w.float()) < BF16_GRAD_RTOL
+        assert _rel(m.float(), g.float()) < BF16_GRAD_RTOL
+        torch.testing.assert_close(x, g, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_bf16_backward_matches_jax_grad(masked):
+    """At dropout 0, on bf16 inputs, the gradients of the JAX package's dense
+    attention in bf16."""
+    B, Tq, Tk, C, H = 1, 96, 80, 128, 4
+    q, k, v, do = _qkv(B, Tq, Tk, C, 2)
+    mask = np.asarray(get_mask(Tk, Tq, "diag", 10, 4, 42, 0.9)) if masked else None
+    (tq, tk, tv, tdo), (jq, jk, jv, jdo) = _bf16(q, k, v, do)
+
+    def f(q, k, v):
+        out = jax_mha(q, k, v, H, mask=None if mask is None else jnp.asarray(mask))
+        return jnp.sum(out.astype(jnp.float32) * jdo.astype(jnp.float32))
+
+    want = jax.grad(f, argnums=(0, 1, 2))(jq, jk, jv)
+    tm = None if mask is None else torch.from_numpy(np.array(mask))
+    out = K.flash_mha(tq, tk, tv, H, mask=tm)
+    got = K.flash_mha_bwd_plain(tq, tk, tv, out, tdo, H, mask=tm)
+    for g, w in zip(got, want):
+        assert _rel(g.float().numpy(), np.asarray(w.astype(jnp.float32))) < BF16_GRAD_RTOL
+
+
 @pytest.mark.parametrize("n_fft,hop,length", [(512, 128, 4096), (512, 128, 4001),
                                               (1024, 256, 6000)])
 def test_stft_backward_formulas(n_fft, hop, length):
@@ -185,7 +325,7 @@ def test_backward_argtypes_match_the_c_signature(monkeypatch):
     finally:
         K._bwd_lib.cache_clear()
     exported = _exported((_build.CSRC / "flash_mha_bwd.cu").read_text())
-    assert set(fake.functions) == set(exported) == {"flash_mha_bwd_f32"}
+    assert set(fake.functions) == set(exported) == {"flash_mha_bwd_f32", "flash_mha_bwd_bf16"}
     for name, kinds in exported.items():
         assert fake.functions[name].argtypes == kinds
         assert fake.functions[name].restype is ctypes.c_int

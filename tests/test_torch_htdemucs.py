@@ -215,9 +215,8 @@ def test_load_flat_state_is_strict():
 
 def test_unported_options_raise():
     """Every option builds (tests/test_torch_transformer_variants.py holds
-    each against JAX); what is left unported raises: bf16 training (K3's
-    bf16 route has no dropout or backward kernel yet), and an option the JAX
-    package has not."""
+    each against JAX); what is left unported raises: the SVD penalty in
+    training, and an option the JAX package has not."""
     from demucs_tpu_torch.train.config import TrainArgs
     from demucs_tpu_torch.train.train import check_supported
 
@@ -229,6 +228,8 @@ def test_unported_options_raise():
                                         segment=0.5, samplerate=8000, **kw))
     args = TrainArgs(model_args={"compute_dtype": "bfloat16"})
     args.augment.repitch.proba = 0.0
+    check_supported(args)
+    args.svd.penalty = 1.0
     with pytest.raises(NotImplementedError, match="later slice"):
         check_supported(args)
     with pytest.raises(ValueError, match="unknown transformer embedding"):

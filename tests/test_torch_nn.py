@@ -1,7 +1,9 @@
 """Port's NN primitives (demucs_tpu_torch.ops.nn) against demucs_tpu.ops.nn.
 
 Tolerance: atol 1e-5 — fp32 convolutions and reductions summed in another
-order (XLA:CPU against oneDNN/ATen), at unit-scale inputs.
+order (XLA:CPU against oneDNN/ATen), at unit-scale inputs. A bf16 product on
+the CPU is bit-equal to the fp32 product of its bf16 values rounded once
+(the port computes it so; oneDNN's bf16 convolution did not, ROADMAP C3).
 """
 
 import numpy as np
@@ -93,3 +95,30 @@ def test_embedding():
     ids = np.array([0, 3, 9, 3])
     _close(T.embedding(torch.from_numpy(ids), torch.from_numpy(table)),
            J.embedding(jnp.asarray(ids), jnp.asarray(table)))
+
+
+@pytest.mark.parametrize("op,x_shape,w_shape,kw", [
+    ("conv1d", (2, 8, 1000), (16, 8, 8), dict(stride=4, padding=2)),  # C3's tencoder shape
+    ("conv1d", (2, 16, 250), (32, 16, 3), dict(padding=2, dilation=2)),
+    ("conv2d", (2, 8, 64, 30), (16, 8, 8, 1), dict(stride=(4, 1), padding=(2, 0))),
+    ("conv_transpose1d", (2, 16, 100), (16, 8, 8), dict(stride=4)),
+    ("conv_transpose2d", (2, 16, 16, 30), (16, 8, 8, 1), dict(stride=(4, 1))),
+    ("linear", (2, 50, 64), (32, 64), {})])
+def test_bf16_cpu_products_round_once(op, x_shape, w_shape, kw):
+    """bf16 on the CPU: the product of the bf16 values in fp32, rounded to bf16
+    once, then the bias in bf16 (JAX's rounding points), and its gradients
+    those of that fp32 product rounded once (JAX's cast transposes)."""
+    x, w, b = (torch.from_numpy(_r(s, i)).bfloat16() for i, s in
+               enumerate((x_shape, w_shape, (w_shape[1] if "transpose" in op else w_shape[0],))))
+    leaves = [t.clone().requires_grad_() for t in (x, w)]
+    got = getattr(T, op)(*leaves, b, **kw)
+    ref = [t.float().requires_grad_() for t in (x, w)]
+    product = getattr(torch.nn.functional, op)(*ref, **kw)
+    shape = (-1,) if op == "linear" else (-1,) + (1,) * (product.dim() - 2)
+    want = product.bfloat16() + b.reshape(shape)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    ct = torch.from_numpy(_r(tuple(got.shape), 9)).bfloat16()
+    got_grads = torch.autograd.grad(got, leaves, ct)
+    want_grads = torch.autograd.grad(product, ref, ct.float())
+    for g, w_ in zip(got_grads, want_grads):
+        torch.testing.assert_close(g, w_.bfloat16(), rtol=0, atol=0)

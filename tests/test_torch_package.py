@@ -8,7 +8,6 @@ import pytest
 import torch
 
 from demucs_tpu_torch import resolve_device
-from demucs_tpu_torch.kernels import NoBackward
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "demucs_tpu")
@@ -62,15 +61,3 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("mps")
-
-
-def test_kernel_launch_node_refuses_backward():
-    """A launch runs as an autograd node: the forward works with grad on, and
-    a backward through a kernel raises instead of cutting the graph."""
-    x = torch.ones(3, requires_grad=True)
-    a, b = NoBackward.apply("twice", lambda t: (t.detach() * 2, t.detach() * 3), x)
-    assert a.requires_grad and torch.equal(b.detach(), torch.full((3,), 3.0))
-    with pytest.raises(NotImplementedError, match="twice has no backward kernel"):
-        (a.sum() + b.sum()).backward()
-    with torch.inference_mode():
-        assert torch.equal(NoBackward.apply("twice", lambda t: t * 2, x), torch.full((3,), 2.0))

@@ -13,6 +13,13 @@ Tolerances (each with its reason):
   through a deep network with normalizations, summed in another order by
   XLA:CPU and ATen; the smallest gradients come from differences of large
   terms, and a bias before a norm has a zero gradient, 1e-12 of noise);
+- bf16 train step (``compute_dtype="bfloat16"`` or a bf16 stage, fp32
+  masters on both sides): loss and reco 1e-3 relative, the global norm 1e-2
+  relative, each gradient's gap to JAX at most twice JAX's own gap between
+  its bf16 and fp32 steps for that tensor plus 2e-3 x the largest gradient's
+  peak (bf16 rounds at every op, and XLA rounds at fewer places than the
+  port's op-by-op bf16; the second term covers the biases before a norm,
+  whose true gradient is zero);
 - optimizer: 1e-6 absolute on the weights after three steps at lr 1e-3
   (fp32 Adam moments in both);
 - loss, EMA, augments: 1e-6 relative or exact (the same few operations).
@@ -64,13 +71,15 @@ def _rel(got, want):
 
 def _pair(**kw):
     """The JAX params (every LayerScale at 1.0, so the transformer counts) and
-    the port's module holding the same weights."""
+    the port's module holding the same weights, every one an fp32 master (a
+    bf16 stage casts them on each forward, as JAX's ``stage_params``)."""
     jcfg = jht.HTDemucsConfig(**dict(SMALL, **kw))
     flat = {k: np.ones_like(v) if k.endswith(".scale") else np.asarray(v)
             for k, v in flatten_state(jht.init_htdemucs(jcfg, seed=0)).items()}
     from demucs_tpu.zoo.torch_load import nest_state
 
-    module = load_flat_state(tht.HTDemucs(tht.HTDemucsConfig(**dataclasses.asdict(jcfg))), flat)
+    module = tht.HTDemucs(tht.HTDemucsConfig(**dataclasses.asdict(jcfg))).float()
+    module = load_flat_state(module, flat)
     return jcfg, nest_state(flat), Model("htdemucs", module.cfg, module)
 
 
@@ -114,6 +123,44 @@ def test_train_step_matches_jax(loss):
         # a bias before a norm has a zero gradient, 1e-12 of noise on either side
         want = np.asarray(want_grads[n])
         assert np.abs(g - want).max() <= 2e-3 * np.abs(want).max() + 1e-9, n
+
+
+def _jax_step_grads(jcfg, params, sources):
+    keeper = _grad_keeper()
+    step = jax.jit(make_train_step(jht.forward, jcfg, TrainConfig(loss="l1"), keeper))
+    _, grads, metrics = step(params, keeper.init(params), jnp.asarray(sources),
+                             jax.random.PRNGKey(0))
+    return {k: np.asarray(v, np.float64) for k, v in flatten_state(grads).items()}, metrics
+
+
+@pytest.mark.parametrize("precision", [dict(compute_dtype="bfloat16"),
+                                       dict(bf16_stages=("transformer",))])
+def test_bf16_train_step_matches_jax(precision):
+    """One mixed-precision step against ``make_train_step`` on the same fp32
+    masters: every gradient within the bound of the module docstring, and
+    the port's parameters, gradients and Adam state all fp32 after it."""
+    jcfg, params, model = _pair(**precision)
+    sources = _sources(jcfg)
+    want, metrics = _jax_step_grads(jcfg, params, sources)
+    want32, _ = _jax_step_grads(dataclasses.replace(jcfg, compute_dtype="float32",
+                                                    bf16_stages=()), params, sources)
+    args = tconfig.TrainArgs()
+    args.optim.lr = 0.0
+    optimizer = tstep.make_optimizer(args, model)
+    model.module.train()
+    got = tstep.train_step(model, optimizer, torch.from_numpy(sources), loss="l1")
+    assert _rel(got["loss"], metrics["loss"]) < 1e-3
+    assert _rel(got["reco"], metrics["reco"]) < 1e-3
+    assert _rel(got["grad_norm"], metrics["grad_norm"]) < 1e-2
+    params_ = dict(model.module.named_parameters())
+    assert set(params_) == set(want)
+    largest = max(np.abs(w).max() for w in want.values())
+    for n, p in params_.items():
+        assert p.dtype == p.grad.dtype == torch.float32, n
+        gap = np.abs(p.grad.double().numpy() - want[n]).max()
+        assert gap <= 2 * np.abs(want[n] - want32[n]).max() + 2e-3 * largest, n
+    state = [t for s in optimizer.state.values() for t in s.values() if t.dim() > 0]
+    assert state and all(t.dtype == torch.float32 for t in state)
 
 
 @pytest.mark.parametrize("kind,wd,clip,group", [
@@ -336,6 +383,31 @@ def test_overfit_loss_falls():
     assert np.mean(losses[-3:]) < np.mean(losses[:3]) / 3, losses[::5]
 
 
+def test_overfit_mixed_precision():
+    """tests/test_overfit.py's mixed-precision case: bf16 compute inside the
+    train step (fp32 masters, gradients and Adam state) still learns one
+    batch, and everything the optimizer holds stays fp32."""
+    cfg = tht.HTDemucsConfig(sources=tuple(SOURCES), channels=8, depth=4, nfft=2048,
+                             t_layers=2, t_heads=4, segment=0.5, samplerate=8000,
+                             compute_dtype="bfloat16")
+    module = tht.init_htdemucs(cfg, seed=0, fp32_masters=True).train()
+    model = Model("htdemucs", cfg, module)
+    args = tconfig.TrainArgs()
+    args.optim.lr = 3e-3
+    opt = tstep.make_optimizer(args, model)
+    t = np.arange(cfg.training_length) / cfg.samplerate
+    sources = torch.from_numpy(np.stack([
+        np.stack([0.3 * np.sin(2 * np.pi * f * t + p) for p in (0.0, 1.0)])
+        for f in (55.0, 110.0, 220.0, 440.0)])[None].astype(np.float32))
+    losses = [float(tstep.train_step(model, opt, sources, clip_grad=5.0)["loss"])
+              for _ in range(60)]
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-3:]) < np.mean(losses[:3]) / 3, losses[::10]
+    assert all(p.dtype == torch.float32 for p in module.parameters())
+    assert all(t.dtype == torch.float32 for s in opt.state.values() for t in s.values()
+               if t.dim() > 0)
+
+
 def _wav_folder(root, sr=8000, seconds=1.5):
     from demucs_tpu_torch.audio import write_wav
 
@@ -388,11 +460,55 @@ def test_solver_two_epochs_then_resume(tmp_path):
     assert set(stems) == set(SOURCES) and all(np.isfinite(s).all() for s in stems.values())
 
 
+def test_solver_bf16_epoch_then_resume(tmp_path):
+    """The entry point in bf16 mixed precision: one epoch, then a resume for a
+    second; the checkpoint and best.dmx hold fp32 weights, and best.dmx
+    serves through Separator in the compute_dtype it was trained with."""
+    import pickle
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.train.train import main
+
+    root = _wav_folder(tmp_path / "wav")
+    argv = [f"dset.wav={root}", "dset.use_musdb=false", "dset.segment=0.5", "dset.shift=0.25",
+            "dset.samplerate=8000", f"dset.metadata={tmp_path / 'meta'}", "batch_size=4",
+            "model_args={channels: 8, depth: 2, nfft: 512, t_layers: 2, t_heads: 2, "
+            "t_dropout: 0.1, compute_dtype: bfloat16}", "epochs=1", "max_batches=1",
+            "augment.repitch.proba=0", f"out_dir={tmp_path / 'out'}", "misc.num_workers=2",
+            "device=cpu"]
+    main(argv)
+    (folder,) = (tmp_path / "out" / "xps").iterdir()
+    with open(folder / "checkpoint.pkl", "rb") as f:
+        package = pickle.load(f)
+    assert all(v.dtype == np.float32 for v in package["state"].values()
+               if np.issubdtype(v.dtype, np.floating))
+    from demucs_tpu_torch.train.solver import Solver
+    from demucs_tpu_torch.train.train import get_model, get_solver
+
+    args = tconfig.apply_overrides(tconfig.TrainArgs(), tconfig.parse_cli_overrides(argv[:-1]))
+    loaders = get_solver(args, device="cpu").loaders
+    args.epochs = 2  # the same XP folder, one more epoch
+    model = get_model(args, "cpu")
+    solver = Solver(loaders, model, tstep.make_optimizer(args, model), args, folder)
+    assert len(solver.history) == 1 and solver.optimizer.state  # resumed, moments too
+    solver.train()
+    history = json.loads((folder / "history.json").read_text())
+    assert len(history) == 2 and all(np.isfinite(h["train"]["loss"]) for h in history)
+    assert all(p.dtype == torch.float32 for p in model.module.parameters())
+    from demucs_tpu_torch.zoo.native import load_native_model
+
+    best = load_native_model(folder / "best.dmx", device="cpu")
+    assert best.cfg.compute_dtype == "bfloat16"
+    assert best.module.encoder[0].conv.weight.dtype == torch.bfloat16  # held in bf16 to serve
+    sep = Separator("best", repo=folder, device="cpu", shifts=0)
+    mix = np.random.default_rng(0).standard_normal((2, 6000)).astype(np.float32) * 0.1
+    _, stems = sep.separate_tensor(mix, 8000)
+    assert set(stems) == set(SOURCES) and all(np.isfinite(s).all() for s in stems.values())
+
+
 @pytest.mark.parametrize("override,match", [
     ({"svd.penalty": 1.0}, "svd"), ({"quant.diffq": 1e-4}, "quant"), ({"quant.qat": 8}, "quant"),
-    ({"augment.repitch.proba": 0.2}, "repitch"),
-    ({"model_args": {"compute_dtype": "bfloat16"}}, "bf16"),
-    ({"model_args": {"bf16_stages": ["transformer"]}}, "bf16")])
+    ({"augment.repitch.proba": 0.2}, "repitch")])
 def test_refused_options_raise(override, match):
     from demucs_tpu_torch.train.train import check_supported
 
@@ -401,6 +517,24 @@ def test_refused_options_raise(override, match):
     args = tconfig.apply_overrides(args, override)
     with pytest.raises(NotImplementedError, match=match):
         check_supported(args)
+
+
+@pytest.mark.parametrize("override", [
+    {"model_args": {"compute_dtype": "bfloat16"}},
+    {"model_args": {"bf16_stages": ["transformer"]}}])
+def test_bf16_training_is_accepted(override):
+    """bf16 mixed precision trains (it was refused until K3's bf16 route had
+    its dropout and backward): check_supported lets it through, and the
+    entry point's model holds fp32 masters."""
+    from demucs_tpu_torch.train.train import check_supported, get_model
+
+    args = tconfig.apply_overrides(tconfig.TrainArgs(), {"augment.repitch.proba": 0.0})
+    args = tconfig.apply_overrides(args, override)
+    check_supported(args)
+    args.model_args.update(channels=8, depth=2, nfft=512, t_layers=1, t_heads=2)
+    args.dset.segment, args.dset.samplerate = 0.5, 8000
+    model = get_model(args, "cpu")
+    assert all(p.dtype == torch.float32 for p in model.module.parameters())
 
 
 def test_more_than_one_process_is_refused(monkeypatch):
@@ -412,8 +546,9 @@ def test_more_than_one_process_is_refused(monkeypatch):
         check_supported(args)
 
 
-def test_remat_gives_the_same_gradients():
-    _, _, model = _pair()
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_remat_gives_the_same_gradients(compute_dtype):
+    _, _, model = _pair(compute_dtype=compute_dtype)  # bf16: the casts are recomputed too
     sources = torch.from_numpy(_sources(model.cfg, batch=1))
     grads = []
     for remat in (False, True):

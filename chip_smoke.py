@@ -1033,7 +1033,8 @@ def _kernel_group(name: str) -> str:
         return "K3 flash_mha_bf16"
     if "flash_mha_kernel" in low or "kv_image_kernel" in low:
         return "K3 flash_mha"
-    if "bwd_dkdv_kernel" in low or "bwd_dq_kernel" in low or "bwd_rowdot_kernel" in low:
+    if any(w in low for w in ("bwd_kernel", "bwd_prep_kernel", "bwd_dq_bf16_kernel",
+                              "bwd_dq_f32_kernel")):  # K3's backward: the pass, its prep, dQ out
         return "K3 flash_mha_bwd"
     if "adam" in low or "multi_tensor" in low:  # the optimizer's fused updates
         return "optimizer (Adam)"
@@ -2390,6 +2391,12 @@ TRAIN_BF16_KERNELS = ("stft_dft", "istft_dft", "flash_mha_bf16", "flash_mha_bwd_
 # these shapes
 K3_BF16_BWD_RTOL = 2.0 ** -6
 K3_BF16_LSE_ATOL = 1e-4  # the bf16 forward's base-2 log-sum-exp: fp32 sums of up to 2688 terms
+# K3's backward, two launches on the same inputs: the blocks of keys add their parts of dQ with
+# atomics in the order they finish, so dQ may differ by a few fp32 roundings of its sums (fp32
+# route), or one bf16 step where those sums round to bf16 (bf16 route); x dQ's peak. dK and dV
+# take no atomics: bit-equal (tests/test_torch_cuda.py test_flash_mha_backward_launches_agree)
+K3_BWD_RERUN_RTOL = 1e-5
+K3_BF16_BWD_RERUN_RTOL = 2.0 ** -8
 # bf16 train step, card vs CPU (tests/test_torch_train.py's CPU anchor against JAX): loss
 # and reco relative, the global norm relative; each gradient within twice the CPU's own gap
 # between its bf16 and fp32 steps plus this share of the largest gradient's peak
@@ -2428,13 +2435,51 @@ def _grad_err(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
+def _rerun_gap(backward, q, k, v, o, do, num_heads: int, lse) -> dict:
+    """Two launches of a backward kernel on the same inputs (dropout 0.1):
+    dQ's largest difference over its peak, and whether dK and dV are equal."""
+    import torch
+
+    first, second = (backward(q, k, v, o, do, num_heads, lse=lse, dropout=TRAIN_DROPOUT,
+                              dropout_seed=5) for _ in range(2))
+    dq1, dq2 = first[0].float(), second[0].float()
+    return {"dq_gap_over_peak": ((dq1 - dq2).abs().max() / dq1.abs().max()).item(),
+            "dk_dv_equal": bool(torch.equal(first[1], second[1])
+                                and torch.equal(first[2], second[2]))}
+
+
+def bwd_instances(route: str) -> dict:
+    """Registers and spills of each block-kernel instance of K3's backward on
+    ``route`` ("Bf16Bwd" or "F32Bwd"), from nvcc's report of the library."""
+    from demucs_tpu_torch.kernels import _build
+
+    groups = r"ILi(\d+)ELi(\d+)E" if route == "Bf16Bwd" else r"ILi(\d+)E"
+    found = ptxas_kernels(_build.ptxas_report("flash_mha_bwd"),
+                          rf"bwd_kernelINS_\d+{route}{groups}")
+    named = {}
+    for key, v in found.items():
+        d, *nwg = key.split()
+        named[f"d={d}" + (f" keys={64 * int(nwg[0])}" if nwg else "")] = v
+    if len(named) != 3 * (2 if route == "Bf16Bwd" else 1) or not all(
+            {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
+            for v in named.values()):
+        raise AssertionError(f"K3 backward: nvcc's report lacks {route} instances: {named}")
+    return named
+
+
+def _no_spills(instances: dict) -> bool:
+    return all(v["spill_stores"] == v["spill_loads"] == 0 for v in instances.values())
+
+
 def train_k3_checks(gen) -> dict:
     """K3 forward with dropout and K3's backward kernel at the transformer's four
     shapes, B = 1 and 8, unmasked and under the diag mask, at dropout 0 and
     TRAIN_DROPOUT: the forward against the plain version with the same seed
     (K3_ATOL), dQ, dK, dV against the plain backward formula (K3_BWD_RTOL x
-    each gradient's peak). Times the backward kernel (unmasked, dropout 0 and
-    TRAIN_DROPOUT), the plain backward and SDPA's fp32 backward."""
+    each gradient's peak); two launches on the same inputs (K3_BWD_RERUN_RTOL)
+    and nvcc's report of the kernel's instances (no spills). Times the
+    backward kernel (unmasked, dropout 0 and TRAIN_DROPOUT), the plain
+    backward and SDPA's fp32 backward."""
     import torch
     import torch.nn.functional as F
 
@@ -2445,7 +2490,7 @@ def train_k3_checks(gen) -> dict:
     C, H = 512, 8
     d = C // H
     tokens = {"freq": 2688, "time": 1344}
-    cases, by_shape, worst_fwd, worst_bwd = [], {}, 0.0, 0.0
+    cases, by_shape, rerun, worst_fwd, worst_bwd = [], {}, {}, 0.0, 0.0
     for batch in (1, 8):
         for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
                                  ("time", "freq")):
@@ -2472,6 +2517,7 @@ def train_k3_checks(gen) -> dict:
                               "fwd_max_abs_err": fwd, "dq_dk_dv_err_over_peak": errs})
                 del o, lse, want_o, got, want
             o, lse = KA._forward_f32(q, k, v, H, None, 0.0, 0, True)
+            rerun[key] = _rerun_gap(KA.flash_mha_bwd, q, k, v, o, do, H, lse)
             flops = 5 * 2 * batch * H * Tq * Tk * d
             nbytes = 4 * (batch * (3 * Tq + 4 * Tk) * C + batch * H * Tq)
             b_ms, b_by = bound(3 * flops, nbytes, TF32_FLOPS)
@@ -2489,6 +2535,7 @@ def train_k3_checks(gen) -> dict:
                 sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
                                                                 retain_graph=True)),
                 bound_ms=b_ms, bound_by=b_by, fn_bound_ms=bound(flops, nbytes, TF32_FLOPS)[0])
+            row["dropout_over_bwd"] = row["ms_dropout"] / row["ms"] - 1
             if tq_name == tk_name == "freq":
                 row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(q, k, v, o, do, H),
                                           repeat=3)
@@ -2496,10 +2543,15 @@ def train_k3_checks(gen) -> dict:
             del q, k, v, do, o, lse, split, so
             torch.cuda.empty_cache()
     main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
+    instances = bwd_instances("F32Bwd")
+    rerun_ok = all(r["dq_gap_over_peak"] <= K3_BWD_RERUN_RTOL and r["dk_dv_equal"]
+                   for r in rerun.values())
     return dict(
         name="flash_mha_bwd", tol=K3_BWD_RTOL, max_abs_err=worst_bwd,
         max_err_is="over each gradient's peak", fwd_dropout_max_abs_err=worst_fwd,
-        fwd_tol=K3_ATOL, within_tol=worst_bwd <= K3_BWD_RTOL and worst_fwd <= K3_ATOL,
+        fwd_tol=K3_ATOL, within_tol=(worst_bwd <= K3_BWD_RTOL and worst_fwd <= K3_ATOL
+                                     and rerun_ok and _no_spills(instances)),
+        rerun=rerun, rerun_tol=K3_BWD_RERUN_RTOL, instances=instances,
         source="demucs_tpu_torch/csrc/flash_mha_bwd.cu",
         replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function; the "
                  "Pallas kernel has no backward, JAX trains through XLA's dense attention)",
@@ -2562,10 +2614,13 @@ def train_k3_bf16_checks(gen) -> dict:
     version (K3_BF16_TOL) and the plain scores' log-sum-exp
     (K3_BF16_LSE_ATOL); the drop pattern bit for bit against dropout_keep
     (_drop_pattern_mismatches); dQ, dK, dV of the bf16 backward kernel against
-    the plain formula (K3_BF16_BWD_RTOL x each gradient's peak). Times the
-    backward kernel and the forward, each with and without dropout, beside
-    SDPA in bf16 (forward with and without its dropout, backward), and the
-    plain versions at freq self."""
+    the plain formula (K3_BF16_BWD_RTOL x each gradient's peak) on the keys
+    per block bwd_keys chooses and on both (64, 128) unmasked; two launches on
+    the same inputs (K3_BF16_BWD_RERUN_RTOL) and nvcc's report of the
+    instances (no spills). Times the backward kernel at both block sizes and
+    the forward, each with and without dropout, beside SDPA in bf16 (forward
+    with and without its dropout, backward), and the plain versions at freq
+    self."""
     import torch
     import torch.nn.functional as F
 
@@ -2576,8 +2631,9 @@ def train_k3_bf16_checks(gen) -> dict:
     C, H = 512, 8
     d = C // H
     tokens = {"freq": 2688, "time": 1344}
-    cases, by_shape = [], {}
+    cases, by_shape, rerun = [], {}, {}
     worst = {"fwd_excess": -math.inf, "lse": 0.0, "bwd": 0.0, "pattern_mismatches": 0}
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for batch in (1, 8):
         for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
                                  ("time", "freq")):
@@ -2608,6 +2664,21 @@ def train_k3_bf16_checks(gen) -> dict:
             pattern = _drop_pattern_mismatches(q, k, H, TRAIN_DROPOUT, 77 + batch)
             worst["pattern_mismatches"] += pattern
             o, lse = KA._forward_bf16(q, k, v, H, None, 0.0, 0, True)
+            want = KA.flash_mha_bwd_plain(q, k, v, o, do, H)
+            keys_sweep = {}
+            for keys in (64, 128):
+                KA.BWD_KEYS_BF16 = keys
+                try:
+                    got = KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse)
+                    worst["bwd"] = max(worst["bwd"], *(_grad_err(g.float(), w.float())
+                                                       for g, w in zip(got, want)))
+                    rerun[f"{key} keys={keys}"] = _rerun_gap(KA.flash_mha_bwd_bf16, q, k, v, o,
+                                                             do, H, lse)
+                    keys_sweep[f"{keys} keys"] = cuda_ms(
+                        lambda: KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse))
+                finally:
+                    KA.BWD_KEYS_BF16 = None
+            del got, want
             flops = 5 * 2 * batch * H * Tq * Tk * d
             nbytes = 2 * batch * (4 * Tq + 4 * Tk) * C + 4 * batch * H * Tq
             b_ms, b_by = bound(flops, nbytes, BF16_FLOPS)
@@ -2633,8 +2704,12 @@ def train_k3_bf16_checks(gen) -> dict:
                                                                 retain_graph=True)),
                 bound_ms=b_ms, bound_by=b_by,
                 fwd_bound_ms=bound(flops * 2 / 5, 2 * 2 * batch * (Tq + Tk) * C, BF16_FLOPS)[0],
-                drop_pattern_mismatches=pattern)
+                drop_pattern_mismatches=pattern, keys_sweep_ms=keys_sweep,
+                keys=KA.bwd_keys(batch, Tk, H, sm))
+            row["chosen_keys_over_fastest"] = (keys_sweep[f"{row['keys']} keys"]
+                                               / min(keys_sweep.values()))
             row["fwd_dropout_over_fwd"] = row["fwd_ms_dropout"] / row["fwd_ms"] - 1
+            row["dropout_over_bwd"] = row["ms_dropout"] / row["ms"] - 1
             if tq_name == tk_name == "freq":
                 row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(q, k, v, o, do, H),
                                           repeat=3)
@@ -2644,11 +2719,16 @@ def train_k3_bf16_checks(gen) -> dict:
             del q, k, v, do, o, lse, split, so
             torch.cuda.empty_cache()
     main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
+    instances = bwd_instances("Bf16Bwd")
+    worst["rerun_dq_gap"] = max(r["dq_gap_over_peak"] for r in rerun.values())
     ok = (worst["fwd_excess"] <= 0 and worst["lse"] <= K3_BF16_LSE_ATOL
-          and worst["bwd"] <= K3_BF16_BWD_RTOL and worst["pattern_mismatches"] == 0)
+          and worst["bwd"] <= K3_BF16_BWD_RTOL and worst["pattern_mismatches"] == 0
+          and worst["rerun_dq_gap"] <= K3_BF16_BWD_RERUN_RTOL
+          and all(r["dk_dv_equal"] for r in rerun.values()) and _no_spills(instances))
     return dict(
         name="flash_mha_bwd_bf16", tol=K3_BF16_BWD_RTOL, max_abs_err=worst["bwd"],
         max_err_is="over each gradient's peak", worst=worst, within_tol=ok,
+        rerun=rerun, rerun_tol=K3_BF16_BWD_RERUN_RTOL, instances=instances,
         fwd_tol=K3_BF16_TOL, lse_tol=K3_BF16_LSE_ATOL,
         source="demucs_tpu_torch/csrc/flash_mha_bwd.cu",
         replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function on bf16 "

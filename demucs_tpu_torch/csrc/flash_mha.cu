@@ -69,7 +69,7 @@
 //   Where the caller asks, each row's log-sum-exp (base 2, of the scaled
 //   scores: m + log2 l) goes to `lse` for the backward (flash_mha_bwd.cu).
 
-#include <cuda.h>  // CUtensorMap and its enums (the encoder is reached at run time)
+#include <cuda.h>  // CUtensorMap (the encoder: tensor_map.cuh)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,10 +78,13 @@
 
 #include "attention_dropout.cuh"
 #include "hopper.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 using namespace hopper;
+using tensor_map::ENCODE_FAILED;
+using tensor_map::HeadImage;
 
 constexpr int BK = 64;       // keys per tile
 constexpr int ROWS_WG = 64;  // query rows per consumer warpgroup
@@ -477,9 +480,10 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 //
 // Shared memory: a head's slice of a row is W bytes (W = 128 at D = 64, 64 at
 // D = 32, and 32 at D = 48 in three boxes of 16 channels), swizzled at W by
-// the tensor map and read by wgmma through descriptors of the same swizzle:
-// K-major for Q and K (S = Q K^T, both operands from shared memory), and
-// V MN-major with the transpose bit (O = P V, keys the reduction). P goes
+// the tensor map (tensor_map.cuh, shared with the backward) and read by wgmma
+// through descriptors of the same swizzle: K-major for Q and K (S = Q K^T,
+// both operands from shared memory), and V MN-major with the transpose bit
+// (O = P V, keys the reduction). P goes
 // from the S accumulator to the A fragment by pairwise packing (MmaBf16).
 // A fully masked row keeps l == 0 and gives 0 / 0 = NaN, as in the fp32 route.
 //
@@ -492,15 +496,6 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 // for the backward (flash_mha_bwd.cu): from the store of a whole row block,
 // or from flash_mha_bf16_combine_kernel for a merged one.
 // ===========================================================================
-
-// The shared-memory image of a head slice: rows of W bytes, BOXES boxes of
-// W / 2 channels side by side, wgmma's layout type for W.
-template <int D>
-struct HeadImage {
-  static constexpr int W = (2 * D) % 128 == 0 ? 128 : (2 * D) % 64 == 0 ? 64 : 32;
-  static constexpr int BOXES = 2 * D / W;
-  static constexpr uint64_t LAYOUT = W == 128 ? 1 : W == 64 ? 2 : 3;
-};
 
 template <int D, int BK, int NWG>
 struct Bf16Cfg {
@@ -991,55 +986,6 @@ flash_mha_bf16_tiles_kernel(const __grid_constant__ CUtensorMap q_map,
 
 // ---- host side of the bf16 route ----
 
-// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A failed encode returns ENCODE_FAILED + its CUresult (kernels/attention.py
-// raises on it); no copy falls back to another path.
-constexpr int ENCODE_FAILED = 10000;
-
-// The tensor map of x (B, T, C) bf16 as the 3-D tensor (C, T, B), innermost
-// first: boxes of W / 2 channels x `rows` rows x 1 item, swizzled at W,
-// zero-filled outside the tensor.
-template <int D>
-int head_map(CUtensorMap* map, const void* x, int B, int T, int C, int rows) {
-  using I = HeadImage<D>;
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return ENCODE_FAILED + (int)CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)T, (cuuint64_t)B};
-  const cuuint64_t strides[2] = {(cuuint64_t)C * 2, (cuuint64_t)T * C * 2};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {I::W / 2, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swizzle = I::W == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-                                     : I::W == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
-                            strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
-}
-
 using bf16 = __nv_bfloat16;
 
 template <int D, int BK, int NWG>
@@ -1055,9 +1001,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char
   for (int c = 1; c < ctas && !pieces; ++c) pieces = sched.lo(c) % n_tiles != 0;
   if (pieces && part == nullptr) return (int)cudaErrorInvalidValue;
   CUtensorMap qm, km, vm;
-  int err = head_map<D>(&qm, q, B, Tq, C, Cfg::ROWS);
-  if (err == 0) err = head_map<D>(&km, k, B, Tk, C, BK);
-  if (err == 0) err = head_map<D>(&vm, v, B, Tk, C, BK);
+  int err = tensor_map::head_map<D, 2>(&qm, q, B, Tq, C, Cfg::ROWS);
+  if (err == 0) err = tensor_map::head_map<D, 2>(&km, k, B, Tk, C, BK);
+  if (err == 0) err = tensor_map::head_map<D, 2>(&vm, v, B, Tk, C, BK);
   if (err != 0) return err;
   auto kernel = flash_mha_bf16_kernel<D, BK, NWG>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1095,9 +1041,9 @@ template <int D, int BK>
 int launch_tiles(const bf16* q, const bf16* k, const bf16* v, const float* p, float* s_out,
                  float* o_out, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
-  int err = head_map<D>(&qm, q, 1, ROWS_WG, D, ROWS_WG);
-  if (err == 0) err = head_map<D>(&km, k, 1, BK, D, BK);
-  if (err == 0) err = head_map<D>(&vm, v, 1, BK, D, BK);
+  int err = tensor_map::head_map<D, 2>(&qm, q, 1, ROWS_WG, D, ROWS_WG);
+  if (err == 0) err = tensor_map::head_map<D, 2>(&km, k, 1, BK, D, BK);
+  if (err == 0) err = tensor_map::head_map<D, 2>(&vm, v, 1, BK, D, BK);
   if (err != 0) return err;
   constexpr int smem = 1024 + (ROWS_WG + 2 * BK) * D * 2 + 8;
   auto kernel = flash_mha_bf16_tiles_kernel<D, BK>;

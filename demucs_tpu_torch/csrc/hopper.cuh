@@ -1,10 +1,12 @@
 // PTX helpers for sm_90a kernels: mbarriers, bulk and tensor (TMA)
-// asynchronous copies into shared memory, named barriers, warpgroup MMA
+// asynchronous copies into shared memory, bulk reductions into global
+// memory, the async-proxy fence, named barriers, warpgroup MMA
 // (wgmma) with TF32 or bf16 inputs and swizzled operand descriptors, the
 // special-function exp2, and the TF32 split of an fp32 value.
 //
 // Names and operand orders follow the PTX ISA (8.x): mbarrier.*,
-// cp.async.bulk(.tensor), bar.sync / bar.arrive, ex2.approx,
+// cp.async.bulk(.tensor), cp.reduce.async.bulk, fence.proxy.async,
+// bar.sync / bar.arrive, ex2.approx,
 // wgmma.mma_async and its fence / commit_group / wait_group.
 
 #pragma once
@@ -84,6 +86,35 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c
       "[%0], [%1, {%2, %3, %4}], [%5];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
       : "memory");
+}
+
+// Makes this thread's earlier writes to shared memory visible to the async
+// proxy (wgmma operands, bulk copies) that reads them after a barrier.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Adds `bytes` of fp32 values in shared memory, element by element, to
+// global memory by the copy engine (a reduction in L2), as one bulk
+// operation of this thread's bulk async-group. 16-byte aligned, bytes a
+// multiple of 16.
+__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;" ::"l"(
+                   dst),
+               "r"(smem_addr(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups still read their source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+// Waits until all of this thread's bulk groups are complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // Brings a tensor map into the descriptor cache ahead of its first copy.
@@ -249,6 +280,24 @@ struct MmaTf32<32> {
   }
 };
 
+// d (64 x 32, fp32) (+)= a (64 x 8, TF32, shared) . b (8 x 32, TF32, shared),
+// both K-major (wgmma reads 32-bit operands only K-major), by descriptor.
+struct MmaTf32SS32 {
+  static __device__ __forceinline__ void run(float (&d)[16], uint64_t a, uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1;\n"
+        "}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8)
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+};
+
 // d (64 x N, fp32) += a (64 x 16, bf16, registers) . b (16 x N, bf16, shared),
 // for one warpgroup. TRANS_B == 1: b is MN-major (N contiguous, read with the
 // transpose bit; only this form is instantiated). scale_d == 0 ignores the old d.
@@ -293,26 +342,29 @@ HOPPER_MMA_BF16(48, 1, 24, HOPPER_D48, 29, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPE
 HOPPER_MMA_BF16(32, 1, 16, HOPPER_D32, 21, HOPPER_ACC8(0), HOPPER_ACC8(8))
 
 // d (64 x N, fp32) (+)= a (64 x 16, bf16, shared) . b (16 x N, bf16, shared),
-// both K-major, operands by descriptor; d as for MmaTf32.
-template <int N>
+// operands by descriptor; d as for MmaTf32. TA, TB == 0: K-major (the
+// reduction along the rows); 1: MN-major, read with the transpose bit.
+template <int N, int TA = 0, int TB = 0>
 struct MmaBf16SS;
 
-#define HOPPER_MMA_BF16_SS(N, NREG, DREGS, PIDX, ...)                                        \
+#define HOPPER_MMA_BF16_SS(N, TA, TB, NREG, DREGS, PIDX, ...)                             \
   template <>                                                                              \
-  struct MmaBf16SS<N> {                                                                    \
+  struct MmaBf16SS<N, TA, TB> {                                                            \
     static __device__ __forceinline__ void run(float (&d)[NREG], uint64_t a, uint64_t b,   \
                                                int scale_d) {                              \
       asm volatile("{\n"                                                                   \
                    ".reg .pred p;\n"                                                       \
                    "setp.ne.b32 p, %" #PIDX ", 0;\n"                                       \
                    "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 " DREGS    \
-                   ", p, 1, 1, 0, 0;\n"                                                    \
+                   ", p, 1, 1, " #TA ", " #TB ";\n"                                        \
                    "}\n"                                                                   \
                    : __VA_ARGS__                                                           \
                    : "l"(a), "l"(b), "r"(scale_d));                                        \
     }                                                                                      \
   };
 
+#define HOPPER_SS32 HOPPER_BF16_A "}, %16, %17"
+#define HOPPER_SS48 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25"
 #define HOPPER_SS64 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, " \
   "%28, %29, %30, %31}, %32, %33"
 #define HOPPER_SS128 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
@@ -320,14 +372,22 @@ struct MmaBf16SS;
   "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, " \
   "%63}, %64, %65"
 
-HOPPER_MMA_BF16_SS(64, 32, HOPPER_SS64, 34, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
+HOPPER_MMA_BF16_SS(64, 0, 0, 32, HOPPER_SS64, 34, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
                    HOPPER_ACC8(24))
-HOPPER_MMA_BF16_SS(128, 64, HOPPER_SS128, 66, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
-                   HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48),
-                   HOPPER_ACC8(56))
+HOPPER_MMA_BF16_SS(128, 0, 0, 64, HOPPER_SS128, 66, HOPPER_ACC8(0), HOPPER_ACC8(8),
+                   HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40),
+                   HOPPER_ACC8(48), HOPPER_ACC8(56))
+// both operands MN-major (K3's backward: dQ = dS K with dS^T and K stored
+// with the reduction, keys, down the rows)
+HOPPER_MMA_BF16_SS(32, 1, 1, 16, HOPPER_SS32, 18, HOPPER_ACC8(0), HOPPER_ACC8(8))
+HOPPER_MMA_BF16_SS(48, 1, 1, 24, HOPPER_SS48, 26, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16))
+HOPPER_MMA_BF16_SS(64, 1, 1, 32, HOPPER_SS64, 34, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
+                   HOPPER_ACC8(24))
 
 #undef HOPPER_SS128
 #undef HOPPER_SS64
+#undef HOPPER_SS48
+#undef HOPPER_SS32
 #undef HOPPER_MMA_BF16_SS
 #undef HOPPER_D32
 #undef HOPPER_D48

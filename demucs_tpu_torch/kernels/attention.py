@@ -36,7 +36,10 @@ bit for bit the pattern of the plain version's
 route's launch is an autograd node (:class:`_FlashMHA`) whose forward also
 keeps each row's log-sum-exp when a gradient is wanted and whose backward
 launches the hand-written backward kernel of ``csrc/flash_mha_bwd.cu`` in
-the inputs' type (:func:`flash_mha_bwd`, :func:`flash_mha_bwd_bf16`).
+the inputs' type (:func:`flash_mha_bwd`, :func:`flash_mha_bwd_bf16`): one
+pass over the queries per block of keys, five ``wgmma`` products a tile (3xTF32
+or bf16), the operands brought in by tensor-map copies, dQ summed across the
+blocks by fp32 reductions in L2 (so its last bits may differ from run to run).
 """
 
 from __future__ import annotations
@@ -52,7 +55,7 @@ from demucs_tpu_torch.ops.attention import _split_heads, dropout_keep, multihead
 
 __all__ = ["flash_mha", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
            "flash_mha_bwd_bf16", "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE",
-           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles"]
+           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles", "bwd_keys"]
 
 HEAD_DIMS = (32, 48, 64)
 KEY_TILE = 64  # keys per tile of the fp32 route's loop
@@ -76,8 +79,17 @@ _ROWS_COST = {128: 1.0, 192: 1.3}  # a key tile at 128 and at 192 rows
 _BLOCK_START = 3.0  # a block of the plain grid: its Q, first S and softmax, last P V, stores
 _PIECE_START = 1.5  # a row block inside a persistent block, whose loads run ahead
 _MERGE = 5.0  # the second kernel, which merges the row blocks that two blocks share
+# The bf16 backward kernel's keys per block (csrc/flash_mha_bwd.cu): 64 (one
+# consumer warpgroup, two blocks per SM) or 128 (two warpgroups, one block
+# per SM); None leaves the choice to bwd_keys (chip_smoke.py sweeps both).
+# The fp32 route's block always holds 64: its operand images fill the SM.
+BWD_KEYS_BF16 = None
+# bwd_keys's model: the time of 64 keys' work on a whole SM, relative, for the
+# two block sizes (128 keys: one block an SM; 64 keys: two blocks share it),
+# fitted to chip_smoke.py's sweep on the H100 (PERF.md).
+_BWD_COST = {64: 1.02, 128: 1.0}
 # A status at or above this from flash_mha_bf16 is a failed tensor-map
-# encode (csrc/flash_mha.cu ENCODE_FAILED), plus the driver's CUresult.
+# encode (csrc/tensor_map.cuh ENCODE_FAILED), plus the driver's CUresult.
 _ENCODE_FAILED = 10000
 
 
@@ -116,7 +128,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_mha_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in ("flash_mha_bwd_f32", "flash_mha_bwd_bf16"):
-        getattr(lib, name).argtypes = [p] * 11 + [i] * 5 + [f, f, f, i, p]
+        getattr(lib, name).argtypes = [p] * 12 + [i] * 6 + [f, f, f, i, p]
         getattr(lib, name).restype = i
     return lib
 
@@ -283,8 +295,9 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     with output ``o`` and its gradient ``dout``, from the forward's ``lse (B
     * H, Tq)`` and its ``mask``, ``dropout`` and ``dropout_seed``. A CPU
     tensor takes :func:`flash_mha_bwd_plain`; an fp32 CUDA tensor launches
-    ``csrc/flash_mha_bwd.cu`` (three kernels: the row dots, dK and dV, dQ), a
-    bf16 one :func:`flash_mha_bwd_bf16`; anything else raises.
+    ``csrc/flash_mha_bwd.cu`` (the row dots, one pass for dQ, dK and dV in
+    3xTF32 ``wgmma`` over blocks of 64 keys, dQ's sums out), a bf16 one
+    :func:`flash_mha_bwd_bf16`; anything else raises.
     ``flash_mha_bwd.launches`` counts the fp32 route's launches."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
@@ -304,9 +317,11 @@ def flash_mha_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
                        mask: torch.Tensor | None = None, dropout: float = 0.0,
                        dropout_seed: int | None = None) -> tuple:
     """K3's backward on the bf16 route: as :func:`flash_mha_bwd`, bf16 in and
-    out (fp32 ``lse``), bf16 ``mma.sync`` products with fp32 accumulation. A
-    CPU tensor takes :func:`flash_mha_bwd_plain`; a bf16 CUDA tensor launches
-    ``csrc/flash_mha_bwd.cu``; anything else raises.
+    out (fp32 ``lse``), bf16 ``wgmma`` products with fp32 accumulation, the
+    keys per block by :func:`bwd_keys`. A CPU tensor takes
+    :func:`flash_mha_bwd_plain`; a bf16 CUDA tensor launches
+    ``csrc/flash_mha_bwd.cu`` (the row dots, the pass, dQ's rounding);
+    anything else raises.
     ``flash_mha_bwd_bf16.launches`` counts its launches."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
@@ -331,14 +346,37 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
         raise ValueError(f"{entry}: lse must be float32 {(B * num_heads, Tq)}")
     q, k, v, o, dout, lse = (_aligned(t) for t in (q, k, v, o, dout, lse))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    rowdot = torch.empty(B * num_heads, Tq, device=q.device)
+    # each row's lse and D = dO . o, padded to tiles of 64 (bf16) or 32 (fp32)
+    stats = torch.empty(B * num_heads * -(-Tq // 64) * 128, device=q.device)
+    # dQ's fp32 sums over the blocks of keys, per tile of queries (the launch zeroes them)
+    dq_acc = torch.empty(B * num_heads * -(-Tq // 64) * 64 * d, device=q.device)
+    keys = (bwd_keys(B, Tk, num_heads, _sm_count(q.device.index or 0))
+            if dtype == torch.bfloat16 else 64)
     status = getattr(_bwd_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), None if keep is None else keep.data_ptr(), rowdot.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
-        1.0 / math.sqrt(d), float(rate), _int32(seed), _build.stream_ptr(q.device))
-    _build.check(status, entry)
+        lse.data_ptr(), None if keep is None else keep.data_ptr(), stats.data_ptr(),
+        dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads,
+        d, keys, q_scale(d), 1.0 / math.sqrt(d), float(rate), _int32(seed),
+        _build.stream_ptr(q.device))
+    _check_launch(status, entry)
     return dq, dk, dv
+
+
+def bwd_keys(B: int, Tk: int, num_heads: int, sm_count: int) -> int:
+    """Keys per block of the bf16 backward kernel, 64 or 128: the one the
+    model prices lowest, the blocks an SM takes at once (one of 128 keys,
+    two of 64) times ``_BWD_COST``, at least one such round. The last block
+    of each head covers keys past Tk: 128-key blocks waste more of a ragged
+    Tk. ``BWD_KEYS_BF16`` fixes the choice."""
+    if BWD_KEYS_BF16 is not None:
+        return BWD_KEYS_BF16
+    best = None
+    for keys, per_sm in ((128, 1), (64, 2)):
+        blocks = -(-Tk // keys) * num_heads * B
+        cost = max(blocks / (per_sm * sm_count), 1.0) * _BWD_COST[keys]
+        if best is None or cost < best[0]:
+            best = (cost, keys)
+    return best[1]
 
 
 def _ranges(units: int, ctas: int) -> list:
@@ -414,7 +452,8 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _check_bf16(status: int, what: str) -> None:
+def _check_launch(status: int, what: str) -> None:
+    """Raise on a failed tensor-map encode or a CUDA error of a launch."""
     if status >= _ENCODE_FAILED:
         raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed (CUresult "
                            f"{status - _ENCODE_FAILED})")
@@ -462,7 +501,7 @@ def _forward_bf16(q, k, v, num_heads: int, keep, rate: float, seed: int, want_ls
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
         KEY_TILE_BF16, rows, ctas, rate, _int32(seed), _build.stream_ptr(q.device))
-    _check_bf16(status, "flash_mha_bf16")
+    _check_launch(status, "flash_mha_bf16")
     return out, lse
 
 
@@ -493,5 +532,5 @@ def bf16_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     status = _lib().flash_mha_bf16_tiles(q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
                                          s_out.data_ptr(), o_out.data_ptr(), d, n,
                                          _build.stream_ptr(q.device))
-    _check_bf16(status, "flash_mha_bf16_tiles")
+    _check_launch(status, "flash_mha_bf16_tiles")
     return s_out, o_out

@@ -12,7 +12,9 @@ dropout against the Pallas kernel on bf16 inputs, its drop pattern read out
 bit for bit through one-hot values, the backward formula against autograd
 through the plain bf16 forward and against ``jax.grad`` on bf16 inputs, and
 a model of the bf16 backward kernel's arithmetic (bf16 products of P Z and
-dS, fp32 sums, bf16 out) against the formula.
+dS, fp32 sums, bf16 out) against the formula, also with dQ summed over the
+blocks of keys in any order (the kernel's blocks add theirs as they finish);
+the keys per block of the bf16 backward (``bwd_keys``).
 
 Tolerances: the keep-mask is bit-equal (uint32 hash); the forward atol 2e-5,
 rtol 1e-4 (test_torch_attention.py's, fp32 sums in another order); the
@@ -214,12 +216,15 @@ def test_bf16_drop_pattern_is_the_pallas_one(B, Tq, Tk, H, d):
     assert 0.2 < dropped.mean() < 0.4
 
 
-def _bwd_bf16_model(q, k, v, o, do, H, mask, rate, seed):
+def _bwd_bf16_model(q, k, v, o, do, H, mask, rate, seed, key_order=None):
     """The bf16 backward kernel's arithmetic (csrc/flash_mha_bwd.cu with T =
     bf16): S from the bf16 q and k in fp32, P = 2^(S log2(e)/sqrt(d) - lse)
     from the forward's base-2 log-sum-exp, D = dO . o, dS = P (Z dO V^T - D)
     in fp32, then Z P and dS rounded to bf16 for the products with dO, Q and
-    K (fp32 sums), the gradients out in bf16."""
+    K (fp32 sums), the gradients out in bf16. ``key_order``: the blocks of
+    128 keys whose dQ parts (each scaled by 1/sqrt(d)) are added in fp32 in
+    that order, as the kernel's blocks add theirs in whatever order they
+    finish; None: one product over all keys."""
     B, Tq, C = q.shape
     d = C // H
     split = lambda t: t.float().reshape(B, -1, H, d).permute(0, 2, 1, 3)  # noqa: E731
@@ -234,7 +239,14 @@ def _bwd_bf16_model(q, k, v, o, do, H, mask, rate, seed):
     ds = p * ((dh @ vh.transpose(-1, -2)) * z - (dh * oh).sum(-1, keepdim=True))
     r = lambda t: t.to(BF16).float()  # noqa: E731
     merge = lambda t: t.permute(0, 2, 1, 3).reshape(B, -1, C).to(BF16)  # noqa: E731
-    return (merge(r(ds) @ kh / math.sqrt(d)), merge(r(ds).transpose(-1, -2) @ qh / math.sqrt(d)),
+    if key_order is None:
+        dq = r(ds) @ kh / math.sqrt(d)
+    else:
+        dq = torch.zeros_like(qh)
+        for blk in key_order:
+            keys = slice(128 * blk, 128 * (blk + 1))
+            dq = dq + (r(ds)[..., keys] @ kh[..., keys, :]) / math.sqrt(d)
+    return (merge(dq), merge(r(ds).transpose(-1, -2) @ qh / math.sqrt(d)),
             merge(r(p * z).transpose(-1, -2) @ dh))
 
 
@@ -261,6 +273,25 @@ def test_bf16_backward_formula_matches_autograd(rate, masked):
         assert _rel(g.float(), w.float()) < BF16_GRAD_RTOL
         assert _rel(m.float(), g.float()) < BF16_GRAD_RTOL
         torch.testing.assert_close(x, g, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("order_seed", [0, 1, 2])
+def test_bf16_backward_dq_in_any_block_order(order_seed):
+    """The kernel's blocks of 128 keys add their parts of dQ in fp32 in the
+    order they finish: the model's dQ summed over the blocks in a shuffled
+    order stays within the bf16 tolerance of the formula, and within one bf16
+    step of the peak (2**-8) of the sum in key order (the card test's bound
+    between two launches, tests/test_torch_cuda.py)."""
+    B, Tq, Tk, C, H = 1, 70, 700, 64, 2
+    q, k, v, do = (torch.from_numpy(a).to(BF16) for a in _qkv(B, Tq, Tk, C, 5))
+    out = K.flash_mha(q, k, v, H, dropout=0.1, dropout_seed=3)
+    want = K.flash_mha_bwd_plain(q, k, v, out, do, H, dropout=0.1, dropout_seed=3)[0]
+    blocks = np.random.default_rng(order_seed).permutation(-(-Tk // 128)).tolist()
+    shuffled = _bwd_bf16_model(q, k, v, out, do, H, None, 0.1, 3, key_order=blocks)[0]
+    in_order = _bwd_bf16_model(q, k, v, out, do, H, None, 0.1, 3,
+                               key_order=sorted(blocks))[0]
+    assert _rel(shuffled.float(), want.float()) < BF16_GRAD_RTOL
+    assert _rel(shuffled.float(), in_order.float()) <= 2 ** -8
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -309,6 +340,21 @@ def test_stft_backward_formulas(n_fft, hop, length):
     for a, b in zip(got, want):
         assert _rel(a, b) < 1e-5
     assert not got[1][..., 0].any() and not got[1][..., -1].any()  # bins K2 ignores
+
+
+@pytest.mark.parametrize("B,Tk,H,want", [
+    (1, 2688, 8, 128),   # freq self, one segment: 168 blocks of 128 keys, 2 waves either way
+    (8, 2688, 8, 128),   # the training batch: 11 waves either way, 128 keys the cheaper
+    (1, 130, 1, 128),    # under one round of blocks either way
+    (1, 2112, 8, 64),    # 136 blocks of 128 keys on 132 SMs, 264 of 64 two an SM
+    (8, 1344, 8, 64),    # a half-empty last block of 128 keys per head
+])
+def test_bwd_keys_plan(monkeypatch, B, Tk, H, want):
+    """The bf16 backward's keys per block (kernels/attention.py bwd_keys) on a
+    132-SM card, and BWD_KEYS_BF16 fixing it."""
+    assert K.bwd_keys(B, Tk, H, 132) == want
+    monkeypatch.setattr(K, "BWD_KEYS_BF16", 64)
+    assert K.bwd_keys(B, Tk, H, 132) == 64
 
 
 def test_backward_argtypes_match_the_c_signature(monkeypatch):

@@ -752,10 +752,17 @@ def test_pass_memory_analysis_and_pool_release(cuda):
 # the CPU's own bf16 step standing for JAX's.
 
 
+# Besides the first cases, the backward's edges: fewer keys than a block (64)
+# and a ragged query tile (32 on the fp32 route, 64 on the bf16 one), at head
+# dims 32, 48 and 64; a key count that is not a whole number of 128-key blocks.
+BWD_EDGES = [(1, 100, 40, 64, 2, 0.1, True), (2, 77, 33, 96, 2, 0.0, False),
+             (1, 129, 50, 128, 2, 0.2, False), (2, 95, 300, 128, 2, 0.1, True)]
+
+
 @pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [
     (1, 64, 64, 64, 1, 0.0, False), (2, 70, 90, 96, 2, 0.1, True),
     (1, 130, 200, 128, 4, 0.1, False), (1, 300, 257, 256, 8, 0.0, True),
-    (2, 333, 190, 512, 8, 0.3, True)])
+    (2, 333, 190, 512, 8, 0.3, True), *BWD_EDGES])
 def test_flash_mha_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, masked):
     from demucs_tpu_torch.kernels import attention as K
 
@@ -797,7 +804,8 @@ def test_flash_mha_bf16_dropout_matches_plain(cuda, B, Tq, Tk, C, H, rate, maske
 @pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [
     (1, 64, 64, 64, 1, 0.0, False), (2, 70, 90, 96, 2, 0.1, True),
     (1, 130, 200, 128, 4, 0.1, False), (1, 300, 257, 256, 8, 0.0, True),
-    (2, 333, 190, 512, 8, 0.3, True), (1, 2688, 1344, 512, 8, 0.1, False)])
+    (2, 333, 190, 512, 8, 0.3, True), (1, 2688, 1344, 512, 8, 0.1, False), *BWD_EDGES,
+    (8, 2688, 2688, 512, 8, 0.1, False)])  # the released freq self at the training batch
 def test_flash_mha_bf16_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, masked):
     """The bf16 backward kernel through autograd against the plain formula:
     each gradient within 2**-6 of its peak (bf16 outputs, Z P and dS rounded
@@ -820,6 +828,30 @@ def test_flash_mha_bf16_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rat
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16
         assert (g.float() - w.float()).abs().max() <= 2 ** -6 * w.float().abs().max()
+
+
+@pytest.mark.parametrize("dtype,keys,bound", [
+    (torch.float32, None, 1e-5), (torch.bfloat16, 128, 2 ** -8), (torch.bfloat16, 64, 2 ** -8)])
+def test_flash_mha_backward_launches_agree(cuda, monkeypatch, dtype, keys, bound):
+    """The blocks of keys add their parts of dQ with atomics, in the order
+    they finish, so two launches on the same inputs may differ in dQ: within
+    a few fp32 roundings of the sums (1e-5 of dQ's peak) on the fp32 route,
+    one bf16 step of dQ's peak (2**-8) on the bf16 route (the fp32 sums
+    round to bf16 on either side of a step). dK and dV take no atomics: equal."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    monkeypatch.setattr(K, "BWD_KEYS_BF16", keys)
+    B, Tq, Tk, C, H = 2, 700, 1500, 256, 4
+    q, k, v, do = (_randn(B, T, C, seed=s).to(dtype) for s, T in enumerate((Tq, Tk, Tk, Tq)))
+    forward = K._forward_bf16 if dtype == torch.bfloat16 else K._forward_f32
+    o, lse = forward(q, k, v, H, None, 0.1, 5, True)
+    backward = K.flash_mha_bwd_bf16 if dtype == torch.bfloat16 else K.flash_mha_bwd
+    first, second = (backward(q, k, v, o, do, H, lse=lse, dropout=0.1, dropout_seed=5)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    dq1, dq2 = first[0].float(), second[0].float()
+    assert (dq1 - dq2).abs().max() <= bound * dq1.abs().max()
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
 
 
 @pytest.mark.parametrize("n_fft,hop,frames,extra", [(4096, 1024, 340, 0), (512, 128, 30, 77)])

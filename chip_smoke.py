@@ -170,6 +170,21 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               the CPU); the bf16 training rate (the train bf16 path's
               launches); and the entry point for one epoch with
               compute_dtype bfloat16 and t_dropout 0.1.
+   train_recipe — the reference's default recipe: demucs_tpu_torch.train's
+              main (python -m demucs_tpu_torch.train) in this process at the
+              released width, every augment at its default (repitch 0.2, the
+              backend named), 11 s windows shifted by up to 1 s, 2 batches x 2
+              epochs with every launch counted (the train recipe path), then
+              an epoch with every item repitched and one with none: the data
+              waits at repitch 0, 0.2 and 1, the batch loop's device idle share
+              (torch.profiler) at 0.2 and 1, and ms per repitched 11 s item at
+              each pitch. Then the step with the SVD penalty (low-rank, the
+              power method), with DiffQ and with QAT at 8 bits against the
+              plain step (launches per option), the exact penalty on the card
+              against the CPU's, each quantized export through Separator on
+              the card with its SER against the float model on 10 s, and the
+              C++ WAV window reader against the Python reader (ms, bit-equal)
+              with its prefetcher's examples.
 20. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
               then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
               the .dmx on a FLAC file with --flac and (with LAME) --mp3.
@@ -177,8 +192,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, K3's backward
 on each route and K2's backward, each kernel's launches on every path:
 HTDemucs, HDemucs, Demucs v2, the bag, each family's presets, the server,
-each stream, each variant request and the fp32 and bf16 train paths;
-``launches`` is their sum)
+each stream, each variant request, the fp32 and bf16 train paths, the
+default recipe's entry point and each training option's steps; ``launches``
+is their sum)
 and, last,
 ``{"ok": true, "device": {...}}``.
 Bounds use the published peaks of one H100 SXM: 67 TFLOP/s in fp32 on the
@@ -3327,6 +3343,334 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict]:
     return rows, counts, counts_bf16
 
 
+RECIPE_SEGMENT = 11.0  # the reference's dset.segment (conf/config.yaml): 9.68 s after repitch
+RECIPE_STEPS = 3  # each option's steps in train_recipe (the last two timed)
+# the exact SVD penalty (sum of sigma_max^2), card vs CPU, relative: fp32 SVDs of matrices
+# of up to 3456 columns by cuSOLVER and LAPACK (sigma_max to about n x fp32 epsilon each)
+SVD_RTOL = 1e-4
+QUANT_SER_MIN_DB = 10.0  # a quantized export's stems against the float model's, at least
+
+
+def _recipe_argv(data: Path, workdir: Path, out: Path) -> list:
+    """``python -m demucs_tpu_torch.train``'s arguments for the reference's
+    default recipe (every augment at its default, repitch 0.2) at the
+    released width, 11 s windows shifted by up to 1 s."""
+    model_args = ("{" + ", ".join(f"{k}: {v}" for k, v in RELEASED.items() if k != "samplerate")
+                  + "}")
+    return [f"dset.wav={data}", "dset.use_musdb=false", f"dset.segment={RECIPE_SEGMENT}",
+            "dset.shift=1", f"dset.samplerate={SR}", f"dset.metadata={workdir / 'recipe_meta'}",
+            f"model_segment={TRAIN_SEGMENT}", f"model_args={model_args}",
+            f"batch_size={ENTRY_BATCH}", "epochs=2", "max_batches=1", f"out_dir={out}",
+            "misc.num_workers=4"]
+
+
+def recipe_entry_point(workdir: Path) -> tp.Tuple[dict, dict]:
+    """The slice's main path: ``demucs_tpu_torch.train.train.main`` (what
+    ``python -m demucs_tpu_torch.train`` runs) in this process with the
+    reference's defaults, 2 batches x 2 epochs, every launch counted from 0;
+    then the same Solver one more epoch with every item repitched and one
+    with none, for the data waits at repitch 0, 0.2 and 1 (and the items
+    each epoch repitched); the device's idle share of the epoch's batch loop
+    (torch.profiler) at repitch 0.2 and 1; and the ms of repitching one 11 s
+    four-stem item at each pitch."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.inference.engine import GRAPHS
+    from demucs_tpu_torch.train.repitch import RepitchedWrapper, repitch
+    from demucs_tpu_torch.train.train import main
+
+    data = workdir / "trainset"
+    if not data.exists():
+        _train_folder(data)
+    argv = _recipe_argv(data, workdir, workdir / "recipe_out")
+    fired: list = []  # (epoch, index) of each item the augment repitched
+    plan = RepitchedWrapper.plan
+
+    def counted(self, index, streams):
+        out = plan(self, index, streams)
+        if out is not None:
+            fired.append((self.epoch, index))
+        return out
+
+    RepitchedWrapper.plan = counted
+    try:
+        start = time.perf_counter()
+        _zero_train_counts()
+        GRAPHS.reset_counts()
+        solver = main(argv + ["device=cuda"])
+        torch.cuda.synchronize()
+        # the steps' launches and the validations' (graph replays among them)
+        counts = {k: n + GRAPHS.replayed_launches.get(k, 0)
+                  for k, n in _read_train_counts().items()}
+        entry_s = time.perf_counter() - start
+        wrapper = solver.loaders["train"].dataset
+        probas = [wrapper.proba] * len(solver.timing)
+        for proba in (1.0, 0.0):
+            wrapper.proba = proba
+            solver.args.epochs += 1
+            solver.train()
+            probas.append(proba)
+        idle = {}
+        for proba in (0.2, 1.0):  # the batch loop alone, no validation
+            wrapper.proba = proba
+            idle[proba] = _profile_step(lambda: solver._run_one_epoch(len(solver.timing)))
+    finally:
+        RepitchedWrapper.plan = plan
+    waits = [dict(t, repitch_proba=p, repitched_items=sum(e == t["epoch"] for e, _ in fired))
+             for t, p in zip(solver.timing, probas)]
+    item = wrapper.dataset[0]  # an 11 s four-stem window
+    per_pitch = {}
+    for pitch in range(-wrapper.max_pitch, wrapper.max_pitch + 1):
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            out = np.stack([repitch(stem, pitch, 4.0, voice=k in wrapper.vocals,
+                                    samplerate=SR, backend=wrapper.backend)
+                            for k, stem in enumerate(item)])
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_pitch[pitch] = min(times)
+    launched = all(counts[name] > 0 for name in TRAIN_KERNELS if name != "stft_dft_backward")
+    losses = [h["train"]["loss"] for h in solver.history]
+    info = {"command": "python -m demucs_tpu_torch.train " + " ".join(argv),
+            "entry_point_s": entry_s, "repitch_backend": wrapper.backend,
+            "dataset": type(wrapper).__name__, "default_repitch_proba": probas[0],
+            "train_loss_by_epoch": losses,
+            "valid_loss_by_epoch": [h["valid"]["loss"] for h in solver.history],
+            "data_wait_by_epoch": waits,
+            "data_wait_s_by_proba": {p: statistics.mean(w["load_s"] for w in waits
+                                                        if w["repitch_proba"] == p)
+                                     for p in sorted(set(probas))},
+            "step_s_by_epoch": [w["step_s"] for w in waits],
+            "batch_loop_profile": {p: {k: v[k] for k in ("wall_ms", "device_ms", "idle_share")}
+                                   for p, v in idle.items()},
+            "repitch_ms_per_11s_item_by_pitch": per_pitch,
+            "repitch_ms_per_11s_item_mean": statistics.mean(per_pitch.values()),
+            "repitched_item_shape": list(out.shape), "launches": counts}
+    info["ok"] = (isinstance(wrapper, RepitchedWrapper) and probas[0] == 0.2
+                  and len(solver.history) == 4 and all(math.isfinite(x) for x in losses)
+                  and launched and out.shape[-1] >= int(0.88 * item.shape[-1])
+                  and all(w["repitched_items"] == w["batches"] * ENTRY_BATCH
+                          for w in waits if w["repitch_proba"] == 1.0))
+    del solver, wrapper
+    torch.cuda.empty_cache()
+    return info, counts
+
+
+def _median_step_ms(step, steps: int = RECIPE_STEPS) -> tp.Tuple[float, list]:
+    import statistics
+
+    import torch
+
+    walls, losses = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        m = step()
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls[1:]), losses
+
+
+def recipe_options(workdir: Path) -> tp.Tuple[dict, dict]:
+    """The released HTDemucs at batch ENTRY_BATCH (7.8 s): the plain train
+    step, the step with the SVD penalty (low-rank, then the power method),
+    with DiffQ and with QAT at 8 bits, RECIPE_STEPS each, launches counted
+    per option; the exact penalty on the card against the CPU's (and the
+    low-rank one from the same probes); each quantized export written as a
+    .dmx, read back through Separator on the card and held against the
+    float model on a 10 s track (SER)."""
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.train.config import TrainArgs
+    from demucs_tpu_torch.train.solver import Solver
+    from demucs_tpu_torch.train.step import train_step
+    from demucs_tpu_torch.train.svd import SvdPenalty, svd_total
+    from demucs_tpu_torch.zoo.native import save_model
+
+    model = _released_training_model(seed=5)
+    model.module.to("cuda")
+    sources = 0.2 * torch.randn(ENTRY_BATCH, 4, 2, model.cfg.training_length, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    paths: dict = {}
+    info: dict = {"batch": ENTRY_BATCH, "segment_s": TRAIN_SEGMENT}
+
+    def run(name: str, **kw) -> tp.Tuple[float, list]:
+        opt = _optimizer(model, 3e-4)
+        _zero_train_counts()
+        ms, losses = _median_step_ms(lambda: train_step(model, opt, sources, generator=gen,
+                                                        **kw))
+        paths[name] = _read_train_counts()
+        return ms, losses
+
+    info["plain_step_ms"], _ = run("train plain")
+    args = TrainArgs()
+    args.svd.penalty = 1e-4
+    for powm in (False, True):
+        args.svd.powm = powm
+        svd = SvdPenalty.from_args(args, model.kind, model.cfg)
+        ms, losses = run("train svd " + ("powm" if powm else "lowrank"), svd=svd)
+        with torch.no_grad():
+            penalty = svd(dict(model.module.named_parameters()), gen).item()
+        info["svd_" + ("powm" if powm else "lowrank")] = {
+            "step_ms": ms, "over_plain": ms / info["plain_step_ms"], "losses": losses,
+            "penalty": penalty}
+    params = {n: p.detach() for n, p in model.module.named_parameters()}
+    cpu_params = {n: p.cpu() for n, p in params.items()}
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        card = svd_total(params, exact=True).item()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        cpu = svd_total(cpu_params, exact=True).item()
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        low_card = svd_total(params, generator=torch.Generator().manual_seed(9)).item()
+        low_cpu = svd_total(cpu_params, generator=torch.Generator().manual_seed(9)).item()
+    info["svd_exact"] = {"card": card, "cpu": cpu, "rel_diff": abs(card - cpu) / abs(cpu),
+                         "tol": SVD_RTOL, "card_ms": card_ms, "cpu_ms": cpu_ms,
+                         "lowrank_card": low_card, "lowrank_cpu": low_cpu,
+                         "lowrank_rel_diff": abs(low_card - low_cpu) / abs(low_cpu)}
+    folder = workdir / "recipe_zoo"
+    folder.mkdir(parents=True, exist_ok=True)
+    wav = _track(10.0, 8)
+    for mode, key, value in (("diffq", "quant.diffq", 1e-4), ("qat", "quant.qat", 8)):
+        args = TrainArgs()
+        setattr(args.quant, key.split(".")[1], value)
+        opt = _optimizer(model, 3e-4)
+        solver = Solver({}, model, opt, args, workdir / f"recipe_{mode}")
+        quantizer = solver.quantizer
+        _zero_train_counts()
+        ms, losses = _median_step_ms(lambda: train_step(model, opt, sources, generator=gen,
+                                                        quantizer=quantizer))
+        paths[f"train {mode}"] = _read_train_counts()
+        qstate = solver.quantized_state()
+        save_model(model, folder / f"{mode}.dmx", quantized_state=qstate)
+        save_model(model, folder / f"{mode}_float.dmx", half=False)
+        stems = {}
+        for name in (mode, f"{mode}_float"):
+            sep = Separator(name, repo=folder, shifts=0)
+            stems[name] = _stems(sep, wav)
+            del sep
+        ser = _ser_db(stems[f"{mode}_float"], stems[mode])
+        info[mode] = {"step_ms": ms, "over_plain": ms / info["plain_step_ms"], "losses": losses,
+                      "model_size_mb": float(torch.as_tensor(quantizer.size_mb()).detach()),
+                      "float_size_mb": sum(p.numel() for p in model.module.parameters()) * 4
+                      / 2**20, "quantized_params": len(quantizer.names),
+                      "klass": qstate["meta"]["klass"], "separated_10s_shape":
+                      list(stems[mode].shape), "ser_db_vs_float": ser}
+        del solver, quantizer, opt
+    del model, sources
+    torch.cuda.empty_cache()
+    steps_ok = all(math.isfinite(x) for k in ("svd_lowrank", "svd_powm", "diffq", "qat")
+                   for x in info[k]["losses"])
+    launched = all(counts[name] > 0 for counts in paths.values()
+                   for name in TRAIN_KERNELS if name != "stft_dft_backward")
+    info["ok"] = {"steps_finite": steps_ok, "kernels_launched": launched,
+                  "svd_card_vs_cpu": info["svd_exact"]["rel_diff"] <= SVD_RTOL
+                  and info["svd_exact"]["lowrank_rel_diff"] <= SVD_RTOL,
+                  "quantized_separate": all(
+                      info[m]["separated_10s_shape"] == [4, 2, wav.shape[-1]]
+                      and isinstance(info[m]["ser_db_vs_float"], float)
+                      and info[m]["ser_db_vs_float"] >= QUANT_SER_MIN_DB
+                      for m in ("diffq", "qat"))}
+    return info, paths
+
+
+def recipe_wav_reader(workdir: Path) -> dict:
+    """The C++ WAV window reader against the Python reader on an 11 s
+    four-stem window of the synthetic training set (ms each, bit-equal;
+    then 8 windows on the loader's 4 threads), and its prefetcher's examples
+    against read_wav_window."""
+    import statistics
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from demucs_tpu_torch import audio as ta
+    from demucs_tpu_torch import native
+
+    track = workdir / "trainset" / "train" / "track0"
+    files = [track / f"{s}.wav" for s in ("drums", "bass", "other", "vocals")]
+    frames, offset = int(RECIPE_SEGMENT * SR), SR
+
+    def native_read():  # as train/wav.py::Wavset reads an example
+        out = np.empty((len(files), 2, frames), np.float32)
+        for k, f in enumerate(files):
+            native.read_wav_window(f, offset, frames, 2, out=out[k])
+        return out
+
+    def python_read():
+        return np.stack([ta.convert_audio_channels(
+            ta.read_wav(f, frame_offset=offset, num_frames=frames)[0], 2) for f in files])
+
+    timed = {}
+    for name, fn in (("native", native_read), ("python", python_read)):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        timed[name] = (statistics.median(times), out)
+    equal = np.array_equal(timed["native"][1], timed["python"][1])
+    threaded = {}
+    with ThreadPoolExecutor(4) as pool:
+        for name, fn in (("native", native_read), ("python", python_read)):
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: fn(), range(8)))
+            threaded[name] = (time.perf_counter() - t0) * 1e3
+    total = native.wav_info(files[0])["frames"]
+    offsets = (0, offset, total - frames // 2)  # the last runs past the end: zero tail
+    worst = 0.0
+    with native.NativePrefetcher(channels=2, frames=frames, sources=4, num_threads=4) as pf:
+        for off in offsets:
+            pf.add_job(files, off, mean=0.01, std=0.2)
+        pf.start()
+        for i, off in enumerate(offsets):
+            want = (np.stack([native.read_wav_window(f, off, frames, 2) for f in files])
+                    - 0.01) / 0.2
+            worst = max(worst, float(np.abs(pf.get(i) - want).max()))
+    info = {"window_s": RECIPE_SEGMENT, "native_ms": timed["native"][0],
+            "python_ms": timed["python"][0], "python_over_native":
+            timed["python"][0] / timed["native"][0], "bit_equal": equal,
+            "eight_windows_4_threads_ms": threaded,
+            "prefetcher_max_abs_err": worst, "prefetcher_tol": 1e-6}
+    info["ok"] = equal and worst <= 1e-6
+    return info
+
+
+def phase_train_recipe(workdir: Path) -> dict:
+    """The reference's default training recipe through the entry point
+    (repitch at 0.2, 11 s windows), the data waits at repitch 0 / 0.2 / 1
+    and ms per repitched item; the SVD penalty, DiffQ and QAT steps against
+    the plain step, the exact penalty card vs CPU, the quantized exports
+    separated through Separator; the C++ WAV reader against the Python one.
+    Returns the launches of each path (the entry point's and each option's
+    steps)."""
+    import torch
+
+    from demucs_tpu_torch.inference.engine import GRAPHS
+
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    info = {"phase": "train_recipe", "card": card_line()}
+    with _fp32():
+        info["entry_point"], counts = recipe_entry_point(workdir)
+        info["options"], paths = recipe_options(workdir)
+    info["wav_reader"] = recipe_wav_reader(workdir)
+    info["wall_s"] = time.perf_counter() - start
+    emit(info)
+    bad = [k for k in ("entry_point", "wav_reader") if not info[k]["ok"]]
+    bad += [k for k, v in info["options"]["ok"].items() if not v]
+    if bad:
+        raise AssertionError(f"train_recipe: {bad}")
+    return dict(paths, **{"train recipe": counts})
+
+
 @contextlib.contextmanager
 def _fp32():
     """TF32 off for cuBLAS and cuDNN (the kernels' plain versions, the step)."""
@@ -3399,6 +3743,7 @@ def main() -> int:
         phase_evaluate(workdir)
         train_rows, paths["train"], paths["train bf16"] = phase_train(workdir)
         rows += train_rows
+        paths.update(phase_train_recipe(workdir))
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()

@@ -111,6 +111,19 @@ def layout(cfg: DemucsConfig) -> _V2Layout:
     return _V2Layout(tuple(enc_dconv), tuple(dec_dconv), tuple(enc_norm), tuple(chans))
 
 
+def convtr_param_names(cfg: DemucsConfig) -> tp.FrozenSet[str]:
+    """Dotted names of the decoder's ConvTranspose1d weights, for the SVD
+    penalty's ``convtr`` option (``train/svd.py``; the reference checks
+    ``isinstance``, svd.py:58-61): ``decoder.{i}.{pos}.weight``, after the
+    rewrite conv, its norm and GLU and the DConv where the layer has them."""
+    lay = layout(cfg)
+    names = []
+    for index in range(cfg.depth):
+        pos = (3 if cfg.rewrite else 0) + (lay.dec_dconv[index] is not None)
+        names.append(f"decoder.{cfg.depth - 1 - index}.{pos}.weight")
+    return frozenset(names)
+
+
 class Demucs(nn.Module):
     """Demucs v2. ``forward(mix (B, C, L)) -> stems (B, S, C, L)``."""
 

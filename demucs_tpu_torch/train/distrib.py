@@ -47,8 +47,9 @@ def shard_indices(n: int) -> range:
 class DataLoader:
     """Batches of a map-style dataset as stacked numpy arrays, for one process
     (the reference's DataLoader, distrib.py:84-100): a shuffle seeded by
-    ``seed + epoch`` (``set_epoch``); with ``num_workers`` the items of a
-    batch load on a thread pool."""
+    ``seed + epoch`` (``set_epoch``, passed on to a dataset that has one: the
+    repitch augment's draws); with ``num_workers`` the items of a batch load
+    on a thread pool."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, drop_last: bool = True,
                  num_workers: int = 0, seed: int = 42):
@@ -62,6 +63,8 @@ class DataLoader:
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self) -> int:
         n = len(self.dataset)

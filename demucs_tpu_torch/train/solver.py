@@ -15,7 +15,17 @@ and ``flatten_state`` convert), so weights cross between the packages; the
 optimizer's state, the generator's and the EMAs' are the port's own. The best
 model goes to ``best.dmx`` through ``zoo/native.py``, which
 ``demucs_tpu_torch.api.Separator`` loads. Every draw of a run comes from one
-CPU ``torch.Generator`` seeded with ``args.seed`` and kept in the checkpoint.
+CPU ``torch.Generator`` seeded with ``args.seed`` and kept in the checkpoint,
+but the SVD penalty's skip: a ``random.Random(1234)`` as the reference's
+(``train/svd.py``), also kept.
+
+With ``svd.penalty`` the penalty joins the loss on the steps where it fires,
+and validation logs the exact one. With ``quant.diffq`` or ``quant.qat`` a
+``quantize.Quantizer`` gives each step its weights (and DiffQ its size
+term), validation runs on the quantized weights, the checkpoint holds
+DiffQ's logits and their Adam, and :meth:`Solver.quantized_state` gives the
+``__quantized`` container (``zoo/native.py::save_model(...,
+quantized_state=...)`` writes it as a ``.dmx``).
 """
 
 from __future__ import annotations
@@ -40,7 +50,9 @@ from demucs_tpu_torch.models.registry import Model, build_module
 from demucs_tpu_torch.train.augment import AugmentConfig, make_augment
 from demucs_tpu_torch.train.config import TrainArgs
 from demucs_tpu_torch.train.ema import ModelEMA, swap
-from demucs_tpu_torch.train.step import source_loss, train_step
+from demucs_tpu_torch.train.quantize import Quantizer, hard_quantized_state, make_spec
+from demucs_tpu_torch.train.step import backward_precision, source_loss, train_step
+from demucs_tpu_torch.train.svd import PENALTY_SEED, SvdPenalty
 from demucs_tpu_torch.zoo.convert import flat_state, load_flat_state
 
 __all__ = ["Solver", "MetricAverager"]
@@ -139,6 +151,11 @@ class Solver:
         self.best_state: tp.Optional[dict] = None
         self.best_changed = False
         self.generator = torch.Generator().manual_seed(args.seed)
+        self.penalty_rng = random.Random(PENALTY_SEED)
+        self.svd = (SvdPenalty.from_args(args, model.kind, model.cfg) if args.svd.penalty > 0
+                    else None)
+        spec = make_spec(args)
+        self.quantizer = Quantizer(spec, model) if spec is not None else None
         self.timing: tp.List[dict] = []  # per epoch: seconds waiting for batches, in steps
         self._reset()
 
@@ -161,7 +178,10 @@ class Solver:
             "best_state": self.best_state,
             "args": dataclasses.asdict(self.args),
             "generator": self.generator.get_state().numpy(),
+            "penalty_rng": self.penalty_rng.getstate(),
         }
+        if self.quantizer is not None:
+            package["quant"] = _to_host(self.quantizer.state_dict())
         for kind, emas in self.emas.items():
             for k, ema in enumerate(emas):
                 package[f"ema_{kind}_{k}"] = {"state": _to_host(ema.state), "count": ema.count}
@@ -193,6 +213,10 @@ class Solver:
             self.history[:] = package["history"]
             self.best_state = package.get("best_state")
             self.generator.set_state(torch.from_numpy(package["generator"]))
+            if "penalty_rng" in package:  # checkpoints written since the SVD penalty
+                self.penalty_rng.setstate(package["penalty_rng"])
+            if self.quantizer is not None:
+                self.quantizer.load_state_dict(_to_tensors(package["quant"]))
             for kind, emas in self.emas.items():
                 for k, ema in enumerate(emas):
                     ema.load_state_dict(package[f"ema_{kind}_{k}"])
@@ -217,7 +241,7 @@ class Solver:
 
     def _format_train(self, metrics: dict) -> dict:
         out = {"loss": format(metrics["loss"], ".4f"), "reco": format(metrics["reco"], ".4f")}
-        for key in ("nsdr", "grad", "best", "bname"):
+        for key in ("nsdr", "grad", "ms", "penalty", "best", "bname"):
             if key in metrics:
                 val = metrics[key]
                 out[key] = val if isinstance(val, str) else format(val, ".4f")
@@ -253,6 +277,10 @@ class Solver:
             past = [m["valid"][key] for m in self.history] + [valid_loss]
             best_loss = max(past) if key.startswith("nsdr") else min(past)
             metrics["valid"]["best"] = best_loss
+            if self.svd is not None:  # the exact penalty, with its skip (solver.py:237-242)
+                with torch.no_grad(), backward_precision(self.model):
+                    metrics["valid"]["penalty"] = float(self.svd.exact(
+                        dict(self.model.module.named_parameters()), self.penalty_rng))
             logger.info("Valid Summary | Epoch %d | %s", epoch + 1,
                         _summary(self._format_train(metrics["valid"])))
             if valid_loss == best_loss or self.args.dset.train_valid:
@@ -269,6 +297,15 @@ class Solver:
             self._serialize(epoch)
             if is_last:
                 break
+
+    def quantized_state(self) -> dict:
+        """The ``__quantized`` container of the live weights, at DiffQ's
+        learned depths or QAT's bits (``zoo/diffq.py``'s layout)."""
+        if self.quantizer is None:
+            raise ValueError("quantized_state: this run trains without quant.diffq / quant.qat")
+        return hard_quantized_state(dict(self.model.module.named_parameters()),
+                                    self.quantizer.logits, self.quantizer.spec,
+                                    self.model.kind, self.model.cfg)
 
     def _test(self, compute_sdr: bool) -> dict:
         """The test set with the best state (``test.best``) or the live one."""
@@ -305,10 +342,19 @@ class Solver:
 
     def _run_one_epoch(self, epoch: int, train: bool = True) -> dict:
         """The batch loop (solver.py:291-405)."""
-        args = self.args
         loader = self.loaders["train"] if train else self.loaders["valid"]
         if train and hasattr(loader, "set_epoch"):
             loader.set_epoch(epoch)
+        if not train and self.quantizer is not None:
+            # validate the quantized model (diffq quantizes in its eval-mode forward pre-hook)
+            module = self.model.module
+            valid = self.quantizer.eval_params(dict(module.named_parameters()))
+            with swap(module, {**module.state_dict(), **valid}):
+                return self._epoch(epoch, loader, train)
+        return self._epoch(epoch, loader, train)
+
+    def _epoch(self, epoch: int, loader, train: bool) -> dict:
+        args = self.args
         self.model.module.train(train)
         averager = MetricAverager()
         weights = np.asarray(args.weights, dtype=np.float64)
@@ -326,11 +372,18 @@ class Solver:
             start = time.perf_counter()
             if train:
                 batch = torch.from_numpy(sources).to(self.device)
+                # the skip draws on the host, as every worker's (svd.py:26-28)
+                svd = self.svd if self.svd is not None and self.svd.fires(self.penalty_rng) \
+                    else None
                 m = train_step(self.model, self.optimizer, batch, loss=args.optim.loss,
                                weights=args.weights, clip_grad=args.optim.clip_grad,
-                               generator=self.generator, augment=self._augment)
+                               generator=self.generator, augment=self._augment,
+                               quantizer=self.quantizer, svd=svd)
                 reco = m["reco"].cpu().numpy()
                 losses = {"loss": float(m["loss"]), "grad": float(m["grad_norm"])}
+                for key in ("ms", "penalty"):  # solver.py:339-360
+                    if key in m:
+                        losses[key] = float(m[key])
                 for ema in self.emas["batch"]:
                     ema.update()
             else:

@@ -7,6 +7,11 @@ mse quirks), the forward in train mode through the model's kernels (K1,
 K2's backward, K3 and its backward on the card), the gradient's global norm
 (before clipping), clipping by that norm, and the optimizer: optax's chains
 mapped onto ``torch.optim.Adam`` / ``AdamW`` (see :func:`make_optimizer`).
+With a quantizer (``train/quantize.py``) the forward runs on DiffQ's noisy or
+QAT's straight-through weights, and DiffQ's model-size term joins the loss;
+with an SVD penalty (``train/svd.py``) on a step where it fires, its weighted
+term joins it too. The gradient's norm and clipping cover the model's
+parameters only (DiffQ's logits have their own Adam).
 """
 
 from __future__ import annotations
@@ -123,16 +128,41 @@ def clip_and_step(optimizer: torch.optim.Optimizer, clip_grad: float) -> torch.T
 def train_step(model: Model, optimizer: torch.optim.Optimizer, sources: torch.Tensor, *,
                loss: str = "l1", weights: tp.Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                clip_grad: float = 0.0, generator: tp.Optional[torch.Generator] = None,
-               augment: tp.Optional[tp.Callable] = None) -> dict:
+               augment: tp.Optional[tp.Callable] = None, quantizer=None,
+               quant_noise: tp.Optional[tp.Mapping[str, torch.Tensor]] = None,
+               svd=None) -> dict:
     """One step on ``sources (B, S, C, T)`` on the model's device: augment
     (``augment(sources, generator)``), forward, loss, backward, clip, update.
-    Returns ``{"loss", "reco" (S,), "grad_norm"}`` as tensors on the device
-    (no synchronisation)."""
+    ``quantizer``: a ``quantize.Quantizer`` (DiffQ's noise drawn from
+    ``generator``, or ``quant_noise``); ``svd``: an ``svd.SvdPenalty`` that
+    fires this step. Returns ``{"loss", "reco" (S,), "grad_norm"}`` (with
+    ``"ms"`` under a quantizer, ``"penalty"`` under ``svd``) as tensors on
+    the device (no synchronisation)."""
+    from demucs_tpu_torch.train.quantize import substituted
+
     if augment is not None:
         sources = augment(sources, generator)
     optimizer.zero_grad(set_to_none=True)
-    value, reco = forward_loss(model, sources, loss, weights, generator)
-    with backward_precision(model):
-        value.backward()
+    params = dict(model.module.named_parameters())
+    swapped = {}
+    if quantizer is not None:
+        if quantizer.optimizer is not None:
+            quantizer.optimizer.zero_grad(set_to_none=True)
+        swapped = quantizer.train_params(params, generator, quant_noise)
+    out = {}
+    with substituted(model.module, swapped):
+        value, reco = forward_loss(model, sources, loss, weights, generator)
+        with backward_precision(model):
+            if svd is not None:
+                out["penalty"] = svd(params, generator)
+                value = value + svd.weight * out["penalty"]
+            if quantizer is not None:
+                out["ms"] = quantizer.size_mb()
+                if quantizer.logits is not None:
+                    value = value + quantizer.spec.penalty * out["ms"]
+            value.backward()
     norm = clip_and_step(optimizer, clip_grad)
-    return {"loss": value.detach(), "reco": reco.detach(), "grad_norm": norm}
+    if quantizer is not None and quantizer.optimizer is not None:
+        quantizer.optimizer.step()
+    out = {k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in out.items()}
+    return dict(out, loss=value.detach(), reco=reco.detach(), grad_norm=norm)

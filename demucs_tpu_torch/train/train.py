@@ -1,14 +1,15 @@
 """Training entry point: config -> model, optimizer, datasets -> Solver
 (port of ``demucs_tpu/train/train.py``; behavioral reference ``demucs/train.py``).
 
-    python -m demucs_tpu_torch.train model=htdemucs dset.wav=/path epochs=2 \\
-        augment.repitch.proba=0 [device=cpu]
+    python -m demucs_tpu_torch.train model=htdemucs dset.wav=/path epochs=2 [device=cpu]
 
 Overrides are ``key=value`` tokens of :class:`~demucs_tpu_torch.train.config.TrainArgs`
 (``dset=NAME`` selects a dataset preset); ``device=`` (not part of the
-config, default ``cuda``) picks the device. XP folders are
+config, default ``cuda``) picks the device. The reference's defaults train
+as they are (the repitch augment at 0.2), and so do ``svd.penalty``,
+``quant.diffq`` and ``quant.qat``. XP folders are
 ``{out_dir}/xps/{signature}``, resumed from their checkpoint when one is
-there. What the port does not train yet raises ``NotImplementedError``
+there. Training on more than one process raises ``NotImplementedError``
 (:func:`check_supported`).
 """
 
@@ -37,16 +38,8 @@ logger = logging.getLogger(__name__)
 
 
 def check_supported(args: TrainArgs) -> None:
-    """Raise ``NotImplementedError`` for what the port does not train yet,
-    each naming the later slice that brings it."""
-    later = "comes with a later slice of the port's training"
-    if args.svd.penalty > 0:
-        raise NotImplementedError(f"svd.penalty > 0: the SVD penalty {later}")
-    if args.quant.diffq is not None or args.quant.qat is not None:
-        raise NotImplementedError(f"quant.diffq / quant.qat: quantization-aware training {later}")
-    if args.augment.repitch.proba > 0:
-        raise NotImplementedError(f"augment.repitch.proba > 0: the repitch augment {later}; "
-                                  "set augment.repitch.proba=0")
+    """Raise ``NotImplementedError`` for what the port does not train yet:
+    more than one process, which comes with the parallelism slice."""
     if distrib.world_size() > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("training on more than one process comes with the "
                                   "parallelism slice of the port")
@@ -161,6 +154,17 @@ def get_solver(args: TrainArgs, model_only: bool = False, device="cuda") -> Solv
     if model_only:
         return Solver({}, model, optimizer, args, folder)
     train_set, valid_set = get_datasets(args)
+    repitch = args.augment.repitch
+    if repitch.proba:  # train.py:170-180
+        from demucs_tpu_torch.train.repitch import RepitchedWrapper
+
+        sources = list(args.dset.sources)
+        train_set = RepitchedWrapper(train_set, proba=repitch.proba,
+                                     max_tempo=repitch.max_tempo,
+                                     vocals=[sources.index("vocals")] if "vocals" in sources
+                                     else [], samplerate=args.dset.samplerate, seed=args.seed)
+        logger.info("repitch augment: proba %s, backend %s", repitch.proba,
+                    train_set.backend)
     logger.info("train/valid set size: %d %d", len(train_set), len(valid_set))
     workers = args.misc.num_workers
     loaders = {
@@ -171,7 +175,7 @@ def get_solver(args: TrainArgs, model_only: bool = False, device="cuda") -> Solv
     return Solver(loaders, model, optimizer, args, folder)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> Solver:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr)
     argv = sys.argv[1:] if argv is None else argv
     bad = [a for a in argv if "=" not in a]
@@ -182,7 +186,9 @@ def main(argv=None) -> None:
     args = apply_overrides(TrainArgs(), overrides)
     logger.info("XP signature: %s", xp_signature(args))
     logger.info("config: %s", dataclasses.asdict(args))
-    get_solver(args, device=device).train()
+    solver = get_solver(args, device=device)
+    solver.train()
+    return solver
 
 
 if __name__ == "__main__":

@@ -4,13 +4,15 @@
 A dataset is a folder of tracks, one folder each of ``{source}.wav`` stems
 (and ``mixture.wav``, written as the stems' sum where it is missing); a
 metadata cache holds each track's length, rate and mixture mean and std.
-Examples are (segment, shift)-strided windows, read with the port's WAV
-reader (``demucs_tpu_torch.audio.read_wav``, a frame window per stem),
-converted in channels and rate, normalized by the track's statistics and
-zero-padded past its end. The JAX package's C++ prefetcher
-(``native/wavio.cpp``) is not ported: loading runs in a thread pool
-(``distrib.DataLoader``), and the solver reports the time the step waited
-for it.
+Examples are (segment, shift)-strided windows: a WAV window per stem is
+read and channel-converted by the C++ reader (``native.read_wav_window``,
+``csrc/wavio.cpp``, without the interpreter's lock), only the frames the
+file has; then converted in rate, normalized by the track's statistics and
+zero-padded past its end (after the normalization, so the padding is true
+zeros, as the reference's). Whole files (``segment=None``, ``full_cv``) and
+other extensions go through the Python reader (``audio.read_wav``), the C++
+reader's plain twin. Loading runs in a thread pool (``distrib.DataLoader``),
+and the solver reports the time the step waited for it.
 """
 
 from __future__ import annotations
@@ -128,11 +130,20 @@ class Wavset:
         if self.segment is not None:
             offset = int(meta["samplerate"] * self.shift * (index - int(self._bounds[track])))
             num_frames = int(math.ceil(meta["samplerate"] * self.segment))
-        wavs = []
-        for source in self.sources:
-            wav, _ = ta.read_wav(self.get_file(name, source), frame_offset=offset,
-                                 num_frames=num_frames)
-            wavs.append(ta.convert_audio_channels(wav, self.channels))
+        if num_frames is not None and self.ext == EXT:
+            from demucs_tpu_torch import native
+
+            frames = max(0, min(num_frames, int(meta["length"]) - offset))
+            wavs = np.empty((len(self.sources), self.channels, frames), np.float32)
+            for k, source in enumerate(self.sources):
+                native.read_wav_window(self.get_file(name, source), offset, frames,
+                                       self.channels, out=wavs[k])
+        else:
+            wavs = []
+            for source in self.sources:
+                wav, _ = ta.read_wav(self.get_file(name, source), frame_offset=offset,
+                                     num_frames=num_frames)
+                wavs.append(ta.convert_audio_channels(wav, self.channels))
         example = ta.resample(np.stack(wavs), meta["samplerate"], self.samplerate)
         if self.normalize:
             example = (example - meta["mean"]) / meta["std"]

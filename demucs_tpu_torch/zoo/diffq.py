@@ -20,8 +20,9 @@ put in the reference's order of those groups (a stable sort, as the JAX
 package sorts its parameter tree). An entry is ``(levels,
 scales[, bits])``, decoded group-wise as ``levels / (2**bits - 1) * (max -
 min) + min``, or ``levels * scale / (2**(bits-1) - 1)`` for signed levels
-with one scale per group. The quantize side comes with quantization-aware
-training.
+with one scale per group. The quantize side (:func:`quantize_entry`,
+:func:`quantize_state`) writes the affine layout with per-group bits; the
+trainer's export (``train/quantize.py::hard_quantized_state``) uses it.
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ import torch
 
 from demucs_tpu_torch.models.registry import build_module
 
-__all__ = ["param_order", "dequantize_entry", "dequantize_state", "MIN_SIZE_MB"]
+__all__ = ["param_order", "dequantize_entry", "dequantize_state", "quantize_entry",
+           "quantize_state", "MIN_SIZE_MB", "GROUP_SIZE"]
 
 MIN_SIZE_MB = 0.2  # conf/config.yaml:287
+GROUP_SIZE = 8  # conf/config.yaml:288
 
 # The reference constructors' registration order of the top-level modules
 # (htdemucs.py:244-418, hdemucs.py:479-582, demucs.py:308-309) and of the
@@ -138,3 +141,51 @@ def dequantize_state(state: dict, kind: str, cfg) -> tp.Dict[str, np.ndarray]:
                              f"for {name}")
         flat[name] = arr.astype(np.float32)
     return flat
+
+
+def quantize_entry(arr: np.ndarray, group_size: int, bits: tp.Union[int, np.ndarray]):
+    """Group-wise uniform quantization over each group's [min, max] (the
+    encoder of :func:`dequantize_entry`'s affine layout) -> ``(levels, scales,
+    bits)``: levels uint8 (bits <= 8) or int16, scales fp32 ``(G, 2) = [min,
+    max]``, bits uint8 per group. ``bits``: a scalar or one per group (DiffQ's
+    learned depths); ``group_size`` 0 makes the whole tensor one group."""
+    if group_size == 2:
+        # (G, 2) levels read as the packed [min, max] scales layout
+        raise ValueError("group_size=2 produces an ambiguous container layout; use "
+                         "group_size >= 3 (default 8)")
+    raw_bits = np.asarray(bits)
+    if raw_bits.max() > 15 or raw_bits.min() < 1:
+        # int16 levels hold at most 2**15 - 1 steps; more would wrap silently
+        raise ValueError(f"bits must be in [1, 15], got {bits}")
+    flat = arr.reshape(-1, group_size) if group_size else arr.reshape(1, -1)
+    bits_arr = np.broadcast_to(raw_bits.astype(np.uint8), (flat.shape[0],)).copy()
+    nlev = (2.0 ** bits_arr.astype(np.float64) - 1.0)[:, None]
+    mn = flat.min(axis=-1, keepdims=True)
+    mx = flat.max(axis=-1, keepdims=True)
+    span = np.where(mx > mn, mx - mn, 1.0)
+    levels = np.round((flat - mn) / span * nlev)
+    levels = levels.astype(np.uint8 if bits_arr.max() <= 8 else np.int16)
+    scales = np.concatenate([mn, mx], axis=-1).astype(np.float32)
+    return levels, scales, bits_arr
+
+
+def quantize_state(flat_state: tp.Mapping[str, np.ndarray], kind: str, cfg, *,
+                   min_size_mb: float = MIN_SIZE_MB, group_size: int = GROUP_SIZE,
+                   bits: int = 8) -> dict:
+    """A ``__quantized`` container of a flat fp32 state at ``bits`` bits."""
+    big, small = _partition(param_order(kind, cfg), min_size_mb)
+    quantized = []
+    for name, _shape in big:
+        arr = np.asarray(flat_state[name], np.float32)
+        if group_size and arr.size % group_size:
+            raise ValueError(f"{name}: numel {arr.size} not divisible by group_size "
+                             f"{group_size}")
+        quantized.append(quantize_entry(arr, group_size, bits))
+    return {
+        "__quantized": True,
+        "quantized": quantized,
+        "others": [np.asarray(flat_state[name], np.float32) for name, _ in small],
+        "float16": [],
+        "meta": {"klass": "DiffQuantizer",
+                 "init_kwargs": {"min_size": min_size_mb, "group_size": group_size}},
+    }

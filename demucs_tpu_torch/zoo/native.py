@@ -6,8 +6,8 @@ parameters (fp16 by default, as the released zoo ships them) or a diffq
 container (``quant.npz``: ``q{i}.levels``/``.scales``/``.bits`` per quantized
 entry and ``o{i}`` per other tensor, ``meta.json["quantized"]`` with the
 counts and the quantizer's meta). The JAX package and the port read and
-write the same files; writing quantized archives comes with quantization-aware
-training.
+write the same files; a quantized archive is written from the trainer's
+export (``train/solver.py::Solver.quantized_state``).
 """
 
 from __future__ import annotations
@@ -28,26 +28,40 @@ __all__ = ["serialize_model", "save_model", "load_native_model"]
 
 
 def serialize_model(model: Model, training_args: tp.Optional[dict] = None,
-                    half: bool = True) -> bytes:
-    """Model -> bytes of the ``.dmx`` container (fp16 weights by default)."""
+                    half: bool = True, quantized_state: tp.Optional[dict] = None) -> bytes:
+    """Model -> bytes of the ``.dmx`` container: fp16 weights by default, or
+    ``quantized_state`` (a ``__quantized`` container) in their place."""
     meta = {"kind": model.kind, "config": dataclasses.asdict(model.cfg),
             "training_args": training_args or {}, "format_version": 1}
     arrays = {}
-    for name, arr in flat_state(model.module).items():
-        arrays[name] = arr.astype(np.float16) if half and arr.dtype == np.float32 else arr
+    if quantized_state is not None:
+        member = "quant.npz"
+        meta["quantized"] = {"meta": dict(quantized_state["meta"]),
+                             "n_entries": len(quantized_state["quantized"]),
+                             "n_others": len(quantized_state["others"])}
+        for i, (levels, scales, bits) in enumerate(quantized_state["quantized"]):
+            arrays[f"q{i}.levels"] = np.asarray(levels)
+            arrays[f"q{i}.scales"] = np.asarray(scales)
+            arrays[f"q{i}.bits"] = np.asarray(bits)
+        for i, other in enumerate(quantized_state["others"]):
+            arrays[f"o{i}"] = np.asarray(other)
+    else:
+        member = "params.npz"
+        for name, arr in flat_state(model.module).items():
+            arrays[name] = arr.astype(np.float16) if half and arr.dtype == np.float32 else arr
     npz = io.BytesIO()
     np.savez(npz, **arrays)
     buf = io.BytesIO()
     with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
         zf.writestr("meta.json", json.dumps(meta))
-        zf.writestr("params.npz", npz.getvalue())
+        zf.writestr(member, npz.getvalue())
     return buf.getvalue()
 
 
 def save_model(model: Model, path, training_args: tp.Optional[dict] = None,
-               half: bool = True) -> Path:
+               half: bool = True, quantized_state: tp.Optional[dict] = None) -> Path:
     path = Path(path)
-    path.write_bytes(serialize_model(model, training_args, half))
+    path.write_bytes(serialize_model(model, training_args, half, quantized_state))
     return path
 
 

@@ -215,8 +215,8 @@ def test_load_flat_state_is_strict():
 
 def test_unported_options_raise():
     """Every option builds (tests/test_torch_transformer_variants.py holds
-    each against JAX); what is left unported raises: the SVD penalty in
-    training, and an option the JAX package has not."""
+    each against JAX) and trains, the SVD penalty too; an option the JAX
+    package has not raises."""
     from demucs_tpu_torch.train.config import TrainArgs
     from demucs_tpu_torch.train.train import check_supported
 
@@ -230,8 +230,7 @@ def test_unported_options_raise():
     args.augment.repitch.proba = 0.0
     check_supported(args)
     args.svd.penalty = 1.0
-    with pytest.raises(NotImplementedError, match="later slice"):
-        check_supported(args)
+    check_supported(args)  # the SVD penalty trains
     with pytest.raises(ValueError, match="unknown transformer embedding"):
         tht.HTDemucs(tht.HTDemucsConfig(sources=SOURCES, channels=8, nfft=512, segment=0.5,
                                         samplerate=8000, t_emb="rotary"))

@@ -36,7 +36,8 @@ def test_scan_sees_the_whole_package():
     names = {p.name for p in _port_files()}
     assert {"chip_smoke.py", "htdemucs.py", "attention.py", "stft.py", "api.py", "native.py",
             "flacio.py", "mp3io.py", "avio.py", "audio.py", "streaming.py", "serve.py",
-            "sparse.py", "bsseval.py", "evaluate.py", "distrib.py", "run_sdr.py"} <= names
+            "sparse.py", "bsseval.py", "evaluate.py", "distrib.py", "run_sdr.py",
+            "timestretch.py", "repitch.py", "svd.py", "quantize.py"} <= names
 
 
 def test_port_builds_its_own_native_sources():
@@ -45,7 +46,7 @@ def test_port_builds_its_own_native_sources():
     from demucs_tpu_torch import native
 
     assert native.CSRC == REPO / "demucs_tpu_torch" / "csrc"
-    assert {"codec.cpp", "avio.cpp"} <= {p.name for p in native.CSRC.glob("*.cpp")}
+    assert {"codec.cpp", "avio.cpp", "wavio.cpp"} <= {p.name for p in native.CSRC.glob("*.cpp")}
     for path in _port_files():
         text = path.read_text()
         assert '/ "native"' not in text and "'native/" not in text and '"native/' not in text, \

@@ -5,7 +5,8 @@ same flat weights, dropout 0, no augment) against ``make_train_step``;
 the optimizer against optax over three steps on the same gradients; the
 loss, the config, the EMA and the augments against JAX's; the
 transformer's train-time draws; a short overfit; the Solver over two epochs
-and a resume; the options the port refuses.
+and a resume; the options the port once refused, each one epoch of the
+entry point, and the one it still refuses (more than one process).
 
 Tolerances (each with its reason):
 - train step: loss and reco 1e-5 relative, the gradient's global norm
@@ -507,16 +508,39 @@ def test_solver_bf16_epoch_then_resume(tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"svd.penalty": 1.0}, "svd"), ({"quant.diffq": 1e-4}, "quant"), ({"quant.qat": 8}, "quant"),
-    ({"augment.repitch.proba": 0.2}, "repitch")])
-def test_refused_options_raise(override, match):
-    from demucs_tpu_torch.train.train import check_supported
+    (["svd.penalty=1.0", "svd.min_size=1e-3"], "svd"),
+    (["quant.diffq=1e-4", "quant.min_size=1e-4"], "quant"),
+    (["quant.qat=8", "quant.min_size=1e-4"], "quant"),
+    ([], "repitch")])
+def test_refused_options_raise(override, match, tmp_path):
+    """The options the port once refused (each a case here since then) pass
+    check_supported and train: one CPU step of ``python -m
+    demucs_tpu_torch.train`` at the SMALL config with the reference's
+    default augments (repitch at 0.2; every item repitched in a second
+    epoch in the repitch case), a finite loss, and what each option logs."""
+    from demucs_tpu_torch.train.train import check_supported, main
 
-    args = tconfig.apply_overrides(tconfig.TrainArgs(), {"augment.repitch.proba": 0.0})
-    check_supported(args)
-    args = tconfig.apply_overrides(args, override)
-    with pytest.raises(NotImplementedError, match=match):
-        check_supported(args)
+    root = _wav_folder(tmp_path / "wav")
+    argv = [f"dset.wav={root}", "dset.use_musdb=false", "dset.segment=0.5", "dset.shift=0.25",
+            "dset.samplerate=8000", f"dset.metadata={tmp_path / 'meta'}", "batch_size=4",
+            "epochs=1", "max_batches=0", f"out_dir={tmp_path / 'out'}", "misc.num_workers=2",
+            "model_args={channels: 8, depth: 2, nfft: 512, t_layers: 2, t_heads: 2}"] + override
+    check_supported(tconfig.apply_overrides(tconfig.TrainArgs(),
+                                            tconfig.parse_cli_overrides(argv)))
+    solver = main(argv + ["device=cpu"])
+    train = solver.history[-1]["train"]
+    assert np.isfinite(train["loss"])
+    if match == "repitch":
+        loader = solver.loaders["train"]
+        assert type(loader.dataset).__name__ == "RepitchedWrapper"
+        assert loader.dataset.proba == 0.2 == tconfig.TrainArgs().augment.repitch.proba
+        loader.dataset.proba = 1.0
+        loader.set_epoch(1)
+        batch = next(iter(loader))
+        assert batch.shape[-1] == int(0.88 * 0.5 * 8000) and np.isfinite(batch).all()
+    else:  # the fired penalty, the quantized model's size in MB
+        logged = {"svd": "penalty", "quant": "ms"}[match]
+        assert np.isfinite(train[logged]) and train[logged] > 0
 
 
 @pytest.mark.parametrize("override", [

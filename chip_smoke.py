@@ -185,6 +185,23 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               the card with its SER against the float model on 10 s, and the
               C++ WAV window reader against the Python reader (ms, bit-equal)
               with its prefetcher's examples.
+   export   — the released HTDemucs's core (7.8 s) through torch.export with
+              K3 as the registered op demucs_tpu_torch::flash_mha: exported on
+              the card and on the CPU (then moved to the card), the two op
+              lists equal, each saved and loaded (seconds, MB), against the
+              eager forward_core (1e-6 x peak); the artifact runtime
+              (export/run.py: K1, the program, K2, the overlap-add) on a 30 s
+              track, its audio-s/s beside apply_model(shifts=0)'s (scale
+              only: the runtime has no CUDA graph), its stems against
+              apply_model's (1e-5 x peak) and its launches (K1 and K2 once,
+              K3 ten times a segment); the fast preset's artifact against its
+              eager core under cuDNN's deterministic mode (1e-5 x peak; two
+              eager forwards of the fast preset differ by its default bf16
+              algorithms, printed as eager_rerun) and its runtime on K3's
+              bf16 route;
+              torch.library.opcheck of the op on CUDA fp32 and bf16 tensors;
+              export/release.py on the train phase's XP (the 8-hex name, the
+              trained segment, the checkpoint's weights in fp16).
 20. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
               then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
               the .dmx on a FLAC file with --flac and (with LAME) --mp3.
@@ -193,7 +210,8 @@ Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, K3's backward
 on each route and K2's backward, each kernel's launches on every path:
 HTDemucs, HDemucs, Demucs v2, the bag, each family's presets, the server,
 each stream, each variant request, the fp32 and bf16 train paths, the
-default recipe's entry point and each training option's steps; ``launches``
+default recipe's entry point and each training option's steps, the export
+runtime's default and fast runs; ``launches``
 is their sum)
 and, last,
 ``{"ok": true, "device": {...}}``.
@@ -3671,6 +3689,209 @@ def phase_train_recipe(workdir: Path) -> dict:
     return dict(paths, **{"train recipe": counts})
 
 
+# ---------------------------------------------------------------------------
+# Export: the HTDemucs core as a torch.export artifact with K3 as the
+# registered op, its runtime around K1 and K2, and the release export
+# ---------------------------------------------------------------------------
+
+EXPORT_SECONDS = 30.0  # the artifact runtime's track
+EXPORT_RTOL = 1e-6  # the exported core against the eager forward_core, x peak (same kernels)
+RUNTIME_RTOL = 1e-5  # the runtime's stems (and the fast artifact) against the eager path, x peak
+
+
+def _op_list(program) -> dict:
+    import collections
+
+    return dict(collections.Counter(str(n.target) for n in program.graph.nodes
+                                    if n.op == "call_function"))
+
+
+def _rel_peak(got, want) -> float:
+    import numpy as np
+
+    got, want = (np.asarray(t.float().cpu() if hasattr(t, "cpu") else t, np.float64)
+                 for t in (got, want))
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def _export_one(model, folder: Path, name: str, device=None) -> tuple:
+    """Export ``model``'s core (traced on ``device``), save it and load it on
+    the card: (program, loaded core, seconds and size)."""
+    from demucs_tpu_torch.export import core as C
+
+    start = time.perf_counter()
+    program = C.export_program(model, device)
+    export_s = time.perf_counter() - start
+    path = folder / f"{name}.pt2"
+    start = time.perf_counter()
+    C.save_core(program, model.cfg, path)
+    save_s = time.perf_counter() - start
+    start = time.perf_counter()
+    core = C.load_core(path, model.device)
+    load_s = time.perf_counter() - start
+    ops = _op_list(program)
+    return program, core, {"traced_on": str(device or model.device), "export_s": export_s,
+                           "save_s": save_s, "load_s": load_s,
+                           "artifact_MB": path.stat().st_size / 2**20,
+                           "k3_nodes": ops.get("demucs_tpu_torch.flash_mha.default", 0),
+                           "softmax_nodes": sum(n for op, n in ops.items() if "softmax" in op)}
+
+
+def _runtime_run(core, cfg, mix) -> tuple:
+    """separate_with_core on ``mix`` with every kernel count zeroed just
+    before: (stems, seconds, launches)."""
+    import torch
+
+    from demucs_tpu_torch.export.run import separate_with_core
+    from demucs_tpu_torch.inference.engine import KERNELS
+
+    for kernel in KERNELS:
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    stems = separate_with_core(core, cfg, mix)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return stems, seconds, {k.__name__: k.launches for k in KERNELS}
+
+
+def export_release(workdir: Path, xp: Path, device) -> dict:
+    """release.py on the train phase's XP: the 8-hex sha256 name, the segment
+    pinned to the trained one, every weight the checkpoint's in fp16."""
+    import hashlib
+    import pickle
+
+    import numpy as np
+
+    from demucs_tpu_torch.export.release import export_xp
+    from demucs_tpu_torch.zoo.convert import flat_state
+    from demucs_tpu_torch.zoo.native import load_native_model
+
+    start = time.perf_counter()
+    path = export_xp(xp, workdir / "release_models")
+    export_s = time.perf_counter() - start
+    with open(xp / "checkpoint.pkl", "rb") as f:
+        package = pickle.load(f)
+    state = package.get("best_state") or package["state"]
+    model = load_native_model(path, device=device)
+    got = flat_state(model.module)
+    sha = hashlib.sha256(path.read_bytes()).hexdigest()[:8]
+    info = {"dmx": path.name, "MB": path.stat().st_size / 2**20, "export_s": export_s,
+            "segment": model.cfg.segment, "trained_segment": package["args"]["dset"]["segment"],
+            "name_ok": path.name == f"{xp.name}-{sha}.dmx",
+            "weights_fp16_equal": set(got) == set(state) and all(
+                np.array_equal(got[k], np.asarray(v).astype(np.float16).astype(np.float32))
+                for k, v in state.items())}
+    info["ok"] = (info["name_ok"] and info["weights_fp16_equal"]
+                  and info["segment"] == info["trained_segment"])
+    return info
+
+
+def phase_export(workdir: Path, xp: Path) -> dict:
+    """The released HTDemucs's core exported on the card and on the CPU
+    (moved to the card), saved and loaded; the artifact against the eager
+    core; the runtime on a 30 s track (K1, K2 and K3's launches) against
+    apply_model(shifts=0); the fast preset's artifact on K3's bf16 route;
+    opcheck of the op on CUDA; one release export. Returns each run's
+    launches (the export and export fast paths)."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.export.core import export_program
+    from demucs_tpu_torch.inference.apply import apply_model
+    from demucs_tpu_torch.inference.engine import GRAPHS
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import Model, reconfigured
+    from demucs_tpu_torch.ops.spec import cac_pack, demucs_spec
+
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    folder = workdir / "export"
+    folder.mkdir(parents=True, exist_ok=True)
+    cfg = HTDemucsConfig(segment=TRAIN_SEGMENT, **RELEASED)
+    module = init_htdemucs(cfg, seed=0, layer_scale=1.0, random_norms=True).eval()
+    model = Model("htdemucs", cfg, module.cuda())
+    info: dict = {"phase": "export", "card": card_line(), "segment_s": TRAIN_SEGMENT}
+    program, core, info["card_traced"] = _export_one(model, folder, "core")
+    cpu_program, cpu_core, info["cpu_traced"] = _export_one(model, folder, "core_cpu", "cpu")
+    info["op_lists_equal"] = _op_list(program) == _op_list(cpu_program)
+
+    wav = _track(EXPORT_SECONDS, 9)
+    ref = wav.mean(axis=0)
+    mix = ((wav - ref.mean()) / (ref.std() + 1e-8))[None].astype(np.float32)
+    x = torch.from_numpy(np.ascontiguousarray(mix[..., :cfg.training_length])).to(model.device)
+    with torch.inference_mode(), _fp32():
+        mag = cac_pack(demucs_spec(x, cfg.nfft))
+        want = model.module.forward_core(mag, x)
+    info["core_vs_eager"] = {name: max(_rel_peak(g, w) for g, w in zip(c(mag, x), want))
+                             for name, c in (("card_traced", core), ("cpu_traced", cpu_core))}
+    del cpu_core, cpu_program
+
+    segments = len(range(0, mix.shape[-1], int(0.75 * cfg.training_length)))
+    _runtime_run(core, cfg, mix[..., :cfg.training_length])  # warm-up: one segment
+    stems, seconds, launches = _runtime_run(core, cfg, mix)
+    apply_model(model, mix, shifts=0, split=True)  # warm-up: the graphs' capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_stems = apply_model(model, mix, shifts=0, split=True)
+    apply_s = time.perf_counter() - t0
+    expected = {"stft_dft": segments, "istft_dft": segments,
+                "flash_mha": k3_per_forward(cfg) * segments, "flash_mha_bf16": 0}
+    info["runtime"] = {"segments": segments, "audio_s_per_s": EXPORT_SECONDS / seconds,
+                       "apply_model_audio_s_per_s": EXPORT_SECONDS / apply_s,
+                       "stems_vs_apply_model": _rel_peak(stems, ref_stems),
+                       "launches": launches, "expected": expected,
+                       "finite": bool(np.isfinite(stems).all())}
+
+    fast = reconfigured(model, compute_dtype="bfloat16")
+    fast_program, fast_core, info["fast"] = _export_one(fast, folder, "core_fast")
+    info["fast"]["op_lists_equal"] = (_op_list(fast_program)
+                                      == _op_list(export_program(fast, "cpu")))
+    # cuDNN's default bf16 algorithms are not deterministic (the transposed
+    # convolutions): two eager forwards differ, so the artifact is held
+    # against the eager core under cuDNN's deterministic mode, and the
+    # eager forward's own rerun gap is printed beside it.
+    with torch.inference_mode():
+        fast_want = fast.module.forward_core(mag, x)
+        info["fast"]["eager_rerun"] = max(_rel_peak(g, w) for g, w in
+                                          zip(fast.module.forward_core(mag, x), fast_want))
+    with torch.inference_mode(), torch.backends.cudnn.flags(
+            enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
+        fast_want = fast.module.forward_core(mag, x)
+        info["fast"]["core_vs_eager"] = max(_rel_peak(g, w)
+                                            for g, w in zip(fast_core(mag, x), fast_want))
+    fast_stems, fast_seconds, fast_launches = _runtime_run(fast_core, cfg, mix)
+    fast_expected = dict(expected, flash_mha=0, flash_mha_bf16=expected["flash_mha"])
+    info["fast"].update(audio_s_per_s=EXPORT_SECONDS / fast_seconds, launches=fast_launches,
+                        expected=fast_expected, finite=bool(np.isfinite(fast_stems).all()))
+
+    info["opcheck"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(1, n, 512, device=model.device, dtype=dtype)
+                   for n in (1344, 2688, 2688))
+        torch.library.opcheck(torch.ops.demucs_tpu_torch.flash_mha.default, (q, k, v, 8, None))
+        info["opcheck"][str(dtype)] = "passed"  # opcheck raises on a failed check
+    info["release"] = export_release(folder, xp, model.device)
+    info["wall_s"] = time.perf_counter() - start
+    emit(info)
+    checks = {
+        "k3_nodes": all(info[k]["k3_nodes"] == k3_per_forward(cfg) and not info[k]["softmax_nodes"]
+                        for k in ("card_traced", "cpu_traced", "fast")),
+        "op_lists_equal": info["op_lists_equal"] and info["fast"]["op_lists_equal"],
+        "core_vs_eager": max(info["core_vs_eager"].values()) <= EXPORT_RTOL,
+        "runtime_launches": launches == expected,
+        "runtime_stems": info["runtime"]["finite"]
+        and info["runtime"]["stems_vs_apply_model"] <= RUNTIME_RTOL,
+        "fast_core_vs_eager": info["fast"]["core_vs_eager"] <= RUNTIME_RTOL,
+        "fast_launches": fast_launches == fast_expected and info["fast"]["finite"],
+        "release": info["release"]["ok"]}
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        raise AssertionError(f"export: {bad}")
+    return {"export": launches, "export fast": fast_launches}
+
+
 @contextlib.contextmanager
 def _fp32():
     """TF32 off for cuBLAS and cuDNN (the kernels' plain versions, the step)."""
@@ -3744,6 +3965,7 @@ def main() -> int:
         train_rows, paths["train"], paths["train bf16"] = phase_train(workdir)
         rows += train_rows
         paths.update(phase_train_recipe(workdir))
+        paths.update(phase_export(workdir, next((workdir / "train_out" / "xps").iterdir())))
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()

@@ -14,6 +14,8 @@ import contextlib
 import functools
 
 import torch
+from torch._subclasses.fake_tensor import unset_fake_temporarily
+from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
 
 _RETAINED = None  # the list of retain_tables() while it is open, else None
 
@@ -23,6 +25,10 @@ def device_cache(maxsize: int):
 
     The builder runs under ``torch.inference_mode(False)``: the tables must
     outlive an inference-mode caller and serve a later autograd-tracked one.
+    It also runs outside ``torch.export``'s fake tensors and tracing: a table
+    first looked up during an export is a real tensor, the program's
+    constant, as it is when the cache already held it (so the graph does not
+    depend on the cache), and no fake tensor is left in the cache.
     While :func:`retain_tables` is open, every table looked up is also kept in
     its list: a captured CUDA graph reads a table by its address, so the table
     must live as long as the graph, whatever the cache evicts meanwhile.
@@ -31,7 +37,8 @@ def device_cache(maxsize: int):
     def wrap(build):
         @functools.lru_cache(maxsize=maxsize)
         def cached(*args):
-            with torch.inference_mode(False):
+            with torch.inference_mode(False), unset_fake_temporarily(), \
+                    disable_proxy_modes_tracing():
                 return build(*args)
 
         @functools.wraps(build)

@@ -40,6 +40,15 @@ the inputs' type (:func:`flash_mha_bwd`, :func:`flash_mha_bwd_bf16`): one
 pass over the queries per block of keys, five ``wgmma`` products a tile (3xTF32
 or bf16), the operands brought in by tensor-map copies, dQ summed across the
 blocks by fp32 reductions in L2 (so its last bits may differ from run to run).
+
+A call that wants no gradient and no dropout is the registered op
+``demucs_tpu_torch::flash_mha`` (:func:`flash_mha_op`; ``torch.library``):
+its CUDA kernel is the route of the dtype, its CPU kernel the plain version,
+and a fake kernel gives the shape. ``torch.export`` keeps the op as one
+node, so an exported program (the HTDemucs core, ``export/core.py``)
+launches K3 wherever it runs. Each route's launch count sits where it
+launches (``_forward_f32``, ``_forward_bf16``), so the op, the autograd node
+and a program all count.
 """
 
 from __future__ import annotations
@@ -53,7 +62,7 @@ import torch
 from demucs_tpu_torch.kernels import _build
 from demucs_tpu_torch.ops.attention import _split_heads, dropout_keep, multihead_attention
 
-__all__ = ["flash_mha", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
+__all__ = ["flash_mha", "flash_mha_op", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
            "flash_mha_bwd_bf16", "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE",
            "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles", "bwd_keys"]
 
@@ -185,13 +194,18 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
 
     ``mask``: optional boolean keep-mask ``(Tq, Tk)``. ``dropout`` /
     ``dropout_seed`` (a host int, which the caller draws from its generator):
-    the hashed train-time dropout of the probabilities. A CPU tensor takes the
-    plain version; a CUDA tensor launches K3 (fp32 here, bf16 through
-    :func:`flash_mha_bf16`) or raises. On the card the result carries a
-    gradient through the backward kernel of its route. ``flash_mha.launches``
-    counts the fp32 route's forward launches.
+    the hashed train-time dropout of the probabilities. A call that wants no
+    gradient and no dropout is the registered op ``demucs_tpu_torch::flash_mha``
+    (what ``torch.export`` traces): its CPU kernel is the plain version, its
+    CUDA kernel K3 on the route of the dtype. Otherwise a CPU tensor takes
+    the plain version and a CUDA tensor the autograd node :class:`_FlashMHA`
+    (fp32 here, bf16 through :func:`flash_mha_bf16`), whose gradient is the
+    backward kernel of its route. Any other CUDA input raises.
+    ``flash_mha.launches`` counts the fp32 route's forward launches.
     """
     seed = _seed32(dropout, dropout_seed)
+    if dropout == 0.0 and not _wants_grad(q, k, v):
+        return torch.ops.demucs_tpu_torch.flash_mha(q, k, v, num_heads, mask)
     if q.device.type == "cpu":
         return flash_mha_plain(q, k, v, num_heads, mask=mask, dropout=dropout,
                                dropout_seed=seed)
@@ -200,9 +214,33 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                               dropout_seed=seed)
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.float32)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
-    flash_mha.launches += 1
-    return out
+    return _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
+
+
+@torch.library.custom_op("demucs_tpu_torch::flash_mha", mutates_args=(), device_types="cpu")
+def flash_mha_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
+    """K3's inference forward as a registered op (no dropout, no gradient):
+    on the CPU the plain version; on the card (the ``cuda`` kernel below) the
+    hand-written kernel of the dtype's route, which raises on what it does not
+    take. ``torch.export`` keeps it as one node, so an exported program runs
+    K3 wherever it is loaded."""
+    return flash_mha_plain(q, k, v, num_heads, mask=mask)
+
+
+@flash_mha_op.register_kernel("cuda")
+def _flash_mha_op_cuda(q, k, v, num_heads, mask=None):
+    dtype = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
+    B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, dtype)
+    if B * Tq == 0:
+        return torch.empty_like(q)
+    route = _forward_bf16 if dtype == torch.bfloat16 else _forward_f32
+    return route(_aligned(q), _aligned(k), _aligned(v), num_heads, keep, 0.0, 0, False)[0]
+
+
+@flash_mha_op.register_fake
+def _flash_mha_op_fake(q, k, v, num_heads, mask=None):
+    return torch.empty_like(q)
 
 
 def _wants_grad(*ts: torch.Tensor) -> bool:
@@ -226,6 +264,7 @@ def _forward_f32(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse
         B, Tq, Tk, num_heads, d, q_scale(d), BLOCK_ROWS, rate, _int32(seed),
         _build.stream_ptr(q.device))
     _build.check(status, "flash_mha_f32")
+    flash_mha.launches += 1
     return out, lse
 
 
@@ -477,9 +516,7 @@ def flash_mha_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
     if B * Tq == 0:
         return torch.empty_like(q)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    out = _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
-    flash_mha_bf16.launches += 1
-    return out
+    return _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
 
 
 def _forward_bf16(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse: bool):
@@ -502,6 +539,7 @@ def _forward_bf16(q, k, v, num_heads: int, keep, rate: float, seed: int, want_ls
         None if lse is None else lse.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
         KEY_TILE_BF16, rows, ctas, rate, _int32(seed), _build.stream_ptr(q.device))
     _check_launch(status, "flash_mha_bf16")
+    flash_mha_bf16.launches += 1
     return out, lse
 
 

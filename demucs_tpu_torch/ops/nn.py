@@ -78,8 +78,9 @@ def _bias_after(x: torch.Tensor) -> bool:
 def _product16(fn: tp.Callable, x: torch.Tensor, w: torch.Tensor, **kw) -> torch.Tensor:
     """``fn(x, w, **kw)`` (a product without its bias) of 16-bit operands, in
     their dtype: the library's on the card, in fp32 rounded once on the CPU
-    (module docstring)."""
-    if x.is_cuda:
+    (module docstring). ``torch.export`` traces the card's form on either
+    device, so an exported program is the same wherever it was traced."""
+    if x.is_cuda or torch.compiler.is_exporting():
         return fn(x, w, **kw)
     return fn(x.float(), w.float(), **kw).to(x.dtype)
 

@@ -13,6 +13,7 @@ export (``train/solver.py::Solver.quantized_state``).
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import io
 import json
 import typing as tp
@@ -24,7 +25,7 @@ import numpy as np
 from demucs_tpu_torch.models.registry import FAMILIES, Model
 from demucs_tpu_torch.zoo.convert import flat_state, model_from_flat
 
-__all__ = ["serialize_model", "save_model", "load_native_model"]
+__all__ = ["serialize_model", "save_model", "save_with_checksum", "load_native_model"]
 
 
 def serialize_model(model: Model, training_args: tp.Optional[dict] = None,
@@ -62,6 +63,17 @@ def save_model(model: Model, path, training_args: tp.Optional[dict] = None,
                half: bool = True, quantized_state: tp.Optional[dict] = None) -> Path:
     path = Path(path)
     path.write_bytes(serialize_model(model, training_args, half, quantized_state))
+    return path
+
+
+def save_with_checksum(model: Model, path, training_args: tp.Optional[dict] = None,
+                       half: bool = True, quantized_state: tp.Optional[dict] = None) -> Path:
+    """Save as ``<stem>-<sha256[:8]><suffix>`` beside ``path``: the first 8 hex
+    digits of the archive's sha256 in its name (``demucs/states.py:110-118``)."""
+    content = serialize_model(model, training_args, half, quantized_state)
+    path = Path(path)
+    path = path.parent / f"{path.stem}-{hashlib.sha256(content).hexdigest()[:8]}{path.suffix}"
+    path.write_bytes(content)
     return path
 
 

@@ -942,3 +942,69 @@ def test_bf16_train_step_card_matches_cpu(cuda):
     peak = max(g.abs().max() for g in gc.values())
     for n, g in gc.items():
         assert (gg[n] - g).abs().max() <= 2 * (g - g32[n]).abs().max() + 2e-3 * peak, n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_mha_op_opcheck(cuda, dtype, masked):
+    """The registered op ``demucs_tpu_torch::flash_mha`` on CUDA tensors:
+    torch.library.opcheck (schema, fake kernel, dispatch), and one call is
+    one launch of the dtype's route, the kernel's own output."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v = (_randn(2, n, 256, seed=s).to(dtype) for s, n in ((1, 300), (2, 180), (3, 180)))
+    mask = (_randn(300, 180, seed=4) > -1.0) if masked else None
+    torch.library.opcheck(torch.ops.demucs_tpu_torch.flash_mha.default, (q, k, v, 8, mask))
+    counter = K.flash_mha_bf16 if dtype == torch.bfloat16 else K.flash_mha
+    before = counter.launches
+    got = torch.ops.demucs_tpu_torch.flash_mha(q, k, v, 8, mask)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = K.flash_mha_plain(q, k, v, 8, mask=mask).float()
+    atol = 2.0 ** -6 if dtype == torch.bfloat16 else 2e-5
+    assert ((got.float() - want).abs() <= atol + atol * want.abs()).all()
+
+
+def test_exported_core_on_card(cuda, tmp_path):
+    """The core exported on the card and on the CPU (moved to the card): the
+    same op list, K3 as 2 x t_layers op nodes, the artifact equal to the
+    eager core (1e-6 x peak), and the runtime launching K1 and K2 once and
+    K3 2 x t_layers times a segment."""
+    import copy
+    import collections
+
+    from demucs_tpu_torch.export import core as C
+    from demucs_tpu_torch.export.run import separate_with_core
+    from demucs_tpu_torch.kernels import attention as KA, stft as KS
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.ops.spec import cac_pack, demucs_spec
+
+    cfg = HTDemucsConfig(channels=16, depth=4, nfft=2048, t_layers=3, t_heads=4, segment=0.5,
+                         samplerate=8000)
+    model = init_htdemucs(cfg, seed=7, layer_scale=1.0, random_norms=True).eval()
+    card = copy.deepcopy(model).to(cuda)
+
+    def ops(program):
+        return collections.Counter(str(n.target) for n in program.graph.nodes
+                                   if n.op == "call_function")
+
+    C.save_core(C.export_program(card), cfg, tmp_path / "card.pt2")
+    C.save_core(C.export_program(model), cfg, tmp_path / "cpu.pt2")
+    cores = [C.load_core(tmp_path / name, "cuda") for name in ("card.pt2", "cpu.pt2")]
+    assert ops(cores[0].program) == ops(cores[1].program)
+    assert ops(cores[0].program)["demucs_tpu_torch.flash_mha.default"] == 6
+    mix = _randn(1, 2, 4000, seed=12) * 0.1
+    mag = cac_pack(demucs_spec(mix, cfg.nfft))
+    with torch.inference_mode():
+        want = card.forward_core(mag, mix)
+    for core in cores:
+        for g, w in zip(core(mag, mix), want):
+            assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
+    track = (_randn(1, 2, 10000, seed=13, device="cpu") * 0.1).numpy()
+    counters = (KS.stft_dft, KS.istft_dft, KA.flash_mha, KA.flash_mha_bf16)
+    before = [c.launches for c in counters]
+    stems = separate_with_core(cores[0], cfg, track)
+    segments = 4  # offsets 0, 3000, 6000, 9000
+    assert [c.launches - b for c, b in zip(counters, before)] == [segments, segments,
+                                                                  6 * segments, 0]
+    assert stems.shape == (1, 4, 2, 10000) and np.isfinite(stems).all()

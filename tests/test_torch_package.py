@@ -37,7 +37,8 @@ def test_scan_sees_the_whole_package():
     assert {"chip_smoke.py", "htdemucs.py", "attention.py", "stft.py", "api.py", "native.py",
             "flacio.py", "mp3io.py", "avio.py", "audio.py", "streaming.py", "serve.py",
             "sparse.py", "bsseval.py", "evaluate.py", "distrib.py", "run_sdr.py",
-            "timestretch.py", "repitch.py", "svd.py", "quantize.py"} <= names
+            "timestretch.py", "repitch.py", "svd.py", "quantize.py", "core.py", "run.py",
+            "release.py"} <= names
 
 
 def test_port_builds_its_own_native_sources():

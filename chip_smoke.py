@@ -101,7 +101,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               family's fp32 forward (bounded per preset), peak memory, the
               graph pool, launches (K3's bf16 route on HTDemucs's fast path);
               one profiled 30 s request on HTDemucs's fast preset (K3 bf16's
-              share of the device time).
+              share of the device time); C4: the fast preset's two eager
+              forwards and two graph replays bit-equal, and its audio-s/s
+              with and without the deterministic transposed convolutions.
 12. prewarm — HDemucs at 30 and 60 s, each part on a model loaded anew:
               random shifts, a cold pinned offset, then prewarm() and requests
               with the pinned set it warmed (no capture after it).
@@ -202,6 +204,21 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               torch.library.opcheck of the op on CUDA fp32 and bf16 tensors;
               export/release.py on the train phase's XP (the 8-hex name, the
               trained segment, the checkpoint's weights in fp16).
+   parallel — one card: the probe through the port's launcher (one NCCL
+              rank; two Gloo ranks on cuda:0, whose rank task, ``python -m
+              chip_smoke --rank-task dp_gloo DIR``, runs it first:
+              all_reduce, share, the collectives on the card's tensors);
+              the released HTDemucs at a global batch of 8: world 1 on NCCL
+              (a group of one in this process) and two Gloo ranks against
+              one process (losses and gradients after 3 steps; gradients on
+              mse); HDemucs and Demucs v2 (3 steps at 4, two ranks against
+              one process; one step card vs CPU); the Gloo ranks then train
+              through the entry point, stopped after epoch 1, and the
+              launcher resumes it (rank 0 alone writes, equal summaries);
+              segments and a 4-member bag over device lists naming cuda:0
+              2 and 4 times against the one-device engine, launches against
+              the forwards; tp_forward on two ranks against one device.
+              Times are the paths' cost on one card, not scaling.
 20. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
               then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
               the .dmx on a FLAC file with --flac and (with LAME) --mp3.
@@ -211,7 +228,7 @@ on each route and K2's backward, each kernel's launches on every path:
 HTDemucs, HDemucs, Demucs v2, the bag, each family's presets, the server,
 each stream, each variant request, the fp32 and bf16 train paths, the
 default recipe's entry point and each training option's steps, the export
-runtime's default and fast runs; ``launches``
+runtime's default and fast runs, the parallel paths; ``launches``
 is their sum)
 and, last,
 ``{"ok": true, "device": {...}}``.
@@ -1529,7 +1546,9 @@ def phase_presets(workdir: Path) -> tuple:
                 row["profile"] = prof
             row["ok"] = run["ok"] and (ser == "bit-equal" or ser >= bound_db)
             if preset == "fast" and label == "htdemucs":
-                row["ok"] = row["ok"] and run["launches"]["flash_mha_bf16"] > 0
+                row["c4"] = c4_check(sep, wav, wire)
+                row["ok"] = (row["ok"] and run["launches"]["flash_mha_bf16"] > 0
+                             and row["c4"]["ok"])
             ok = ok and row["ok"]
             family[preset] = row
             paths[f"{label} {preset}"] = run["launches"]
@@ -1541,6 +1560,66 @@ def phase_presets(workdir: Path) -> tuple:
     if not ok:
         raise AssertionError("presets: a preset's SER, launches or route is wrong")
     return info, paths
+
+
+def c4_check(sep, wav, wire: str) -> dict:
+    """C4 (ROADMAP Queue C): the fast preset's HTDemucs gives the same output
+    bit for bit in two eager forwards and in two replays of its CUDA graph
+    (a graph cache of its own), its 16-bit transposed convolutions under
+    cuDNN's deterministic algorithms (``ops/nn.py::_deterministic16``); and
+    the preset's audio-s/s with and without that setting: a copy of the
+    module captured without it, then REPEATS requests of each in turn on the
+    preset's ``wire`` (medians; the spread between runs is up to 16 %)."""
+    import torch
+
+    from demucs_tpu_torch.inference.engine import GRAPHS, GraphCache
+    from demucs_tpu_torch.ops import nn as ops_nn
+
+    module = sep.model.module
+    mix = torch.from_numpy(_track(module.cfg.segment, 77)[None]).cuda().repeat(2, 1, 1)
+    graphs = GraphCache()
+    with torch.inference_mode():
+        eager = [module(mix).clone() for _ in range(2)]
+        replays = [graphs.forward(module, mix).clone() for _ in range(2)]
+    graphs.clear()
+    info = {"eager_bit_equal": bool(torch.equal(eager[0], eager[1])),
+            "replays_bit_equal": bool(torch.equal(replays[0], replays[1])),
+            "replay_vs_eager_over_peak": ((replays[0] - eager[0]).abs().max()
+                                          / eager[0].abs().max()).item(),
+            "deterministic_flag_after": torch.backends.cudnn.deterministic}
+    loose = copy.deepcopy(module)  # its own graphs, captured with cuDNN's default algorithms
+    deterministic16 = ops_nn._deterministic16
+    ops_nn._deterministic16 = lambda x: contextlib.nullcontext()
+    try:
+        with torch.inference_mode():
+            gap = [loose(mix).clone() for _ in range(2)]
+        sep.model.module = loose
+        _stems(sep, wav)
+    finally:
+        ops_nn._deterministic16 = deterministic16
+        sep.model.module = module
+    walls: dict = {"with": [], "without": []}
+    sep.update_parameter(transfer_dtype=None if wire == "float32" else wire)
+    try:
+        for _ in range(REPEATS):
+            for label, mod in (("with", module), ("without", loose)):
+                sep.model.module = mod
+                start = time.perf_counter()
+                _stems(sep, wav)
+                walls[label].append(time.perf_counter() - start)
+    finally:
+        sep.model.module = module
+        sep.update_parameter(transfer_dtype=None)
+        GRAPHS.clear()
+    for label, got in walls.items():
+        info[f"audio_s_per_s_{label}"] = 30.0 / sorted(got)[len(got) // 2]
+        info[f"wall_s_{label}"] = got
+    info.update(without_setting_eager_gap_over_peak=((gap[0] - gap[1]).abs().max()
+                                                     / gap[0].abs().max()).item(),
+                card=card_line())
+    info["ok"] = (info["eager_bit_equal"] and info["replays_bit_equal"]
+                  and not info["deterministic_flag_after"])
+    return info
 
 
 COLD_OFFSET = 1234  # samples; a shift offset no earlier request drew
@@ -3168,15 +3247,16 @@ def train_throughput(compute_dtype: str = "float32") -> tp.Tuple[dict, dict]:
     return info, counts
 
 
-def _train_folder(root: Path) -> Path:
+def _train_folder(root: Path, train_s: float = 20.0, valid_s: float = 10.0) -> Path:
     """A wav dataset (train/ and valid/ folders of tracks, one WAV per stem,
-    16-bit at 44.1 kHz, the mixture left for the dataset to write): two 20 s
-    training tracks and one 10 s valid track of tones and noise from a seed."""
+    16-bit at 44.1 kHz, the mixture left for the dataset to write): two
+    ``train_s`` training tracks and one ``valid_s`` valid track of tones and
+    noise from a seed."""
     import numpy as np
 
     from demucs_tpu_torch.audio import write_wav
 
-    for split, tracks, seconds in (("train", 2, 20.0), ("valid", 1, 10.0)):
+    for split, tracks, seconds in (("train", 2, train_s), ("valid", 1, valid_s)):
         t = np.arange(int(seconds * SR)) / SR
         for i in range(tracks):
             folder = root / split / f"track{i}"
@@ -3892,6 +3972,560 @@ def phase_export(workdir: Path, xp: Path) -> dict:
     return {"export": launches, "export fast": fast_launches}
 
 
+PAR_BATCH = 8  # the data-parallel checks' global batch of the released HTDemucs
+PAR_FAMILY_BATCH = 4  # HDemucs and Demucs v2 (A7.6)
+PAR_STEPS = 3
+PAR_LR = 1e-4
+# a path against one process after PAR_STEPS Adam steps: each step's loss within
+# TRAIN_RTOL, the last step's gradients within the train allowance, and the weights at
+# most PAR_WEIGHTS_FACTOR x the gap of the plain step run twice in the same run, plus
+# PAR_WEIGHTS_FLOOR. K3's dQ sums with atomics, so two runs of the same step on the card
+# differ in the last bits, and Adam's first steps move a weight by about lr whatever its
+# gradient's size, so a gradient near zero can move it either way. Readings of PR 15's
+# runs (PERF.md): HTDemucs on NCCL at world 1 0.80-1.99x its plain-twice gap; HDemucs and
+# Demucs v2 on two ranks 5.8e-3 and 2.4e-3 x lr, their plain step deterministic
+PAR_WEIGHTS_FACTOR = 3.0
+PAR_WEIGHTS_FLOOR = 1e-2 * PAR_LR
+PAR_CPU_SECONDS = 0.5  # the families' card-vs-CPU step: a 0.5 s batch of 1 (the CPU's time)
+PAR_ENTRY = ["dset.segment=2", "dset.shift=1", "model_segment=1", f"dset.samplerate={SR}",
+             "batch_size=4",
+             "max_batches=1", "augment.repitch.proba=0", "augment.remix.group_size=2",
+             "misc.num_workers=2", "dset.use_musdb=false",
+             "model_args={channels: 16, depth: 4, nfft: 2048, t_layers: 2, t_heads: 4, "
+             f"t_dropout: {TRAIN_DROPOUT}}}"]
+PAR_DEVICE = "cuda:0"  # the one card, named several times in the device lists
+GLOO_TWO = ["-n", "2", "--devices", f"{PAR_DEVICE},{PAR_DEVICE}", "--backend", "gloo"]
+NCCL_ONE = ["-n", "1"]  # one rank on the card under NCCL
+PAR_NCCL = "nccl"  # the backend of the in-process group of one
+RANK_MODULE = "chip_smoke"  # what the launcher runs on each rank (rank_task)
+
+
+PAR_CACHE: tp.List[Path] = []  # where the seeded weights are kept between processes
+
+
+def _par_model(kind: str, seed: int = 3):
+    """A released-width model for training (every parameter fp32): HTDemucs at
+    its 7.8 s segment, HDemucs (hdemucs_mmi's shape) and Demucs v2 fed 7.8 s
+    windows; on the CPU. The seeded draws are made once and kept under
+    ``PAR_CACHE`` (the ranks load what the main process drew)."""
+    import torch
+
+    from demucs_tpu_torch.models import demucs as D
+    from demucs_tpu_torch.models import hdemucs as H
+    from demucs_tpu_torch.models.registry import Model
+
+    cached = PAR_CACHE[0] / f"{kind}_{seed}.pt" if PAR_CACHE else None
+    if cached is not None and cached.is_file():
+        return torch.load(cached, weights_only=False)  # the pickled Model: no constructor
+    if kind == "htdemucs":
+        model = _released_training_model(seed=seed)
+    elif kind == "hdemucs":
+        cfg = H.HDemucsConfig(**dict(HDEMUCS, segment=TRAIN_SEGMENT))
+        model = Model(kind, cfg, H.init_hdemucs(cfg, seed, layer_scale=1.0, random_norms=True))
+    else:
+        cfg = D.DemucsConfig(**dict(DEMUCS, segment=TRAIN_SEGMENT))
+        model = Model(kind, cfg, D.init_demucs(cfg, seed, layer_scale=1.0, random_norms=True))
+    model.module.train()
+    if cached is not None:
+        tmp = cached.with_suffix(".tmp")
+        torch.save(model, tmp)
+        tmp.rename(cached)
+    return model
+
+
+def _par_sources(batch: int, seconds: float = TRAIN_SEGMENT, seed: int = 8):
+    import torch
+
+    return 0.2 * torch.randn(batch, 4, 2, int(round(seconds * SR)),
+                             generator=torch.Generator().manual_seed(seed))
+
+
+def par_steps(kind: str, device, batch: int, steps: int, lr: float, loss: str = "mse") -> dict:
+    """``steps`` train steps of ``kind`` on this rank's rows of a global batch
+    of ``batch`` (the whole of it without a process group): losses, each
+    step's ms (CUDA events around the step), the peak memory above what was
+    held before, the kernels' launches (counted from 0 over the steps), the
+    weights after the steps and the gradients of the first and the last."""
+    import torch
+
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train import distrib
+    from demucs_tpu_torch.train.step import train_step
+
+    cpu = _par_model(kind)
+    model = Model(kind, cpu.cfg, cpu.module.to(device))
+    world, rank = distrib.world_size(), distrib.rank()
+    per = batch // world
+    sources = _par_sources(batch)[rank * per:(rank + 1) * per].to(device)
+    optimizer = _optimizer(model, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    _zero_train_counts()
+    losses, ms = [], []
+    first = None
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = train_step(model, optimizer, sources, loss=loss)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(m["loss"].item())
+        if first is None:  # the gradients at the initial weights
+            first = {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
+    out = {"kind": kind, "batch": per, "global_batch": batch, "losses": losses, "step_ms": ms,
+           "median_step_ms": sorted(ms[1:] or ms)[len(ms[1:] or ms) // 2],
+           "peak_above_held_GiB": (torch.cuda.max_memory_allocated() - held) / 2**30,
+           "launches": _read_train_counts(),
+           "params": {n: p.detach().cpu() for n, p in model.module.named_parameters()},
+           "grads": {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()},
+           "first_grads": first}
+    del model, optimizer, sources
+    torch.cuda.empty_cache()
+    return out
+
+
+def _par_tp_input():
+    import torch
+
+    return torch.from_numpy(_track(TRAIN_SEGMENT, 90)[None])
+
+
+def rank_task(task: str, folder: Path, entry: tp.Sequence[str] = ()) -> int:
+    """One rank of the parallel phase, started by ``python -m
+    demucs_tpu_torch.launcher ... --module chip_smoke -- --rank-task TASK DIR``:
+    ``dp_gloo`` (two ranks on one card under Gloo: two steps at lr 0 of
+    HTDemucs's rows, the second timed, PAR_STEPS steps of HDemucs and Demucs v2 at
+    PAR_FAMILY_BATCH, and ``tp_forward`` of the released HTDemucs). Rank 0
+    writes the results to ``DIR/rank0.pt``; every rank reports a fingerprint
+    of its weights (all ranks hold the same after an all-reduce). Then, with
+    ``entry`` overrides, the ranks train through the entry point's ``main``
+    in the same process group (the parallel phase stops them after epoch 1)."""
+    import torch
+    import torch.distributed as dist
+
+    from demucs_tpu_torch.models.htdemucs import precision_scope
+    from demucs_tpu_torch.train import distrib
+
+    from demucs_tpu_torch import distprobe
+
+    begin = time.perf_counter()
+    stages = {"imports": begin - _START}
+    device = distrib.init()
+    stages["init"] = time.perf_counter() - begin
+    rank = distrib.rank()
+    PAR_CACHE[:] = [folder.parent]
+    if distprobe.check(device):  # the probe first: the group is wired
+        return 1
+    stages["probe"] = time.perf_counter() - begin
+    out = {"world": distrib.world_size(), "device": str(device), "backend": dist.get_backend(),
+           "stages_s": stages}
+    torch.backends.cudnn.deterministic = True  # runs of the same step are compared
+    with precision_scope(None):
+        if task == "dp_gloo":
+            out["htdemucs"] = par_steps("htdemucs", device, PAR_BATCH, 2, 0.0)
+            stages["htdemucs"] = time.perf_counter() - begin
+            for kind in ("hdemucs", "demucs"):
+                out[kind] = par_steps(kind, device, PAR_FAMILY_BATCH, PAR_STEPS, PAR_LR)
+                stages[kind] = time.perf_counter() - begin
+            from demucs_tpu_torch.models.registry import Model
+            from demucs_tpu_torch.parallel.tp import tp_forward
+
+            cpu = _par_model("htdemucs")
+            model = Model("htdemucs", cpu.cfg, cpu.module.to(device))
+            model.module.eval()
+            _zero_train_counts()
+            start = time.perf_counter()
+            out["tp"] = {"out": torch.from_numpy(tp_forward(model, _par_tp_input())),
+                         "launches": _read_train_counts(), "wall_s": time.perf_counter() - start}
+            stages["tp"] = time.perf_counter() - begin
+        else:
+            raise ValueError(f"unknown rank task {task!r}")
+    prints = {k: float(sum(p.double().sum() for p in v["params"].values()))
+              for k, v in out.items() if isinstance(v, dict) and "params" in v}
+    out["fingerprints"] = prints
+    if task == "dp_gloo":  # its HTDemucs step is held by its gradients alone
+        del out["htdemucs"]["params"]
+    everyone = [distrib.share(prints, src) for src in range(distrib.world_size())]
+    out["ranks_agree"] = all(e == everyone[0] for e in everyone)
+    if rank == 0:
+        stages["done"] = time.perf_counter() - begin
+        torch.save(out, folder / "rank0.pt")
+    distrib.barrier()
+    torch.backends.cudnn.deterministic = False
+    if entry:
+        from demucs_tpu_torch.train.train import main as train_main
+
+        print("RANK_TASK_DONE", flush=True)
+        train_main(list(entry))
+    dist.destroy_process_group()
+    return 0
+
+
+def _probe(lines: list, ranks: int, backend: str) -> dict:
+    """The probe's lines (``distprobe.check``, run first by every rank task)."""
+    oks = [x.split("DISTPROBE_OK ")[1] for x in lines if "DISTPROBE_OK" in x]
+    coll = {}
+    for x in lines:
+        if "DISTPROBE_COLLECTIVES" in x:
+            rank_, text = x.split("DISTPROBE_COLLECTIVES ")[1].split(" ", 1)
+            coll[rank_] = json.loads(text)
+    return {"ok_lines": oks, "collectives": coll,
+            "ok": len(oks) == ranks and all(f"backend={backend}" in x
+                                            and f"device={PAR_DEVICE}" in x for x in oks)}
+
+
+def _weights_gap(got: dict, want: dict) -> dict:
+    import torch
+
+    worst = max(got, key=lambda n: (got[n] - want[n]).abs().max().item())
+    gap = (got[worst] - want[worst]).abs().max().item()
+    return {"bit_equal": all(bool(torch.equal(got[n], want[n])) for n in want),
+            "max_abs_diff": gap, "worst": worst, "over_lr": gap / PAR_LR}
+
+
+def _grad_allowance(got: dict, want: dict) -> dict:
+    """Each gradient against the reference's: error over TRAIN_GRAD_RTOL x its
+    peak + TRAIN_GRAD_FLOOR x the largest peak (<= 1 passes)."""
+    peak = max(g.abs().max().item() for g in want.values())
+    over = {n: (got[n] - g).abs().max().item()
+            / (TRAIN_GRAD_RTOL * g.abs().max().item() + TRAIN_GRAD_FLOOR * peak)
+            for n, g in want.items()}
+    name = max(over, key=over.get)
+    return {"err_over_allowance": over[name], "worst": name, "n": len(over)}
+
+
+def _against(got: dict, want: dict, twice: dict) -> dict:
+    """A run of PAR_STEPS steps against the reference run, ``twice`` the gap
+    of the reference run twice (PAR_STEPS's note)."""
+    losses_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], want["losses"]))
+    out = {"losses_err": losses_err, "grads": _grad_allowance(got["grads"], want["grads"]),
+           "weights": _weights_gap(got["params"], want["params"]),
+           "weights_limit": PAR_WEIGHTS_FACTOR * twice["max_abs_diff"] + PAR_WEIGHTS_FLOOR,
+           "plain_twice": twice}
+    out["ok"] = (losses_err <= TRAIN_RTOL and out["grads"]["err_over_allowance"] <= 1
+                 and out["weights"]["max_abs_diff"] <= out["weights_limit"]
+                 and all(math.isfinite(x) for x in got["losses"]))
+    return out
+
+
+def _strip(run: dict) -> dict:
+    return {k: v for k, v in run.items() if k not in ("params", "grads", "first_grads")}
+
+
+def par_families_card_vs_cpu() -> dict:
+    """A7.6: one step of the released HDemucs and Demucs v2 at batch 1 on
+    PAR_CPU_SECONDS of audio (mse, lr 0), card against CPU as the train
+    phase holds HTDemucs: loss within TRAIN_RTOL, each gradient within its
+    allowance."""
+    import torch
+
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train.step import train_step
+
+    out = {}
+    sources = _par_sources(1, PAR_CPU_SECONDS, seed=9)
+    for kind in ("hdemucs", "demucs"):
+        cpu = _par_model(kind)
+        card = Model(kind, cpu.cfg, copy.deepcopy(cpu.module).to(PAR_DEVICE))
+        got = train_step(card, _optimizer(card, 0.0), sources.to(PAR_DEVICE),
+                         loss=TRAIN_CHECK_LOSS)
+        card_grads = {n: p.grad.cpu() for n, p in card.module.named_parameters()}
+        start = time.perf_counter()
+        want = train_step(cpu, _optimizer(cpu, 0.0), sources, loss=TRAIN_CHECK_LOSS)
+        cpu_s = time.perf_counter() - start
+        grads = {n: p.grad for n, p in cpu.module.named_parameters()}
+        loss_err = abs(got["loss"].item() - want["loss"].item()) / abs(want["loss"].item())
+        row = dict(_grad_allowance(card_grads, grads), loss=want["loss"].item(),
+                   loss_err=loss_err, cpu_step_s=cpu_s)
+        row["ok"] = loss_err <= TRAIN_RTOL and row["err_over_allowance"] <= 1
+        out[kind] = row
+        del card, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+def _env() -> dict:
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def _launch_until(args: list, stop) -> tp.Tuple[list, float]:
+    """The launcher with ``args``, stopped (SIGTERM: it stops its ranks) once
+    ``stop(lines)`` holds -> (output lines, seconds)."""
+    import signal
+
+    start = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "demucs_tpu_torch.launcher", *args], cwd=ROOT,
+                            env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    lines: list = []
+    for line in proc.stdout:
+        lines.append(line.rstrip())
+        if stop(lines):
+            proc.send_signal(signal.SIGTERM)
+            break
+    proc.wait(timeout=60)
+    proc.stdout.close()
+    return lines, time.perf_counter() - start
+
+
+def _said(lines: list, rank: int, text: str) -> bool:
+    return any(x.startswith(f"[rank {rank}]") and text in x for x in lines)
+
+
+def _epoch_1_written(lines: list) -> bool:
+    """Rank 0 wrote epoch 1's checkpoint and both ranks logged its summary."""
+    return _said(lines, 0, "Checkpoint written: epoch 1") and all(
+        _said(lines, r, "Train Summary | Epoch 1") for r in range(2))
+
+
+def par_entry_argv(workdir: Path) -> list:
+    """The entry point's overrides: a small HTDemucs (PAR_ENTRY, t_dropout on),
+    2 epochs, on a synthetic wav folder (two 5 s tracks: 4 windows each, two
+    batches an epoch; a 3 s valid track)."""
+    data = _train_folder(workdir / "par_trainset", train_s=5.0, valid_s=3.0)
+    return [f"dset.wav={data}", f"dset.metadata={workdir / 'par_meta'}",
+            f"out_dir={workdir / 'par_out'}", "epochs=2", *PAR_ENTRY]
+
+
+def par_data_parallel(workdir: Path, entry: list) -> tp.Tuple[dict, dict, dict]:
+    """The probe's NCCL rank through the launcher (started first, in the
+    background). The released HTDemucs at a global batch of PAR_BATCH: world
+    1 on NCCL (this process, a group of one) against the plain one-process
+    step (PAR_STEPS Adam steps at PAR_LR), two
+    ranks of PAR_BATCH / 2 on cuda:0 under Gloo against one process of
+    PAR_BATCH (the gradients at the initial weights, mse); A7.6: HDemucs and
+    Demucs v2, PAR_STEPS steps at PAR_FAMILY_BATCH in one process and on two
+    ranks, and each card against the CPU. Each with its step ms and peak
+    memory. The Gloo ranks then run the entry point's first run (``entry``),
+    stopped after epoch 1. Returns the report, the launches of the parallel
+    train paths and the first run's output."""
+    import torch
+
+    import torch.distributed as dist
+
+    info: dict = {}
+    plain = {}
+    PAR_CACHE[:] = [workdir]
+    # the probe's NCCL rank starts now: its start-up overlaps the steps below
+    probe_start = time.perf_counter()
+    probe = subprocess.Popen([sys.executable, "-m", "demucs_tpu_torch.launcher", *NCCL_ONE,
+                              "--module", "demucs_tpu_torch.distprobe"], cwd=ROOT, env=_env(),
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    with _fp32():
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain["htdemucs"] = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
+            again = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
+            twice = {"htdemucs": _weights_gap(again["params"], plain["htdemucs"]["params"])}
+            del again
+            # world 1 on NCCL in this process: the step's data-parallel path
+            # (the global batch's draws, the gradients' all-reduce) on the card
+            dist.init_process_group(PAR_NCCL, init_method=f"file://{workdir / 'nccl_rdv'}",
+                                    world_size=1, rank=0)
+            try:
+                nccl = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
+                nccl["backend"] = dist.get_backend()
+            finally:
+                dist.destroy_process_group()
+            for kind in ("hdemucs", "demucs"):
+                plain[kind] = par_steps(kind, PAR_DEVICE, PAR_FAMILY_BATCH, PAR_STEPS, PAR_LR)
+                again = par_steps(kind, PAR_DEVICE, PAR_FAMILY_BATCH, PAR_STEPS, PAR_LR)
+                twice[kind] = _weights_gap(again["params"], plain[kind]["params"])
+                del again
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        info["families_card_vs_cpu"] = par_families_card_vs_cpu()
+    torch.cuda.empty_cache()
+    lines = probe.communicate(timeout=300)[0].splitlines()
+    info["probes"] = {"nccl_world_1": dict(_probe(lines, 1, "nccl"), rc=probe.returncode,
+                                           launcher_s=time.perf_counter() - probe_start)}
+    info["probes"]["nccl_world_1"]["ok"] &= probe.returncode == 0
+    row = dict(_against(nccl, plain["htdemucs"], twice["htdemucs"]),
+               plain=_strip(plain["htdemucs"]),
+               nccl_world_1=_strip(nccl), backend=nccl["backend"])
+    row["ok"] = row["ok"] and nccl["backend"] == "nccl"
+    info["htdemucs_nccl_world_1"] = row
+    folder = workdir / "par_dp_gloo"
+    folder.mkdir(parents=True, exist_ok=True)
+    args = GLOO_TWO + ["--module", RANK_MODULE, "--", "--rank-task", "dp_gloo", str(folder)]
+    lines, secs = _launch_until(args + entry, _epoch_1_written)
+    done = next((i for i, x in enumerate(lines) if "RANK_TASK_DONE" in x), None)
+    if done is None or not (folder / "rank0.pt").is_file():
+        raise AssertionError("parallel: dp_gloo ended before its results:\n"
+                             + "\n".join(lines[-40:]))
+    first_run = {"lines": lines[done:], "s": secs}
+    gloo = torch.load(folder / "rank0.pt", weights_only=False)
+    gloo["launcher_s"] = secs
+    info["probes"]["gloo_two_on_cuda0"] = _probe(lines[:done], 2, "gloo")
+    ref = plain["htdemucs"]
+    row = {"gloo_rank0": _strip(gloo["htdemucs"]),
+           "grads": _grad_allowance(gloo["htdemucs"]["grads"], ref["first_grads"]),
+           "loss_err": abs(gloo["htdemucs"]["losses"][0] - ref["losses"][0]) / ref["losses"][0],
+           "ranks_agree": gloo["ranks_agree"], "backend": gloo["backend"],
+           "launcher_s_with_entry_run_1": gloo["launcher_s"], "stages_s": gloo["stages_s"]}
+    row["ok"] = (gloo["backend"] == "gloo" and gloo["world"] == 2 and gloo["ranks_agree"]
+                 and row["loss_err"] <= TRAIN_RTOL and row["grads"]["err_over_allowance"] <= 1)
+    info["htdemucs_gloo_two_ranks"] = row
+    for kind in ("hdemucs", "demucs"):
+        one, two = plain[kind], gloo[kind]
+        info[f"{kind}_two_ranks"] = dict(_against(two, one, twice[kind]), one_process=_strip(one),
+                                         two_ranks=_strip(two))
+    info["tp_run"] = gloo["tp"]
+    launches = {"dp nccl world 1": nccl["launches"],
+                "dp gloo rank 0": gloo["htdemucs"]["launches"],
+                "tp forward rank 0": gloo["tp"]["launches"]}
+    return info, launches, first_run
+
+
+def par_entry_point(entry: list, first_run: dict) -> dict:
+    """The entry point on two ranks on cuda:0 (Gloo): its first run (the
+    ranks of the Gloo task, stopped by SIGTERM to the launcher once rank 0
+    wrote epoch 1's checkpoint), then ``python -m demucs_tpu_torch.launcher``
+    with the same overrides resumes for epoch 2. Only rank 0 writes; the
+    epoch summaries are equal on both ranks."""
+    start = time.perf_counter()
+    second = subprocess.run([sys.executable, "-m", "demucs_tpu_torch.launcher", *GLOO_TWO, "--",
+                             *entry], cwd=ROOT, env=_env(), capture_output=True, text=True,
+                            timeout=600)
+    resumed_s = time.perf_counter() - start
+    log1 = first_run["lines"]
+    log2 = (second.stdout + second.stderr).splitlines()
+    lines = log1 + log2
+
+    def by_rank(pattern):
+        return {r: [x.split(pattern)[1] for x in lines
+                    if x.startswith(f"[rank {r}]") and pattern in x] for r in range(2)}
+
+    train = by_rank("Train Summary | ")
+    written = by_rank("Checkpoint written: ")
+    out = Path(next(x.split("=", 1)[1] for x in entry if x.startswith("out_dir=")))
+    xps = list((out / "xps").iterdir()) if (out / "xps").is_dir() else []
+    history = json.loads((xps[0] / "history.json").read_text()) if xps else []
+    info = {"overrides": " ".join(entry), "first_run_s_with_the_task": first_run["s"],
+            "resume_rc": second.returncode, "resume_run_s": resumed_s,
+            "train_summaries": train, "checkpoints_by_rank": written, "epochs": len(history),
+            "replayed_epoch_1": any("Replay | Epoch 1" in x for x in log2),
+            "train_loss_by_epoch": [h["train"]["loss"] for h in history]}
+    info["ok"] = (second.returncode == 0 and len(xps) == 1 and len(history) == 2
+                  and train[0] == train[1] and len(train[0]) == 2
+                  and written[0] == ["epoch 1", "epoch 2"] and written[1] == []
+                  and info["replayed_epoch_1"]
+                  and all(math.isfinite(x) for x in info["train_loss_by_epoch"]))
+    if not info["ok"]:
+        info["log_tail"] = lines[-40:]
+    return info
+
+
+def par_sharding(tp_run: dict) -> tp.Tuple[dict, dict]:
+    """Segments and bag members over a device list naming cuda:0 more than
+    once: ``sharded_apply_model`` over 2 entries on 30 s against the device
+    engine; a 4-member bag over 2 (segments split: 4 members do not divide
+    2) and 4 entries (one entry a member) against the sequential engine; launches against the
+    forwards' prediction. ``tp_forward`` on two ranks (from the dp_gloo run)
+    against the one-device forward."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.inference.engine import device_apply_model
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import BagOfModels, Model
+    from demucs_tpu_torch.parallel.sharded import sharded_apply_model
+
+    info: dict = {}
+    launches: dict = {}
+    cfg = HTDemucsConfig(segment=7.8, **RELEASED)
+    members = [Model("htdemucs", cfg, init_htdemucs(cfg, seed=20 + k, layer_scale=1.0,
+                                                    random_norms=True).eval().to(PAR_DEVICE))
+               for k in range(4)]
+    counts = Counts(*(m.module for m in members))
+    mix = _track(30.0, 41)[None]
+
+    def run(model, devices, label):
+        kw = dict(shifts=1, rng=random.Random(11))
+        call = (lambda: sharded_apply_model(model, mix, devices=devices, **kw)) if devices \
+            else (lambda: device_apply_model(model, mix, **kw))
+        call()  # captures
+        torch.cuda.synchronize()
+        counts.zero()
+        start = time.perf_counter()
+        got = call()
+        wall = time.perf_counter() - start
+        read = counts.read()
+        launches[label] = read["launches"]
+        return got, dict(read, wall_s=wall, audio_s_per_s=30.0 / wall)
+
+    want, info["one_device"] = run(members[0], None, "engine 30 s (reference)")
+    got, info["segments_over_2"] = run(members[0], [PAR_DEVICE] * 2, "sharded 2 x cuda:0")
+    peak = float(np.abs(want).max())
+    info["segments_over_2"]["err_over_peak"] = float(np.abs(got - want).max()) / peak
+    bag = BagOfModels(members)
+    want, info["bag_sequential"] = run(bag, None, "bag sequential")
+    peak = float(np.abs(want).max())
+    for n in (2, 4):
+        got, row = run(bag, [PAR_DEVICE] * n, f"bag over {n} x cuda:0")
+        row["err_over_peak"] = float(np.abs(got - want).max()) / peak
+        row["route"] = "fan-out" if n % 4 == 0 else "segments"
+        info[f"bag_over_{n}"] = row
+    module = _par_model("htdemucs").module.to(PAR_DEVICE).eval()
+    with torch.inference_mode():
+        one = module(_par_tp_input().to(PAR_DEVICE)).cpu()
+    tp_err = ((tp_run["out"] - one).abs().max() / one.abs().max()).item()
+    info["tp_forward_two_ranks"] = {"err_over_peak": tp_err, "tol": ENGINE_RTOL,
+                                    "wall_s": tp_run["wall_s"], "launches": tp_run["launches"]}
+    del members, bag, module
+    torch.cuda.empty_cache()
+    rows = [v for k, v in info.items() if k.startswith(("segments", "bag_over"))]
+    info["ok"] = (all(r["err_over_peak"] <= ENGINE_RTOL and r["ok"] for r in rows)
+                  and info["one_device"]["ok"] and info["bag_sequential"]["ok"]
+                  and tp_err <= ENGINE_RTOL)
+    return info, launches
+
+
+def phase_parallel(workdir: Path) -> dict:
+    """Parallelism on one card: the probe through the launcher (NCCL at world
+    1, two Gloo ranks on cuda:0, where ``distprobe.check`` is the first thing
+    the rank task runs), data-parallel training of the three
+    families against one process, the entry point through the launcher
+    killed and resumed, segments and bag members over a device list naming
+    cuda:0 several times, ``tp_forward`` on two ranks. One card shows that
+    the paths are right and what they cost on it; no number here says how
+    the work scales over several cards. Returns the new paths' launches."""
+    import torch
+
+    from demucs_tpu_torch.inference.engine import GRAPHS
+
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    start = time.perf_counter()
+    info = {"phase": "parallel", "card": card_line()}
+    entry = par_entry_argv(workdir)
+    info["data_parallel"], launches, first_run = par_data_parallel(workdir, entry)
+    info["probes"] = info["data_parallel"].pop("probes")
+    info["entry_point"] = par_entry_point(entry, first_run)
+    info["sharding"], shard_launches = par_sharding(info["data_parallel"].pop("tp_run"))
+    launches.update(shard_launches)
+    info["wall_s"] = time.perf_counter() - start
+    dp = info["data_parallel"]
+    bad = [k for k, v in info["probes"].items() if not v["ok"]]
+    bad += [k for k in ("htdemucs_nccl_world_1", "htdemucs_gloo_two_ranks", "hdemucs_two_ranks",
+                        "demucs_two_ranks") if not dp[k]["ok"]]
+    bad += [k for k, v in dp["families_card_vs_cpu"].items() if not v["ok"]]
+    bad += [k for k in ("entry_point", "sharding") if not info[k]["ok"]]
+    info["ok"] = not bad
+    emit(info)
+    if bad:
+        raise AssertionError(f"parallel: {bad}")
+    return launches
+
+
+
 @contextlib.contextmanager
 def _fp32():
     """TF32 off for cuBLAS and cuDNN (the kernels' plain versions, the step)."""
@@ -3910,6 +4544,9 @@ def _has_museval() -> bool:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-task"]:  # one rank of the parallel phase (rank_task)
+        sys.path.insert(0, str(ROOT))
+        return rank_task(sys.argv[2], Path(sys.argv[3]), sys.argv[4:])
     try:
         import torch
     except ImportError:
@@ -3966,6 +4603,7 @@ def main() -> int:
         rows += train_rows
         paths.update(phase_train_recipe(workdir))
         paths.update(phase_export(workdir, next((workdir / "train_out" / "xps").iterdir())))
+        paths.update(phase_parallel(workdir))
         phase_cli(workdir, zoo_dir, bag)
     except Exception:  # noqa: BLE001 — report, then fail without the last line
         traceback.print_exc()

@@ -93,9 +93,12 @@ def _pinned(rng: tp.Optional[_random.Random],
     return PinnedShifts(shift_offsets)
 
 
+def _first_device(model: AnyModel) -> torch.device:
+    return (model.models[0] if isinstance(model, BagOfModels) else model).device
+
+
 def _on_card(model: AnyModel) -> bool:
-    first = model.models[0] if isinstance(model, BagOfModels) else model
-    return first.device.type == "cuda"
+    return _first_device(model).type == "cuda"
 
 
 def _triangle_weight(segment_length: int, transition_power: float) -> np.ndarray:
@@ -185,13 +188,14 @@ def apply_model(
                 raise ValueError("engine='device' requires split mode, a single (1, C, L) "
                                  "track and no callback")
             from demucs_tpu_torch.inference.engine import device_apply_model
+            from demucs_tpu_torch.parallel.sharded import auto_devices
 
             return device_apply_model(
                 model, mix, shifts=shifts, overlap=overlap,
                 transition_power=transition_power, segment=segment,
                 batch_size=batch_size, rng=rng, transfer_dtype=transfer_dtype,
                 progress=progress, length_bucket_seconds=length_bucket_seconds,
-                tail_mode=tail_mode)
+                tail_mode=tail_mode, devices=auto_devices(_first_device(model)))
     if rng is None:
         rng = _random  # the module acts as a Random instance (reference parity)
     callback_arg = dict(callback_arg or {})
@@ -365,12 +369,14 @@ def apply_model_tracks(
         tracks = resetting(tracks)
     if use_device:
         from demucs_tpu_torch.inference.engine import device_separate_tracks
+        from demucs_tpu_torch.parallel.sharded import auto_devices
 
         yield from device_separate_tracks(
             model, tracks, shifts=shifts, overlap=overlap,
             transition_power=transition_power, segment=segment, batch_size=batch_size,
             rng=rng, transfer_dtype=transfer_dtype, progress=progress,
-            length_bucket_seconds=length_bucket_seconds, tail_mode=tail_mode)
+            length_bucket_seconds=length_bucket_seconds, tail_mode=tail_mode,
+            devices=auto_devices(_first_device(model)))
         return
     for mix in tracks:
         yield apply_model(model, mix, shifts=shifts, split=split, overlap=overlap,

@@ -39,13 +39,31 @@ transfers. Here the track goes up from one pinned buffer and the stems come
 back in one ``non_blocking`` copy on a copy stream. The JAX engine also
 uploads the track in float16 when the stems' wire is not float32, to halve
 that link's load; here the track always goes up in float32 (a 30 s stereo
-track is about 10 MB), so the model never computes from a rounded input. The
-mesh paths (segment and bag fan-out over several devices) are not ported.
+track is about 10 MB), so the model never computes from a rounded input.
+
+Several devices (``devices=``, the JAX engine's ``mesh``; engine.py:82-245,
+:441, :955-987, :1117-1133, :1225): each pass's segment batch is split over
+the devices, each running a replica of the module (its own ``GraphCache``
+entry, keyed on its device) on its contiguous share; the outputs are
+gathered on the model's device before the overlap-add, so the overlap-add
+runs in the one-device order. A homogeneous uniform-target bag whose member
+count divides the device count fans out instead: member m runs its passes
+on its group of ``len(devices) / members`` devices (its segments split
+within the group), the per-member stems summed on the model's device in
+member order. Each device's share (its upload, replays, captures and sums)
+runs with that device current (``_on``): the runtime launches a kernel, a
+capture and a replay on the current device, and the kernel wrappers refuse a
+tensor of another one. ``group=`` (a ``torch.distributed`` process group) fans a bag
+out over the group's ranks: each rank runs its contiguous share of the
+members on its own device(s), the weighted sums are all-reduced, and every
+rank gets the bag's stems (the shift offsets are drawn for every member on
+every rank, model-major, so the draws are the one-process engine's).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import itertools
 import math
@@ -56,6 +74,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from demucs_tpu_torch.inference.apply import _triangle_weight
 from demucs_tpu_torch.kernels import device_cache, retain_tables
@@ -72,24 +91,27 @@ _INT8_BLOCK = 1024
 KERNELS = (stft_dft, istft_dft, flash_mha, flash_mha_bf16)
 
 
-def _segment_grid(length: int, max_shift: int, stride: int,
-                  batch_size: int) -> tp.Tuple[int, int, int]:
+def _segment_grid(length: int, max_shift: int, stride: int, batch_size: int,
+                  shard_size: int = 1) -> tp.Tuple[int, int, int]:
     """Segment grid sized for the largest possible shifted view
     (``length + max_shift`` samples); shorter views leave tail slots empty.
     Right-sizes the batch so padding slots (wasted forwards) are minimal:
     11 segments at batch 8 would run 16 slots; batch 6 runs 12. The batch is
-    also the shape of the CUDA graph. Returns ``(batch_size, n_batches, n_pad)``."""
+    also the shape of the CUDA graph. With ``shard_size`` devices the
+    segments are shared over them first and the batch is each device's.
+    Returns ``(batch_size, n_batches, n_pad)``."""
     n_segments = int(math.ceil((length + max_shift) / stride))
-    n_batches = int(math.ceil(n_segments / batch_size))
-    batch_size = int(math.ceil(n_segments / n_batches))
-    return batch_size, n_batches, n_batches * batch_size
+    per = int(math.ceil(n_segments / shard_size))
+    n_batches = int(math.ceil(per / batch_size))
+    batch_size = int(math.ceil(per / n_batches))
+    return batch_size, n_batches, n_batches * batch_size * shard_size
 
 
 def _exact_obuf_len(length: int, max_shift: int, segment_length: int,
-                    target: int, stride: int, batch_size: int) -> int:
+                    target: int, stride: int, batch_size: int, shard_size: int = 1) -> int:
     """Length of the unnormalized buffers of the exact-tails pass: the strips
     of the full windows, plus ``target`` of slack for the tail windows."""
-    _, _, n_pad = _segment_grid(length, max_shift, stride, batch_size)
+    _, _, n_pad = _segment_grid(length, max_shift, stride, batch_size, shard_size)
     K = -(-target // stride)
     ng = -(-n_pad // K)
     return target + max_shift + (K - 1) * stride + ng * K * stride + target
@@ -110,6 +132,23 @@ def _triangle_weight_dev(segment_length: int, transition_power: float, device) -
 # ---------------------------------------------------------------------------
 # The batched forward: eager on the CPU, a replayed CUDA graph on the card
 # ---------------------------------------------------------------------------
+
+
+def _on(device: torch.device):
+    """``device`` current for the block on a card (module docstring); nothing
+    on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream every capture on ``device`` runs on, and nothing else.
+    ``torch.cuda.graph``'s own default is one stream, made on the device
+    current at the first capture. A stream that also ran eager work would
+    hand the capture the cuBLAS workspace it took then, outside the graphs'
+    pool, which ``GraphCache.clear`` frees under the graphs of other caches;
+    a capture-only stream takes its workspace inside the first capture."""
+    return torch.cuda.Stream(device)
 
 
 def _launch_counts() -> tp.Dict[str, int]:
@@ -153,7 +192,8 @@ class BatchGraph:
         start = time.perf_counter()
         # the tables the graph reads by address live as long as the graph
         with retain_tables() as self.tables:
-            with torch.inference_mode(), torch.cuda.graph(self.graph, pool=pool):
+            with torch.inference_mode(), torch.cuda.graph(self.graph, pool=pool,
+                                                          stream=_capture_stream(device)):
                 self.static_out = module(self.static_in)
         self.capture_s = time.perf_counter() - start
         after = _launch_counts()
@@ -206,6 +246,10 @@ class GraphCache:
         self.replayed_launches = {k.__name__: 0 for k in KERNELS}
 
     def forward(self, module: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
+        with _on(batch.device):
+            return self._forward(module, batch)
+
+    def _forward(self, module: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
         key = (id(module), tuple(batch.shape), batch.device)
         entry = self.entries.get(key)
         if (entry is None or entry.module() is not module
@@ -272,6 +316,52 @@ def _forward(module: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
         return module(batch)
 
 
+# (id(module), device) -> (weakref to module, its state when copied, replica)
+_REPLICAS: tp.Dict[tuple, tuple] = {}
+
+
+def _module_state(module: torch.nn.Module) -> tuple:
+    """What a replica copied: the parameters' and buffers' addresses and
+    versions (an in-place update bumps a version) and the config."""
+    tensors = list(itertools.chain(module.parameters(), module.buffers()))
+    return (tuple(t.data_ptr() for t in tensors), tuple(t._version for t in tensors),
+            getattr(module, "cfg", None))
+
+
+def replica(module: torch.nn.Module, device) -> torch.nn.Module:
+    """``module`` on ``device``: the module itself on its own device, else a
+    copy made once and kept while the module is unchanged."""
+    device = torch.device(device)
+    if device == next(module.parameters()).device:
+        return module
+    key = (id(module), device)
+    state = _module_state(module)
+    entry = _REPLICAS.get(key)
+    if entry is None or entry[0]() is not module or entry[1] != state:
+        import copy
+
+        with torch.inference_mode(False), torch.no_grad():
+            copied = copy.deepcopy(module).to(device)
+        entry = _REPLICAS[key] = (weakref.ref(module), state, copied)
+    return entry[2]
+
+
+def _sharded_forward(module: torch.nn.Module, batch: torch.Tensor,
+                     devices: tp.Sequence[torch.device]) -> torch.Tensor:
+    """``module(batch)`` with the batch split over ``devices`` in contiguous
+    shares (each a replica's forward, a graph replay on a card), gathered
+    back on the batch's device in order. Each share is copied out before the
+    next forward: two shares on one device replay the same graph."""
+    per = batch.shape[0] // len(devices)
+    outs = []
+    for i, device in enumerate(devices):
+        with _on(device):
+            part = batch[i * per: (i + 1) * per].to(device, non_blocking=True)
+            out = _forward(replica(module, device), part)
+            outs.append(out.to(batch.device, copy=True, non_blocking=True))
+    return torch.cat(outs)
+
+
 # ---------------------------------------------------------------------------
 # One (member, shift) pass
 # ---------------------------------------------------------------------------
@@ -279,7 +369,8 @@ def _forward(module: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
 
 def _make_pass_body(model: Model, length: int, max_shift: int, segment_length: int,
                     target: int, stride: int, batch_size: int, transition_power: float,
-                    segment: tp.Optional[float] = None, exact_tails: bool = False):
+                    segment: tp.Optional[float] = None, exact_tails: bool = False,
+                    devices: tp.Optional[tp.Sequence[torch.device]] = None):
     """One (model, shift) pass over a track of ``length`` samples.
 
     The track buffer is ``(C, buf_len)``: ``[margin | max_shift zeros | track |
@@ -292,16 +383,22 @@ def _make_pass_body(model: Model, length: int, max_shift: int, segment_length: i
     (their target and trim are the same at every offset) and each ragged tail
     chunk runs at its exact reference leaf target (``_tail_forward``), as the
     host engine pads it; the normalization follows (``_normalize``).
+
+    ``devices``: each batch of segments is split over them
+    (``_sharded_forward``; ``batch_size`` segments per device).
     """
     module = model.module
     S, C = len(model.sources), model.audio_channels
-    batch_size, _, n_pad = _segment_grid(length, max_shift, stride, batch_size)
+    shards = len(devices) if devices else 1
+    batch_size, _, n_pad = _segment_grid(length, max_shift, stride, batch_size, shards)
+    per_device, batch_size = batch_size, batch_size * shards
     margin = target
     K = -(-target // stride)  # windows of one group are P >= target apart: disjoint
     P = K * stride
     ng = -(-n_pad // K)
     trim_full = (target - segment_length) // 2
-    obuf_len = (_exact_obuf_len(length, max_shift, segment_length, target, stride, batch_size)
+    obuf_len = (_exact_obuf_len(length, max_shift, segment_length, target, stride,
+                                per_device, shards)
                 if exact_tails else margin + max_shift + (K - 1) * stride + ng * P)
 
     def overlap_add(track_buf, shift_offset):
@@ -333,7 +430,8 @@ def _make_pass_body(model: Model, length: int, max_shift: int, segment_length: i
             for i, _, trim in tails:
                 start = base + i * stride - trim
                 batch[i - b0] = track_buf[:, start : start + target]
-            out = _forward(module, batch)  # (batch_size, S, C, target): consume now
+            # (batch_size, S, C, target): consume now
+            out = _sharded_forward(module, batch, devices) if devices else _forward(module, batch)
             for g in range(K):
                 first = b0 + (g - b0) % K  # the batch's first segment of group g
                 if first < f1:
@@ -641,9 +739,15 @@ def _dispatch_track(
     length_bucket_seconds: tp.Optional[float] = None,
     prestaged: tp.Optional[dict] = None,
     tail_mode: str = "exact",
+    devices: tp.Optional[tp.Sequence] = None,
+    group=None,
 ):
     """Queue all device work of one track, the copy of its stems to the host
     included; returns what ``_gather_stems`` waits on.
+
+    ``devices``: the devices the segments (or a bag's members) run on, the
+    model's own device holding the track and the stems (module docstring);
+    ``group``: a process group to fan a bag out over.
 
     ``transfer_dtype``: the wire format of the stems (``_final_body``); the
     track itself always goes up in float32.
@@ -677,6 +781,11 @@ def _dispatch_track(
     models, weights = _members(model)
     first = models[0]
     device = _model_device(models)
+    devices = [torch.device(d) for d in devices] if devices else None
+    if prestaged and (devices or group is not None or length_bucket_seconds):
+        raise ValueError("prestaged buffers are staged at the exact track length on the "
+                         "model's device; they cannot be combined with length bucketing, "
+                         "several devices or a process group")
     orig_length = mix.shape[-1]
     if length_bucket_seconds is not None:
         if length_bucket_seconds <= 0:
@@ -700,28 +809,58 @@ def _dispatch_track(
     if progress:
         print(f"device engine: {len(models)} model(s) x {n_passes} shift pass(es) on "
               f"{device}", flush=True)
-    track_dev = dict(prestaged) if prestaged else {}
+    homogeneous = all(m.kind == first.kind and m.cfg == first.cfg for m in models)
+    # the JAX engine's routing (engine.py:955-987): a homogeneous bag of
+    # uniform-target members fans out when its members divide the devices
+    fan_out = (devices is not None and len(models) > 1 and homogeneous
+               and len(devices) % len(models) == 0 and all(map(uniform_target, models)))
+    if group is not None:
+        world, me = dist.get_world_size(group), dist.get_rank(group)
+        if not (homogeneous and all(map(uniform_target, models))):
+            raise ValueError("the fan-out over a process group takes a homogeneous bag of "
+                             "uniform-target members")
+        mine = [m * world // len(models) == me for m in range(len(models))]
+    else:
+        mine = [True] * len(models)
+    per_member = len(devices) // len(models) if fan_out else 0
+    track_dev: dict = dict(prestaged) if prestaged else {}
     accum = torch.zeros(S, C, L, device=device)
     totals = np.zeros(S)
-    for member, member_weights in zip(models, weights):
+    for index, (member, member_weights) in enumerate(zip(models, weights)):
         seg_f = segment if segment is not None else member.segment
         segment_length = int(first.samplerate * seg_f)
         stride = int((1 - overlap) * segment_length)
         target = member.leaf_target(segment_length, segment)
-        key = (segment_length, target)
-        if key not in track_dev:
-            track_dev[key] = _upload_track(mix[0], C, L, target, max_shift, device)
-        pass_fn = _make_pass_body(member, L, max_shift, segment_length, target, stride,
-                                  batch_size, transition_power, segment,
-                                  exact_tails=not uniform_target(member))
-        # w * r per pass, and the shift count folded into the final division
-        # (totals * n): one unit-weight model then gives the host's
-        # sum-then-divide bit for bit at any shift count
-        scale = _device_constant(tuple(float(w) for w in member_weights), device)
-        for _ in range(n_passes):
-            offset = rng.randint(0, max_shift) if shifts else 0
-            pass_fn(track_dev[key], offset, accum, scale)
+        # every rank draws every member's offsets: the one-process order
+        offsets = [rng.randint(0, max_shift) if shifts else 0 for _ in range(n_passes)]
         totals += np.asarray(member_weights, np.float64) * n_passes
+        if not mine[index]:
+            continue
+        run_on, member_devices = device, devices
+        if fan_out:  # member index's group of devices; its stems on the group's first
+            member_devices = devices[index * per_member: (index + 1) * per_member]
+            run_on = member_devices[0]
+        with _on(run_on):
+            if run_on != device:
+                member = Model(member.kind, member.cfg, replica(member.module, run_on))
+            key = (segment_length, target) + ((run_on,) if run_on != device else ())
+            if key not in track_dev:
+                track_dev[key] = _upload_track(mix[0], C, L, target, max_shift, run_on)
+            pass_fn = _make_pass_body(member, L, max_shift, segment_length, target, stride,
+                                      batch_size, transition_power, segment,
+                                      exact_tails=not uniform_target(member),
+                                      devices=member_devices)
+            # w * r per pass, and the shift count folded into the final division
+            # (totals * n): one unit-weight model then gives the host's
+            # sum-then-divide bit for bit at any shift count
+            scale = _device_constant(tuple(float(w) for w in member_weights), run_on)
+            target_accum = accum if run_on == device else torch.zeros(S, C, L, device=run_on)
+            for offset in offsets:
+                pass_fn(track_dev[key], offset, target_accum, scale)
+        if target_accum is not accum:
+            accum += target_accum.to(device)
+    if group is not None:
+        dist.all_reduce(accum, group=group)
     totals_dev = _device_constant(tuple(np.float32(totals).tolist()), device)
     result = _final_body(accum, totals_dev, transfer_dtype)
     return _start_fetch(result), transfer_dtype, orig_length

@@ -116,7 +116,15 @@ def check(status: int, what: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """PyTorch's current stream on ``device``, as an integer handle."""
+    """PyTorch's current stream on ``device``, as an integer handle.
+    ``device`` must be the current device (``torch.cuda.device(...)``): the
+    runtime launches a kernel on the current device and fails a launch on a
+    stream of another one."""
     import torch
 
+    device = torch.device(device)
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        raise RuntimeError(f"a kernel launch on {device} while cuda:{current} is the current "
+                           "device: launch it under torch.cuda.device(...)")
     return torch.cuda.current_stream(device).cuda_stream

@@ -35,6 +35,12 @@ forward. Every draw comes from the ``generator`` passed in (a CPU
 ``torch.Generator``), never from the global RNG; training with a draw to
 make and no generator raises. In eval mode nothing is drawn: shift 0, no
 augment, no dropout.
+
+Tensor parallelism (``parallel/tp.py``) shards a copy of the module by heads
+and hidden units and sets ``tp_comm`` on its attentions and layers: the
+inputs of a sharded region enter through ``tp_comm.enter`` (identity, its
+gradient all-reduced) and the partial sums of ``out_proj`` and ``linear2``
+leave through ``tp_comm.leave`` (all-reduced) before their bias is added.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from demucs_tpu_torch.models.hlayers import LayerScale, scalar
 from demucs_tpu_torch.ops import nn as ops
 from demucs_tpu_torch.ops.attention import apply_dropout, multihead_attention
 from demucs_tpu_torch.ops.sparse import dynamic_sparse_keep_mask, keep_mask, lsh_projections
+from demucs_tpu_torch.parallel import rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,11 +184,14 @@ def cape_draws(length: int, batch: int, glob_loc_scale: tp.Sequence[float],
     ``jax.random.uniform`` draws)."""
     glob, loc, scale = glob_loc_scale
 
-    def uniform(shape, bound):
-        return (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+    offset, total = rows.current(batch)  # a data-parallel rank: the global batch's draws
 
-    return (uniform((1, batch, 1), glob), uniform((length, batch, 1), loc),
-            uniform((1, batch, 1), math.log(scale)))
+    def uniform(shape, bound):
+        draw = (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+        return draw[:, offset: offset + batch]
+
+    return (uniform((1, total, 1), glob), uniform((length, total, 1), loc),
+            uniform((1, total, 1), math.log(scale)))
 
 
 def cape_embedding_augmented(length: int, dim: int, draws: tuple, mean_normalize: bool = True,
@@ -227,8 +237,13 @@ def _layer_norm(norm: nn.Module, x: torch.Tensor) -> torch.Tensor:
     return norm(x)
 
 
-def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    return ops.linear(x, lin.weight, lin.bias)
+def _linear(lin: nn.Linear, x: torch.Tensor, tp_comm=None) -> torch.Tensor:
+    """``lin(x)``; with ``tp_comm`` this rank's partial product is summed over
+    the tensor-parallel ranks before the bias is added."""
+    if tp_comm is None:
+        return ops.linear(x, lin.weight, lin.bias)
+    out = tp_comm.leave(ops.linear(x, lin.weight))
+    return out + lin.bias.to(out.dtype)
 
 
 class Attention(nn.Module):
@@ -240,6 +255,7 @@ class Attention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * dim))
         self.out_proj = nn.Linear(dim, dim)
+        self.tp_comm = None  # parallel/tp.py: this rank's heads only
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask: tp.Optional[torch.Tensor] = None, lsh_sparsity: float = 0.0,
@@ -251,6 +267,8 @@ class Attention(nn.Module):
         ``dropout`` > 0 (training): K3's dropout of the probabilities under a
         seed drawn from ``generator`` (not on the LSH route, as in the
         reference), and a masked layer's dropout after the out-projection."""
+        if self.tp_comm is not None:
+            q, k, v = (self.tp_comm.enter(t) for t in (q, k, v))
         w_q, w_k, w_v = self.in_proj_weight.chunk(3)
         b_q, b_k, b_v = self.in_proj_bias.chunk(3)
         qh, kh, vh = (ops.linear(q, w_q, b_q), ops.linear(k, w_k, b_k),
@@ -261,10 +279,11 @@ class Attention(nn.Module):
         else:
             drop = {}
             if dropout > 0.0:
+                seed = int(torch.randint(0, 2**31 - 1, (), generator=generator))
                 drop = dict(dropout=dropout,
-                            dropout_seed=int(torch.randint(0, 2**31 - 1, (), generator=generator)))
+                            dropout_seed=rows.dropout_seed(seed, q.shape[0], self.num_heads))
             out = flash_mha(qh, kh, vh, self.num_heads, mask=mask, **drop)
-        out = _linear(self.out_proj, out)
+        out = _linear(self.out_proj, out, self.tp_comm)
         if mask is not None or lsh_sparsity:  # the sparse attention's proj_drop
             out = apply_dropout(out, dropout, generator)
         return out
@@ -297,6 +316,7 @@ class _Layer(nn.Module):
         if s.layer_scale:
             self.gamma_1 = LayerScale(s.dim, 1e-4, channel_last=True)
             self.gamma_2 = LayerScale(s.dim, 1e-4, channel_last=True)
+        self.tp_comm = None  # parallel/tp.py: this rank's hidden units only
 
     def _gamma(self, name: str, x: torch.Tensor) -> torch.Tensor:
         return getattr(self, name)(x) if self.spec.layer_scale else x
@@ -314,8 +334,10 @@ class _Layer(nn.Module):
     def _ff(self, x: torch.Tensor, generator: tp.Optional[torch.Generator]) -> torch.Tensor:
         """linear2(dropout(act(linear1(x)))), then dropout2."""
         act = ops.gelu if self.spec.gelu else torch.relu
+        if self.tp_comm is not None:
+            x = self.tp_comm.enter(x)
         y = self._drop(act(_linear(self.linear1, x)), generator)
-        return self._drop(_linear(self.linear2, y), generator)
+        return self._drop(_linear(self.linear2, y, self.tp_comm), generator)
 
     def _attend(self, attn: Attention, q: torch.Tensor, k: torch.Tensor,
                 lsh_R: tp.Optional[torch.Tensor],

@@ -25,6 +25,8 @@ import math
 
 import torch
 
+from demucs_tpu_torch.parallel import rows
+
 __all__ = ["multihead_attention", "dropout_keep", "apply_dropout"]
 
 
@@ -72,13 +74,18 @@ def apply_dropout(x: torch.Tensor, rate: float,
     """Inverted dropout (``demucs_tpu/ops/attention.py::apply_dropout``):
     ``x * keep / (1 - rate)``, ``keep`` drawn on ``x``'s device from a
     generator there seeded by one draw of ``generator`` (a CPU generator: a
-    step's draws all come from it, never from the global RNG). Identity when
+    step's draws all come from it, never from the global RNG); under
+    ``parallel.rows.global_rows`` the mask of the global batch, cut to this
+    rank's rows. Identity when
     ``generator`` is None (eval) or ``rate <= 0``."""
     if generator is None or rate <= 0.0:
         return x
     seed = int(torch.randint(0, 2**62, (), generator=generator))
     local = torch.Generator(device=x.device).manual_seed(seed)
-    keep = torch.rand(x.shape, device=x.device, generator=local) >= rate
+    # a data-parallel rank draws the global batch's mask and keeps its rows
+    offset, total = rows.current(x.shape[0])
+    keep = torch.rand((total, *x.shape[1:]), device=x.device,
+                      generator=local)[offset: offset + x.shape[0]] >= rate
     return x * keep.to(x.dtype) / (1.0 - rate)
 
 

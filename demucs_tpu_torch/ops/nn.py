@@ -28,6 +28,12 @@ precision (``models/htdemucs.py::precision_scope``): inside it the fp32
 operands of every convolution and product on a CUDA tensor are rounded to
 bf16 and the product runs on the TF32 tensor cores, which hold a bf16 value
 exactly, so the result is the bf16 product with fp32 accumulation, in fp32.
+
+A 16-bit transposed convolution on the card runs under cuDNN's deterministic
+algorithms (:func:`_deterministic16`): cuDNN's default bf16 algorithms for
+them gave two forwards of the same input different outputs (1.8-2.6e-2 x
+peak over HTDemucs's decoders), and the JAX package gives the same stems
+every time. The setting holds for those calls only, not process-wide.
 """
 
 from __future__ import annotations
@@ -83,6 +89,23 @@ def _product16(fn: tp.Callable, x: torch.Tensor, w: torch.Tensor, **kw) -> torch
     if x.is_cuda or torch.compiler.is_exporting():
         return fn(x, w, **kw)
     return fn(x.float(), w.float(), **kw).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _deterministic16(x: torch.Tensor):
+    """cuDNN's deterministic algorithms for the block when ``x`` is a 16-bit
+    CUDA tensor, the flag restored on exit. The flag is read when cuDNN picks
+    its algorithm, so a CUDA graph captured inside the block replays the
+    deterministic one."""
+    if not (x.is_cuda and _bias_after(x)):
+        yield
+        return
+    outer = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = outer
 
 
 def _add_bias(out: torch.Tensor, b: tp.Optional[torch.Tensor]) -> torch.Tensor:
@@ -147,8 +170,9 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     """1-D transposed convolution. ``w (I, O, K)``; out_len = (L-1)*stride - 2*padding + K."""
     x, w = _operands(x, w)
     if _bias_after(x):
-        return _add_bias(_product16(F.conv_transpose1d, x, w, stride=stride, padding=padding),
-                         b)
+        with _deterministic16(x):
+            out = _product16(F.conv_transpose1d, x, w, stride=stride, padding=padding)
+        return _add_bias(out, b)
     return F.conv_transpose1d(x, w, b, stride=stride, padding=padding)
 
 
@@ -158,8 +182,9 @@ def conv_transpose2d(x: torch.Tensor, w: torch.Tensor,
     """2-D transposed convolution. ``w (I, O, Kh, Kw)``."""
     x, w = _operands(x, w)
     if _bias_after(x):
-        return _add_bias(_product16(F.conv_transpose2d, x, w, stride=stride, padding=padding),
-                         b)
+        with _deterministic16(x):
+            out = _product16(F.conv_transpose2d, x, w, stride=stride, padding=padding)
+        return _add_bias(out, b)
     return F.conv_transpose2d(x, w, b, stride=stride, padding=padding)
 
 

@@ -6,7 +6,9 @@ stacked sources. Each draws its few numbers (offsets, flips, gains, a
 permutation, whether to apply) from a CPU ``torch.Generator`` passed in,
 never from the global RNG, and applies them on the batch's device; each
 ``*_with`` function applies given draws (the tests hand them the JAX
-package's).
+package's). A data-parallel rank (``parallel.rows.global_rows``) draws for the
+global batch, as JAX augments it inside its global step, and applies the
+draws of its own rows; remix groups then must not straddle ranks.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import dataclasses
 import typing as tp
 
 import torch
+
+from demucs_tpu_torch.parallel import rows
 
 __all__ = ["AugmentConfig", "shift_aug", "flip_channels_aug", "flip_sign_aug", "scale_aug",
            "remix_aug", "make_augment"]
@@ -53,8 +57,9 @@ def shift_aug(wav: torch.Tensor, shift: int, same: bool, generator: torch.Genera
     length = T - shift
     if not train:
         return wav[..., :length]
-    offsets = torch.randint(0, shift, (B, 1 if same else S), generator=generator)
-    return shift_with(wav, offsets, length)
+    offset, total = rows.current(B)
+    offsets = torch.randint(0, shift, (total, 1 if same else S), generator=generator)
+    return shift_with(wav, offsets[offset: offset + B], length)
 
 
 def flip_channels_with(wav: torch.Tensor, left: torch.Tensor) -> torch.Tensor:
@@ -69,7 +74,9 @@ def flip_channels_aug(wav: torch.Tensor, generator: torch.Generator,
     B, S, C, T = wav.shape
     if not train or C != 2:
         return wav
-    return flip_channels_with(wav, torch.randint(0, 2, (B, S), generator=generator))
+    offset, total = rows.current(B)
+    left = torch.randint(0, 2, (total, S), generator=generator)
+    return flip_channels_with(wav, left[offset: offset + B])
 
 
 def flip_sign_with(wav: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
@@ -84,7 +91,9 @@ def flip_sign_aug(wav: torch.Tensor, generator: torch.Generator,
     B, S, C, T = wav.shape
     if not train:
         return wav
-    return flip_sign_with(wav, torch.randint(0, 2, (B, S), generator=generator))
+    offset, total = rows.current(B)
+    signs = torch.randint(0, 2, (total, S), generator=generator)
+    return flip_sign_with(wav, signs[offset: offset + B])
 
 
 def scale_aug(wav: torch.Tensor, proba: float, lo: float, hi: float,
@@ -94,7 +103,9 @@ def scale_aug(wav: torch.Tensor, proba: float, lo: float, hi: float,
     B, S, C, T = wav.shape
     if not train or proba <= 0:
         return wav
-    scales = lo + (hi - lo) * torch.rand((B, S, 1, 1), generator=generator)
+    offset, total = rows.current(B)
+    scales = (lo + (hi - lo) * torch.rand((total, S, 1, 1), generator=generator)
+              )[offset: offset + B]
     if float(torch.rand((), generator=generator)) >= proba:
         return wav
     return wav * scales.to(device=wav.device, dtype=wav.dtype)
@@ -117,11 +128,16 @@ def remix_aug(wav: torch.Tensor, proba: float, group_size: int, generator: torch
     B, S, C, T = wav.shape
     if not train or proba <= 0:
         return wav
-    group_size = group_size or B
-    if B % group_size != 0:
-        raise ValueError(f"Batch size {B} must be divisible by group size {group_size}")
-    perm = torch.argsort(torch.rand((B // group_size, group_size, S), generator=generator),
-                         dim=1)
+    offset, total = rows.current(B)
+    group_size = group_size or total
+    if total % group_size != 0:
+        raise ValueError(f"Batch size {total} must be divisible by group size {group_size}")
+    if offset % group_size or B % group_size:
+        raise ValueError(f"remix groups of {group_size} would straddle ranks holding {B} "
+                         "rows each: JAX permutes them over the global array, a rank here "
+                         "only within its rows")
+    perm = torch.argsort(torch.rand((total // group_size, group_size, S), generator=generator),
+                         dim=1)[offset // group_size: (offset + B) // group_size]
     if float(torch.rand((), generator=generator)) >= proba:
         return wav
     return remix_with(wav, perm, group_size)

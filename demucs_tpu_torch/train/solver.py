@@ -26,6 +26,14 @@ term), validation runs on the quantized weights, the checkpoint holds
 DiffQ's logits and their Adam, and :meth:`Solver.quantized_state` gives the
 ``__quantized`` container (``zoo/native.py::save_model(...,
 quantized_state=...)`` writes it as a ``.dmx``).
+
+On several processes (``train/distrib.py``) every rank runs the loop on its
+share of the batches (the loaders are rank-sharded, validation too), the
+step averages the gradients (``train/step.py``), the epoch's metrics are
+averaged over the ranks (``distrib.average``), and rank 0 alone writes the
+checkpoint, the history and ``best.dmx`` while the others wait at a barrier
+(the reference's solver.py:284-287: concurrent renames from several ranks
+would race).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ import torch
 from demucs_tpu_torch.evaluate import evaluate, new_sdr
 from demucs_tpu_torch.inference.apply import apply_model
 from demucs_tpu_torch.models.registry import Model, build_module
+from demucs_tpu_torch.train import distrib
 from demucs_tpu_torch.train.augment import AugmentConfig, make_augment
 from demucs_tpu_torch.train.config import TrainArgs
 from demucs_tpu_torch.train.ema import ModelEMA, swap
@@ -293,8 +302,11 @@ class Solver:
             if ((epoch + 1) % self.args.test.every == 0 or is_last) and self.args.dset.musdb:
                 metrics["test"] = self._test(compute_sdr=self.args.test.sdr and is_last)
             self.history.append(metrics)
-            self._push_history()
-            self._serialize(epoch)
+            if distrib.rank() == 0:
+                self._push_history()
+                self._serialize(epoch)
+            self.best_changed = False
+            distrib.barrier()
             if is_last:
                 break
 
@@ -411,4 +423,4 @@ class Solver:
             logger.info("Epoch %d: %d batches, %.3f s waiting for data, %.3f s in steps",
                         epoch + 1, idx + 1, waited, stepped)
         self.model.module.eval()
-        return losses
+        return distrib.average(losses, idx + 1)

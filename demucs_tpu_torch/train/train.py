@@ -2,6 +2,9 @@
 (port of ``demucs_tpu/train/train.py``; behavioral reference ``demucs/train.py``).
 
     python -m demucs_tpu_torch.train model=htdemucs dset.wav=/path epochs=2 [device=cpu]
+    python -m demucs_tpu_torch.launcher -n 4 -- model=htdemucs dset.wav=/path
+    torchrun --nproc-per-node 4 -m demucs_tpu_torch.train model=htdemucs dset.wav=/path
+    srun --ntasks-per-node 4 python -m demucs_tpu_torch.train model=htdemucs ...
 
 Overrides are ``key=value`` tokens of :class:`~demucs_tpu_torch.train.config.TrainArgs`
 (``dset=NAME`` selects a dataset preset); ``device=`` (not part of the
@@ -9,8 +12,15 @@ config, default ``cuda``) picks the device. The reference's defaults train
 as they are (the repitch augment at 0.2), and so do ``svd.penalty``,
 ``quant.diffq`` and ``quant.qat``. XP folders are
 ``{out_dir}/xps/{signature}``, resumed from their checkpoint when one is
-there. Training on more than one process raises ``NotImplementedError``
-(:func:`check_supported`).
+there.
+
+On several processes (``distrib.init`` reads the launcher's, torchrun's or
+Slurm's environment) the run is data-parallel, as the JAX package's: each
+rank trains on its device (``cuda:LOCAL_RANK``, the CPU under the launcher's
+``--platform cpu``) with ``batch_size / world`` items a step, and the step
+averages the gradients; rank 0 builds the datasets' metadata and writes the
+XP folder. :func:`check_supported` refuses what the JAX package's
+multi-process path refuses, or what would train another function here.
 """
 
 from __future__ import annotations
@@ -37,12 +47,35 @@ __all__ = ["check_supported", "get_model", "get_datasets", "get_solver", "main"]
 logger = logging.getLogger(__name__)
 
 
+def _world() -> int:
+    """The processes of this run: the process group's, else the launcher's
+    environment (``WORLD_SIZE``) or a multi-task Slurm step's, read before
+    :func:`distrib.init`."""
+    if distrib.world_size() > 1:
+        return distrib.world_size()
+    env = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    return max(env, int(os.environ.get("SLURM_STEP_NUM_TASKS", "1") or 1))
+
+
 def check_supported(args: TrainArgs) -> None:
-    """Raise ``NotImplementedError`` for what the port does not train yet:
-    more than one process, which comes with the parallelism slice."""
-    if distrib.world_size() > 1 or int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("training on more than one process comes with the "
-                                  "parallelism slice of the port")
+    """Raise ``ValueError`` where several processes cannot train ``args``: a
+    global batch that the processes do not split evenly (the JAX package's
+    train.py:159-160), and remix groups that would straddle two processes
+    (JAX permutes a group's sources over the global array; a rank here holds
+    only its rows; ``group_size`` 0, the whole batch, straddles them all)."""
+    world = _world()
+    if world <= 1:
+        return
+    if args.batch_size % world:
+        raise ValueError(f"batch_size {args.batch_size} does not split evenly over {world} "
+                         "processes")
+    group = args.augment.remix.group_size
+    per_process = args.batch_size // world
+    # group_size 0 remixes the whole (global) batch: one group over every process
+    if args.augment.remix.proba and (group == 0 or per_process % group):
+        raise ValueError(f"remix groups of {group or args.batch_size} would straddle processes "
+                         f"holding {per_process} items each: make the per-process batch "
+                         "a multiple of augment.remix.group_size")
 
 
 def get_model(args: TrainArgs, device="cuda") -> Model:
@@ -145,9 +178,18 @@ def get_datasets(args: TrainArgs):
     return train_set, valid_set
 
 
-def get_solver(args: TrainArgs, model_only: bool = False, device="cuda") -> Solver:
-    """(train.py:151-204)."""
+def get_solver(args: TrainArgs, model_only: bool = False, device=None) -> Solver:
+    """(train.py:151-204). ``device``: one process's device (default: the
+    platform's, ``cuda``); on several processes each rank's own
+    (:func:`distrib.init`), and ``device`` may only name its type."""
     check_supported(args)
+    rank_device = distrib.init()
+    if distrib.world_size() > 1:
+        if device is not None and resolve_device(device).type != rank_device.type:
+            raise ValueError(f"device={device} on a rank whose device is {rank_device}")
+        device = rank_device
+    device = device if device is not None else rank_device
+    per_process_batch = args.batch_size // distrib.world_size()
     model = get_model(args, device)
     optimizer = make_optimizer(args, model)
     folder = Path(args.out_dir) / "xps" / xp_signature(args)
@@ -168,10 +210,10 @@ def get_solver(args: TrainArgs, model_only: bool = False, device="cuda") -> Solv
     logger.info("train/valid set size: %d %d", len(train_set), len(valid_set))
     workers = args.misc.num_workers
     loaders = {
-        "train": distrib.DataLoader(train_set, args.batch_size, shuffle=True,
-                                    num_workers=workers, seed=args.seed),
-        "valid": distrib.DataLoader(valid_set, 1 if args.dset.full_cv else args.batch_size,
-                                    drop_last=not args.dset.full_cv, num_workers=workers)}
+        "train": distrib.loader(train_set, per_process_batch, shuffle=True,
+                                num_workers=workers, seed=args.seed),
+        "valid": distrib.loader(valid_set, 1 if args.dset.full_cv else per_process_batch,
+                                drop_last=not args.dset.full_cv, num_workers=workers)}
     return Solver(loaders, model, optimizer, args, folder)
 
 
@@ -182,7 +224,7 @@ def main(argv=None) -> Solver:
     if bad:
         raise SystemExit(f"arguments must be key=value overrides, got: {bad}")
     overrides = expand_presets(parse_cli_overrides(argv))
-    device = overrides.pop("device", "cuda")
+    device = overrides.pop("device", None)
     args = apply_overrides(TrainArgs(), overrides)
     logger.info("XP signature: %s", xp_signature(args))
     logger.info("config: %s", dataclasses.asdict(args))

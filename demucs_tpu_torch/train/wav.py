@@ -176,11 +176,16 @@ MUSDB_VALID_TRACKS = (
 
 
 def _cached(metadata_file: Path, build: tp.Callable):
-    if not metadata_file.is_file():
+    """The metadata in ``metadata_file``, built there first when it is missing:
+    by rank 0 alone, the other ranks waiting at a barrier (wav.py:213-217)."""
+    from demucs_tpu_torch.train import distrib
+
+    if not metadata_file.is_file() and distrib.rank() == 0:
         metadata_file.parent.mkdir(exist_ok=True, parents=True)
         tmp = metadata_file.with_suffix(".tmp")
         tmp.write_text(json.dumps(build()))
         tmp.rename(metadata_file)
+    distrib.barrier()
     return json.loads(metadata_file.read_text())
 
 

@@ -540,6 +540,101 @@ def test_fast_policy_on_card(cuda):
     assert ser > 20
 
 
+def test_fast_preset_is_deterministic_on_card(cuda):
+    """C4: the released HTDemucs under the fast preset (bf16 in every core
+    stage) gives the same output bit for bit in two eager forwards and in two
+    replays of its CUDA graph (the decoders' 16-bit transposed convolutions
+    run cuDNN's deterministic algorithms, ``ops/nn.py::_deterministic16``),
+    and the setting does not leak out of those calls."""
+    from demucs_tpu_torch.inference.engine import GraphCache
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import Model, reconfigured
+
+    cfg = HTDemucsConfig(channels=48, depth=4, nfft=4096, t_layers=5, t_heads=8, dconv_mode=3,
+                         bottom_channels=512, segment=7.8)
+    module = init_htdemucs(cfg, seed=3, layer_scale=1.0, random_norms=True).eval().to(cuda)
+    fast = reconfigured(Model("htdemucs", cfg, module), compute_dtype="bfloat16").module
+    mix = _randn(2, 2, cfg.training_length, seed=21) * 0.1
+    graphs = GraphCache()
+    with torch.inference_mode():
+        eager = [fast(mix).clone() for _ in range(2)]
+        replays = [graphs.forward(fast, mix).clone() for _ in range(2)]
+    assert torch.equal(eager[0], eager[1])
+    assert torch.equal(replays[0], replays[1])
+    assert torch.isfinite(eager[0]).all()
+    assert torch.backends.cudnn.deterministic is False
+
+
+# ---- several cards: the device engine's segment split and bag fan-out ----
+
+
+@pytest.fixture
+def cards(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _rel_err(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def test_kernel_wrappers_need_the_tensor_device_current(cards):
+    """A launch runs on the current device: a wrapper given a tensor of
+    another card raises, and under ``torch.cuda.device`` it launches there."""
+    from demucs_tpu_torch.kernels import stft as K
+
+    x = _randn(2, 5000, device=cards[1])
+    with pytest.raises(RuntimeError, match="current device"):
+        K.stft_dft(x, 1024, 256)
+    with torch.cuda.device(cards[1]):
+        got = K.stft_dft(x, 1024, 256)
+        want = K.stft_dft_plain(x, 1024, 256)
+    for g, w in zip(got, want):
+        assert g.device == cards[1]
+        assert (g - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+def test_apply_model_spreads_segments_over_every_card(cards):
+    """``apply_model`` on a host of several cards takes every card
+    (``auto_devices``): each card replays its own graph, and the stems match
+    the one-device engine within 1e-5 x peak (other batch shapes per card)."""
+    import random
+
+    from demucs_tpu_torch.inference.apply import apply_model
+    from demucs_tpu_torch.inference.engine import GRAPHS, device_apply_model
+    from demucs_tpu_torch.parallel.sharded import auto_devices
+
+    model = _small_model()
+    assert auto_devices(model.device) == cards
+    mix = _randn(1, 2, 8000 * 20, seed=83, device="cpu").numpy() * 0.1
+    want = device_apply_model(model, mix, shifts=1, rng=random.Random(3))
+    GRAPHS.clear()
+    got = apply_model(model, mix, shifts=1, rng=random.Random(3))
+    assert {key[2] for key in GRAPHS.entries} == set(cards)
+    assert np.isfinite(got).all() and _rel_err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("members,n_cards", [(4, 4), (2, 4), (4, 2)])
+def test_bag_over_several_cards_matches_sequential(cards, members, n_cards):
+    """A homogeneous bag over ``n_cards`` cards (members dividing the cards
+    fan out, each member on its group of cards; else the segments split)
+    against the sequential engine on one card, 1e-5 x peak."""
+    import random
+
+    from demucs_tpu_torch.inference.engine import device_apply_model
+    from demucs_tpu_torch.models.registry import BagOfModels
+
+    if n_cards > len(cards):
+        pytest.skip(f"needs {n_cards} cards")
+    bag = BagOfModels([_small_model(seed=30 + k) for k in range(members)])
+    mix = _randn(1, 2, 8000 * 6, seed=84, device="cpu").numpy() * 0.1
+    want = device_apply_model(bag, mix, shifts=1, rng=random.Random(4))
+    got = device_apply_model(bag, mix, shifts=1, rng=random.Random(4),
+                             devices=cards[:n_cards])
+    assert np.isfinite(got).all() and _rel_err(got, want) <= 1e-5
+
+
 # Least SER of each preset's forward against the fp32 forward on the card, dB
 # (chip_smoke.py PRESET_SER_DB: a preset under its bound fails that run too).
 PRESET_SER_DB = {"default": 100.0, "quality": 100.0, "balanced": 30.0, "fast": 20.0}

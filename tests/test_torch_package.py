@@ -38,7 +38,11 @@ def test_scan_sees_the_whole_package():
             "flacio.py", "mp3io.py", "avio.py", "audio.py", "streaming.py", "serve.py",
             "sparse.py", "bsseval.py", "evaluate.py", "distrib.py", "run_sdr.py",
             "timestretch.py", "repitch.py", "svd.py", "quantize.py", "core.py", "run.py",
-            "release.py"} <= names
+            "release.py", "launcher.py", "distprobe.py", "sharded.py", "tp.py",
+            "rows.py"} <= names
+    paths = {str(p.relative_to(REPO)) for p in _port_files()}
+    assert {"demucs_tpu_torch/parallel/__init__.py", "demucs_tpu_torch/grids/__init__.py",
+            "demucs_tpu_torch/grids/__main__.py"} <= paths
 
 
 def test_port_builds_its_own_native_sources():

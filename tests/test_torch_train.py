@@ -6,7 +6,7 @@ the optimizer against optax over three steps on the same gradients; the
 loss, the config, the EMA and the augments against JAX's; the
 transformer's train-time draws; a short overfit; the Solver over two epochs
 and a resume; the options the port once refused, each one epoch of the
-entry point, and the one it still refuses (more than one process).
+entry point, and what several processes still refuse.
 
 Tolerances (each with its reason):
 - train step: loss and reco 1e-5 relative, the gradient's global norm
@@ -562,12 +562,26 @@ def test_bf16_training_is_accepted(override):
 
 
 def test_more_than_one_process_is_refused(monkeypatch):
+    """Several processes train since the parallelism slice; what is still
+    refused on them: a batch that does not split evenly over the processes
+    (as JAX's train.py:159-160) and remix groups that would straddle two."""
     from demucs_tpu_torch.train.train import check_supported
 
     args = tconfig.apply_overrides(tconfig.TrainArgs(), {"augment.repitch.proba": 0.0})
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="more than one process"):
-        check_supported(args)
+    check_supported(tconfig.apply_overrides(copy.deepcopy(args), {"batch_size": 8}))
+    with pytest.raises(ValueError, match="does not split evenly over 2 processes"):
+        check_supported(tconfig.apply_overrides(copy.deepcopy(args), {"batch_size": 7}))
+    with pytest.raises(ValueError, match="would straddle processes"):
+        check_supported(tconfig.apply_overrides(copy.deepcopy(args), {"batch_size": 12}))
+    whole = {"batch_size": 8, "augment.remix.group_size": 0}  # one group: the global batch
+    with pytest.raises(ValueError, match="would straddle processes"):
+        check_supported(tconfig.apply_overrides(copy.deepcopy(args), whole))
+    check_supported(tconfig.apply_overrides(copy.deepcopy(args),
+                                            dict(whole, **{"augment.remix.proba": 0.0})))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    check_supported(tconfig.apply_overrides(copy.deepcopy(args), {"batch_size": 7}))
+    check_supported(tconfig.apply_overrides(copy.deepcopy(args), whole))
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])

@@ -2,7 +2,9 @@
 .step) against the JAX package's ``make_train_step`` on the CPU, from the
 same weights (each port's ``init_*`` draws the JAX package's numbers) and
 the same batch: the loss, the gradient's global norm and every parameter's
-gradient. HTDemucs's case is in test_torch_train.py.
+gradient. HDemucs also with its DConv's BLSTM and LocalState on (from layer
+3 of 4; one DConv layer a branch, so JAX compiles the step in about 9 s).
+HTDemucs's case is in test_torch_train.py.
 
 Tolerances: loss 1e-6 relative, global norm 1e-4 relative, each gradient
 2e-4 x its peak plus 1e-9 (fp32 through every layer, summed in another order
@@ -38,6 +40,9 @@ FAMILIES = {
                 dict(depth=4, nfft=1024)),
     "demucs": (jd, td, jd.DemucsConfig, td.DemucsConfig, jd.init_demucs, td.init_demucs,
                dict(depth=4)),
+    "hdemucs-blstm-localstate": (jh, th, jh.HDemucsConfig, th.HDemucsConfig, jh.init_hdemucs,
+                                 th.init_hdemucs, dict(depth=4, nfft=1024, dconv_lstm=3,
+                                                       dconv_attn=3, dconv_depth=1)),
 }
 
 
@@ -54,7 +59,7 @@ def test_family_train_step_matches_jax(kind):
     _, want, metrics = step(params, keeper.init(params), jnp.asarray(sources),
                             jax.random.PRNGKey(0))
     want = flatten_state(want)
-    model = Model(kind, module.cfg, module)
+    model = Model(kind.split("-")[0], module.cfg, module)
     args = tconfig.TrainArgs()
     args.optim.lr = 0.0
     got = tstep.train_step(model, tstep.make_optimizer(args, model), torch.from_numpy(sources))

@@ -112,6 +112,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               machine has (absent is printed, not failed); a 30 s stereo track
               written and read as FLAC at 16 and 24 bits (bit-exact) and, with
               LAME, as mp3; the ms of each step.
+   automix  — on the host, no card: python -m demucs_tpu_torch.automix on a
+              synthetic MusdbHQ folder of three 6 s songs (beat tracking,
+              chroma, matching, repitch, alignment): one song out per song
+              in, five finite WAVs of one length each, the seconds.
 14. serve   — SeparationService (the phase-4 HTDemucs .dmx, pinned shift
               offsets) behind make_server on 127.0.0.1, port 0, in a thread: 30 s
               bodies as WAV, FLAC and (with LAME and a decoder) mp3, and
@@ -154,7 +158,10 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               their plain versions and autograd through the plain twins, at the
               training shapes and the HDemucs 44 s ones; one train step of the
               released-width HTDemucs at batch 1 on the card against the CPU
-              (loss, reco, the gradient's global norm, every gradient); the
+              (loss, reco, the gradient's global norm, every gradient), the
+              card's step run twice under torch.use_deterministic_algorithms
+              (C5: bit-equal gradients; K3's backward under it timed and
+              rerun bit-equal at every shape beside the default); the
               training rate: train_step at batch 8 (4 if 8 does not fit), 12
               steps with every launch counted (the train path), training
               audio-s/s over steps 3-12, the forward / backward / optimizer
@@ -211,7 +218,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               the released HTDemucs at a global batch of 8: world 1 on NCCL
               (a group of one in this process) and two Gloo ranks against
               one process (losses and gradients after 3 steps; gradients on
-              mse); HDemucs and Demucs v2 (3 steps at 4, two ranks against
+              mse; the one-process step run twice and world 1 under
+              torch.use_deterministic_algorithms, the two runs bit-equal);
+              HDemucs and Demucs v2 (3 steps at 4, two ranks against
               one process; one step card vs CPU); the Gloo ranks then train
               through the entry point, stopped after epoch 1, and the
               launcher resumes it (rank 0 alone writes, equal summaries);
@@ -255,9 +264,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib.util
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -296,6 +307,24 @@ MDX_HYBRID = dict(hybrid_old=True, cac=False, norm_starts=999)  # tools/convert.
 
 
 _START = time.perf_counter()
+# cuBLAS under torch.use_deterministic_algorithms (the train and parallel phases' HTDemucs
+# checks, C5) needs a fixed workspace, set before CUDA starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` inside, as it was after:
+    K3's backward sums dQ in key-block order, cuDNN takes deterministic
+    algorithms, and an op with none raises."""
+    import torch
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
 
 
 def emit(obj) -> None:
@@ -1762,6 +1791,81 @@ def phase_codecs(workdir: Path) -> dict:
     return info
 
 
+AUTOMIX_SONGS = ((120.0, 110.0), (126.0, 123.47), (63.0, 103.83))  # (bpm, bass Hz)
+AUTOMIX_SECONDS = 6.0
+
+
+def _automix_catalog(root: Path) -> Path:
+    """A MusdbHQ-shaped train folder of len(AUTOMIX_SONGS) synthetic songs
+    (AUTOMIX_SECONDS, 44.1 kHz stereo, from a seed): decaying noise bursts
+    on every beat as drums, a pulsing tone as bass, two steady tones as
+    other and vocals, the mixture their sum."""
+    import numpy as np
+
+    from demucs_tpu_torch.audio import save_audio
+
+    rng = np.random.default_rng(11)
+    t = np.arange(int(AUTOMIX_SECONDS * SR)) / SR
+    for k, (bpm, hz) in enumerate(AUTOMIX_SONGS):
+        folder = root / "train" / f"song_{k}"
+        folder.mkdir(parents=True)
+        drums = np.zeros_like(t)
+        burst = rng.standard_normal(int(0.03 * SR)) * np.exp(-np.arange(int(0.03 * SR))
+                                                              / (0.005 * SR))
+        for beat in np.arange(0.2 + 0.1 * k, AUTOMIX_SECONDS - 0.05, 60.0 / bpm):
+            i = int(beat * SR)
+            drums[i:i + len(burst)] += burst[:len(t) - i]
+        stems = {"drums": 0.5 * drums,
+                 "bass": 0.4 * np.sin(2 * np.pi * hz * t) * (0.5 + 0.5 * np.cos(
+                     2 * np.pi * t * bpm / 60) ** 2),
+                 "other": 0.2 * np.sin(2 * np.pi * 3 * hz * t),
+                 "vocals": 0.2 * np.sin(2 * np.pi * (440 + 20 * k) * t)}
+        mix = 0.0
+        for name, mono in stems.items():
+            wav = (np.stack([mono, mono]) + 0.01 * rng.standard_normal((2, len(t))))
+            mix = mix + wav
+            save_audio(wav.astype(np.float32), folder / f"{name}.wav", SR, clip="clamp")
+        save_audio((mix / 2).astype(np.float32), folder / "mixture.wav", SR, clip="clamp")
+    return root
+
+
+def phase_automix(workdir: Path) -> dict:
+    """Host only: python -m demucs_tpu_torch.automix's main on a synthetic
+    catalog (_automix_catalog): the beat tracker and chroma of every song,
+    one synthetic song per catalog entry (the mixture and four stems of one
+    length, finite, not silent), and the seconds it took. No card is used."""
+    import numpy as np
+
+    from demucs_tpu_torch import automix
+    from demucs_tpu_torch.audio import read_audio
+
+    begin = time.perf_counter()
+    root = _automix_catalog(workdir / "automix_musdb")
+    made_s = time.perf_counter() - begin
+    out = workdir / "automix_out"
+    start = time.perf_counter()
+    automix.main(["--musdb", str(root), "--out", str(out), "--copies", "1", "--workers", "2",
+                  "--cache", str(workdir / "automix_cache")])
+    main_s = time.perf_counter() - start
+    songs = sorted(p for p in (out / "train").iterdir() if p.is_dir())
+    lengths, finite, one_length = [], True, True
+    for song in songs:
+        wavs = [read_audio(song / f"{name}.wav", samplerate=SR, channels=2)[0]
+                for name in ("mixture",) + automix.SOURCES]
+        finite = finite and all(bool(np.isfinite(w).all() and np.abs(w).max() > 0) for w in wavs)
+        one_length = one_length and len({w.shape for w in wavs}) == 1
+        lengths.append(wavs[0].shape[-1])
+    info = {"phase": "automix", "host_only": True, "songs_in": len(AUTOMIX_SONGS),
+            "songs_out": len(songs), "catalog_s": made_s, "main_s": main_s,
+            "backend": "librosa" if importlib.util.find_spec("librosa") else "ops/beats.py",
+            "min_len_s": min(lengths) / SR if lengths else 0.0}
+    info["ok"] = len(songs) == len(AUTOMIX_SONGS) and finite and one_length
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError(f"automix: {info}")
+    return info
+
+
 SERVE_OFFSETS = (2500, 8000)  # the server's pinned --shift-offsets
 
 
@@ -2550,15 +2654,28 @@ def _grad_err(got, want) -> float:
 
 def _rerun_gap(backward, q, k, v, o, do, num_heads: int, lse) -> dict:
     """Two launches of a backward kernel on the same inputs (dropout 0.1):
-    dQ's largest difference over its peak, and whether dK and dV are equal."""
+    dQ's largest difference over its peak, and whether dK and dV are equal;
+    then two launches under deterministic(): whether dQ, dK and dV are all
+    equal (C5)."""
     import torch
 
-    first, second = (backward(q, k, v, o, do, num_heads, lse=lse, dropout=TRAIN_DROPOUT,
-                              dropout_seed=5) for _ in range(2))
+    def twice():
+        return [backward(q, k, v, o, do, num_heads, lse=lse, dropout=TRAIN_DROPOUT,
+                         dropout_seed=5) for _ in range(2)]
+
+    first, second = twice()
     dq1, dq2 = first[0].float(), second[0].float()
+    with deterministic():
+        ordered = twice()
     return {"dq_gap_over_peak": ((dq1 - dq2).abs().max() / dq1.abs().max()).item(),
             "dk_dv_equal": bool(torch.equal(first[1], second[1])
-                                and torch.equal(first[2], second[2]))}
+                                and torch.equal(first[2], second[2])),
+            "deterministic_equal": all(bool(torch.equal(a, b)) for a, b in zip(*ordered))}
+
+
+def _deterministic_ms(fn) -> float:
+    with deterministic():
+        return cuda_ms(fn)
 
 
 def bwd_instances(route: str) -> dict:
@@ -2640,6 +2757,8 @@ def train_k3_checks(gen) -> dict:
             sdo = do.view(batch, Tq, H, d).transpose(1, 2)
             row = dict(
                 ms=cuda_ms(lambda: KA.flash_mha_bwd(q, k, v, o, do, H, lse=lse)),
+                deterministic_ms=_deterministic_ms(
+                    lambda: KA.flash_mha_bwd(q, k, v, o, do, H, lse=lse)),
                 ms_dropout=cuda_ms(lambda: KA.flash_mha_bwd(
                     q, k, v, o, do, H, lse=lse, dropout=TRAIN_DROPOUT, dropout_seed=5)),
                 fwd_ms=cuda_ms(lambda: KA.flash_mha(q, k, v, H)),
@@ -2649,6 +2768,7 @@ def train_k3_checks(gen) -> dict:
                                                                 retain_graph=True)),
                 bound_ms=b_ms, bound_by=b_by, fn_bound_ms=bound(flops, nbytes, TF32_FLOPS)[0])
             row["dropout_over_bwd"] = row["ms_dropout"] / row["ms"] - 1
+            row["deterministic_over_bwd"] = row["deterministic_ms"] / row["ms"] - 1
             if tq_name == tk_name == "freq":
                 row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(q, k, v, o, do, H),
                                           repeat=3)
@@ -2658,7 +2778,7 @@ def train_k3_checks(gen) -> dict:
     main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
     instances = bwd_instances("F32Bwd")
     rerun_ok = all(r["dq_gap_over_peak"] <= K3_BWD_RERUN_RTOL and r["dk_dv_equal"]
-                   for r in rerun.values())
+                   and r["deterministic_equal"] for r in rerun.values())
     return dict(
         name="flash_mha_bwd", tol=K3_BWD_RTOL, max_abs_err=worst_bwd,
         max_err_is="over each gradient's peak", fwd_dropout_max_abs_err=worst_fwd,
@@ -2669,6 +2789,7 @@ def train_k3_checks(gen) -> dict:
         replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function; the "
                  "Pallas kernel has no backward, JAX trains through XLA's dense attention)",
         ms=main["ms"], plain_ms=main["plain_ms"], library_ms=main["sdpa_bwd_ms"],
+        deterministic_ms=main["deterministic_ms"],
         library="autograd.grad of F.scaled_dot_product_attention (fp32)",
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         bound_rule="max(3 x 5 x 2 B H Tq Tk d / 495 TFLOP/s (five products in 3xTF32), bytes "
@@ -2789,6 +2910,8 @@ def train_k3_bf16_checks(gen) -> dict:
                                                              do, H, lse)
                     keys_sweep[f"{keys} keys"] = cuda_ms(
                         lambda: KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse))
+                    keys_sweep[f"{keys} keys deterministic"] = _deterministic_ms(
+                        lambda: KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse))
                 finally:
                     KA.BWD_KEYS_BF16 = None
             del got, want
@@ -2819,8 +2942,10 @@ def train_k3_bf16_checks(gen) -> dict:
                 fwd_bound_ms=bound(flops * 2 / 5, 2 * 2 * batch * (Tq + Tk) * C, BF16_FLOPS)[0],
                 drop_pattern_mismatches=pattern, keys_sweep_ms=keys_sweep,
                 keys=KA.bwd_keys(batch, Tk, H, sm))
+            row["deterministic_ms"] = keys_sweep[f"{row['keys']} keys deterministic"]
+            row["deterministic_over_bwd"] = row["deterministic_ms"] / row["ms"] - 1
             row["chosen_keys_over_fastest"] = (keys_sweep[f"{row['keys']} keys"]
-                                               / min(keys_sweep.values()))
+                                               / min(keys_sweep[f"{n} keys"] for n in (64, 128)))
             row["fwd_dropout_over_fwd"] = row["fwd_ms_dropout"] / row["fwd_ms"] - 1
             row["dropout_over_bwd"] = row["ms_dropout"] / row["ms"] - 1
             if tq_name == tk_name == "freq":
@@ -2837,7 +2962,8 @@ def train_k3_bf16_checks(gen) -> dict:
     ok = (worst["fwd_excess"] <= 0 and worst["lse"] <= K3_BF16_LSE_ATOL
           and worst["bwd"] <= K3_BF16_BWD_RTOL and worst["pattern_mismatches"] == 0
           and worst["rerun_dq_gap"] <= K3_BF16_BWD_RERUN_RTOL
-          and all(r["dk_dv_equal"] for r in rerun.values()) and _no_spills(instances))
+          and all(r["dk_dv_equal"] and r["deterministic_equal"] for r in rerun.values())
+          and _no_spills(instances))
     return dict(
         name="flash_mha_bwd_bf16", tol=K3_BF16_BWD_RTOL, max_abs_err=worst["bwd"],
         max_err_is="over each gradient's peak", worst=worst, within_tol=ok,
@@ -2848,6 +2974,7 @@ def train_k3_bf16_checks(gen) -> dict:
                  "inputs; the Pallas kernel has no backward, JAX trains through XLA's dense "
                  "attention)",
         ms=main["ms"], plain_ms=main["plain_ms"], library_ms=main["sdpa_bwd_ms"],
+        deterministic_ms=main["deterministic_ms"],
         library="autograd.grad of F.scaled_dot_product_attention (bf16)",
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         bound_rule="max(5 x 2 B H Tq Tk d / 989 TFLOP/s (five bf16 products), bytes of q, k, "
@@ -2965,9 +3092,11 @@ def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
     sources = 0.2 * torch.randn(1, 4, 2, cpu.cfg.training_length,
                                 generator=torch.Generator().manual_seed(4))
     runs = []
-    for _ in range(2):
-        got = train_step(card, _optimizer(card, 0.0), sources.to("cuda"), loss=TRAIN_CHECK_LOSS)
-        runs.append({n: p.grad.cpu() for n, p in card.module.named_parameters()})
+    with deterministic():  # C5: the two card steps must agree bit for bit
+        for _ in range(2):
+            got = train_step(card, _optimizer(card, 0.0), sources.to("cuda"),
+                             loss=TRAIN_CHECK_LOSS)
+            runs.append({n: p.grad.cpu() for n, p in card.module.named_parameters()})
     torch.cuda.synchronize()
     start = time.perf_counter()
     want = train_step(cpu, _optimizer(cpu, 0.0), sources, loss=TRAIN_CHECK_LOSS)
@@ -2995,10 +3124,12 @@ def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
             "largest_grad": max(grads, key=lambda n: grads[n].abs().max().item()),
             "worst_grad_vs_cpu": worst(runs[-1], grads),
             "worst_grad_card_vs_card": worst(runs[0], runs[1]), "n_grads": len(grads),
+            "card_twice_bit_equal": all(bool(torch.equal(runs[0][n], runs[1][n])) for n in grads),
             "tol": TRAIN_RTOL, "grad_tol": f"{TRAIN_GRAD_RTOL} x its peak + {TRAIN_GRAD_FLOOR} "
                                           "x the largest peak", "cpu_step_s": cpu_s,
             "cpu_threads": torch.get_num_threads()}
     info["ok"] = (max(errs.values()) <= TRAIN_RTOL and max(over.values()) <= 1
+                  and info["card_twice_bit_equal"]
                   and all(torch.isfinite(g).all() for g in runs[-1].values()))
     del card
     torch.cuda.empty_cache()
@@ -3979,11 +4110,12 @@ PAR_LR = 1e-4
 # a path against one process after PAR_STEPS Adam steps: each step's loss within
 # TRAIN_RTOL, the last step's gradients within the train allowance, and the weights at
 # most PAR_WEIGHTS_FACTOR x the gap of the plain step run twice in the same run, plus
-# PAR_WEIGHTS_FLOOR. K3's dQ sums with atomics, so two runs of the same step on the card
-# differ in the last bits, and Adam's first steps move a weight by about lr whatever its
-# gradient's size, so a gradient near zero can move it either way. Readings of PR 15's
-# runs (PERF.md): HTDemucs on NCCL at world 1 0.80-1.99x its plain-twice gap; HDemucs and
-# Demucs v2 on two ranks 5.8e-3 and 2.4e-3 x lr, their plain step deterministic
+# PAR_WEIGHTS_FLOOR. Adam's first steps move a weight by about lr whatever its gradient's
+# size, so a gradient near zero can move it either way where two runs differ in the last
+# bits. HTDemucs's plain and NCCL steps run under deterministic() (K3's dQ in key-block
+# order), and its plain step run twice must be bit-equal; without it K3's atomic dQ sums
+# made the two runs differ (PERF.md, C5). HDemucs and Demucs v2 on two ranks read 5.8e-3
+# and 2.4e-3 x lr, their plain step bit-equal twice
 PAR_WEIGHTS_FACTOR = 3.0
 PAR_WEIGHTS_FLOOR = 1e-2 * PAR_LR
 PAR_CPU_SECONDS = 0.5  # the families' card-vs-CPU step: a 0.5 s batch of 1 (the CPU's time)
@@ -4316,29 +4448,32 @@ def par_data_parallel(workdir: Path, entry: list) -> tp.Tuple[dict, dict, dict]:
                               "--module", "demucs_tpu_torch.distprobe"], cwd=ROOT, env=_env(),
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     with _fp32():
-        deterministic = torch.backends.cudnn.deterministic
+        cudnn_deterministic = torch.backends.cudnn.deterministic
         torch.backends.cudnn.deterministic = True
         try:
-            plain["htdemucs"] = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
-            again = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
-            twice = {"htdemucs": _weights_gap(again["params"], plain["htdemucs"]["params"])}
-            del again
-            # world 1 on NCCL in this process: the step's data-parallel path
-            # (the global batch's draws, the gradients' all-reduce) on the card
-            dist.init_process_group(PAR_NCCL, init_method=f"file://{workdir / 'nccl_rdv'}",
-                                    world_size=1, rank=0)
-            try:
-                nccl = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
-                nccl["backend"] = dist.get_backend()
-            finally:
-                dist.destroy_process_group()
+            with deterministic():  # C5: the plain step twice bit-equal
+                plain["htdemucs"] = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS,
+                                              PAR_LR)
+                again = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
+                twice = {"htdemucs": _weights_gap(again["params"], plain["htdemucs"]["params"])}
+                del again
+                # world 1 on NCCL in this process: the step's data-parallel path
+                # (the global batch's draws, the gradients' all-reduce) on the card
+                dist.init_process_group(PAR_NCCL,
+                                        init_method=f"file://{workdir / 'nccl_rdv'}",
+                                        world_size=1, rank=0)
+                try:
+                    nccl = par_steps("htdemucs", PAR_DEVICE, PAR_BATCH, PAR_STEPS, PAR_LR)
+                    nccl["backend"] = dist.get_backend()
+                finally:
+                    dist.destroy_process_group()
             for kind in ("hdemucs", "demucs"):
                 plain[kind] = par_steps(kind, PAR_DEVICE, PAR_FAMILY_BATCH, PAR_STEPS, PAR_LR)
                 again = par_steps(kind, PAR_DEVICE, PAR_FAMILY_BATCH, PAR_STEPS, PAR_LR)
                 twice[kind] = _weights_gap(again["params"], plain[kind]["params"])
                 del again
         finally:
-            torch.backends.cudnn.deterministic = deterministic
+            torch.backends.cudnn.deterministic = cudnn_deterministic
         info["families_card_vs_cpu"] = par_families_card_vs_cpu()
     torch.cuda.empty_cache()
     lines = probe.communicate(timeout=300)[0].splitlines()
@@ -4348,7 +4483,8 @@ def par_data_parallel(workdir: Path, entry: list) -> tp.Tuple[dict, dict, dict]:
     row = dict(_against(nccl, plain["htdemucs"], twice["htdemucs"]),
                plain=_strip(plain["htdemucs"]),
                nccl_world_1=_strip(nccl), backend=nccl["backend"])
-    row["ok"] = row["ok"] and nccl["backend"] == "nccl"
+    row["deterministic"] = True
+    row["ok"] = row["ok"] and nccl["backend"] == "nccl" and twice["htdemucs"]["bit_equal"]
     info["htdemucs_nccl_world_1"] = row
     folder = workdir / "par_dp_gloo"
     folder.mkdir(parents=True, exist_ok=True)
@@ -4592,6 +4728,7 @@ def main() -> int:
         paths.update(preset_paths)
         phase_prewarm(workdir)
         phase_codecs(workdir)
+        phase_automix(workdir)
         _, paths["serve"] = phase_serve(workdir)
         _, stream_paths = phase_streaming(workdir)
         paths.update(stream_paths)
@@ -4620,7 +4757,8 @@ def main() -> int:
         by_path = {path: counts.get(row["name"], 0) for path, counts in paths.items()}
         row = dict(row, route="cuda", launches=sum(by_path.values()))
         kernels.append(dict({k: row[k] for k in keys}, launches_by_path=by_path,
-                            hdemucs_44s=row.get("hdemucs_44s")))
+                            hdemucs_44s=row.get("hdemucs_44s"),
+                            deterministic_ms=row.get("deterministic_ms")))
     emit({"phase": "total", "script_s": time.perf_counter() - begin})
     emit({"kernels": kernels})
     if not all(math.isfinite(k["ms"]) for k in kernels):

@@ -47,9 +47,12 @@
 //    dS through shared memory. The tile's dQ goes through a shared-memory
 //    staging into a fp32 scratch (dq_acc) by one bulk reduction
 //    (cp.reduce.async.bulk add.f32, in L2), and a small epilogue writes dq.
-//    The blocks of a head add in the order they finish, so dQ's last bits
-//    may differ from run to run (tests/test_torch_cuda.py bounds two
-//    launches); dK and dV do not.
+//    By default the blocks of a head add in the order they finish, so dQ's
+//    last bits may differ from run to run (tests/test_torch_cuda.py bounds
+//    two launches); dK and dV do not. Given `turns` (the wrapper passes them
+//    under torch.use_deterministic_algorithms), they add in key-block order
+//    (reduce_dq, FlashAttention-3's deterministic scheme), and dQ repeats
+//    bit for bit.
 // 4. 16-bit fragment reads across rows -> operands from shared memory by
 //    descriptor, the transposed ones with wgmma's transpose bit (bf16) or
 //    laid out transposed (fp32, below); dS^T in a swizzled tile.
@@ -263,6 +266,23 @@ __device__ __forceinline__ void probs_and_ds(float (&st)[N / 2], float (&dpt)[N 
   }
 }
 
+// One tile's dQ from the staging into its sums in dq_acc, by one thread.
+// turn == nullptr: an atomic addition in whatever order the blocks come.
+// Else the tile's counter (zeroed by the launch) orders the key blocks of
+// the head: block x waits until it reads x, adds, waits until its addition
+// has completed (written, not only read) and adds 1. The spin cannot
+// deadlock because the blocks are dispatched in grid order, the key block as
+// x (fastest): when block x runs, blocks 0..x-1 of its (batch, head) run or
+// have finished, and none of them waits on a later block. Every block adds
+// to every query tile (none skips one), so each counter passes 0..x_max.
+__device__ __forceinline__ void reduce_dq(float* dst, const void* stage, uint32_t bytes,
+                                          unsigned* turn) {
+  if (turn != nullptr) turn_wait(turn, blockIdx.x);
+  bulk_reduce_add_f32(dst, stage, bytes);
+  bulk_commit();
+  if (turn != nullptr) turn_pass(turn);
+}
+
 // ===========================================================================
 // The bf16 route.
 // ===========================================================================
@@ -298,9 +318,9 @@ struct Bf16Bwd {
   static __device__ void consume(unsigned char* base, uint64_t* full, uint64_t* empty,
                                  uint64_t* kv_full, uint64_t* aux,
                                  const unsigned char* __restrict__ mask,
-                                 float* __restrict__ dq_acc, T* __restrict__ dk,
-                                 T* __restrict__ dv, int Tq, int Tk, int H, float scale,
-                                 float sm_scale, Dropout drop);
+                                 float* __restrict__ dq_acc, unsigned* __restrict__ turns,
+                                 T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
+                                 float scale, float sm_scale, Dropout drop);
   // dQ's sums to bf16
   static void epilogue(const float* acc, T* dq, int B, int Tq, int H, cudaStream_t stream) {
     const size_t n = (size_t)B * Tq * H * (D / 8);
@@ -312,7 +332,8 @@ template <int D, int NWG>
 __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, uint64_t* empty,
                                          uint64_t* kv_full, uint64_t*,
                                          const unsigned char* __restrict__ mask,
-                                         float* __restrict__ dq_acc, T* __restrict__ dk,
+                                         float* __restrict__ dq_acc,
+                                         unsigned* __restrict__ turns, T* __restrict__ dk,
                                          T* __restrict__ dv, int Tq, int Tk, int H, float scale,
                                          float sm_scale, Dropout drop) {
   constexpr int W = I::W;
@@ -440,8 +461,8 @@ __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, ui
       fence_proxy_async();
       named_bar_sync(BAR_WG0 + wg, 128);
       if (threadIdx.x % 128 == 0) {
-        bulk_reduce_add_f32(dq_acc + ((size_t)(b * H + h) * n_qt + t) * QT * D, stage, DQ_BYTES);
-        bulk_commit();
+        const size_t tile = (size_t)(b * H + h) * n_qt + t;
+        reduce_dq(dq_acc + tile * QT * D, stage, DQ_BYTES, turns ? turns + tile : nullptr);
       }
     }
     fence_all(acc_dv);
@@ -569,9 +590,9 @@ struct F32Bwd {
   static __device__ void consume(unsigned char* base, uint64_t* full, uint64_t* empty,
                                  uint64_t* kv_full, uint64_t* aux,
                                  const unsigned char* __restrict__ mask,
-                                 float* __restrict__ dq_acc, T* __restrict__ dk,
-                                 T* __restrict__ dv, int Tq, int Tk, int H, float scale,
-                                 float sm_scale, Dropout drop);
+                                 float* __restrict__ dq_acc, unsigned* __restrict__ turns,
+                                 T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
+                                 float scale, float sm_scale, Dropout drop);
   // dQ^T's sums to dQ
   static void epilogue(const float* acc, T* dq, int B, int Tq, int H, cudaStream_t stream) {
     const size_t n = (size_t)B * Tq * H * (D / 8);
@@ -661,9 +682,9 @@ template <int D>
 __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t* empty,
                                    uint64_t* kv_full, uint64_t* aux,
                                    const unsigned char* __restrict__ mask,
-                                   float* __restrict__ dq_acc, T* __restrict__ dk,
-                                   T* __restrict__ dv, int Tq, int Tk, int H, float scale,
-                                   float sm_scale, Dropout drop) {
+                                   float* __restrict__ dq_acc, unsigned* __restrict__ turns,
+                                   T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
+                                   float scale, float sm_scale, Dropout drop) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wi = warp;
   const int g = lane / 4, c = lane % 4;
   const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * KEYS;
@@ -864,9 +885,8 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
     // the staging is in; and every warp's products are done with the images
     named_bar_sync(BAR_WG0, 128);
     if (threadIdx.x == 0) {
-      bulk_reduce_add_f32(dq_acc + ((size_t)(b * H + h) * n_qt + t) * QT * D, base + DQ,
-                          DQ_BYTES);
-      bulk_commit();
+      const size_t tile = (size_t)(b * H + h) * n_qt + t;
+      reduce_dq(dq_acc + tile * QT * D, base + DQ, DQ_BYTES, turns ? turns + tile : nullptr);
     }
   }
   if (threadIdx.x == 0) bulk_wait_all();  // the last reductions have landed
@@ -911,9 +931,9 @@ __global__ void __launch_bounds__(R::THREADS, R::MIN_BLOCKS)
 bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
            const float* __restrict__ stats, const unsigned char* __restrict__ mask,
-           float* __restrict__ dq_acc, typename R::T* __restrict__ dk,
-           typename R::T* __restrict__ dv, int Tq, int Tk, int H, float scale, float sm_scale,
-           Dropout drop) {
+           float* __restrict__ dq_acc, unsigned* __restrict__ turns,
+           typename R::T* __restrict__ dk, typename R::T* __restrict__ dv, int Tq, int Tk, int H,
+           float scale, float sm_scale, Dropout drop) {
   constexpr int STAGES = R::STAGES, QT = R::QT;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
   unsigned char* base = bwd_smem + ((1024 - (smem_addr(bwd_smem) & 1023)) & 1023);
@@ -965,23 +985,27 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     }
   } else {
     if constexpr (R::CONSUMER_REGS > 0) setmaxnreg_inc<R::CONSUMER_REGS>();
-    R::consume(base, full, empty, kv_full, aux, mask, dq_acc, dk, dv, Tq, Tk, H, scale,
+    R::consume(base, full, empty, kv_full, aux, mask, dq_acc, turns, dk, dv, Tq, Tk, H, scale,
                sm_scale, drop);
   }
 }
 
-// The prep kernel, the block kernel and dQ's epilogue, on `stream`.
+// The prep kernel, the block kernel and dQ's epilogue, on `stream`; dQ's
+// sums, and the turns when given, zeroed first.
 template <class R>
 int launch_bwd(const typename R::T* q, const typename R::T* k, const typename R::T* v,
                const typename R::T* o, const typename R::T* dout, const float* lse,
-               const unsigned char* mask, float* stats, float* dq_acc, typename R::T* dq,
-               typename R::T* dk, typename R::T* dv, int B, int Tq, int Tk, int H, float scale,
-               float sm_scale, Dropout drop, cudaStream_t stream) {
+               const unsigned char* mask, float* stats, float* dq_acc, unsigned* turns,
+               typename R::T* dq, typename R::T* dk, typename R::T* dv, int B, int Tq, int Tk,
+               int H, float scale, float sm_scale, Dropout drop, cudaStream_t stream) {
   using T = typename R::T;
   constexpr int D = R::D;
   const int C = H * D, n_qt = (Tq + R::QT - 1) / R::QT;
   const size_t rows = (size_t)B * n_qt * R::QT * H;
   cudaError_t e = cudaMemsetAsync(dq_acc, 0, rows * D * sizeof(float), stream);
+  if (e == cudaSuccess && turns != nullptr) {
+    e = cudaMemsetAsync(turns, 0, (size_t)B * H * n_qt * sizeof(unsigned), stream);
+  }
   if (e != cudaSuccess) return (int)e;
   bwd_prep_kernel<T, D, R::QT><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
       o, dout, lse, stats, B, Tq, H);
@@ -998,7 +1022,7 @@ int launch_bwd(const typename R::T* q, const typename R::T* k, const typename R:
                            (int)R::SMEM_LAUNCH);
   if (e != cudaSuccess) return (int)e;
   kernel<<<dim3((Tk + R::KEYS - 1) / R::KEYS, H, B), R::THREADS, R::SMEM_LAUNCH, stream>>>(
-      qm, km, vm, dm, stats, mask, dq_acc, dk, dv, Tq, Tk, H, scale, sm_scale, drop);
+      qm, km, vm, dm, stats, mask, dq_acc, turns, dk, dv, Tq, Tk, H, scale, sm_scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   R::epilogue(dq_acc, dq, B, Tq, H, stream);
@@ -1012,11 +1036,11 @@ struct Routes<float> {
   template <int D>
   static int run(int keys, const float* q, const float* k, const float* v, const float* o,
                  const float* dout, const float* lse, const unsigned char* mask, float* stats,
-                 float* dq_acc, float* dq, float* dk, float* dv, int B, int Tq, int Tk, int H,
-                 float scale, float sm_scale, Dropout drop, cudaStream_t s) {
+                 float* dq_acc, unsigned* turns, float* dq, float* dk, float* dv, int B, int Tq,
+                 int Tk, int H, float scale, float sm_scale, Dropout drop, cudaStream_t s) {
     if (keys != 64) return (int)cudaErrorInvalidValue;
-    return launch_bwd<F32Bwd<D>>(q, k, v, o, dout, lse, mask, stats, dq_acc, dq, dk, dv, B, Tq,
-                                 Tk, H, scale, sm_scale, drop, s);
+    return launch_bwd<F32Bwd<D>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk, dv, B,
+                                 Tq, Tk, H, scale, sm_scale, drop, s);
   }
 };
 template <>
@@ -1024,15 +1048,15 @@ struct Routes<bf16> {
   template <int D>
   static int run(int keys, const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                  const bf16* dout, const float* lse, const unsigned char* mask, float* stats,
-                 float* dq_acc, bf16* dq, bf16* dk, bf16* dv, int B, int Tq, int Tk, int H,
-                 float scale, float sm_scale, Dropout drop, cudaStream_t s) {
+                 float* dq_acc, unsigned* turns, bf16* dq, bf16* dk, bf16* dv, int B, int Tq,
+                 int Tk, int H, float scale, float sm_scale, Dropout drop, cudaStream_t s) {
     if (keys == 64) {
-      return launch_bwd<Bf16Bwd<D, 1>>(q, k, v, o, dout, lse, mask, stats, dq_acc, dq, dk, dv, B,
-                                       Tq, Tk, H, scale, sm_scale, drop, s);
+      return launch_bwd<Bf16Bwd<D, 1>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk,
+                                       dv, B, Tq, Tk, H, scale, sm_scale, drop, s);
     }
     if (keys == 128) {
-      return launch_bwd<Bf16Bwd<D, 2>>(q, k, v, o, dout, lse, mask, stats, dq_acc, dq, dk, dv, B,
-                                       Tq, Tk, H, scale, sm_scale, drop, s);
+      return launch_bwd<Bf16Bwd<D, 2>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk,
+                                       dv, B, Tq, Tk, H, scale, sm_scale, drop, s);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -1041,8 +1065,9 @@ struct Routes<bf16> {
 template <typename T>
 int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                  const float* lse, const unsigned char* mask, float* stats, float* dq_acc,
-                 void* dq, void* dk, void* dv, int B, int Tq, int Tk, int H, int D, int keys,
-                 float scale, float sm_scale, float rate, int seed, void* stream) {
+                 unsigned* turns, void* dq, void* dk, void* dv, int B, int Tq, int Tk, int H,
+                 int D, int keys, float scale, float sm_scale, float rate, int seed,
+                 void* stream) {
   if (Tk <= 0 || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
@@ -1059,14 +1084,14 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, con
   const Dropout drop = Dropout::make(rate, (uint32_t)seed);
   switch (D) {
     case 32:
-      return Routes<T>::template run<32>(keys, qt, kt, vt, ot, dt, lse, mask, stats, dq_acc, dqt,
-                                         dkt, dvt, B, Tq, Tk, H, scale, sm_scale, drop, s);
+      return Routes<T>::template run<32>(keys, qt, kt, vt, ot, dt, lse, mask, stats, dq_acc, turns,
+                                         dqt, dkt, dvt, B, Tq, Tk, H, scale, sm_scale, drop, s);
     case 48:
-      return Routes<T>::template run<48>(keys, qt, kt, vt, ot, dt, lse, mask, stats, dq_acc, dqt,
-                                         dkt, dvt, B, Tq, Tk, H, scale, sm_scale, drop, s);
+      return Routes<T>::template run<48>(keys, qt, kt, vt, ot, dt, lse, mask, stats, dq_acc, turns,
+                                         dqt, dkt, dvt, B, Tq, Tk, H, scale, sm_scale, drop, s);
     case 64:
-      return Routes<T>::template run<64>(keys, qt, kt, vt, ot, dt, lse, mask, stats, dq_acc, dqt,
-                                         dkt, dvt, B, Tq, Tk, H, scale, sm_scale, drop, s);
+      return Routes<T>::template run<64>(keys, qt, kt, vt, ot, dt, lse, mask, stats, dq_acc, turns,
+                                         dqt, dkt, dvt, B, Tq, Tk, H, scale, sm_scale, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1079,29 +1104,31 @@ extern "C" {
 // q, o, dout (B, Tq, H*D); k, v (B, Tk, H*D), fp32 with 16-byte aligned
 // bases; lse (B*H, Tq) from flash_mha_f32; mask (Tq, Tk) bytes or null;
 // stats: scratch of B*H*ceil(Tq / 64)*128 floats; dq_acc: scratch of
-// B*H*ceil(Tq / 64)*64*D floats (dQ's sums) -> dq (B, Tq, H*D), dk, dv (B,
-// Tk, H*D). keys: keys per block, 64. scale = log2(e) / sqrt(D), the forward's; sm_scale = 1 /
+// B*H*ceil(Tq / 64)*64*D floats (dQ's sums); turns: null (dQ summed in the
+// order the blocks come) or scratch of B*H*ceil(Tq / 32) uint32 (dQ summed
+// in key-block order, deterministic) -> dq (B, Tq, H*D), dk, dv (B, Tk,
+// H*D). keys: keys per block, 64. scale = log2(e) / sqrt(D), the forward's; sm_scale = 1 /
 // sqrt(D). rate and seed: the forward's dropout. Returns a cudaError_t, or
 // ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 int flash_mha_bwd_f32(const float* q, const float* k, const float* v, const float* o,
                       const float* dout, const float* lse, const unsigned char* mask,
-                      float* stats, float* dq_acc, float* dq, float* dk, float* dv, int B, int Tq,
-                      int Tk, int H, int D, int keys, float scale, float sm_scale, float rate,
-                      int seed, void* stream) {
-  return dispatch_bwd<float>(q, k, v, o, dout, lse, mask, stats, dq_acc, dq, dk, dv, B, Tq, Tk,
-                             H, D, keys, scale, sm_scale, rate, seed, stream);
+                      float* stats, float* dq_acc, unsigned* turns, float* dq, float* dk,
+                      float* dv, int B, int Tq, int Tk, int H, int D, int keys, float scale,
+                      float sm_scale, float rate, int seed, void* stream) {
+  return dispatch_bwd<float>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk, dv, B, Tq,
+                             Tk, H, D, keys, scale, sm_scale, rate, seed, stream);
 }
 
 // The same for the bf16 route: q, k, v, o, dout, dq, dk, dv bf16 with 16-byte
-// aligned bases, lse (B*H, Tq) from flash_mha_bf16; stats and dq_acc as
-// for flash_mha_bwd_f32; keys per block 64 or 128.
+// aligned bases, lse (B*H, Tq) from flash_mha_bf16; stats, dq_acc and turns
+// as for flash_mha_bwd_f32; keys per block 64 or 128.
 int flash_mha_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
                        const void* dout, const float* lse, const unsigned char* mask,
-                       float* stats, float* dq_acc, void* dq, void* dk, void* dv, int B, int Tq,
-                       int Tk, int H, int D, int keys, float scale, float sm_scale, float rate,
-                       int seed, void* stream) {
-  return dispatch_bwd<bf16>(q, k, v, o, dout, lse, mask, stats, dq_acc, dq, dk, dv, B, Tq, Tk, H,
-                            D, keys, scale, sm_scale, rate, seed, stream);
+                       float* stats, float* dq_acc, unsigned* turns, void* dq, void* dk, void* dv,
+                       int B, int Tq, int Tk, int H, int D, int keys, float scale, float sm_scale,
+                       float rate, int seed, void* stream) {
+  return dispatch_bwd<bf16>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk, dv, B, Tq,
+                            Tk, H, D, keys, scale, sm_scale, rate, seed, stream);
 }
 
 }  // extern "C"

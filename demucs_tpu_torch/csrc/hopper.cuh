@@ -117,6 +117,25 @@ __device__ __forceinline__ void bulk_wait_all() {
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
+// ---- an ordered turn between blocks (deterministic reductions) ----
+// Waits until the counter at `turn` (global memory) reads `mine` (an acquire
+// load), then orders the thread's later bulk operations after that read.
+__device__ __forceinline__ void turn_wait(const unsigned* turn, unsigned mine) {
+  unsigned v;
+  do {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(turn) : "memory");
+  } while (v != mine);
+  asm volatile("fence.proxy.async;" ::: "memory");
+}
+// Passes the turn on: waits until this thread's bulk groups are complete
+// (their writes done, not only their reads), orders those writes of the
+// async proxy before the counter's increment, a release.
+__device__ __forceinline__ void turn_pass(unsigned* turn) {
+  bulk_wait_all();
+  asm volatile("fence.proxy.async;" ::: "memory");
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(turn) : "memory");
+}
+
 // Brings a tensor map into the descriptor cache ahead of its first copy.
 __device__ __forceinline__ void prefetch_tensormap(const void* map) {
   asm volatile("prefetch.tensormap [%0];" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");

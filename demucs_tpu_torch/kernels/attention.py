@@ -39,7 +39,10 @@ launches the hand-written backward kernel of ``csrc/flash_mha_bwd.cu`` in
 the inputs' type (:func:`flash_mha_bwd`, :func:`flash_mha_bwd_bf16`): one
 pass over the queries per block of keys, five ``wgmma`` products a tile (3xTF32
 or bf16), the operands brought in by tensor-map copies, dQ summed across the
-blocks by fp32 reductions in L2 (so its last bits may differ from run to run).
+blocks by fp32 reductions in L2: in the order the blocks finish (its last
+bits may differ from run to run), or, under
+``torch.use_deterministic_algorithms(True)``, in key-block order
+(:func:`dq_turns`), bit for bit the same every run.
 
 A call that wants no gradient and no dropout is the registered op
 ``demucs_tpu_torch::flash_mha`` (:func:`flash_mha_op`; ``torch.library``):
@@ -137,7 +140,7 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("flash_mha_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in ("flash_mha_bwd_f32", "flash_mha_bwd_bf16"):
-        getattr(lib, name).argtypes = [p] * 12 + [i] * 6 + [f, f, f, i, p]
+        getattr(lib, name).argtypes = [p] * 13 + [i] * 6 + [f, f, f, i, p]
         getattr(lib, name).restype = i
     return lib
 
@@ -389,16 +392,29 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
     stats = torch.empty(B * num_heads * -(-Tq // 64) * 128, device=q.device)
     # dQ's fp32 sums over the blocks of keys, per tile of queries (the launch zeroes them)
     dq_acc = torch.empty(B * num_heads * -(-Tq // 64) * 64 * d, device=q.device)
+    turns = dq_turns(B, num_heads, Tq, q.device)
     keys = (bwd_keys(B, Tk, num_heads, _sm_count(q.device.index or 0))
             if dtype == torch.bfloat16 else 64)
     status = getattr(_bwd_lib(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), None if keep is None else keep.data_ptr(), stats.data_ptr(),
-        dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads,
+        dq_acc.data_ptr(), None if turns is None else turns.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads,
         d, keys, q_scale(d), 1.0 / math.sqrt(d), float(rate), _int32(seed),
         _build.stream_ptr(q.device))
     _check_launch(status, entry)
     return dq, dk, dv
+
+
+def dq_turns(B: int, num_heads: int, Tq: int, device) -> torch.Tensor | None:
+    """The backward kernel's turns under ``torch.use_deterministic_algorithms``:
+    a counter per (batch, head, query tile of 32 or more rows) that orders
+    the blocks' additions to dQ by key block (the launch zeroes them), so
+    that dQ repeats bit for bit; None otherwise (dQ's blocks add in the order
+    they finish, its last bits may differ between launches)."""
+    if not torch.are_deterministic_algorithms_enabled():
+        return None
+    return torch.empty(B * num_heads * -(-Tq // 32), dtype=torch.int32, device=device)
 
 
 def bwd_keys(B: int, Tk: int, num_heads: int, sm_count: int) -> int:

@@ -925,18 +925,39 @@ def test_flash_mha_bf16_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rat
         assert (g.float() - w.float()).abs().max() <= 2 ** -6 * w.float().abs().max()
 
 
-@pytest.mark.parametrize("dtype,keys,bound", [
-    (torch.float32, None, 1e-5), (torch.bfloat16, 128, 2 ** -8), (torch.bfloat16, 64, 2 ** -8)])
-def test_flash_mha_backward_launches_agree(cuda, monkeypatch, dtype, keys, bound):
-    """The blocks of keys add their parts of dQ with atomics, in the order
-    they finish, so two launches on the same inputs may differ in dQ: within
-    a few fp32 roundings of the sums (1e-5 of dQ's peak) on the fp32 route,
-    one bf16 step of dQ's peak (2**-8) on the bf16 route (the fp32 sums
-    round to bf16 on either side of a step). dK and dV take no atomics: equal."""
+@pytest.fixture
+def deterministic(monkeypatch):
+    """``torch.use_deterministic_algorithms(True)`` for one test (cuBLAS asks
+    for a fixed workspace under it), restored after."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+@pytest.mark.parametrize("dtype,keys,d,ordered", [
+    (torch.float32, None, 64, False), (torch.bfloat16, 128, 64, False),
+    (torch.bfloat16, 64, 64, False)] + [
+    (dtype, keys, d, True) for dtype, keys in ((torch.float32, None), (torch.bfloat16, 64),
+                                               (torch.bfloat16, 128)) for d in (32, 48, 64)])
+def test_flash_mha_backward_launches_agree(cuda, monkeypatch, request, dtype, keys, d, ordered):
+    """By default the blocks of keys add their parts of dQ with atomics, in
+    the order they finish, so two launches on the same inputs may differ in
+    dQ: within a few fp32 roundings of the sums (1e-5 of dQ's peak) on the
+    fp32 route, one bf16 step of dQ's peak (2**-8) on the bf16 route (the
+    fp32 sums round to bf16 on either side of a step). dK and dV take no
+    atomics: equal. Under torch.use_deterministic_algorithms the blocks add
+    in key-block order: dQ, dK and dV equal, every head dim and keys plan."""
     from demucs_tpu_torch.kernels import attention as K
 
+    if ordered:
+        request.getfixturevalue("deterministic")
     monkeypatch.setattr(K, "BWD_KEYS_BF16", keys)
-    B, Tq, Tk, C, H = 2, 700, 1500, 256, 4
+    B, Tq, Tk, H = 2, 700, 1500, 4
+    C = H * d
     q, k, v, do = (_randn(B, T, C, seed=s).to(dtype) for s, T in enumerate((Tq, Tk, Tk, Tq)))
     forward = K._forward_bf16 if dtype == torch.bfloat16 else K._forward_f32
     o, lse = forward(q, k, v, H, None, 0.1, 5, True)
@@ -945,7 +966,11 @@ def test_flash_mha_backward_launches_agree(cuda, monkeypatch, dtype, keys, bound
                      for _ in range(2))
     torch.cuda.synchronize()
     dq1, dq2 = first[0].float(), second[0].float()
-    assert (dq1 - dq2).abs().max() <= bound * dq1.abs().max()
+    if ordered:
+        assert torch.equal(first[0], second[0])
+    else:
+        bound = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
+        assert (dq1 - dq2).abs().max() <= bound * dq1.abs().max()
     assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
 
 
@@ -967,6 +992,36 @@ def test_stft_backward_kernels_match_plain(cuda, n_fft, hop, frames, extra):
     (got,) = torch.autograd.grad((zr * gr).sum() + (zi * gi).sum(), x)
     want = KS.stft_dft_backward(gr.cpu(), gi.cpu(), n_fft, hop, x.shape[-1])
     assert (got.cpu() - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_released_train_step_repeats_under_deterministic_mode(cuda, deterministic):
+    """C5: the released HTDemucs's train step (fp32, Adam at lr 1e-4, two
+    steps from the same weights and batch) run twice under
+    torch.use_deterministic_algorithms gives bit-equal weights: K3's backward
+    sums dQ in key-block order, cuDNN takes its deterministic algorithms."""
+    import copy
+
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train.config import TrainArgs
+    from demucs_tpu_torch.train.step import make_optimizer, train_step
+
+    cfg = HTDemucsConfig(channels=48, depth=4, nfft=4096, t_layers=5, t_heads=8, dconv_mode=3,
+                         bottom_channels=512, segment=7.8)
+    module = init_htdemucs(cfg, seed=3, layer_scale=1.0, random_norms=True,
+                           fp32_masters=True).train()
+    sources = _randn(2, 4, 2, cfg.training_length, seed=8, device="cpu") * 0.2
+    weights = []
+    for _ in range(2):
+        model = Model("htdemucs", cfg, copy.deepcopy(module).to("cuda"))
+        args = TrainArgs()
+        args.optim.lr = 1e-4
+        optimizer = make_optimizer(args, model)
+        for _ in range(2):
+            train_step(model, optimizer, sources.to("cuda"), loss="mse")
+        weights.append({n: p.detach().cpu() for n, p in model.module.named_parameters()})
+        del model, optimizer
+    assert all(torch.equal(weights[0][n], weights[1][n]) for n in weights[0])
 
 
 def test_train_step_card_matches_cpu(cuda):

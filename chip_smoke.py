@@ -153,15 +153,20 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
 19. train   — training: K3's backward kernel (flash_mha_bwd) and K3's forward
               with the hashed dropout against their plain versions at the four
               shapes, B = 1 and 8, unmasked and under the diag mask, at dropout 0
-              and 0.1, timed beside SDPA's fp32 backward; K2's backward (K1's
+              and 0.1, each case also under torch.use_deterministic_algorithms
+              (its ordered kernel against the same plain gradients), timed
+              beside SDPA's fp32 backward; K2's backward (K1's
               kernel with the per-bin scale) and K1's (K2's kernel) against
               their plain versions and autograd through the plain twins, at the
               training shapes and the HDemucs 44 s ones; one train step of the
               released-width HTDemucs at batch 1 on the card against the CPU
               (loss, reco, the gradient's global norm, every gradient), the
-              card's step run twice under torch.use_deterministic_algorithms
-              (C5: bit-equal gradients; K3's backward under it timed and
-              rerun bit-equal at every shape beside the default); the
+              card's step run once by default and twice under
+              torch.use_deterministic_algorithms (C5: bit-equal gradients),
+              each way against the CPU; K3's backward under the flag timed and
+              rerun bit-equal at every shape beside the default, with the
+              cooperative grid, order, rounds of heads and dQ ring that its
+              launch reports (and whether the CPU twin agrees); the
               training rate: train_step at batch 8 (4 if 8 does not fit), 12
               steps with every launch counted (the train path), training
               audio-s/s over steps 3-12, the forward / backward / optimizer
@@ -172,8 +177,12 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               mixed precision beside it: K3's bf16 forward with the hashed
               dropout and each row's log-sum-exp, its drop pattern bit for bit
               and its backward kernel (flash_mha_bwd_bf16) against the plain
-              versions at the same shapes, timed beside SDPA in bf16; the bf16
-              step of the same model and batch, card against CPU; C2's probe
+              versions at the same shapes (every case and both block sizes
+              also under the flag), timed beside SDPA in bf16; the bf16
+              step of the same model and batch, card against CPU, the card's
+              run once by default and twice under the flag (bit-equal; the
+              two are the train bf16 deterministic path), each way against
+              the CPU; C2's probe
               (the fp32 step's gradients on the card, with cuDNN deterministic
               and with remat, and on the CPU, against the step in float64 on
               the CPU); the bf16 training rate (the train bf16 path's
@@ -219,7 +228,9 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               (a group of one in this process) and two Gloo ranks against
               one process (losses and gradients after 3 steps; gradients on
               mse; the one-process step run twice and world 1 under
-              torch.use_deterministic_algorithms, the two runs bit-equal);
+              torch.use_deterministic_algorithms, the two runs bit-equal;
+              the step without the flag and under it on one model, timed
+              and profiled: the device ms each kernel group gains under it);
               HDemucs and Demucs v2 (3 steps at 4, two ranks against
               one process; one step card vs CPU); the Gloo ranks then train
               through the entry point, stopped after epoch 1, and the
@@ -2680,17 +2691,19 @@ def _deterministic_ms(fn) -> float:
 
 def bwd_instances(route: str) -> dict:
     """Registers and spills of each block-kernel instance of K3's backward on
-    ``route`` ("Bf16Bwd" or "F32Bwd"), from nvcc's report of the library."""
+    ``route`` ("Bf16Bwd" or "F32Bwd"), the default and the deterministic
+    order's ("ordered"), from nvcc's report of the library."""
     from demucs_tpu_torch.kernels import _build
 
-    groups = r"ILi(\d+)ELi(\d+)E" if route == "Bf16Bwd" else r"ILi(\d+)E"
+    groups = r"ILi(\d+)ELi(\d+)ELb([01])E" if route == "Bf16Bwd" else r"ILi(\d+)ELb([01])E"
     found = ptxas_kernels(_build.ptxas_report("flash_mha_bwd"),
                           rf"bwd_kernelINS_\d+{route}{groups}")
     named = {}
     for key, v in found.items():
-        d, *nwg = key.split()
-        named[f"d={d}" + (f" keys={64 * int(nwg[0])}" if nwg else "")] = v
-    if len(named) != 3 * (2 if route == "Bf16Bwd" else 1) or not all(
+        d, *nwg, ordered = key.split()
+        named[f"d={d}" + (f" keys={64 * int(nwg[0])}" if nwg else "")
+              + (" ordered" if ordered == "1" else "")] = v
+    if len(named) != 2 * 3 * (2 if route == "Bf16Bwd" else 1) or not all(
             {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
             for v in named.values()):
         raise AssertionError(f"K3 backward: nvcc's report lacks {route} instances: {named}")
@@ -2706,7 +2719,9 @@ def train_k3_checks(gen) -> dict:
     shapes, B = 1 and 8, unmasked and under the diag mask, at dropout 0 and
     TRAIN_DROPOUT: the forward against the plain version with the same seed
     (K3_ATOL), dQ, dK, dV against the plain backward formula (K3_BWD_RTOL x
-    each gradient's peak); two launches on the same inputs (K3_BWD_RERUN_RTOL)
+    each gradient's peak), by default and under deterministic() (the ordered
+    instances); two launches on the same inputs (K3_BWD_RERUN_RTOL), the
+    deterministic launch's plan as it reports it (the CPU twin must agree)
     and nvcc's report of the kernel's instances (no spills). Times the
     backward kernel (unmasked, dropout 0 and TRAIN_DROPOUT), the plain
     backward and SDPA's fp32 backward."""
@@ -2720,7 +2735,7 @@ def train_k3_checks(gen) -> dict:
     C, H = 512, 8
     d = C // H
     tokens = {"freq": 2688, "time": 1344}
-    cases, by_shape, rerun, worst_fwd, worst_bwd = [], {}, {}, 0.0, 0.0
+    cases, by_shape, rerun, worst_fwd, worst_bwd, worst_det = [], {}, {}, 0.0, 0.0, 0.0
     for batch in (1, 8):
         for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
                                  ("time", "freq")):
@@ -2741,10 +2756,16 @@ def train_k3_checks(gen) -> dict:
                 want = KA.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask, dropout=rate,
                                               dropout_seed=seed)
                 errs = [_grad_err(g, w) for g, w in zip(got, want)]
+                with deterministic():  # the deterministic order's kernel, same inputs
+                    got = KA.flash_mha_bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
+                                           dropout_seed=seed)
+                det_errs = [_grad_err(g, w) for g, w in zip(got, want)]
                 fwd = (o - want_o).abs().max().item()
                 worst_fwd, worst_bwd = max(worst_fwd, fwd), max(worst_bwd, *errs)
+                worst_det = max(worst_det, *det_errs)
                 cases.append({"case": key, "mask": "diag" if masked else None, "dropout": rate,
-                              "fwd_max_abs_err": fwd, "dq_dk_dv_err_over_peak": errs})
+                              "fwd_max_abs_err": fwd, "dq_dk_dv_err_over_peak": errs,
+                              "deterministic_dq_dk_dv_err_over_peak": det_errs})
                 del o, lse, want_o, got, want
             o, lse = KA._forward_f32(q, k, v, H, None, 0.0, 0, True)
             rerun[key] = _rerun_gap(KA.flash_mha_bwd, q, k, v, o, do, H, lse)
@@ -2769,6 +2790,9 @@ def train_k3_checks(gen) -> dict:
                 bound_ms=b_ms, bound_by=b_by, fn_bound_ms=bound(flops, nbytes, TF32_FLOPS)[0])
             row["dropout_over_bwd"] = row["ms_dropout"] / row["ms"] - 1
             row["deterministic_over_bwd"] = row["deterministic_ms"] / row["ms"] - 1
+            # the deterministic launch's grid, order, rounds of heads and dQ ring, as it
+            # reports them
+            row["deterministic_plan"] = KA.bwd_plan(torch.float32, 64, batch, Tq, Tk, H, d)
             if tq_name == tk_name == "freq":
                 row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(q, k, v, o, do, H),
                                           repeat=3)
@@ -2779,11 +2803,14 @@ def train_k3_checks(gen) -> dict:
     instances = bwd_instances("F32Bwd")
     rerun_ok = all(r["dq_gap_over_peak"] <= K3_BWD_RERUN_RTOL and r["dk_dv_equal"]
                    and r["deterministic_equal"] for r in rerun.values())
+    plans_ok = all(r["deterministic_plan"]["twin_agrees"] for r in by_shape.values())
     return dict(
         name="flash_mha_bwd", tol=K3_BWD_RTOL, max_abs_err=worst_bwd,
         max_err_is="over each gradient's peak", fwd_dropout_max_abs_err=worst_fwd,
-        fwd_tol=K3_ATOL, within_tol=(worst_bwd <= K3_BWD_RTOL and worst_fwd <= K3_ATOL
-                                     and rerun_ok and _no_spills(instances)),
+        deterministic_max_abs_err=worst_det,
+        fwd_tol=K3_ATOL, within_tol=(worst_bwd <= K3_BWD_RTOL and worst_det <= K3_BWD_RTOL
+                                     and worst_fwd <= K3_ATOL and rerun_ok and plans_ok
+                                     and _no_spills(instances)),
         rerun=rerun, rerun_tol=K3_BWD_RERUN_RTOL, instances=instances,
         source="demucs_tpu_torch/csrc/flash_mha_bwd.cu",
         replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function; the "
@@ -2849,8 +2876,10 @@ def train_k3_bf16_checks(gen) -> dict:
     (K3_BF16_LSE_ATOL); the drop pattern bit for bit against dropout_keep
     (_drop_pattern_mismatches); dQ, dK, dV of the bf16 backward kernel against
     the plain formula (K3_BF16_BWD_RTOL x each gradient's peak) on the keys
-    per block bwd_keys chooses and on both (64, 128) unmasked; two launches on
-    the same inputs (K3_BF16_BWD_RERUN_RTOL) and nvcc's report of the
+    per block bwd_keys chooses and on both (64, 128) unmasked, each by default
+    and under deterministic() (the ordered instances); two launches on the
+    same inputs (K3_BF16_BWD_RERUN_RTOL), the deterministic launch's plans as
+    it reports them (the CPU twin must agree) and nvcc's report of the
     instances (no spills). Times the backward kernel at both block sizes and
     the forward, each with and without dropout, beside SDPA in bf16 (forward
     with and without its dropout, backward), and the plain versions at freq
@@ -2866,7 +2895,8 @@ def train_k3_bf16_checks(gen) -> dict:
     d = C // H
     tokens = {"freq": 2688, "time": 1344}
     cases, by_shape, rerun = [], {}, {}
-    worst = {"fwd_excess": -math.inf, "lse": 0.0, "bwd": 0.0, "pattern_mismatches": 0}
+    worst = {"fwd_excess": -math.inf, "lse": 0.0, "bwd": 0.0, "deterministic_bwd": 0.0,
+             "pattern_mismatches": 0}
     sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for batch in (1, 8):
         for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
@@ -2887,13 +2917,20 @@ def train_k3_bf16_checks(gen) -> dict:
                 want = KA.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask, dropout=rate,
                                               dropout_seed=seed)
                 errs = [_grad_err(g.float(), w.float()) for g, w in zip(got, want)]
+                # the deterministic order's kernel, same inputs, on the keys the flag takes
+                with deterministic():
+                    got = KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse, mask=mask,
+                                                dropout=rate, dropout_seed=seed)
+                det_errs = [_grad_err(g.float(), w.float()) for g, w in zip(got, want)]
                 fwd = bf16_excess(o, want_o)
                 worst["fwd_excess"] = max(worst["fwd_excess"], fwd)
                 worst["lse"] = max(worst["lse"], lse_err)
                 worst["bwd"] = max(worst["bwd"], *errs)
+                worst["deterministic_bwd"] = max(worst["deterministic_bwd"], *det_errs)
                 cases.append({"case": key, "mask": "diag" if masked else None, "dropout": rate,
                               "fwd_excess_over_tol": fwd, "lse_max_abs_err": lse_err,
-                              "dq_dk_dv_err_over_peak": errs})
+                              "dq_dk_dv_err_over_peak": errs,
+                              "deterministic_dq_dk_dv_err_over_peak": det_errs})
                 del o, lse, want_o, got, want
             pattern = _drop_pattern_mismatches(q, k, H, TRAIN_DROPOUT, 77 + batch)
             worst["pattern_mismatches"] += pattern
@@ -2906,6 +2943,11 @@ def train_k3_bf16_checks(gen) -> dict:
                     got = KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse)
                     worst["bwd"] = max(worst["bwd"], *(_grad_err(g.float(), w.float())
                                                        for g, w in zip(got, want)))
+                    with deterministic():
+                        got = KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse)
+                    worst["deterministic_bwd"] = max(
+                        worst["deterministic_bwd"],
+                        *(_grad_err(g.float(), w.float()) for g, w in zip(got, want)))
                     rerun[f"{key} keys={keys}"] = _rerun_gap(KA.flash_mha_bwd_bf16, q, k, v, o,
                                                              do, H, lse)
                     keys_sweep[f"{keys} keys"] = cuda_ms(
@@ -2942,8 +2984,15 @@ def train_k3_bf16_checks(gen) -> dict:
                 fwd_bound_ms=bound(flops * 2 / 5, 2 * 2 * batch * (Tq + Tk) * C, BF16_FLOPS)[0],
                 drop_pattern_mismatches=pattern, keys_sweep_ms=keys_sweep,
                 keys=KA.bwd_keys(batch, Tk, H, sm))
-            row["deterministic_ms"] = keys_sweep[f"{row['keys']} keys deterministic"]
+            # under the flag: the keys bwd_keys takes there and their time; at both block
+            # sizes the launch's grid, order, rounds of heads and dQ ring, as it reports them
+            with deterministic():
+                row["deterministic_keys"] = KA.bwd_keys(batch, Tk, H, sm)
+            row["deterministic_ms"] = keys_sweep[f"{row['deterministic_keys']} keys "
+                                                 "deterministic"]
             row["deterministic_over_bwd"] = row["deterministic_ms"] / row["ms"] - 1
+            row["deterministic_plans"] = {n: KA.bwd_plan(torch.bfloat16, n, batch, Tq, Tk, H, d)
+                                          for n in (64, 128)}
             row["chosen_keys_over_fastest"] = (keys_sweep[f"{row['keys']} keys"]
                                                / min(keys_sweep[f"{n} keys"] for n in (64, 128)))
             row["fwd_dropout_over_fwd"] = row["fwd_ms_dropout"] / row["fwd_ms"] - 1
@@ -2962,10 +3011,14 @@ def train_k3_bf16_checks(gen) -> dict:
     ok = (worst["fwd_excess"] <= 0 and worst["lse"] <= K3_BF16_LSE_ATOL
           and worst["bwd"] <= K3_BF16_BWD_RTOL and worst["pattern_mismatches"] == 0
           and worst["rerun_dq_gap"] <= K3_BF16_BWD_RERUN_RTOL
+          and worst["deterministic_bwd"] <= K3_BF16_BWD_RTOL
           and all(r["dk_dv_equal"] and r["deterministic_equal"] for r in rerun.values())
+          and all(p["twin_agrees"] for r in by_shape.values()
+                  for p in r["deterministic_plans"].values())
           and _no_spills(instances))
     return dict(
         name="flash_mha_bwd_bf16", tol=K3_BF16_BWD_RTOL, max_abs_err=worst["bwd"],
+        deterministic_max_abs_err=worst["deterministic_bwd"],
         max_err_is="over each gradient's peak", worst=worst, within_tol=ok,
         rerun=rerun, rerun_tol=K3_BF16_BWD_RERUN_RTOL, instances=instances,
         fwd_tol=K3_BF16_TOL, lse_tol=K3_BF16_LSE_ATOL,
@@ -3077,11 +3130,13 @@ def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
     card and on the CPU from the same weights and batch: loss, per-source
     reco and the gradient's global norm within TRAIN_RTOL x their peak, and
     every parameter's gradient within TRAIN_GRAD_RTOL x its own peak plus
-    TRAIN_GRAD_FLOOR x the largest gradient's peak. Each gradient's error
-    over its own peak is reported beside the card's own spread between two
-    identical steps (cuDNN's weight gradients sum with atomics, in another
-    order each run). Returns the report and the step's model, batch and
-    gradients, which the bf16 step and the C2 probe reuse."""
+    TRAIN_GRAD_FLOOR x the largest gradient's peak. The card's step runs
+    once by default (cuDNN's weight gradients and K3's dQ sum with atomics,
+    in another order each run) and twice under deterministic(), where the
+    two must be bit-equal (C5); each is held to the CPU's. The gap between
+    the default step and the deterministic one is reported beside. Returns
+    the report and the step's model, batch and gradients, which the bf16
+    step and the C2 probe reuse."""
     import torch
 
     from demucs_tpu_torch.models.registry import Model
@@ -3091,18 +3146,19 @@ def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
     card = Model("htdemucs", cpu.cfg, copy.deepcopy(cpu.module).to("cuda"))
     sources = 0.2 * torch.randn(1, 4, 2, cpu.cfg.training_length,
                                 generator=torch.Generator().manual_seed(4))
-    runs = []
+
+    def card_step():
+        got = train_step(card, _optimizer(card, 0.0), sources.to("cuda"), loss=TRAIN_CHECK_LOSS)
+        return got, {n: p.grad.cpu() for n, p in card.module.named_parameters()}
+
+    runs = {"default": card_step()}
     with deterministic():  # C5: the two card steps must agree bit for bit
-        for _ in range(2):
-            got = train_step(card, _optimizer(card, 0.0), sources.to("cuda"),
-                             loss=TRAIN_CHECK_LOSS)
-            runs.append({n: p.grad.cpu() for n, p in card.module.named_parameters()})
+        ordered = [card_step() for _ in range(2)]
+    runs["deterministic"] = ordered[-1]
     torch.cuda.synchronize()
     start = time.perf_counter()
     want = train_step(cpu, _optimizer(cpu, 0.0), sources, loss=TRAIN_CHECK_LOSS)
     cpu_s = time.perf_counter() - start
-    errs = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
-            for k in ("loss", "reco", "grad_norm")}
     grads = {n: p.grad for n, p in cpu.module.named_parameters()}
     peak = max(g.abs().max().item() for g in grads.values())
 
@@ -3113,31 +3169,38 @@ def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
         return {"name": name, "err_over_its_peak": rel[name],
                 "its_peak_over_largest": grads[name].abs().max().item() / peak}
 
-    # each gradient's error over its allowance (<= 1 passes)
-    over = {n: (runs[-1][n] - g).abs().max().item()
-            / (TRAIN_GRAD_RTOL * g.abs().max().item() + TRAIN_GRAD_FLOOR * peak)
-            for n, g in grads.items()}
     info = {"batch": 1, "segment_s": TRAIN_SEGMENT, "loss_kind": TRAIN_CHECK_LOSS,
-            "loss": want["loss"].item(), "errs_over_peak": errs,
-            "grad_err_over_allowance": max(over.values()),
-            "largest_errs_over_allowance": dict(sorted(over.items(), key=lambda kv: -kv[1])[:6]),
+            "loss": want["loss"].item(), "n_grads": len(grads),
             "largest_grad": max(grads, key=lambda n: grads[n].abs().max().item()),
-            "worst_grad_vs_cpu": worst(runs[-1], grads),
-            "worst_grad_card_vs_card": worst(runs[0], runs[1]), "n_grads": len(grads),
-            "card_twice_bit_equal": all(bool(torch.equal(runs[0][n], runs[1][n])) for n in grads),
+            "worst_grad_default_vs_deterministic": worst(runs["default"][1],
+                                                         runs["deterministic"][1]),
+            "card_twice_bit_equal": all(bool(torch.equal(ordered[0][1][n], ordered[1][1][n]))
+                                        for n in grads),
             "tol": TRAIN_RTOL, "grad_tol": f"{TRAIN_GRAD_RTOL} x its peak + {TRAIN_GRAD_FLOOR} "
                                           "x the largest peak", "cpu_step_s": cpu_s,
             "cpu_threads": torch.get_num_threads()}
-    info["ok"] = (max(errs.values()) <= TRAIN_RTOL and max(over.values()) <= 1
-                  and info["card_twice_bit_equal"]
-                  and all(torch.isfinite(g).all() for g in runs[-1].values()))
+    ok = info["card_twice_bit_equal"]
+    for name, (got, card_grads) in runs.items():
+        errs = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+                for k in ("loss", "reco", "grad_norm")}
+        # each gradient's error over its allowance (<= 1 passes)
+        over = {n: (card_grads[n] - g).abs().max().item()
+                / (TRAIN_GRAD_RTOL * g.abs().max().item() + TRAIN_GRAD_FLOOR * peak)
+                for n, g in grads.items()}
+        info[name] = {"errs_over_peak": errs, "grad_err_over_allowance": max(over.values()),
+                      "largest_errs_over_allowance": dict(sorted(over.items(),
+                                                                 key=lambda kv: -kv[1])[:6]),
+                      "worst_grad_vs_cpu": worst(card_grads, grads)}
+        ok = (ok and max(errs.values()) <= TRAIN_RTOL and max(over.values()) <= 1
+              and all(torch.isfinite(g).all() for g in card_grads.values()))
+    info["ok"] = ok
     del card
     torch.cuda.empty_cache()
-    return info, {"cpu": cpu, "sources": sources, "grads": grads, "card_grads": runs[-1],
-                  "metrics": want}
+    return info, {"cpu": cpu, "sources": sources, "grads": grads,
+                  "card_grads": runs["default"][1], "metrics": want}
 
 
-def train_bf16_card_vs_cpu(step: dict) -> dict:
+def train_bf16_card_vs_cpu(step: dict) -> tp.Tuple[dict, dict]:
     """One bf16 mixed-precision step (compute_dtype="bfloat16": fp32 masters,
     each stage cast to bf16 on the forward) of train_card_vs_cpu's model and
     batch (its TRAIN_CHECK_LOSS) on the card and on the CPU. The CPU anchor's bound
@@ -3145,7 +3208,11 @@ def train_bf16_card_vs_cpu(step: dict) -> dict:
     JAX's place: loss and reco within TRAIN_BF16_RTOL, the global norm within
     TRAIN_BF16_NORM_RTOL (relative), each gradient within twice the CPU's own
     gap between its bf16 and fp32 steps plus TRAIN_BF16_GRAD_FLOOR x the
-    largest gradient's peak. The card's gradients and Adam state are fp32."""
+    largest gradient's peak. The card's gradients and Adam state are fp32.
+    The card's step runs once by default and twice under deterministic()
+    (K3's bf16 backward in its deterministic order): those two must be
+    bit-equal, and each way is held to the CPU's. Returns the report and the
+    launches of the two deterministic card steps (every count from 0)."""
     import torch
 
     from demucs_tpu_torch.models.registry import Model
@@ -3158,41 +3225,59 @@ def train_bf16_card_vs_cpu(step: dict) -> dict:
         module.cfg = cfg
         models.append(Model("htdemucs", cfg, module))
     card, cpu = models
-    opt = _optimizer(card, 0.0)
-    got = train_step(card, opt, step["sources"].to("cuda"), loss=TRAIN_CHECK_LOSS)
+
+    def card_step():
+        opt = _optimizer(card, 0.0)
+        got = train_step(card, opt, step["sources"].to("cuda"), loss=TRAIN_CHECK_LOSS)
+        return got, {n: p.grad.detach().cpu() for n, p in card.module.named_parameters()}, opt
+
+    runs = {"default": card_step()}
+    _zero_train_counts()
+    with deterministic():  # the two card steps must agree bit for bit
+        ordered = [card_step() for _ in range(2)]
     torch.cuda.synchronize()
+    counts = _read_train_counts()
+    runs["deterministic"] = ordered[-1]
     start = time.perf_counter()
     want = train_step(cpu, _optimizer(cpu, 0.0), step["sources"], loss=TRAIN_CHECK_LOSS)
     cpu_s = time.perf_counter() - start
-    errs = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
-            for k in ("loss", "reco", "grad_norm")}
-    g_card, g_cpu, g_cpu32 = _grads(card), _grads(cpu), step["grads"]
+    g_cpu, g_cpu32 = _grads(cpu), step["grads"]
     peak = max(g.abs().max().item() for g in g_cpu.values())
-    excess = {}
-    for n, g in g_cpu.items():
-        gap = (g_card[n] - g).abs().max().item()
-        allowed = 2 * (g - g_cpu32[n]).abs().max().item() + TRAIN_BF16_GRAD_FLOOR * peak
-        excess[n] = {"gap_over_largest_peak": gap / peak, "allowed_over_largest_peak":
-                     allowed / peak, "ok": gap <= allowed}
-    fp32 = (all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
-                for p in card.module.parameters())
-            and all(t.dtype == torch.float32 for st in opt.state.values() for t in st.values()
-                    if t.dim() > 0))
-    worst = sorted(excess, key=lambda n: -excess[n]["gap_over_largest_peak"])[:6]
     info = {"batch": 1, "segment_s": TRAIN_SEGMENT, "compute_dtype": "bfloat16",
             "loss_kind": TRAIN_CHECK_LOSS,
             "loss": want["loss"].item(), "loss_fp32": step["metrics"]["loss"].item(),
-            "errs_rel": errs, "largest_gaps": {n: excess[n] for n in worst},
-            "grads_over_bound": [n for n, e in excess.items() if not e["ok"]],
-            "masters_grads_adam_fp32": fp32, "cpu_step_s": cpu_s,
+            "cpu_step_s": cpu_s,
+            "card_twice_bit_equal": all(bool(torch.equal(ordered[0][1][n], ordered[1][1][n]))
+                                        for n in g_cpu),
+            "deterministic_launches": counts,
             "tol": {"loss_reco": TRAIN_BF16_RTOL, "grad_norm": TRAIN_BF16_NORM_RTOL,
                     "grad": f"2 x |cpu bf16 - cpu fp32| + {TRAIN_BF16_GRAD_FLOOR} x peak"}}
-    info["ok"] = (errs["loss"] <= TRAIN_BF16_RTOL and errs["reco"] <= TRAIN_BF16_RTOL
-                  and errs["grad_norm"] <= TRAIN_BF16_NORM_RTOL
-                  and not info["grads_over_bound"] and fp32)
-    del card, cpu
+    ok = (info["card_twice_bit_equal"] and counts["flash_mha_bwd_bf16"] > 0
+          and counts["flash_mha_bwd"] == 0)
+    for name, (got, g_card, opt) in runs.items():
+        errs = {k: ((got[k].cpu() - want[k]).abs().max() / want[k].abs().max()).item()
+                for k in ("loss", "reco", "grad_norm")}
+        excess = {}
+        for n, g in g_cpu.items():
+            gap = (g_card[n] - g).abs().max().item()
+            allowed = 2 * (g - g_cpu32[n]).abs().max().item() + TRAIN_BF16_GRAD_FLOOR * peak
+            excess[n] = {"gap_over_largest_peak": gap / peak, "allowed_over_largest_peak":
+                         allowed / peak, "ok": gap <= allowed}
+        fp32 = (all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                    for p in card.module.parameters())
+                and all(t.dtype == torch.float32 for st in opt.state.values()
+                        for t in st.values() if t.dim() > 0))
+        worst = sorted(excess, key=lambda n: -excess[n]["gap_over_largest_peak"])[:6]
+        info[name] = {"errs_rel": errs, "largest_gaps": {n: excess[n] for n in worst},
+                      "grads_over_bound": [n for n, e in excess.items() if not e["ok"]],
+                      "masters_grads_adam_fp32": fp32}
+        ok = (ok and errs["loss"] <= TRAIN_BF16_RTOL and errs["reco"] <= TRAIN_BF16_RTOL
+              and errs["grad_norm"] <= TRAIN_BF16_NORM_RTOL
+              and not info[name]["grads_over_bound"] and fp32)
+    info["ok"] = ok
+    del card, cpu, runs, ordered
     torch.cuda.empty_cache()
-    return info
+    return info, counts
 
 
 def train_c2_probe(step: dict) -> dict:
@@ -3528,14 +3613,14 @@ def train_entry_point_bf16(workdir: Path) -> dict:
     return info
 
 
-def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict]:
+def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict, dict]:
     """K3's backward and dropout and K2's backward against their plain
     versions, on fp32 and (K3) on bf16 inputs; the card's train step against
     the CPU's, in fp32 and in bf16 mixed precision, and C2's float64 probe;
     the training rate at the released width in fp32 and in bf16; the
     training entry point with a resume, and once in bf16. Returns the
     backward kernels' rows and the launches of the fp32 and the bf16 train
-    paths."""
+    paths and of the bf16 card step run twice under deterministic()."""
     import torch
 
     from demucs_tpu_torch.inference.engine import GRAPHS
@@ -3549,7 +3634,7 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict]:
         rows = [train_k3_checks(gen), train_stft_checks(gen), train_k3_bf16_checks(gen)]
         info["kernels_s"] = time.perf_counter() - start
         info["card_vs_cpu_step"], step = train_card_vs_cpu()
-        info["bf16_card_vs_cpu_step"] = train_bf16_card_vs_cpu(step)
+        info["bf16_card_vs_cpu_step"], counts_bf16_det = train_bf16_card_vs_cpu(step)
         info["c2_probe"] = train_c2_probe(step)
         del step
         info["steps_s"] = time.perf_counter() - start
@@ -3569,7 +3654,7 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict]:
                         "throughput_bf16", "entry_point", "entry_point_bf16") if not info[k]["ok"]]
     if bad:
         raise AssertionError(f"train: {bad}")
-    return rows, counts, counts_bf16
+    return rows, counts, counts_bf16, counts_bf16_det
 
 
 RECIPE_SEGMENT = 11.0  # the reference's dset.segment (conf/config.yaml): 9.68 s after repitch
@@ -4218,6 +4303,56 @@ def par_steps(kind: str, device, batch: int, steps: int, lr: float, loss: str = 
     return out
 
 
+def par_flag_cost() -> dict:
+    """HTDemucs's plain step (the parallel phase's model and batch, PAR_BATCH,
+    Adam at PAR_LR) without torch.use_deterministic_algorithms and under it,
+    on one model: each way a warm-up step, PAR_STEPS timed steps (CUDA
+    events) and one profiled step; the device ms each kernel group gains
+    under the flag. K3's backward is one group: what the flag costs a step
+    beyond it is the other groups' gain."""
+    import statistics
+
+    import torch
+
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.train.step import train_step
+
+    cpu = _par_model("htdemucs")
+    model = Model("htdemucs", cpu.cfg, cpu.module.to(PAR_DEVICE))
+    sources = _par_sources(PAR_BATCH).to(PAR_DEVICE)
+    optimizer = _optimizer(model, PAR_LR)
+
+    def step():
+        train_step(model, optimizer, sources, loss="mse")
+
+    out = {}
+    for name, scope in (("without_flag", contextlib.nullcontext), ("under_flag", deterministic)):
+        with scope():
+            step()
+            ms = []
+            for _ in range(PAR_STEPS):
+                start, end = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                start.record()
+                step()
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            out[name] = {"step_ms": ms, "median_step_ms": statistics.median(ms),
+                         "profile": _profile_step(step)}
+    groups = set(out["without_flag"]["profile"]["by_group_ms"]) | set(
+        out["under_flag"]["profile"]["by_group_ms"])
+    out["group_gain_ms"] = dict(sorted(
+        ((g, out["under_flag"]["profile"]["by_group_ms"].get(g, 0.0)
+          - out["without_flag"]["profile"]["by_group_ms"].get(g, 0.0)) for g in groups),
+        key=lambda kv: -abs(kv[1])))
+    out["flag_over_without"] = (out["under_flag"]["median_step_ms"]
+                                / out["without_flag"]["median_step_ms"] - 1)
+    del model, optimizer, sources
+    torch.cuda.empty_cache()
+    return out
+
+
 def _par_tp_input():
     import torch
 
@@ -4467,6 +4602,7 @@ def par_data_parallel(workdir: Path, entry: list) -> tp.Tuple[dict, dict, dict]:
                     nccl["backend"] = dist.get_backend()
                 finally:
                     dist.destroy_process_group()
+            info["htdemucs_flag_cost"] = par_flag_cost()
             for kind in ("hdemucs", "demucs"):
                 plain[kind] = par_steps(kind, PAR_DEVICE, PAR_FAMILY_BATCH, PAR_STEPS, PAR_LR)
                 again = par_steps(kind, PAR_DEVICE, PAR_FAMILY_BATCH, PAR_STEPS, PAR_LR)
@@ -4736,7 +4872,8 @@ def main() -> int:
         paths.update(variant_paths)
         phase_memory(workdir)
         phase_evaluate(workdir)
-        train_rows, paths["train"], paths["train bf16"] = phase_train(workdir)
+        (train_rows, paths["train"], paths["train bf16"],
+         paths["train bf16 deterministic"]) = phase_train(workdir)
         rows += train_rows
         paths.update(phase_train_recipe(workdir))
         paths.update(phase_export(workdir, next((workdir / "train_out" / "xps").iterdir())))
@@ -4758,7 +4895,8 @@ def main() -> int:
         row = dict(row, route="cuda", launches=sum(by_path.values()))
         kernels.append(dict({k: row[k] for k in keys}, launches_by_path=by_path,
                             hdemucs_44s=row.get("hdemucs_44s"),
-                            deterministic_ms=row.get("deterministic_ms")))
+                            deterministic_ms=row.get("deterministic_ms"),
+                            deterministic_max_abs_err=row.get("deterministic_max_abs_err")))
     emit({"phase": "total", "script_s": time.perf_counter() - begin})
     emit({"kernels": kernels})
     if not all(math.isfinite(k["ms"]) for k in kernels):

@@ -50,9 +50,16 @@
 //    By default the blocks of a head add in the order they finish, so dQ's
 //    last bits may differ from run to run (tests/test_torch_cuda.py bounds
 //    two launches); dK and dV do not. Given `turns` (the wrapper passes them
-//    under torch.use_deterministic_algorithms), they add in key-block order
-//    (reduce_dq, FlashAttention-3's deterministic scheme), and dQ repeats
-//    bit for bit.
+//    under torch.use_deterministic_algorithms), each tile's parts add in an
+//    order fixed by the shape alone (Walk), and dQ repeats bit for bit. That
+//    order must cost no handoff in the consumers' path and no chain across a
+//    head's blocks: each key block walks the tiles from a tile of its own
+//    and the order follows the walks (Walk), writers outside the consumer
+//    warpgroups wait for the turns and the additions (bf16: a ring of
+//    stagings and bulk reductions; fp32, whose shared memory is full: a warp
+//    that takes the staging into registers and adds by vector atomics), and
+//    the grid is cooperative so that every block waited on is resident
+//    (bwd_kernel).
 // 4. 16-bit fragment reads across rows -> operands from shared memory by
 //    descriptor, the transposed ones with wgmma's transpose bit (bf16) or
 //    laid out transposed (fp32, below); dS^T in a swizzled tile.
@@ -107,8 +114,15 @@ using bf16 = __nv_bfloat16;
 
 constexpr int KEYS_WG = 64;  // keys per consumer warpgroup (wgmma's M)
 // named barriers: 1 + w, the dS^T of a tile whose dQ warpgroup w issues
-// (bf16); 3 + w, warpgroup w alone
-constexpr int BAR_DS0 = 1, BAR_WG0 = 3;
+// (bf16); 3 + w, warpgroup w alone; the whole block between two items of the
+// deterministic grid
+constexpr int BAR_DS0 = 1, BAR_WG0 = 3, BAR_ITEM = 5;
+// The barriers' bytes: full and empty per stage of the Q/dO ring, kv_full
+// and kv_empty per K/V buffer (2 at most), aux (4), dq_full and dq_empty per
+// slot of the deterministic dQ ring (at most MAX_SLOTS), and two ints (the
+// deterministic grid's next items).
+constexpr int MAX_SLOTS = 3;
+constexpr size_t bar_bytes(int stages) { return (2 * stages + 8 + 2 * MAX_SLOTS) * 8 + 8; }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -266,61 +280,145 @@ __device__ __forceinline__ void probs_and_ds(float (&st)[N / 2], float (&dpt)[N 
   }
 }
 
-// One tile's dQ from the staging into its sums in dq_acc, by one thread.
-// turn == nullptr: an atomic addition in whatever order the blocks come.
-// Else the tile's counter (zeroed by the launch) orders the key blocks of
-// the head: block x waits until it reads x, adds, waits until its addition
-// has completed (written, not only read) and adds 1. The spin cannot
-// deadlock because the blocks are dispatched in grid order, the key block as
-// x (fastest): when block x runs, blocks 0..x-1 of its (batch, head) run or
-// have finished, and none of them waits on a later block. Every block adds
-// to every query tile (none skips one), so each counter passes 0..x_max.
-__device__ __forceinline__ void reduce_dq(float* dst, const void* stage, uint32_t bytes,
-                                          unsigned* turn) {
-  if (turn != nullptr) turn_wait(turn, blockIdx.x);
+// One tile's dQ from the staging into its sums in dq_acc, by one thread: an
+// atomic addition in whatever order the blocks come (the default).
+__device__ __forceinline__ void reduce_dq(float* dst, const void* stage, uint32_t bytes) {
   bulk_reduce_add_f32(dst, stage, bytes);
   bulk_commit();
-  if (turn != nullptr) turn_pass(turn);
+}
+
+// The work of one block: key block x of (batch b, head h), and its walk over
+// the head's n_qt query tiles. The default launch gives each block one item,
+// from its grid coordinates, walked in tile order. Under the deterministic
+// order (kernels/attention.py bwd_order is the CPU twin) each key block's dQ
+// parts of a tile are added in a fixed order, counted by the tile's counter
+// in `turns` (zeroed by the launch): block x waits until the counter reads
+// its position in that order, adds, and adds 1 once its addition is
+// complete. Two orders:
+// - staggered: block x starts its walk at its own tile o_x = x n_qt / n_kb
+//   and wraps round; on each tile the blocks add in the order of the step at
+//   which their walks reach it, ties by x. When the blocks run in lockstep, a
+//   block's predecessor on a tile reached it a step or more earlier, so no
+//   block waits, and there is no chain across the head's blocks.
+// - plain (key-block order): every block walks from tile 0 and block x adds
+//   after x - 1.
+// In both, every wait points to a block at a strictly smaller (step, x), and
+// no block holds a turn while it waits for another (its addition to a tile
+// completes before it waits on the next), so the waits form no cycle as long
+// as the blocks waited on are resident; bwd_kernel's cooperative grid makes
+// them so (see there).
+struct Walk {
+  int b, h, x, n_qt, n_kb;
+  int o;         // the first tile of the walk
+  bool stagger;  // the staggered order; else the plain one
+  int lead;      // turn()'s terms that do not depend on the tile
+  __device__ __forceinline__ int tile(int k) const {
+    const int t = o + k;
+    return t < n_qt ? t : t - n_qt;
+  }
+  // the blocks whose walk starts at tile v or before: ceil((v + 1) n_kb / n_qt)
+  __device__ __forceinline__ int upto(int v) const { return ((v + 1) * n_kb + n_qt - 1) / n_qt; }
+  // this block's position in tile t's order: the blocks whose start lies
+  // (cyclically) after o and at or before t reach t at an earlier step,
+  //   upto(t) - upto(o), or n_kb - upto(o) + upto(t) when t < o;
+  // those that start at o too and have a smaller x tie before it,
+  //   x - upto(o - 1)
+  __device__ __forceinline__ unsigned turn(int t) const {
+    return stagger ? lead + upto(t) + (t < o ? n_kb : 0) : x;
+  }
+};
+
+// Item i of the deterministic grid (key block fastest, then head, batch).
+__device__ __forceinline__ Walk walk_of(int i, int H, int n_qt, int n_kb, bool stagger) {
+  const int head = i / n_kb, x = i % n_kb;
+  Walk w{head / H, head % H, x, n_qt, n_kb, stagger ? x * n_qt / n_kb : 0, stagger, 0};
+  if (stagger) w.lead = x - w.upto(w.o - 1) - w.upto(w.o);
+  return w;
 }
 
 // ===========================================================================
 // The bf16 route.
 // ===========================================================================
 
-template <int D_, int NWG_>
+// The deterministic order's handoffs, for consume and the writers: a tile's
+// dQ staging is full (the consumers') and free again (the writer's), per
+// slot of the ring of stagings; the turns.
+struct Handoff {
+  uint64_t* dq_full;
+  uint64_t* dq_empty;
+  unsigned* turns;
+  uint64_t* kv_empty;  // the consumers are done with a K/V buffer (the next item's)
+};
+
+template <int D_, int NWG_, bool ORDERED_>
 struct Bf16Bwd {
   using T = bf16;
   static constexpr int D = D_, NWG = NWG_, ELEM = 2;
-  static constexpr int QT = 64, KEYS = KEYS_WG * NWG, STAGES = 3, HELPERS = 0;
+  static constexpr bool ORDERED = ORDERED_;
+  // Deterministic order: a ring of DQ_SLOTS dQ stagings, each added by a
+  // writer of its own, the producer warpgroup's warps 1..WRITERS (idle
+  // otherwise); one consumer warpgroup (two blocks an SM) has room for two
+  // stagings only with a Q/dO ring of two stages.
+  static constexpr int DQ_SLOTS = ORDERED ? (NWG == 2 ? 3 : 2) : NWG;
+  static constexpr int WRITERS = ORDERED ? DQ_SLOTS : 0;  // a warp each
+  static constexpr int WRITER_LANES = 1;                   // a writer is one thread
+  static constexpr int QT = 64, KEYS = KEYS_WG * NWG, STAGES = ORDERED && NWG == 1 ? 2 : 3;
+  static constexpr int HELPERS = 0;
+  // K and V buffers: a block of the deterministic grid walks several items,
+  // and with two consumer warpgroups the next item's K and V load while the
+  // consumers finish the last's
+  static constexpr int KV_BUFS = ORDERED && NWG == 2 ? 2 : 1;
   static constexpr int THREADS = 128 * (NWG + 1);
   // two consumer warpgroups hold 240 registers (one block per SM); one holds
-  // 216 with two blocks per SM
+  // 216 with two blocks per SM. The deterministic order's writers need 40 in
+  // the producer warpgroup (232 for two consumer warpgroups), its consumers
+  // 224 of one (32 for the producer warpgroup): with fewer, either spills.
   static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
-  static constexpr int PRODUCER_REGS = NWG == 1 ? 40 : 24;
-  static constexpr int CONSUMER_REGS = NWG == 1 ? 216 : 240;
+  static constexpr int PRODUCER_REGS = ORDERED ? (NWG == 1 ? 32 : 40) : (NWG == 1 ? 40 : 24);
+  static constexpr int CONSUMER_REGS = ORDERED ? (NWG == 1 ? 224 : 232) : (NWG == 1 ? 216 : 240);
   using I = RowImage<2 * D>;
   static constexpr uint32_t Q_BYTES = QT * D * 2;     // a Q or dO tile image
   static constexpr uint32_t KV_BYTES = KEYS * D * 2;  // the K or V image
   static constexpr uint32_t STAGE = 2 * Q_BYTES;
   static constexpr uint32_t DS_BYTES = KEYS * QT * 2;  // dS^T: KEYS rows of 128 bytes
   static constexpr uint32_t DQ_BYTES = QT * D * 4;     // a tile's dQ, fp32, to reduce
-  // shared memory: K, V, the ring of (Q, dO) tiles, two dS^T tiles, each
-  // warpgroup's dQ staging, the ring's stats, the barriers (every image
-  // 1024-byte aligned)
-  static constexpr uint32_t K_DST = 0, V_DST = KV_BYTES, RING = 2 * KV_BYTES;
+  // shared memory: K, V (per buffer), the ring of (Q, dO) tiles, two dS^T
+  // tiles, the dQ stagings (one per warpgroup, or the deterministic ring),
+  // the ring's stats, the barriers (every image 1024-byte aligned)
+  static constexpr uint32_t K_DST = 0, RING = 2 * KV_BUFS * KV_BYTES;  // V after each K
   static constexpr uint32_t DS = RING + STAGES * STAGE, DQ = DS + 2 * DS_BYTES;
-  static constexpr uint32_t STATS = DQ + NWG * DQ_BYTES;
+  static constexpr uint32_t STATS = DQ + DQ_SLOTS * DQ_BYTES;
   static constexpr uint32_t BARS = STATS + STAGES * 2 * QT * 4;
-  static constexpr size_t SMEM = 1024 + BARS + (2 * STAGES + 5) * 8;
+  static constexpr size_t SMEM = 1024 + BARS + bar_bytes(STAGES);
   static constexpr size_t SMEM_LAUNCH = NWG == 1 || SMEM > 118 * 1024 ? SMEM : 118 * 1024;
   static_assert(SMEM <= (NWG == 1 ? 113 : 227) * 1024, "shared memory over the plan's blocks");
+  static_assert(DQ_SLOTS <= MAX_SLOTS && WRITERS <= 3, "the ring's barriers or writers");
 
   static __device__ void consume(unsigned char* base, uint64_t* full, uint64_t* empty,
-                                 uint64_t* kv_full, uint64_t* aux,
-                                 const unsigned char* __restrict__ mask,
-                                 float* __restrict__ dq_acc, unsigned* __restrict__ turns,
-                                 T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
-                                 float scale, float sm_scale, Dropout drop);
+                                 uint64_t* kv_full, uint64_t* aux, const Walk& w, uint32_t u0,
+                                 const Handoff& hand, const unsigned char* __restrict__ mask,
+                                 float* __restrict__ dq_acc, T* __restrict__ dk,
+                                 T* __restrict__ dv, int Tq, int Tk, int H, float scale,
+                                 float sm_scale, Dropout drop);
+  // Writer `wr` (the deterministic order; lane 0 of producer warp 1 + wr):
+  // the item's steps u = wr (mod DQ_SLOTS), from slot wr of the ring: wait
+  // for the staging, the turn, reduce, free the staging once read, pass the
+  // turn once the addition is complete.
+  static __device__ void write(unsigned char* base, const Walk& w, uint32_t u0,
+                               const Handoff& hand, float* __restrict__ dq_acc, int H, int wr) {
+    const size_t head = (size_t)(w.b * H + w.h) * w.n_qt;
+    float* const acc = dq_acc + head * QT * D;
+    unsigned* const turns = hand.turns + head;
+    for (int k = (wr - (int)(u0 % DQ_SLOTS) + DQ_SLOTS) % DQ_SLOTS; k < w.n_qt; k += DQ_SLOTS) {
+      mbar_wait(&hand.dq_full[wr], ((u0 + k) / DQ_SLOTS) & 1);
+      const int t = w.tile(k);
+      turn_wait(turns + t, w.turn(t));
+      reduce_dq(acc + t * QT * D, base + DQ + wr * DQ_BYTES, DQ_BYTES);
+      bulk_wait_read<0>();
+      mbar_arrive(&hand.dq_empty[wr]);
+      turn_pass(turns + t);
+    }
+  }
   // dQ's sums to bf16
   static void epilogue(const float* acc, T* dq, int B, int Tq, int H, cudaStream_t stream) {
     const size_t n = (size_t)B * Tq * H * (D / 8);
@@ -328,21 +426,21 @@ struct Bf16Bwd {
   }
 };
 
-template <int D, int NWG>
-__device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, uint64_t* empty,
-                                         uint64_t* kv_full, uint64_t*,
-                                         const unsigned char* __restrict__ mask,
-                                         float* __restrict__ dq_acc,
-                                         unsigned* __restrict__ turns, T* __restrict__ dk,
-                                         T* __restrict__ dv, int Tq, int Tk, int H, float scale,
-                                         float sm_scale, Dropout drop) {
+template <int D, int NWG, bool ORDERED>
+__device__ void Bf16Bwd<D, NWG, ORDERED>::consume(
+    unsigned char* base, uint64_t* full, uint64_t* empty, uint64_t* kv_full, uint64_t*,
+    const Walk& w, uint32_t u0, const Handoff& hand, const unsigned char* __restrict__ mask,
+    float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
+    float scale, float sm_scale, Dropout drop) {
   constexpr int W = I::W;
   constexpr uint64_t L = I::LAYOUT;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wg = warp / 4, wi = warp % 4;
   const int g = lane / 4, c = lane % 4;
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * KEYS;
-  const int n_qt = (Tq + QT - 1) / QT, C = H * D;
-  const uint32_t k_img = smem_addr(base + K_DST), v_img = smem_addr(base + V_DST);
+  const int b = w.b, h = w.h, j0 = w.x * KEYS;
+  const int n_qt = w.n_qt, C = H * D;
+  // this item's K/V buffer, and which of its fills this is
+  const int item = u0 / n_qt, kb = item % KV_BUFS;
+  const uint32_t k_img = smem_addr(base + K_DST + kb * 2 * KV_BYTES), v_img = k_img + KV_BYTES;
   const uint32_t ring = smem_addr(base + RING);
   const float* stats_s = reinterpret_cast<const float*>(base + STATS);
   const int row0 = KEYS_WG * wg + 16 * wi + g;  // the thread's first key in the block
@@ -352,11 +450,14 @@ __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, ui
   float acc_dk[D / 2], acc_dv[D / 2];
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc_dk[e] = acc_dv[e] = 0.f;
-  mbar_wait(kv_full, 0);
+  mbar_wait(&kv_full[kb], (item / KV_BUFS) & 1);
 
-  for (int t = 0; t < n_qt; ++t) {
-    const int s = t % STAGES, i0 = t * QT;
-    mbar_wait(&full[s], (t / STAGES) & 1);
+  for (int k = 0; k < n_qt; ++k) {
+    // step u of the block's walks (its earlier items' steps included), on tile t
+    const uint32_t u = u0 + k;
+    const int t = ORDERED ? w.tile(k) : k;
+    const int s = u % STAGES, i0 = t * QT;
+    mbar_wait(&full[s], (u / STAGES) & 1);
     const uint32_t q_img = ring + s * STAGE, do_img = q_img + Q_BYTES;
 
     // S^T = K Q^T and dP^T = V dO^T (this warpgroup's 64 keys x 64 queries)
@@ -413,7 +514,7 @@ __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, ui
 
     // dS^T to shared memory: KEYS rows (keys) of 64 queries, swizzled at 128
     // bytes; lane (g, c) writes queries 8 j + 2c, + 1 of its two rows
-    unsigned char* ds_tile = base + DS + (t & 1) * DS_BYTES;
+    unsigned char* ds_tile = base + DS + (u & 1) * DS_BYTES;
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       const int r = row0 + 8 * hf;
@@ -424,16 +525,16 @@ __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, ui
       }
     }
     fence_proxy_async();
-    // Warpgroup t % NWG issues this tile's dQ: it waits for every
+    // Warpgroup u % NWG issues this tile's dQ: it waits for every
     // warpgroup's dS^T, the others only announce theirs. (A warpgroup that
     // writes this buffer again, two tiles on, has passed the next tile's
     // barrier, which the issuing warpgroup opens after this dQ is done.)
-    const int owner = t % NWG;
+    const int owner = u % NWG;
     if (wg != owner) {
       named_bar_arrive(BAR_DS0 + owner, 128 * NWG);
       wgmma_wait<0>();
     } else {  // this tile's dQ = dS K over the block's keys
-      if (threadIdx.x % 128 == 0) bulk_wait_read<0>();  // its staging is free again
+      if (!ORDERED && threadIdx.x % 128 == 0) bulk_wait_read<0>();  // its staging is free again
       named_bar_sync(BAR_DS0 + owner, 128 * NWG);
       const uint32_t ds_img = smem_addr(ds_tile);
       float dq[D / 2];
@@ -448,8 +549,11 @@ __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, ui
       wgmma_wait<0>();
       fence_all(dq);
       // to the staging in fragment order, then one bulk reduction into the
-      // tile's sums (rows past Tq add zeros to the padding)
-      float2* stage = reinterpret_cast<float2*>(base + DQ + wg * DQ_BYTES);
+      // tile's sums (rows past Tq add zeros to the padding): by this
+      // warpgroup's first thread, or (deterministic) by the slot's writer
+      const int slot = ORDERED ? u % DQ_SLOTS : wg;
+      if (ORDERED && u >= DQ_SLOTS) mbar_wait(&hand.dq_empty[slot], (u / DQ_SLOTS - 1) & 1);
+      float2* stage = reinterpret_cast<float2*>(base + DQ + slot * DQ_BYTES);
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
 #pragma unroll
@@ -461,8 +565,12 @@ __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, ui
       fence_proxy_async();
       named_bar_sync(BAR_WG0 + wg, 128);
       if (threadIdx.x % 128 == 0) {
-        const size_t tile = (size_t)(b * H + h) * n_qt + t;
-        reduce_dq(dq_acc + tile * QT * D, stage, DQ_BYTES, turns ? turns + tile : nullptr);
+        if constexpr (ORDERED) {
+          mbar_arrive(&hand.dq_full[slot]);
+        } else {
+          const size_t tile = (size_t)(b * H + h) * n_qt + t;
+          reduce_dq(dq_acc + tile * QT * D, stage, DQ_BYTES);
+        }
       }
     }
     fence_all(acc_dv);
@@ -471,7 +579,9 @@ __device__ void Bf16Bwd<D, NWG>::consume(unsigned char* base, uint64_t* full, ui
     fence_all(dsf);
     if (lane == 0) mbar_arrive(&empty[s]);  // this warp's products are done with the stage
   }
-  if (threadIdx.x % 128 == 0) bulk_wait_all();  // the last reductions have landed
+  // the last reductions have landed (deterministic: the writers wait for theirs)
+  if (!ORDERED && threadIdx.x % 128 == 0) bulk_wait_all();
+  if (ORDERED && lane == 0) mbar_arrive(&hand.kv_empty[kb]);  // this warp is done with K, V
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -549,13 +659,17 @@ __device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
   split(x.w, hi.w, lo.w);
 }
 
-template <int D_>
+template <int D_, bool ORDERED_>
 struct F32Bwd {
   using T = float;
   static constexpr int D = D_, NWG = 1, ELEM = 4;
-  static constexpr int QT = 32, KEYS = KEYS_WG, STAGES = 2, THREADS = 256, MIN_BLOCKS = 1;
-  // the producer warpgroup's three other warps build the passed images
-  static constexpr int HELPERS = 3;
+  static constexpr bool ORDERED = ORDERED_;
+  static constexpr int QT = 32, KEYS = KEYS_WG, STAGES = 2, MIN_BLOCKS = 1, THREADS = 256;
+  // the producer warpgroup's other three warps build the passed images; under
+  // the deterministic order the last of them is the writer instead (the
+  // shared memory is full: it takes each step's staging into its registers)
+  static constexpr int WRITERS = ORDERED ? 1 : 0, HELPERS = 3 - WRITERS, DQ_SLOTS = 1;
+  static constexpr int WRITER_LANES = 32, KV_BUFS = 1;
   static constexpr int PRODUCER_REGS = 0, CONSUMER_REGS = 0;  // no setmaxnreg: 255 for all
   using I = RowImage<4 * D>;                         // a raw fp32 row of a head
   static constexpr uint32_t Q_BYTES = QT * D * 4;    // a raw Q or dO tile
@@ -583,16 +697,43 @@ struct F32Bwd {
   static constexpr uint32_t DQ_BYTES = QT * D * 4, DQ = DS_HI, STATS = DS_HI + 2 * DS_IMG;
   static_assert(DQ_BYTES <= 2 * DS_IMG, "dQ^T's staging fits in dS's image");
   static constexpr uint32_t BARS = STATS + STAGES * 2 * QT * 4;
-  static constexpr size_t SMEM = 1024 + BARS + (2 * STAGES + 5) * 8;
+  static constexpr size_t SMEM = 1024 + BARS + bar_bytes(STAGES);
   static constexpr size_t SMEM_LAUNCH = SMEM;
   static_assert(SMEM <= 227 * 1024, "the fp32 images exceed a block's shared memory");
 
   static __device__ void consume(unsigned char* base, uint64_t* full, uint64_t* empty,
-                                 uint64_t* kv_full, uint64_t* aux,
-                                 const unsigned char* __restrict__ mask,
-                                 float* __restrict__ dq_acc, unsigned* __restrict__ turns,
-                                 T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
-                                 float scale, float sm_scale, Dropout drop);
+                                 uint64_t* kv_full, uint64_t* aux, const Walk& w, uint32_t u0,
+                                 const Handoff& hand, const unsigned char* __restrict__ mask,
+                                 float* __restrict__ dq_acc, T* __restrict__ dk,
+                                 T* __restrict__ dv, int Tq, int Tk, int H, float scale,
+                                 float sm_scale, Dropout drop);
+  // The writer warp (the deterministic order): each step's dQ^T staging into
+  // its registers (D / 4 float4s a lane), the staging freed, the turn (every
+  // lane's acquire load is the same one load), the addition by vector
+  // atomics (red.global.add.v4.f32), then each lane's fence and the release.
+  static __device__ void write(unsigned char* base, const Walk& w, uint32_t u0,
+                               const Handoff& hand, float* __restrict__ dq_acc, int H, int) {
+    constexpr int N = DQ_BYTES / 16 / 32;
+    const int lane = threadIdx.x % 32;
+    for (int k = 0; k < w.n_qt; ++k) {
+      const uint32_t u = u0 + k;
+      mbar_wait(hand.dq_full, u & 1);
+      float4 x[N];
+#pragma unroll
+      for (int i = 0; i < N; ++i) x[i] = reinterpret_cast<const float4*>(base + DQ)[lane + 32 * i];
+      __syncwarp();
+      if (lane == 0) mbar_arrive(hand.dq_empty);
+      const int t = w.tile(k);
+      const size_t tile = (size_t)(w.b * H + w.h) * w.n_qt + t;
+      turn_acquire(hand.turns + tile, w.turn(t));
+      float4* dst = reinterpret_cast<float4*>(dq_acc + tile * QT * D);
+#pragma unroll
+      for (int i = 0; i < N; ++i) atomicAdd(dst + lane + 32 * i, x[i]);
+      __threadfence();
+      __syncwarp();
+      if (lane == 0) turn_release(hand.turns + tile);
+    }
+  }
   // dQ^T's sums to dQ
   static void epilogue(const float* acc, T* dq, int B, int Tq, int H, cudaStream_t stream) {
     const size_t n = (size_t)B * Tq * H * (D / 8);
@@ -652,18 +793,18 @@ struct F32Bwd {
     }
   }
 
-  // The helper warps: tile t's passed images into buffer t % 2, once its
-  // raw tiles are in and the products of tile t - 2 are done with the buffer.
+  // The helper warps: step u's passed images into buffer u % 2, once its
+  // raw tiles are in and the products of step u - 2 are done with the buffer.
   static __device__ void help(unsigned char* base, uint64_t* full, uint64_t* empty,
-                              uint64_t* aux, int Tq) {
+                              uint64_t* aux, int n_qt, uint32_t u0) {
     uint64_t* tr_full = aux;
     uint64_t* tr_empty = aux + 2;
     float* const f = reinterpret_cast<float*>(base);
-    const int tid = threadIdx.x - 128 * NWG - 32, n_qt = (Tq + QT - 1) / QT;
-    for (int t = 0; t < n_qt; ++t) {
-      const int s = t % STAGES, buf = t & 1;
-      if (t >= 2) mbar_wait(&tr_empty[buf], ((t >> 1) - 1) & 1);
-      mbar_wait(&full[s], (t / STAGES) & 1);
+    const int tid = threadIdx.x - 128 * NWG - 32;
+    for (uint32_t u = u0; u < u0 + n_qt; ++u) {
+      const int s = u % STAGES, buf = u & 1;
+      if (u >= 2) mbar_wait(&tr_empty[buf], ((u >> 1) - 1) & 1);
+      mbar_wait(&full[s], (u / STAGES) & 1);
       const unsigned char* raw_q = base + RING + s * STAGE;
       const uint32_t tr = TR + buf * TR_BYTES;
       build_passed(f + tr / 4, f + (tr + 2 * Q_IMG) / 4, raw_q, raw_q + Q_BYTES, tid,
@@ -678,17 +819,16 @@ struct F32Bwd {
   }
 };
 
-template <int D>
-__device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t* empty,
-                                   uint64_t* kv_full, uint64_t* aux,
-                                   const unsigned char* __restrict__ mask,
-                                   float* __restrict__ dq_acc, unsigned* __restrict__ turns,
-                                   T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
-                                   float scale, float sm_scale, Dropout drop) {
+template <int D, bool ORDERED>
+__device__ void F32Bwd<D, ORDERED>::consume(
+    unsigned char* base, uint64_t* full, uint64_t* empty, uint64_t* kv_full, uint64_t* aux,
+    const Walk& w, uint32_t u0, const Handoff& hand, const unsigned char* __restrict__ mask,
+    float* __restrict__ dq_acc, T* __restrict__ dk, T* __restrict__ dv, int Tq, int Tk, int H,
+    float scale, float sm_scale, Dropout drop) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, wi = warp;
   const int g = lane / 4, c = lane % 4;
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * KEYS;
-  const int n_qt = (Tq + QT - 1) / QT, C = H * D;
+  const int b = w.b, h = w.h, j0 = w.x * KEYS;
+  const int n_qt = w.n_qt, C = H * D;
   float* const f = reinterpret_cast<float*>(base);
   const uint32_t s0 = smem_addr(base);
   const float* stats_s = reinterpret_cast<const float*>(base + STATS);
@@ -697,7 +837,7 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
   const uint32_t salt = drop.salt(b * H + h);
 
   // the lo parts of K and V, and the K^T image, from the raw K and V
-  mbar_wait(kv_full, 0);
+  mbar_wait(kv_full, (u0 / n_qt) & 1);  // one K/V buffer
   build_lo<KV_BYTES>(base + K_LO, base + K_DST);
   build_lo<KV_BYTES>(base + V_LO, base + V_DST);
   // K^T: channel rows, keys along in the order of dS's image: k-position
@@ -723,16 +863,19 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
   for (int e = 0; e < D / 2; ++e) acc_dk[e] = acc_dv[e] = 0.f;
   constexpr uint32_t LBO = 128, SB_Q = 32 * QT, SB_K = 32 * KEYS;
 
-  for (int t = 0; t < n_qt; ++t) {
-    const int s = t % STAGES, i0 = t * QT;
-    mbar_wait(&full[s], (t / STAGES) & 1);
+  for (int k = 0; k < n_qt; ++k) {
+    // step u of the block's walks (its earlier items' steps included), on tile t
+    const uint32_t u = u0 + k;
+    const int t = ORDERED ? w.tile(k) : k;
+    const int s = u % STAGES, i0 = t * QT;
+    mbar_wait(&full[s], (u / STAGES) & 1);
     const unsigned char* raw_q = base + RING + s * STAGE;
     const unsigned char* raw_do = raw_q + Q_BYTES;
     // the lo parts of the tile's Q and dO (B of S^T, dP^T)
     build_lo<Q_BYTES>(base + QN_LO, raw_q);
     build_lo<Q_BYTES>(base + DON_LO, raw_do);
     fence_proxy_async();
-    if (threadIdx.x == 0) bulk_wait_read<0>();  // dS's image (dQ^T's staging) is free again
+    if (!ORDERED && threadIdx.x == 0) bulk_wait_read<0>();  // dS's image (dQ^T's staging) is free
     named_bar_sync(BAR_WG0, 128);
 
     // S^T = K Q^T and dP^T = V dO^T, 3xTF32, both operands from shared memory
@@ -771,6 +914,8 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
                               scale, drop, salt);
     }
     if (lane == 0) mbar_arrive(&empty[s]);  // the raw tile and its stats are read
+    // (deterministic) the writer has taken the last step's staging out of dS's image
+    if (ORDERED && u >= 1) mbar_wait(hand.dq_empty, (u - 1) & 1);
 
     // dS (queries x keys, K-major over keys) for dQ^T, split; the thread's
     // keys row0 and row0 + 8 side by side at k-positions 16 w + 2 g, + 1
@@ -807,8 +952,8 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
     };
     fragments(st);
     named_bar_sync(BAR_WG0, 128);  // every warp's dS is in
-    mbar_wait(&aux[t & 1], (t >> 1) & 1);  // the helpers' Q^T and dO^T of this tile
-    const uint32_t q_tr = s0 + TR + (t & 1) * TR_BYTES, do_tr = q_tr + 2 * Q_IMG;
+    mbar_wait(&aux[u & 1], (u >> 1) & 1);  // the helpers' Q^T and dO^T of this tile
+    const uint32_t q_tr = s0 + TR + (u & 1) * TR_BYTES, do_tr = q_tr + 2 * Q_IMG;
     fence_all(ah);
     fence_all(al);
 
@@ -865,7 +1010,7 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
     fence_all(dqt);
     fence_all(ah);
     fence_all(al);
-    if (lane == 0) mbar_arrive(&aux[2 + (t & 1)]);  // done with the passed images
+    if (lane == 0) mbar_arrive(&aux[2 + (u & 1)]);  // done with the passed images
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc_dk[e] += dk_t[e];
     // dQ^T to the staging in fragment order (the warps of real channels),
@@ -885,11 +1030,16 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
     // the staging is in; and every warp's products are done with the images
     named_bar_sync(BAR_WG0, 128);
     if (threadIdx.x == 0) {
-      const size_t tile = (size_t)(b * H + h) * n_qt + t;
-      reduce_dq(dq_acc + tile * QT * D, base + DQ, DQ_BYTES, turns ? turns + tile : nullptr);
+      if constexpr (ORDERED) {
+        mbar_arrive(hand.dq_full);  // to the writer
+      } else {
+        const size_t tile = (size_t)(b * H + h) * n_qt + t;
+        reduce_dq(dq_acc + tile * QT * D, base + DQ, DQ_BYTES);
+      }
     }
   }
-  if (threadIdx.x == 0) bulk_wait_all();  // the last reductions have landed
+  if (!ORDERED && threadIdx.x == 0) bulk_wait_all();  // the last reductions have landed
+  if (ORDERED && lane == 0) mbar_arrive(hand.kv_empty);  // this warp is done with K, V
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
@@ -909,9 +1059,33 @@ __device__ void F32Bwd<D>::consume(unsigned char* base, uint64_t* full, uint64_t
 // ===========================================================================
 // The block, both routes: one producer warpgroup (one thread issues the
 // copies; on the fp32 route its other three warps are the helpers) and
-// R::NWG consumer warpgroups. Grid (ceil(Tk / KEYS), H, B): the
-// key blocks of a head side by side, so that they read its Q and dO tiles
-// from L2 together.
+// R::NWG consumer warpgroups; under the deterministic order, R::WRITERS
+// writers add dQ. The default grid is (ceil(Tk / KEYS), H, B), one item a
+// block: the key blocks of a head side by side, so that they read its Q and
+// dO tiles from L2 together.
+//
+// The deterministic grid is cooperative (every block resident, which CUDA
+// guarantees or refuses the launch): a 1-D grid whose blocks each walk
+// several items (key block fastest, then head, batch), every role the same
+// items in the same order.
+// - Staggered order, where a head's n_kb key blocks fit the resident blocks:
+//   rounds of whole heads, floor(capacity / n_kb) heads a round (at most all
+//   of them), one key block a block: block c takes items c, c + grid, ...
+//   Each role counts the items itself and runs on into the next (its rings'
+//   barriers and kv_full / kv_empty hand them on; with two K/V buffers the
+//   next item's K and V load while the consumers finish the last's). A
+//   head's blocks are all resident in its round, every wait inside a round
+//   points to a smaller (step, x) of the same head, and nothing of a round
+//   waits on a later round: no cycle. The item counter would serve this
+//   order too, but only without reading the next item ahead (a later block
+//   of a head precedes an earlier one on some tile: a block holding both
+//   would wait on itself), so the block would meet between items and load
+//   each item's K and V only then: slower on the H100 (PERF.md).
+// - Plain order otherwise (a very long Tk): thread 0 takes the block's next
+//   item from a counter (the last word of `turns`), in index order, and the
+//   block meets (BAR_ITEM) to read it. Block x waits only on x - 1, an item
+//   taken earlier by a resident block, which in turn waits only on earlier
+//   items: deadlock-free at any size, in no dispatch order.
 // ===========================================================================
 
 // Rows [r0, r0 + rows) of one head of a tensor map into a shared-memory
@@ -926,6 +1100,37 @@ __device__ __forceinline__ void load_rows(uint32_t dst, const CUtensorMap* map, 
   }
 }
 
+// The producer thread's copies of one item: its K and V (into the item's
+// buffer, once the consumers are done with that buffer's last item), then
+// Q, dO and the stats of each tile of its walk into the ring.
+template <class R>
+__device__ __forceinline__ void produce(unsigned char* base, uint64_t* full, uint64_t* empty,
+                                        uint64_t* kv_full, uint64_t* kv_empty, const Walk& w,
+                                        uint32_t u0, const CUtensorMap* q_map,
+                                        const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                        const CUtensorMap* do_map,
+                                        const float* __restrict__ stats, int H) {
+  constexpr int STAGES = R::STAGES, QT = R::QT;
+  const int item = u0 / w.n_qt, kb = item % R::KV_BUFS;
+  const uint32_t s0 = smem_addr(base), kv = s0 + R::K_DST + kb * 2 * R::KV_BYTES;
+  if (item >= R::KV_BUFS) mbar_wait(&kv_empty[kb], (item / R::KV_BUFS - 1) & 1);
+  mbar_arrive_expect_tx(&kv_full[kb], 2 * R::KV_BYTES);
+  load_rows<R>(kv, k_map, w.h, w.x * R::KEYS, R::KEYS, w.b, &kv_full[kb]);
+  load_rows<R>(kv + R::KV_BYTES, v_map, w.h, w.x * R::KEYS, R::KEYS, w.b, &kv_full[kb]);
+  const float* st = stats + (size_t)(w.b * H + w.h) * w.n_qt * 2 * QT;
+  float* st_s = reinterpret_cast<float*>(base + R::STATS);
+  for (int k = 0; k < w.n_qt; ++k) {
+    const uint32_t u = u0 + k;
+    const int s = u % STAGES, t = R::ORDERED ? w.tile(k) : k;
+    if (u >= STAGES) mbar_wait(&empty[s], ((u / STAGES) - 1) & 1);
+    mbar_arrive_expect_tx(&full[s], R::STAGE + 2 * QT * 4);
+    const uint32_t dst = s0 + R::RING + s * R::STAGE;
+    load_rows<R>(dst, q_map, w.h, t * QT, QT, w.b, &full[s]);
+    load_rows<R>(dst + R::Q_BYTES, do_map, w.h, t * QT, QT, w.b, &full[s]);
+    bulk_load(st_s + s * 2 * QT, st + (size_t)t * 2 * QT, 2 * QT * 4, &full[s]);
+  }
+}
+
 template <class R>
 __global__ void __launch_bounds__(R::THREADS, R::MIN_BLOCKS)
 bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
@@ -933,65 +1138,147 @@ bwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
            const float* __restrict__ stats, const unsigned char* __restrict__ mask,
            float* __restrict__ dq_acc, unsigned* __restrict__ turns,
            typename R::T* __restrict__ dk, typename R::T* __restrict__ dv, int Tq, int Tk, int H,
-           float scale, float sm_scale, Dropout drop) {
+           int B, int stagger, float scale, float sm_scale, Dropout drop) {
   constexpr int STAGES = R::STAGES, QT = R::QT;
   extern __shared__ __align__(1024) unsigned char bwd_smem[];
   unsigned char* base = bwd_smem + ((1024 - (smem_addr(bwd_smem) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + R::BARS);
   uint64_t* empty = full + STAGES;
-  uint64_t* kv_full = empty + STAGES;
-  uint64_t* aux = kv_full + 1;  // fp32: the passed images' handoff (full, then empty, x 2)
-  const int b = blockIdx.z, h = blockIdx.y, j0 = blockIdx.x * R::KEYS;
-  const int n_qt = (Tq + QT - 1) / QT;
-  const int warp = threadIdx.x / 32;
+  uint64_t* kv_full = empty + STAGES;  // per K/V buffer, then kv_empty
+  uint64_t* aux = kv_full + 4;  // fp32: the passed images' handoff (full, then empty, x 2)
+  const Handoff hand{aux + 4, aux + 4 + MAX_SLOTS, turns, kv_full + 2};
+  int* next = reinterpret_cast<int*>(aux + 4 + 2 * MAX_SLOTS);  // plain order: items r, r + 1
+  const int n_qt = (Tq + QT - 1) / QT, n_kb = (Tk + R::KEYS - 1) / R::KEYS;
+  const int items = B * H * n_kb;
+  // the deterministic grid's item counter, after the turns
+  unsigned* const ticket = R::ORDERED ? turns + (size_t)B * H * ((Tq + 31) / 32) : nullptr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);                         // the producer, plus the bytes
       mbar_init(&empty[s], 4 * R::NWG + R::HELPERS);  // every consumer and helper warp
     }
-    mbar_init(kv_full, 1);
+    for (int i = 0; i < R::KV_BUFS; ++i) {
+      mbar_init(&kv_full[i], 1);             // the producer, plus the bytes
+      mbar_init(&hand.kv_empty[i], 4 * R::NWG);  // every consumer warp
+    }
     for (int i = 0; i < 2; ++i) {
       mbar_init(&aux[i], R::HELPERS > 0 ? R::HELPERS : 1);  // the helpers' images are in
       mbar_init(&aux[2 + i], 4);  // the consumer warps are done with them
+    }
+    if constexpr (R::ORDERED) {
+      for (int i = 0; i < R::DQ_SLOTS; ++i) {
+        mbar_init(&hand.dq_full[i], 1);   // the staging is in (a consumer thread)
+        mbar_init(&hand.dq_empty[i], 1);  // the writer has read it
+      }
+      if (!stagger) next[0] = atomicAdd(ticket, 1);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (warp >= 4 * R::NWG) {  // the producer warpgroup
-    if constexpr (R::PRODUCER_REGS > 0) setmaxnreg_dec<R::PRODUCER_REGS>();
-    if (threadIdx.x == 128 * R::NWG) {
-      prefetch_tensormap(&q_map);
-      prefetch_tensormap(&k_map);
-      prefetch_tensormap(&v_map);
-      prefetch_tensormap(&do_map);
-      const uint32_t s0 = smem_addr(base);
-      mbar_arrive_expect_tx(kv_full, 2 * R::KV_BYTES);
-      load_rows<R>(s0 + R::K_DST, &k_map, h, j0, R::KEYS, b, kv_full);
-      load_rows<R>(s0 + R::V_DST, &v_map, h, j0, R::KEYS, b, kv_full);
-      const float* st = stats + (size_t)(b * H + h) * n_qt * 2 * QT;
-      float* st_s = reinterpret_cast<float*>(base + R::STATS);
-      for (int t = 0; t < n_qt; ++t) {
-        const int s = t % STAGES;
-        if (t >= STAGES) mbar_wait(&empty[s], ((t / STAGES) - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], R::STAGE + 2 * QT * 4);
-        const uint32_t dst = s0 + R::RING + s * R::STAGE;
-        load_rows<R>(dst, &q_map, h, t * QT, QT, b, &full[s]);
-        load_rows<R>(dst + R::Q_BYTES, &do_map, h, t * QT, QT, b, &full[s]);
-        bulk_load(st_s + s * 2 * QT, st + (size_t)t * 2 * QT, 2 * QT * 4, &full[s]);
+  // Every role walks the same items: one (the default grid), or the
+  // deterministic grid's. Staggered, each role counts them itself and the
+  // barriers of the rings hand them on (K and V through kv_full / kv_empty);
+  // plain, thread 0 takes the next from the counter and the block meets to
+  // read it.
+  auto each_item = [&](auto&& role) {
+    if constexpr (!R::ORDERED) {
+      role(Walk{(int)blockIdx.z, (int)blockIdx.y, (int)blockIdx.x, n_qt, n_kb, 0, false, 0}, 0u);
+    } else {
+      for (int r = 0;; ++r) {
+        const int i = stagger ? (int)blockIdx.x + r * (int)gridDim.x : next[r & 1];
+        if (i >= items) break;
+        role(walk_of(i, H, n_qt, n_kb, stagger != 0), (uint32_t)(r * n_qt));
+        if (!stagger) {
+          if (threadIdx.x == 0) next[(r + 1) & 1] = (int)atomicAdd(ticket, 1);
+          __syncwarp();
+          named_bar_sync(BAR_ITEM, R::THREADS);
+        }
       }
-    } else if constexpr (R::HELPERS > 0) {
-      if (warp > 4 * R::NWG) R::help(base, full, empty, aux, Tq);
+    }
+  };
+
+  if (warp >= 4 * R::NWG) {  // the producer warpgroup, and the fp32 route's writer warp
+    if constexpr (R::PRODUCER_REGS > 0) setmaxnreg_dec<R::PRODUCER_REGS>();
+    const int pw = warp - 4 * R::NWG;  // 0: the copies; 1..: helpers or writers
+    if (pw == 0) {
+      const CUtensorMap *qm = &q_map, *km = &k_map, *vm = &v_map, *dm = &do_map;
+      if (lane == 0) {
+        prefetch_tensormap(qm);
+        prefetch_tensormap(km);
+        prefetch_tensormap(vm);
+        prefetch_tensormap(dm);
+      }
+      each_item([&](const Walk& w, uint32_t u0) {
+        if (lane == 0) {
+          produce<R>(base, full, empty, kv_full, hand.kv_empty, w, u0, qm, km, vm, dm, stats, H);
+        }
+      });
+    } else if (pw <= R::HELPERS) {
+      if constexpr (R::HELPERS > 0) {
+        each_item([&](const Walk&, uint32_t u0) { R::help(base, full, empty, aux, n_qt, u0); });
+      }
+    } else if (pw <= R::HELPERS + R::WRITERS) {
+      if constexpr (R::WRITERS > 0) {
+        // the bf16 route's writers are lane 0 of a warp each; the fp32 route's a warp
+        const int wr = pw - 1 - R::HELPERS;
+        each_item([&](const Walk& w, uint32_t u0) {
+          if (lane < R::WRITER_LANES) R::write(base, w, u0, hand, dq_acc, H, wr);
+        });
+      }
+    } else {
+      each_item([&](const Walk&, uint32_t) {});
     }
   } else {
     if constexpr (R::CONSUMER_REGS > 0) setmaxnreg_inc<R::CONSUMER_REGS>();
-    R::consume(base, full, empty, kv_full, aux, mask, dq_acc, turns, dk, dv, Tq, Tk, H, scale,
-               sm_scale, drop);
+    each_item([&](const Walk& w, uint32_t u0) {
+      R::consume(base, full, empty, kv_full, aux, w, u0, hand, mask, dq_acc, dk, dv, Tq, Tk, H,
+                 scale, sm_scale, drop);
+    });
   }
 }
 
+// The deterministic grid of R's block kernel on the current device: a head's
+// query tiles and key blocks, the blocks an SM holds (the occupancy API), the
+// SMs, the blocks launched and the order: rounds of whole heads where a head's
+// key blocks fit the resident blocks (staggered), else as many blocks as are
+// resident, or as there are items (key-block order; kernels/attention.py
+// bwd_rounds is the CPU twin), and the depth of the dQ ring.
+struct OrderedPlan {
+  int n_qt, n_kb, per_sm, sms, grid, stagger, ring;
+};
+template <class R>
+cudaError_t ordered_plan(int B, int Tq, int Tk, int H, OrderedPlan* p) {
+  auto kernel = bwd_kernel<R>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)R::SMEM_LAUNCH);
+  int device = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->per_sm, kernel, R::THREADS,
+                                                      R::SMEM_LAUNCH);
+  }
+  if (e != cudaSuccess) return e;
+  if (p->per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  p->n_qt = (Tq + R::QT - 1) / R::QT;
+  p->n_kb = (Tk + R::KEYS - 1) / R::KEYS;
+  p->ring = R::DQ_SLOTS;
+  const long capacity = (long)p->per_sm * p->sms, heads = (long)B * H;
+  p->stagger = p->n_kb <= capacity;
+  if (p->stagger) {
+    p->grid = (int)((capacity / p->n_kb < heads ? capacity / p->n_kb : heads) * p->n_kb);
+  } else {
+    p->grid = (int)(capacity < heads * p->n_kb ? capacity : heads * p->n_kb);
+  }
+  return cudaSuccess;
+}
+
 // The prep kernel, the block kernel and dQ's epilogue, on `stream`; dQ's
-// sums, and the turns when given, zeroed first.
+// sums zeroed first, and (deterministic) the turns and the item counter.
 template <class R>
 int launch_bwd(const typename R::T* q, const typename R::T* k, const typename R::T* v,
                const typename R::T* o, const typename R::T* dout, const float* lse,
@@ -1000,11 +1287,12 @@ int launch_bwd(const typename R::T* q, const typename R::T* k, const typename R:
                int H, float scale, float sm_scale, Dropout drop, cudaStream_t stream) {
   using T = typename R::T;
   constexpr int D = R::D;
-  const int C = H * D, n_qt = (Tq + R::QT - 1) / R::QT;
+  const int C = H * D, n_qt = (Tq + R::QT - 1) / R::QT, n_kb = (Tk + R::KEYS - 1) / R::KEYS;
   const size_t rows = (size_t)B * n_qt * R::QT * H;
   cudaError_t e = cudaMemsetAsync(dq_acc, 0, rows * D * sizeof(float), stream);
-  if (e == cudaSuccess && turns != nullptr) {
-    e = cudaMemsetAsync(turns, 0, (size_t)B * H * n_qt * sizeof(unsigned), stream);
+  if (e == cudaSuccess && R::ORDERED) {
+    e = cudaMemsetAsync(turns, 0, ((size_t)B * H * ((Tq + 31) / 32) + 1) * sizeof(unsigned),
+                        stream);
   }
   if (e != cudaSuccess) return (int)e;
   bwd_prep_kernel<T, D, R::QT><<<(unsigned)((rows + 255) / 256), 256, 0, stream>>>(
@@ -1021,8 +1309,24 @@ int launch_bwd(const typename R::T* q, const typename R::T* k, const typename R:
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)R::SMEM_LAUNCH);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<dim3((Tk + R::KEYS - 1) / R::KEYS, H, B), R::THREADS, R::SMEM_LAUNCH, stream>>>(
-      qm, km, vm, dm, stats, mask, dq_acc, turns, dk, dv, Tq, Tk, H, scale, sm_scale, drop);
+  int stagger = 0;
+  if constexpr (!R::ORDERED) {
+    kernel<<<dim3(n_kb, H, B), R::THREADS, R::SMEM_LAUNCH, stream>>>(
+        qm, km, vm, dm, stats, mask, dq_acc, turns, dk, dv, Tq, Tk, H, B, stagger, scale,
+        sm_scale, drop);
+  } else {
+    // every block resident (a cooperative launch, or none)
+    OrderedPlan plan;
+    e = ordered_plan<R>(B, Tq, Tk, H, &plan);
+    if (e != cudaSuccess) return (int)e;
+    stagger = plan.stagger;
+    const float* stats_c = stats;
+    void* args[] = {&qm,  &km, &vm, &dm, &stats_c, &mask, &dq_acc, &turns, &dk, &dv, &Tq,
+                    &Tk, &H,  &B,  &stagger, &scale, &sm_scale, &drop};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(plan.grid),
+                                    dim3(R::THREADS), args, R::SMEM_LAUNCH, stream);
+    if (e != cudaSuccess) return (int)e;
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   R::epilogue(dq_acc, dq, B, Tq, H, stream);
@@ -1039,24 +1343,42 @@ struct Routes<float> {
                  float* dq_acc, unsigned* turns, float* dq, float* dk, float* dv, int B, int Tq,
                  int Tk, int H, float scale, float sm_scale, Dropout drop, cudaStream_t s) {
     if (keys != 64) return (int)cudaErrorInvalidValue;
-    return launch_bwd<F32Bwd<D>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk, dv, B,
-                                 Tq, Tk, H, scale, sm_scale, drop, s);
+    if (turns != nullptr) {
+      return launch_bwd<F32Bwd<D, true>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq,
+                                         dk, dv, B, Tq, Tk, H, scale, sm_scale, drop, s);
+    }
+    return launch_bwd<F32Bwd<D, false>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq,
+                                        dk, dv, B, Tq, Tk, H, scale, sm_scale, drop, s);
   }
 };
 template <>
 struct Routes<bf16> {
+  template <int D, int NWG>
+  static int keys_run(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                      const bf16* dout, const float* lse, const unsigned char* mask,
+                      float* stats, float* dq_acc, unsigned* turns, bf16* dq, bf16* dk, bf16* dv,
+                      int B, int Tq, int Tk, int H, float scale, float sm_scale, Dropout drop,
+                      cudaStream_t s) {
+    if (turns != nullptr) {
+      return launch_bwd<Bf16Bwd<D, NWG, true>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns,
+                                               dq, dk, dv, B, Tq, Tk, H, scale, sm_scale, drop,
+                                               s);
+    }
+    return launch_bwd<Bf16Bwd<D, NWG, false>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns,
+                                              dq, dk, dv, B, Tq, Tk, H, scale, sm_scale, drop, s);
+  }
   template <int D>
   static int run(int keys, const bf16* q, const bf16* k, const bf16* v, const bf16* o,
                  const bf16* dout, const float* lse, const unsigned char* mask, float* stats,
                  float* dq_acc, unsigned* turns, bf16* dq, bf16* dk, bf16* dv, int B, int Tq,
                  int Tk, int H, float scale, float sm_scale, Dropout drop, cudaStream_t s) {
     if (keys == 64) {
-      return launch_bwd<Bf16Bwd<D, 1>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk,
-                                       dv, B, Tq, Tk, H, scale, sm_scale, drop, s);
+      return keys_run<D, 1>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk, dv, B, Tq,
+                            Tk, H, scale, sm_scale, drop, s);
     }
     if (keys == 128) {
-      return launch_bwd<Bf16Bwd<D, 2>>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk,
-                                       dv, B, Tq, Tk, H, scale, sm_scale, drop, s);
+      return keys_run<D, 2>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk, dv, B, Tq,
+                            Tk, H, scale, sm_scale, drop, s);
     }
     return (int)cudaErrorInvalidValue;
   }
@@ -1097,6 +1419,18 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, con
   }
 }
 
+// The deterministic plan of the instance that a launch with these sizes takes.
+template <int D>
+int plan_of(int bf16_route, int keys, int B, int Tq, int Tk, int H, OrderedPlan* p) {
+  if (!bf16_route) {
+    return keys == 64 ? (int)ordered_plan<F32Bwd<D, true>>(B, Tq, Tk, H, p)
+                      : (int)cudaErrorInvalidValue;
+  }
+  if (keys == 64) return (int)ordered_plan<Bf16Bwd<D, 1, true>>(B, Tq, Tk, H, p);
+  if (keys == 128) return (int)ordered_plan<Bf16Bwd<D, 2, true>>(B, Tq, Tk, H, p);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1105,8 +1439,9 @@ extern "C" {
 // bases; lse (B*H, Tq) from flash_mha_f32; mask (Tq, Tk) bytes or null;
 // stats: scratch of B*H*ceil(Tq / 64)*128 floats; dq_acc: scratch of
 // B*H*ceil(Tq / 64)*64*D floats (dQ's sums); turns: null (dQ summed in the
-// order the blocks come) or scratch of B*H*ceil(Tq / 32) uint32 (dQ summed
-// in key-block order, deterministic) -> dq (B, Tq, H*D), dk, dv (B, Tk,
+// order the blocks come) or scratch of B*H*ceil(Tq / 32) + 1 uint32 (dQ
+// summed in a fixed order, deterministic: a turn counter per tile, then the
+// item counter of the cooperative grid) -> dq (B, Tq, H*D), dk, dv (B, Tk,
 // H*D). keys: keys per block, 64. scale = log2(e) / sqrt(D), the forward's; sm_scale = 1 /
 // sqrt(D). rate and seed: the forward's dropout. Returns a cudaError_t, or
 // ENCODE_FAILED + the CUresult of a failed tensor-map encode.
@@ -1129,6 +1464,25 @@ int flash_mha_bwd_bf16(const void* q, const void* k, const void* v, const void* 
                        float rate, int seed, void* stream) {
   return dispatch_bwd<bf16>(q, k, v, o, dout, lse, mask, stats, dq_acc, turns, dq, dk, dv, B, Tq,
                             Tk, H, D, keys, scale, sm_scale, rate, seed, stream);
+}
+
+// The grid that a deterministic launch (turns not null) of flash_mha_bwd_f32
+// (bf16_route 0) or flash_mha_bwd_bf16 (1) with these sizes takes on the
+// current device -> plan: a head's query tiles and key blocks, the blocks an
+// SM holds, the SMs, the blocks launched, the order (1 staggered, 0 key-block
+// order) and the depth of the dQ ring. Returns a cudaError_t.
+int flash_mha_bwd_ordered_plan(int bf16_route, int B, int Tq, int Tk, int H, int D, int keys,
+                               int* plan) {
+  OrderedPlan p{};
+  int e = (int)cudaErrorInvalidValue;
+  if (B > 0 && H > 0 && Tq > 0 && Tk > 0) {
+    if (D == 32) e = plan_of<32>(bf16_route, keys, B, Tq, Tk, H, &p);
+    if (D == 48) e = plan_of<48>(bf16_route, keys, B, Tq, Tk, H, &p);
+    if (D == 64) e = plan_of<64>(bf16_route, keys, B, Tq, Tk, H, &p);
+  }
+  const int out[] = {p.n_qt, p.n_kb, p.per_sm, p.sms, p.grid, p.stagger, p.ring};
+  for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  return e;
 }
 
 }  // extern "C"

@@ -119,12 +119,31 @@ __device__ __forceinline__ void bulk_wait_all() {
 
 // ---- an ordered turn between blocks (deterministic reductions) ----
 // Waits until the counter at `turn` (global memory) reads `mine` (an acquire
-// load), then orders the thread's later bulk operations after that read.
-__device__ __forceinline__ void turn_wait(const unsigned* turn, unsigned mine) {
+// load): the thread's later memory operations are ordered after that read.
+// After TURN_POLLS reads that miss it traps instead of holding the card: no
+// correct schedule waits that long. The bound counts reads, not time (at
+// about half a microsecond a read of L2, some seconds; untimed). A trap is
+// fatal to the process's CUDA context, not only to the launch: the wrapper
+// raises, and every later CUDA call of the process fails, so the process
+// must be restarted.
+constexpr uint32_t TURN_POLLS = 1u << 24;
+__device__ __forceinline__ void turn_acquire(const unsigned* turn, unsigned mine) {
   unsigned v;
-  do {
+  for (uint32_t polls = 0;; ++polls) {
     asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(v) : "l"(turn) : "memory");
-  } while (v != mine);
+    if (v == mine) break;
+    if (polls == TURN_POLLS) __trap();
+  }
+}
+// Adds 1 to the counter, a release: the thread's earlier memory operations
+// (and those of the threads it has synchronised with) are ordered before it.
+__device__ __forceinline__ void turn_release(unsigned* turn) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(turn) : "memory");
+}
+// turn_acquire, then orders the thread's later bulk operations (the async
+// proxy) after that read.
+__device__ __forceinline__ void turn_wait(const unsigned* turn, unsigned mine) {
+  turn_acquire(turn, mine);
   asm volatile("fence.proxy.async;" ::: "memory");
 }
 // Passes the turn on: waits until this thread's bulk groups are complete
@@ -133,7 +152,7 @@ __device__ __forceinline__ void turn_wait(const unsigned* turn, unsigned mine) {
 __device__ __forceinline__ void turn_pass(unsigned* turn) {
   bulk_wait_all();
   asm volatile("fence.proxy.async;" ::: "memory");
-  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(turn) : "memory");
+  turn_release(turn);
 }
 
 // Brings a tensor map into the descriptor cache ahead of its first copy.

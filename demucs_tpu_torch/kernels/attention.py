@@ -41,8 +41,11 @@ pass over the queries per block of keys, five ``wgmma`` products a tile (3xTF32
 or bf16), the operands brought in by tensor-map copies, dQ summed across the
 blocks by fp32 reductions in L2: in the order the blocks finish (its last
 bits may differ from run to run), or, under
-``torch.use_deterministic_algorithms(True)``, in key-block order
-(:func:`dq_turns`), bit for bit the same every run.
+``torch.use_deterministic_algorithms(True)``, in an order fixed by the shape
+(:func:`dq_turns`, :func:`bwd_order`: each block of keys walks the query
+tiles from a tile of its own, the order follows the walks, writers outside
+the consumer warpgroups add; a cooperative grid, :func:`bwd_rounds`), bit
+for bit the same every run.
 
 A call that wants no gradient and no dropout is the registered op
 ``demucs_tpu_torch::flash_mha`` (:func:`flash_mha_op`; ``torch.library``):
@@ -67,7 +70,8 @@ from demucs_tpu_torch.ops.attention import _split_heads, dropout_keep, multihead
 
 __all__ = ["flash_mha", "flash_mha_op", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
            "flash_mha_bwd_bf16", "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE",
-           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles", "bwd_keys"]
+           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles", "bwd_keys",
+           "bwd_walk", "bwd_turn", "bwd_order", "bwd_rounds", "bwd_plan"]
 
 HEAD_DIMS = (32, 48, 64)
 KEY_TILE = 64  # keys per tile of the fp32 route's loop
@@ -98,8 +102,11 @@ _MERGE = 5.0  # the second kernel, which merges the row blocks that two blocks s
 BWD_KEYS_BF16 = None
 # bwd_keys's model: the time of 64 keys' work on a whole SM, relative, for the
 # two block sizes (128 keys: one block an SM; 64 keys: two blocks share it),
-# fitted to chip_smoke.py's sweep on the H100 (PERF.md).
+# fitted to chip_smoke.py's sweep on the H100 (PERF.md); the second under
+# torch.use_deterministic_algorithms, where 64-key blocks have half the dQ
+# ring and the Q/dO ring of 128-key blocks and twice the turns a tile.
 _BWD_COST = {64: 1.02, 128: 1.0}
+_BWD_COST_ORDERED = {64: 1.4, 128: 1.0}
 # A status at or above this from flash_mha_bf16 is a failed tensor-map
 # encode (csrc/tensor_map.cuh ENCODE_FAILED), plus the driver's CUresult.
 _ENCODE_FAILED = 10000
@@ -142,6 +149,8 @@ def _bwd_lib() -> ctypes.CDLL:
     for name in ("flash_mha_bwd_f32", "flash_mha_bwd_bf16"):
         getattr(lib, name).argtypes = [p] * 13 + [i] * 6 + [f, f, f, i, p]
         getattr(lib, name).restype = i
+    lib.flash_mha_bwd_ordered_plan.argtypes = [i] * 7 + [p]
+    lib.flash_mha_bwd_ordered_plan.restype = i
     return lib
 
 
@@ -409,26 +418,112 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
 def dq_turns(B: int, num_heads: int, Tq: int, device) -> torch.Tensor | None:
     """The backward kernel's turns under ``torch.use_deterministic_algorithms``:
     a counter per (batch, head, query tile of 32 or more rows) that orders
-    the blocks' additions to dQ by key block (the launch zeroes them), so
-    that dQ repeats bit for bit; None otherwise (dQ's blocks add in the order
+    the blocks' additions to dQ (:func:`bwd_order`), then the cooperative
+    grid's item counter (:func:`bwd_rounds`); the launch zeroes them. dQ
+    then repeats bit for bit. None otherwise (dQ's blocks add in the order
     they finish, its last bits may differ between launches)."""
     if not torch.are_deterministic_algorithms_enabled():
         return None
-    return torch.empty(B * num_heads * -(-Tq // 32), dtype=torch.int32, device=device)
+    return torch.empty(B * num_heads * -(-Tq // 32) + 1, dtype=torch.int32, device=device)
+
+
+def bwd_walk(x: int, n_qt: int, n_kb: int, stagger: bool = True) -> list:
+    """The query tiles key block ``x`` of ``n_kb`` walks, step by step, in the
+    deterministic backward (csrc/flash_mha_bwd.cu ``Walk::tile``): staggered,
+    from its own tile ``x n_qt // n_kb`` round the ``n_qt`` tiles; else (the
+    plain order) from tile 0."""
+    o = x * n_qt // n_kb if stagger else 0
+    return [(o + k) % n_qt for k in range(n_qt)]
+
+
+def bwd_turn(x: int, t: int, n_qt: int, n_kb: int, stagger: bool = True) -> int:
+    """Key block ``x``'s position in tile ``t``'s order, in closed form as the
+    kernel computes it (``Walk::turn``): the blocks whose walk starts
+    cyclically after its own and at or before ``t``, and those that start with
+    it and have a smaller index. :func:`bwd_order` defines the order."""
+    if not stagger:
+        return x
+    o = x * n_qt // n_kb
+
+    def upto(v):  # the blocks whose walk starts at tile v or before
+        return -(-(v + 1) * n_kb // n_qt)
+
+    ahead = upto(t) - upto(o) if t >= o else n_kb - upto(o) + upto(t)
+    return ahead + x - upto(o - 1)
+
+
+def bwd_order(n_qt: int, n_kb: int, stagger: bool = True) -> list:
+    """Per query tile, the key blocks in the order they add their parts of
+    dQ under ``torch.use_deterministic_algorithms``: by the step at which
+    their walks (:func:`bwd_walk`) reach the tile, ties by block. The plain
+    order (``stagger=False``) is 0, 1, ... on every tile."""
+    steps = [{t: k for k, t in enumerate(bwd_walk(x, n_qt, n_kb, stagger))}
+             for x in range(n_kb)]
+    return [sorted(range(n_kb), key=lambda x: (steps[x][t], x)) for t in range(n_qt)]
+
+
+def bwd_rounds(B: int, num_heads: int, n_kb: int, capacity: int) -> dict:
+    """The CPU twin of the deterministic backward's cooperative grid
+    (csrc/flash_mha_bwd.cu ``ordered_plan``; :func:`bwd_plan` reads the
+    launch's) for ``n_kb`` key blocks a head and ``capacity``
+    resident blocks: where a head's blocks fit, the staggered order in rounds
+    of ``capacity // n_kb`` whole heads (at most all), block c taking item c
+    (key block fastest, then head) of each round, and ``rounds`` lists each
+    round's heads; otherwise the plain order on ``min(capacity, items)``
+    blocks, which take their items from a counter (``rounds`` None)."""
+    heads = B * num_heads
+    if n_kb <= capacity:
+        per = min(capacity // n_kb, heads)
+        return dict(stagger=True, grid=per * n_kb, heads_per_round=per,
+                    rounds=[list(range(r, min(r + per, heads))) for r in range(0, heads, per)])
+    return dict(stagger=False, grid=min(capacity, heads * n_kb), heads_per_round=0, rounds=None)
+
+
+_PLAN = ("n_qt", "n_kb", "blocks_per_sm", "sms", "grid", "stagger", "ring")
+
+
+def bwd_plan(dtype: torch.dtype, keys: int, B: int, Tq: int, Tk: int, num_heads: int, d: int,
+             device=None) -> dict:
+    """The plan of the deterministic backward's launch at these sizes on the
+    card (``device``, the current one by default), as the launch computes it
+    (``csrc/flash_mha_bwd.cu`` ``ordered_plan``): a head's query tiles and
+    key blocks, the blocks an SM holds, the SMs, the blocks launched, the
+    order (staggered, else key-block order), the depth of the dQ ring; then
+    the resident blocks (``capacity``), the rounds of heads and whether the
+    CPU twin (:func:`bwd_rounds`) chose the same grid and order. ``keys``:
+    keys per block (64 or 128 on the bf16 route, 64 on the fp32 route)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"bwd_plan: float32 or bfloat16, got {dtype}")
+    device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
+    out = (ctypes.c_int * len(_PLAN))()
+    with torch.cuda.device(device):
+        status = _bwd_lib().flash_mha_bwd_ordered_plan(
+            int(dtype == torch.bfloat16), B, Tq, Tk, num_heads, d, keys, out)
+    _build.check(status, "flash_mha_bwd_ordered_plan")
+    plan = dict(zip(_PLAN, out), keys=keys)
+    plan["stagger"] = bool(plan["stagger"])
+    plan["capacity"] = plan["blocks_per_sm"] * plan["sms"]
+    twin = bwd_rounds(B, num_heads, plan["n_kb"], plan["capacity"])
+    plan["heads_per_round"] = twin["heads_per_round"]
+    plan["n_rounds"] = None if twin["rounds"] is None else len(twin["rounds"])
+    plan["twin_agrees"] = twin["grid"] == plan["grid"] and twin["stagger"] == plan["stagger"]
+    return plan
 
 
 def bwd_keys(B: int, Tk: int, num_heads: int, sm_count: int) -> int:
     """Keys per block of the bf16 backward kernel, 64 or 128: the one the
     model prices lowest, the blocks an SM takes at once (one of 128 keys,
-    two of 64) times ``_BWD_COST``, at least one such round. The last block
-    of each head covers keys past Tk: 128-key blocks waste more of a ragged
-    Tk. ``BWD_KEYS_BF16`` fixes the choice."""
+    two of 64) times ``_BWD_COST`` (``_BWD_COST_ORDERED`` under
+    ``torch.use_deterministic_algorithms``), at least one such round. The
+    last block of each head covers keys past Tk: 128-key blocks waste more
+    of a ragged Tk. ``BWD_KEYS_BF16`` fixes the choice."""
     if BWD_KEYS_BF16 is not None:
         return BWD_KEYS_BF16
+    costs = _BWD_COST_ORDERED if torch.are_deterministic_algorithms_enabled() else _BWD_COST
     best = None
     for keys, per_sm in ((128, 1), (64, 2)):
         blocks = -(-Tk // keys) * num_heads * B
-        cost = max(blocks / (per_sm * sm_count), 1.0) * _BWD_COST[keys]
+        cost = max(blocks / (per_sm * sm_count), 1.0) * costs[keys]
         if best is None or cost < best[0]:
             best = (cost, keys)
     return best[1]

@@ -938,25 +938,39 @@ def deterministic(monkeypatch):
         torch.use_deterministic_algorithms(was)
 
 
-@pytest.mark.parametrize("dtype,keys,d,ordered", [
-    (torch.float32, None, 64, False), (torch.bfloat16, 128, 64, False),
-    (torch.bfloat16, 64, 64, False)] + [
-    (dtype, keys, d, True) for dtype, keys in ((torch.float32, None), (torch.bfloat16, 64),
-                                               (torch.bfloat16, 128)) for d in (32, 48, 64)])
-def test_flash_mha_backward_launches_agree(cuda, monkeypatch, request, dtype, keys, d, ordered):
+# (B, Tq, Tk, H) of test_flash_mha_backward_launches_agree: a small ragged case; the
+# deterministic order at the released freq self (2688 tokens, 8 heads) at B = 1 and at the
+# training batch 8; a ragged Tq; a Tk whose key blocks exceed the blocks the card holds at
+# once (132 of 128 keys or of fp32's 64, 264 of 64 bf16 keys): the plain key-block order
+AGREE_SHAPES = {"small": (2, 700, 1500, 4), "freq self B=1": (1, 2688, 2688, 8),
+                "freq self B=8": (8, 2688, 2688, 8), "ragged Tq": (2, 1001, 1344, 8),
+                "Tk past capacity": (1, 150, 17000, 2)}
+
+
+@pytest.mark.parametrize("dtype,keys,d,ordered,shape", [
+    (torch.float32, None, 64, False, "small"), (torch.bfloat16, 128, 64, False, "small"),
+    (torch.bfloat16, 64, 64, False, "small")] + [
+    (dtype, keys, d, True, shape) for dtype, keys in ((torch.float32, None), (torch.bfloat16, 64),
+                                                      (torch.bfloat16, 128))
+    for d in (32, 48, 64) for shape in AGREE_SHAPES])
+def test_flash_mha_backward_launches_agree(cuda, monkeypatch, request, dtype, keys, d, ordered,
+                                           shape):
     """By default the blocks of keys add their parts of dQ with atomics, in
     the order they finish, so two launches on the same inputs may differ in
     dQ: within a few fp32 roundings of the sums (1e-5 of dQ's peak) on the
     fp32 route, one bf16 step of dQ's peak (2**-8) on the bf16 route (the
     fp32 sums round to bf16 on either side of a step). dK and dV take no
     atomics: equal. Under torch.use_deterministic_algorithms the blocks add
-    in key-block order: dQ, dK and dV equal, every head dim and keys plan."""
+    in an order fixed by the shape (staggered, or key-block order past the card's
+    resident blocks): dQ, dK and dV equal, every head dim and keys plan and
+    shape, and each launch within the kernel's tolerance of the plain
+    formula (1e-4 x each gradient's peak in fp32, 2**-6 in bf16)."""
     from demucs_tpu_torch.kernels import attention as K
 
     if ordered:
         request.getfixturevalue("deterministic")
     monkeypatch.setattr(K, "BWD_KEYS_BF16", keys)
-    B, Tq, Tk, H = 2, 700, 1500, 4
+    B, Tq, Tk, H = AGREE_SHAPES[shape]
     C = H * d
     q, k, v, do = (_randn(B, T, C, seed=s).to(dtype) for s, T in enumerate((Tq, Tk, Tk, Tq)))
     forward = K._forward_bf16 if dtype == torch.bfloat16 else K._forward_f32
@@ -968,6 +982,13 @@ def test_flash_mha_backward_launches_agree(cuda, monkeypatch, request, dtype, ke
     dq1, dq2 = first[0].float(), second[0].float()
     if ordered:
         assert torch.equal(first[0], second[0])
+        # the order the launch took, as it reports it, and the CPU twin's choice
+        plan = K.bwd_plan(dtype, keys or 64, B, Tq, Tk, H, d)
+        assert plan["twin_agrees"] and plan["stagger"] is (shape != "Tk past capacity")
+        want = K.flash_mha_bwd_plain(q, k, v, o, do, H, dropout=0.1, dropout_seed=5)
+        tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
+        for g, w in zip(first, want):
+            assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
     else:
         bound = 2 ** -8 if dtype == torch.bfloat16 else 1e-5
         assert (dq1 - dq2).abs().max() <= bound * dq1.abs().max()

@@ -2,6 +2,7 @@
 """Drive demucs_tpu_torch on one NVIDIA GPU and check it, phase by phase.
 
     python3 chip_smoke.py          # from the root of a checkout, one card
+    python3 chip_smoke.py --k3-pair PARENT .   # K3 of two checkouts, timed in turns
 
 Phases, one JSON line each; any failure exits non-zero before the last line:
 
@@ -155,7 +156,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               shapes, B = 1 and 8, unmasked and under the diag mask, at dropout 0
               and 0.1, each case also under torch.use_deterministic_algorithms
               (its ordered kernel against the same plain gradients), timed
-              beside SDPA's fp32 backward; K2's backward (K1's
+              beside SDPA's fp32 backward and forward, each with and without
+              its dropout; K2's backward (K1's
               kernel with the per-bin scale) and K1's (K2's kernel) against
               their plain versions and autograd through the plain twins, at the
               training shapes and the HDemucs 44 s ones; one train step of the
@@ -172,13 +174,17 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               audio-s/s over steps 3-12, the forward / backward / optimizer
               split, peak memory and one profiled step; then python -m
               demucs_tpu_torch.train on a synthetic wav folder, killed after
-              epoch 2's checkpoint and resumed for epoch 3, and the best model
-              separating a 10 s track through Separator on the card. bf16
+              epoch 2's checkpoint and resumed for epoch 3 (the resumed
+              process reports its launches: the train entry path), and the
+              best model separating a 10 s track through Separator on the
+              card. bf16
               mixed precision beside it: K3's bf16 forward with the hashed
               dropout and each row's log-sum-exp, its drop pattern bit for bit
               and its backward kernel (flash_mha_bwd_bf16) against the plain
               versions at the same shapes (every case and both block sizes
-              also under the flag), timed beside SDPA in bf16; the bf16
+              also under the flag), every plan of the forward at dropout 0.1
+              (time, plain, pattern), the dropout instances' registers and
+              spills, timed beside SDPA in bf16 (its dropout too); the bf16
               step of the same model and batch, card against CPU, the card's
               run once by default and twice under the flag (bit-equal; the
               two are the train bf16 deterministic path), each way against
@@ -187,7 +193,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               and with remat, and on the CPU, against the step in float64 on
               the CPU); the bf16 training rate (the train bf16 path's
               launches); and the entry point for one epoch with
-              compute_dtype bfloat16 and t_dropout 0.1.
+              compute_dtype bfloat16 and t_dropout 0.1 in a process of its
+              own that reports its launches (the train bf16 entry path).
    train_recipe — the reference's default recipe: demucs_tpu_torch.train's
               main (python -m demucs_tpu_torch.train) in this process at the
               released width, every augment at its default (repitch 0.2, the
@@ -596,7 +603,7 @@ def ptxas_kernels(report: str, pattern: str) -> dict:
         entry = re.search(r"Compiling entry function '(\S+)'", line)
         if entry:
             args = re.search(pattern, entry.group(1))
-            name = " ".join(args.groups()) if args else None
+            name = " ".join(g for g in args.groups() if g is not None) if args else None
             continue
         if name is None:
             continue
@@ -608,6 +615,22 @@ def ptxas_kernels(report: str, pattern: str) -> dict:
         if regs:
             found.setdefault(name, {})["registers_at_launch"] = int(regs.group(1))
     return found
+
+
+def bf16_instances(report: tp.Optional[str] = None) -> dict:
+    """Registers and spills of each instance of K3's bf16 kernel (d, keys per
+    tile, rows per block, with or without the dropout) from nvcc's report of
+    the library loaded, or of ``report``."""
+    from demucs_tpu_torch.kernels import _build
+
+    found = ptxas_kernels(_build.ptxas_report("flash_mha") if report is None else report,
+                          r"flash_mha_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+    named = {}
+    for key, v in found.items():
+        dd, bk, nwg, *drop = key.split()
+        named[f"d={dd} keys={bk} rows={64 * int(nwg)}"
+              + {"": "", "0": "", "1": " dropout"}[drop[0] if drop else ""]] = v
+    return named
 
 
 def bf16_excess(got, want) -> float:
@@ -721,11 +744,8 @@ def k3_bf16_checks(gen) -> dict:
     masked = excess(got, want)
     worst = max(worst, masked)
     main = by_shape["B=1 freq<-freq"]
-    instances = ptxas_kernels(_build.ptxas_report("flash_mha"),
-                              r"flash_mha_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E")
-    instances = {"d={} keys={} rows={}".format(dd, bk, 64 * int(nwg)): v
-                 for (dd, bk, nwg), v in ((k.split(), v) for k, v in instances.items())}
-    if len(instances) != len(KA.HEAD_DIMS) * 4 or not all(
+    instances = bf16_instances()
+    if len(instances) != len(KA.HEAD_DIMS) * 4 * 2 or not all(
             {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
             for v in instances.values()):
         raise AssertionError(f"K3 bf16: nvcc's report lacks instances: {sorted(instances)}")
@@ -2775,6 +2795,7 @@ def train_k3_checks(gen) -> dict:
             split = [t.view(batch, -1, H, d).transpose(1, 2).detach().clone().requires_grad_()
                      for t in (q, k, v)]
             so = F.scaled_dot_product_attention(*split)
+            so_drop = F.scaled_dot_product_attention(*split, dropout_p=TRAIN_DROPOUT)
             sdo = do.view(batch, Tq, H, d).transpose(1, 2)
             row = dict(
                 ms=cuda_ms(lambda: KA.flash_mha_bwd(q, k, v, o, do, H, lse=lse)),
@@ -2787,7 +2808,12 @@ def train_k3_checks(gen) -> dict:
                                                             dropout_seed=5)),
                 sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
                                                                 retain_graph=True)),
-                bound_ms=b_ms, bound_by=b_by, fn_bound_ms=bound(flops, nbytes, TF32_FLOPS)[0])
+                sdpa_bwd_ms_dropout=cuda_ms(lambda: torch.autograd.grad(
+                    so_drop, split, sdo, retain_graph=True)),
+                sdpa_fwd_ms_dropout=cuda_ms(lambda: _sdpa_no_grad(split, TRAIN_DROPOUT)),
+                bound_ms=b_ms, bound_by=b_by, fn_bound_ms=bound(flops, nbytes, TF32_FLOPS)[0],
+                fwd_bound_ms=bound(3 * flops * 2 / 5, 4 * batch * (2 * Tq + 2 * Tk) * C,
+                                   TF32_FLOPS)[0])
             row["dropout_over_bwd"] = row["ms_dropout"] / row["ms"] - 1
             row["deterministic_over_bwd"] = row["deterministic_ms"] / row["ms"] - 1
             # the deterministic launch's grid, order, rounds of heads and dQ ring, as it
@@ -2797,7 +2823,7 @@ def train_k3_checks(gen) -> dict:
                 row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(q, k, v, o, do, H),
                                           repeat=3)
             by_shape[key] = row
-            del q, k, v, do, o, lse, split, so
+            del q, k, v, do, o, lse, split, so, so_drop
             torch.cuda.empty_cache()
     main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
     instances = bwd_instances("F32Bwd")
@@ -2825,6 +2851,15 @@ def train_k3_checks(gen) -> dict:
         by_shape=by_shape, cases=cases)
 
 
+def _sdpa_no_grad(split, p: float = 0.0):
+    """SDPA on the heads-split q, k, v without a graph, with dropout p."""
+    import torch
+    import torch.nn.functional as F
+
+    with torch.no_grad():
+        return F.scaled_dot_product_attention(*split, dropout_p=p)
+
+
 def _lse_plain(q, k, num_heads: int, mask):
     """Each row's base-2 log-sum-exp of the scores scaled by log2(e)/sqrt(d),
     from the bf16 q and k in fp32 (B * H, Tq)."""
@@ -2841,12 +2876,13 @@ def _lse_plain(q, k, num_heads: int, mask):
     return (torch.logsumexp(s * math.log(2), -1) / math.log(2)).reshape(B * num_heads, Tq)
 
 
-def _drop_pattern_mismatches(q, k, num_heads: int, rate: float, seed: int) -> int:
+def _drop_pattern_mismatches(q, k, num_heads: int, rate: float, seed: int, keep=None) -> int:
     """Scores the bf16 kernel drops other than ``dropout_keep``'s, over three
     windows of 64 keys (first, middle, last): with one-hot values on a window
     (key j of each head writes channel j of the head) the output there is Z P
     / l, zero exactly where a score was dropped. q and k are scaled by 0.3, so
-    that no kept probability comes near underflow."""
+    that no kept probability comes near underflow. ``keep``: dropout_keep's
+    mask (B, H, Tq, Tk), when the caller has it."""
     import torch
 
     from demucs_tpu_torch.kernels import attention as KA
@@ -2855,7 +2891,9 @@ def _drop_pattern_mismatches(q, k, num_heads: int, rate: float, seed: int) -> in
     B, Tq, C = q.shape
     Tk, d = k.shape[1], C // num_heads
     qs, ks = (0.3 * q.float()).bfloat16(), (0.3 * k.float()).bfloat16()
-    keep = dropout_keep(B * num_heads, Tq, Tk, rate, seed, q.device).view(B, num_heads, Tq, Tk)
+    if keep is None:
+        keep = dropout_keep(B * num_heads, Tq, Tk, rate, seed,
+                            q.device).view(B, num_heads, Tq, Tk)
     idx = torch.arange(d, device=q.device)
     bad = 0
     for start in (0, (Tk // 2 // d) * d, Tk - d):
@@ -2874,20 +2912,24 @@ def train_k3_bf16_checks(gen) -> dict:
     TRAIN_DROPOUT: the forward with each row's log-sum-exp against the plain
     version (K3_BF16_TOL) and the plain scores' log-sum-exp
     (K3_BF16_LSE_ATOL); the drop pattern bit for bit against dropout_keep
-    (_drop_pattern_mismatches); dQ, dK, dV of the bf16 backward kernel against
-    the plain formula (K3_BF16_BWD_RTOL x each gradient's peak) on the keys
-    per block bwd_keys chooses and on both (64, 128) unmasked, each by default
-    and under deterministic() (the ordered instances); two launches on the
-    same inputs (K3_BF16_BWD_RERUN_RTOL), the deterministic launch's plans as
-    it reports them (the CPU twin must agree) and nvcc's report of the
-    instances (no spills). Times the backward kernel at both block sizes and
-    the forward, each with and without dropout, beside SDPA in bf16 (forward
-    with and without its dropout, backward), and the plain versions at freq
-    self."""
+    (_drop_pattern_mismatches), also on every plan (keys per tile x rows per
+    block x the persistent schedule or a block per row block, forced) at
+    TRAIN_DROPOUT, each timed and held to the plain version; dQ, dK, dV of the
+    bf16 backward kernel against the plain formula (K3_BF16_BWD_RTOL x each
+    gradient's peak) on the keys per block bwd_keys chooses and on both (64,
+    128) unmasked, each by default and under deterministic() (the ordered
+    instances); two launches on the same inputs (K3_BF16_BWD_RERUN_RTOL), the
+    deterministic launch's plans as it reports them (the CPU twin must agree)
+    and nvcc's report of the backward's instances and of the forward's
+    dropout instances (none may spill). Times the backward kernel at both
+    block sizes and the forward, each with and without dropout, beside SDPA
+    in bf16 (forward and backward, each with and without its dropout), and
+    the plain versions at freq self."""
     import torch
     import torch.nn.functional as F
 
     from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.ops.attention import dropout_keep
     from demucs_tpu_torch.ops.sparse import keep_mask
 
     dev = torch.device("cuda")
@@ -2932,8 +2974,33 @@ def train_k3_bf16_checks(gen) -> dict:
                               "dq_dk_dv_err_over_peak": errs,
                               "deterministic_dq_dk_dv_err_over_peak": det_errs})
                 del o, lse, want_o, got, want
-            pattern = _drop_pattern_mismatches(q, k, H, TRAIN_DROPOUT, 77 + batch)
+            keep = dropout_keep(batch * H, Tq, Tk, TRAIN_DROPOUT, 77 + batch,
+                                dev).view(batch, H, Tq, Tk)
+            pattern = _drop_pattern_mismatches(q, k, H, TRAIN_DROPOUT, 77 + batch, keep)
             worst["pattern_mismatches"] += pattern
+            # every plan at TRAIN_DROPOUT: its time, its output against the plain
+            # version's, its drop pattern
+            want_drop = KA.flash_mha_plain(q, k, v, H, dropout=TRAIN_DROPOUT,
+                                           dropout_seed=77 + batch)
+            plans_dropout = {}
+            for bk, r, persistent in BF16_PLANS:
+                with bf16_plan(KEY_TILE_BF16=bk, BF16_ROWS=r, BF16_PERSISTENT=persistent):
+                    got = KA.flash_mha_bf16(q, k, v, H, dropout=TRAIN_DROPOUT,
+                                            dropout_seed=77 + batch)
+                    plan = {"excess_over_tol": bf16_excess(got, want_drop),
+                            "drop_pattern_mismatches": _drop_pattern_mismatches(
+                                q, k, H, TRAIN_DROPOUT, 77 + batch, keep),
+                            "ms": cuda_ms(lambda: KA.flash_mha_bf16(
+                                q, k, v, H, dropout=TRAIN_DROPOUT, dropout_seed=5))}
+                plans_dropout[f"{bk} keys {r} rows {'persistent' if persistent else 'grid'}"] = plan
+                worst["fwd_excess"] = max(worst["fwd_excess"], plan["excess_over_tol"])
+                worst["pattern_mismatches"] += plan["drop_pattern_mismatches"]
+            rows_chosen, ctas = KA.bf16_plan(batch, Tq, Tk, H, sm)
+            chosen = (f"{KA.KEY_TILE_BF16} keys {rows_chosen} rows "
+                      f"{'grid' if ctas == -(-Tq // rows_chosen) * H * batch else 'persistent'}")
+            dropout_plan = dict(chosen=chosen, chosen_over_fastest=plans_dropout[chosen]["ms"]
+                                / min(v["ms"] for v in plans_dropout.values()))
+            del keep, want_drop, got
             o, lse = KA._forward_bf16(q, k, v, H, None, 0.0, 0, True)
             want = KA.flash_mha_bwd_plain(q, k, v, o, do, H)
             keys_sweep = {}
@@ -2963,11 +3030,11 @@ def train_k3_bf16_checks(gen) -> dict:
             split = [t.view(batch, -1, H, d).transpose(1, 2).detach().clone().requires_grad_()
                      for t in (q, k, v)]
             so = F.scaled_dot_product_attention(*split)
+            so_drop = F.scaled_dot_product_attention(*split, dropout_p=TRAIN_DROPOUT)
             sdo = do.view(batch, Tq, H, d).transpose(1, 2)
 
             def sdpa(p=0.0):
-                with torch.no_grad():
-                    return F.scaled_dot_product_attention(*split, dropout_p=p)
+                return _sdpa_no_grad(split, p)
 
             row = dict(
                 ms=cuda_ms(lambda: KA.flash_mha_bwd_bf16(q, k, v, o, do, H, lse=lse)),
@@ -2980,9 +3047,13 @@ def train_k3_bf16_checks(gen) -> dict:
                 sdpa_fwd_ms_dropout=cuda_ms(lambda: sdpa(TRAIN_DROPOUT)),
                 sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
                                                                 retain_graph=True)),
+                sdpa_bwd_ms_dropout=cuda_ms(lambda: torch.autograd.grad(
+                    so_drop, split, sdo, retain_graph=True)),
                 bound_ms=b_ms, bound_by=b_by,
                 fwd_bound_ms=bound(flops * 2 / 5, 2 * 2 * batch * (Tq + Tk) * C, BF16_FLOPS)[0],
-                drop_pattern_mismatches=pattern, keys_sweep_ms=keys_sweep,
+                drop_pattern_mismatches=pattern, plans_dropout=plans_dropout,
+                dropout_plan=dropout_plan,
+                keys_sweep_ms=keys_sweep,
                 keys=KA.bwd_keys(batch, Tk, H, sm))
             # under the flag: the keys bwd_keys takes there and their time; at both block
             # sizes the launch's grid, order, rounds of heads and dQ ring, as it reports them
@@ -3003,10 +3074,11 @@ def train_k3_bf16_checks(gen) -> dict:
                 row["fwd_plain_ms_dropout"] = cuda_ms(lambda: KA.flash_mha_plain(
                     q, k, v, H, dropout=TRAIN_DROPOUT, dropout_seed=5), repeat=3)
             by_shape[key] = row
-            del q, k, v, do, o, lse, split, so
+            del q, k, v, do, o, lse, split, so, so_drop
             torch.cuda.empty_cache()
     main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
     instances = bwd_instances("Bf16Bwd")
+    fwd_instances = {k: v for k, v in bf16_instances().items() if k.endswith("dropout")}
     worst["rerun_dq_gap"] = max(r["dq_gap_over_peak"] for r in rerun.values())
     ok = (worst["fwd_excess"] <= 0 and worst["lse"] <= K3_BF16_LSE_ATOL
           and worst["bwd"] <= K3_BF16_BWD_RTOL and worst["pattern_mismatches"] == 0
@@ -3015,12 +3087,13 @@ def train_k3_bf16_checks(gen) -> dict:
           and all(r["dk_dv_equal"] and r["deterministic_equal"] for r in rerun.values())
           and all(p["twin_agrees"] for r in by_shape.values()
                   for p in r["deterministic_plans"].values())
-          and _no_spills(instances))
+          and _no_spills(instances) and len(fwd_instances) == 12 and _no_spills(fwd_instances))
     return dict(
         name="flash_mha_bwd_bf16", tol=K3_BF16_BWD_RTOL, max_abs_err=worst["bwd"],
         deterministic_max_abs_err=worst["deterministic_bwd"],
         max_err_is="over each gradient's peak", worst=worst, within_tol=ok,
         rerun=rerun, rerun_tol=K3_BF16_BWD_RERUN_RTOL, instances=instances,
+        fwd_dropout_instances=fwd_instances,
         fwd_tol=K3_BF16_TOL, lse_tol=K3_BF16_LSE_ATOL,
         source="demucs_tpu_torch/csrc/flash_mha_bwd.cu",
         replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function on bf16 "
@@ -3485,6 +3558,52 @@ def _train_folder(root: Path, train_s: float = 20.0, valid_s: float = 10.0) -> P
     return root
 
 
+def _entry_command(counted: Path) -> list:
+    """``python -m demucs_tpu_torch.train`` as run through chip_smoke's
+    ``--entry-counts``: the same entry point in a process of its own, which
+    writes the kernels' launches (eager and graph replays) to ``counted``
+    when the run ends (not when it is killed)."""
+    return [sys.executable, str(ROOT / "chip_smoke.py"), "--entry-counts", str(counted),
+            "demucs_tpu_torch.train"]
+
+
+def entry_counts(counted: Path, module: str, argv: list) -> int:
+    """``python -m module argv`` in this process (runpy), then the launches of
+    the training kernels it made, as JSON to ``counted``: each kernel's count,
+    and under "<name> dropout" those of K3's forward and backward launches
+    that ran the hashed dropout (rate > 0)."""
+    import collections
+    import runpy
+
+    from demucs_tpu_torch.inference.engine import GRAPHS
+    from demucs_tpu_torch.kernels import attention as KA
+
+    dropping = collections.Counter()
+
+    def counting(fn, rate_at, name=None):
+        def launch(*args):
+            if args[rate_at] > 0:
+                dropping[(name or args[0].replace("_f32", "")) + " dropout"] += 1
+            return fn(*args)
+        return launch
+
+    KA._forward_f32 = counting(KA._forward_f32, 5, "flash_mha")
+    KA._forward_bf16 = counting(KA._forward_bf16, 5, "flash_mha_bf16")
+    KA._launch_bwd = counting(KA._launch_bwd, 10)
+    sys.argv = [module, *argv]
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        counts = {name: fn.launches + GRAPHS.replayed_launches.get(name, 0)
+                  for name, fn in _train_counters().items()}
+        counted.write_text(json.dumps(dict(counts, **dropping)))
+    return 0
+
+
+def _entry_launches(counted: Path) -> dict:
+    return json.loads(counted.read_text()) if counted.exists() else {}
+
+
 def train_entry_point(workdir: Path) -> dict:
     """``python -m demucs_tpu_torch.train`` on a synthetic wav folder at the
     released width (t_dropout TRAIN_DROPOUT, batch ENTRY_BATCH, 8.8 s windows
@@ -3504,7 +3623,8 @@ def train_entry_point(workdir: Path) -> dict:
     out = workdir / "train_out"
     model_args = ("{" + ", ".join(f"{k}: {v}" for k, v in RELEASED.items() if k != "samplerate")
                   + f", t_dropout: {TRAIN_DROPOUT}" + "}")
-    cmd = [sys.executable, "-m", "demucs_tpu_torch.train", f"dset.wav={data}",
+    counted = workdir / "train_entry_launches.json"
+    cmd = [*_entry_command(counted), f"dset.wav={data}",
            "dset.use_musdb=false", "dset.segment=8.8", "dset.shift=1", f"dset.samplerate={SR}",
            f"dset.metadata={workdir / 'train_meta'}", f"model_segment={TRAIN_SEGMENT}",
            f"model_args={model_args}", f"batch_size={ENTRY_BATCH}", "epochs=3", "max_batches=1",
@@ -3544,8 +3664,10 @@ def train_entry_point(workdir: Path) -> dict:
             "valid_loss_by_epoch": [h["valid"]["loss"] for h in history],
             "data_loading": loading, "best_model": str(folder / "best.dmx"),
             "separated_10s_stems": sorted(stems),
-            "replayed_epoch_1": any("Replay | Epoch 1" in x for x in log2)}
+            "replayed_epoch_1": any("Replay | Epoch 1" in x for x in log2),
+            "resumed_run_launches": _entry_launches(counted)}
     info["ok"] = (second.returncode == 0 and len(history1) == 2 and len(history) == 3
+                  and info["resumed_run_launches"].get("flash_mha", 0) > 0
                   and history[:2] == history1 and info["replayed_epoch_1"]
                   and all(math.isfinite(x) for x in info["train_loss_by_epoch"])
                   and sorted(stems) == ["bass", "drums", "other", "vocals"]
@@ -3576,7 +3698,8 @@ def train_entry_point_bf16(workdir: Path) -> dict:
     out = workdir / "train_out_bf16"
     model_args = ("{" + ", ".join(f"{k}: {v}" for k, v in RELEASED.items() if k != "samplerate")
                   + f", t_dropout: {TRAIN_DROPOUT}, compute_dtype: bfloat16" + "}")
-    cmd = [sys.executable, "-m", "demucs_tpu_torch.train", f"dset.wav={data}",
+    counted = workdir / "train_entry_bf16_launches.json"
+    cmd = [*_entry_command(counted), f"dset.wav={data}",
            "dset.use_musdb=false", "dset.segment=8.8", "dset.shift=1", f"dset.samplerate={SR}",
            f"dset.metadata={workdir / 'train_meta'}", f"model_segment={TRAIN_SEGMENT}",
            f"model_args={model_args}", f"batch_size={ENTRY_BATCH}", "epochs=1", "max_batches=1",
@@ -3599,8 +3722,9 @@ def train_entry_point_bf16(workdir: Path) -> dict:
             "checkpoint_dtypes": sorted({str(v.dtype) for v in state.values()}),
             "served_compute_dtype": module.cfg.compute_dtype,
             "served_param_dtypes": sorted({str(p.dtype) for p in module.parameters()}),
-            "separated_10s_stems": sorted(stems)}
+            "separated_10s_stems": sorted(stems), "launches": _entry_launches(counted)}
     info["ok"] = (run.returncode == 0 and len(history) == 1
+                  and info["launches"].get("flash_mha_bf16", 0) > 0
                   and all(math.isfinite(x) for x in info["train_loss"])
                   and all(v.dtype != np.float16 for v in state.values())
                   and "float32" in info["checkpoint_dtypes"]
@@ -3613,14 +3737,16 @@ def train_entry_point_bf16(workdir: Path) -> dict:
     return info
 
 
-def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict, dict]:
+def phase_train(workdir: Path) -> tp.Tuple[list, dict]:
     """K3's backward and dropout and K2's backward against their plain
     versions, on fp32 and (K3) on bf16 inputs; the card's train step against
     the CPU's, in fp32 and in bf16 mixed precision, and C2's float64 probe;
     the training rate at the released width in fp32 and in bf16; the
     training entry point with a resume, and once in bf16. Returns the
-    backward kernels' rows and the launches of the fp32 and the bf16 train
-    paths and of the bf16 card step run twice under deterministic()."""
+    backward kernels' rows and the launches of each path: the fp32 and the
+    bf16 train paths, the bf16 card step run twice under deterministic(), and
+    the entry points in their own processes (the fp32 one's resumed epoch,
+    the bf16 one's epoch), both at t_dropout TRAIN_DROPOUT."""
     import torch
 
     from demucs_tpu_torch.inference.engine import GRAPHS
@@ -3654,7 +3780,10 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict, dict, dict]:
                         "throughput_bf16", "entry_point", "entry_point_bf16") if not info[k]["ok"]]
     if bad:
         raise AssertionError(f"train: {bad}")
-    return rows, counts, counts_bf16, counts_bf16_det
+    return rows, {"train": counts, "train bf16": counts_bf16,
+                  "train bf16 deterministic": counts_bf16_det,
+                  "train entry (resumed epoch)": info["entry_point"]["resumed_run_launches"],
+                  "train bf16 entry": info["entry_point_bf16"]["launches"]}
 
 
 RECIPE_SEGMENT = 11.0  # the reference's dset.segment (conf/config.yaml): 9.68 s after repitch
@@ -4798,6 +4927,164 @@ def phase_parallel(workdir: Path) -> dict:
 
 
 
+K3_PAIR_DIR = ROOT / "build" / "k3_pair"
+K3_PAIR_SASS = ("flash_mha_bf16_kernelILi64ELi128ELi3E", "flash_mha_bf16_kernelILi64ELi128ELi2E")
+
+
+def _pair_build(trees: list) -> list:
+    """nvcc of each tree's csrc/flash_mha.cu and csrc/flash_mha_bwd.cu (the
+    port's flags; each source's headers from its own tree), all at once, into
+    K3_PAIR_DIR/<i>; the libraries loaded with the wrappers' ctypes
+    declarations, and each one's ptxas report and SASS opcode counts."""
+    import collections
+    import ctypes
+    import re
+    import shutil
+    from unittest import mock
+
+    from demucs_tpu_torch.kernels import _build
+    from demucs_tpu_torch.kernels import attention as KA
+
+    nvcc = _build.nvcc_path()
+    procs = []
+    for i, tree in enumerate(trees):
+        out = K3_PAIR_DIR / str(i)
+        shutil.rmtree(out, ignore_errors=True)
+        out.mkdir(parents=True)
+        for name in ("flash_mha", "flash_mha_bwd"):
+            src = Path(tree) / "demucs_tpu_torch" / "csrc" / f"{name}.cu"
+            procs.append((i, name, out / f"lib{name}.so", subprocess.Popen(
+                [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    libs = [{} for _ in trees]
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    for i, name, so, proc in procs:
+        report, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for tree {i} {name}.cu:\n{report}")
+        lib = ctypes.CDLL(str(so))
+        loader = KA._lib if name == "flash_mha" else KA._bwd_lib
+        with mock.patch.object(_build, "load", lambda _name, lib=lib: lib):
+            loader.__wrapped__()  # the wrapper's argtypes on this library
+        libs[i][name] = lib
+        libs[i][name + ".ptxas"] = report
+        if name == "flash_mha" and cuobjdump.exists():
+            sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                                  text=True).stdout
+            counts, current, kept = {}, None, []
+            for line in sass.splitlines():
+                fn = re.search(r"Function : (\S+)", line)
+                if fn:
+                    current = next((k for k in K3_PAIR_SASS if k in fn.group(1)), None)
+                    if current:
+                        rest = fn.group(1).split(current)[1]
+                        current += (" dropout" if rest.startswith("Lb1E")
+                                    else " no dropout" if rest.startswith("Lb0E") else "")
+                    continue
+                op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+                if current and op:
+                    counts.setdefault(current, collections.Counter())[op.group(1).split(".")[0]] += 1
+                    kept.append(f"{current} | {line.strip()}")
+            libs[i]["sass"] = {k: dict(sorted(v.items())) for k, v in counts.items()}
+            (K3_PAIR_DIR / str(i) / "bf16_sass.txt").write_text("\n".join(kept))
+    return libs
+
+
+@contextlib.contextmanager
+def _pair_libs(libs: dict):
+    """The K3 wrappers on one tree's libraries inside the block."""
+    from unittest import mock
+
+    from demucs_tpu_torch.kernels import attention as KA
+
+    with mock.patch.object(KA, "_lib", lambda: libs["flash_mha"]), \
+            mock.patch.object(KA, "_bwd_lib", lambda: libs["flash_mha_bwd"]):
+        yield
+
+
+def k3_pair(trees: list) -> dict:
+    """K3's forwards and backwards at dropout 0 and TRAIN_DROPOUT, built from
+    each of ``trees`` (checkouts: the parent's ``git archive`` beside this
+    one, or a variant's copy) and timed in turns in one process on one card:
+    tree order, then reversed (parent, change, change, parent for two), at
+    the transformer's four shapes x B = 1 / 8, each tree's time the mean of
+    its two readings. Also each tree's drop pattern against dropout_keep on
+    the bf16 route (_drop_pattern_mismatches), its output against the first
+    tree's, the bf16 plans at TRAIN_DROPOUT at freq self, ptxas's registers
+    and spills of the bf16 instances and SASS opcode counts of two of them."""
+    import torch
+
+    from demucs_tpu_torch.kernels import attention as KA
+
+    libs = _pair_build(trees)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    C, H = 512, 8
+    tokens = {"freq": 2688, "time": 1344}
+    order = list(range(len(trees))) + list(reversed(range(len(trees))))
+    rows = {}
+    for batch in (1, 8):
+        for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
+                                 ("time", "freq")):
+            Tq, Tk = tokens[tq_name], tokens[tk_name]
+            q, k, v, do = (torch.randn(batch, T, C, device=dev, generator=gen)
+                           for T in (Tq, Tk, Tk, Tq))
+            qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+            ob, lseb = KA._forward_bf16(qb, kb, vb, H, None, 0.0, 0, True)
+            of, lsef = KA._forward_f32(q, k, v, H, None, 0.0, 0, True)
+            cases = {
+                "bf16_fwd": lambda: KA._forward_bf16(qb, kb, vb, H, None, 0.0, 0, False)[0],
+                "bf16_fwd_dropout": lambda: KA._forward_bf16(qb, kb, vb, H, None,
+                                                             TRAIN_DROPOUT, 5, False)[0],
+                "f32_fwd": lambda: KA._forward_f32(q, k, v, H, None, 0.0, 0, False)[0],
+                "f32_fwd_dropout": lambda: KA._forward_f32(q, k, v, H, None, TRAIN_DROPOUT,
+                                                           5, False)[0],
+                "bf16_bwd_dropout": lambda: KA.flash_mha_bwd_bf16(
+                    qb, kb, vb, ob, dob, H, lse=lseb, dropout=TRAIN_DROPOUT, dropout_seed=5),
+                "f32_bwd_dropout": lambda: KA.flash_mha_bwd(
+                    q, k, v, of, do, H, lse=lsef, dropout=TRAIN_DROPOUT, dropout_seed=5)}
+            key = f"B={batch} {tq_name}<-{tk_name}"
+            times = {name: [[] for _ in trees] for name in cases}
+            for i in order:
+                with _pair_libs(libs[i]):
+                    for name, fn in cases.items():
+                        times[name][i].append(cuda_ms(fn))
+            row = {name: [sum(t) / len(t) for t in per] for name, per in times.items()}
+            row["readings"] = times
+            first = None
+            diffs, patterns = [], []
+            for i in range(len(trees)):
+                with _pair_libs(libs[i]):
+                    got = cases["bf16_fwd_dropout"]().float()
+                    patterns.append(_drop_pattern_mismatches(qb, kb, H, TRAIN_DROPOUT,
+                                                             77 + batch))
+                first = got if first is None else first
+                diffs.append((got - first).abs().max().item())
+            row["bf16_dropout_max_abs_diff_to_tree_0"] = diffs
+            row["drop_pattern_mismatches"] = patterns
+            rows[key] = row
+            del q, k, v, do, qb, kb, vb, dob, ob, lseb, of, lsef
+            torch.cuda.empty_cache()
+    sweep = {}
+    for batch in (1, 8):
+        q, k, v = (torch.randn(batch, 2688, C, device=dev, generator=gen).bfloat16()
+                   for _ in range(3))
+        for i in range(len(trees)):
+            with _pair_libs(libs[i]):
+                for bk, r, persistent in BF16_PLANS:
+                    with bf16_plan(KEY_TILE_BF16=bk, BF16_ROWS=r, BF16_PERSISTENT=persistent):
+                        sweep.setdefault(f"B={batch} freq<-freq tree {i}", {})[
+                            f"{bk} keys {r} rows {'persistent' if persistent else 'grid'}"] = \
+                            cuda_ms(lambda: KA._forward_bf16(q, k, v, H, None, TRAIN_DROPOUT, 5,
+                                                             False)[0])
+    instances = [bf16_instances(lib["flash_mha.ptxas"]) for lib in libs]
+    info = {"phase": "k3_pair", "card": card_line(), "trees": [str(t) for t in trees],
+            "order": order, "by_shape": rows, "plan_sweep_dropout_ms": sweep,
+            "bf16_instances": instances, "sass_opcodes": [lib.get("sass") for lib in libs]}
+    emit(info)
+    return info
+
+
 @contextlib.contextmanager
 def _fp32():
     """TF32 off for cuBLAS and cuDNN (the kernels' plain versions, the step)."""
@@ -4819,6 +5106,14 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank-task"]:  # one rank of the parallel phase (rank_task)
         sys.path.insert(0, str(ROOT))
         return rank_task(sys.argv[2], Path(sys.argv[3]), sys.argv[4:])
+    if sys.argv[1:2] == ["--entry-counts"]:  # a training entry point, its launches counted
+        sys.path.insert(0, str(ROOT))
+        return entry_counts(Path(sys.argv[2]), sys.argv[3], sys.argv[4:])
+    if sys.argv[1:2] == ["--k3-pair"]:  # K3's kernels of several checkouts, timed in turns
+        sys.path.insert(0, str(ROOT))
+        phase_device()
+        k3_pair(sys.argv[2:])
+        return 0
     try:
         import torch
     except ImportError:
@@ -4872,9 +5167,9 @@ def main() -> int:
         paths.update(variant_paths)
         phase_memory(workdir)
         phase_evaluate(workdir)
-        (train_rows, paths["train"], paths["train bf16"],
-         paths["train bf16 deterministic"]) = phase_train(workdir)
+        train_rows, train_paths = phase_train(workdir)
         rows += train_rows
+        paths.update(train_paths)
         paths.update(phase_train_recipe(workdir))
         paths.update(phase_export(workdir, next((workdir / "train_out" / "xps").iterdir())))
         paths.update(phase_parallel(workdir))

@@ -491,13 +491,46 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 // probabilities (attention_dropout.cuh: global query row, key and batch-head
 // salt, so every plan and schedule drops the same scores), applied to the
 // unnormalised P after the row sum has taken it, before P is packed for
-// P V; at rate 0 no hash runs. Where the caller asks, each row's
-// log-sum-exp (base 2, of the scaled scores: m scale + log2 l) goes to `lse`
-// for the backward (flash_mha_bwd.cu): from the store of a whole row block,
-// or from flash_mha_bf16_combine_kernel for a merged one.
+// P V. Where the caller asks, each row's log-sum-exp (base 2, of the scaled
+// scores: m scale + log2 l) goes to `lse` for the backward
+// (flash_mha_bwd.cu): from the store of a whole row block, or from
+// flash_mha_bf16_combine_kernel for a merged one.
+//
+// What bounds the drop on this card: integer and logic issue. The hash is
+// one murmur3 finalizer a score, which no tile shares; against it a score
+// costs 1/16 clock of tensor-core work at D = 64 and one exp2. The
+// finalizer's XORs and shifts run on the integer pipe, 16 lanes a clock per
+// SM sub-partition, half the FMA pipe's rate. Measured (PERF.md), the time
+// the drop adds is its integer-pipe instructions at that pipe's rate over
+// the whole card, wherever they stand: between the products' issue and
+// their wait, among the softmax's exponentials, or in the producer
+// warpgroup's own warps (writing the tile's bits to shared memory); none
+// hid them under the tensor cores, so the design cuts instructions (the
+// first kernel took 13.6 a score: the counter's two products and XORs, the
+// finalizer, a shift and compare, a select and the 1 / (1 - rate)
+// multiply):
+// - DROP is a template argument: the rate-0 instance has no dropout code.
+// - The counter's XOR and the finalizer's first x ^= x >> 16 are linear over
+//   GF(2), so each row's term is formed once a piece and each key's term once
+//   a tile, by a producer warp into the stage beside the tile's K and V (one
+//   8-byte read a lane for two keys); the compare is x >= t << 8 on the
+//   finalizer's output (no shift). What stays a score: XOR, multiply, shift
+//   and XOR, multiply, shift and XOR, compare, select: 9 instructions in the
+//   SASS, and a quarter of a shared-memory read.
+// - Kept P stays unscaled: o = acc (1 / (1 - rate)) / l at the store (or in
+//   flash_mha_bf16_combine_kernel for a merged row block); lse is the
+//   undropped one.
+// - The drop runs after the softmax while the previous tile's P V is on the
+//   tensor cores, and touches no register the wgmma holds.
+// Times on one H100 80GB HBM3 at 700.00 W, freq self (2688 x 2688, 8 heads,
+// D = 64), dropout 0.1, B = 1 / 8, the first kernel against this one in
+// turns (chip_smoke.py --k3-pair): 0.0827 / 0.5378 ms -> 0.0714 / 0.4535 ms
+// (rate 0: 0.0387 / 0.2480 -> 0.0382 / 0.2449). The drop still adds 0.21 ms
+// at B = 8: 4.62e8 scores x 7 integer-pipe instructions over 132 SMs x 64 a
+// clock; the byte-permute form of x >> 16 (PRMT for SHF) ran the same.
 // ===========================================================================
 
-template <int D, int BK, int NWG>
+template <int D, int BK, int NWG, bool DROP = false>
 struct Bf16Cfg {
   static constexpr int ROWS = ROWS_WG * NWG;     // query rows per block
   static constexpr uint32_t TILE = BK * D * 2;   // bytes of one K or V tile
@@ -506,7 +539,9 @@ struct Bf16Cfg {
   static constexpr int THREADS = (NWG + 1) * 128;
   static constexpr int PRODUCER_REGS = NWG == 2 ? 24 : 32;
   static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;
-  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * 2 * TILE + (2 * STAGES + 4) * 8;
+  // DROP: each stage's tile also carries the dropout's column terms of its keys
+  static constexpr uint32_t COLS = DROP ? BK * 4 : 0;
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * (2 * TILE + COLS) + (2 * STAGES + 4) * 8;
   // Over half the SM's shared memory: one block per SM, so that the
   // consumers' setmaxnreg.inc finds the registers the producer gave up.
   static constexpr size_t SMEM_LAUNCH = SMEM > 118 * 1024 ? SMEM : 118 * 1024;
@@ -625,28 +660,38 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], float (&m)[2], 
   for (int hf = 0; hf < 2; ++hf) l[hf] = l[hf] * alpha[hf] + sum[hf];
 }
 
-// The dropout of one tile of P (after its row sums): lane (g, c) holds rows
-// `row` and `row + 8` (global query rows), keys k0 + 8 j + 2c and + 1.
+// The dropout of one tile of P (after its row sums), as the previous tile's
+// P V runs: lane (g, c) holds rows `row` and `row + 8` (e >> 1 even, odd),
+// keys k0 + 8 j + 2c + (e & 1) (j = e >> 2). rt: the row terms of its two
+// rows (Dropout::row_term); kt: the tile's column terms (its stage's,
+// written by the producer warpgroup) from key 2c on, so that a lane reads
+// the pair of its keys 8 j + 2c, + 1 as one 8-byte word. Per score what
+// stays of the hash and a select: the kept values stay unscaled, 1 / (1 -
+// rate) multiplies o once at the end.
 template <int BK>
-__device__ __forceinline__ void drop_tile(float (&p)[BK / 2], const Dropout& drop, uint32_t salt,
-                                          int k0, int row, int c) {
+__device__ __forceinline__ void drop_tile(float (&p)[BK / 2], const Dropout& drop,
+                                          const uint32_t (&rt)[2], const uint32_t* kt) {
 #pragma unroll
-  for (int e = 0; e < BK / 2; ++e) {
-    const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
-    p[e] = drop.keep(row + 8 * ((e >> 1) & 1), key, salt) ? p[e] * drop.scale : 0.f;
+  for (int j = 0; j < BK / 8; ++j) {
+    const uint2 k = *reinterpret_cast<const uint2*>(kt + 8 * j);
+#pragma unroll
+    for (int e = 4 * j; e < 4 * j + 4; ++e) {
+      p[e] = drop.kept(rt[(e >> 1) & 1] ^ (e & 1 ? k.y : k.x)) ? p[e] : 0.f;
+    }
   }
 }
 
-// Row `row + 8 hf` of a thread's accumulator (columns 8 j + 2c, + 1), divided
-// by its row sum, to bf16 at dst (that row's columns h D + 2c). 0 / 0 = NaN
-// for a row with no kept key.
+// Row `row + 8 hf` of a thread's accumulator (columns 8 j + 2c, + 1), times
+// keep_scale (the dropout's 1 / (1 - rate), or 1) and divided by its row sum,
+// to bf16 at dst (that row's columns h D + 2c). 0 / 0 = NaN for a row with
+// no kept key.
 template <int D>
 __device__ __forceinline__ void store_o(__nv_bfloat16* dst, const float (&v)[D / 2], int hf,
-                                        float l) {
+                                        float l, float keep_scale) {
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(dst + 8 * j) =
-        pack_bf16(v[4 * j + 2 * hf] / l, v[4 * j + 2 * hf + 1] / l);
+    *reinterpret_cast<uint32_t*>(dst + 8 * j) = pack_bf16(v[4 * j + 2 * hf] * keep_scale / l,
+                                                          v[4 * j + 2 * hf + 1] * keep_scale / l);
   }
 }
 
@@ -676,9 +721,11 @@ struct Schedule {
 };
 
 // Grid (G): range blockIdx.x of the schedule. A scratch slot holds ROWS x D
-// of unnormalised o, then ROWS x (the scaled row max, the row sum), fp32.
-// lse: null, or (B H, Tq) fp32.
-template <int D, int BK, int NWG>
+// of unnormalised o (the dropout's scale not applied), then ROWS x (the
+// scaled row max, the row sum), fp32. lse: null, or (B H, Tq) fp32. DROP:
+// the instance with the hashed dropout (drop.rate > 0); the other has no
+// dropout code.
+template <int D, int BK, int NWG, bool DROP>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap k_map,
@@ -686,15 +733,17 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const unsigned char* __restrict__ mask, __nv_bfloat16* __restrict__ o,
                       float* __restrict__ part, float* __restrict__ lse, int B, int Tq, int Tk,
                       int H, float scale, Dropout drop) {
-  using Cfg = Bf16Cfg<D, BK, NWG>;
+  using Cfg = Bf16Cfg<D, BK, NWG, DROP>;
   using I = HeadImage<D>;
   constexpr int STAGES = Cfg::STAGES, ROWS = Cfg::ROWS, SLOT = ROWS * (D + 2);
   extern __shared__ __align__(1024) unsigned char bf16_smem[];
-  // two Q images, then the ring (stage s: K tile, V tile), then the
-  // barriers; every image 1024-byte aligned (the swizzle atoms' alignment).
+  // two Q images, then the ring (stage s: K tile, V tile), then (DROP) each
+  // stage's column terms, then the barriers; every image 1024-byte aligned
+  // (the swizzle atoms' alignment).
   unsigned char* base = bf16_smem + ((1024 - (smem_addr(bf16_smem) & 1023)) & 1023);
   const uint32_t q_img = smem_addr(base), ring = q_img + 2 * Cfg::Q_BYTES;
-  uint64_t* full = reinterpret_cast<uint64_t*>(base + 2 * Cfg::Q_BYTES + STAGES * 2 * Cfg::TILE);
+  uint32_t* cols = reinterpret_cast<uint32_t*>(base + 2 * Cfg::Q_BYTES + STAGES * 2 * Cfg::TILE);
+  uint64_t* full = reinterpret_cast<uint64_t*>(cols + STAGES * Cfg::COLS / 4);
   uint64_t* empty = full + STAGES;
   uint64_t* q_full = empty + STAGES;
   uint64_t* q_empty = q_full + 2;
@@ -706,7 +755,8 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);          // the producer's arrival, plus the bytes
+      // the producer's arrival, plus the bytes (DROP: and the column terms' warp)
+      mbar_init(&full[s], DROP ? 33 : 1);
       mbar_init(&empty[s], 4 * NWG);  // every consumer warp, after its products read the tiles
     }
     for (int qb = 0; qb < 2; ++qb) {
@@ -717,7 +767,10 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   __syncthreads();
 
-  if (warp >= 4 * NWG) {  // the producer warpgroup: one thread issues the copies
+  if (warp >= 4 * NWG) {
+    // The producer warpgroup: one thread issues the copies; with DROP the
+    // next warp writes each tile's column terms into its stage (once a tile,
+    // where every consumer lane would form its own).
     setmaxnreg_dec<Cfg::PRODUCER_REGS>();
     if (threadIdx.x == 128 * NWG) {
       prefetch_tensormap(&q_map);
@@ -748,6 +801,17 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
           }
         }
       }
+    } else if (DROP && warp == 4 * NWG + 1) {
+      for (int u = u0; u < u1; ++u) {  // the block's units in order: tile u % n_tiles
+        const int it = u - u0, s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        const uint32_t k = (uint32_t)((u % n_tiles) * BK + lane) * 0x85EBCA77u;
+#pragma unroll
+        for (int q = 0; q < BK / 32; ++q) {
+          cols[s * BK + 32 * q + lane] = Dropout::col_term(k + (uint32_t)(32 * q) * 0x85EBCA77u);
+        }
+        mbar_arrive(&full[s]);
+      }
     }
   } else {  // NWG consumer warpgroups of 64 query rows
     setmaxnreg_inc<Cfg::CONSUMER_REGS>();
@@ -768,7 +832,12 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       const int te = min(u1, (r + 1) * n_tiles) - r * n_tiles;
       const int n = te - tb, row = x * ROWS + rr;
       const uint32_t q_wg = q_img + qb * Cfg::Q_BYTES + wg * ROWS_WG * I::W;
-      const uint32_t salt = drop.salt(b * H + h);
+      uint32_t rt[2];  // the dropout's row terms
+      if constexpr (DROP) {
+        const uint32_t salt = drop.salt(b * H + h);
+        rt[0] = Dropout::row_term(row, salt);
+        rt[1] = Dropout::row_term(row + 8, salt);
+      }
 
       float acc[D / 2];
 #pragma unroll
@@ -786,7 +855,7 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       fence_all(s);
       if (masked || (tb + 1) * BK > Tk) mask_tile<BK>(s, mask, tb * BK, row, c, Tq, Tk);
       softmax_tile<BK>(s, m, l, alpha, scale);
-      if (drop.rate > 0.f) drop_tile<BK>(s, drop, salt, tb * BK, row, c);
+      if constexpr (DROP) drop_tile<BK>(s, drop, rt, cols + (it % STAGES) * BK + 2 * c);
       pack_p<BK>(pa, s);
       for (int i = 1; i < n; ++i) {
         const int j = it + i, st = j % STAGES, prev = (j - 1) % STAGES;
@@ -800,7 +869,7 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         const int k0 = (tb + i) * BK;
         if (masked || k0 + BK > Tk) mask_tile<BK>(s, mask, k0, row, c, Tq, Tk);
         softmax_tile<BK>(s, m, l, alpha, scale);
-        if (drop.rate > 0.f) drop_tile<BK>(s, drop, salt, k0, row, c);
+        if constexpr (DROP) drop_tile<BK>(s, drop, rt, cols + st * BK + 2 * c);
         wgmma_wait<0>();
         fence_all(acc);
         fence_all(pa);
@@ -830,7 +899,8 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
         for (int hf = 0; hf < 2; ++hf) {
           const int r = row + 8 * hf;
           if (r >= Tq) continue;
-          store_o<D>(o + ((size_t)b * Tq + r) * C + h * D + 2 * c, acc, hf, l[hf]);
+          store_o<D>(o + ((size_t)b * Tq + r) * C + h * D + 2 * c, acc, hf, l[hf],
+                     DROP ? drop.scale : 1.f);
           if (lse != nullptr && c == 0) {
             lse[((size_t)b * H + h) * Tq + r] = m[hf] * scale + log2f(l[hf]);
           }
@@ -859,7 +929,8 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 // Merges the partial pieces of each row block that two or more ranges of
 // the schedule share: per row, M = the max of the pieces' scaled maxima, w =
 // 2^(M_piece - M) (base 0 where every M is -inf: 0 / 0 = NaN, as a fully
-// masked row gives), o = sum w o_piece / sum w l_piece, rounded to bf16.
+// masked row gives), o = keep_scale sum w o_piece / sum w l_piece, rounded to
+// bf16 (keep_scale: the dropout's 1 / (1 - rate), or 1).
 // Grid (G - 1, ceil(ROWS D / (2 ITEMS 256))): blockIdx.x + 1 is a range
 // boundary c; the first boundary inside a row block merges it (the others
 // return). A thread takes ITEMS (row, channel pair) items and issues the
@@ -870,7 +941,8 @@ constexpr int COMBINE_ITEMS = 4;
 template <int D, int ROWS>
 __global__ void __launch_bounds__(256)
 flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ o,
-                              float* __restrict__ lse, int B, int Tq, int H, int n_tiles, int G) {
+                              float* __restrict__ lse, int B, int Tq, int H, int n_tiles, int G,
+                              float keep_scale) {
   constexpr int SLOT = ROWS * (D + 2), PAIRS = ROWS * (D / 2), N = COMBINE_ITEMS;
   const int n_x = (Tq + ROWS - 1) / ROWS;
   const Schedule sched(n_x * H * B, n_tiles, G);
@@ -919,7 +991,7 @@ flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __r
     const int row = x * ROWS + rr[i];
     if (idx < PAIRS && row < Tq) {
       *reinterpret_cast<uint32_t*>(o + ((size_t)b * Tq + row) * H * D + h * D + 2 * pair[i]) =
-          pack_bf16(v[i].x / l[i], v[i].y / l[i]);
+          pack_bf16(v[i].x * keep_scale / l[i], v[i].y * keep_scale / l[i]);
       if (lse != nullptr && pair[i] == 0) {
         lse[((size_t)b * H + h) * Tq + row] = base[i] + log2f(l[i]);
       }
@@ -1005,18 +1077,21 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char
   if (err == 0) err = tensor_map::head_map<D, 2>(&km, k, B, Tk, C, BK);
   if (err == 0) err = tensor_map::head_map<D, 2>(&vm, v, B, Tk, C, BK);
   if (err != 0) return err;
-  auto kernel = flash_mha_bf16_kernel<D, BK, NWG>;
+  const bool dropping = drop.rate > 0.f;
+  auto kernel = dropping ? flash_mha_bf16_kernel<D, BK, NWG, true>
+                         : flash_mha_bf16_kernel<D, BK, NWG, false>;
+  const size_t smem = dropping ? Bf16Cfg<D, BK, NWG, true>::SMEM_LAUNCH : Cfg::SMEM_LAUNCH;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)Cfg::SMEM_LAUNCH);
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<ctas, Cfg::THREADS, Cfg::SMEM_LAUNCH, stream>>>(qm, km, vm, mask, o, part, lse, B, Tq,
-                                                           Tk, H, scale, drop);
+  kernel<<<ctas, Cfg::THREADS, smem, stream>>>(qm, km, vm, mask, o, part, lse, B, Tq, Tk, H,
+                                               scale, drop);
   e = cudaGetLastError();
   if (e != cudaSuccess || !pieces) return (int)e;
   constexpr int PER_BLOCK = COMBINE_ITEMS * 256, PAIRS = Cfg::ROWS * (D / 2);
   flash_mha_bf16_combine_kernel<D, Cfg::ROWS>
       <<<dim3(ctas - 1, (PAIRS + PER_BLOCK - 1) / PER_BLOCK), 256, 0, stream>>>(
-          part, o, lse, B, Tq, H, n_tiles, ctas);
+          part, o, lse, B, Tq, H, n_tiles, ctas, drop.scale);
   return (int)cudaGetLastError();
 }
 

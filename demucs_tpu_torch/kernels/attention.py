@@ -66,11 +66,12 @@ import math
 import torch
 
 from demucs_tpu_torch.kernels import _build
-from demucs_tpu_torch.ops.attention import _split_heads, dropout_keep, multihead_attention
+from demucs_tpu_torch.ops.attention import _mul32, _split_heads, dropout_keep, multihead_attention
 
 __all__ = ["flash_mha", "flash_mha_op", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
            "flash_mha_bwd_bf16", "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE",
-           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles", "bwd_keys",
+           "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles",
+           "bf16_drop_tile", "bwd_keys",
            "bwd_walk", "bwd_turn", "bwd_order", "bwd_rounds", "bwd_plan"]
 
 HEAD_DIMS = (32, 48, 64)
@@ -576,6 +577,38 @@ def bf16_plan(B: int, Tq: int, Tk: int, num_heads: int, sm_count: int) -> tuple:
             if best is None or cost < best[0]:
                 best = (cost, rows, ctas)
     return best[1:]
+
+
+def bf16_drop_tile(bh: int, row0: int, k0: int, rate: float, seed: int,
+                   key_tile: int = KEY_TILE_BF16) -> torch.Tensor:
+    """The plain twin of the bf16 kernel's dropout of one consumer
+    warpgroup's tile (csrc/flash_mha.cu ``drop_tile``): query rows ``row0`` ..
+    ``row0 + 63`` against keys ``k0`` .. ``k0 + key_tile - 1`` of batch-head
+    ``bh`` -> ``(4, 32, key_tile // 2)`` bool, True where lane (4 g + c) of
+    warp w zeroes its element ``e``: row ``row0 + 16 w + g + 8 ((e >> 1) &
+    1)``, key ``k0 + 8 (e >> 2) + 2c + (e & 1)`` (the S accumulator's layout).
+    The arithmetic is the kernel's: each lane's two row terms, the tile's
+    column terms as the producer warpgroup writes them into the stage (one
+    per key) and as a lane reads them (the pair of keys 8 j + 2c, + 1), what
+    stays of murmur3's finalizer, and the compare ``x >= t << 8``, t =
+    ceil(rate 2^24) (``csrc/attention_dropout.cuh``)."""
+    M = 0xFFFFFFFF
+    salt = (_seed32(rate, seed) + bh * 0x27D4EB2F) & M
+    limit = math.ceil(torch.tensor(rate, dtype=torch.float32).item() * 2.0 ** 24) << 8
+    e = torch.arange(key_tile // 2, dtype=torch.int64)
+    w = torch.arange(4, dtype=torch.int64)[:, None, None]
+    lane = torch.arange(32, dtype=torch.int64)[None, :, None]
+    g, c = lane // 4, lane % 4
+    r = _mul32(row0 + 16 * w + g + 8 * ((e >> 1) & 1), 0x9E3779B1) ^ salt
+    rt = r ^ (r >> 16)
+    k = _mul32(k0 + torch.arange(key_tile, dtype=torch.int64), 0x85EBCA77)
+    cols = k ^ (k >> 16)  # the stage's column terms, key k0 + q at q
+    x = rt ^ cols[8 * (e >> 2) + 2 * c + (e & 1)]
+    x = _mul32(x, 0x85EBCA6B)
+    x = x ^ (x >> 13)
+    x = _mul32(x, 0xC2B2AE35)
+    x = x ^ (x >> 16)
+    return (x < limit).expand(4, 32, key_tile // 2)
 
 
 def bf16_schedule(blocks: int, n_tiles: int, ctas: int) -> list:

@@ -881,19 +881,61 @@ def test_flash_mha_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, ma
     (1, 64, 64, 64, 1, 0.1, False), (2, 70, 90, 96, 2, 0.1, True),
     (1, 130, 200, 128, 4, 0.1, False), (3, 200, 130, 512, 8, 0.3, True),
     (1, 2688, 2688, 512, 8, 0.1, False), (8, 1344, 2688, 512, 8, 0.1, True)])
-def test_flash_mha_bf16_dropout_matches_plain(cuda, B, Tq, Tk, C, H, rate, masked):
+def test_flash_mha_bf16_dropout_matches_plain(cuda, monkeypatch, B, Tq, Tk, C, H, rate, masked):
     """K3's bf16 route with the hashed dropout against the plain version on the
-    same bf16 inputs (the bf16 route's tolerance), on every plan the wrapper
-    may choose at these shapes."""
+    same bf16 inputs (the bf16 route's tolerance), on every plan (keys per
+    tile, rows per block, the persistent schedule or a block per row block,
+    forced), each also with its drop pattern read out bit for bit against
+    dropout_keep (_bf16_dropped_scores)."""
     from demucs_tpu_torch.kernels import attention as K
+    from demucs_tpu_torch.ops.attention import dropout_keep
 
     q, k, v = (_randn(B, T, C, seed=s).bfloat16() for s, T in enumerate((Tq, Tk, Tk)))
     mask = (_randn(Tq, Tk, seed=9) > -0.5) if masked else None
-    got = K.flash_mha(q, k, v, H, mask=mask, dropout=rate, dropout_seed=4242)
     want = K.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate, dropout_seed=4242)
-    torch.testing.assert_close(got.float(), want.float(), atol=2 ** -6, rtol=2 ** -6)
+    keep = dropout_keep(B * H, Tq, Tk, rate, 4242, q.device).view(B, H, Tq, Tk)
+    if mask is not None:
+        keep &= mask
+    for keys, rows, persistent in BF16_PLANS:
+        monkeypatch.setattr(K, "KEY_TILE_BF16", keys)
+        monkeypatch.setattr(K, "BF16_ROWS", rows)
+        monkeypatch.setattr(K, "BF16_PERSISTENT", persistent)
+        got = K.flash_mha(q, k, v, H, mask=mask, dropout=rate, dropout_seed=4242)
+        torch.testing.assert_close(got.float(), want.float(), atol=2 ** -6, rtol=2 ** -6)
+        dropped = _bf16_dropped_scores(q, k, H, rate, 4242, mask)
+        for start, window in dropped.items():
+            assert torch.equal(window, ~keep[..., start:start + window.shape[-1]]), \
+                (keys, rows, persistent, start)
     undropped = K.flash_mha(q, k, v, H, mask=mask)
     assert (got.float() - undropped.float()).abs().max() > 0.01
+
+
+BF16_PLANS = [(keys, rows, persistent) for keys in (64, 128) for rows in (128, 192)
+              for persistent in (False, True)]
+
+
+def _bf16_dropped_scores(q, k, num_heads, rate, seed, mask):
+    """The scores K3's bf16 route drops (or masks), read out through one-hot
+    values: key j of a window of d keys writes channel j of its head alone, so
+    the output there is Z P / l, zero exactly where a score was dropped or
+    masked. q and k scaled by 0.3, so that no kept probability underflows.
+    Returns {first key of the window: (B, H, Tq, window) bool}, for windows at
+    the first, the middle and the last keys."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    B, Tq, C = q.shape
+    Tk, d = k.shape[1], C // num_heads
+    n = min(d, Tk)
+    qs, ks = (0.3 * q.float()).bfloat16(), (0.3 * k.float()).bfloat16()
+    idx = torch.arange(n, device=q.device)
+    out = {}
+    for start in sorted({0, (Tk - n) // 2, Tk - n}):
+        v = torch.zeros(B, Tk, C, device=q.device, dtype=torch.bfloat16)
+        for h in range(num_heads):
+            v[:, start + idx, h * d + idx] = 1
+        got = K.flash_mha(qs, ks, v, num_heads, mask=mask, dropout=rate, dropout_seed=seed)
+        out[start] = (got.view(B, Tq, num_heads, d)[..., :n] == 0).permute(0, 2, 1, 3)
+    return out
 
 
 @pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [

@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py          # from the root of a checkout, one card
     python3 chip_smoke.py --k3-pair PARENT .   # K3 of two checkouts, timed in turns
+                                               # (masked too: sparse_kernels with pairs)
 
 Phases, one JSON line each; any failure exits non-zero before the last line:
 
@@ -30,7 +31,11 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               100, sparsity 0.95) at the four shapes and both batches: the fp32
               route and every bf16 plan against the plain version (NaN only
               where it has NaN), ms beside the unmasked ms and SDPA with the
-              same mask.
+              same mask, each route's plan's share of non-empty and of full
+              (row block, key tile) units, the launched instance's registers
+              and spills (none may spill); then K3's backward under each mask
+              on both routes at the four shapes and B = 1 and 8 beside SDPA's
+              backward with the same mask (the plain formula at B = 1).
               Times the kernel, the plain version and one PyTorch library call
               computing the same function (yardstick only: the port never calls
               it), with CUDA events. Then drops the plain versions' cached dense
@@ -619,17 +624,20 @@ def ptxas_kernels(report: str, pattern: str) -> dict:
 
 def bf16_instances(report: tp.Optional[str] = None) -> dict:
     """Registers and spills of each instance of K3's bf16 kernel (d, keys per
-    tile, rows per block, with or without the dropout) from nvcc's report of
-    the library loaded, or of ``report``."""
+    tile, rows per block, with or without the dropout, with or without a
+    mask) from nvcc's report of the library loaded, or of ``report``."""
     from demucs_tpu_torch.kernels import _build
 
     found = ptxas_kernels(_build.ptxas_report("flash_mha") if report is None else report,
-                          r"flash_mha_bf16_kernelILi(\d+)ELi(\d+)ELi(\d+)E(?:Lb([01])E)?")
+                          r"flash_mha_bf16_(masked_)?kernelILi(\d+)ELi(\d+)ELi(\d+)E"
+                          r"(?:Lb([01])E)?")
     named = {}
     for key, v in found.items():
-        dd, bk, nwg, *drop = key.split()
+        words = key.split()
+        masked = words[0] == "masked_"
+        dd, bk, nwg, *drop = words[1:] if masked else words
         named[f"d={dd} keys={bk} rows={64 * int(nwg)}"
-              + {"": "", "0": "", "1": " dropout"}[drop[0] if drop else ""]] = v
+              + (" dropout" if drop and drop[0] == "1" else "") + (" masked" if masked else "")] = v
     return named
 
 
@@ -745,7 +753,7 @@ def k3_bf16_checks(gen) -> dict:
     worst = max(worst, masked)
     main = by_shape["B=1 freq<-freq"]
     instances = bf16_instances()
-    if len(instances) != len(KA.HEAD_DIMS) * 4 * 2 or not all(
+    if len(instances) != len(KA.HEAD_DIMS) * 4 * 2 * 2 or not all(
             {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
             for v in instances.values()):
         raise AssertionError(f"K3 bf16: nvcc's report lacks instances: {sorted(instances)}")
@@ -2210,16 +2218,47 @@ EVAL_TRACKS, EVAL_SECONDS = 2, 10.0
 EVAL_NSDR_TOL = 1e-4  # dB: evaluate()'s nsdr against eval_track on Separator's stems
 
 
-def phase_sparse_kernels() -> dict:
+def unit_shares(mask, rows: int, keys: int) -> dict:
+    """The share of a plan's (row block, key tile) units that keep a score,
+    and that keep every in-range score (kernels/attention.py tile_classes)."""
+    from demucs_tpu_torch.kernels import attention as KA
+
+    classes = KA.tile_classes(mask.bool().cpu().numpy(), rows, keys)
+    return {"nonempty": float((classes > 0).mean()), "full": float((classes == 2).mean())}
+
+
+def f32_instances(report: tp.Optional[str] = None) -> dict:
+    """Registers and spills of each instance of K3's fp32 forward kernel (d,
+    rows per block, with or without a mask) from nvcc's report of the library
+    loaded, or of ``report``."""
+    from demucs_tpu_torch.kernels import _build
+
+    found = ptxas_kernels(_build.ptxas_report("flash_mha") if report is None else report,
+                          r"flash_mha_kernelILi(\d+)ELi(\d+)ELb([01])E")
+    return {f"d={k.split()[0]} rows={64 * int(k.split()[1])}"
+            + (" masked" if k.split()[2] == "1" else ""): v for k, v in found.items()}
+
+
+def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
     """K3 under each static mask (diag, global, jmask, random and their union
     diag_jmask_random, at the reference's window 500, global 100, sparsity
     0.95; built by ops/sparse.py as the transformer caches them) at the four
     released shapes and B = 1 and 6: the fp32 route and the bf16 route on
-    every plan of its sweep against the plain version on the same inputs
-    (NaN only where the plain version has it), timed (the bf16 route on its
+    its chosen plan and on every plan of its sweep against the plain version
+    on the same inputs (NaN only where the plain version has it), timed (the bf16 route on its
     chosen plan) beside the same shape unmasked and beside SDPA with the
     same boolean mask (yardstick only). Bounds count the kept scores only
-    (a masked score is work the function need not do) and the mask's bytes."""
+    (a masked score is work the function need not do) and the mask as bits.
+    Per row also the share of each route's plan's (row block, key tile)
+    units that keep a score and that are full, and the registers and spills
+    of the instance it launches (masked and unmasked launches share it);
+    with ``pair`` (the --k3-pair libraries, the parent tree first and this
+    one second) both trees' times, masked and unmasked, in turns (parent,
+    change, change, parent). Then K3's backward under each mask on both
+    routes at the four shapes and B = 1 and 8 (nothing of it changed: it
+    reads a byte per score) beside SDPA's backward with the same boolean
+    mask (autograd.grad), against the plain backward at B = 1, its bound on
+    the kept scores: 5 x 2 B H d kept operations (3 x that in 3xTF32)."""
     import torch
     import torch.nn.functional as F
 
@@ -2232,8 +2271,20 @@ def phase_sparse_kernels() -> dict:
     C, H = 512, 8
     d = C // H
     tokens = {"freq": 2688, "time": 1344}
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    b_inst, f_inst = bf16_instances(), f32_instances()
     rows = {}
     worst_fp32, worst_bf16 = 0.0, -math.inf
+
+    def paired(cases: dict) -> dict:
+        """Each case's ms on each tree of ``pair``, in turns, the mean of two readings."""
+        times = {name: [[] for _ in pair] for name in cases}
+        for i in list(range(len(pair))) + list(reversed(range(len(pair)))):
+            with _pair_libs(pair[i]):
+                for name, fn in cases.items():
+                    times[name][i].append(cuda_ms(fn))
+        return {name: [sum(t) / len(t) for t in per] for name, per in times.items()}
+
     with precision_scope(None):
         for batch in (1, 6):
             for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
@@ -2247,6 +2298,11 @@ def phase_sparse_kernels() -> dict:
                 key = f"B={batch} {tq_name}<-{tk_name}"
                 unmasked = {"ms": cuda_ms(lambda: KA.flash_mha(q, k, v, H)),
                             "bf16_ms": cuda_ms(lambda: KA.flash_mha(qb, kb, vb, H))}
+                if pair:
+                    unmasked["pair"] = paired({
+                        "ms": lambda: KA._forward_f32(q, k, v, H, None, 0.0, 0, False),
+                        "bf16_ms": lambda: KA._forward_bf16(qb, kb, vb, H, None, 0.0, 0, False)})
+                rows_b, ctas = KA.bf16_plan(batch, Tq, Tk, H, sm)
                 for mask_type in SPARSE_MASKS:
                     mask = keep_mask(Tq, Tk, mask_type, device=dev, **MASK_DEFAULTS)
                     keep = mask.bool()
@@ -2254,7 +2310,8 @@ def phase_sparse_kernels() -> dict:
                     err = fp32_err(KA.flash_mha(q, k, v, H, mask=mask),
                                    KA.flash_mha_plain(q, k, v, H, mask=mask))
                     want = KA.flash_mha_plain(qb, kb, vb, H, mask=mask)
-                    by_plan = {}
+                    by_plan = {"chosen": bf16_excess(KA.flash_mha(qb, kb, vb, H, mask=mask),
+                                                     want)}
                     for bk, r, persistent in BF16_PLANS:
                         with bf16_plan(KEY_TILE_BF16=bk, BF16_ROWS=r, BF16_PERSISTENT=persistent):
                             by_plan[f"{bk} keys {r} rows "
@@ -2263,11 +2320,14 @@ def phase_sparse_kernels() -> dict:
                     excess = max(by_plan.values())
                     worst_fp32, worst_bf16 = max(worst_fp32, err), max(worst_bf16, excess)
                     flops = 4 * batch * H * d * kept  # the kept scores' two products
-                    mask_bytes = Tq * Tk
+                    mask_bytes = -(-Tq * Tk // 8)  # the mask as bits
                     b32, by32 = bound(3 * flops, 4 * 2 * batch * (Tq + Tk) * C + mask_bytes,
                                       TF32_FLOPS)
                     b16, by16 = bound(flops, 2 * 2 * batch * (Tq + Tk) * C + mask_bytes,
                                       BF16_FLOPS)
+                    tiles = KA.mask_tiles(mask)
+                    rows_m, ctas_m = KA.bf16_plan(batch, Tq, Tk, H, sm, tiles)
+                    blocks_m = -(-Tq // rows_m) * H * batch
                     row = dict(
                         kept_share=kept / (Tq * Tk), max_abs_err=err,
                         bf16_worst_excess_over_tol=excess, bf16_excess_by_plan=by_plan,
@@ -2280,7 +2340,23 @@ def phase_sparse_kernels() -> dict:
                         bf16_unmasked_ms=unmasked["bf16_ms"],
                         sdpa_bf16_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                             *split_b, attn_mask=keep)),
-                        bf16_bound_ms=b16, bf16_bound_by=by16)
+                        bf16_bound_ms=b16, bf16_bound_by=by16,
+                        units=unit_shares(mask, KA.BLOCK_ROWS, KA.KEY_TILE),
+                        bf16_plan=(f"{KA.KEY_TILE_BF16} keys {rows_m} rows "
+                                   f"{'grid' if ctas_m == blocks_m else 'persistent'} "
+                                   f"{ctas_m} blocks (unmasked: {rows_b} rows {ctas} blocks)"),
+                        bf16_units=unit_shares(mask, rows_m, KA.KEY_TILE_BF16),
+                        instance=f_inst.get(f"d={d} rows={KA.BLOCK_ROWS} masked"),
+                        bf16_instance=b_inst.get(
+                            f"d={d} keys={KA.KEY_TILE_BF16} rows={rows_m} masked"))
+                    row["over_unmasked"] = row["ms"] / row["unmasked_ms"]
+                    row["bf16_over_unmasked"] = row["bf16_ms"] / row["bf16_unmasked_ms"]
+                    row["bf16_over_sdpa"] = row["bf16_ms"] / row["sdpa_bf16_ms"]
+                    if pair:
+                        times = paired({
+                            "ms": lambda: k3_forward("f32", q, k, v, H, mask),
+                            "bf16_ms": lambda: k3_forward("bf16", qb, kb, vb, H, mask)})
+                        row["pair"] = dict(times, unmasked=unmasked["pair"])
                     if key == "B=1 freq<-freq":
                         row["plain_ms"] = cuda_ms(
                             lambda: KA.flash_mha_plain(q, k, v, H, mask=mask))
@@ -2289,23 +2365,96 @@ def phase_sparse_kernels() -> dict:
                     rows[f"{key} {mask_type}"] = row
                 del q, k, v, qb, kb, vb, split, split_b
                 torch.cuda.empty_cache()
+        backward, worst_bwd = sparse_backward(gen)
     ratios = [r["ms"] / r["unmasked_ms"] for r in rows.values()]
     ratios_b = [r["bf16_ms"] / r["bf16_unmasked_ms"] for r in rows.values()]
+    spills = [v for v in (*b_inst.values(), *f_inst.values())
+              if v.get("spill_stores") or v.get("spill_loads")]
     info = {"phase": "sparse_kernels", "card": card_line(), "masks": list(SPARSE_MASKS),
             "mask_options": MASK_DEFAULTS, "fp32_tol": K3_ATOL, "bf16_tol": K3_BF16_TOL,
             "worst_fp32_err": worst_fp32, "worst_bf16_excess_over_tol": worst_bf16,
             "masked_over_unmasked": {"fp32": [min(ratios), max(ratios)],
                                      "bf16": [min(ratios_b), max(ratios_b)]},
+            "bf16_over_sdpa": [min(r["bf16_over_sdpa"] for r in rows.values()),
+                               max(r["bf16_over_sdpa"] for r in rows.values())],
             "bound_rule": "kept scores only: fp32 max(3 x 4 B H d kept / 495 TFLOP/s, bytes / "
                           "3.35 TB/s), bf16 max(4 B H d kept / 989 TFLOP/s, bf16 bytes / "
-                          "3.35 TB/s); bytes: q, k, v, o once and the uint8 mask",
-            "rows": rows}
-    info["ok"] = worst_fp32 <= K3_ATOL and worst_bf16 <= 0
+                          "3.35 TB/s); bytes: q, k, v, o once and the mask as bits "
+                          "(Tq Tk / 8)",
+            "instances_spilling": spills, "rows": rows, "backward": backward,
+            "backward_worst_err_over_peak": worst_bwd}
+    info["ok"] = (worst_fp32 <= K3_ATOL and worst_bf16 <= 0 and not spills
+                  and worst_bwd["fp32"] <= K3_BWD_RTOL and worst_bwd["bf16"] <= K3_BF16_BWD_RTOL)
     emit(info)
     if not info["ok"]:
         raise AssertionError(f"K3 under sparse masks disagrees with the plain version: "
-                             f"fp32 {worst_fp32}, bf16 excess {worst_bf16}")
+                             f"fp32 {worst_fp32}, bf16 excess {worst_bf16}, backward "
+                             f"{worst_bwd}, spilling instances {spills}")
     return info
+
+
+def sparse_backward(gen) -> tuple:
+    """K3's backward kernel on both routes under each static mask at the four
+    shapes and B = 1 and 8, timed beside SDPA's backward with the same
+    boolean mask; at B = 1 dQ, dK, dV against the plain backward formula.
+    Returns ({case: row}, the worst error over each gradient's peak by route)."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    dev = torch.device("cuda")
+    C, H = 512, 8
+    d = C // H
+    tokens = {"freq": 2688, "time": 1344}
+    rows, worst = {}, {"fp32": 0.0, "bf16": 0.0}
+    for batch in (1, 8):
+        for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
+                                 ("time", "freq")):
+            Tq, Tk = tokens[tq_name], tokens[tk_name]
+            q32, k32, v32, do32 = (torch.randn(batch, T, C, device=dev, generator=gen)
+                                   for T in (Tq, Tk, Tk, Tq))
+            for route, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+                backward = KA.flash_mha_bwd if route == "fp32" else KA.flash_mha_bwd_bf16
+                size = 4 if route == "fp32" else 2
+                for mask_type in SPARSE_MASKS:
+                    mask = keep_mask(Tq, Tk, mask_type, device=dev, **MASK_DEFAULTS)
+                    keep = mask.bool()
+                    kept = int(keep.sum().item())
+                    launch = KA._forward_f32 if route == "fp32" else KA._forward_bf16
+                    o, lse = launch(q, k, v, H, KA.mask_tiles(mask), 0.0, 0, True)
+                    split = [t.view(batch, -1, H, d).transpose(1, 2).detach().clone()
+                             .requires_grad_() for t in (q, k, v)]
+                    so = F.scaled_dot_product_attention(*split, attn_mask=keep)
+                    sdo = do.view(batch, Tq, H, d).transpose(1, 2)
+                    flops = 5 * 2 * batch * H * d * kept
+                    nbytes = (size * batch * (3 * Tq + 4 * Tk) * C + 4 * batch * H * Tq
+                              + -(-Tq * Tk // 8))  # the mask as bits
+                    b_ms, b_by = (bound(3 * flops, nbytes, TF32_FLOPS) if route == "fp32"
+                                  else bound(flops, nbytes, BF16_FLOPS))
+                    row = dict(kept_share=kept / (Tq * Tk),
+                               ms=cuda_ms(lambda: backward(q, k, v, o, do, H, lse=lse,
+                                                           mask=mask)),
+                               sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
+                                   so, split, sdo, retain_graph=True)),
+                               bound_ms=b_ms, bound_by=b_by)
+                    row["over_sdpa"] = row["ms"] / row["sdpa_bwd_ms"]
+                    row["bound_share"] = b_ms / row["ms"]
+                    if batch == 1:
+                        got = backward(q, k, v, o, do, H, lse=lse, mask=mask)
+                        want = KA.flash_mha_bwd_plain(q, k, v, o, do, H, mask=mask)
+                        row["dq_dk_dv_err_over_peak"] = [_grad_err(g.float(), w.float())
+                                                         for g, w in zip(got, want)]
+                        worst[route] = max(worst[route], *row["dq_dk_dv_err_over_peak"])
+                        del got, want
+                    rows[f"{route} B={batch} {tq_name}<-{tk_name} {mask_type}"] = row
+                    del o, lse, split, so
+                del q, k, v, do
+            del q32, k32, v32, do32
+            torch.cuda.empty_cache()
+    return rows, worst
 
 
 def variant_model(kw: dict, seed: int = 0, **extra):
@@ -2768,7 +2917,8 @@ def train_k3_checks(gen) -> dict:
             for masked, rate in itertools.product((False, True), (0.0, TRAIN_DROPOUT)):
                 mask = keep_mask(Tq, Tk, "diag", device=dev, **MASK_DEFAULTS) if masked else None
                 seed = 1000 + len(cases)
-                o, lse = KA._forward_f32(q, k, v, H, mask, rate, seed, True)
+                tiles = None if mask is None else KA.mask_tiles(mask)
+                o, lse = KA._forward_f32(q, k, v, H, tiles, rate, seed, True)
                 want_o = KA.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate,
                                             dropout_seed=seed)
                 got = KA.flash_mha_bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
@@ -2950,7 +3100,8 @@ def train_k3_bf16_checks(gen) -> dict:
             for masked, rate in itertools.product((False, True), (0.0, TRAIN_DROPOUT)):
                 mask = keep_mask(Tq, Tk, "diag", device=dev, **MASK_DEFAULTS) if masked else None
                 seed = 2000 + len(cases)
-                o, lse = KA._forward_bf16(q, k, v, H, mask, rate, seed, True)
+                tiles = None if mask is None else KA.mask_tiles(mask)
+                o, lse = KA._forward_bf16(q, k, v, H, tiles, rate, seed, True)
                 want_o = KA.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate,
                                             dropout_seed=seed)
                 lse_err = (lse - _lse_plain(q, k, H, mask)).abs().max().item()
@@ -4928,7 +5079,12 @@ def phase_parallel(workdir: Path) -> dict:
 
 
 K3_PAIR_DIR = ROOT / "build" / "k3_pair"
-K3_PAIR_SASS = ("flash_mha_bf16_kernelILi64ELi128ELi3E", "flash_mha_bf16_kernelILi64ELi128ELi2E")
+# the instances whose SASS --k3-pair counts, each with what its last template
+# argument (a bool) means
+K3_PAIR_SASS = {"flash_mha_bf16_kernelILi64ELi128ELi3E": "dropout",
+                "flash_mha_bf16_kernelILi64ELi128ELi2E": "dropout",
+                "flash_mha_bf16_masked_kernelILi64ELi128ELi3E": "dropout",
+                "flash_mha_kernelILi64ELi2E": "masked"}
 
 
 def _pair_build(trees: list) -> list:
@@ -4947,6 +5103,8 @@ def _pair_build(trees: list) -> list:
 
     nvcc = _build.nvcc_path()
     procs = []
+    src_text = [(Path(tree) / "demucs_tpu_torch" / "csrc" / "flash_mha.cu").read_text()
+                for tree in trees]
     for i, tree in enumerate(trees):
         out = K3_PAIR_DIR / str(i)
         shutil.rmtree(out, ignore_errors=True)
@@ -4966,6 +5124,13 @@ def _pair_build(trees: list) -> list:
         loader = KA._lib if name == "flash_mha" else KA._bwd_lib
         with mock.patch.object(_build, "load", lambda _name, lib=lib: lib):
             loader.__wrapped__()  # the wrapper's argtypes on this library
+        if name == "flash_mha" and "tile_map" not in src_text[i]:
+            # a tree before the tile maps: its entries take the mask as bytes
+            # (k3_forward calls them as its wrapper did)
+            p, n, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            lib.flash_mha_f32.argtypes = [p] * 7 + [n, n, n, n, n, f, n, f, n, p]
+            lib.flash_mha_bf16.argtypes = [p] * 7 + [n, n, n, n, n, f, n, n, n, f, n, p]
+            libs[i]["legacy"] = True
         libs[i][name] = lib
         libs[i][name + ".ptxas"] = report
         if name == "flash_mha" and cuobjdump.exists():
@@ -4977,32 +5142,97 @@ def _pair_build(trees: list) -> list:
                 if fn:
                     current = next((k for k in K3_PAIR_SASS if k in fn.group(1)), None)
                     if current:
-                        rest = fn.group(1).split(current)[1]
-                        current += (" dropout" if rest.startswith("Lb1E")
-                                    else " no dropout" if rest.startswith("Lb0E") else "")
+                        rest, flag = fn.group(1).split(current)[1], K3_PAIR_SASS[current]
+                        current += (f" {flag}" if rest.startswith("Lb1E")
+                                    else f" no {flag}" if rest.startswith("Lb0E") else "")
                     continue
                 op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
                 if current and op:
                     counts.setdefault(current, collections.Counter())[op.group(1).split(".")[0]] += 1
                     kept.append(f"{current} | {line.strip()}")
             libs[i]["sass"] = {k: dict(sorted(v.items())) for k, v in counts.items()}
-            (K3_PAIR_DIR / str(i) / "bf16_sass.txt").write_text("\n".join(kept))
+            (K3_PAIR_DIR / str(i) / "sass.txt").write_text("\n".join(kept))
     return libs
+
+
+_LEGACY = None  # inside _pair_libs: a parent tree's library that takes the mask as bytes
+
+
+def k3_forward(route: str, q, k, v, num_heads: int, mask, rate: float = 0.0, seed: int = 0,
+               want_lse: bool = False):
+    """--k3-pair's launch of K3's forward on ``route`` ("bf16" or "f32") ->
+    (o, lse): through the wrapper's launch with the keep-mask's tiles
+    (``mask``: a ``(Tq, Tk)`` keep-mask on the card, or None), or, inside
+    _pair_libs of a parent tree before the tile maps (whose kernels read the
+    mask as a byte per score), through that tree's C entry as its wrapper
+    called it (the plan of bf16_plan without a map, as the parent chose it)."""
+    import torch
+
+    from demucs_tpu_torch.kernels import _build
+    from demucs_tpu_torch.kernels import attention as KA
+
+    if _LEGACY is None:
+        launch = KA._forward_bf16 if route == "bf16" else KA._forward_f32
+        tiles = None if mask is None else KA.mask_tiles(mask)
+        return launch(q, k, v, num_heads, tiles, rate, seed, want_lse)
+    B, Tq, C = q.shape
+    Tk, d = k.shape[1], C // num_heads
+    keep = None if mask is None else mask.to(torch.uint8).contiguous().data_ptr()
+    out = torch.empty_like(q)
+    lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
+    lse_ptr, stream = None if lse is None else lse.data_ptr(), _build.stream_ptr(q.device)
+    if route == "f32":
+        image = torch.empty(B, num_heads, -(-Tk // KA.KEY_TILE), 4, KA.KEY_TILE * d,
+                            device=q.device)
+        status = _LEGACY.flash_mha_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), keep, image.data_ptr(), out.data_ptr(),
+            lse_ptr, B, Tq, Tk, num_heads, d, KA.q_scale(d), KA.BLOCK_ROWS, rate,
+            KA._int32(seed), stream)
+    else:
+        rows, ctas = KA.bf16_plan(B, Tq, Tk, num_heads, KA._sm_count(q.device.index or 0))
+        n_tiles = -(-Tk // KA.KEY_TILE_BF16)
+        part = None
+        if KA._splits(KA._ranges(-(-Tq // rows) * num_heads * B * n_tiles, ctas), n_tiles):
+            part = torch.empty(2 * ctas * rows * (d + 2), device=q.device)
+        status = _LEGACY.flash_mha_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), keep, out.data_ptr(),
+            None if part is None else part.data_ptr(), lse_ptr, B, Tq, Tk, num_heads, d,
+            KA.q_scale(d), KA.KEY_TILE_BF16, rows, ctas, rate, KA._int32(seed), stream)
+    KA._check_launch(status, f"{route} forward of the parent tree")
+    return out, lse
 
 
 @contextlib.contextmanager
 def _pair_libs(libs: dict):
-    """The K3 wrappers on one tree's libraries inside the block."""
+    """The K3 wrappers on one tree's libraries inside the block (k3_forward
+    on a tree before the tile maps: its own entries' arguments)."""
     from unittest import mock
 
     from demucs_tpu_torch.kernels import attention as KA
 
-    with mock.patch.object(KA, "_lib", lambda: libs["flash_mha"]), \
-            mock.patch.object(KA, "_bwd_lib", lambda: libs["flash_mha_bwd"]):
-        yield
+    def legacy(route):  # the wrappers' unmasked launches on a tree before the tile maps
+        def launch(q, k, v, num_heads, tiles, rate, seed, want_lse):
+            if tiles is not None:
+                raise ValueError("a tree before the tile maps: mask through k3_forward")
+            return k3_forward(route, q, k, v, num_heads, None, rate, seed, want_lse)
+        return launch
+
+    global _LEGACY
+    _LEGACY = libs["flash_mha"] if libs.get("legacy") else None
+    routes = ({"_forward_bf16": legacy("bf16"), "_forward_f32": legacy("f32")}
+              if _LEGACY is not None else {})
+    try:
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(KA, "_lib", lambda: libs["flash_mha"]))
+            stack.enter_context(mock.patch.object(KA, "_bwd_lib", lambda: libs["flash_mha_bwd"]))
+            for name, launch in routes.items():
+                stack.enter_context(mock.patch.object(KA, name, launch))
+            yield
+    finally:
+        _LEGACY = None
 
 
-def k3_pair(trees: list) -> dict:
+def k3_pair(trees: list, libs: list) -> dict:
     """K3's forwards and backwards at dropout 0 and TRAIN_DROPOUT, built from
     each of ``trees`` (checkouts: the parent's ``git archive`` beside this
     one, or a variant's copy) and timed in turns in one process on one card:
@@ -5011,12 +5241,13 @@ def k3_pair(trees: list) -> dict:
     its two readings. Also each tree's drop pattern against dropout_keep on
     the bf16 route (_drop_pattern_mismatches), its output against the first
     tree's, the bf16 plans at TRAIN_DROPOUT at freq self, ptxas's registers
-    and spills of the bf16 instances and SASS opcode counts of two of them."""
+    and spills of the bf16 instances and the SASS opcode counts of
+    K3_PAIR_SASS's (their lines in K3_PAIR_DIR/<i>/sass.txt).
+    ``libs``: the trees' libraries (_pair_build)."""
     import torch
 
     from demucs_tpu_torch.kernels import attention as KA
 
-    libs = _pair_build(trees)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(18)
     C, H = 512, 8
@@ -5112,7 +5343,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--k3-pair"]:  # K3's kernels of several checkouts, timed in turns
         sys.path.insert(0, str(ROOT))
         phase_device()
-        k3_pair(sys.argv[2:])
+        libs = _pair_build(sys.argv[2:])
+        k3_pair(sys.argv[2:], libs)
+        phase_sparse_kernels(pair=libs)
         return 0
     try:
         import torch

@@ -8,10 +8,11 @@
 //   o[b, i, h*D:(h+1)*D] = softmax_j(q_i . k_j / sqrt(D), masked) @ v[b, :, h*D:(h+1)*D]
 //
 // q (B, Tq, H*D), k and v (B, Tk, H*D), o (B, Tq, H*D), all row-major fp32;
-// heads are read in place at column h*D. An optional keep-mask (Tq, Tk) of
-// bytes is shared by batch and heads: masked scores are -inf, and the rescale
-// is -inf-safe as in the Pallas kernel, so a row with no kept key gives
-// 0 / 0 = NaN, as the plain softmax over all -inf does.
+// heads are read in place at column h*D. An optional keep-mask (Tq, Tk) is
+// shared by batch and heads: masked scores are -inf, and the rescale is
+// -inf-safe as in the Pallas kernel, so a row with no kept key gives 0 / 0 =
+// NaN, as the plain softmax over all -inf does. Both routes read the mask as
+// its tile map and packed bits (below, at mask_rows).
 //
 // Bound: operations. A head does 4 Tq Tk D flops (two products) on
 // (2 Tq + 2 Tk) D floats: at the released shapes (Tq, Tk of 1344..2688,
@@ -62,6 +63,26 @@
 // - With two consumer warpgroups, one computes its softmax while the
 //   other's products run. Templated on D in {32, 48, 64} and NWG in {1, 2}
 //   (64 or 128 query rows per block).
+// - Under a keep-mask (the reference's sparse attention; the Pallas kernel
+//   takes the keep test at every score). What bounded the first masked
+//   kernel on this card: it visited every tile, masked or not, and after
+//   each tile's S it loaded a byte per score from global memory (LDG.U8,
+//   32 scattered bytes a thread a tile) on the chain the softmax waits for:
+//   2.2-2.3x the unmasked time, whatever the mask kept (PERF.md). Now the
+//   mask comes as a tile map built once per mask on the host (each (row
+//   block, key tile) unit empty, full or partial) and as bits packed in the
+//   lanes' order. A row block's loop walks its listed units only: the
+//   producer streams their images alone, a full tile takes no test, and a
+//   partial one brings its row block's words into its stage with the same
+//   barrier (one bulk copy), so the keep test is a bit test and a select a
+//   score from two shared-memory words, off the load chain. A row block
+//   with no unit gives NaN rows (lse -inf), as the plain softmax does. The
+//   masked code is an instance of its own (MASKED): an unmasked launch
+//   runs the first design's loop. Times on one H100 80GB HBM3 at 700.00 W,
+//   the reference's masks, 4 shapes, B = 1 / 6 (chip_smoke.py --k3-pair,
+//   the first kernel in turns): diag at freq self 0.4226 / 1.6703 ms ->
+//   0.0887 / 0.3643; masks with no empty unit 1.02-1.07x the unmasked
+//   time (the first kernel: 2.2-2.3x); 0.07-0.32x SDPA with the mask.
 // - Train-time dropout on the attention probabilities, the Pallas kernel's
 //   own (attention_dropout.cuh): a counter hash of (global query row, key,
 //   seed + batch-head salt), so the pattern does not depend on the tiles.
@@ -90,6 +111,77 @@ constexpr int BK = 64;       // keys per tile
 constexpr int ROWS_WG = 64;  // query rows per consumer warpgroup
 constexpr int STAGES = 2;     // K/V tiles in flight per block (3 is no faster on the H100)
 constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// ---- the keep-mask, as both routes read it (kernels/attention.py MaskTiles) ----
+// tile_map, for the launch's plan (query rows a block, keys a tile), int32:
+//   [nnz, n_empty, off[0 .. n_x], ent[0 .. nnz), empty[0 .. n_empty)]
+// ent lists the (row block, key tile) units that keep a score, row block by
+// row block (off: each row block's first), in key order, as tile << 1 |
+// partial: a full tile keeps every in-range score and lies inside Tk, a
+// partial one does not. empty: the row blocks that keep nothing.
+// bits (ceil(Tk / 128), mask_rows(Tq), 4) uint32: word c of (128-key group
+// w, query row r) holds the keys lane c of a warp holds in the S accumulator,
+// 128 w + 8 j + 2 c + b at bit 2 j + b (0 past Tk and past Tq); a 64-key
+// tile t is half t & 1 of group t >> 1. One row block's words of one group
+// are contiguous, so a partial tile's words come in with one bulk copy.
+__host__ __device__ constexpr int mask_rows(int Tq) { return (Tq + 383) / 384 * 384; }
+
+// The tile map's offsets (n_x + 1) are copied to shared memory: every piece
+// reads its row block's, and the block's first unit is found by a binary
+// search over them, so from global memory their latency would stand before
+// each piece (a piece of one unit is most of a piece's time). A masked
+// launch takes at most OFF_SMEM - 1 row blocks (kernels/attention.py).
+constexpr int OFF_SMEM = 512;
+
+// Loads the mask words of a thread's rows rr and rr + 8 (in its block) for
+// a partial tile t from the stage's copy (ROWS x 4 words): 32 keys a row at
+// 128 keys a tile, the tile's 16 at 64 (bit 2 j + b: key 8 j + 2c + b).
+template <int BK>
+__device__ __forceinline__ void load_words(uint32_t (&w)[2], const uint32_t* words, int rr, int c,
+                                           int t) {
+  w[0] = words[rr * 4 + c];
+  w[1] = words[(rr + 8) * 4 + c];
+  if constexpr (BK == 64) {
+    const int shift = 16 * (t & 1);
+    w[0] >>= shift;
+    w[1] >>= shift;
+  }
+}
+
+// A partial tile's keep test: element e of the S accumulator (row `row + 8
+// ((e >> 1) & 1)`, key 8 (e >> 2) + 2c + (e & 1)) is -inf unless its bit is
+// set; a bit test and a select a score, no load.
+template <int BK>
+__device__ __forceinline__ void keep_bits(float (&s)[BK / 2], const uint32_t (&w)[2]) {
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    if (!((w[(e >> 1) & 1] >> (2 * (e >> 2) + (e & 1))) & 1u)) s[e] = -INFINITY;
+  }
+}
+
+// The unmasked launches' tail test, on both routes: the scores of keys past
+// Tk (or masked by bytes: `mask` is always null) are -inf. Lane (g, c) of a
+// warp holds rows `row` and `row + 8`, columns 8 j + 2c and 8 j + 2c + 1.
+// It is the first design's test, null pointer and all: without the branch
+// on `mask` ptxas schedules the unmasked instances otherwise (the bf16
+// route's 192-row dropout instance past its registers, 92 bytes spilled and
+// 10-12 % slower; the fp32 route's dropout instance 1-2.4 % slower, PERF.md),
+// so a masked launch takes instances of its own. chip_smoke.py fails on any
+// instance that spills, and --k3-pair compares these instances' SASS and
+// times with a parent's.
+template <int BK>
+__device__ __forceinline__ void mask_tile(float (&s)[BK / 2],
+                                          const unsigned char* __restrict__ mask, int k0, int row,
+                                          int c, int Tq, int Tk) {
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) {
+    const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
+    const int r = row + 8 * ((e >> 1) & 1);
+    bool keep = key < Tk;
+    if (keep && mask != nullptr && r < Tq) keep = mask[(size_t)r * Tk + key] != 0;
+    if (!keep) s[e] = -INFINITY;
+  }
+}
 
 // Float offset of (key j, channel c) in a tile's K part: core matrices of
 // 8 keys x 4 channels, those of one group of 8 keys side by side.
@@ -243,21 +335,24 @@ kv_image_kernel(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
-// The consumer warpgroups of flash_mha_kernel.
-template <int D, int NWG>
+// The consumer warpgroups of flash_mha_kernel: the row block's n units (its
+// listed tiles under a mask, else every tile), in the order the producer
+// streams them; ents and words: each stage's unit (tile << 1 | partial) and,
+// for a partial tile, its mask words. mask: always null (mask_tile).
+template <int D, int NWG, bool MASKED>
 __device__ __forceinline__ void consume(const float* __restrict__ q, const float* ring,
                                         uint64_t* full, uint64_t* empty,
                                         const unsigned char* __restrict__ mask,
+                                        const uint32_t* words, const int* ents, int n,
                                         float* __restrict__ o, float* __restrict__ lse,
                                         int Tq, int Tk, int H, float q_scale, Dropout drop) {
-  constexpr int TILE = BK * D;
+  constexpr int TILE = BK * D, ROWS = ROWS_WG * NWG;
   const int b = blockIdx.z, h = blockIdx.y;
-  const int n_tiles = (Tk + BK - 1) / BK;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // A consumer warp: rows `row` and `row + 8` of its 16, columns 2c, 2c + 1
   // of each group of 8 in the accumulators.
   const int g = lane / 4, c = lane % 4;
-  const int row = blockIdx.x * (ROWS_WG * NWG) + warp * 16 + g;
+  const int rr = warp * 16 + g, row = blockIdx.x * ROWS + rr;
   const int C = H * D;
   uint32_t qhi[D / 8][4], qlo[D / 8][4];
   {
@@ -282,23 +377,24 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
 #pragma unroll
   for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  for (int i = 0; i < n_tiles; ++i) {
+  for (int i = 0; i < n; ++i) {
     const int st = i % STAGES;
     mbar_wait(&full[st], (i / STAGES) & 1);
     const float* tile = ring + st * 4 * TILE;
     float s[BK / 2];
     score_tile<D>(s, qhi, qlo, tile, tile + TILE);
-
-    const int k0 = i * BK;
-    if (mask != nullptr || k0 + BK > Tk) {
-#pragma unroll
-      for (int e = 0; e < BK / 2; ++e) {
-        const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
-        const int r = row + 8 * ((e >> 1) & 1);
-        bool keep = key < Tk;
-        if (keep && mask != nullptr && r < Tq) keep = mask[(size_t)r * Tk + key] != 0;
-        if (!keep) s[e] = -INFINITY;
+    // a full tile takes no test; an unmasked launch tests keys past Tk
+    int k0 = i * BK;
+    if constexpr (MASKED) {
+      const int unit = ents[st];
+      k0 = (unit >> 1) * BK;
+      if (unit & 1) {
+        uint32_t w[2];
+        load_words<BK>(w, words + st * ROWS * 4, rr, c, unit >> 1);
+        keep_bits<BK>(s, w);
       }
+    } else if (mask != nullptr || k0 + BK > Tk) {
+      mask_tile<BK>(s, mask, k0, row, c, Tq, Tk);
     }
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
@@ -342,6 +438,8 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
     for (int e = 0; e < D / 2; ++e) acc[e] = fmaf(acc[e], alpha[(e >> 1) & 1], pv[e]);
   }
 
+  // a row with no kept key (a row block with no unit included): l == 0,
+  // o = 0 / 0 = NaN and lse = -inf, as the plain softmax gives
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 1);
@@ -361,20 +459,41 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
   }
 }
 
-template <int D, int NWG>
+template <int D, int NWG, bool MASKED>
+struct F32Cfg {
+  static constexpr int ROWS = ROWS_WG * NWG;
+  static constexpr uint32_t STAGE_BYTES = 4 * BK * D * sizeof(float);  // a tile's image
+  // MASKED: a partial tile's mask words (4 a row) and each stage's unit
+  static constexpr uint32_t WORDS = MASKED ? ROWS * 16 : 0;
+  static constexpr int UNITS = MASKED ? STAGES : 0;
+  // the ring, the stages' words, their units, the barriers
+  static constexpr size_t SMEM = STAGES * (STAGE_BYTES + WORDS) + UNITS * 4 + 2 * STAGES * 8;
+};
+static_assert(F32Cfg<64, 2, true>::SMEM <= 227 * 1024, "the ring exceeds a block's shared memory");
+
+// Grid (n_x, H, B): row block blockIdx.x of one (batch, head). MASKED:
+// tile_map and bits are the mask's (see mask_rows) for ROWS_WG NWG rows and
+// 64 keys. The other instance is the first design's (`mask` always null,
+// mask_tile), its parameters where they were.
+template <int D, int NWG, bool MASKED>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_mha_kernel(const float* __restrict__ q, const float* __restrict__ image,
                  const unsigned char* __restrict__ mask, float* __restrict__ o,
-                 float* __restrict__ lse, int Tq, int Tk, int H, float q_scale, Dropout drop) {
+                 float* __restrict__ lse, int Tq, int Tk, int H, float q_scale, Dropout drop,
+                 const int* __restrict__ tile_map, const uint32_t* __restrict__ bits) {
+  using Cfg = F32Cfg<D, NWG, MASKED>;
   constexpr int TILE = BK * D;  // floats of one part of a tile's image
-  constexpr uint32_t STAGE_BYTES = 4 * TILE * sizeof(float);
   extern __shared__ __align__(128) unsigned char smem[];
   float* ring = reinterpret_cast<float*>(smem);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + STAGES * Cfg::STAGE_BYTES);
+  int* ents = reinterpret_cast<int*>(smem + STAGES * (Cfg::STAGE_BYTES + Cfg::WORDS));
+  uint64_t* full = reinterpret_cast<uint64_t*>(ents + Cfg::UNITS);
   uint64_t* empty = full + STAGES;
 
-  const int b = blockIdx.z, h = blockIdx.y;
+  const int b = blockIdx.z, h = blockIdx.y, x = blockIdx.x;
   const int n_tiles = (Tk + BK - 1) / BK;
+  // the row block's units: its listed tiles, or every tile
+  const int n = MASKED ? tile_map[3 + x] - tile_map[2 + x] : n_tiles;
   const int warp = threadIdx.x / 32;
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -389,49 +508,67 @@ flash_mha_kernel(const float* __restrict__ q, const float* __restrict__ image,
     if constexpr (NWG == 2) setmaxnreg_dec<24>();
     if (threadIdx.x == 128 * NWG) {
       const float* src = image + (size_t)(b * H + h) * n_tiles * 4 * TILE;
-      for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % STAGES;
-        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
-        mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
-        bulk_load(ring + s * 4 * TILE, src + (size_t)i * 4 * TILE, STAGE_BYTES, &full[s]);
+      if constexpr (MASKED) {
+        const int* units = tile_map + 3 + gridDim.x + tile_map[2 + x];
+        const uint32_t* row_words = bits + (size_t)x * Cfg::ROWS * 4;
+        int next = n > 0 ? units[0] : 0;  // each unit's entry read one unit ahead
+        for (int i = 0; i < n; ++i) {
+          const int s = i % STAGES;
+          const int unit = next, t = unit >> 1;
+          if (i + 1 < n) next = units[i + 1];
+          if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+          ents[s] = unit;  // before the arrival, which releases it
+          mbar_arrive_expect_tx(&full[s], Cfg::STAGE_BYTES + (unit & 1 ? Cfg::WORDS : 0));
+          bulk_load(ring + s * 4 * TILE, src + (size_t)t * 4 * TILE, Cfg::STAGE_BYTES, &full[s]);
+          if (unit & 1) {
+            bulk_load(words + s * Cfg::ROWS * 4,
+                      row_words + (size_t)(t >> 1) * mask_rows(Tq) * 4, Cfg::WORDS, &full[s]);
+          }
+        }
+      } else {
+        for (int i = 0; i < n; ++i) {
+          const int s = i % STAGES;
+          if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+          mbar_arrive_expect_tx(&full[s], Cfg::STAGE_BYTES);
+          bulk_load(ring + s * 4 * TILE, src + (size_t)i * 4 * TILE, Cfg::STAGE_BYTES, &full[s]);
+        }
       }
     }
   } else {
     if constexpr (NWG == 2) setmaxnreg_inc<240>();
-    consume<D, NWG>(q, ring, full, empty, mask, o, lse, Tq, Tk, H, q_scale, drop);
+    consume<D, NWG, MASKED>(q, ring, full, empty, mask, words, ents, n, o, lse, Tq, Tk, H,
+                            q_scale, drop);
   }
 }
 
-template <int D>
-constexpr size_t SMEM_BYTES = STAGES * 4 * BK * D * sizeof(float) + 2 * STAGES * sizeof(uint64_t);
-static_assert(SMEM_BYTES<64> <= 227 * 1024, "the ring exceeds a block's shared memory");
-
 template <int D, int NWG>
-cudaError_t launch(const float* q, const float* k, const float* v, const unsigned char* mask,
-                   float* image, float* o, float* lse, int B, int Tq, int Tk, int H,
-                   float q_scale, Dropout drop, cudaStream_t stream) {
+cudaError_t launch(const float* q, const float* k, const float* v, const int* tile_map,
+                   const uint32_t* bits, float* image, float* o, float* lse, int B, int Tq,
+                   int Tk, int H, float q_scale, Dropout drop, cudaStream_t stream) {
   const int n_tiles = (Tk + BK - 1) / BK;
   kv_image_kernel<D><<<dim3(n_tiles, H, B), 256, 0, stream>>>(k, v, image, Tk, H);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  constexpr size_t smem = SMEM_BYTES<D>;
-  err = cudaFuncSetAttribute(flash_mha_kernel<D, NWG>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool masked = tile_map != nullptr;
+  auto kernel = masked ? flash_mha_kernel<D, NWG, true> : flash_mha_kernel<D, NWG, false>;
+  const size_t smem = masked ? F32Cfg<D, NWG, true>::SMEM : F32Cfg<D, NWG, false>::SMEM;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int rows = ROWS_WG * NWG;
-  flash_mha_kernel<D, NWG><<<dim3((Tq + rows - 1) / rows, H, B), (NWG + 1) * 128, smem, stream>>>(
-      q, image, mask, o, lse, Tq, Tk, H, q_scale, drop);
+  kernel<<<dim3((Tq + rows - 1) / rows, H, B), (NWG + 1) * 128, smem, stream>>>(
+      q, image, nullptr, o, lse, Tq, Tk, H, q_scale, drop, tile_map, bits);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_rows(int block_rows, const float* q, const float* k, const float* v,
-                        const unsigned char* mask, float* image, float* o, float* lse, int B,
-                        int Tq, int Tk, int H, float q_scale, Dropout drop,
+                        const int* tile_map, const uint32_t* bits, float* image, float* o,
+                        float* lse, int B, int Tq, int Tk, int H, float q_scale, Dropout drop,
                         cudaStream_t stream) {
-  return block_rows == 64
-             ? launch<D, 1>(q, k, v, mask, image, o, lse, B, Tq, Tk, H, q_scale, drop, stream)
-             : launch<D, 2>(q, k, v, mask, image, o, lse, B, Tq, Tk, H, q_scale, drop, stream);
+  return block_rows == 64 ? launch<D, 1>(q, k, v, tile_map, bits, image, o, lse, B, Tq, Tk, H,
+                                         q_scale, drop, stream)
+                          : launch<D, 2>(q, k, v, tile_map, bits, image, o, lse, B, Tq, Tk, H,
+                                         q_scale, drop, stream);
 }
 
 // ===========================================================================
@@ -477,6 +614,28 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 //    scratch and merged by flash_mha_bf16_combine_kernel. With ctas = the
 //    number of row blocks, each block takes one, whole (the host's choice,
 //    kernels/attention.py bf16_plan).
+//
+// 6. Under a keep-mask (what bounded the first masked kernel: every (row
+//    block, key tile) unit visited, masked or not, and a byte per score
+//    loaded from global memory after the S products' wait, on the chain the
+//    next P V waits for; 4.2-5.1x the unmasked time, 1.4-2.5x SDPA with the
+//    same mask, PERF.md): the schedule's units are the mask's tile map's
+//    (the non-empty units, row block by row block in key order), so the
+//    persistent ranges cut the work there is and the producer streams only
+//    listed tiles; a full tile takes no test; a partial one's stage carries
+//    its row block's mask words (ROWS x 4, one bulk copy on the stage's
+//    barrier), which a consumer reads before the S products' wait, so the
+//    keep test is a bit test and a select a score. Row blocks the map lists
+//    as empty are filled with NaN (lse -inf) by the grid's blocks in turn.
+//    This is flash_mha_bf16_masked_kernel; an unmasked launch runs the first
+//    design's flash_mha_bf16_kernel, unchanged. Times on one H100 80GB HBM3
+//    at 700.00 W (as for the fp32 route above): diag at freq self 0.1586 /
+//    0.8635 ms -> 0.0239 / 0.1096; no empty unit 1.08-1.23x the unmasked
+//    time (4.2-5.1x before); 0.17-0.64x SDPA with the mask (1.4-2.5x
+//    slower before). Tried and dropped: one
+//    pipeline across a block's pieces (a piece's first S issued with the
+//    previous piece's last P V) was slower in turns, and 37 % slower where
+//    ptxas serialised its wgmma groups (an accumulator zeroed in the loop).
 //
 // Shared memory: a head's slice of a row is W bytes (W = 128 at D = 64, 64 at
 // D = 32, and 32 at D = 48 in three boxes of 16 channels), swizzled at W by
@@ -530,18 +689,30 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 // clock; the byte-permute form of x >> 16 (PRMT for SHF) ran the same.
 // ===========================================================================
 
-template <int D, int BK, int NWG, bool DROP = false>
+template <int D, int BK, int NWG, bool DROP = false, bool MASKED = false>
 struct Bf16Cfg {
   static constexpr int ROWS = ROWS_WG * NWG;     // query rows per block
   static constexpr uint32_t TILE = BK * D * 2;   // bytes of one K or V tile
   static constexpr uint32_t Q_BYTES = ROWS * D * 2;
   static constexpr int STAGES = 4;               // K/V tile pairs in the ring
   static constexpr int THREADS = (NWG + 1) * 128;
-  static constexpr int PRODUCER_REGS = NWG == 2 ? 24 : 32;
-  static constexpr int CONSUMER_REGS = NWG == 2 ? 240 : 160;
+  // setmaxnreg's split of the block's registers (the launch gives each
+  // thread 65536 / THREADS, rounded down to 8): what the producer warpgroup
+  // gives up, the consumers take, or setmaxnreg.inc waits for ever. MASKED,
+  // two consumer warpgroups: 40 / 232, the producer reading the tile map.
+  static constexpr int PRODUCER_REGS = NWG == 2 ? (MASKED ? 40 : 24) : 32;
+  static constexpr int CONSUMER_REGS = NWG == 2 ? (MASKED ? 232 : 240) : 160;
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static_assert((LAUNCH_REGS - PRODUCER_REGS) * 128 >= (CONSUMER_REGS - LAUNCH_REGS) * 128 * NWG,
+                "the consumers would take more registers than the producer gives up");
   // DROP: each stage's tile also carries the dropout's column terms of its keys
   static constexpr uint32_t COLS = DROP ? BK * 4 : 0;
-  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * (2 * TILE + COLS) + (2 * STAGES + 4) * 8;
+  // MASKED: a partial tile's stage also carries its mask words, 4 a row
+  // (mask_rows), each stage its unit, and the block the map's offsets
+  static constexpr uint32_t WORDS = MASKED ? ROWS * 16 : 0;
+  static constexpr int UNITS = MASKED ? STAGES : 0, OFFS = MASKED ? OFF_SMEM : 0;
+  static constexpr size_t SMEM = 1024 + 2 * Q_BYTES + STAGES * (2 * TILE + COLS + WORDS) +
+                                 (UNITS + OFFS) * 4 + (2 * STAGES + 4) * 8;
   // Over half the SM's shared memory: one block per SM, so that the
   // consumers' setmaxnreg.inc finds the registers the producer gave up.
   static constexpr size_t SMEM_LAUNCH = SMEM > 118 * 1024 ? SMEM : 118 * 1024;
@@ -611,22 +782,6 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BK / 16][4], const float (
   for (int kk = 0; kk < BK / 16; ++kk) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16(p[8 * kk + 2 * r], p[8 * kk + 2 * r + 1]);
-  }
-}
-
-// Sets the scores of dropped keys (past Tk, or masked) to -inf. Lane (g, c)
-// of a warp holds rows `row` and `row + 8`, columns 8 j + 2c and 8 j + 2c + 1.
-template <int BK>
-__device__ __forceinline__ void mask_tile(float (&s)[BK / 2],
-                                          const unsigned char* __restrict__ mask, int k0, int row,
-                                          int c, int Tq, int Tk) {
-#pragma unroll
-  for (int e = 0; e < BK / 2; ++e) {
-    const int key = k0 + 8 * (e >> 2) + 2 * c + (e & 1);
-    const int r = row + 8 * ((e >> 1) & 1);
-    bool keep = key < Tk;
-    if (keep && mask != nullptr && r < Tq) keep = mask[(size_t)r * Tk + key] != 0;
-    if (!keep) s[e] = -INFINITY;
   }
 }
 
@@ -718,13 +873,127 @@ struct Schedule {
   __host__ __device__ int slot(int c, int r) const {
     return r == lo(c) / n_tiles ? 2 * c : 2 * c + 1;
   }
+  // row block r's first unit and units, and the row block of unit u
+  __host__ __device__ int start(int r) const { return r * n_tiles; }
+  __host__ __device__ int count(int) const { return n_tiles; }
+  __host__ __device__ int row_of(int u) const { return u / n_tiles; }
 };
+
+// The units of a masked launch: row block r = x + n_x (h + H b) (x fastest,
+// then the head, then the item) holds the key tiles the tile map lists for
+// x, in key order (none for an empty row block); the units of all row blocks
+// in order make U = B H per_bh.
+struct Units {
+  const int* off;  // the tile map's offsets, n_x + 1
+  int n_x, per_bh;  // per_bh: the map's nnz, the units of one (batch, head)
+  __host__ __device__ int count(int r) const {
+    const int x = r % n_x;
+    return off[x + 1] - off[x];
+  }
+  // the first unit of row block r
+  __host__ __device__ int start(int r) const { return r / n_x * per_bh + off[r % n_x]; }
+  // the row block that holds unit u (never an empty one)
+  __host__ __device__ int row_of(int u) const {
+    const int bh = u / per_bh, l = u % per_bh;
+    int lo = 0, hi = n_x - 1;  // the last x with off[x] <= l
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off[mid] <= l) lo = mid; else hi = mid - 1;
+    }
+    return bh * n_x + lo;
+  }
+};
+
+// The persistent schedule of a masked launch, as Schedule over its units:
+// the U units cut into G contiguous ranges as even as they come (the first
+// U % G ranges one unit longer), one per block; a row block that two ranges
+// share is merged by flash_mha_bf16_combine_kernel from their pieces
+// (slot 2c for range c's first row block, 2c + 1 for its last). G = R is the
+// plain grid, a row block each (block_range).
+struct UnitSchedule {
+  Units un;
+  int q, rem;  // 32-bit: the host keeps R n_tiles under 2^31
+  __host__ __device__ UnitSchedule(Units un, int R, int G)
+      : un(un), q(R / un.n_x * un.per_bh / G), rem(R / un.n_x * un.per_bh % G) {}
+  // the first unit of range c
+  __host__ __device__ int lo(int c) const { return c * q + (c < rem ? c : rem); }
+  // the range that holds unit u
+  __host__ __device__ int range_of(int u) const {
+    return u < rem * (q + 1) ? u / (q + 1) : rem + (u - rem * (q + 1)) / q;
+  }
+  // as Schedule's
+  __host__ __device__ int start(int r) const { return un.start(r); }
+  __host__ __device__ int count(int r) const { return un.count(r); }
+  __host__ __device__ int row_of(int u) const { return un.row_of(u); }
+};
+
+// The schedule of a launch over R row blocks of n_tiles key tiles in G
+// ranges: a masked launch's over its tile map's units.
+template <bool MASKED>
+__device__ __forceinline__ auto launch_schedule(const int* tile_map, int n_x, int R, int n_tiles,
+                                                int G) {
+  if constexpr (MASKED) {
+    return UnitSchedule(Units{tile_map + 2, n_x, tile_map[0]}, R, G);
+  } else {
+    return Schedule(R, n_tiles, G);
+  }
+}
+
+// A block's share of a masked launch: its units [u0, u1) and the row blocks
+// r0 .. r1 they lie in; with G = R (the plain grid) row block blockIdx.x,
+// which may hold no unit. Each role of the kernel forms it after setmaxnreg,
+// so that none of it lives across the register split (what does must fit
+// the producer's few registers). off: the tile map's offsets, in shared
+// memory.
+struct BlockRange {
+  Units un;
+  int u0, u1, r0, r1;
+};
+__device__ __forceinline__ BlockRange block_range(const int* tile_map, const int* off, int n_x,
+                                                  int R) {
+  const Units un{off, n_x, tile_map[0]};
+  if ((int)gridDim.x == R) {
+    const int u0 = un.start(blockIdx.x);
+    return {un, u0, u0 + un.count(blockIdx.x), (int)blockIdx.x, (int)blockIdx.x};
+  }
+  const UnitSchedule sched(un, R, gridDim.x);
+  const int u0 = sched.lo(blockIdx.x), u1 = sched.lo(blockIdx.x + 1);
+  if (u1 <= u0) return {un, u0, u1, 0, -1};
+  return {un, u0, u1, un.row_of(u0), un.row_of(u1 - 1)};
+}
+
+// The row blocks the tile map lists as empty, which no range holds: each
+// row NaN in o (bf16) and -inf in lse, as the plain softmax over no kept key
+// gives; block c of the grid fills items c, c + G, ... of (empty row block,
+// batch-head), by `threads` threads from `tid`.
+template <int D, int ROWS>
+__device__ void fill_empty(const int* empty, int n_empty, __nv_bfloat16* o, float* lse, int B,
+                           int Tq, int H, int tid, int threads) {
+  for (int item = blockIdx.x; item < n_empty * H * B; item += gridDim.x) {
+    const int bh = item / n_empty, x = empty[item % n_empty];
+    const int b = bh / H, h = bh % H;
+    for (int i = tid; i < ROWS * (D / 2); i += threads) {
+      const int row = x * ROWS + i / (D / 2);
+      if (row < Tq) {
+        *reinterpret_cast<uint32_t*>(o + ((size_t)b * Tq + row) * H * D + h * D +
+                                     2 * (i % (D / 2))) = 0x7fc07fc0u;  // two bf16 NaNs
+      }
+    }
+    if (lse != nullptr) {
+      for (int i = tid; i < ROWS && x * ROWS + i < Tq; i += threads) {
+        lse[(size_t)bh * Tq + x * ROWS + i] = -INFINITY;
+      }
+    }
+  }
+}
 
 // Grid (G): range blockIdx.x of the schedule. A scratch slot holds ROWS x D
 // of unnormalised o (the dropout's scale not applied), then ROWS x (the
 // scaled row max, the row sum), fp32. lse: null, or (B H, Tq) fp32. DROP:
 // the instance with the hashed dropout (drop.rate > 0); the other has no
-// dropout code.
+// dropout code. The unmasked launches' kernel, the first design's: `mask`
+// is always null (mask_tile says why it stays; a masked launch takes
+// flash_mha_bf16_masked_kernel).
 template <int D, int BK, int NWG, bool DROP>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
 flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -926,6 +1195,238 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
+// The masked launches' kernel: as flash_mha_bf16_kernel (grid, scratch
+// slots, lse, DROP), over the units of the mask's tile map for this plan
+// (tile_map and bits, see mask_rows): a partial tile's stage carries its
+// mask words, a full one takes no test, row blocks with no unit are filled.
+template <int D, int BK, int NWG, bool DROP>
+__global__ void __launch_bounds__((NWG + 1) * 128, 1)
+flash_mha_bf16_masked_kernel(const __grid_constant__ CUtensorMap q_map,
+                             const __grid_constant__ CUtensorMap k_map,
+                             const __grid_constant__ CUtensorMap v_map,
+                             const int* __restrict__ tile_map, const uint32_t* __restrict__ bits,
+                             __nv_bfloat16* __restrict__ o, float* __restrict__ part,
+                             float* __restrict__ lse, int B, int Tq, int Tk, int H, float scale,
+                             Dropout drop) {
+  using Cfg = Bf16Cfg<D, BK, NWG, DROP, true>;
+  using I = HeadImage<D>;
+  constexpr int STAGES = Cfg::STAGES, ROWS = Cfg::ROWS, SLOT = ROWS * (D + 2);
+  extern __shared__ __align__(1024) unsigned char bf16_smem[];
+  // two Q images, then the ring (stage s: K tile, V tile), then (DROP) each
+  // stage's column terms, each stage's mask words and unit, then the
+  // barriers; every image 1024-byte aligned (the swizzle atoms' alignment).
+  unsigned char* base = bf16_smem + ((1024 - (smem_addr(bf16_smem) & 1023)) & 1023);
+  const uint32_t q_img = smem_addr(base), ring = q_img + 2 * Cfg::Q_BYTES;
+  uint32_t* cols = reinterpret_cast<uint32_t*>(base + 2 * Cfg::Q_BYTES + STAGES * 2 * Cfg::TILE);
+  uint32_t* words = cols + STAGES * Cfg::COLS / 4;
+  int* ents = reinterpret_cast<int*>(words + STAGES * Cfg::WORDS / 4);
+  int* off_smem = ents + Cfg::UNITS;
+  uint64_t* full = reinterpret_cast<uint64_t*>(off_smem + Cfg::OFFS);
+  uint64_t* empty = full + STAGES;
+  uint64_t* q_full = empty + STAGES;
+  uint64_t* q_empty = q_full + 2;
+
+  const int n_x = (Tq + ROWS - 1) / ROWS;
+  for (int i = threadIdx.x; i <= n_x; i += blockDim.x) off_smem[i] = tile_map[2 + i];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // the producer's arrival, plus the bytes (DROP: and the column terms' warp)
+      mbar_init(&full[s], DROP ? 33 : 1);
+      mbar_init(&empty[s], 4 * NWG);  // every consumer warp, after its products read the tiles
+    }
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(&q_full[qb], 1);
+      mbar_init(&q_empty[qb], 4 * NWG);  // every consumer warp, after its last S of the piece
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int* ent = tile_map + 3 + n_x;  // the units' tiles, by (b, h) group
+
+  if (warp >= 4 * NWG) {
+    // The producer warpgroup: one thread issues the copies; with DROP the
+    // next warp writes each tile's column terms into its stage (once a tile,
+    // where every consumer lane would form its own).
+    setmaxnreg_dec<Cfg::PRODUCER_REGS>();
+    const auto [un, u0, u1, r0, r1] = block_range(tile_map, off_smem, n_x, n_x * H * B);
+    if (threadIdx.x == 128 * NWG) {
+      prefetch_tensormap(&q_map);
+      prefetch_tensormap(&k_map);
+      prefetch_tensormap(&v_map);
+      int it = 0, pieces = 0;  // tiles streamed through the ring, pieces begun
+      for (int r = r0; r <= r1; ++r) {
+        const int s0 = un.start(r);
+        const int tb = max(u0, s0) - s0, te = min(u1, s0 + un.count(r)) - s0;
+        if (te <= tb) continue;  // a row block with no unit
+        const int p = pieces++, qb = p & 1;
+        const int x = r % n_x, h = r / n_x % H, b = r / (n_x * H);
+        if (p >= 2) mbar_wait(&q_empty[qb], ((p >> 1) - 1) & 1);
+        mbar_arrive_expect_tx(&q_full[qb], Cfg::Q_BYTES);
+#pragma unroll
+        for (int j = 0; j < I::BOXES; ++j) {
+          tma_load_3d(q_img + qb * Cfg::Q_BYTES + j * ROWS * I::W, &q_map, h * D + j * (I::W / 2),
+                      x * ROWS, b, &q_full[qb]);
+        }
+        for (int i = tb; i < te; ++i, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+          // the unit's entry, tile << 1 | partial, staged before the arrival
+          // (which releases it)
+          const int unit = ent[s0 - r / n_x * un.per_bh + i], t = unit >> 1;
+          ents[s] = unit;
+          mbar_arrive_expect_tx(&full[s], 2 * Cfg::TILE + (unit & 1 ? Cfg::WORDS : 0));
+          const uint32_t k_dst = ring + s * 2 * Cfg::TILE, v_dst = k_dst + Cfg::TILE;
+#pragma unroll
+          for (int j = 0; j < I::BOXES; ++j) {
+            tma_load_3d(k_dst + j * BK * I::W, &k_map, h * D + j * (I::W / 2), t * BK, b, &full[s]);
+            tma_load_3d(v_dst + j * BK * I::W, &v_map, h * D + j * (I::W / 2), t * BK, b, &full[s]);
+          }
+          if (unit & 1) {
+            bulk_load(words + s * Cfg::WORDS / 4,
+                      bits + ((size_t)(BK == 128 ? t : t >> 1) * mask_rows(Tq) + x * ROWS) * 4,
+                      Cfg::WORDS, &full[s]);
+          }
+        }
+      }
+    } else if (DROP && warp == 4 * NWG + 1) {
+      for (int u = u0; u < u1; ++u) {  // the block's units in order
+        const int it = u - u0, s = it % STAGES;
+        if (it >= STAGES) mbar_wait(&empty[s], ((it / STAGES) - 1) & 1);
+        const int t = ent[u % un.per_bh] >> 1;
+        const uint32_t k = (uint32_t)(t * BK + lane) * 0x85EBCA77u;
+#pragma unroll
+        for (int q = 0; q < BK / 32; ++q) {
+          cols[s * BK + 32 * q + lane] = Dropout::col_term(k + (uint32_t)(32 * q) * 0x85EBCA77u);
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+  } else {  // NWG consumer warpgroups of 64 query rows
+    setmaxnreg_inc<Cfg::CONSUMER_REGS>();
+    const auto [un, u0, u1, r0, r1] = block_range(tile_map, off_smem, n_x, n_x * H * B);
+    const int wg = warp / 4, g = lane / 4, c = lane % 4;
+    const int rr = wg * ROWS_WG + (warp % 4) * 16 + g;  // the thread's first row in the block
+    // The turn to issue products passes round robin between the warpgroups:
+    // warpgroup w waits at barrier 1 + w, then opens 1 + (w + 1) % NWG (two
+    // warpgroups' threads each); warpgroup 0 opens its own first.
+    if (wg == 0) named_bar_arrive(1, 256);
+    const int next_bar = 1 + (wg + 1) % NWG;
+    const int C = H * D;
+    int it = 0, pieces = 0;
+    for (int r = r0; r <= r1; ++r) {
+      const int s0 = un.start(r);
+      const int tb = max(u0, s0) - s0, te = min(u1, s0 + un.count(r)) - s0;
+      const int n = te - tb;
+      if (n <= 0) continue;  // a row block with no unit
+      const int p = pieces++, qb = p & 1;
+      const int x = r % n_x, h = r / n_x % H, b = r / (n_x * H);
+      const int row = x * ROWS + rr;
+      const uint32_t q_wg = q_img + qb * Cfg::Q_BYTES + wg * ROWS_WG * I::W;
+      uint32_t rt[2];  // the dropout's row terms
+      if constexpr (DROP) {
+        const uint32_t salt = drop.salt(b * H + h);
+        rt[0] = Dropout::row_term(row, salt);
+        rt[1] = Dropout::row_term(row + 8, salt);
+      }
+
+      float acc[D / 2];
+#pragma unroll
+      for (int e = 0; e < D / 2; ++e) acc[e] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
+      float s[BK / 2];
+      uint32_t pa[BK / 16][4], w[2];
+
+      // A tile's unit (tile << 1 | partial) and, for a partial one, its mask
+      // words come from its stage in shared memory; a full tile takes no
+      // test (bits past Tk are 0: no test of the keys' range).
+      mbar_wait(&q_full[qb], (p >> 1) & 1);
+      mbar_wait(&full[it % STAGES], (it / STAGES) & 1);
+      named_bar_sync(1 + wg, 256);
+      score_issue<D, BK>(s, q_wg, ROWS * I::W, ring + (it % STAGES) * 2 * Cfg::TILE);
+      named_bar_arrive(next_bar, 256);
+      wgmma_wait<0>();
+      fence_all(s);
+      if (const int unit = ents[it % STAGES]; unit & 1) {
+        load_words<BK>(w, words + (it % STAGES) * Cfg::WORDS / 4, rr, c, unit >> 1);
+        keep_bits<BK>(s, w);
+      }
+      softmax_tile<BK>(s, m, l, alpha, scale);
+      if constexpr (DROP) drop_tile<BK>(s, drop, rt, cols + (it % STAGES) * BK + 2 * c);
+      pack_p<BK>(pa, s);
+      for (int i = 1; i < n; ++i) {
+        const int j = it + i, st = j % STAGES, prev = (j - 1) % STAGES;
+        mbar_wait(&full[st], (j / STAGES) & 1);
+        named_bar_sync(1 + wg, 256);
+        score_issue<D, BK>(s, q_wg, ROWS * I::W, ring + st * 2 * Cfg::TILE);
+        value_issue<D, BK>(acc, pa, ring + prev * 2 * Cfg::TILE + Cfg::TILE);
+        named_bar_arrive(next_bar, 256);
+        wgmma_wait<1>();  // this tile's S; the previous tile's P V still runs
+        fence_all(s);
+        if (const int unit = ents[st]; unit & 1) {
+          load_words<BK>(w, words + st * Cfg::WORDS / 4, rr, c, unit >> 1);
+          keep_bits<BK>(s, w);
+        }
+        softmax_tile<BK>(s, m, l, alpha, scale);
+        if constexpr (DROP) drop_tile<BK>(s, drop, rt, cols + st * BK + 2 * c);
+        wgmma_wait<0>();
+        fence_all(acc);
+        fence_all(pa);
+        if (lane == 0) mbar_arrive(&empty[prev]);
+#pragma unroll
+        for (int e = 0; e < D / 2; ++e) acc[e] *= alpha[(e >> 1) & 1];
+        pack_p<BK>(pa, s);
+      }
+      if (lane == 0) mbar_arrive(&q_empty[qb]);  // every S of the piece is done
+      const int last = (it + n - 1) % STAGES;
+      named_bar_sync(1 + wg, 256);
+      value_issue<D, BK>(acc, pa, ring + last * 2 * Cfg::TILE + Cfg::TILE);
+      named_bar_arrive(next_bar, 256);
+      wgmma_wait<0>();
+      fence_all(acc);
+      fence_all(pa);
+      if (lane == 0) mbar_arrive(&empty[last]);
+      it += n;
+
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {  // the row sums over the row's four lanes
+        l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 1);
+        l[hf] += __shfl_xor_sync(FULL_MASK, l[hf], 2);
+      }
+      if (tb == 0 && te == un.count(r)) {  // a whole row block: o = acc / l
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int r = row + 8 * hf;
+          if (r >= Tq) continue;
+          store_o<D>(o + ((size_t)b * Tq + r) * C + h * D + 2 * c, acc, hf, l[hf],
+                     DROP ? drop.scale : 1.f);
+          if (lse != nullptr && c == 0) {
+            lse[((size_t)b * H + h) * Tq + r] = m[hf] * scale + log2f(l[hf]);
+          }
+        }
+        continue;
+      }
+      // a partial piece: unnormalised, to its scratch slot (the block's first
+      // piece lies in its first row block)
+      float* mine = part + (size_t)(p == 0 ? 2 * blockIdx.x : 2 * blockIdx.x + 1) * SLOT;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float* dst = mine + (rr + 8 * hf) * D + 2 * c;
+#pragma unroll
+        for (int jj = 0; jj < D / 8; ++jj) {
+          *reinterpret_cast<float2*>(dst + 8 * jj) =
+              make_float2(acc[4 * jj + 2 * hf], acc[4 * jj + 2 * hf + 1]);
+        }
+        if (c == 0) {
+          *reinterpret_cast<float2*>(mine + ROWS * D + (rr + 8 * hf) * 2) =
+              make_float2(m[hf] == -INFINITY ? -INFINITY : m[hf] * scale, l[hf]);
+        }
+      }
+    }
+    fill_empty<D, ROWS>(ent + un.per_bh, tile_map[1], o, lse, B, Tq, H, threadIdx.x, NWG * 128);
+  }
+}
+
 // Merges the partial pieces of each row block that two or more ranges of
 // the schedule share: per row, M = the max of the pieces' scaled maxima, w =
 // 2^(M_piece - M) (base 0 where every M is -inf: 0 / 0 = NaN, as a fully
@@ -936,23 +1437,25 @@ flash_mha_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 // return). A thread takes ITEMS (row, channel pair) items and issues the
 // loads of all their pieces before it waits on any. The thread of a row's
 // first pair also writes its log-sum-exp, base + log2 l, where lse is given.
+// MASKED: the ranges cut the units of the tile map (tile_map, for the plan;
+// launch_schedule), else every row block's n_tiles tiles.
 constexpr int COMBINE_ITEMS = 4;
 
-template <int D, int ROWS>
+template <int D, int ROWS, bool MASKED>
 __global__ void __launch_bounds__(256)
-flash_mha_bf16_combine_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ o,
-                              float* __restrict__ lse, int B, int Tq, int H, int n_tiles, int G,
-                              float keep_scale) {
+flash_mha_bf16_combine_kernel(const float* __restrict__ part, const int* __restrict__ tile_map,
+                              __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int B,
+                              int Tq, int H, int n_tiles, int G, float keep_scale) {
   constexpr int SLOT = ROWS * (D + 2), PAIRS = ROWS * (D / 2), N = COMBINE_ITEMS;
   const int n_x = (Tq + ROWS - 1) / ROWS;
-  const Schedule sched(n_x * H * B, n_tiles, G);
-  const int c = blockIdx.x + 1, start = sched.lo(c), r = start / n_tiles;
-  if (start % n_tiles == 0 || sched.lo(c - 1) > r * n_tiles) return;
+  const auto sched = launch_schedule<MASKED>(tile_map, n_x, n_x * H * B, n_tiles, G);
+  const int c = blockIdx.x + 1, start = sched.lo(c), r = sched.row_of(start), s0 = sched.start(r);
+  if (start == s0 || sched.lo(c - 1) > s0) return;
   const int x = r % n_x, h = r / n_x % H, b = r / (n_x * H);
   // range c - 1's piece is its last (slot 2c - 1) unless it starts at this
-  // row block's first tile; every later range starts in the row block (slot 2c')
-  const int c0 = c - 1, c1 = sched.range_of((r + 1) * n_tiles - 1);
-  const float* first = part + (size_t)(sched.lo(c0) == r * n_tiles ? 2 * c0 : 2 * c0 + 1) * SLOT;
+  // row block's first unit; every later range starts in the row block (slot 2c')
+  const int c0 = c - 1, c1 = sched.range_of(s0 + sched.count(r) - 1);
+  const float* first = part + (size_t)(sched.lo(c0) == s0 ? 2 * c0 : 2 * c0 + 1) * SLOT;
   int rr[N], pair[N];
   float top[N], l[N], base[N];
   float2 v[N], ml[N];
@@ -1061,54 +1564,76 @@ flash_mha_bf16_tiles_kernel(const __grid_constant__ CUtensorMap q_map,
 using bf16 = __nv_bfloat16;
 
 template <int D, int BK, int NWG>
-int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const unsigned char* mask, bf16* o,
-                float* part, float* lse, int B, int Tq, int Tk, int H, float scale, int ctas,
-                Dropout drop, cudaStream_t stream) {
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const int* tile_map,
+                const uint32_t* bits, bf16* o, float* part, float* lse, int B, int Tq, int Tk,
+                int H, float scale, int ctas, Dropout drop, cudaStream_t stream) {
   using Cfg = Bf16Cfg<D, BK, NWG>;
-  const int C = H * D, n_tiles = (Tk + BK - 1) / BK;
-  const long long R = (long long)((Tq + Cfg::ROWS - 1) / Cfg::ROWS) * H * B;
+  const int C = H * D, n_x = (Tq + Cfg::ROWS - 1) / Cfg::ROWS, n_tiles = (Tk + BK - 1) / BK;
+  const long long R = (long long)n_x * H * B;
   if (ctas < 1 || ctas > R * n_tiles || R * n_tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  const Schedule sched((int)R, n_tiles, ctas);
   bool pieces = false;  // does a range start inside a row block?
-  for (int c = 1; c < ctas && !pieces; ++c) pieces = sched.lo(c) % n_tiles != 0;
-  if (pieces && part == nullptr) return (int)cudaErrorInvalidValue;
+  if (tile_map == nullptr) {
+    const Schedule sched((int)R, n_tiles, ctas);
+    for (int c = 1; c < ctas && !pieces; ++c) pieces = sched.lo(c) % n_tiles != 0;
+    if (pieces && part == nullptr) return (int)cudaErrorInvalidValue;
+  } else {
+    // the map lives on the card: the caller, which holds its host copy, says
+    // whether ranges split row blocks by passing part (kernels/attention.py)
+    if (bits == nullptr || n_x >= OFF_SMEM) return (int)cudaErrorInvalidValue;
+    pieces = part != nullptr && ctas != R;
+  }
   CUtensorMap qm, km, vm;
   int err = tensor_map::head_map<D, 2>(&qm, q, B, Tq, C, Cfg::ROWS);
   if (err == 0) err = tensor_map::head_map<D, 2>(&km, k, B, Tk, C, BK);
   if (err == 0) err = tensor_map::head_map<D, 2>(&vm, v, B, Tk, C, BK);
   if (err != 0) return err;
   const bool dropping = drop.rate > 0.f;
-  auto kernel = dropping ? flash_mha_bf16_kernel<D, BK, NWG, true>
-                         : flash_mha_bf16_kernel<D, BK, NWG, false>;
-  const size_t smem = dropping ? Bf16Cfg<D, BK, NWG, true>::SMEM_LAUNCH : Cfg::SMEM_LAUNCH;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<ctas, Cfg::THREADS, smem, stream>>>(qm, km, vm, mask, o, part, lse, B, Tq, Tk, H,
-                                               scale, drop);
+  cudaError_t e;
+  if (tile_map != nullptr) {
+    auto kernel = dropping ? flash_mha_bf16_masked_kernel<D, BK, NWG, true>
+                           : flash_mha_bf16_masked_kernel<D, BK, NWG, false>;
+    const size_t smem = dropping ? Bf16Cfg<D, BK, NWG, true, true>::SMEM_LAUNCH
+                                 : Bf16Cfg<D, BK, NWG, false, true>::SMEM_LAUNCH;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<ctas, Cfg::THREADS, smem, stream>>>(qm, km, vm, tile_map, bits, o, part, lse, B, Tq,
+                                                 Tk, H, scale, drop);
+  } else {
+    auto kernel = dropping ? flash_mha_bf16_kernel<D, BK, NWG, true>
+                           : flash_mha_bf16_kernel<D, BK, NWG, false>;
+    const size_t smem = dropping ? Bf16Cfg<D, BK, NWG, true>::SMEM_LAUNCH : Cfg::SMEM_LAUNCH;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<ctas, Cfg::THREADS, smem, stream>>>(qm, km, vm, nullptr, o, part, lse, B, Tq, Tk, H,
+                                                 scale, drop);
+  }
   e = cudaGetLastError();
   if (e != cudaSuccess || !pieces) return (int)e;
   constexpr int PER_BLOCK = COMBINE_ITEMS * 256, PAIRS = Cfg::ROWS * (D / 2);
-  flash_mha_bf16_combine_kernel<D, Cfg::ROWS>
-      <<<dim3(ctas - 1, (PAIRS + PER_BLOCK - 1) / PER_BLOCK), 256, 0, stream>>>(
-          part, o, lse, B, Tq, H, n_tiles, ctas, drop.scale);
+  const dim3 grid(ctas - 1, (PAIRS + PER_BLOCK - 1) / PER_BLOCK);
+  auto combine = tile_map != nullptr ? flash_mha_bf16_combine_kernel<D, Cfg::ROWS, true>
+                                     : flash_mha_bf16_combine_kernel<D, Cfg::ROWS, false>;
+  combine<<<grid, 256, 0, stream>>>(part, tile_map, o, lse, B, Tq, H, n_tiles, ctas, drop.scale);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int dispatch_bf16(int key_tile, int block_rows, const bf16* q, const bf16* k, const bf16* v,
-                  const unsigned char* mask, bf16* o, float* part, float* lse, int B, int Tq,
-                  int Tk, int H, float scale, int ctas, Dropout drop, cudaStream_t s) {
+                  const int* tile_map, const uint32_t* bits, bf16* o, float* part, float* lse,
+                  int B, int Tq, int Tk, int H, float scale, int ctas, Dropout drop,
+                  cudaStream_t s) {
   if (key_tile == 64 && block_rows == 128)
-    return launch_bf16<D, 64, 2>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop, s);
+    return launch_bf16<D, 64, 2>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H, scale,
+                                 ctas, drop, s);
   if (key_tile == 64 && block_rows == 192)
-    return launch_bf16<D, 64, 3>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop, s);
+    return launch_bf16<D, 64, 3>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H, scale,
+                                 ctas, drop, s);
   if (key_tile == 128 && block_rows == 128)
-    return launch_bf16<D, 128, 2>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop,
-                                  s);
+    return launch_bf16<D, 128, 2>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H, scale,
+                                  ctas, drop, s);
   if (key_tile == 128 && block_rows == 192)
-    return launch_bf16<D, 128, 3>(q, k, v, mask, o, part, lse, B, Tq, Tk, H, scale, ctas, drop,
-                                  s);
+    return launch_bf16<D, 128, 3>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H, scale,
+                                  ctas, drop, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1140,48 +1665,55 @@ int dispatch_tiles(int key_tile, const bf16* q, const bf16* k, const bf16* v, co
 
 extern "C" {
 
-// q (B, Tq, H*D), k/v (B, Tk, H*D), mask (Tq, Tk) bytes or null -> o (B, Tq, H*D).
-// image: scratch of B * H * ceil(Tk / 64) * 4 * 64 * D floats. q_scale =
-// log2(e) / sqrt(D); block_rows 64 or 128 query rows per block. lse: null, or
-// (B * H, Tq) floats for each row's base-2 log-sum-exp. Dropout of the
-// probabilities at `rate` (0: none) under `seed` (attention_dropout.cuh).
-int flash_mha_f32(const float* q, const float* k, const float* v, const unsigned char* mask,
-                  float* image, float* o, float* lse, int B, int Tq, int Tk, int H, int D,
-                  float q_scale, int block_rows, float rate, int seed, void* stream) {
+// q (B, Tq, H*D), k/v (B, Tk, H*D) -> o (B, Tq, H*D). tile_map and bits:
+// null, or a keep-mask's tile map for block_rows rows and 64 keys and its
+// packed words (see mask_rows). image: scratch of B * H * ceil(Tk / 64) * 4
+// * 64 * D floats. q_scale = log2(e) / sqrt(D); block_rows 64 or 128 query
+// rows per block. lse: null, or (B * H, Tq) floats for each row's base-2
+// log-sum-exp. Dropout of the probabilities at `rate` (0: none) under `seed`
+// (attention_dropout.cuh).
+int flash_mha_f32(const float* q, const float* k, const float* v, const int* tile_map,
+                  const unsigned int* bits, float* image, float* o, float* lse, int B, int Tq,
+                  int Tk, int H, int D, float q_scale, int block_rows, float rate, int seed,
+                  void* stream) {
   if (Tk <= 0 || (block_rows != 64 && block_rows != 128)) return (int)cudaErrorInvalidValue;
+  if ((tile_map == nullptr) != (bits == nullptr)) return (int)cudaErrorInvalidValue;
   if (!(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();
   const cudaStream_t s = (cudaStream_t)stream;
   const Dropout drop = Dropout::make(rate, (uint32_t)seed);
   switch (D) {
     case 32:
-      return (int)launch_rows<32>(block_rows, q, k, v, mask, image, o, lse, B, Tq, Tk, H,
-                                  q_scale, drop, s);
+      return (int)launch_rows<32>(block_rows, q, k, v, tile_map, bits, image, o, lse, B, Tq,
+                                  Tk, H, q_scale, drop, s);
     case 48:
-      return (int)launch_rows<48>(block_rows, q, k, v, mask, image, o, lse, B, Tq, Tk, H,
-                                  q_scale, drop, s);
+      return (int)launch_rows<48>(block_rows, q, k, v, tile_map, bits, image, o, lse, B, Tq,
+                                  Tk, H, q_scale, drop, s);
     case 64:
-      return (int)launch_rows<64>(block_rows, q, k, v, mask, image, o, lse, B, Tq, Tk, H,
-                                  q_scale, drop, s);
+      return (int)launch_rows<64>(block_rows, q, k, v, tile_map, bits, image, o, lse, B, Tq,
+                                  Tk, H, q_scale, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 // The bf16 route: q (B, Tq, H*D), k/v (B, Tk, H*D), o (B, Tq, H*D), all bf16
-// with 16-byte aligned bases; mask as for flash_mha_f32. scale = log2(e) /
-// sqrt(D), applied to the fp32 scores. key_tile 64 or 128 keys, block_rows
-// 128 or 192 query rows; ctas blocks in the grid, each a range of the
-// persistent schedule (Schedule; part: fp32 scratch of 2 ctas block_rows
-// (D + 2) floats, which may be null when no range starts inside a row
-// block). lse and the dropout's rate and seed as for flash_mha_f32. Returns
-// a cudaError_t, or ENCODE_FAILED + the CUresult of a failed tensor-map
-// encode.
-int flash_mha_bf16(const void* q, const void* k, const void* v, const unsigned char* mask,
-                   void* o, float* part, float* lse, int B, int Tq, int Tk, int H, int D,
-                   float scale, int key_tile, int block_rows, int ctas, float rate, int seed,
-                   void* stream) {
+// with 16-byte aligned bases; tile_map (for block_rows rows and key_tile
+// keys) and bits as for flash_mha_f32. scale = log2(e) / sqrt(D), applied to
+// the fp32 scores. key_tile 64 or 128 keys, block_rows 128 or 192 query
+// rows; ctas blocks in the grid, each a range of the persistent schedule
+// over the units (Schedule; ctas = the row blocks: a block each; part: fp32
+// scratch of 2 ctas block_rows (D + 2) floats, which may be null when no
+// range starts inside a row block, and under a mask is given exactly when
+// one does). lse and the dropout's rate and seed as for flash_mha_f32.
+// Returns a cudaError_t, or ENCODE_FAILED + the CUresult of a failed
+// tensor-map encode.
+int flash_mha_bf16(const void* q, const void* k, const void* v, const int* tile_map,
+                   const unsigned int* bits, void* o, float* part, float* lse, int B, int Tq,
+                   int Tk, int H, int D, float scale, int key_tile, int block_rows, int ctas,
+                   float rate, int seed, void* stream) {
   if (Tk <= 0 || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
+  if ((tile_map == nullptr) != (bits == nullptr)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
@@ -1189,14 +1721,14 @@ int flash_mha_bf16(const void* q, const void* k, const void* v, const unsigned c
   const Dropout drop = Dropout::make(rate, (uint32_t)seed);
   switch (D) {
     case 32:
-      return dispatch_bf16<32>(key_tile, block_rows, qb, kb, vb, mask, ob, part, lse, B, Tq, Tk,
-                               H, scale, ctas, drop, s);
+      return dispatch_bf16<32>(key_tile, block_rows, qb, kb, vb, tile_map, bits, ob, part, lse,
+                               B, Tq, Tk, H, scale, ctas, drop, s);
     case 48:
-      return dispatch_bf16<48>(key_tile, block_rows, qb, kb, vb, mask, ob, part, lse, B, Tq, Tk,
-                               H, scale, ctas, drop, s);
+      return dispatch_bf16<48>(key_tile, block_rows, qb, kb, vb, tile_map, bits, ob, part, lse,
+                               B, Tq, Tk, H, scale, ctas, drop, s);
     case 64:
-      return dispatch_bf16<64>(key_tile, block_rows, qb, kb, vb, mask, ob, part, lse, B, Tq, Tk,
-                               H, scale, ctas, drop, s);
+      return dispatch_bf16<64>(key_tile, block_rows, qb, kb, vb, tile_map, bits, ob, part, lse,
+                               B, Tq, Tk, H, scale, ctas, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

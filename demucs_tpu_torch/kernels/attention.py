@@ -25,7 +25,13 @@ Both: an online softmax over tiles of keys (64 on the fp32 route,
 ``KEY_TILE_BF16`` on the bf16 route) with fp32 accumulators; an optional
 ``(Tq, Tk)`` boolean keep-mask shared by batch and heads; the -inf-safe
 rescale (a fully masked row gives NaN, as the plain softmax does). Head dims
-32, 48 and 64. The plain version is
+32, 48 and 64. Under a mask each route reads it as :class:`MaskTiles`, built
+once per mask on the host (:func:`mask_tiles`; ``ops/sparse.py`` builds the
+transformer's beside its cached table): for each plan a tile map of the
+(row block, key tile) units that keep a score, full or partial (the
+kernels stream and compute only those, and test no key of a full one), and
+the mask packed into bits in the order the kernels' lanes hold the scores
+(a partial tile's keep test is a bit test). The plain version is
 :func:`demucs_tpu_torch.ops.attention.multihead_attention`. Any other dtype
 on the card raises.
 
@@ -59,10 +65,14 @@ and a program all count.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
+import heapq
 import math
+import weakref
 
+import numpy as np
 import torch
 
 from demucs_tpu_torch.kernels import _build
@@ -71,7 +81,8 @@ from demucs_tpu_torch.ops.attention import _mul32, _split_heads, dropout_keep, m
 __all__ = ["flash_mha", "flash_mha_op", "flash_mha_bf16", "flash_mha_plain", "flash_mha_bwd",
            "flash_mha_bwd_bf16", "flash_mha_bwd_plain", "HEAD_DIMS", "KEY_TILE",
            "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles",
-           "bf16_drop_tile", "bwd_keys",
+           "bf16_drop_tile", "bwd_keys", "MaskTiles", "mask_tiles", "register_mask_tiles",
+           "tile_classes", "tile_map", "pack_mask_bits", "unpack_mask_bits", "MASK_PLANS",
            "bwd_walk", "bwd_turn", "bwd_order", "bwd_rounds", "bwd_plan"]
 
 HEAD_DIMS = (32, 48, 64)
@@ -108,6 +119,17 @@ BWD_KEYS_BF16 = None
 # ring and the Q/dO ring of 128-key blocks and twice the turns a tile.
 _BWD_COST = {64: 1.02, 128: 1.0}
 _BWD_COST_ORDERED = {64: 1.4, 128: 1.0}
+# The (query rows a block, keys a tile) of every plan either route takes: the
+# fp32 route's 64 or 128 rows at 64 keys, the bf16 route's 128 or 192 at 64 or
+# 128. A keep-mask's tile maps are built for all of them at once.
+MASK_PLANS = ((64, 64), (128, 64), (128, 128), (192, 64), (192, 128))
+# The packed mask's query rows are padded to a multiple of this (every plan's
+# rows divide it: a row block's words never run past the array;
+# csrc/flash_mha.cu mask_rows).
+MASK_ROW_PAD = 384
+# The bf16 route's masked kernel keeps the tile map's offsets in shared
+# memory: at most this many row blocks (csrc/flash_mha.cu OFF_SMEM - 1).
+MASK_ROW_BLOCKS = 511
 # A status at or above this from flash_mha_bf16 is a failed tensor-map
 # encode (csrc/tensor_map.cuh ENCODE_FAILED), plus the driver's CUresult.
 _ENCODE_FAILED = 10000
@@ -134,9 +156,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_mha")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_mha_f32.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, f, i, p]
+    lib.flash_mha_f32.argtypes = [p] * 8 + [i, i, i, i, i, f, i, f, i, p]
     lib.flash_mha_f32.restype = i
-    lib.flash_mha_bf16.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, i, f, i, p]
+    lib.flash_mha_bf16.argtypes = [p] * 8 + [i, i, i, i, i, f, i, i, i, f, i, p]
     lib.flash_mha_bf16.restype = i
     lib.flash_mha_bf16_tiles.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.flash_mha_bf16_tiles.restype = i
@@ -227,7 +249,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
                               dropout_seed=seed)
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.float32)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    return _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
+    return _FlashMHA.apply(q, k, v, num_heads, keep, _tiles(mask, keep), float(dropout), seed,
+                           _wants_grad(q, k, v))
 
 
 @torch.library.custom_op("demucs_tpu_torch::flash_mha", mutates_args=(), device_types="cpu")
@@ -248,7 +271,8 @@ def _flash_mha_op_cuda(q, k, v, num_heads, mask=None):
     if B * Tq == 0:
         return torch.empty_like(q)
     route = _forward_bf16 if dtype == torch.bfloat16 else _forward_f32
-    return route(_aligned(q), _aligned(k), _aligned(v), num_heads, keep, 0.0, 0, False)[0]
+    return route(_aligned(q), _aligned(k), _aligned(v), num_heads, _tiles(mask, keep), 0.0, 0,
+                 False)[0]
 
 
 @flash_mha_op.register_fake
@@ -262,17 +286,18 @@ def _wants_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _forward_f32(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse: bool):
-    """One launch of the fp32 route -> (o, lse or None)."""
+def _forward_f32(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_lse: bool):
+    """One launch of the fp32 route -> (o, lse or None); ``tiles``: the
+    mask's :class:`MaskTiles`, or None."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
     d = C // num_heads
     out = torch.empty_like(q)
     image = torch.empty(B, num_heads, -(-Tk // KEY_TILE), 4, KEY_TILE * d, device=q.device)
     lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
+    tmap, bits = (None, None) if tiles is None else tiles.launch(BLOCK_ROWS, KEY_TILE)
     status = _lib().flash_mha_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if keep is None else keep.data_ptr(), image.data_ptr(), out.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tmap, bits, image.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
         B, Tq, Tk, num_heads, d, q_scale(d), BLOCK_ROWS, rate, _int32(seed),
         _build.stream_ptr(q.device))
@@ -287,9 +312,9 @@ class _FlashMHA(torch.autograd.Function):
     the backward kernel of the same route (:func:`flash_mha_bwd`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, keep, rate, seed, want_lse):
+    def forward(ctx, q, k, v, num_heads, keep, tiles, rate, seed, want_lse):
         route = _forward_bf16 if q.dtype == torch.bfloat16 else _forward_f32
-        out, lse = route(q, k, v, num_heads, keep, rate, seed, want_lse)
+        out, lse = route(q, k, v, num_heads, tiles, rate, seed, want_lse)
         if want_lse:
             ctx.save_for_backward(q, k, v, out, lse)
             ctx.args = (num_heads, keep, rate, seed)
@@ -301,7 +326,7 @@ class _FlashMHA(torch.autograd.Function):
         num_heads, keep, rate, seed = ctx.args
         dq, dk, dv = flash_mha_bwd(q, k, v, out, dout, num_heads, lse=lse, mask=keep,
                                    dropout=rate, dropout_seed=seed)
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
@@ -544,36 +569,81 @@ def _splits(lo: list, n_tiles: int) -> bool:
     return any(u % n_tiles for u in lo[1:-1])
 
 
+def _starts(counts: tuple, n_bh: int) -> list:
+    """The first unit of each row block (``Units::start``) under a tile map:
+    row block r = x + n_x bh holds ``counts[x]`` units."""
+    off = np.concatenate([[0], np.cumsum(counts)])
+    return [bh * int(off[-1]) + int(o) for bh in range(n_bh) for o in off[:-1]]
+
+
+def _splits_at(lo: list, starts: list) -> bool:
+    """:func:`_splits` under a tile map: a range that starts at no row
+    block's first unit."""
+    first = set(starts)
+    return any(u not in first for u in lo[1:-1])
+
+
+@functools.lru_cache(maxsize=256)
+def _masked_splits(counts: tuple, n_bh: int, ctas: int) -> bool:
+    """:func:`_splits_at` of a masked launch's schedule (cached: a launch
+    reads it on the host, where its lists would cost more than the kernel)."""
+    return _splits_at(_ranges(n_bh * sum(counts), ctas), _starts(counts, n_bh))
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_cost(blocks: int, n_tiles: int, rows: int, ctas: int, persistent: bool,
-               sm_count: int) -> float:
+               sm_count: int, counts: tuple | None = None) -> float:
     """The modelled time of a plan: the plain grid's waves, or the persistent
-    schedule's longest range with a start for each row block it touches."""
+    schedule's longest range with a start for each row block it touches.
+    ``counts``: under a mask, each row block's units of its tile map (by x);
+    the plain grid's blocks then go to the SMs as they free up (an empty one
+    costs nothing) and the ranges cut the listed units."""
+    if counts is None:
+        if not persistent:
+            return -(-blocks // sm_count) * (n_tiles + _BLOCK_START) * _ROWS_COST[rows]
+        lo = _ranges(blocks * n_tiles, ctas)
+        longest = max(lo[c + 1] - lo[c] + _PIECE_START * ((lo[c + 1] - 1) // n_tiles
+                                                          - lo[c] // n_tiles + 1)
+                      for c in range(ctas))
+        return (longest + _MERGE * _splits(lo, n_tiles)) * _ROWS_COST[rows]
+    n_x = len(counts)
     if not persistent:
-        return -(-blocks // sm_count) * (n_tiles + _BLOCK_START) * _ROWS_COST[rows]
-    lo = _ranges(blocks * n_tiles, ctas)
-    longest = max(lo[c + 1] - lo[c] + _PIECE_START * ((lo[c + 1] - 1) // n_tiles
-                                                      - lo[c] // n_tiles + 1)
-                  for c in range(ctas))
-    return (longest + _MERGE * _splits(lo, n_tiles)) * _ROWS_COST[rows]
+        free = [0.0] * sm_count
+        for r in range(blocks):
+            units = counts[r % n_x]
+            heapq.heapreplace(free, free[0] + (units + _BLOCK_START if units else 0.0))
+        return max(free) * _ROWS_COST[rows]
+    n_bh = blocks // n_x
+    starts = [u for u, units in zip(_starts(counts, n_bh), counts * n_bh) if units]
+    lo = _ranges(n_bh * sum(counts), ctas)
+    longest = max(lo[c + 1] - lo[c] + _PIECE_START * (
+        1 + bisect.bisect_left(starts, lo[c + 1]) - bisect.bisect_right(starts, lo[c]))
+        for c in range(ctas))
+    return (longest + _MERGE * _splits_at(lo, starts)) * _ROWS_COST[rows]
 
 
-def bf16_plan(B: int, Tq: int, Tk: int, num_heads: int, sm_count: int) -> tuple:
+def bf16_plan(B: int, Tq: int, Tk: int, num_heads: int, sm_count: int,
+              tiles: "MaskTiles | None" = None) -> tuple:
     """(query rows per block, blocks in the grid) of the bf16 route.
 
     Of 128 or 192 rows, each on the plain grid (a block per row block) or on
     the persistent schedule (one block per SM of the card's ``sm_count``,
     each walking an even share of the (row block, key tile) units,
-    :func:`bf16_schedule`), the plan the model above prices lowest.
-    ``BF16_ROWS`` and ``BF16_PERSISTENT`` fix either choice.
+    :func:`bf16_schedule`), the plan the model above prices lowest. Under a
+    mask (``tiles``, its :class:`MaskTiles`) the units are its tile map's:
+    the model prices the work there is, and a mask that keeps nothing takes
+    the plain grid. ``BF16_ROWS`` and ``BF16_PERSISTENT`` fix either choice.
     """
     n_tiles = -(-Tk // KEY_TILE_BF16)
     best = None
     for rows in (BF16_ROWS,) if BF16_ROWS else (128, 192):
         blocks = -(-Tq // rows) * num_heads * B
-        for persistent in (False, True) if BF16_PERSISTENT is None else (BF16_PERSISTENT,):
-            ctas = min(sm_count, blocks * n_tiles) if persistent else blocks
-            cost = _plan_cost(blocks, n_tiles, rows, ctas, persistent, sm_count)
+        counts = None if tiles is None else tiles.counts[rows, KEY_TILE_BF16]
+        units = blocks * n_tiles if counts is None else blocks // len(counts) * sum(counts)
+        ways = (False, True) if BF16_PERSISTENT is None else (BF16_PERSISTENT,)
+        for persistent in ways if units else (False,):
+            ctas = min(sm_count, units) if persistent else blocks
+            cost = _plan_cost(blocks, n_tiles, rows, ctas, persistent, sm_count, counts)
             if best is None or cost < best[0]:
                 best = (cost, rows, ctas)
     return best[1:]
@@ -611,23 +681,176 @@ def bf16_drop_tile(bh: int, row0: int, k0: int, rate: float, seed: int,
     return (x < limit).expand(4, 32, key_tile // 2)
 
 
-def bf16_schedule(blocks: int, n_tiles: int, ctas: int) -> list:
+def bf16_schedule(blocks: int, n_tiles: int, ctas: int, counts: tuple | None = None) -> list:
     """The persistent schedule of csrc/flash_mha.cu (``Schedule``): the
     ``blocks x n_tiles`` (row block, key tile) units, row block by row block,
     cut into ``ctas`` contiguous ranges (:func:`_ranges`). Returns, per row
     block, its runs of key tiles ``[(t0, t1), ...]`` in key order, one per
     range that takes part of it; a row block of more than one run is merged
-    from their partial sums."""
-    lo = _ranges(blocks * n_tiles, ctas)
+    from their partial sums. ``counts``: under a mask, each row block's units
+    of its tile map (by x, :func:`tile_map`), and a run ``(i0, i1)`` holds
+    the row block's units i0 .. i1 - 1 (its listed tiles, in key order); an
+    empty row block has no run. ``ctas == blocks`` is the plain grid: each
+    row block one run of all its units."""
+    if counts is None:
+        counts = (n_tiles,)
+    n_x = len(counts)
+    units = [counts[r % n_x] for r in range(blocks)]
+    if ctas == blocks:
+        return [[(0, n)] if n else [] for n in units]
+    starts = _starts(tuple(counts), blocks // n_x)
+    lo = _ranges(sum(units), ctas)
     runs: list = [[] for _ in range(blocks)]
     for c in range(ctas):
         u = lo[c]
         while u < lo[c + 1]:
-            r = u // n_tiles
-            end = min(lo[c + 1], (r + 1) * n_tiles)
-            runs[r].append((u - r * n_tiles, end - r * n_tiles))
+            r = bisect.bisect_right(starts, u) - 1  # the row block that holds u (never an empty one)
+            end = min(lo[c + 1], starts[r] + units[r])
+            runs[r].append((u - starts[r], end - starts[r]))
             u = end
     return runs
+
+
+def tile_classes(mask: np.ndarray, rows: int, keys: int) -> np.ndarray:
+    """The class of each (row block of ``rows`` query rows, tile of ``keys``
+    keys) unit of a boolean keep-mask ``(Tq, Tk)``: 0 empty (no score kept),
+    2 full (every score of its rows below Tq kept, and the tile inside Tk), 1
+    partial (the rest: a tile that runs past Tk is partial). ``(n_x,
+    n_tiles)`` int8."""
+    Tq, Tk = mask.shape
+    n_x, n_t = -(-Tq // rows), -(-Tk // keys)
+    kept = np.zeros((n_x * rows, n_t * keys), bool)
+    kept[:Tq, :Tk] = mask
+    some = kept.reshape(n_x, rows, n_t, keys).any(axis=(1, 3))
+    kept[Tq:, :Tk] = True  # rows past Tq do not count against a full tile
+    every = kept.reshape(n_x, rows, n_t, keys).all(axis=(1, 3))
+    return np.where(every, 2, np.where(some, 1, 0)).astype(np.int8)
+
+
+def tile_map(mask: np.ndarray, rows: int, keys: int) -> dict:
+    """The plain twin of the kernels' tile map (csrc/flash_mha.cu, above
+    ``mask_rows``) of a keep-mask for a plan: ``classes``
+    (:func:`tile_classes`), ``counts`` (each row block's non-empty units),
+    ``off`` (each row block's first in ``ent``), ``ent`` (the non-empty units,
+    row block by row block in key order, as ``tile << 1 | partial``),
+    ``empty`` (the row blocks with none), and ``map``, the int32 array the
+    kernels read: ``[nnz, n_empty, off, ent, empty]``."""
+    classes = tile_classes(mask, rows, keys)
+    counts = (classes > 0).sum(1)
+    off = np.concatenate([[0], np.cumsum(counts)])
+    xs, ts = np.nonzero(classes)
+    ent = ts << 1 | (classes[xs, ts] == 1)
+    empty = np.flatnonzero(counts == 0)
+    flat = np.concatenate([[len(ent), len(empty)], off, ent, empty]).astype(np.int32)
+    return dict(classes=classes, counts=tuple(int(c) for c in counts), off=off, ent=ent,
+                empty=empty, map=flat)
+
+
+def pack_mask_bits(mask: np.ndarray) -> np.ndarray:
+    """A boolean keep-mask ``(Tq, Tk)`` packed for the kernels: uint32
+    ``(ceil(Tk / 128), Tq_pad, 4)`` (Tq_pad: Tq rounded up to MASK_ROW_PAD),
+    word c of (group w, row r) holding key ``128 w + 8 j + 2 c + b`` at bit
+    ``2 j + b``, the keys lane c of a warp holds of row r in the S
+    accumulator; 0 past Tk and past Tq."""
+    Tq, Tk = mask.shape
+    n_w, pad = -(-Tk // 128), -(-Tq // MASK_ROW_PAD) * MASK_ROW_PAD
+    kept = np.zeros((pad, n_w * 128), bool)
+    kept[:Tq, :Tk] = mask
+    # (row, group, j, c, b) -> (group, row, c, bit 2 j + b)
+    lanes = kept.reshape(pad, n_w, 16, 4, 2).transpose(1, 0, 3, 2, 4).reshape(n_w, pad, 4, 32)
+    return np.packbits(lanes, axis=-1, bitorder="little").view("<u4")[..., 0]
+
+
+def unpack_mask_bits(words: np.ndarray, Tq: int, Tk: int, keys: int = 128) -> np.ndarray:
+    """The inverse of :func:`pack_mask_bits` as the kernels read it: lane c
+    of tile t (``keys`` keys) takes word c of its row in group ``t * keys //
+    128``, shifted right by 16 (t & 1) at 64 keys, and keeps element e's key
+    ``k0 + 8 (e >> 2) + 2 c + (e & 1)`` where bit ``2 (e >> 2) + (e & 1)`` is
+    set. Returns the ``(Tq, n_tiles * keys)`` boolean mask so read."""
+    n_t = -(-Tk // keys)
+    out = np.zeros((Tq, n_t * keys), bool)
+    e = np.arange(keys // 2)
+    bit = 2 * (e >> 2) + (e & 1)
+    for t in range(n_t):
+        w = words[t * keys // 128, :Tq].astype(np.int64)  # (Tq, 4)
+        if keys == 64:
+            w = w >> (16 * (t & 1))
+        for c in range(4):
+            key = t * keys + 8 * (e >> 2) + 2 * c + (e & 1)
+            out[:, key] = (w[:, c, None] >> bit) & 1
+    return out
+
+
+class MaskTiles:
+    """A keep-mask as K3's kernels read it on ``device``: the packed bits
+    (:func:`pack_mask_bits`) and, for each plan of :data:`MASK_PLANS`, the
+    tile map (:func:`tile_map`) and its row blocks' unit counts, all built
+    from ``mask``, its boolean host copy, at once (so a later launch, a
+    CUDA graph's capture included, builds nothing)."""
+
+    def __init__(self, mask: np.ndarray, device):
+        self.shape = mask.shape
+        with torch.inference_mode(False):
+            self.bits = torch.from_numpy(pack_mask_bits(mask).view(np.int32)).to(device)
+            self.maps, self.counts = {}, {}
+            for rows, keys in MASK_PLANS:
+                tm = tile_map(mask, rows, keys)
+                self.maps[rows, keys] = torch.from_numpy(tm["map"]).to(device)
+                self.counts[rows, keys] = tm["counts"]
+
+    def launch(self, rows: int, keys: int) -> tuple:
+        """The (tile map, bits) pointers of a launch of this plan."""
+        return self.maps[rows, keys].data_ptr(), self.bits.data_ptr()
+
+
+_TILES: dict = {}  # id(mask) -> (weakref to mask, its version, device, MaskTiles)
+
+
+def _version(mask: torch.Tensor):
+    return None if mask.is_inference() else mask._version
+
+
+def register_mask_tiles(mask: torch.Tensor, host: np.ndarray, device=None) -> MaskTiles:
+    """Build the :class:`MaskTiles` of ``mask`` (a ``(Tq, Tk)`` keep-mask)
+    on ``device`` (the mask's own by default) from ``host``, its boolean copy
+    on the host, and keep them for :func:`mask_tiles` as long as ``mask``
+    lives unmodified."""
+    device = mask.device if device is None else torch.device(device)
+    tiles = MaskTiles(np.asarray(host, bool), device)
+    key = id(mask)
+
+    def forget(ref, key=key):
+        if key in _TILES and _TILES[key][0] is ref:
+            del _TILES[key]
+
+    _TILES[key] = (weakref.ref(mask, forget), _version(mask), device, tiles)
+    return tiles
+
+
+def mask_tiles(mask: torch.Tensor, device=None) -> MaskTiles:
+    """The :class:`MaskTiles` of a keep-mask for launches on ``device`` (the
+    mask's own by default): those registered with it (``ops/sparse.py``'s
+    cached masks are, when built), else built now from its host copy and
+    kept with it. Building needs the mask on the host, which a CUDA graph's
+    capture forbids: there it raises (build it before the capture, as
+    ``keep_mask`` does)."""
+    device = mask.device if device is None else torch.device(device)
+    hit = _TILES.get(id(mask))
+    if (hit is not None and hit[0]() is mask and hit[1] == _version(mask)
+            and hit[2] == device):
+        return hit[3]
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("flash_mha: a keep-mask's tile map cannot be built inside a CUDA "
+                           "graph's capture; run the masked call once before capturing")
+    with torch.inference_mode(False):
+        host = mask.detach().to("cpu", torch.bool).numpy()
+    return register_mask_tiles(mask, host, device)
+
+
+def _tiles(mask, keep) -> MaskTiles | None:
+    """The launch's :class:`MaskTiles` (None without a mask), for ``keep``'s
+    device."""
+    return None if mask is None else mask_tiles(mask, keep.device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -660,25 +883,35 @@ def flash_mha_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
     if B * Tq == 0:
         return torch.empty_like(q)
     q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    return _FlashMHA.apply(q, k, v, num_heads, keep, float(dropout), seed, _wants_grad(q, k, v))
+    return _FlashMHA.apply(q, k, v, num_heads, keep, _tiles(mask, keep), float(dropout), seed,
+                           _wants_grad(q, k, v))
 
 
-def _forward_bf16(q, k, v, num_heads: int, keep, rate: float, seed: int, want_lse: bool):
+def _forward_bf16(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_lse: bool):
     """One launch of the bf16 route (and its merge kernel where the plan
-    splits a row block) -> (o, lse or None)."""
+    splits a row block) -> (o, lse or None); ``tiles``: the mask's
+    :class:`MaskTiles`, or None."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
     d = C // num_heads
-    rows, ctas = bf16_plan(B, Tq, Tk, num_heads, _sm_count(q.device.index or 0))
+    rows, ctas = bf16_plan(B, Tq, Tk, num_heads, _sm_count(q.device.index or 0), tiles)
     n_tiles = -(-Tk // KEY_TILE_BF16)
+    blocks = -(-Tq // rows) * num_heads * B
     out = torch.empty_like(q)
-    part = None
-    if _splits(_ranges(-(-Tq // rows) * num_heads * B * n_tiles, ctas), n_tiles):
-        # two slots per range: rows x (o, then the scaled max and the sum)
-        part = torch.empty(2 * ctas * rows * (d + 2), device=q.device)
+    tmap, bits = (None, None) if tiles is None else tiles.launch(rows, KEY_TILE_BF16)
+    if tiles is None:
+        split = _splits(_ranges(blocks * n_tiles, ctas), n_tiles)
+    else:
+        if -(-Tq // rows) > MASK_ROW_BLOCKS:
+            raise ValueError(f"flash_mha_bf16 under a mask takes at most "
+                             f"{MASK_ROW_BLOCKS * rows} queries at {rows} rows a block, got {Tq}")
+        split = ctas != blocks and _masked_splits(tiles.counts[rows, KEY_TILE_BF16],
+                                                  num_heads * B, ctas)
+    # two slots per range: rows x (o, then the scaled max and the sum)
+    part = torch.empty(2 * ctas * rows * (d + 2), device=q.device) if split else None
     lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
     status = _lib().flash_mha_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if keep is None else keep.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), tmap, bits,
         out.data_ptr(), None if part is None else part.data_ptr(),
         None if lse is None else lse.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
         KEY_TILE_BF16, rows, ctas, rate, _int32(seed), _build.stream_ptr(q.device))

@@ -10,7 +10,10 @@ Behavioral reference: ``demucs/transformer.py:118-212`` (static masks) and
   They are built in numpy with the JAX package's arithmetic (float32 at the
   integer boundaries, ``np.random.default_rng`` for ``random``), so they are
   bit-equal to its masks. :func:`keep_mask` caches each one on the device as
-  a contiguous ``uint8`` tensor, the layout K3 reads.
+  a contiguous ``uint8`` tensor (K3's backward reads it) and, on the card,
+  builds K3's tile maps and packed bits beside it from the same array
+  (``kernels/attention.py`` ``register_mask_tiles``), so no launch builds
+  them, inside a CUDA graph's capture or out.
 - LSH masks (``t_auto_sparsity``): tokens hashed into buckets by random
   projections, keys kept per query where their buckets collide most. The
   mask is per (batch, head), so the layer takes the dense route with it, as
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from demucs_tpu_torch.kernels import device_cache
+from demucs_tpu_torch.kernels.attention import register_mask_tiles
 
 __all__ = ["get_elementary_mask", "get_mask", "keep_mask", "lsh_projections",
            "compute_buckets", "dynamic_sparse_keep_mask", "N_HASHES", "PROJ_SIZE"]
@@ -92,7 +96,10 @@ def _keep_mask(Tq: int, Tk: int, mask_type: str, sparse_attn_window: int,
                device) -> torch.Tensor:
     mask = get_mask(Tk, Tq, mask_type, sparse_attn_window, global_window,
                     mask_random_seed, sparsity)
-    return torch.from_numpy(mask.astype(np.uint8)).to(device).contiguous()
+    table = torch.from_numpy(mask.astype(np.uint8)).to(device).contiguous()
+    if table.device.type != "cpu":  # the CPU takes the plain version, which reads the table
+        register_mask_tiles(table, mask)
+    return table
 
 
 def keep_mask(Tq: int, Tk: int, mask_type: str, sparse_attn_window: int,
@@ -100,8 +107,9 @@ def keep_mask(Tq: int, Tk: int, mask_type: str, sparse_attn_window: int,
               device=None) -> torch.Tensor:
     """:func:`get_mask` for ``Tq`` queries over ``Tk`` keys as a contiguous
     ``uint8`` ``(Tq, Tk)`` tensor on ``device``, built once per shape, options
-    and device (outside inference mode; the first call of a shape must not be
-    inside a CUDA graph's capture), cached: do not write to it."""
+    and device with K3's tile maps beside it on the card (outside inference
+    mode; the first call of a shape must not be inside a CUDA graph's
+    capture), cached: do not write to it."""
     return _keep_mask(Tq, Tk, mask_type, sparse_attn_window, global_window,
                       mask_random_seed, sparsity, torch.device(device or "cpu"))
 

@@ -717,18 +717,38 @@ def test_served_request_equals_separate_tensor_on_card(cuda, tmp_path):
 # ---- K3 under HTDemucs's static sparse masks; the variants and the memory report ----
 
 SPARSE_MASKS = ("diag", "global", "jmask", "random", "diag_jmask_random")
+# Beside the static masks: "holes", kept at random but for a fully masked row
+# block of every plan (rows 0-383), a fully masked key tile of every plan
+# (keys 128-255) and one fully masked row; "bare", diag_jmask_random as a
+# boolean tensor that did not come from keep_mask (its tile maps are built at
+# the first call).
+MASK_CASES = SPARSE_MASKS + ("holes", "bare")
 TOKEN_SHAPES = ((2688, 2688), (1344, 1344), (2688, 1344), (1344, 2688))  # (Tq, Tk)
 
 
-def _sparse_case(mask_type, Tq, Tk, bf16, B=2):
-    """Released q, k, v widths (512 channels, 8 heads) and the cached keep-mask
-    at the reference's defaults (window 500, global 100, sparsity 0.95)."""
-    from demucs_tpu_torch.ops.sparse import keep_mask
+def _mask_case(mask_type, Tq, Tk):
+    from demucs_tpu_torch.ops.sparse import get_mask, keep_mask
 
+    if mask_type == "holes":
+        mask = _randn(Tq, Tk, seed=93) > -0.5
+        mask[:384] = False
+        mask[:, 128:256] = False
+        mask[500] = False
+        return mask
+    if mask_type == "bare":
+        return torch.from_numpy(get_mask(Tk, Tq, "diag_jmask_random", 500, 100, 42,
+                                         0.95)).cuda()
+    return keep_mask(Tq, Tk, mask_type, 500, 100, 42, 0.95, "cuda")
+
+
+def _sparse_case(mask_type, Tq, Tk, bf16, B=2):
+    """Released q, k, v widths (512 channels, 8 heads) and the keep-mask of
+    ``mask_type`` (MASK_CASES; the static ones cached at the reference's
+    defaults: window 500, global 100, sparsity 0.95)."""
     q, k, v = (_randn(B, T, 512, seed=s) for s, T in ((90, Tq), (91, Tk), (92, Tk)))
     if bf16:
         q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    return q, k, v, keep_mask(Tq, Tk, mask_type, 500, 100, 42, 0.95, "cuda")
+    return q, k, v, _mask_case(mask_type, Tq, Tk)
 
 
 def _masked_close(got, want, tol):
@@ -739,20 +759,25 @@ def _masked_close(got, want, tol):
 
 
 @pytest.mark.parametrize("Tq,Tk", TOKEN_SHAPES)
-@pytest.mark.parametrize("mask_type", SPARSE_MASKS)
-def test_flash_mha_kernel_sparse_masks(cuda, mask_type, Tq, Tk):
-    """K3's fp32 route under each static mask at the four released shapes."""
+@pytest.mark.parametrize("mask_type", MASK_CASES)
+def test_flash_mha_kernel_sparse_masks(cuda, monkeypatch, mask_type, Tq, Tk):
+    """K3's fp32 route under each static mask at the four released shapes, and
+    under a mask with a fully masked row block and key tile and one that
+    did not come from keep_mask, at 64 and 128 rows a block."""
     from demucs_tpu_torch.kernels import attention as K
 
     q, k, v, mask = _sparse_case(mask_type, Tq, Tk, bf16=False)
-    before = K.flash_mha.launches
-    got = K.flash_mha(q, k, v, 8, mask=mask)
-    assert K.flash_mha.launches == before + 1
-    _masked_close(got, K.flash_mha_plain(q, k, v, 8, mask=mask), dict(atol=2e-5, rtol=1e-4))
+    want = K.flash_mha_plain(q, k, v, 8, mask=mask)
+    for rows in (64, 128):
+        monkeypatch.setattr(K, "BLOCK_ROWS", rows)
+        before = K.flash_mha.launches
+        got = K.flash_mha(q, k, v, 8, mask=mask)
+        assert K.flash_mha.launches == before + 1
+        _masked_close(got, want, dict(atol=2e-5, rtol=1e-4))
 
 
 @pytest.mark.parametrize("Tq,Tk", TOKEN_SHAPES)
-@pytest.mark.parametrize("mask_type", SPARSE_MASKS)
+@pytest.mark.parametrize("mask_type", MASK_CASES)
 def test_flash_mha_bf16_sparse_masks(cuda, monkeypatch, mask_type, Tq, Tk):
     """K3's bf16 route under each static mask at the four released shapes, on
     every plan: 64 or 128 keys a tile, 128 or 192 rows, the persistent
@@ -880,22 +905,26 @@ def test_flash_mha_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, ma
 @pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [
     (1, 64, 64, 64, 1, 0.1, False), (2, 70, 90, 96, 2, 0.1, True),
     (1, 130, 200, 128, 4, 0.1, False), (3, 200, 130, 512, 8, 0.3, True),
-    (1, 2688, 2688, 512, 8, 0.1, False), (8, 1344, 2688, 512, 8, 0.1, True)])
+    (1, 2688, 2688, 512, 8, 0.1, False), (8, 1344, 2688, 512, 8, 0.1, True),
+    (2, 1344, 2688, 512, 8, 0.1, "diag"), (1, 2688, 1344, 512, 8, 0.1, "global")])
 def test_flash_mha_bf16_dropout_matches_plain(cuda, monkeypatch, B, Tq, Tk, C, H, rate, masked):
     """K3's bf16 route with the hashed dropout against the plain version on the
     same bf16 inputs (the bf16 route's tolerance), on every plan (keys per
     tile, rows per block, the persistent schedule or a block per row block,
     forced), each also with its drop pattern read out bit for bit against
-    dropout_keep (_bf16_dropped_scores)."""
+    dropout_keep (_bf16_dropped_scores). ``masked``: a random mask (every
+    tile partial), or a static mask of MASK_CASES (empty, full and partial
+    tiles; no fully masked row, whose NaN the readout cannot take)."""
     from demucs_tpu_torch.kernels import attention as K
     from demucs_tpu_torch.ops.attention import dropout_keep
 
     q, k, v = (_randn(B, T, C, seed=s).bfloat16() for s, T in enumerate((Tq, Tk, Tk)))
-    mask = (_randn(Tq, Tk, seed=9) > -0.5) if masked else None
+    mask = ((_randn(Tq, Tk, seed=9) > -0.5) if masked is True
+            else _mask_case(masked, Tq, Tk) if masked else None)
     want = K.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate, dropout_seed=4242)
     keep = dropout_keep(B * H, Tq, Tk, rate, 4242, q.device).view(B, H, Tq, Tk)
     if mask is not None:
-        keep &= mask
+        keep &= mask.bool()
     for keys, rows, persistent in BF16_PLANS:
         monkeypatch.setattr(K, "KEY_TILE_BF16", keys)
         monkeypatch.setattr(K, "BF16_ROWS", rows)

@@ -5,7 +5,8 @@
     python3 chip_smoke.py --k3-pair PARENT .   # K3 of two checkouts, timed in turns
                                                # (masked too: sparse_kernels with pairs)
 
-Phases, one JSON line each; any failure exits non-zero before the last line:
+Phases, one JSON line each, each followed by a line with its seconds
+(``phase_seconds``); any failure exits non-zero before the last line:
 
 1. device   — the card (nvidia-smi name and power limit, printed as is on a
               line of its own) and the build of every CUDA kernel from
@@ -34,8 +35,12 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               same mask, each route's plan's share of non-empty and of full
               (row block, key tile) units, the launched instance's registers
               and spills (none may spill); then K3's backward under each mask
-              on both routes at the four shapes and B = 1 and 8 beside SDPA's
-              backward with the same mask (the plain formula at B = 1).
+              on both routes at the four shapes and B = 1 and 8 (the masked
+              instances: a tile map per plan, bits on partial units) beside
+              the same shape unmasked and SDPA's backward with the same mask,
+              each plan's non-empty and full unit shares, the instances'
+              registers and spills, and at B = 1 the plain formula, by
+              default and under the flag (two launches bit-equal).
               Times the kernel, the plain version and one PyTorch library call
               computing the same function (yardstick only: the port never calls
               it), with CUDA events. Then drops the plain versions' cached dense
@@ -200,6 +205,12 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               launches); and the entry point for one epoch with
               compute_dtype bfloat16 and t_dropout 0.1 in a process of its
               own that reports its launches (the train bf16 entry path).
+              The sparse path (HTDemucs with static masks in every self and
+              cross layer, diag at the reference's defaults, K3's backward
+              the masked instances): its card step against the CPU's in fp32
+              and in bf16, each also twice under the flag (bit-equal), and 5
+              steps at batch 8 beside the dense step (the train sparse and
+              train sparse bf16 paths).
    train_recipe — the reference's default recipe: demucs_tpu_torch.train's
               main (python -m demucs_tpu_torch.train) in this process at the
               released width, every augment at its default (repitch 0.2, the
@@ -256,7 +267,8 @@ Phases, one JSON line each; any failure exits non-zero before the last line:
               the .dmx on a FLAC file with --flac and (with LAME) --mp3.
 
 Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, K3's backward
-on each route and K2's backward, each kernel's launches on every path:
+on each route, unmasked and masked (the masked instances' launches on the
+train sparse paths), and K2's backward, each kernel's launches on every path:
 HTDemucs, HDemucs, Demucs v2, the bag, each family's presets, the server,
 each stream, each variant request, the fp32 and bf16 train paths, the
 default recipe's entry point and each training option's steps, the export
@@ -350,10 +362,20 @@ def deterministic():
         torch.use_deterministic_algorithms(was)
 
 
+_LAST_PHASE_AT = [0.0]  # the script's seconds at the last phase line
+
+
 def emit(obj) -> None:
-    """One JSON line; a phase's line carries ``at_s``, the script's seconds so far."""
+    """One JSON line; a phase's line carries ``at_s``, the script's seconds so
+    far, and is followed by a line of its own with the phase's seconds (since
+    the phase line before it)."""
     if "phase" in obj:
-        obj = dict(obj, at_s=time.perf_counter() - _START)
+        at = time.perf_counter() - _START
+        obj = dict(obj, at_s=at)
+        print(json.dumps(obj), flush=True)
+        print(json.dumps({"phase_seconds": {obj["phase"]: at - _LAST_PHASE_AT[0]}}), flush=True)
+        _LAST_PHASE_AT[0] = at
+        return
     print(json.dumps(obj), flush=True)
 
 
@@ -2255,9 +2277,10 @@ def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
     with ``pair`` (the --k3-pair libraries, the parent tree first and this
     one second) both trees' times, masked and unmasked, in turns (parent,
     change, change, parent). Then K3's backward under each mask on both
-    routes at the four shapes and B = 1 and 8 (nothing of it changed: it
-    reads a byte per score) beside SDPA's backward with the same boolean
-    mask (autograd.grad), against the plain backward at B = 1, its bound on
+    routes at the four shapes and B = 1 and 8 (sparse_backward: the masked
+    instances, paired with the parent's under ``pair``) beside SDPA's
+    backward with the same boolean mask (autograd.grad), against the plain
+    backward at B = 1, its bound on
     the kept scores: 5 x 2 B H d kept operations (3 x that in 3xTF32)."""
     import torch
     import torch.nn.functional as F
@@ -2365,7 +2388,7 @@ def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
                     rows[f"{key} {mask_type}"] = row
                 del q, k, v, qb, kb, vb, split, split_b
                 torch.cuda.empty_cache()
-        backward, worst_bwd = sparse_backward(gen)
+        backward, worst_bwd, bwd_rows, bwd_inst = sparse_backward(gen, pair)
     ratios = [r["ms"] / r["unmasked_ms"] for r in rows.values()]
     ratios_b = [r["bf16_ms"] / r["bf16_unmasked_ms"] for r in rows.values()]
     spills = [v for v in (*b_inst.values(), *f_inst.values())
@@ -2382,9 +2405,18 @@ def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
                           "3.35 TB/s); bytes: q, k, v, o once and the mask as bits "
                           "(Tq Tk / 8)",
             "instances_spilling": spills, "rows": rows, "backward": backward,
-            "backward_worst_err_over_peak": worst_bwd}
+            "backward_worst_err_over_peak": worst_bwd, "backward_instances": bwd_inst,
+            "backward_over_unmasked": {
+                r: [min(b["over_unmasked"] for k, b in backward.items() if k.startswith(r)),
+                    max(b["over_unmasked"] for k, b in backward.items() if k.startswith(r))]
+                for r in ("fp32", "bf16")},
+            "backward_over_sdpa": {
+                r: [min(b["over_sdpa"] for k, b in backward.items() if k.startswith(r)),
+                    max(b["over_sdpa"] for k, b in backward.items() if k.startswith(r))]
+                for r in ("fp32", "bf16")}}
+    info["kernel_rows"] = bwd_rows
     info["ok"] = (worst_fp32 <= K3_ATOL and worst_bf16 <= 0 and not spills
-                  and worst_bwd["fp32"] <= K3_BWD_RTOL and worst_bwd["bf16"] <= K3_BF16_BWD_RTOL)
+                  and all(r["ok"] for r in bwd_rows))
     emit(info)
     if not info["ok"]:
         raise AssertionError(f"K3 under sparse masks disagrees with the plain version: "
@@ -2393,11 +2425,29 @@ def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
     return info
 
 
-def sparse_backward(gen) -> tuple:
-    """K3's backward kernel on both routes under each static mask at the four
-    shapes and B = 1 and 8, timed beside SDPA's backward with the same
-    boolean mask; at B = 1 dQ, dK, dV against the plain backward formula.
-    Returns ({case: row}, the worst error over each gradient's peak by route)."""
+def bwd_unit_shares(mask, keys: int, qt: int) -> dict:
+    """The share of a backward plan's (key block, query tile) units that keep
+    a score, and that keep every in-range score (kernels/attention.py
+    bwd_tile_map), and the most units one key block walks."""
+    from demucs_tpu_torch.kernels import attention as KA
+
+    tm = KA.bwd_tile_map(mask.bool().cpu().numpy(), keys, qt)
+    classes = tm["classes"]
+    return {"nonempty": float((classes > 0).mean()), "full": float((classes == 2).mean()),
+            "longest_walk": max(tm["counts"]), "n_qt": classes.shape[1]}
+
+
+def sparse_backward(gen, pair: tp.Optional[list] = None) -> tuple:
+    """K3's backward on both routes under each static mask at the four
+    shapes and B = 1 and 8 (the masked instances: a tile map per plan, bits
+    on partial units), timed beside the same shape unmasked and SDPA's
+    backward with the same boolean mask; at B = 1 dQ, dK, dV against the
+    plain backward formula, by default and under deterministic() (two
+    launches bit-equal); each row's plan's unit shares and the masked
+    instance's registers and spills; with ``pair`` (the --k3-pair
+    libraries) each tree's masked and unmasked times in turns. Returns
+    ({case: row}, the worst error over each gradient's peak by route, the
+    masked backward rows of the kernels line)."""
     import torch
     import torch.nn.functional as F
 
@@ -2408,7 +2458,20 @@ def sparse_backward(gen) -> tuple:
     C, H = 512, 8
     d = C // H
     tokens = {"freq": 2688, "time": 1344}
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    instances = {"fp32": bwd_instances("F32Bwd", masked=True),
+                 "bf16": bwd_instances("Bf16Bwd", masked=True)}
     rows, worst = {}, {"fp32": 0.0, "bf16": 0.0}
+    det_equal = True
+
+    def paired(cases: dict) -> dict:
+        times = {name: [[] for _ in pair] for name in cases}
+        for i in list(range(len(pair))) + list(reversed(range(len(pair)))):
+            with _pair_libs(pair[i]):
+                for name, fn in cases.items():
+                    times[name][i].append(cuda_ms(fn))
+        return {name: [sum(t) / len(t) for t in per] for name, per in times.items()}
+
     for batch in (1, 8):
         for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
                                  ("time", "freq")):
@@ -2418,12 +2481,21 @@ def sparse_backward(gen) -> tuple:
             for route, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
                 q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
                 backward = KA.flash_mha_bwd if route == "fp32" else KA.flash_mha_bwd_bf16
+                launch = KA._forward_f32 if route == "fp32" else KA._forward_bf16
+                name = "f32" if route == "fp32" else "bf16"
                 size = 4 if route == "fp32" else 2
+                keys = 64 if route == "fp32" else KA.bwd_keys(batch, Tk, H, sm)
+                qt = 32 if route == "fp32" else 64
+                o_u, lse_u = launch(q, k, v, H, None, 0.0, 0, True)
+                unmasked_ms = cuda_ms(lambda: backward(q, k, v, o_u, do, H, lse=lse_u))
+                unmasked_pair = (paired({"ms": lambda: k3_backward(name, q, k, v, o_u, do, H,
+                                                                   lse_u, None)})["ms"]
+                                 if pair else None)
+                del o_u, lse_u
                 for mask_type in SPARSE_MASKS:
                     mask = keep_mask(Tq, Tk, mask_type, device=dev, **MASK_DEFAULTS)
                     keep = mask.bool()
                     kept = int(keep.sum().item())
-                    launch = KA._forward_f32 if route == "fp32" else KA._forward_bf16
                     o, lse = launch(q, k, v, H, KA.mask_tiles(mask), 0.0, 0, True)
                     split = [t.view(batch, -1, H, d).transpose(1, 2).detach().clone()
                              .requires_grad_() for t in (q, k, v)]
@@ -2437,9 +2509,14 @@ def sparse_backward(gen) -> tuple:
                     row = dict(kept_share=kept / (Tq * Tk),
                                ms=cuda_ms(lambda: backward(q, k, v, o, do, H, lse=lse,
                                                            mask=mask)),
+                               unmasked_ms=unmasked_ms,
                                sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(
                                    so, split, sdo, retain_graph=True)),
-                               bound_ms=b_ms, bound_by=b_by)
+                               bound_ms=b_ms, bound_by=b_by, keys=keys,
+                               units=bwd_unit_shares(mask, keys, qt),
+                               instance=instances[route].get(f"d={d}" + (
+                                   "" if route == "fp32" else f" keys={keys}")))
+                    row["over_unmasked"] = row["ms"] / unmasked_ms
                     row["over_sdpa"] = row["ms"] / row["sdpa_bwd_ms"]
                     row["bound_share"] = b_ms / row["ms"]
                     if batch == 1:
@@ -2447,14 +2524,46 @@ def sparse_backward(gen) -> tuple:
                         want = KA.flash_mha_bwd_plain(q, k, v, o, do, H, mask=mask)
                         row["dq_dk_dv_err_over_peak"] = [_grad_err(g.float(), w.float())
                                                          for g, w in zip(got, want)]
-                        worst[route] = max(worst[route], *row["dq_dk_dv_err_over_peak"])
-                        del got, want
+                        with deterministic():
+                            twice = [backward(q, k, v, o, do, H, lse=lse, mask=mask)
+                                     for _ in range(2)]
+                        row["deterministic_dq_dk_dv_err_over_peak"] = [
+                            _grad_err(g.float(), w.float()) for g, w in zip(twice[0], want)]
+                        row["deterministic_equal"] = all(bool(torch.equal(a, b))
+                                                         for a, b in zip(*twice))
+                        det_equal = det_equal and row["deterministic_equal"]
+                        worst[route] = max(worst[route], *row["dq_dk_dv_err_over_peak"],
+                                           *row["deterministic_dq_dk_dv_err_over_peak"])
+                        del got, want, twice
+                    if pair:
+                        times = paired({"ms": lambda: k3_backward(name, q, k, v, o, do, H, lse,
+                                                                  mask)})
+                        row["pair"] = dict(times, unmasked=unmasked_pair)
+                        row["pair_change_over_parent"] = times["ms"][-1] / times["ms"][0]
+                    if batch == 8 and tq_name == tk_name == "freq" and mask_type == "diag":
+                        row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(
+                            q, k, v, o, do, H, mask=mask), repeat=3)
                     rows[f"{route} B={batch} {tq_name}<-{tk_name} {mask_type}"] = row
                     del o, lse, split, so
                 del q, k, v, do
             del q32, k32, v32, do32
             torch.cuda.empty_cache()
-    return rows, worst
+    kernel_rows = []
+    for route, name in (("fp32", "flash_mha_bwd"), ("bf16", "flash_mha_bwd_bf16")):
+        main = rows[f"{route} B=8 freq<-freq diag"]
+        kernel_rows.append(dict(
+            name=f"{name} masked", source="demucs_tpu_torch/csrc/flash_mha_bwd_masked.cu",
+            replaces="demucs_tpu/ops/pallas/attention.py:103 under its keep-mask (:59-63; the "
+                     "gradient: the Pallas kernel has no backward, JAX trains through XLA's "
+                     "dense attention under the mask)",
+            max_abs_err=worst[route], max_err_is="over each gradient's peak", ms=main["ms"],
+            plain_ms=main["plain_ms"], library_ms=main["sdpa_bwd_ms"],
+            library="autograd.grad of F.scaled_dot_product_attention with the boolean mask",
+            bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            shape=f"q, k, v (B=8, 2688, 512), 8 heads, diag mask (freq self)",
+            ok=worst[route] <= (K3_BWD_RTOL if route == "fp32" else K3_BF16_BWD_RTOL)
+            and det_equal and _no_spills(instances[route])))
+    return rows, worst, kernel_rows, instances
 
 
 def variant_model(kw: dict, seed: int = 0, **extra):
@@ -2775,6 +2884,7 @@ TRAIN_GRAD_RTOL = 2e-4
 TRAIN_GRAD_FLOOR = 1e-5
 TRAIN_BATCH = 8  # the throughput loop's batch (4 where 8 does not fit)
 TRAIN_STEPS = 12  # steps 3-12 timed
+SPARSE_TRAIN_STEPS = 5  # the sparse training paths' steps (3-5 timed)
 TRAIN_SEGMENT = 7.8  # the released HTDemucs's training segment, seconds
 ENTRY_BATCH = 4  # the entry point's batch (the remix augment's group size)
 TRAIN_KERNELS = ("stft_dft", "istft_dft", "flash_mha", "flash_mha_bwd", "istft_dft_backward",
@@ -2809,22 +2919,29 @@ C2_FLOOR = 1e-4
 
 
 def _train_counters():
+    """name -> (wrapper, its count's attribute): each kernel's launches, and
+    K3's backward launches under a mask on each route (the masked instances,
+    rows of their own in the kernels line)."""
     from demucs_tpu_torch.kernels import attention as KA
     from demucs_tpu_torch.kernels import stft as KS
 
-    return {"stft_dft": KS.stft_dft, "istft_dft": KS.istft_dft, "flash_mha": KA.flash_mha,
-            "flash_mha_bwd": KA.flash_mha_bwd, "istft_dft_backward": KS.istft_dft_backward,
-            "stft_dft_backward": KS.stft_dft_backward, "flash_mha_bf16": KA.flash_mha_bf16,
-            "flash_mha_bwd_bf16": KA.flash_mha_bwd_bf16}
+    counters = {name: (fn, "launches") for name, fn in (
+        ("stft_dft", KS.stft_dft), ("istft_dft", KS.istft_dft), ("flash_mha", KA.flash_mha),
+        ("flash_mha_bwd", KA.flash_mha_bwd), ("istft_dft_backward", KS.istft_dft_backward),
+        ("stft_dft_backward", KS.stft_dft_backward), ("flash_mha_bf16", KA.flash_mha_bf16),
+        ("flash_mha_bwd_bf16", KA.flash_mha_bwd_bf16))}
+    counters["flash_mha_bwd masked"] = (KA.flash_mha_bwd, "masked_launches")
+    counters["flash_mha_bwd_bf16 masked"] = (KA.flash_mha_bwd_bf16, "masked_launches")
+    return counters
 
 
 def _zero_train_counts() -> None:
-    for fn in _train_counters().values():
-        fn.launches = 0
+    for fn, attr in _train_counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_train_counts() -> dict:
-    return {name: fn.launches for name, fn in _train_counters().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in _train_counters().items()}
 
 
 def _grad_err(got, want) -> float:
@@ -2858,15 +2975,17 @@ def _deterministic_ms(fn) -> float:
         return cuda_ms(fn)
 
 
-def bwd_instances(route: str) -> dict:
+def bwd_instances(route: str, report: tp.Optional[str] = None, masked: bool = False) -> dict:
     """Registers and spills of each block-kernel instance of K3's backward on
     ``route`` ("Bf16Bwd" or "F32Bwd"), the default and the deterministic
-    order's ("ordered"), from nvcc's report of the library."""
+    order's ("ordered"), from nvcc's report of the library (the masked
+    instances' with ``masked``), or of ``report``."""
     from demucs_tpu_torch.kernels import _build
 
     groups = r"ILi(\d+)ELi(\d+)ELb([01])E" if route == "Bf16Bwd" else r"ILi(\d+)ELb([01])E"
-    found = ptxas_kernels(_build.ptxas_report("flash_mha_bwd"),
-                          rf"bwd_kernelINS_\d+{route}{groups}")
+    if report is None:
+        report = _build.ptxas_report("flash_mha_bwd_masked" if masked else "flash_mha_bwd")
+    found = ptxas_kernels(report, rf"bwd_kernelINS_\d+{route}{groups}")
     named = {}
     for key, v in found.items():
         d, *nwg, ordered = key.split()
@@ -3348,7 +3467,7 @@ def _grads(model) -> dict:
     return {n: p.grad.detach().cpu() for n, p in model.module.named_parameters()}
 
 
-def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
+def train_card_vs_cpu(**model_kw) -> tp.Tuple[dict, dict]:
     """One train step of the released-width HTDemucs at batch 1 (its 7.8 s
     training segment, dropout 0, no augment, lr 0, TRAIN_CHECK_LOSS) on the
     card and on the CPU from the same weights and batch: loss, per-source
@@ -3360,13 +3479,14 @@ def train_card_vs_cpu() -> tp.Tuple[dict, dict]:
     two must be bit-equal (C5); each is held to the CPU's. The gap between
     the default step and the deterministic one is reported beside. Returns
     the report and the step's model, batch and gradients, which the bf16
-    step and the C2 probe reuse."""
+    step and the C2 probe reuse. ``model_kw``: the model's options (the
+    sparse path's static masks)."""
     import torch
 
     from demucs_tpu_torch.models.registry import Model
     from demucs_tpu_torch.train.step import train_step
 
-    cpu = _released_training_model(seed=3)
+    cpu = _released_training_model(seed=3, **model_kw)
     card = Model("htdemucs", cpu.cfg, copy.deepcopy(cpu.module).to("cuda"))
     sources = 0.2 * torch.randn(1, 4, 2, cpu.cfg.training_length,
                                 generator=torch.Generator().manual_seed(4))
@@ -3604,14 +3724,18 @@ def _profile_step(step) -> dict:
                             for ms, n, key in sorted(top, reverse=True)[:12]]}
 
 
-def train_throughput(compute_dtype: str = "float32") -> tp.Tuple[dict, dict]:
+def train_throughput(compute_dtype: str = "float32", steps: int = TRAIN_STEPS,
+                     detail: bool = True, **model_kw) -> tp.Tuple[dict, dict]:
     """The main training path: ``train_step`` at the released width, batch
     TRAIN_BATCH (4 if 8 does not fit), 7.8 s, fp32 with TF32 off (or bf16
     mixed precision: fp32 masters, every core stage in bf16), TRAIN_STEPS
     steps with every launch counted from 0; training audio-s/s over steps
     3-12; then the forward / backward / optimizer split (CUDA events, 3
-    steps), the peak memory and one profiled step. The bf16 path must launch
-    K3's bf16 kernels and no fp32 K3 kernel."""
+    steps), the peak memory and one profiled step (not without ``detail``).
+    The bf16 path must launch K3's bf16 kernels and no fp32 K3 kernel.
+    ``steps``: the steps run (from the third timed); ``model_kw``: the
+    model's options (the sparse path's static masks: every K3 backward then
+    masked)."""
     import statistics
 
     import torch
@@ -3620,7 +3744,7 @@ def train_throughput(compute_dtype: str = "float32") -> tp.Tuple[dict, dict]:
                                              train_step)
 
     for batch in (TRAIN_BATCH, 4):
-        model = _released_training_model(seed=5, compute_dtype=compute_dtype)
+        model = _released_training_model(seed=5, compute_dtype=compute_dtype, **model_kw)
         model.module.to("cuda")
         opt = _optimizer(model, 3e-4)
         sources = 0.2 * torch.randn(batch, 4, 2, model.cfg.training_length, device="cuda",
@@ -3630,7 +3754,7 @@ def train_throughput(compute_dtype: str = "float32") -> tp.Tuple[dict, dict]:
         try:
             _zero_train_counts()
             walls, losses = [], []
-            for _ in range(TRAIN_STEPS):
+            for _ in range(steps):
                 start = time.perf_counter()
                 m = train_step(model, opt, sources)
                 losses.append(m["loss"].item())  # synchronizes
@@ -3644,7 +3768,7 @@ def train_throughput(compute_dtype: str = "float32") -> tp.Tuple[dict, dict]:
                 raise
     peak = torch.cuda.max_memory_allocated() / 2**30
     split = {"forward": [], "backward": [], "optimizer": []}
-    for _ in range(3):
+    for _ in range(3 if detail else 0):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         opt.zero_grad(set_to_none=True)
         ev[0].record()
@@ -3658,18 +3782,18 @@ def train_throughput(compute_dtype: str = "float32") -> tp.Tuple[dict, dict]:
         torch.cuda.synchronize()
         for (name, a, b) in (("forward", 0, 1), ("backward", 1, 2), ("optimizer", 2, 3)):
             split[name].append(ev[a].elapsed_time(ev[b]))
-    profile = _profile_step(lambda: train_step(model, opt, sources))
+    profile = _profile_step(lambda: train_step(model, opt, sources)) if detail else None
     timed = walls[2:]
     median = statistics.median(timed)
     info = {"compute_dtype": compute_dtype, "batch": batch, "batch_8_fit": batch == TRAIN_BATCH,
             "segment_s": TRAIN_SEGMENT,
-            "steps": TRAIN_STEPS, "step_walls_s": walls, "median_step_s": median,
+            "steps": steps, "step_walls_s": walls, "median_step_s": median,
             "train_audio_s_per_s": batch * TRAIN_SEGMENT / median,
             "losses": losses, "peak_memory_gib": peak, "held_before_gib": held,
             "peak_above_held_gib": peak - held,
-            "split_ms_median": {k: statistics.median(v) for k, v in split.items()},
+            "split_ms_median": {k: statistics.median(v) for k, v in split.items() if v},
             "split_ms": split, "launches": counts,
-            "launches_per_step": {k: v / TRAIN_STEPS for k, v in counts.items()},
+            "launches_per_step": {k: v / steps for k, v in counts.items()},
             "profile": profile}
     if compute_dtype == "bfloat16":
         launched = (all(counts[name] > 0 for name in TRAIN_BF16_KERNELS)
@@ -3732,10 +3856,10 @@ def entry_counts(counted: Path, module: str, argv: list) -> int:
     dropping = collections.Counter()
 
     def counting(fn, rate_at, name=None):
-        def launch(*args):
+        def launch(*args, **kw):
             if args[rate_at] > 0:
                 dropping[(name or args[0].replace("_f32", "")) + " dropout"] += 1
-            return fn(*args)
+            return fn(*args, **kw)
         return launch
 
     KA._forward_f32 = counting(KA._forward_f32, 5, "flash_mha")
@@ -3745,8 +3869,8 @@ def entry_counts(counted: Path, module: str, argv: list) -> int:
     try:
         runpy.run_module(module, run_name="__main__", alter_sys=True)
     finally:
-        counts = {name: fn.launches + GRAPHS.replayed_launches.get(name, 0)
-                  for name, fn in _train_counters().items()}
+        counts = {name: getattr(fn, attr) + GRAPHS.replayed_launches.get(name, 0)
+                  for name, (fn, attr) in _train_counters().items()}
         counted.write_text(json.dumps(dict(counts, **dropping)))
     return 0
 
@@ -3893,11 +4017,13 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict]:
     versions, on fp32 and (K3) on bf16 inputs; the card's train step against
     the CPU's, in fp32 and in bf16 mixed precision, and C2's float64 probe;
     the training rate at the released width in fp32 and in bf16; the
-    training entry point with a resume, and once in bf16. Returns the
-    backward kernels' rows and the launches of each path: the fp32 and the
-    bf16 train paths, the bf16 card step run twice under deterministic(), and
-    the entry points in their own processes (the fp32 one's resumed epoch,
-    the bf16 one's epoch), both at t_dropout TRAIN_DROPOUT."""
+    training entry point with a resume, and once in bf16; the sparse path
+    (SPARSE: K3's masked backward) card vs CPU in both precisions and its
+    rate beside the dense one. Returns the backward kernels' rows and the
+    launches of each path: the fp32 and the bf16 train paths, the bf16 card
+    step run twice under deterministic(), the sparse paths' steps at batch
+    8, and the entry points in their own processes (the fp32 one's resumed
+    epoch, the bf16 one's epoch), both at t_dropout TRAIN_DROPOUT."""
     import torch
 
     from demucs_tpu_torch.inference.engine import GRAPHS
@@ -3914,9 +4040,32 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict]:
         info["bf16_card_vs_cpu_step"], counts_bf16_det = train_bf16_card_vs_cpu(step)
         info["c2_probe"] = train_c2_probe(step)
         del step
+        # the sparse path: HTDemucs's static masks in every self and cross layer (diag at
+        # the reference's defaults), its K3 backward the masked instances
+        info["sparse_card_vs_cpu_step"], step = train_card_vs_cpu(**SPARSE)
+        info["sparse_bf16_card_vs_cpu_step"], counts_sparse_det = train_bf16_card_vs_cpu(step)
+        del step
         info["steps_s"] = time.perf_counter() - start
         info["throughput"], counts = train_throughput()
         info["throughput_bf16"], counts_bf16 = train_throughput("bfloat16")
+        info["throughput_sparse"], counts_sparse = train_throughput(
+            steps=SPARSE_TRAIN_STEPS, detail=False, **SPARSE)
+        info["throughput_sparse_bf16"], counts_sparse_bf16 = train_throughput(
+            "bfloat16", steps=SPARSE_TRAIN_STEPS, detail=False, **SPARSE)
+        for name, dense in (("throughput_sparse", "throughput"),
+                            ("throughput_sparse_bf16", "throughput_bf16")):
+            sparse = info[name]
+            sparse["dense_median_step_s"] = info[dense]["median_step_s"]
+            sparse["over_dense"] = sparse["median_step_s"] / info[dense]["median_step_s"]
+            # every K3 backward of the sparse path is a masked one
+            route = "flash_mha_bwd" if dense == "throughput" else "flash_mha_bwd_bf16"
+            launched = sparse["launches"]
+            sparse["ok"] = (sparse["ok"] and launched[route] > 0
+                            and launched[f"{route} masked"] == launched[route])
+        info["sparse_bf16_card_vs_cpu_step"]["ok"] = (
+            info["sparse_bf16_card_vs_cpu_step"]["ok"]
+            and counts_sparse_det["flash_mha_bwd_bf16 masked"]
+            == counts_sparse_det["flash_mha_bwd_bf16"] > 0)
     info["entry_point"] = train_entry_point(workdir)
     info["entry_point_bf16"] = train_entry_point_bf16(workdir)
     info["wall_s"] = time.perf_counter() - start
@@ -3928,11 +4077,15 @@ def phase_train(workdir: Path) -> tp.Tuple[list, dict]:
     emit(dict(info, k3_backward=rows[0], stft_backward=rows[1], k3_bf16_backward=rows[2]))
     bad = [r["name"] for r in rows if not r["ok"]]
     bad += [k for k in ("card_vs_cpu_step", "bf16_card_vs_cpu_step", "c2_probe", "throughput",
-                        "throughput_bf16", "entry_point", "entry_point_bf16") if not info[k]["ok"]]
+                        "throughput_bf16", "sparse_card_vs_cpu_step",
+                        "sparse_bf16_card_vs_cpu_step", "throughput_sparse",
+                        "throughput_sparse_bf16", "entry_point", "entry_point_bf16")
+            if not info[k]["ok"]]
     if bad:
         raise AssertionError(f"train: {bad}")
     return rows, {"train": counts, "train bf16": counts_bf16,
                   "train bf16 deterministic": counts_bf16_det,
+                  "train sparse": counts_sparse, "train sparse bf16": counts_sparse_bf16,
                   "train entry (resumed epoch)": info["entry_point"]["resumed_run_launches"],
                   "train bf16 entry": info["entry_point_bf16"]["launches"]}
 
@@ -5085,16 +5238,48 @@ K3_PAIR_SASS = {"flash_mha_bf16_kernelILi64ELi128ELi3E": "dropout",
                 "flash_mha_bf16_kernelILi64ELi128ELi2E": "dropout",
                 "flash_mha_bf16_masked_kernelILi64ELi128ELi3E": "dropout",
                 "flash_mha_kernelILi64ELi2E": "masked"}
+# the same for the unmasked backward's block kernels (their next argument: the
+# deterministic order)
+K3_PAIR_BWD_SASS = {"Bf16BwdILi64ELi2E": "ordered", "Bf16BwdILi64ELi1E": "ordered",
+                    "F32BwdILi64E": "ordered"}
+# K3's libraries --k3-pair builds from each tree (the masked backward's where the tree has it)
+K3_PAIR_LIBS = ("flash_mha", "flash_mha_bwd", "flash_mha_bwd_masked")
+
+
+def _sass_counts(cuobjdump: Path, so: Path, wanted: dict) -> tuple:
+    """SASS opcode counts of each kernel of ``so`` whose mangled name holds a
+    key of ``wanted`` (the key, then whether its next bool template argument,
+    named by the value, is set) -> (counts, the kernels' SASS lines)."""
+    import collections
+    import re
+
+    sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
+                          text=True).stdout
+    counts, current, kept = {}, None, []
+    for line in sass.splitlines():
+        fn = re.search(r"Function : (\S+)", line)
+        if fn:
+            current = next((k for k in wanted if k in fn.group(1)), None)
+            if current:
+                rest, flag = fn.group(1).split(current)[1], wanted[current]
+                current += (f" {flag}" if rest.startswith("Lb1E")
+                            else f" no {flag}" if rest.startswith("Lb0E") else "")
+            continue
+        op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if current and op:
+            counts.setdefault(current, collections.Counter())[op.group(1).split(".")[0]] += 1
+            kept.append(f"{current} | {line.strip()}")
+    return {k: dict(sorted(v.items())) for k, v in counts.items()}, kept
 
 
 def _pair_build(trees: list) -> list:
-    """nvcc of each tree's csrc/flash_mha.cu and csrc/flash_mha_bwd.cu (the
-    port's flags; each source's headers from its own tree), all at once, into
-    K3_PAIR_DIR/<i>; the libraries loaded with the wrappers' ctypes
-    declarations, and each one's ptxas report and SASS opcode counts."""
-    import collections
+    """nvcc of each tree's K3 libraries (K3_PAIR_LIBS that it has; the port's
+    flags, each source's headers from its own tree, a library of several
+    sources linked as _build links it), all at once, into K3_PAIR_DIR/<i>;
+    the libraries loaded with the wrappers' ctypes declarations, and each
+    one's ptxas report and the SASS opcode counts of K3_PAIR_SASS's and
+    K3_PAIR_BWD_SASS's instances (their lines in K3_PAIR_DIR/<i>/sass.txt)."""
     import ctypes
-    import re
     import shutil
     from unittest import mock
 
@@ -5102,28 +5287,29 @@ def _pair_build(trees: list) -> list:
     from demucs_tpu_torch.kernels import attention as KA
 
     nvcc = _build.nvcc_path()
-    procs = []
+    jobs = []
     src_text = [(Path(tree) / "demucs_tpu_torch" / "csrc" / "flash_mha.cu").read_text()
                 for tree in trees]
     for i, tree in enumerate(trees):
         out = K3_PAIR_DIR / str(i)
         shutil.rmtree(out, ignore_errors=True)
         out.mkdir(parents=True)
-        for name in ("flash_mha", "flash_mha_bwd"):
-            src = Path(tree) / "demucs_tpu_torch" / "csrc" / f"{name}.cu"
-            procs.append((i, name, out / f"lib{name}.so", subprocess.Popen(
-                [nvcc, *_build.NVCC_FLAGS, "-o", str(out / f"lib{name}.so"), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        csrc = Path(tree) / "demucs_tpu_torch" / "csrc"
+        for name in K3_PAIR_LIBS:
+            if (csrc / f"{name}.cu").exists():
+                jobs.append((i, name, out / f"lib{name}.so",
+                             _build.Job(name, csrc, out / f"lib{name}.so", nvcc)))
     libs = [{} for _ in trees]
     cuobjdump = Path(nvcc).with_name("cuobjdump")
-    for i, name, so, proc in procs:
-        report, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for tree {i} {name}.cu:\n{report}")
+    loaders = {"flash_mha": KA._lib, "flash_mha_bwd": KA._bwd_lib,
+               "flash_mha_bwd_masked": KA._bwd_masked_lib}
+    for i, name, so, job in jobs:
+        report, error = job.finish()
+        if error is not None:
+            raise RuntimeError(f"tree {i}: {error}")
         lib = ctypes.CDLL(str(so))
-        loader = KA._lib if name == "flash_mha" else KA._bwd_lib
         with mock.patch.object(_build, "load", lambda _name, lib=lib: lib):
-            loader.__wrapped__()  # the wrapper's argtypes on this library
+            loaders[name].__wrapped__()  # the wrapper's argtypes on this library
         if name == "flash_mha" and "tile_map" not in src_text[i]:
             # a tree before the tile maps: its entries take the mask as bytes
             # (k3_forward calls them as its wrapper did)
@@ -5133,29 +5319,20 @@ def _pair_build(trees: list) -> list:
             libs[i]["legacy"] = True
         libs[i][name] = lib
         libs[i][name + ".ptxas"] = report
-        if name == "flash_mha" and cuobjdump.exists():
-            sass = subprocess.run([str(cuobjdump), "-sass", str(so)], capture_output=True,
-                                  text=True).stdout
-            counts, current, kept = {}, None, []
-            for line in sass.splitlines():
-                fn = re.search(r"Function : (\S+)", line)
-                if fn:
-                    current = next((k for k in K3_PAIR_SASS if k in fn.group(1)), None)
-                    if current:
-                        rest, flag = fn.group(1).split(current)[1], K3_PAIR_SASS[current]
-                        current += (f" {flag}" if rest.startswith("Lb1E")
-                                    else f" no {flag}" if rest.startswith("Lb0E") else "")
-                    continue
-                op = re.search(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
-                if current and op:
-                    counts.setdefault(current, collections.Counter())[op.group(1).split(".")[0]] += 1
-                    kept.append(f"{current} | {line.strip()}")
-            libs[i]["sass"] = {k: dict(sorted(v.items())) for k, v in counts.items()}
-            (K3_PAIR_DIR / str(i) / "sass.txt").write_text("\n".join(kept))
+        wanted = {"flash_mha": K3_PAIR_SASS, "flash_mha_bwd": K3_PAIR_BWD_SASS}.get(name)
+        if wanted and cuobjdump.exists():
+            counts, kept = _sass_counts(cuobjdump, so, wanted)
+            libs[i].setdefault("sass", {}).update(counts)
+            with open(K3_PAIR_DIR / str(i) / "sass.txt", "a") as f:
+                f.write("\n".join(kept) + "\n")
+    for lib in libs:
+        # a tree before the masked backward's instances: its entries take the mask as bytes
+        lib["bwd_legacy"] = "flash_mha_bwd_masked" not in lib
     return libs
 
 
 _LEGACY = None  # inside _pair_libs: a parent tree's library that takes the mask as bytes
+_BWD_LEGACY = None  # the same for the backward: a tree before the masked instances
 
 
 def k3_forward(route: str, q, k, v, num_heads: int, mask, rate: float = 0.0, seed: int = 0,
@@ -5202,6 +5379,43 @@ def k3_forward(route: str, q, k, v, num_heads: int, mask, rate: float = 0.0, see
     return out, lse
 
 
+def k3_backward(route: str, q, k, v, o, do, num_heads: int, lse, mask, rate: float = 0.0,
+                seed: int = 0):
+    """--k3-pair's launch of K3's backward on ``route`` ("bf16" or "f32") ->
+    (dq, dk, dv): through the wrapper (``mask``: a ``(Tq, Tk)`` keep-mask on
+    the card, or None; the masked instances read its tiles), or, inside
+    _pair_libs of a tree before the masked instances (whose kernel read the
+    mask as a byte per score), through that tree's C entry as its wrapper
+    called it."""
+    import torch
+
+    from demucs_tpu_torch.kernels import _build
+    from demucs_tpu_torch.kernels import attention as KA
+
+    backward = KA.flash_mha_bwd_bf16 if route == "bf16" else KA.flash_mha_bwd
+    if _BWD_LEGACY is None or mask is None:
+        return backward(q, k, v, o, do, num_heads, lse=lse, mask=mask, dropout=rate,
+                        dropout_seed=seed)
+    B, Tq, C = q.shape
+    Tk, d = k.shape[1], C // num_heads
+    keep = mask.to(torch.uint8).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(B * num_heads * -(-Tq // 64) * 128, device=q.device)
+    dq_acc = torch.empty(B * num_heads * -(-Tq // 64) * 64 * d, device=q.device)
+    turns = KA.dq_turns(B, num_heads, Tq, q.device)
+    keys = (KA.bwd_keys(B, Tk, num_heads, KA._sm_count(q.device.index or 0))
+            if route == "bf16" else 64)
+    entry = "flash_mha_bwd_bf16" if route == "bf16" else "flash_mha_bwd_f32"
+    status = getattr(_BWD_LEGACY, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        keep.data_ptr(), stats.data_ptr(), dq_acc.data_ptr(),
+        None if turns is None else turns.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        B, Tq, Tk, num_heads, d, keys, KA.q_scale(d), 1.0 / math.sqrt(d), float(rate),
+        KA._int32(KA._seed32(rate, seed)), _build.stream_ptr(q.device))
+    KA._check_launch(status, f"{route} backward of the parent tree")
+    return dq, dk, dv
+
+
 @contextlib.contextmanager
 def _pair_libs(libs: dict):
     """The K3 wrappers on one tree's libraries inside the block (k3_forward
@@ -5217,23 +5431,36 @@ def _pair_libs(libs: dict):
             return k3_forward(route, q, k, v, num_heads, None, rate, seed, want_lse)
         return launch
 
-    global _LEGACY
+    global _LEGACY, _BWD_LEGACY
     _LEGACY = libs["flash_mha"] if libs.get("legacy") else None
+    _BWD_LEGACY = libs["flash_mha_bwd"] if libs.get("bwd_legacy") else None
     routes = ({"_forward_bf16": legacy("bf16"), "_forward_f32": legacy("f32")}
               if _LEGACY is not None else {})
     try:
         with contextlib.ExitStack() as stack:
             stack.enter_context(mock.patch.object(KA, "_lib", lambda: libs["flash_mha"]))
             stack.enter_context(mock.patch.object(KA, "_bwd_lib", lambda: libs["flash_mha_bwd"]))
+            if "flash_mha_bwd_masked" in libs:
+                stack.enter_context(mock.patch.object(KA, "_bwd_masked_lib",
+                                                      lambda: libs["flash_mha_bwd_masked"]))
             for name, launch in routes.items():
                 stack.enter_context(mock.patch.object(KA, name, launch))
             yield
     finally:
-        _LEGACY = None
+        _LEGACY = _BWD_LEGACY = None
+
+
+def _under_flag(fn):
+    """``fn`` called under deterministic()."""
+    def call():
+        with deterministic():
+            return fn()
+    return call
 
 
 def k3_pair(trees: list, libs: list) -> dict:
-    """K3's forwards and backwards at dropout 0 and TRAIN_DROPOUT, built from
+    """K3's forwards and backwards at dropout 0 and TRAIN_DROPOUT (the
+    backwards also under deterministic(), the ordered instances), built from
     each of ``trees`` (checkouts: the parent's ``git archive`` beside this
     one, or a variant's copy) and timed in turns in one process on one card:
     tree order, then reversed (parent, change, change, parent for two), at
@@ -5241,8 +5468,10 @@ def k3_pair(trees: list, libs: list) -> dict:
     its two readings. Also each tree's drop pattern against dropout_keep on
     the bf16 route (_drop_pattern_mismatches), its output against the first
     tree's, the bf16 plans at TRAIN_DROPOUT at freq self, ptxas's registers
-    and spills of the bf16 instances and the SASS opcode counts of
-    K3_PAIR_SASS's (their lines in K3_PAIR_DIR/<i>/sass.txt).
+    and spills of the bf16 instances and of the unmasked backward's, the
+    SASS opcode counts of K3_PAIR_SASS's and K3_PAIR_BWD_SASS's instances
+    (their lines in K3_PAIR_DIR/<i>/sass.txt) and whether each equals the
+    first tree's, and each case's last tree over first tree time range.
     ``libs``: the trees' libraries (_pair_build)."""
     import torch
 
@@ -5274,6 +5503,12 @@ def k3_pair(trees: list, libs: list) -> dict:
                     qb, kb, vb, ob, dob, H, lse=lseb, dropout=TRAIN_DROPOUT, dropout_seed=5),
                 "f32_bwd_dropout": lambda: KA.flash_mha_bwd(
                     q, k, v, of, do, H, lse=lsef, dropout=TRAIN_DROPOUT, dropout_seed=5)}
+            # the unmasked backwards at dropout 0, and each also under the flag (the
+            # deterministic order's instances)
+            cases["bf16_bwd"] = lambda: KA.flash_mha_bwd_bf16(qb, kb, vb, ob, dob, H, lse=lseb)
+            cases["f32_bwd"] = lambda: KA.flash_mha_bwd(q, k, v, of, do, H, lse=lsef)
+            for name in ("bf16_bwd", "f32_bwd", "bf16_bwd_dropout", "f32_bwd_dropout"):
+                cases[f"{name}_deterministic"] = _under_flag(cases[name])
             key = f"B={batch} {tq_name}<-{tk_name}"
             times = {name: [[] for _ in trees] for name in cases}
             for i in order:
@@ -5309,9 +5544,19 @@ def k3_pair(trees: list, libs: list) -> dict:
                             cuda_ms(lambda: KA._forward_bf16(q, k, v, H, None, TRAIN_DROPOUT, 5,
                                                              False)[0])
     instances = [bf16_instances(lib["flash_mha.ptxas"]) for lib in libs]
+    ratios = {name: [min(r[name][-1] / r[name][0] for r in rows.values()),
+                     max(r[name][-1] / r[name][0] for r in rows.values())]
+              for name in next(iter(rows.values())) if name not in (
+                  "readings", "bf16_dropout_max_abs_diff_to_tree_0", "drop_pattern_mismatches")}
+    sass = [lib.get("sass") for lib in libs]
     info = {"phase": "k3_pair", "card": card_line(), "trees": [str(t) for t in trees],
-            "order": order, "by_shape": rows, "plan_sweep_dropout_ms": sweep,
-            "bf16_instances": instances, "sass_opcodes": [lib.get("sass") for lib in libs]}
+            "order": order, "by_shape": rows, "last_over_first_tree": ratios,
+            "plan_sweep_dropout_ms": sweep, "bf16_instances": instances,
+            "bwd_instances": [bwd_instances(r, lib["flash_mha_bwd.ptxas"])
+                              for lib in libs for r in ("Bf16Bwd", "F32Bwd")],
+            "sass_opcodes": sass,
+            "sass_equal_to_tree_0": [{k: v == (sass[0] or {}).get(k) for k, v in (t or {}).items()}
+                                     for t in sass]}
     emit(info)
     return info
 
@@ -5371,7 +5616,7 @@ def main() -> int:
     try:
         phase_device()
         rows = phase_kernels()
-        phase_sparse_kernels()
+        rows += phase_sparse_kernels()["kernel_rows"]
         cpu_model = phase_model()
         serving, sep = phase_serving(cpu_model, workdir)
         phase_graphs(sep)

@@ -31,7 +31,10 @@ transformer's beside its cached table): for each plan a tile map of the
 (row block, key tile) units that keep a score, full or partial (the
 kernels stream and compute only those, and test no key of a full one), and
 the mask packed into bits in the order the kernels' lanes hold the scores
-(a partial tile's keep test is a bit test). The plain version is
+(a partial tile's keep test is a bit test); the backward's view of it is
+built at the same time (:func:`bwd_tile_map`, :func:`pack_mask_bits_bwd`:
+per key block the query tiles that keep a score, in the order of the
+transposed scores' lanes). The plain version is
 :func:`demucs_tpu_torch.ops.attention.multihead_attention`. Any other dtype
 on the card raises.
 
@@ -51,7 +54,11 @@ bits may differ from run to run), or, under
 (:func:`dq_turns`, :func:`bwd_order`: each block of keys walks the query
 tiles from a tile of its own, the order follows the walks, writers outside
 the consumer warpgroups add; a cooperative grid, :func:`bwd_rounds`), bit
-for bit the same every run.
+for bit the same every run. Under a keep-mask the backward's launches
+take their own instances (``csrc/flash_mha_bwd_masked.cu``): each block of
+keys walks only the query tiles its tile map lists, tests bits only on
+partial units, and (deterministic) adds dQ in the same order restricted to
+the blocks that visit each tile (:func:`bwd_order_masked`).
 
 A call that wants no gradient and no dropout is the registered op
 ``demucs_tpu_torch::flash_mha`` (:func:`flash_mha_op`; ``torch.library``):
@@ -83,7 +90,9 @@ __all__ = ["flash_mha", "flash_mha_op", "flash_mha_bf16", "flash_mha_plain", "fl
            "KEY_TILE_BF16", "q_scale", "bf16_plan", "bf16_schedule", "bf16_tiles",
            "bf16_drop_tile", "bwd_keys", "MaskTiles", "mask_tiles", "register_mask_tiles",
            "tile_classes", "tile_map", "pack_mask_bits", "unpack_mask_bits", "MASK_PLANS",
-           "bwd_walk", "bwd_turn", "bwd_order", "bwd_rounds", "bwd_plan"]
+           "bwd_walk", "bwd_turn", "bwd_order", "bwd_rounds", "bwd_plan", "BWD_PLANS",
+           "bwd_tile_map", "bwd_order_masked", "bwd_walk_masked", "pack_mask_bits_bwd",
+           "unpack_mask_bits_bwd"]
 
 HEAD_DIMS = (32, 48, 64)
 KEY_TILE = 64  # keys per tile of the fp32 route's loop
@@ -123,6 +132,11 @@ _BWD_COST_ORDERED = {64: 1.4, 128: 1.0}
 # fp32 route's 64 or 128 rows at 64 keys, the bf16 route's 128 or 192 at 64 or
 # 128. A keep-mask's tile maps are built for all of them at once.
 MASK_PLANS = ((64, 64), (128, 64), (128, 128), (192, 64), (192, 128))
+# The (keys a block, queries a tile) of every plan of the backward: the fp32
+# route's 64 keys x 32 queries, the bf16 route's 64 or 128 keys x 64 queries
+# (csrc/flash_mha_bwd.cuh F32Bwd, Bf16Bwd). A keep-mask's backward tile maps
+# are built for all of them, its backward bits for each query tile size.
+BWD_PLANS = ((64, 32), (64, 64), (128, 64))
 # The packed mask's query rows are padded to a multiple of this (every plan's
 # rows divide it: a row block's words never run past the array;
 # csrc/flash_mha.cu mask_rows).
@@ -174,6 +188,19 @@ def _bwd_lib() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.flash_mha_bwd_ordered_plan.argtypes = [i] * 7 + [p]
     lib.flash_mha_bwd_ordered_plan.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_masked_lib() -> ctypes.CDLL:
+    """The masked backward's library (``csrc/flash_mha_bwd_masked.cu``)."""
+    lib = _build.load("flash_mha_bwd_masked")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in ("flash_mha_bwd_masked_f32", "flash_mha_bwd_masked_bf16"):
+        getattr(lib, name).argtypes = [p] * 14 + [i] * 6 + [f, f, f, i, p]
+        getattr(lib, name).restype = i
+    lib.flash_mha_bwd_masked_ordered_plan.argtypes = [i] * 7 + [p]
+    lib.flash_mha_bwd_masked_ordered_plan.restype = i
     return lib
 
 
@@ -317,15 +344,15 @@ class _FlashMHA(torch.autograd.Function):
         out, lse = route(q, k, v, num_heads, tiles, rate, seed, want_lse)
         if want_lse:
             ctx.save_for_backward(q, k, v, out, lse)
-            ctx.args = (num_heads, keep, rate, seed)
+            ctx.args = (num_heads, keep, tiles, rate, seed)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        num_heads, keep, rate, seed = ctx.args
+        num_heads, keep, tiles, rate, seed = ctx.args
         dq, dk, dv = flash_mha_bwd(q, k, v, out, dout, num_heads, lse=lse, mask=keep,
-                                   dropout=rate, dropout_seed=seed)
+                                   mask_tiles=tiles, dropout=rate, dropout_seed=seed)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -366,54 +393,62 @@ def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
 
 def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                   dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor,
-                  mask: torch.Tensor | None = None, dropout: float = 0.0,
-                  dropout_seed: int | None = None) -> tuple:
+                  mask: torch.Tensor | None = None, mask_tiles: "MaskTiles | None" = None,
+                  dropout: float = 0.0, dropout_seed: int | None = None) -> tuple:
     """K3's backward: ``(dq, dk, dv)`` of :func:`flash_mha` at ``q, k, v``
     with output ``o`` and its gradient ``dout``, from the forward's ``lse (B
     * H, Tq)`` and its ``mask``, ``dropout`` and ``dropout_seed``. A CPU
     tensor takes :func:`flash_mha_bwd_plain`; an fp32 CUDA tensor launches
     ``csrc/flash_mha_bwd.cu`` (the row dots, one pass for dQ, dK and dV in
-    3xTF32 ``wgmma`` over blocks of 64 keys, dQ's sums out), a bf16 one
-    :func:`flash_mha_bwd_bf16`; anything else raises.
-    ``flash_mha_bwd.launches`` counts the fp32 route's launches."""
+    3xTF32 ``wgmma`` over blocks of 64 keys, dQ's sums out), under a mask
+    ``csrc/flash_mha_bwd_masked.cu``'s instances, which read the mask as its
+    :class:`MaskTiles` (``mask_tiles``, as the forward built them; else
+    :func:`mask_tiles` of ``mask``); a bf16 one :func:`flash_mha_bwd_bf16`;
+    anything else raises. ``flash_mha_bwd.launches`` counts the fp32 route's
+    launches, ``flash_mha_bwd.masked_launches`` those of them under a mask."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
                                    dropout_seed=seed)
     if q.dtype == torch.bfloat16:
         return flash_mha_bwd_bf16(q, k, v, o, dout, num_heads, lse=lse, mask=mask,
-                                  dropout=dropout, dropout_seed=seed)
+                                  mask_tiles=mask_tiles, dropout=dropout, dropout_seed=seed)
     grads = _launch_bwd("flash_mha_bwd_f32", torch.float32, q, k, v, o, dout, num_heads, lse,
-                        mask, dropout, seed)
+                        mask, dropout, seed, tiles=mask_tiles)
     flash_mha_bwd.launches += 1
+    flash_mha_bwd.masked_launches += mask is not None
     return grads
 
 
 def flash_mha_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                        dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor,
-                       mask: torch.Tensor | None = None, dropout: float = 0.0,
-                       dropout_seed: int | None = None) -> tuple:
+                       mask: torch.Tensor | None = None, mask_tiles: "MaskTiles | None" = None,
+                       dropout: float = 0.0, dropout_seed: int | None = None) -> tuple:
     """K3's backward on the bf16 route: as :func:`flash_mha_bwd`, bf16 in and
     out (fp32 ``lse``), bf16 ``wgmma`` products with fp32 accumulation, the
     keys per block by :func:`bwd_keys`. A CPU tensor takes
     :func:`flash_mha_bwd_plain`; a bf16 CUDA tensor launches
-    ``csrc/flash_mha_bwd.cu`` (the row dots, the pass, dQ's rounding);
-    anything else raises.
-    ``flash_mha_bwd_bf16.launches`` counts its launches."""
+    ``csrc/flash_mha_bwd.cu`` (the row dots, the pass, dQ's rounding), under
+    a mask the masked instances (``mask_tiles`` as for :func:`flash_mha_bwd`);
+    anything else raises. ``flash_mha_bwd_bf16.launches`` counts its
+    launches, ``flash_mha_bwd_bf16.masked_launches`` those under a mask."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
                                    dropout_seed=seed)
     grads = _launch_bwd("flash_mha_bwd_bf16", torch.bfloat16, q, k, v, o, dout, num_heads, lse,
-                        mask, dropout, seed)
+                        mask, dropout, seed, tiles=mask_tiles)
     flash_mha_bwd_bf16.launches += 1
+    flash_mha_bwd_bf16.masked_launches += mask is not None
     return grads
 
 
 def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int, lse, mask,
-                rate: float, seed: int) -> tuple:
+                rate: float, seed: int, tiles: "MaskTiles | None" = None) -> tuple:
     """One launch of ``csrc/flash_mha_bwd.cu``'s C entry ``entry`` on ``dtype``
-    CUDA tensors -> ``(dq, dk, dv)``."""
+    CUDA tensors -> ``(dq, dk, dv)``; under ``mask``, of the masked library's
+    entry of the same route with the mask's tile map and bits (``tiles``, or
+    the mask's :class:`MaskTiles`) for the launch's plan."""
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, dtype)
     for name, t in (("o", o), ("dout", dout)):
         if t.shape != q.shape or t.dtype != dtype or t.device != q.device:
@@ -430,13 +465,19 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
     turns = dq_turns(B, num_heads, Tq, q.device)
     keys = (bwd_keys(B, Tk, num_heads, _sm_count(q.device.index or 0))
             if dtype == torch.bfloat16 else 64)
-    status = getattr(_bwd_lib(), entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), None if keep is None else keep.data_ptr(), stats.data_ptr(),
-        dq_acc.data_ptr(), None if turns is None else turns.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads,
-        d, keys, q_scale(d), 1.0 / math.sqrt(d), float(rate), _int32(seed),
-        _build.stream_ptr(q.device))
+    args = (stats.data_ptr(), dq_acc.data_ptr(), None if turns is None else turns.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads, d, keys,
+            q_scale(d), 1.0 / math.sqrt(d), float(rate), _int32(seed),
+            _build.stream_ptr(q.device))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
+            lse.data_ptr())
+    if keep is None:
+        status = getattr(_bwd_lib(), entry)(*ptrs, None, *args)
+    else:
+        tiles = _tiles(mask, keep) if tiles is None else tiles
+        tmap, bits = tiles.bwd_launch(keys, 64 if dtype == torch.bfloat16 else 32)
+        entry = entry.replace("flash_mha_bwd", "flash_mha_bwd_masked")
+        status = getattr(_bwd_masked_lib(), entry)(*ptrs, tmap, bits, *args)
     _check_launch(status, entry)
     return dq, dk, dv
 
@@ -509,7 +550,7 @@ _PLAN = ("n_qt", "n_kb", "blocks_per_sm", "sms", "grid", "stagger", "ring")
 
 
 def bwd_plan(dtype: torch.dtype, keys: int, B: int, Tq: int, Tk: int, num_heads: int, d: int,
-             device=None) -> dict:
+             device=None, masked: bool = False) -> dict:
     """The plan of the deterministic backward's launch at these sizes on the
     card (``device``, the current one by default), as the launch computes it
     (``csrc/flash_mha_bwd.cu`` ``ordered_plan``): a head's query tiles and
@@ -517,14 +558,16 @@ def bwd_plan(dtype: torch.dtype, keys: int, B: int, Tq: int, Tk: int, num_heads:
     order (staggered, else key-block order), the depth of the dQ ring; then
     the resident blocks (``capacity``), the rounds of heads and whether the
     CPU twin (:func:`bwd_rounds`) chose the same grid and order. ``keys``:
-    keys per block (64 or 128 on the bf16 route, 64 on the fp32 route)."""
+    keys per block (64 or 128 on the bf16 route, 64 on the fp32 route);
+    ``masked``: the plan of the masked instances (their own occupancy)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"bwd_plan: float32 or bfloat16, got {dtype}")
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     out = (ctypes.c_int * len(_PLAN))()
+    entry = (_bwd_masked_lib().flash_mha_bwd_masked_ordered_plan if masked
+             else _bwd_lib().flash_mha_bwd_ordered_plan)
     with torch.cuda.device(device):
-        status = _bwd_lib().flash_mha_bwd_ordered_plan(
-            int(dtype == torch.bfloat16), B, Tq, Tk, num_heads, d, keys, out)
+        status = entry(int(dtype == torch.bfloat16), B, Tq, Tk, num_heads, d, keys, out)
     _build.check(status, "flash_mha_bwd_ordered_plan")
     plan = dict(zip(_PLAN, out), keys=keys)
     plan["stagger"] = bool(plan["stagger"])
@@ -781,12 +824,107 @@ def unpack_mask_bits(words: np.ndarray, Tq: int, Tk: int, keys: int = 128) -> np
     return out
 
 
+def bwd_walk_masked(x: int, classes: np.ndarray, stagger: bool = True) -> list:
+    """The query tiles key block ``x`` walks in the masked backward: its
+    walk (:func:`bwd_walk`) restricted to the tiles it keeps a score of
+    (``classes``: the backward's ``(n_kb, n_qt)`` unit classes,
+    :func:`bwd_tile_map`)."""
+    n_kb, n_qt = classes.shape
+    return [t for t in bwd_walk(x, n_qt, n_kb, stagger) if classes[x, t]]
+
+
+def bwd_order_masked(classes: np.ndarray, stagger: bool = True) -> list:
+    """Per query tile, the key blocks that visit it in the order they add
+    their parts of dQ in the masked deterministic backward: the unmasked order
+    (:func:`bwd_order`) restricted to them, so no block waits on one that
+    skips the tile. With no empty unit it is :func:`bwd_order`."""
+    n_kb, n_qt = classes.shape
+    return [[x for x in blocks if classes[x, t]]
+            for t, blocks in enumerate(bwd_order(n_qt, n_kb, stagger))]
+
+
+def bwd_tile_map(mask: np.ndarray, keys: int, qt: int) -> dict:
+    """The plain twin of the backward's tile map of a keep-mask ``(Tq, Tk)``
+    for a plan of ``keys`` keys a block and ``qt`` queries a tile
+    (csrc/flash_mha_bwd.cuh, above ``mask_rows``): ``classes`` ``(n_kb,
+    n_qt)``, the forward's classes of ``(qt, keys)`` transposed (0 empty, 2
+    full: every score of its queries below Tq kept and the block inside Tk,
+    1 partial; keys past Tk make a unit partial, queries past Tq do not);
+    ``counts`` (each key block's units); ``off`` (each block's first in
+    ``ent``); ``ent`` (the non-empty units, block by block in tile order, as
+    ``tile << 1 | partial``); ``rot`` (the entry that starts each block's
+    staggered walk, :func:`bwd_walk_masked`); ``turn_s``, ``turn_p`` (each
+    unit's place in its tile's order, :func:`bwd_order_masked`, staggered and
+    plain); and ``map``, the int32 array the kernels read: ``[nnz, n_kb,
+    off, ent, rot, turn_s, turn_p]``."""
+    classes = tile_classes(mask, qt, keys).T
+    n_kb, n_qt = classes.shape
+    counts = (classes > 0).sum(1)
+    off = np.concatenate([[0], np.cumsum(counts)])
+    xs, ts = np.nonzero(classes)
+    ent = ts << 1 | (classes[xs, ts] == 1)
+    starts = np.arange(n_kb) * n_qt // n_kb  # each walk's first tile (Walk::o)
+    rot = np.array([int((ts[off[x]:off[x + 1]] < starts[x]).sum()) % max(int(counts[x]), 1)
+                    for x in range(n_kb)], dtype=np.int64)
+    turns = []
+    for stagger in (True, False):
+        place = np.zeros((n_kb, n_qt), np.int64)
+        for t, blocks in enumerate(bwd_order_masked(classes, stagger)):
+            place[blocks, t] = np.arange(len(blocks))
+        turns.append(place[xs, ts])
+    flat = np.concatenate([[len(ent), n_kb], off, ent, rot, *turns]).astype(np.int32)
+    return dict(classes=classes, counts=tuple(int(c) for c in counts), off=off, ent=ent,
+                rot=rot, turn_s=turns[0], turn_p=turns[1], map=flat)
+
+
+def pack_mask_bits_bwd(mask: np.ndarray, qt: int) -> np.ndarray:
+    """A keep-mask ``(Tq, Tk)`` packed for the backward's tiles of ``qt``
+    (32 or 64) queries: ``(n_qt, Tk_pad, 4)`` of qt / 4 bits (uint8 at 32,
+    uint16 at 64; Tk_pad: Tk rounded up to MASK_ROW_PAD), element c of
+    (tile t, key j) holding query ``t qt + 8 i + 2 c + b`` at bit ``2 i + b``:
+    the queries lane c holds of key j in S^T. That is :func:`pack_mask_bits`
+    of the transposed mask (keys as rows), word c of (group t qt // 128, key
+    j) shifted right by qt / 4 (t % (128 / qt)); 0 past Tq and past Tk."""
+    if qt not in (32, 64):
+        raise ValueError(f"the backward's query tiles hold 32 or 64 queries, got {qt}")
+    words = pack_mask_bits(np.ascontiguousarray(mask.T))  # (ceil(Tq / 128), Tk_pad, 4)
+    t = np.arange(-(-mask.shape[0] // qt))
+    per = 128 // qt
+    shift = (qt // 4 * (t % per)).astype(np.uint32)[:, None, None]
+    part = (words[t // per] >> shift) & np.uint32((1 << qt // 4) - 1)
+    return part.astype(np.uint8 if qt == 32 else np.uint16)
+
+
+def unpack_mask_bits_bwd(bits: np.ndarray, Tq: int, Tk: int, keys: int, qt: int) -> np.ndarray:
+    """The inverse of :func:`pack_mask_bits_bwd` as the backward's lanes read
+    it: for key block x (``keys`` keys) and query tile t, the block's
+    elements of tile t (one bulk copy, ``keys x 4``); lane c of the thread
+    holding key j takes element ``(j, c)`` and keeps query ``t qt + 8 (e >>
+    2) + 2 c + (e & 1)`` of element e where bit ``2 (e >> 2) + (e & 1)`` is
+    set. Returns the ``(n_kb keys, n_qt qt)`` boolean transposed mask so
+    read."""
+    n_kb, n_qt = -(-Tk // keys), -(-Tq // qt)
+    out = np.zeros((n_kb * keys, n_qt * qt), bool)
+    e = np.arange(qt // 2)
+    bit = 2 * (e >> 2) + (e & 1)
+    for x in range(n_kb):
+        for t in range(n_qt):
+            stage = bits[t, x * keys:(x + 1) * keys].astype(np.int64)  # (keys, 4)
+            for c in range(4):
+                query = t * qt + 8 * (e >> 2) + 2 * c + (e & 1)
+                out[x * keys:(x + 1) * keys, query] = (stage[:, c, None] >> bit) & 1
+    return out
+
+
 class MaskTiles:
     """A keep-mask as K3's kernels read it on ``device``: the packed bits
     (:func:`pack_mask_bits`) and, for each plan of :data:`MASK_PLANS`, the
-    tile map (:func:`tile_map`) and its row blocks' unit counts, all built
-    from ``mask``, its boolean host copy, at once (so a later launch, a
-    CUDA graph's capture included, builds nothing)."""
+    tile map (:func:`tile_map`) and its row blocks' unit counts; for the
+    backward, for each plan of :data:`BWD_PLANS` its tile map
+    (:func:`bwd_tile_map`) and, for each query tile size, its bits
+    (:func:`pack_mask_bits_bwd`); all built from
+    ``mask``, its boolean host copy, at once (so a later launch, a CUDA
+    graph's capture or a backward included, builds nothing)."""
 
     def __init__(self, mask: np.ndarray, device):
         self.shape = mask.shape
@@ -797,10 +935,21 @@ class MaskTiles:
                 tm = tile_map(mask, rows, keys)
                 self.maps[rows, keys] = torch.from_numpy(tm["map"]).to(device)
                 self.counts[rows, keys] = tm["counts"]
+            self.bwd_maps, self.bwd_bits = {}, {}
+            for keys, qt in BWD_PLANS:
+                self.bwd_maps[keys, qt] = torch.from_numpy(
+                    bwd_tile_map(mask, keys, qt)["map"]).to(device)
+            for qt in sorted({qt for _, qt in BWD_PLANS}):
+                packed = np.ascontiguousarray(pack_mask_bits_bwd(mask, qt))
+                self.bwd_bits[qt] = torch.from_numpy(packed.reshape(-1).view(np.uint8)).to(device)
 
     def launch(self, rows: int, keys: int) -> tuple:
         """The (tile map, bits) pointers of a launch of this plan."""
         return self.maps[rows, keys].data_ptr(), self.bits.data_ptr()
+
+    def bwd_launch(self, keys: int, qt: int) -> tuple:
+        """The (tile map, bits) pointers of a backward launch of this plan."""
+        return self.bwd_maps[keys, qt].data_ptr(), self.bwd_bits[qt].data_ptr()
 
 
 _TILES: dict = {}  # id(mask) -> (weakref to mask, its version, device, MaskTiles)
@@ -924,6 +1073,8 @@ flash_mha.launches = 0
 flash_mha_bwd.launches = 0
 flash_mha_bf16.launches = 0
 flash_mha_bwd_bf16.launches = 0
+flash_mha_bwd.masked_launches = 0
+flash_mha_bwd_bf16.masked_launches = 0
 
 
 def bf16_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -1250,3 +1250,149 @@ def test_exported_core_on_card(cuda, tmp_path):
     assert [c.launches - b for c, b in zip(counters, before)] == [segments, segments,
                                                                   6 * segments, 0]
     assert stems.shape == (1, 4, 2, 10000) and np.isfinite(stems).all()
+
+
+# ---- K3's backward under the static masks: the masked instances ----
+
+# the released shapes and a ragged Tq and Tk (no whole key block or query tile at the end)
+MASKED_BWD_SHAPES = TOKEN_SHAPES + ((1001, 1337),)
+MASKED_BWD_ROUTES = ((torch.float32, None), (torch.bfloat16, 64), (torch.bfloat16, 128))
+
+
+def _masked_bwd_case(mask_type, Tq, Tk, dtype, rate, B=1):
+    """Released widths (512 channels, 8 heads), the mask of MASK_CASES, the
+    forward's o and lse (the masked forward of the dtype's route), dO; and
+    the plain backward's inputs: a fully masked row's gradients are zero on
+    the card (the plain formula gives NaN there, ROADMAP C), so the plain
+    one takes that row unmasked with dO = o = 0, which adds nothing."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q, k, v, mask = _sparse_case(mask_type, Tq, Tk, bf16=dtype == torch.bfloat16, B=B)
+    do = _randn(B, Tq, 512, seed=94).to(dtype)
+    forward = K._forward_bf16 if dtype == torch.bfloat16 else K._forward_f32
+    o, lse = forward(q, k, v, 8, K.mask_tiles(mask), rate, 5, True)
+    empty = ~mask.bool().any(1)
+    plain_mask = mask.bool() | empty[:, None]
+    o_p, do_p = (t.masked_fill(empty[None, :, None], 0) for t in (o, do))
+    want = K.flash_mha_bwd_plain(q, k, v, o_p, do_p, 8, mask=plain_mask, dropout=rate,
+                                 dropout_seed=5)
+    return q, k, v, o, do, lse, mask, want
+
+
+def _bwd_close(got, want, dtype):
+    tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        assert (g.float() - w.float()).abs().max() <= tol * w.float().abs().max()
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk", MASKED_BWD_SHAPES)
+@pytest.mark.parametrize("mask_type", MASK_CASES)
+def test_masked_backward_matches_plain(cuda, monkeypatch, mask_type, Tq, Tk, rate):
+    """Both routes' masked backward instances (fp32; bf16 at 64 and 128 keys
+    a block) under each static mask, "holes" (an empty key block, empty
+    query tiles, fully masked rows) and "bare", at the released shapes and a
+    ragged one, at dropout 0 and 0.1, against the plain backward: 1e-4 (fp32)
+    and 2**-6 (bf16) of each gradient's peak; counted as masked launches."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    for dtype, keys in MASKED_BWD_ROUTES:
+        monkeypatch.setattr(K, "BWD_KEYS_BF16", keys)
+        q, k, v, o, do, lse, mask, want = _masked_bwd_case(mask_type, Tq, Tk, dtype, rate)
+        backward = K.flash_mha_bwd_bf16 if dtype == torch.bfloat16 else K.flash_mha_bwd
+        before = backward.masked_launches
+        got = backward(q, k, v, o, do, 8, lse=lse, mask=mask, dropout=rate, dropout_seed=5)
+        torch.cuda.synchronize()
+        assert backward.masked_launches == before + 1
+        _bwd_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("Tq,Tk", [(2688, 2688), (1001, 1337)])
+@pytest.mark.parametrize("mask_type", MASK_CASES)
+def test_masked_backward_repeats_under_deterministic(cuda, monkeypatch, deterministic, mask_type,
+                                                     Tq, Tk):
+    """Under torch.use_deterministic_algorithms the masked instances add each
+    query tile's dQ parts in the order the tile map's turns give (the unmasked
+    order restricted to the blocks that visit the tile): two launches
+    bit-equal, within tolerance of the plain backward, and the launch's grid
+    as the CPU twin plans it."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    for dtype, keys in MASKED_BWD_ROUTES:
+        monkeypatch.setattr(K, "BWD_KEYS_BF16", keys)
+        q, k, v, o, do, lse, mask, want = _masked_bwd_case(mask_type, Tq, Tk, dtype, 0.1, B=2)
+        backward = K.flash_mha_bwd_bf16 if dtype == torch.bfloat16 else K.flash_mha_bwd
+        first, second = (backward(q, k, v, o, do, 8, lse=lse, mask=mask, dropout=0.1,
+                                  dropout_seed=5) for _ in range(2))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        _bwd_close(first, want, dtype)
+        plan = K.bwd_plan(dtype, keys or 64, 2, Tq, Tk, 8, 64, masked=True)
+        assert plan["twin_agrees"] and plan["stagger"]
+
+
+def test_masked_backward_tile_order_is_walk_order(cuda, deterministic):
+    """A mask whose every unit is kept gives the masked deterministic
+    instances the unmasked order exactly: the same dQ bit for bit as the unmasked
+    ordered instances."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (_randn(2, T, 512, seed=s).to(dtype) for s, T in
+                       enumerate((1344, 2688, 2688, 1344)))
+        mask = torch.ones(1344, 2688, dtype=torch.bool, device="cuda")
+        forward = K._forward_bf16 if dtype == torch.bfloat16 else K._forward_f32
+        o, lse = forward(q, k, v, 8, None, 0.0, 0, True)
+        backward = K.flash_mha_bwd_bf16 if dtype == torch.bfloat16 else K.flash_mha_bwd
+        masked = backward(q, k, v, o, do, 8, lse=lse, mask=mask)
+        plain = backward(q, k, v, o, do, 8, lse=lse)
+        assert all(torch.equal(a, b) for a, b in zip(masked, plain))
+
+
+def test_masked_backward_instances_do_not_spill(cuda):
+    """nvcc's report of the masked backward's library: every block-kernel
+    instance (both routes, default and deterministic, every head dim and
+    bf16 block) without spills."""
+    import re
+
+    from demucs_tpu_torch.kernels import _build
+    from demucs_tpu_torch.kernels import attention as K
+
+    K._bwd_masked_lib()
+    report = _build.ptxas_report("flash_mha_bwd_masked")
+    kernels, spills, name = set(), [], None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\S+)'", line)
+        if entry:
+            name = entry.group(1) if "bwd_kernel" in entry.group(1) else None
+            if name:
+                kernels.add(name)
+            continue
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if name and found and (int(found.group(1)) or int(found.group(2))):
+            spills.append(name)
+    assert len(kernels) == 18 and not spills, (sorted(kernels), spills)
+    assert all("ELb1EE" in n for n in kernels)  # every instance the MASKED one
+
+
+def test_unmasked_backward_sass_unchanged(cuda):
+    """The unmasked backward's block kernels at d = 64 (both routes, both
+    bf16 blocks, default and deterministic) compile to the SASS opcode counts
+    recorded from the tree before the masked instances
+    (tests/k3_bwd_sass_opcodes.json, from ``chip_smoke.py --k3-pair``'s
+    cuobjdump on an H100): the masked code, under ``if constexpr``, leaves
+    the kernels that unmasked launches run as they were."""
+    import json
+    from pathlib import Path
+
+    from chip_smoke import _sass_counts
+    from demucs_tpu_torch.kernels import _build
+    from demucs_tpu_torch.kernels import attention as K
+
+    K._bwd_lib()
+    recorded = json.loads((Path(__file__).parent / "k3_bwd_sass_opcodes.json").read_text())
+    counts, _ = _sass_counts(Path(_build.nvcc_path()).with_name("cuobjdump"),
+                             _build.library_path("flash_mha_bwd"),
+                             {k.split()[0]: "ordered" for k in recorded["opcodes"]})
+    assert counts == recorded["opcodes"]

@@ -98,9 +98,16 @@ def _grad_keeper():
         lambda g, s, p=None: (jax.tree.map(jnp.zeros_like, g), g))
 
 
-@pytest.mark.parametrize("loss", ["l1", "mse"])
-def test_train_step_matches_jax(loss):
-    jcfg, params, model = _pair()
+# HTDemucs's static sparse masks in every self and cross layer (diag) at a window
+# small enough to mask scores at SMALL's token counts: every K3 call masked
+SPARSE = dict(t_sparse_self_attn=True, t_sparse_cross_attn=True, t_sparse_attn_window=4,
+              t_global_window=2)
+
+
+@pytest.mark.parametrize("loss,options", [("l1", {}), ("mse", {}), ("l1", SPARSE)],
+                         ids=["l1", "mse", "l1-sparse"])
+def test_train_step_matches_jax(loss, options):
+    jcfg, params, model = _pair(**options)
     sources = _sources(jcfg)
     weights = (1.0, 2.0, 0.5, 1.0)
     keeper = _grad_keeper()
@@ -135,7 +142,8 @@ def _jax_step_grads(jcfg, params, sources):
 
 
 @pytest.mark.parametrize("precision", [dict(compute_dtype="bfloat16"),
-                                       dict(bf16_stages=("transformer",))])
+                                       dict(bf16_stages=("transformer",)),
+                                       dict(bf16_stages=("transformer",), **SPARSE)])
 def test_bf16_train_step_matches_jax(precision):
     """One mixed-precision step against ``make_train_step`` on the same fp32
     masters: every gradient within the bound of the module docstring, and

@@ -26,7 +26,11 @@ Phases, one JSON line each, each followed by a line with its seconds
               its plans (keys per tile x rows per block x the persistent
               schedule or a block per row block) and the plan chosen, a ragged
               batch, the masked case, and each instance's registers and
-              spills (nvcc's report kept beside the library).
+              spills (nvcc's report kept beside the library). K3 at head dims
+              16, 24, 40, 96 (padded) and 128 on both routes, masked or not,
+              against the plain version at a ragged shape and (d = 128) at one
+              query over 70 keys; the D = 128 instances timed at freq self
+              (4 heads, B = 1 and 6) and held to the plain version there.
    sparse_kernels — K3 under each static sparse mask (diag, global, jmask,
               random, diag_jmask_random at the reference's window 500, global
               100, sparsity 0.95) at the four shapes and both batches: the fp32
@@ -54,7 +58,7 @@ Phases, one JSON line each, each followed by a line with its seconds
               on the card and on the CPU (plain versions).
 4. serving  — a Separator on the card with the 7.8 s model, loaded from a .dmx
               saved from the phase-3 weights, answers three requests (30 s, 12 s
-              and 5 s synthetic stereo tracks at 44.1 kHz, each 5 times) on each
+              and 5 s synthetic stereo tracks at 44.1 kHz, each 3 times) on each
               engine, after one warm-up request of each length on each (cuDNN and
               cuBLAS set-up, every CUDA graph captured): the device engine,
               Separator's default, whose forwards must all be graph replays, and
@@ -87,10 +91,10 @@ Phases, one JSON line each, each followed by a line with its seconds
               LayerScales, random norms: the forward on the card against a CPU
               copy (2 s); a Separator from a .dmx answering a 30 s request (one
               exact tail, eager) and a 60 s one (a graph replay of the full
-              windows and an eager tail) 3 times each on each engine, with
+              windows and an eager tail) 2 times each on each engine, with
               launches against the forwards, the device engine's stems against
               the host engine's, graphs, peak memory, and one profiled 60 s
-              request per engine (cuDNN's RNN a group of its own).
+              request on the device engine (cuDNN's RNN a group of its own).
 7. demucs_v2 — the same for the released Demucs v2 widths (channels 64, depth 6).
 8. wiener   — apply_wiener (1 iteration) at one 44 s segment's spectrogram, and
               the MDX-era HDemucs (hybrid_old, cac=False, Wiener 1 iteration),
@@ -107,7 +111,7 @@ Phases, one JSON line each, each followed by a line with its seconds
               forward under deterministic cuDNN; one full window's forward at
               B = 1, B = 2 and from a graph at B = 2.
 11. presets — default, fast, balanced and quality (presets.py) on HTDemucs
-              (released widths, 30 s, median of 5) and on HDemucs and Demucs v2
+              (released widths, 30 s, median of 3) and on HDemucs and Demucs v2
               (30 s, median of 3), device engine: audio-s/s, SER against the
               family's fp32 forward (bounded per preset), peak memory, the
               graph pool, launches (K3's bf16 route on HTDemucs's fast path);
@@ -130,7 +134,7 @@ Phases, one JSON line each, each followed by a line with its seconds
 14. serve   — SeparationService (the phase-4 HTDemucs .dmx, pinned shift
               offsets) behind make_server on 127.0.0.1, port 0, in a thread: 30 s
               bodies as WAV, FLAC and (with LAME and a decoder) mp3, and
-              responses as wav, flac and (with LAME) mp3, each twice after a
+              responses as wav, flac and (with LAME) mp3, each once after a
               warm-up: audio-s/s and the wall split into body decode, separation,
               and encode plus zip; launches over them. The float32 WAV response
               against Separator.separate_tensor on the decoded body, bit for bit;
@@ -157,7 +161,7 @@ Phases, one JSON line each, each followed by a line with its seconds
               request measured cold and warm; the graphs' pool before and after
               GRAPHS.clear() with torch.cuda.empty_cache(), and a request after
               it (recaptured, the same stems).
-18. evaluate — evaluate(compute_sdr=True) on a synthetic 2-track x 10 s
+18. evaluate — evaluate(compute_sdr=True) on a synthetic 1-track x 10 s
               MusdbHQ folder with the phase-4 model: each track's nsdr against
               eval_track on Separator's stems, seconds per track for the
               separation on the card and BSS-eval on the host.
@@ -179,12 +183,12 @@ Phases, one JSON line each, each followed by a line with its seconds
               rerun bit-equal at every shape beside the default, with the
               cooperative grid, order, rounds of heads and dQ ring that its
               launch reports (and whether the CPU twin agrees); the
-              training rate: train_step at batch 8 (4 if 8 does not fit), 12
+              training rate: train_step at batch 8 (4 if 8 does not fit), 6
               steps with every launch counted (the train path), training
-              audio-s/s over steps 3-12, the forward / backward / optimizer
+              audio-s/s over steps 3-6, the forward / backward / optimizer
               split, peak memory and one profiled step; then python -m
               demucs_tpu_torch.train on a synthetic wav folder, killed after
-              epoch 2's checkpoint and resumed for epoch 3 (the resumed
+              epoch 1's checkpoint and resumed for epoch 2 (the resumed
               process reports its launches: the train entry path), and the
               best model separating a 10 s track through Separator on the
               card. bf16
@@ -249,12 +253,12 @@ Phases, one JSON line each, each followed by a line with its seconds
               all_reduce, share, the collectives on the card's tensors);
               the released HTDemucs at a global batch of 8: world 1 on NCCL
               (a group of one in this process) and two Gloo ranks against
-              one process (losses and gradients after 3 steps; gradients on
+              one process (losses and gradients after 2 steps; gradients on
               mse; the one-process step run twice and world 1 under
               torch.use_deterministic_algorithms, the two runs bit-equal;
               the step without the flag and under it on one model, timed
               and profiled: the device ms each kernel group gains under it);
-              HDemucs and Demucs v2 (3 steps at 4, two ranks against
+              HDemucs and Demucs v2 (2 steps at 4, two ranks against
               one process; one step card vs CPU); the Gloo ranks then train
               through the entry point, stopped after epoch 1, and the
               launcher resumes it (rank 0 alone writes, equal summaries);
@@ -263,8 +267,8 @@ Phases, one JSON line each, each followed by a line with its seconds
               the forwards; tp_forward on two ranks against one device.
               Times are the paths' cost on one card, not scaling.
 20. cli     — python -m demucs_tpu_torch on a WAV file with the HTDemucs .dmx,
-              then -n <bag> --repo <folder> on a 48 kHz WAV (resampled), then
-              the .dmx on a FLAC file with --flac and (with LAME) --mp3.
+              then -n <bag> --repo <folder> on a 48 kHz FLAC file (resampled)
+              with --flac, then (with LAME) the .dmx with --mp3.
 
 Then the ``kernels`` line (K1, K2, K3 on fp32 and K3 on bf16, K3's backward
 on each route, unmasked and masked (the masked instances' launches on the
@@ -330,11 +334,11 @@ ENGINE_RTOL = 1e-5  # device engine vs host engine stems, x peak (the CPU tests'
 GRAPH_RTOL = 1e-6  # graph replay vs eager forward, x peak (the same kernels and inputs)
 N_TIMED = 10
 SPIN_CYCLES = 40_000_000  # about 20 ms at the H100's clocks: longer than 10 calls' launches
-REPEATS = 5  # serving: each request size is answered this many times, median reported
-FAMILY_REPEATS = 3  # the same for the HDemucs and Demucs v2 requests
+REPEATS = 3  # serving: each request size is answered this many times, median reported
+FAMILY_REPEATS = 2  # the same for the HDemucs and Demucs v2 requests
 FAMILY_LENGTHS = (30.0, 60.0)
 CODEC_SECONDS = 30.0  # the codecs phase's track
-SERVE_REPEATS = 2  # each served request kind, median reported
+SERVE_REPEATS = 1  # each served request kind
 HDEMUCS = dict(channels=48, depth=6, nfft=4096, samplerate=SR)  # hdemucs_mmi (tests/common.py:64)
 DEMUCS = dict(channels=64, depth=6, samplerate=SR)  # tests/common.py:65
 MDX_HYBRID = dict(hybrid_old=True, cac=False, norm_starts=999)  # tools/convert.py:63-72
@@ -519,6 +523,7 @@ def phase_kernels() -> list:
         torch.cuda.empty_cache()
         rows.append(k3_checks(gen))
         rows.append(k3_bf16_checks(gen))
+        rows += k3_head_dims_checks(gen)
     for row in rows:
         if "bound_ms" not in row:
             row["bound_ms"], row["bound_by"] = bound(row["flops"], row["bytes"])
@@ -665,25 +670,31 @@ def bf16_instances(report: tp.Optional[str] = None) -> dict:
 
 def bf16_excess(got, want) -> float:
     """K3 bf16 against its plain version: the max over finite ``want`` of
-    |got - want| - tol (1 + |want|) (<= 0 passes); inf unless NaN appears
-    exactly where ``want`` has it."""
+    |got - want| - tol (1 + |want|) (<= 0 passes; 0 where no value of
+    ``want`` is finite); inf unless NaN appears exactly where ``want`` has
+    it."""
     import torch
 
     got, want = got.float(), want.float()
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
         return math.inf
     fin = torch.isfinite(want)
+    if not fin.any():  # every row fully masked: NaN everywhere, as in the plain version
+        return 0.0
     return ((got[fin] - want[fin]).abs() - K3_BF16_TOL * (1 + want[fin].abs())).max().item()
 
 
 def fp32_err(got, want) -> float:
     """K3 fp32 against its plain version: the max |got - want| over finite
-    ``want``; inf unless NaN appears exactly where ``want`` has it."""
+    ``want`` (0 where none is); inf unless NaN appears exactly where
+    ``want`` has it."""
     import torch
 
     if not torch.equal(torch.isnan(got), torch.isnan(want)):
         return math.inf
     fin = torch.isfinite(want)
+    if not fin.any():  # every row fully masked: NaN everywhere, as in the plain version
+        return 0.0
     return (got[fin] - want[fin]).abs().max().item()
 
 
@@ -775,7 +786,10 @@ def k3_bf16_checks(gen) -> dict:
     worst = max(worst, masked)
     main = by_shape["B=1 freq<-freq"]
     instances = bf16_instances()
-    if len(instances) != len(KA.HEAD_DIMS) * 4 * 2 * 2 or not all(
+    # per head dim up to 64: 4 plans x dropout or not x masked or not; at 128
+    # one plan, no dropout, masked or not
+    wanted = (len(KA.HEAD_DIMS) - 1) * 4 * 2 * 2 + 2
+    if len(instances) != wanted or not all(
             {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
             for v in instances.values()):
         raise AssertionError(f"K3 bf16: nvcc's report lacks instances: {sorted(instances)}")
@@ -793,6 +807,154 @@ def k3_bf16_checks(gen) -> dict:
                    "bytes of q, k, v and o in bf16 moved once / 3.35 TB/s)",
         by_shape=by_shape, plan_sweep_ms=sweep, instances=instances,
         shape="q, k, v (1, 2688, 512) bf16, 8 heads (freq self)")
+
+
+# K3's head dims off its first instances (32, 48, 64): each runs on the next
+# instance up, padded; 128 is an instance of its own
+HEAD_DIM_CHECKS = (16, 24, 40, 96, 128)
+HEAD_DIM_HEADS = 4  # the released width's 512 channels in 4 heads: head dim 128
+
+
+def _head_dim_case(gen, B: int, Tq: int, Tk: int, d: int, bf16: bool = False,
+                   heads: int = HEAD_DIM_HEADS):
+    import torch
+
+    q, k, v = (torch.randn(B, T, heads * d, device="cuda", generator=gen) for T in (Tq, Tk, Tk))
+    return tuple(t.bfloat16() for t in (q, k, v)) if bf16 else (q, k, v)
+
+
+def _k3_against_plain(errs: dict, excess: dict, key: str, q, k, v, heads: int, mask,
+                      bf16: bool) -> None:
+    """One call of K3 through its wrapper against the plain version on the
+    same inputs: errs[key] the max |kernel - plain| over the plain's finite
+    values (inf where NaN differs), on bf16 also excess[key], the excess
+    over K3_BF16_TOL."""
+    from demucs_tpu_torch.kernels import attention as KA
+
+    got, want = KA.flash_mha(q, k, v, heads, mask=mask), KA.flash_mha_plain(q, k, v, heads,
+                                                                            mask=mask)
+    errs[key] = fp32_err(got.float(), want.float())
+    if bf16:
+        excess[key] = bf16_excess(got, want)
+
+
+def k3_head_dims_checks(gen) -> list:
+    """K3 at head dims 16, 24, 40, 96 (padded to the next instance) and 128
+    (its own instance) on both routes, unmasked and under a keep-mask whose
+    first key tile and one row are fully masked, against the plain version
+    at a ragged shape (fp32 K3_ATOL, bf16 2^-6 abs + rel, NaN only where the
+    plain version has it), and d = 128 at one query over 70 keys (B = 3, one
+    head; masked, the only row fully masked: NaN everywhere); then at freq
+    self (Tq = Tk = 2688, 4 heads) at B = 1 and 6: the D = 128 instances
+    (unmasked, and under the diag mask at the reference's defaults) against
+    the plain version on the timed inputs, beside SDPA with the same mask
+    and their bound (the function's least work at the true d: fp32 3 x 4 B
+    H Tq Tk d over 495 TFLOP/s, bf16 4 B H Tq Tk d over 989; masked, the
+    kept scores), and each padded head dim's time through the wrapper
+    beside the kernel alone on inputs padded before (the pad and the crop's
+    cost); the D = 128 instances' registers and spills (none may spill).
+    Returns the four D = 128 rows of the kernels line, their errors those
+    at freq self."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    H = HEAD_DIM_HEADS
+    errs, excess = {}, {}  # max |kernel - plain| (finite), and bf16's excess over its tolerance
+    for d in HEAD_DIM_CHECKS:
+        for bf16 in (False, True):
+            q, k, v = _head_dim_case(gen, 2, 333, 517, d, bf16)
+            mask = torch.rand(333, 517, device="cuda", generator=gen) > 0.4
+            mask[:, :64] = False
+            mask[7] = False
+            for m in (None, mask):
+                key = f"{'bf16' if bf16 else 'fp32'} d={d}{'' if m is None else ' masked'}"
+                _k3_against_plain(errs, excess, key, q, k, v, H, m, bf16)
+    for bf16 in (False, True):  # one query row, ragged keys, one head
+        q, k, v = _head_dim_case(gen, 3, 1, 70, 128, bf16, heads=1)
+        mask = torch.rand(1, 70, device="cuda", generator=gen) > 0.6
+        mask[0] = False
+        for m in (None, mask):
+            key = f"{'bf16' if bf16 else 'fp32'} d=128 3x1x70 H=1{'' if m is None else ' masked'}"
+            _k3_against_plain(errs, excess, key, q, k, v, 1, m, bf16)
+    timed, rows = {}, []
+    diag = keep_mask(2688, 2688, "diag", device="cuda", **MASK_DEFAULTS)
+    kept = int(diag.bool().sum().item())
+    for batch in (1, 6):
+        for d in HEAD_DIM_CHECKS:
+            for bf16 in (False, True):
+                route = "bf16" if bf16 else "fp32"
+                q, k, v = _head_dim_case(gen, batch, 2688, 2688, d, bf16)
+                key = f"{route} d={d} B={batch}"
+                timed[key] = {"ms": cuda_ms(lambda: KA.flash_mha(q, k, v, H))}
+                if d != 128:  # the kernel alone, on inputs padded before
+                    padded = [KA.pad_heads(t, H, KA.instance_dim(d)) for t in (q, k, v)]
+                    launch = KA._forward_bf16 if bf16 else KA._forward_f32
+                    timed[key]["kernel_ms"] = cuda_ms(
+                        lambda: launch(*padded, H, None, 0.0, 0, False, d))
+                    timed[key]["pad_crop_ms"] = timed[key]["ms"] - timed[key]["kernel_ms"]
+                    continue
+                split = [t.view(batch, -1, H, d).transpose(1, 2) for t in (q, k, v)]
+                size = 2 if bf16 else 4
+                for m in (None, diag):
+                    scores = 2688 * 2688 if m is None else kept
+                    flops = 4 * batch * H * scores * d
+                    nbytes = size * 2 * batch * 2 * 2688 * H * d + (0 if m is None else
+                                                                    2688 * 2688 // 8)
+                    b_ms, b_by = (bound(flops, nbytes, BF16_FLOPS) if bf16
+                                  else bound(3 * flops, nbytes, TF32_FLOPS))
+                    keep = None if m is None else m.bool()
+                    case = dict(
+                        ms=cuda_ms(lambda: KA.flash_mha(q, k, v, H, mask=m)),
+                        library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                            *split, attn_mask=keep)),
+                        bound_ms=b_ms, bound_by=b_by)
+                    case["bound_share"] = case["bound_ms"] / case["ms"]
+                    if batch == 1:
+                        case["plain_ms"] = cuda_ms(lambda: KA.flash_mha_plain(q, k, v, H, mask=m))
+                    name = key + ("" if m is None else " diag")
+                    _k3_against_plain(errs, excess, f"{name} freq self", q, k, v, H, m, bf16)
+                    timed[name] = case
+                del split
+            torch.cuda.empty_cache()
+    f_inst, b_inst = f32_instances(), bf16_instances()
+    inst = {**{f"fp32 {k}": v for k, v in f_inst.items() if k.startswith("d=128")},
+            **{f"bf16 {k}": v for k, v in b_inst.items() if k.startswith("d=128")}}
+    spills = [k for k, v in inst.items() if v.get("spill_stores") or v.get("spill_loads")]
+    if len(inst) != 4 or spills:
+        raise AssertionError(f"K3 D = 128: instances {sorted(inst)}, spilling {spills}")
+    for bf16 in (False, True):
+        route = "bf16" if bf16 else "fp32"
+        for masked in (False, True):
+            suffix = " diag" if masked else ""
+            b1, b6 = timed[f"{route} d=128 B=1{suffix}"], timed[f"{route} d=128 B=6{suffix}"]
+            name = ("flash_mha_bf16" if bf16 else "flash_mha") + " D=128" + (
+                " masked" if masked else "")
+            # the row's shape, both batches: the timed calls' outputs against the plain version
+            mine = [f"{route} d=128 B={batch}{suffix} freq self" for batch in (1, 6)]
+            worst = max(errs[k] for k in mine)
+            rows.append(dict(
+                name=name, source="demucs_tpu_torch/csrc/flash_mha_d128.cu",
+                replaces="demucs_tpu/ops/pallas/attention.py:103",
+                ms=b1["ms"], plain_ms=b1["plain_ms"], library_ms=b1["library_ms"],
+                library=f"F.scaled_dot_product_attention ({'bf16' if bf16 else 'fp32'}"
+                        f"{', same mask' if masked else ''})",
+                bound_ms=b1["bound_ms"], bound_by=b1["bound_by"], batch_6=b6,
+                max_abs_err=worst, tol=K3_BF16_TOL if bf16 else K3_ATOL,
+                within_tol=(max(excess[k] for k in mine) <= 0) if bf16 else worst <= K3_ATOL,
+                checked=mine,
+                shape=f"q, k, v (1, 2688, 512), 4 heads of 128 (freq self; also B = 6)"
+                      f"{', diag mask' if masked else ''}"))
+    bad = {k: v for k, v in errs.items() if not (excess[k] <= 0 if k in excess else v <= K3_ATOL)}
+    emit({"phase": "head_dim_kernels", "card": card_line(), "max_abs_err": errs,
+          "bf16_excess_over_tol": excess, "times": timed,
+          "instances": inst, "fp32_tol": K3_ATOL, "bf16_tol": K3_BF16_TOL,
+          "ok": not bad})
+    if bad:
+        raise AssertionError(f"K3 at head dims off its instances disagrees: {bad}")
+    return rows
 
 
 def card_vs_cpu(cpu_model, seconds: float, seed: int = 1) -> dict:
@@ -938,19 +1100,19 @@ class Counts:
         GRAPHS.forward = recorded
 
     def zero(self) -> None:
-        from demucs_tpu_torch.inference.engine import GRAPHS, KERNELS
+        from demucs_tpu_torch.inference.engine import GRAPHS
 
-        for kernel in KERNELS:
-            kernel.launches = 0
+        zero_launches()
         GRAPHS.reset_counts()
         self.eager.clear()
         self.replayed.clear()
 
     def read(self) -> dict:
-        from demucs_tpu_torch.inference.engine import GRAPHS, KERNELS
+        from demucs_tpu_torch.inference.engine import GRAPHS, _launch_counts
 
-        launches = {k.__name__: k.launches + GRAPHS.replayed_launches[k.__name__]
-                    for k in KERNELS}
+        # each wrapper's and each K3 instance's ("flash_mha D=128 masked")
+        launches = {name: n + GRAPHS.replayed_launches.get(name, 0)
+                    for name, n in _launch_counts().items()}
         forwards = self.eager + self.replayed
         k12 = sum(hasattr(m.cfg, "nfft") for m in forwards)
         attn = [(k3_per_forward(m.cfg), _bf16_attention(m)) for m in forwards]
@@ -960,8 +1122,18 @@ class Counts:
         return {"launches": launches, "expected": want, "eager_forwards": len(self.eager),
                 "graph_replays": len(self.replayed),
                 "replayed_launches": dict(GRAPHS.replayed_launches),
-                "ok": launches == want and bool(forwards)
+                "ok": {k: launches[k] for k in want} == want and bool(forwards)
                 and len(self.replayed) == GRAPHS.replays}
+
+
+def zero_launches() -> None:
+    """Every forward kernel wrapper's launch count at 0, K3's per instance too."""
+    from demucs_tpu_torch.inference.engine import KERNELS
+
+    for kernel in KERNELS:
+        kernel.launches = 0
+        for key in getattr(kernel, "launches_by_instance", {}):
+            kernel.launches_by_instance[key] = 0
 
 
 def phase_serving(cpu_model, workdir: Path) -> dict:
@@ -1259,7 +1431,8 @@ def phase_family(kind: str, workdir: Path) -> dict:
     card: the forward against a CPU copy (2 s), then a Separator loaded from
     a .dmx answering a 30 s and a 60 s request on each engine (the 44 s
     segment: 30 s is one exact tail, eager; 60 s one graph replay of 2 full
-    windows plus an eager tail), graphs, and one profiled 60 s request each."""
+    windows plus an eager tail), graphs, and one profiled 60 s request on
+    the device engine."""
     import torch
 
     from demucs_tpu_torch.api import Separator
@@ -1289,10 +1462,8 @@ def phase_family(kind: str, workdir: Path) -> dict:
                           "eager_forwards"],
                       "eager": "every exact tail (its own length); full windows replay",
                       "stats": after}
-    info["profile"] = {}
-    for engine_name, engine in (("device", "auto"), ("host", "host")):
-        sep.update_parameter(engine=engine)
-        info["profile"][f"{engine_name} 60 s"] = profile_request(sep, _track(60.0, 0))
+    sep.update_parameter(engine="auto")
+    info["profile"] = {"device 60 s": profile_request(sep, _track(60.0, 0))}
     info["max_memory_allocated_GiB"] = torch.cuda.max_memory_allocated() / 2**30
     dev_run = info["serving"]["engines"]["device"]
     info["ok"] = (info["card_vs_cpu"]["ok"] and info["serving"]["ok"]
@@ -1561,7 +1732,7 @@ def phase_presets(workdir: Path) -> tuple:
     """Each preset on each family, through Separator(compute_dtype=,
     matmul_precision=, transfer_dtype=) as the CLI's --preset resolves it for
     16-bit WAV output: HTDemucs (released widths, 7.8 s segment) at 30 s,
-    median of 5; HDemucs and Demucs v2 (44 s segment) at 30 s, median of 3;
+    median of 3; HDemucs and Demucs v2 (44 s segment) at 30 s, median of 2;
     the device engine after one warm-up request. Per preset: audio-s/s, the
     SER of its forward (float32 wire) and of its served stems against the
     family's fp32 forward (the default preset) for the same shift, peak
@@ -2201,13 +2372,14 @@ def run_cli(workdir: Path, repo: Path, name: str, samplerate: int, fmt: str = "w
 
 
 def phase_cli(workdir: Path, zoo: Path, bag: str) -> None:
-    """The CLI with the HTDemucs .dmx at 44.1 kHz, then with the repro_mdx_a-shape
-    bag of .th files on a 48 kHz WAV, which it resamples; then the .dmx on a
-    FLAC input with --flac output, and with --mp3 where LAME exists."""
+    """The CLI with the HTDemucs .dmx on a WAV at 44.1 kHz, then with the
+    repro_mdx_a-shape bag of .th files on a 48 kHz FLAC input, which it
+    resamples, with --flac output; then the .dmx with --mp3 where LAME
+    exists."""
     from demucs_tpu_torch import mp3io
 
-    runs = [run_cli(workdir, workdir, "htdemucs_smoke", SR), run_cli(workdir, zoo, bag, 48000),
-            run_cli(workdir, workdir, "htdemucs_smoke", SR, "flac", "--flac")]
+    runs = [run_cli(workdir, workdir, "htdemucs_smoke", SR),
+            run_cli(workdir, zoo, bag, 48000, "flac", "--flac")]
     if mp3io.lame_available():
         runs.append(run_cli(workdir, workdir, "htdemucs_smoke", SR, "flac", "--mp3"))
     else:
@@ -2236,7 +2408,7 @@ VARIANTS = {  # released widths, 7.8 s segment
 }
 VARIANT_REPEATS = 3  # each 30 s variant request, median reported
 LSH_MASK_DIFF = 1e-3  # share of LSH keep-mask entries the card may flip against the CPU
-EVAL_TRACKS, EVAL_SECONDS = 2, 10.0
+EVAL_TRACKS, EVAL_SECONDS = 1, 10.0
 EVAL_NSDR_TOL = 1e-4  # dB: evaluate()'s nsdr against eval_track on Separator's stems
 
 
@@ -2711,6 +2883,86 @@ def phase_variants(workdir: Path) -> tp.Tuple[dict, dict]:
     return info, paths
 
 
+HEAD_DIM_REPEATS = 3  # each 30 s request of the head_dims phase, median reported
+
+
+def phase_head_dims(workdir: Path) -> tp.Tuple[dict, dict]:
+    """HTDemucs at the released shape with t_heads=4 (512 channels in 4
+    heads: head dim 128, K3's D = 128 instances) through Separator on a 30 s
+    track in four forms: fp32 (K3's fp32 route), the fast preset (its bf16
+    route), and sparse self- and cross-attention at the reference's defaults
+    (the masked instances) in fp32 and on the fast preset. Per form: one 7.8
+    s segment on the card against a CPU copy (2e-4 x peak; on the fast
+    preset instead the SER of its stems against the fp32 form's on the same
+    weights, PRESET_SER_DB), a warm-up request (graphs captured),
+    then HEAD_DIM_REPEATS requests on the device engine with every launch
+    counted: K3's launches of the D = 128 instance of the form (masked on
+    the sparse form) must be all of K3's and more than 0; the wall time."""
+    import numpy as np
+    import torch
+
+    from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.models.registry import Model
+    from demucs_tpu_torch.presets import resolve_preset
+    from demucs_tpu_torch.zoo.native import save_model
+
+    shape = dict(RELEASED, t_heads=4)
+    wav = _track(30.0, 140)
+    fast = resolve_preset("fast", "auto")[:2]
+    info = {"phase": "head_dims", "card": card_line(), "model": shape, "tol": MODEL_RTOL,
+            "forms": {}}
+    paths, ref = {}, {}
+    for form, kw, preset in (("fp32", {}, None), ("fast", {}, fast), ("sparse", SPARSE, None),
+                             ("sparse fast", SPARSE, fast)):
+        name = "htd_heads4_sparse" if kw else "htd_heads4"
+        row = {}
+        if preset is None:
+            cfg = HTDemucsConfig(segment=7.8, **shape, **kw)
+            cpu_model = init_htdemucs(cfg, seed=6, layer_scale=1.0, random_norms=True).eval()
+            row["card_vs_cpu"] = card_vs_cpu(cpu_model, 7.8)
+            save_model(Model("htdemucs", cfg, cpu_model), workdir / f"{name}.dmx", half=False)
+            del cpu_model
+        extra = dict(compute_dtype=preset[0], matmul_precision=preset[1]) if preset else {}
+        sep = Separator(name, repo=workdir, shifts=1, batch_size=16, **extra)
+        counts = Counts(sep.model.module)
+        _stems(sep, wav)  # warm-up: captures the graphs
+        counts.zero()
+        walls = []
+        for _ in range(HEAD_DIM_REPEATS):
+            start = time.perf_counter()
+            stems = _stems(sep, wav)
+            walls.append(time.perf_counter() - start)
+        run = counts.read()
+        wall = sorted(walls)[len(walls) // 2]
+        route = "flash_mha_bf16" if preset else "flash_mha"
+        instance = f"{route} D=128" + (" masked" if kw else "")
+        launched = run["launches"]
+        row.update(launches=launched, expected=run["expected"], instance=instance,
+                   instance_launches=launched[instance], median_wall_s=wall, wall_s=walls,
+                   audio_s_per_s=30.0 / wall, graph_replays=run["graph_replays"],
+                   finite=bool(np.isfinite(stems).all()))
+        if preset is None:
+            ref[name] = stems
+            checked = row["card_vs_cpu"]["ok"]
+        else:  # the fast preset against the fp32 form of the same weights
+            row["ser_db_vs_fp32"] = _ser_db(ref[name], stems)
+            row["ser_bound_db"] = PRESET_SER_DB["fast"]
+            checked = row["ser_db_vs_fp32"] == "bit-equal" or row["ser_db_vs_fp32"] >= \
+                PRESET_SER_DB["fast"]
+        row["ok"] = (run["ok"] and checked and row["finite"]
+                     and launched[instance] == launched[route] > 0)
+        info["forms"][form] = row
+        paths[f"htdemucs heads4 {form}"] = launched
+        del sep, counts
+        torch.cuda.empty_cache()
+    info["ok"] = all(r["ok"] for r in info["forms"].values())
+    emit(info)
+    if not info["ok"]:
+        raise AssertionError("head_dims: a form's launches, card vs CPU or SER is wrong")
+    return info, paths
+
+
 def phase_memory(workdir: Path) -> dict:
     """pass_memory_analysis for a 30 s request of the served HTDemucs (the
     JAX engine's report, here from a run of the pass) against what the same
@@ -2809,7 +3061,7 @@ def _musdb_folder(root: Path, tracks: int, seconds: float) -> Path:
 def phase_evaluate(workdir: Path) -> dict:
     """evaluate(compute_sdr=True) on the card (the served HTDemucs, shifts 0,
     workers 0, museval where installed, else the port's bss_eval_images) over
-    a synthetic 2-track x 10 s MusdbHQ folder: each track's nsdr against
+    a synthetic 1-track x 10 s MusdbHQ folder: each track's nsdr against
     eval_track on Separator's stems for that track (EVAL_NSDR_TOL; Separator
     normalizes by std + 1e-8, evaluate by std), seconds per track for the
     separation on the card and for BSS-eval on the host."""
@@ -2883,8 +3135,8 @@ TRAIN_CHECK_LOSS = "mse"
 TRAIN_GRAD_RTOL = 2e-4
 TRAIN_GRAD_FLOOR = 1e-5
 TRAIN_BATCH = 8  # the throughput loop's batch (4 where 8 does not fit)
-TRAIN_STEPS = 12  # steps 3-12 timed
-SPARSE_TRAIN_STEPS = 5  # the sparse training paths' steps (3-5 timed)
+TRAIN_STEPS = 6  # steps 3-6 timed
+SPARSE_TRAIN_STEPS = 4  # the sparse training paths' steps (3-4 timed)
 TRAIN_SEGMENT = 7.8  # the released HTDemucs's training segment, seconds
 ENTRY_BATCH = 4  # the entry point's batch (the remix augment's group size)
 TRAIN_KERNELS = ("stft_dft", "istft_dft", "flash_mha", "flash_mha_bwd", "istft_dft_backward",
@@ -3883,8 +4135,8 @@ def train_entry_point(workdir: Path) -> dict:
     """``python -m demucs_tpu_torch.train`` on a synthetic wav folder at the
     released width (t_dropout TRAIN_DROPOUT, batch ENTRY_BATCH, 8.8 s windows
     shifted by up to 1 s: 7.8 s inputs, every augment but repitch), 2 batches
-    an epoch, 3 epochs: the process is killed once epoch 2's checkpoint is
-    written (a preempted job), and the same command resumes it for epoch 3.
+    an epoch, 2 epochs: the process is killed once epoch 1's checkpoint is
+    written (a preempted job), and the same command resumes it for epoch 2.
     The loss is finite, the history continues, and the best model separates
     a 10 s track through Separator on the card."""
     import json
@@ -3902,7 +4154,7 @@ def train_entry_point(workdir: Path) -> dict:
     cmd = [*_entry_command(counted), f"dset.wav={data}",
            "dset.use_musdb=false", "dset.segment=8.8", "dset.shift=1", f"dset.samplerate={SR}",
            f"dset.metadata={workdir / 'train_meta'}", f"model_segment={TRAIN_SEGMENT}",
-           f"model_args={model_args}", f"batch_size={ENTRY_BATCH}", "epochs=3", "max_batches=1",
+           f"model_args={model_args}", f"batch_size={ENTRY_BATCH}", "epochs=2", "max_batches=1",
            "augment.repitch.proba=0", f"out_dir={out}", "misc.num_workers=4", "ema.epoch=[0.9]"]
     env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     start = time.perf_counter()
@@ -3911,14 +4163,14 @@ def train_entry_point(workdir: Path) -> dict:
     log1 = []
     for line in first.stderr:
         log1.append(line.rstrip())
-        if "Checkpoint written: epoch 2" in line:
+        if "Checkpoint written: epoch 1" in line:
             first.kill()
             break
     first.wait(timeout=60)
     first.stderr.close()
     killed_s = time.perf_counter() - start
-    if not any("Checkpoint written: epoch 2" in line for line in log1):
-        raise AssertionError("the training entry point ended before epoch 2's checkpoint:\n"
+    if not any("Checkpoint written: epoch 1" in line for line in log1):
+        raise AssertionError("the training entry point ended before epoch 1's checkpoint:\n"
                              + "\n".join(log1[-40:]))
     (folder,) = (out / "xps").iterdir()
     history1 = json.loads((folder / "history.json").read_text())
@@ -3941,9 +4193,9 @@ def train_entry_point(workdir: Path) -> dict:
             "separated_10s_stems": sorted(stems),
             "replayed_epoch_1": any("Replay | Epoch 1" in x for x in log2),
             "resumed_run_launches": _entry_launches(counted)}
-    info["ok"] = (second.returncode == 0 and len(history1) == 2 and len(history) == 3
+    info["ok"] = (second.returncode == 0 and len(history1) == 1 and len(history) == 2
                   and info["resumed_run_launches"].get("flash_mha", 0) > 0
-                  and history[:2] == history1 and info["replayed_epoch_1"]
+                  and history[:1] == history1 and info["replayed_epoch_1"]
                   and all(math.isfinite(x) for x in info["train_loss_by_epoch"])
                   and sorted(stems) == ["bass", "drums", "other", "vocals"]
                   and all(np.isfinite(s).all() and s.shape == mix.shape for s in stems.values()))
@@ -4623,7 +4875,7 @@ def phase_export(workdir: Path, xp: Path) -> dict:
 
 PAR_BATCH = 8  # the data-parallel checks' global batch of the released HTDemucs
 PAR_FAMILY_BATCH = 4  # HDemucs and Demucs v2 (A7.6)
-PAR_STEPS = 3
+PAR_STEPS = 2
 PAR_LR = 1e-4
 # a path against one process after PAR_STEPS Adam steps: each step's loss within
 # TRAIN_RTOL, the last step's gradients within the train allowance, and the weights at
@@ -5237,7 +5489,16 @@ K3_PAIR_DIR = ROOT / "build" / "k3_pair"
 K3_PAIR_SASS = {"flash_mha_bf16_kernelILi64ELi128ELi3E": "dropout",
                 "flash_mha_bf16_kernelILi64ELi128ELi2E": "dropout",
                 "flash_mha_bf16_masked_kernelILi64ELi128ELi3E": "dropout",
-                "flash_mha_kernelILi64ELi2E": "masked"}
+                "flash_mha_kernelILi64ELi2E": "masked",
+                # head dims 32 and 48, which no change to the head dim 128
+                # instances may touch
+                "flash_mha_bf16_kernelILi32ELi128ELi2E": "dropout",
+                "flash_mha_bf16_kernelILi48ELi128ELi2E": "dropout",
+                "flash_mha_bf16_masked_kernelILi48ELi64ELi3E": "dropout",
+                "flash_mha_kernelILi32ELi2E": "masked",
+                "flash_mha_kernelILi48ELi2E": "masked"}
+# the other head dims' forwards --k3-pair times in turns: (head dim, heads)
+K3_PAIR_DIMS = ((32, 16), (48, 8))
 # the same for the unmasked backward's block kernels (their next argument: the
 # deterministic order)
 K3_PAIR_BWD_SASS = {"Bf16BwdILi64ELi2E": "ordered", "Bf16BwdILi64ELi1E": "ordered",
@@ -5425,7 +5686,7 @@ def _pair_libs(libs: dict):
     from demucs_tpu_torch.kernels import attention as KA
 
     def legacy(route):  # the wrappers' unmasked launches on a tree before the tile maps
-        def launch(q, k, v, num_heads, tiles, rate, seed, want_lse):
+        def launch(q, k, v, num_heads, tiles, rate, seed, want_lse, head_dim=None):
             if tiles is not None:
                 raise ValueError("a tree before the tile maps: mask through k3_forward")
             return k3_forward(route, q, k, v, num_heads, None, rate, seed, want_lse)
@@ -5543,14 +5804,42 @@ def k3_pair(trees: list, libs: list) -> dict:
                             f"{bk} keys {r} rows {'persistent' if persistent else 'grid'}"] = \
                             cuda_ms(lambda: KA._forward_bf16(q, k, v, H, None, TRAIN_DROPOUT, 5,
                                                              False)[0])
+    # the forwards at head dims 32 and 48, unmasked and under the diag mask
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    diag = keep_mask(2688, 2688, "diag", device=dev, **MASK_DEFAULTS)
+    dims = {}
+    for batch in (1, 8):
+        for d, heads in K3_PAIR_DIMS:
+            q, k, v = (torch.randn(batch, 2688, d * heads, device=dev, generator=gen)
+                       for _ in range(3))
+            qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+            cases = {
+                "f32_fwd": lambda: k3_forward("f32", q, k, v, heads, None),
+                "bf16_fwd": lambda: k3_forward("bf16", qb, kb, vb, heads, None),
+                "f32_fwd_diag": lambda: k3_forward("f32", q, k, v, heads, diag),
+                "bf16_fwd_diag": lambda: k3_forward("bf16", qb, kb, vb, heads, diag)}
+            times = {name: [[] for _ in trees] for name in cases}
+            for i in order:
+                with _pair_libs(libs[i]):
+                    for name, fn in cases.items():
+                        times[name][i].append(cuda_ms(fn))
+            dims[f"B={batch} freq<-freq d={d}"] = {
+                name: [sum(t) / len(t) for t in per] for name, per in times.items()}
+            del q, k, v, qb, kb, vb
+            torch.cuda.empty_cache()
     instances = [bf16_instances(lib["flash_mha.ptxas"]) for lib in libs]
     ratios = {name: [min(r[name][-1] / r[name][0] for r in rows.values()),
                      max(r[name][-1] / r[name][0] for r in rows.values())]
               for name in next(iter(rows.values())) if name not in (
                   "readings", "bf16_dropout_max_abs_diff_to_tree_0", "drop_pattern_mismatches")}
     sass = [lib.get("sass") for lib in libs]
+    dim_ratios = {name: [min(r[name][-1] / r[name][0] for r in dims.values()),
+                         max(r[name][-1] / r[name][0] for r in dims.values())]
+                  for name in next(iter(dims.values()))}
     info = {"phase": "k3_pair", "card": card_line(), "trees": [str(t) for t in trees],
             "order": order, "by_shape": rows, "last_over_first_tree": ratios,
+            "other_dims": dims, "other_dims_last_over_first_tree": dim_ratios,
             "plan_sweep_dropout_ms": sweep, "bf16_instances": instances,
             "bwd_instances": [bwd_instances(r, lib["flash_mha_bwd.ptxas"])
                               for lib in libs for r in ("Bf16Bwd", "F32Bwd")],
@@ -5643,6 +5932,7 @@ def main() -> int:
         paths.update(stream_paths)
         _, variant_paths = phase_variants(workdir)
         paths.update(variant_paths)
+        paths.update(phase_head_dims(workdir)[1])
         phase_memory(workdir)
         phase_evaluate(workdir)
         train_rows, train_paths = phase_train(workdir)

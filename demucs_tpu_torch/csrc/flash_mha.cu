@@ -1,8 +1,8 @@
 // K3: multi-head attention over projected q/k/v, the unmasked kernels and
 // the C entries of both routes (fp32 in the three-term TF32 split, bf16):
 // the design, the bound and the code are in flash_mha.cuh; a launch given a
-// keep-mask's tile map runs flash_mha_masked.cu's kernels, linked into the
-// same library.
+// keep-mask's tile map runs flash_mha_masked.cu's kernels, and a launch at
+// head dim 128 flash_mha_d128.cu's, both linked into the same library.
 //
 // Replaces demucs_tpu/ops/pallas/attention.py: flash_mha (kernel _attn_kernel).
 
@@ -11,12 +11,14 @@
 extern "C" {
 
 // q (B, Tq, H*D), k/v (B, Tk, H*D) -> o (B, Tq, H*D). tile_map and bits:
-// null, or a keep-mask's tile map for block_rows rows and 64 keys and its
-// packed words (see mask_rows). image: scratch of B * H * ceil(Tk / 64) * 4
-// * 64 * D floats. q_scale = log2(e) / sqrt(D); block_rows 64 or 128 query
-// rows per block. lse: null, or (B * H, Tq) floats for each row's base-2
-// log-sum-exp. Dropout of the probabilities at `rate` (0: none) under `seed`
-// (attention_dropout.cuh).
+// null, or a keep-mask's tile map for block_rows rows and BK keys and its
+// packed words (see mask_rows); BK = 64, and 32 at D = 128 (f32_keys).
+// image: scratch of B * H * ceil(Tk / BK) * 4 * BK * D floats. D: 32, 48, 64
+// or 128; q_scale = log2(e) / sqrt(d), d the heads' own dim (a head padded
+// with zero channels to D keeps its scale); block_rows 64 or 128 query rows
+// per block (64 at D = 128). lse: null, or (B * H, Tq) floats for each row's
+// base-2 log-sum-exp. Dropout of the probabilities at `rate` (0: none) under
+// `seed` (attention_dropout.cuh).
 int flash_mha_f32(const float* q, const float* k, const float* v, const int* tile_map,
                   const unsigned int* bits, float* image, float* o, float* lse, int B, int Tq,
                   int Tk, int H, int D, float q_scale, int block_rows, float rate, int seed,
@@ -37,9 +39,10 @@ int flash_mha_f32(const float* q, const float* k, const float* v, const int* til
 
 // The bf16 route: q (B, Tq, H*D), k/v (B, Tk, H*D), o (B, Tq, H*D), all bf16
 // with 16-byte aligned bases; tile_map (for block_rows rows and key_tile
-// keys) and bits as for flash_mha_f32. scale = log2(e) / sqrt(D), applied to
-// the fp32 scores. key_tile 64 or 128 keys, block_rows 128 or 192 query
-// rows; ctas blocks in the grid, each a range of the persistent schedule
+// keys) and bits as for flash_mha_f32. scale = log2(e) / sqrt(d) as
+// flash_mha_f32's q_scale, applied to the fp32 scores. key_tile 64 or 128
+// keys, block_rows 128 or 192 query rows (D = 128: 64 keys, 128 rows, no
+// dropout); ctas blocks in the grid, each a range of the persistent schedule
 // over the units (Schedule; ctas = the row blocks: a block each; part: fp32
 // scratch of 2 ctas block_rows (D + 2) floats, which may be null when no
 // range starts inside a row block, and under a mask is given exactly when
@@ -78,6 +81,8 @@ int flash_mha_bf16_tiles(const void* q, const void* k, const void* v, const floa
       return dispatch_tiles<48>(key_tile, qb, kb, vb, p, s_out, o_out, s);
     case 64:
       return dispatch_tiles<64>(key_tile, qb, kb, vb, p, s_out, o_out, s);
+    case 128:
+      return flash_mha_bf16_tiles_d128(qb, kb, vb, p, s_out, o_out, key_tile, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -62,7 +62,18 @@
 //   c+4 is key 2c+1.
 // - With two consumer warpgroups, one computes its softmax while the
 //   other's products run. Templated on D in {32, 48, 64} and NWG in {1, 2}
-//   (64 or 128 query rows per block).
+//   (64 or 128 query rows per block), and D = 128 with NWG = 1.
+// - D = 128 (flash_mha_d128.cu; a head of 64 < d < 128 channels comes here
+//   padded with zeros, kernels/attention.py). What bounds it is room, not
+//   work: Q's split in registers would take 128 a thread beside o's 64 and
+//   the tile's P V's 64, and a 64-key tile's image 128 KiB a stage. So the
+//   one consumer warpgroup writes Q's split to shared memory in the K
+//   part's layout (64 KiB) and issues S with both operands by descriptor
+//   (score_tile_ss, m64n32k8), the tiles hold 32 keys (f32_keys: 64 KiB a
+//   stage, two stages), and P V is m64n128k8 from registers: 194 KiB a
+//   block, 182-189 registers, no spill. One warpgroup a block: no softmax
+//   runs under another's products (29-44 % of the bound on the H100 against
+//   the d = 64 instance's 47-71 %, PERF.md).
 // - Under a keep-mask (the reference's sparse attention; the Pallas kernel
 //   takes the keep test at every score). What bounded the first masked
 //   kernel on this card: it visited every tile, masked or not, and after
@@ -108,16 +119,38 @@
 #include "hopper.cuh"
 #include "tensor_map.cuh"
 
+// The head dim 128 launches of both routes, unmasked and masked, defined in
+// flash_mha_d128.cu (a source of its own, compiled beside the others and
+// linked into the same library): the switches below (run_f32, run_bf16) and
+// flash_mha_bf16_tiles call them.
+int flash_mha_f32_d128(bool masked, const float* q, const float* k, const float* v,
+                       const int* tile_map, const unsigned int* bits, float* image, float* o,
+                       float* lse, int B, int Tq, int Tk, int H, float q_scale, int block_rows,
+                       Dropout drop, cudaStream_t s);
+int flash_mha_bf16_d128(bool masked, const __nv_bfloat16* q, const __nv_bfloat16* k,
+                        const __nv_bfloat16* v, const int* tile_map, const unsigned int* bits,
+                        __nv_bfloat16* o, float* part, float* lse, int B, int Tq, int Tk, int H,
+                        float scale, int key_tile, int block_rows, int ctas, Dropout drop,
+                        cudaStream_t s);
+int flash_mha_bf16_tiles_d128(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, const float* p, float* s_out, float* o_out,
+                              int key_tile, cudaStream_t s);
+
 namespace {
 
 using namespace hopper;
 using tensor_map::ENCODE_FAILED;
 using tensor_map::HeadImage;
 
-constexpr int BK = 64;       // keys per tile
+constexpr int BK = 64;       // keys per tile (the fp32 route: f32_keys)
 constexpr int ROWS_WG = 64;  // query rows per consumer warpgroup
 constexpr int STAGES = 2;     // K/V tiles in flight per block (3 is no faster on the H100)
 constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// Keys per tile of the fp32 route at head dim D: 64, and 32 at D = 128, where
+// a tile's image (K and V^T, hi and lo: 4 BK D floats) of 64 keys would take
+// 128 KiB a stage.
+__host__ __device__ constexpr int f32_keys(int D) { return D == 128 ? 32 : 64; }
 
 // ---- the keep-mask, as both routes read it (kernels/attention.py MaskTiles) ----
 // tile_map, for the launch's plan (query rows a block, keys a tile), int32:
@@ -140,9 +173,16 @@ __host__ __device__ constexpr int mask_rows(int Tq) { return (Tq + 383) / 384 * 
 // launch takes at most OFF_SMEM - 1 row blocks (kernels/attention.py).
 constexpr int OFF_SMEM = 512;
 
+// The 128-key group of the packed words that holds key tile t of BK keys.
+template <int BK>
+__device__ __forceinline__ int mask_group(int t) {
+  return BK == 128 ? t : BK == 64 ? t >> 1 : t >> 2;
+}
+
 // Loads the mask words of a thread's rows rr and rr + 8 (in its block) for
 // a partial tile t from the stage's copy (ROWS x 4 words): 32 keys a row at
-// 128 keys a tile, the tile's 16 at 64 (bit 2 j + b: key 8 j + 2c + b).
+// 128 keys a tile, the tile's 16 at 64, its 8 at 32 (bit 2 j + b: key 8 j +
+// 2c + b).
 template <int BK>
 __device__ __forceinline__ void load_words(uint32_t (&w)[2], const uint32_t* words, int rr, int c,
                                            int t) {
@@ -150,6 +190,10 @@ __device__ __forceinline__ void load_words(uint32_t (&w)[2], const uint32_t* wor
   w[1] = words[(rr + 8) * 4 + c];
   if constexpr (BK == 64) {
     const int shift = 16 * (t & 1);
+    w[0] >>= shift;
+    w[1] >>= shift;
+  } else if constexpr (BK == 32) {
+    const int shift = 8 * (t & 3);
     w[0] >>= shift;
     w[1] >>= shift;
   }
@@ -197,9 +241,11 @@ __host__ __device__ constexpr int k_offset(int j, int c) {
   return ((j >> 3) * (D / 4) + (c >> 2)) * 32 + (j & 7) * 4 + (c & 3);
 }
 
-// Float offset of (key j, channel c) in a tile's V^T part: core matrices of
-// 8 channels x 4 k-positions, those of one group of 8 channels side by side;
-// key j sits at k-position 8 (j / 8) + (j % 8) / 2 + 4 (j % 2).
+// Float offset of (key j, channel c) in a tile's V^T part (BK keys):
+// core matrices of 8 channels x 4 k-positions, those of one group of 8
+// channels side by side; key j sits at k-position 8 (j / 8) + (j % 8) / 2 +
+// 4 (j % 2).
+template <int BK>
 __host__ __device__ constexpr int v_offset(int j, int c) {
   return ((c >> 3) * (BK / 4) + 2 * (j >> 3) + (j & 1)) * 32 + (c & 7) * 4 + ((j & 7) >> 1);
 }
@@ -232,9 +278,43 @@ __device__ __forceinline__ void score_tile(float (&s)[BK / 2], uint32_t (&qhi)[D
   for (int e = 0; e < BK / 2; ++e) fence_operand(s[e]);
 }
 
-// o = P V of one tile for one warpgroup, 3xTF32; p holds P in the S
-// accumulator layout.
-template <int D>
+// score_tile with Q from shared memory (head dim 128, where Q's split would
+// take 128 registers a thread): q_hi and q_lo are the warpgroup's 64 rows in
+// the K part's layout (k_offset, a row as a key), both operands by
+// descriptor, 32 keys a tile.
+template <int D, int BK>
+__device__ __forceinline__ void score_tile_ss(float (&s)[BK / 2], const float* q_hi,
+                                              const float* q_lo, const float* k_hi,
+                                              const float* k_lo) {
+  static_assert(BK == 32, "MmaTf32SS32 takes 32 keys");
+  constexpr uint32_t LBO = 128, SBO = 32 * D;  // bytes to the next 4 channels, next 8 rows
+  const uint32_t qh = smem_addr(q_hi), ql = smem_addr(q_lo);
+  const uint32_t hi = smem_addr(k_hi), lo = smem_addr(k_lo);
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) fence_operand(s[e]);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    MmaTf32SS32::run(s, smem_desc(qh + 256 * ks, LBO, SBO), smem_desc(lo + 256 * ks, LBO, SBO),
+                     ks > 0);
+  }
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    MmaTf32SS32::run(s, smem_desc(ql + 256 * ks, LBO, SBO), smem_desc(hi + 256 * ks, LBO, SBO), 1);
+  }
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    MmaTf32SS32::run(s, smem_desc(qh + 256 * ks, LBO, SBO), smem_desc(hi + 256 * ks, LBO, SBO), 1);
+  }
+  wgmma_commit();
+  wgmma_wait_all();
+#pragma unroll
+  for (int e = 0; e < BK / 2; ++e) fence_operand(s[e]);
+}
+
+// o = P V of one tile of BK keys for one warpgroup, 3xTF32; p holds P in the
+// S accumulator layout.
+template <int D, int BK>
 __device__ __forceinline__ void value_tile(float (&o)[D / 2], const float (&p)[BK / 2],
                                            const float* v_hi, const float* v_lo) {
   constexpr uint32_t LBO = 128, SBO = 128 * (BK / 4);  // next 4 k-positions, next 8 channels
@@ -269,24 +349,24 @@ __device__ __forceinline__ void value_tile(float (&o)[D / 2], const float (&p)[B
   for (int e = 0; e < D / 2; ++e) fence_operand(o[e]);
 }
 
-// The float4 walk of kv_image_kernel over a tile's image: float4 f of a
-// part is row f % 8 of core matrix f / 8. True if each value lands where
-// k_offset and v_offset (the layout the descriptors describe) put it.
-template <int D>
+// The float4 walk of kv_image_kernel over a tile's image (BK keys): float4
+// f of a part is row f % 8 of core matrix f / 8. True if each value lands
+// where k_offset and v_offset (the layout the descriptors describe) put it.
+template <int D, int BK>
 constexpr bool image_walk_matches_offsets() {
   for (int f = 0; f < BK * D / 4; ++f) {
     const int cm = f >> 3, r = f & 7, kc = cm % (BK / 4);
     for (int e = 0; e < 4; ++e) {
       if (k_offset<D>(8 * (cm / (D / 4)) + r, 4 * (cm % (D / 4)) + e) != 4 * f + e) return false;
-      if (v_offset(8 * (kc >> 1) + (kc & 1) + 2 * e, 8 * (cm / (BK / 4)) + r) != 4 * f + e) {
+      if (v_offset<BK>(8 * (kc >> 1) + (kc & 1) + 2 * e, 8 * (cm / (BK / 4)) + r) != 4 * f + e) {
         return false;
       }
     }
   }
   return true;
 }
-static_assert(image_walk_matches_offsets<32>() && image_walk_matches_offsets<48>() &&
-                  image_walk_matches_offsets<64>(),
+static_assert(image_walk_matches_offsets<32, 64>() && image_walk_matches_offsets<48, 64>() &&
+                  image_walk_matches_offsets<64, 64>() && image_walk_matches_offsets<128, 32>(),
               "kv_image_kernel's walk disagrees with the image layout");
 
 // hi and lo parts of four values (see tf32_hi).
@@ -295,14 +375,16 @@ __device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
   lo = make_float4(x.x - hi.x, x.y - hi.y, x.z - hi.z, x.w - hi.w);
 }
 
-// k, v (B, Tk, H*D) -> image (B, H, n_tiles, 4, BK * D): per tile K hi, K lo,
-// V^T hi, V^T lo at k_offset / v_offset, zero past Tk. Grid (n_tiles, H, B).
-// The tile's rows of k and v go through shared memory, so that both the
-// reads and the writes are whole float4s of consecutive addresses.
+// k, v (B, Tk, H*D) -> image (B, H, n_tiles, 4, BK * D), BK = f32_keys(D):
+// per tile K hi, K lo, V^T hi, V^T lo at k_offset / v_offset, zero past Tk.
+// Grid (n_tiles, H, B). The tile's rows of k and v go through shared memory,
+// so that both the reads and the writes are whole float4s of consecutive
+// addresses.
 template <int D>
 __global__ void __launch_bounds__(256)
 kv_image_kernel(const float* __restrict__ k, const float* __restrict__ v,
                 float* __restrict__ image, int Tk, int H) {
+  constexpr int BK = f32_keys(D);
   constexpr int N4 = BK * D / 4;  // float4s in one part of a tile's image
   constexpr int LD = D + 4;       // padded rows: 8 rows' float4s hit 32 distinct banks
   __shared__ __align__(16) float ks[BK * LD], vs[BK * LD];
@@ -330,8 +412,8 @@ kv_image_kernel(const float* __restrict__ k, const float* __restrict__ v,
            hi, lo);
     dst[f] = hi;
     dst[N4 + f] = lo;
-    // V^T: channel 8 (cm / 16) + r, k-positions 4 kc + 0..3 of core column
-    // kc = cm % 16, which are keys j0, j0 + 2, j0 + 4, j0 + 6
+    // V^T: channel 8 (cm / (BK / 4)) + r, k-positions 4 kc + 0..3 of core
+    // column kc = cm % (BK / 4), which are keys j0, j0 + 2, j0 + 4, j0 + 6
     const int ch = 8 * (cm / (BK / 4)) + r, kc = cm % (BK / 4);
     const int j0 = 8 * (kc >> 1) + (kc & 1);
     split4(make_float4(vs[j0 * LD + ch], vs[(j0 + 2) * LD + ch], vs[(j0 + 4) * LD + ch],
@@ -342,18 +424,40 @@ kv_image_kernel(const float* __restrict__ k, const float* __restrict__ v,
   }
 }
 
+// The fp32 route's block at head dim D, NWG consumer warpgroups.
+template <int D, int NWG, bool MASKED>
+struct F32Cfg {
+  static constexpr int ROWS = ROWS_WG * NWG;
+  static constexpr int BK = f32_keys(D);  // keys a tile
+  // D = 128: Q's split in shared memory (hi, then lo), before the ring
+  static constexpr bool Q_SMEM = D == 128;
+  static_assert(!Q_SMEM || NWG == 1, "D = 128 takes one consumer warpgroup");
+  static constexpr uint32_t Q_BYTES = Q_SMEM ? 2 * ROWS * D * sizeof(float) : 0;
+  static constexpr uint32_t STAGE_BYTES = 4 * BK * D * sizeof(float);  // a tile's image
+  // MASKED: a partial tile's mask words (4 a row) and each stage's unit
+  static constexpr uint32_t WORDS = MASKED ? ROWS * 16 : 0;
+  static constexpr int UNITS = MASKED ? STAGES : 0;
+  // Q's images, the ring, the stages' words, their units, the barriers
+  static constexpr size_t SMEM =
+      Q_BYTES + STAGES * (STAGE_BYTES + WORDS) + UNITS * 4 + 2 * STAGES * 8;
+};
+static_assert(F32Cfg<64, 2, true>::SMEM <= 227 * 1024 && F32Cfg<128, 1, true>::SMEM <= 227 * 1024,
+              "the ring exceeds a block's shared memory");
+
 // The consumer warpgroups of flash_mha_kernel: the row block's n units (its
 // listed tiles under a mask, else every tile), in the order the producer
 // streams them; ents and words: each stage's unit (tile << 1 | partial) and,
-// for a partial tile, its mask words. mask: always null (mask_tile).
+// for a partial tile, its mask words. mask: always null (mask_tile). q_img:
+// at D = 128 the block's shared memory for Q's split (F32Cfg::Q_BYTES).
 template <int D, int NWG, bool MASKED>
 __device__ __forceinline__ void consume(const float* __restrict__ q, const float* ring,
-                                        uint64_t* full, uint64_t* empty,
+                                        float* q_img, uint64_t* full, uint64_t* empty,
                                         const unsigned char* __restrict__ mask,
                                         const uint32_t* words, const int* ents, int n,
                                         float* __restrict__ o, float* __restrict__ lse,
                                         int Tq, int Tk, int H, float q_scale, Dropout drop) {
-  constexpr int TILE = BK * D, ROWS = ROWS_WG * NWG;
+  using Cfg = F32Cfg<D, NWG, MASKED>;
+  constexpr int BK = Cfg::BK, TILE = BK * D, ROWS = ROWS_WG * NWG;
   const int b = blockIdx.z, h = blockIdx.y;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // A consumer warp: rows `row` and `row + 8` of its 16, columns 2c, 2c + 1
@@ -361,8 +465,28 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
   const int g = lane / 4, c = lane % 4;
   const int rr = warp * 16 + g, row = blockIdx.x * ROWS + rr;
   const int C = H * D;
-  uint32_t qhi[D / 8][4], qlo[D / 8][4];
-  {
+  constexpr int QREG = Cfg::Q_SMEM ? 1 : D / 8;  // Q's split in registers, D <= 64
+  uint32_t qhi[QREG][4], qlo[QREG][4];
+  if constexpr (Cfg::Q_SMEM) {
+    // D = 128: Q's split would take 128 registers a thread beside o (64)
+    // and the tile's P V (64), so the warpgroup writes it to shared memory
+    // in the K part's layout (k_offset, a row as a key), zero past Tq, and
+    // the S products read it by descriptor (score_tile_ss).
+    for (int f = threadIdx.x; f < ROWS * D / 4; f += 128 * NWG) {
+      const int r = f / (D / 4), col = 4 * (f % (D / 4)), gr = blockIdx.x * ROWS + r;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gr < Tq) {
+        x = *reinterpret_cast<const float4*>(q + ((size_t)b * Tq + gr) * C + h * D + col);
+        x = make_float4(x.x * q_scale, x.y * q_scale, x.z * q_scale, x.w * q_scale);
+      }
+      float4 hi, lo;
+      split4(x, hi, lo);
+      *reinterpret_cast<float4*>(q_img + k_offset<D>(r, col)) = hi;
+      *reinterpret_cast<float4*>(q_img + ROWS * D + k_offset<D>(r, col)) = lo;
+    }
+    fence_proxy_async();  // the generic writes, before the wgmma's reads
+    named_bar_sync(1, 128 * NWG);
+  } else {
     const float* q0 = q + ((size_t)b * Tq + row) * C + h * D;
     const float* q1 = q0 + (size_t)8 * C;
     const bool ok0 = row < Tq, ok1 = row + 8 < Tq;
@@ -389,7 +513,11 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
     mbar_wait(&full[st], (i / STAGES) & 1);
     const float* tile = ring + st * 4 * TILE;
     float s[BK / 2];
-    score_tile<D>(s, qhi, qlo, tile, tile + TILE);
+    if constexpr (Cfg::Q_SMEM) {
+      score_tile_ss<D, BK>(s, q_img, q_img + ROWS * D, tile, tile + TILE);
+    } else {
+      score_tile<D>(s, qhi, qlo, tile, tile + TILE);
+    }
     // a full tile takes no test; an unmasked launch tests keys past Tk
     int k0 = i * BK;
     if constexpr (MASKED) {
@@ -439,7 +567,7 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
     // tensor core's accumulation truncates, and over all tiles of a long
     // row that bias would add up in o.
     float pv[D / 2];
-    value_tile<D>(pv, s, tile + 2 * TILE, tile + 3 * TILE);
+    value_tile<D, BK>(pv, s, tile + 2 * TILE, tile + 3 * TILE);
     if (lane == 0) mbar_arrive(&empty[st]);
 #pragma unroll
     for (int e = 0; e < D / 2; ++e) acc[e] = fmaf(acc[e], alpha[(e >> 1) & 1], pv[e]);
@@ -466,21 +594,9 @@ __device__ __forceinline__ void consume(const float* __restrict__ q, const float
   }
 }
 
-template <int D, int NWG, bool MASKED>
-struct F32Cfg {
-  static constexpr int ROWS = ROWS_WG * NWG;
-  static constexpr uint32_t STAGE_BYTES = 4 * BK * D * sizeof(float);  // a tile's image
-  // MASKED: a partial tile's mask words (4 a row) and each stage's unit
-  static constexpr uint32_t WORDS = MASKED ? ROWS * 16 : 0;
-  static constexpr int UNITS = MASKED ? STAGES : 0;
-  // the ring, the stages' words, their units, the barriers
-  static constexpr size_t SMEM = STAGES * (STAGE_BYTES + WORDS) + UNITS * 4 + 2 * STAGES * 8;
-};
-static_assert(F32Cfg<64, 2, true>::SMEM <= 227 * 1024, "the ring exceeds a block's shared memory");
-
 // Grid (n_x, H, B): row block blockIdx.x of one (batch, head). MASKED:
 // tile_map and bits are the mask's (see mask_rows) for ROWS_WG NWG rows and
-// 64 keys. The other instance is the first design's (`mask` always null,
+// f32_keys(D) keys. The other instance is the first design's (`mask` always null,
 // mask_tile), its parameters where they were.
 template <int D, int NWG, bool MASKED>
 __global__ void __launch_bounds__((NWG + 1) * 128, 1)
@@ -489,11 +605,12 @@ flash_mha_kernel(const float* __restrict__ q, const float* __restrict__ image,
                  float* __restrict__ lse, int Tq, int Tk, int H, float q_scale, Dropout drop,
                  const int* __restrict__ tile_map, const uint32_t* __restrict__ bits) {
   using Cfg = F32Cfg<D, NWG, MASKED>;
-  constexpr int TILE = BK * D;  // floats of one part of a tile's image
+  constexpr int BK = Cfg::BK, TILE = BK * D;  // floats of one part of a tile's image
   extern __shared__ __align__(128) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem);
-  uint32_t* words = reinterpret_cast<uint32_t*>(smem + STAGES * Cfg::STAGE_BYTES);
-  int* ents = reinterpret_cast<int*>(smem + STAGES * (Cfg::STAGE_BYTES + Cfg::WORDS));
+  float* ring = reinterpret_cast<float*>(smem + Cfg::Q_BYTES);
+  uint32_t* words = reinterpret_cast<uint32_t*>(smem + Cfg::Q_BYTES + STAGES * Cfg::STAGE_BYTES);
+  int* ents =
+      reinterpret_cast<int*>(smem + Cfg::Q_BYTES + STAGES * (Cfg::STAGE_BYTES + Cfg::WORDS));
   uint64_t* full = reinterpret_cast<uint64_t*>(ents + Cfg::UNITS);
   uint64_t* empty = full + STAGES;
 
@@ -529,7 +646,8 @@ flash_mha_kernel(const float* __restrict__ q, const float* __restrict__ image,
           bulk_load(ring + s * 4 * TILE, src + (size_t)t * 4 * TILE, Cfg::STAGE_BYTES, &full[s]);
           if (unit & 1) {
             bulk_load(words + s * Cfg::ROWS * 4,
-                      row_words + (size_t)(t >> 1) * mask_rows(Tq) * 4, Cfg::WORDS, &full[s]);
+                      row_words + (size_t)mask_group<BK>(t) * mask_rows(Tq) * 4, Cfg::WORDS,
+                      &full[s]);
           }
         }
       } else {
@@ -543,8 +661,8 @@ flash_mha_kernel(const float* __restrict__ q, const float* __restrict__ image,
     }
   } else {
     if constexpr (NWG == 2) setmaxnreg_inc<240>();
-    consume<D, NWG, MASKED>(q, ring, full, empty, mask, words, ents, n, o, lse, Tq, Tk, H,
-                            q_scale, drop);
+    consume<D, NWG, MASKED>(q, ring, reinterpret_cast<float*>(smem), full, empty, mask, words,
+                            ents, n, o, lse, Tq, Tk, H, q_scale, drop);
   }
 }
 
@@ -552,6 +670,7 @@ template <int D, int NWG, bool MASKED>
 cudaError_t launch(const float* q, const float* k, const float* v, const int* tile_map,
                    const uint32_t* bits, float* image, float* o, float* lse, int B, int Tq,
                    int Tk, int H, float q_scale, Dropout drop, cudaStream_t stream) {
+  constexpr int BK = f32_keys(D);
   const int n_tiles = (Tk + BK - 1) / BK;
   kv_image_kernel<D><<<dim3(n_tiles, H, B), 256, 0, stream>>>(k, v, image, Tk, H);
   cudaError_t err = cudaGetLastError();
@@ -571,10 +690,16 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
                         const int* tile_map, const uint32_t* bits, float* image, float* o,
                         float* lse, int B, int Tq, int Tk, int H, float q_scale, Dropout drop,
                         cudaStream_t stream) {
-  return block_rows == 64 ? launch<D, 1, MASKED>(q, k, v, tile_map, bits, image, o, lse, B, Tq,
-                                                 Tk, H, q_scale, drop, stream)
-                          : launch<D, 2, MASKED>(q, k, v, tile_map, bits, image, o, lse, B, Tq,
-                                                 Tk, H, q_scale, drop, stream);
+  if constexpr (F32Cfg<D, 1, MASKED>::Q_SMEM) {  // D = 128: 64 rows, Q's images fill the block
+    return block_rows == 64 ? launch<D, 1, MASKED>(q, k, v, tile_map, bits, image, o, lse, B, Tq,
+                                                   Tk, H, q_scale, drop, stream)
+                            : cudaErrorInvalidValue;
+  } else {
+    return block_rows == 64 ? launch<D, 1, MASKED>(q, k, v, tile_map, bits, image, o, lse, B, Tq,
+                                                   Tk, H, q_scale, drop, stream)
+                            : launch<D, 2, MASKED>(q, k, v, tile_map, bits, image, o, lse, B, Tq,
+                                                   Tk, H, q_scale, drop, stream);
+  }
 }
 
 // ===========================================================================
@@ -643,12 +768,17 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 //    previous piece's last P V) was slower in turns, and 37 % slower where
 //    ptxas serialised its wgmma groups (an accumulator zeroed in the loop).
 //
-// Shared memory: a head's slice of a row is W bytes (W = 128 at D = 64, 64 at
-// D = 32, and 32 at D = 48 in three boxes of 16 channels), swizzled at W by
-// the tensor map (tensor_map.cuh, shared with the backward) and read by wgmma
-// through descriptors of the same swizzle: K-major for Q and K (S = Q K^T,
-// both operands from shared memory), and V MN-major with the transpose bit
-// (O = P V, keys the reduction). P goes
+// D = 128 (flash_mha_d128.cu): 64 keys a tile and 128 rows a block, the one
+// plan whose ring of 4 stages fits beside the two Q images (193 KiB; 128
+// keys would take 321), a slice in two boxes of 128 bytes, P V m64n128k16
+// over both; no dropout instance (training at D = 128 is refused).
+//
+// Shared memory: a head's slice of a row is W bytes (W = 128 at D = 64 and
+// 128, 64 at D = 32, and 32 at D = 48 in three boxes of 16 channels),
+// swizzled at W by the tensor map (tensor_map.cuh, shared with the
+// backward) and read by wgmma through descriptors of the same swizzle:
+// K-major for Q and K (S = Q K^T, both operands from shared memory), and V
+// MN-major with the transpose bit (O = P V, keys the reduction). P goes
 // from the S accumulator to the A fragment by pairwise packing (MmaBf16).
 // A fully masked row keeps l == 0 and gives 0 / 0 = NaN, as in the fp32 route.
 //
@@ -722,6 +852,7 @@ struct Bf16Cfg {
   // Over half the SM's shared memory: one block per SM, so that the
   // consumers' setmaxnreg.inc finds the registers the producer gave up.
   static constexpr size_t SMEM_LAUNCH = SMEM > 118 * 1024 ? SMEM : 118 * 1024;
+  static_assert(SMEM <= 227 * 1024, "the ring exceeds a block's shared memory");
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -1596,18 +1727,31 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const int* tile_map
   const bool dropping = drop.rate > 0.f;
   cudaError_t e;
   if constexpr (MASKED) {
-    auto kernel = dropping ? flash_mha_bf16_masked_kernel<D, BK, NWG, true>
-                           : flash_mha_bf16_masked_kernel<D, BK, NWG, false>;
-    const size_t smem = dropping ? Bf16Cfg<D, BK, NWG, true, true>::SMEM_LAUNCH
-                                 : Bf16Cfg<D, BK, NWG, false, true>::SMEM_LAUNCH;
+    auto kernel = flash_mha_bf16_masked_kernel<D, BK, NWG, false>;
+    size_t smem = Bf16Cfg<D, BK, NWG, false, true>::SMEM_LAUNCH;
+    if constexpr (D <= 64) {  // the dropout instances (none yet at D = 128: training)
+      if (dropping) {
+        kernel = flash_mha_bf16_masked_kernel<D, BK, NWG, true>;
+        smem = Bf16Cfg<D, BK, NWG, true, true>::SMEM_LAUNCH;
+      }
+    } else if (dropping) {
+      return (int)cudaErrorInvalidValue;
+    }
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<ctas, Cfg::THREADS, smem, stream>>>(qm, km, vm, tile_map, bits, o, part, lse, B, Tq,
                                                  Tk, H, scale, drop);
   } else {
-    auto kernel = dropping ? flash_mha_bf16_kernel<D, BK, NWG, true>
-                           : flash_mha_bf16_kernel<D, BK, NWG, false>;
-    const size_t smem = dropping ? Bf16Cfg<D, BK, NWG, true>::SMEM_LAUNCH : Cfg::SMEM_LAUNCH;
+    auto kernel = flash_mha_bf16_kernel<D, BK, NWG, false>;
+    size_t smem = Cfg::SMEM_LAUNCH;
+    if constexpr (D <= 64) {
+      if (dropping) {
+        kernel = flash_mha_bf16_kernel<D, BK, NWG, true>;
+        smem = Bf16Cfg<D, BK, NWG, true>::SMEM_LAUNCH;
+      }
+    } else if (dropping) {
+      return (int)cudaErrorInvalidValue;
+    }
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     kernel<<<ctas, Cfg::THREADS, smem, stream>>>(qm, km, vm, nullptr, o, part, lse, B, Tq, Tk, H,
@@ -1627,19 +1771,28 @@ int dispatch_bf16(int key_tile, int block_rows, const bf16* q, const bf16* k, co
                   const int* tile_map, const uint32_t* bits, bf16* o, float* part, float* lse,
                   int B, int Tq, int Tk, int H, float scale, int ctas, Dropout drop,
                   cudaStream_t s) {
-  if (key_tile == 64 && block_rows == 128)
-    return launch_bf16<D, 64, 2, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
-                                         scale, ctas, drop, s);
-  if (key_tile == 64 && block_rows == 192)
-    return launch_bf16<D, 64, 3, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
-                                         scale, ctas, drop, s);
-  if (key_tile == 128 && block_rows == 128)
-    return launch_bf16<D, 128, 2, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
-                                          scale, ctas, drop, s);
-  if (key_tile == 128 && block_rows == 192)
-    return launch_bf16<D, 128, 3, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
-                                          scale, ctas, drop, s);
-  return (int)cudaErrorInvalidValue;
+  if constexpr (D == 128) {
+    // 64 keys, 128 rows: the plan whose ring of 4 stages fits beside the two
+    // Q images (193 KiB; 128 keys would need 321)
+    if (key_tile == 64 && block_rows == 128)
+      return launch_bf16<D, 64, 2, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
+                                           scale, ctas, drop, s);
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (key_tile == 64 && block_rows == 128)
+      return launch_bf16<D, 64, 2, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
+                                           scale, ctas, drop, s);
+    if (key_tile == 64 && block_rows == 192)
+      return launch_bf16<D, 64, 3, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
+                                           scale, ctas, drop, s);
+    if (key_tile == 128 && block_rows == 128)
+      return launch_bf16<D, 128, 2, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
+                                            scale, ctas, drop, s);
+    if (key_tile == 128 && block_rows == 192)
+      return launch_bf16<D, 128, 3, MASKED>(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
+                                            scale, ctas, drop, s);
+    return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The fp32 route's launch at head dim D, unmasked or MASKED (flash_mha_f32).
@@ -1657,6 +1810,9 @@ int run_f32(const float* q, const float* k, const float* v, const int* tile_map,
     case 64:
       return (int)launch_rows<64, MASKED>(block_rows, q, k, v, tile_map, bits, image, o, lse, B,
                                           Tq, Tk, H, q_scale, drop, s);
+    case 128:
+      return flash_mha_f32_d128(MASKED, q, k, v, tile_map, bits, image, o, lse, B, Tq, Tk, H,
+                                q_scale, block_rows, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1678,6 +1834,9 @@ int run_bf16(const bf16* q, const bf16* k, const bf16* v, const int* tile_map,
     case 64:
       return dispatch_bf16<64, MASKED>(key_tile, block_rows, q, k, v, tile_map, bits, o, part,
                                        lse, B, Tq, Tk, H, scale, ctas, drop, s);
+    case 128:
+      return flash_mha_bf16_d128(MASKED, q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H,
+                                 scale, key_tile, block_rows, ctas, drop, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

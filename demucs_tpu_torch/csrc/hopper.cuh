@@ -318,6 +318,28 @@ struct MmaTf32<32> {
   }
 };
 
+// N = 128: K3's fp32 P V at head dim 128 (64 accumulators a thread).
+template <>
+struct MmaTf32<128> {
+  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+        "}\n"
+        : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24), HOPPER_ACC8(32),
+          HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
 // d (64 x 32, fp32) (+)= a (64 x 8, TF32, shared) . b (8 x 32, TF32, shared),
 // both K-major (wgmma reads 32-bit operands only K-major), by descriptor.
 struct MmaTf32SS32 {
@@ -373,7 +395,14 @@ struct MmaBf16;
 #define HOPPER_D48 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23}, {%24, %25, %26, " \
   "%27}, %28"
 #define HOPPER_D32 HOPPER_BF16_A "}, {%16, %17, %18, %19}, %20"
+#define HOPPER_D128 HOPPER_BF16_A ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+  "%27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+  "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, " \
+  "%63}, {%64, %65, %66, %67}, %68"
 
+HOPPER_MMA_BF16(128, 1, 64, HOPPER_D128, 69, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
+                HOPPER_ACC8(24), HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48),
+                HOPPER_ACC8(56))
 HOPPER_MMA_BF16(64, 1, 32, HOPPER_D64, 37, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16),
                 HOPPER_ACC8(24))
 HOPPER_MMA_BF16(48, 1, 24, HOPPER_D48, 29, HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16))
@@ -427,6 +456,7 @@ HOPPER_MMA_BF16_SS(64, 1, 1, 32, HOPPER_SS64, 34, HOPPER_ACC8(0), HOPPER_ACC8(8)
 #undef HOPPER_SS48
 #undef HOPPER_SS32
 #undef HOPPER_MMA_BF16_SS
+#undef HOPPER_D128
 #undef HOPPER_D32
 #undef HOPPER_D48
 #undef HOPPER_D64

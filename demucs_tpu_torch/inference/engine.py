@@ -152,7 +152,22 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
 
 
 def _launch_counts() -> tp.Dict[str, int]:
-    return {k.__name__: k.launches for k in KERNELS}
+    """Each kernel wrapper's launches, then K3's by instance (its routes'
+    ``launches_by_instance``) as ``"flash_mha D=128 masked"``."""
+    counts = {k.__name__: k.launches for k in KERNELS}
+    for k in KERNELS:
+        counts.update({f"{k.__name__} {key}": n
+                       for key, n in getattr(k, "launches_by_instance", {}).items()})
+    return counts
+
+
+def _take_back(launches: tp.Dict[str, int]) -> None:
+    """Subtract ``launches`` (as :func:`_launch_counts` names them) from the
+    wrappers' counts."""
+    for k in KERNELS:
+        k.launches -= launches[k.__name__]
+        for key in getattr(k, "launches_by_instance", {}):
+            k.launches_by_instance[key] -= launches[f"{k.__name__} {key}"]
 
 
 class BatchGraph:
@@ -198,8 +213,7 @@ class BatchGraph:
         self.capture_s = time.perf_counter() - start
         after = _launch_counts()
         self.launches = {name: after[name] - before[name] for name in after}
-        for kernel in KERNELS:
-            kernel.launches -= self.launches[kernel.__name__]
+        _take_back(self.launches)
 
     def __call__(self, batch: torch.Tensor) -> torch.Tensor:
         """Run the graph on ``batch``; the output stays valid until the next
@@ -243,7 +257,7 @@ class GraphCache:
     def reset_counts(self) -> None:
         """Zero the replay counts (``chip_smoke.py`` does so with the kernels')."""
         self.replays = 0
-        self.replayed_launches = {k.__name__: 0 for k in KERNELS}
+        self.replayed_launches = dict.fromkeys(_launch_counts(), 0)
 
     def forward(self, module: torch.nn.Module, batch: torch.Tensor) -> torch.Tensor:
         with _on(batch.device):

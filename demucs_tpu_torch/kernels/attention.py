@@ -24,8 +24,19 @@ the inputs (the Pallas kernel takes any float dtype):
 Both: an online softmax over tiles of keys (64 on the fp32 route,
 ``KEY_TILE_BF16`` on the bf16 route) with fp32 accumulators; an optional
 ``(Tq, Tk)`` boolean keep-mask shared by batch and heads; the -inf-safe
-rescale (a fully masked row gives NaN, as the plain softmax does). Head dims
-32, 48 and 64. Under a mask each route reads it as :class:`MaskTiles`, built
+rescale (a fully masked row gives NaN, as the plain softmax does). The
+kernels have instances at head dims 32, 48, 64 and 128 (:data:`HEAD_DIMS`;
+at 128 the fp32 route takes 32 keys a tile and 64 rows a block with Q's
+split in shared memory, the bf16 route 64 keys and 128 rows,
+``csrc/flash_mha_d128.cu``); any other head dim up to 128 runs on the
+smallest instance above it, each head's q, k and v padded with zero
+channels (which leave every score as it was) and the output cropped
+(:func:`instance_dim`, :func:`pad_heads`, :func:`crop_heads`), the softmax
+scale the true head dim's; the pad and the crop are differentiable ops
+outside the autograd node, so a gradient at a padded head dim up to 64 runs
+the backward instances of its pad. The backward and the dropout have
+instances up to head dim 64 (:data:`TRAIN_HEAD_DIM`); past it, and past 128,
+the wrappers raise. Under a mask each route reads it as :class:`MaskTiles`, built
 once per mask on the host (:func:`mask_tiles`; ``ops/sparse.py`` builds the
 transformer's beside its cached table): for each plan a tile map of the
 (row block, key tile) units that keep a score, full or partial (the
@@ -81,6 +92,7 @@ import weakref
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from demucs_tpu_torch.kernels import _build
 from demucs_tpu_torch.ops.attention import _mul32, _split_heads, dropout_keep, multihead_attention
@@ -92,14 +104,24 @@ __all__ = ["flash_mha", "flash_mha_op", "flash_mha_bf16", "flash_mha_plain", "fl
            "tile_classes", "tile_map", "pack_mask_bits", "unpack_mask_bits", "MASK_PLANS",
            "bwd_walk", "bwd_turn", "bwd_order", "bwd_rounds", "bwd_plan", "BWD_PLANS",
            "bwd_tile_map", "bwd_order_masked", "bwd_walk_masked", "pack_mask_bits_bwd",
-           "unpack_mask_bits_bwd"]
+           "unpack_mask_bits_bwd", "instance_dim", "pad_heads", "crop_heads",
+           "flash_mha_padded_plain", "f32_plan", "bf16_key_tile", "mask_pieces",
+           "TRAIN_HEAD_DIM", "MASK_PIECE_ROWS"]
 
-HEAD_DIMS = (32, 48, 64)
-KEY_TILE = 64  # keys per tile of the fp32 route's loop
+# The head dims of the forward kernels' instances; a smaller head runs on the
+# next one up, padded (instance_dim). The backward and the dropout have
+# instances up to TRAIN_HEAD_DIM.
+HEAD_DIMS = (32, 48, 64, 128)
+TRAIN_HEAD_DIM = 64
+KEY_TILE = 64  # keys per tile of the fp32 route's loop (F32_PLAN_D128 at head dim 128)
 # Query rows per block of the fp32 route: 64 (one consumer warpgroup) or 128
 # (two, which overlap one's softmax with the other's products; the faster at
 # every released shape and batch on the H100, PERF.md).
 BLOCK_ROWS = 128
+# The fp32 route's (query rows a block, keys a tile) at head dim 128: a
+# tile's image of 64 keys would take 128 KiB a stage, and Q's split, held in
+# shared memory there, 64 KiB a warpgroup (csrc/flash_mha.cuh F32Cfg).
+F32_PLAN_D128 = (64, 32)
 # The bf16 route's plan (chip_smoke.py sweeps every part on the H100,
 # PERF.md): keys per tile (64 or 128); query rows per block, 128 or 192 (two
 # or three consumer warpgroups); whether one block per SM walks an even share
@@ -108,6 +130,10 @@ BLOCK_ROWS = 128
 KEY_TILE_BF16 = 128
 BF16_ROWS = None
 BF16_PERSISTENT = None
+# The bf16 route's (keys a tile, query rows a block) at head dim 128, its one
+# plan there: 4 stages of 128 keys would not fit beside the Q images
+# (csrc/flash_mha.cuh dispatch_bf16); BF16_PERSISTENT still applies.
+BF16_PLAN_D128 = (64, 128)
 # bf16_plan's model of the kernel's time, in units of one key tile against
 # 128 query rows on one SM. The constants are fitted to chip_smoke.py's sweep
 # on the H100 (PERF.md), where the model picks the fastest plan at every
@@ -129,9 +155,10 @@ BWD_KEYS_BF16 = None
 _BWD_COST = {64: 1.02, 128: 1.0}
 _BWD_COST_ORDERED = {64: 1.4, 128: 1.0}
 # The (query rows a block, keys a tile) of every plan either route takes: the
-# fp32 route's 64 or 128 rows at 64 keys, the bf16 route's 128 or 192 at 64 or
-# 128. A keep-mask's tile maps are built for all of them at once.
-MASK_PLANS = ((64, 64), (128, 64), (128, 128), (192, 64), (192, 128))
+# fp32 route's 64 or 128 rows at 64 keys and 64 rows at 32 keys (head dim
+# 128), the bf16 route's 128 or 192 at 64 or 128. A keep-mask's tile maps are
+# built for all of them at once.
+MASK_PLANS = ((64, 32), (64, 64), (128, 64), (128, 128), (192, 64), (192, 128))
 # The (keys a block, queries a tile) of every plan of the backward: the fp32
 # route's 64 keys x 32 queries, the bf16 route's 64 or 128 keys x 64 queries
 # (csrc/flash_mha_bwd.cuh F32Bwd, Bf16Bwd). A keep-mask's backward tile maps
@@ -142,8 +169,12 @@ BWD_PLANS = ((64, 32), (64, 64), (128, 64))
 # csrc/flash_mha.cu mask_rows).
 MASK_ROW_PAD = 384
 # The bf16 route's masked kernel keeps the tile map's offsets in shared
-# memory: at most this many row blocks (csrc/flash_mha.cu OFF_SMEM - 1).
+# memory: at most this many row blocks a launch (csrc/flash_mha.cu OFF_SMEM -
+# 1). Past MASK_PIECE_ROWS queries (that many row blocks of the smallest
+# plan's 128 rows) a masked bf16 call launches in pieces of its rows
+# (mask_pieces; each piece's MaskTiles are built with the mask's).
 MASK_ROW_BLOCKS = 511
+MASK_PIECE_ROWS = MASK_ROW_BLOCKS * 128
 # A status at or above this from flash_mha_bf16 is a failed tensor-map
 # encode (csrc/tensor_map.cuh ENCODE_FAILED), plus the driver's CUresult.
 _ENCODE_FAILED = 10000
@@ -156,8 +187,84 @@ flash_mha_plain = multihead_attention
 def q_scale(head_dim: int) -> float:
     """The softmax scale in base 2, log2(e)/sqrt(d): the fp32 route multiplies
     q by it before the split, the bf16 route folds it into each fp32 score's
-    FFMA with the row max."""
+    FFMA with the row max. ``d`` is the heads' own dim, also where they run
+    padded on a larger instance."""
     return math.log2(math.e) / math.sqrt(head_dim)
+
+
+def instance_dim(d: int) -> int:
+    """The head dim of the kernels' instance that runs heads of ``d``
+    channels: the smallest of :data:`HEAD_DIMS` at least ``d``. Past the
+    largest it raises."""
+    for D in HEAD_DIMS:
+        if d <= D:
+            return D
+    raise ValueError(f"flash_mha supports head dims up to {HEAD_DIMS[-1]} (instances "
+                     f"{HEAD_DIMS}, a smaller head padded to the next), got {d}: no instance "
+                     f"past {HEAD_DIMS[-1]} (ROADMAP Queue C)")
+
+
+def pad_heads(x: torch.Tensor, num_heads: int, D: int) -> torch.Tensor:
+    """``(B, T, H d)`` -> ``(B, T, H D)``: each head's d channels, then D - d
+    zeros (differentiable; ``x`` itself where d = D)."""
+    B, T, C = x.shape
+    d = C // num_heads
+    if d == D:
+        return x
+    return F.pad(x.reshape(B, T, num_heads, d), (0, D - d)).reshape(B, T, num_heads * D)
+
+
+def crop_heads(x: torch.Tensor, num_heads: int, d: int) -> torch.Tensor:
+    """``(B, T, H D)`` -> ``(B, T, H d)``: each head's first d channels
+    (differentiable; ``x`` itself where d = D)."""
+    B, T, C = x.shape
+    D = C // num_heads
+    if d == D:
+        return x
+    return x.reshape(B, T, num_heads, D)[..., :d].reshape(B, T, num_heads * d)
+
+
+def _on_instance(fn, num_heads: int, d: int, *ts: torch.Tensor) -> torch.Tensor:
+    """``fn`` on ``ts`` (``(B, T, H d)`` each) padded to the instance of head
+    dim ``d``, its output cropped back to d."""
+    D = instance_dim(d)
+    return crop_heads(fn(*(pad_heads(t, num_heads, D) for t in ts)), num_heads, d)
+
+
+def flash_mha_padded_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of the path a CUDA tensor takes at a head dim
+    between instances: q, k and v padded to the instance's head dim, the
+    plain attention there at the true head dim's scale, the output cropped."""
+    d = q.shape[-1] // num_heads
+    return _on_instance(lambda q, k, v: flash_mha_plain(q, k, v, num_heads, mask=mask,
+                                                        head_dim=d), num_heads, d, q, k, v)
+
+
+def f32_plan(D: int) -> tuple:
+    """(query rows a block, keys a tile) of the fp32 route at instance head
+    dim ``D``: ``BLOCK_ROWS`` and ``KEY_TILE``, at 128 ``F32_PLAN_D128``."""
+    return F32_PLAN_D128 if D == 128 else (BLOCK_ROWS, KEY_TILE)
+
+
+def bf16_key_tile(D: int) -> int:
+    """Keys a tile of the bf16 route at instance head dim ``D``."""
+    return BF16_PLAN_D128[0] if D == 128 else KEY_TILE_BF16
+
+
+def _instance_key(D: int, tiles) -> str:
+    """A forward launch's instance, as the routes' ``launches_by_instance``
+    name it."""
+    return f"D={D}" + ("" if tiles is None else " masked")
+
+
+def _refuse_training(d: int, grad: bool, rate: float) -> None:
+    """Raise for a gradient or dropout at a head dim with no backward or
+    dropout instance (past TRAIN_HEAD_DIM)."""
+    if d > TRAIN_HEAD_DIM and (grad or rate > 0.0):
+        raise ValueError(f"flash_mha has no backward or dropout instance at head dim {d}: "
+                         f"training takes head dims up to {TRAIN_HEAD_DIM} (the D = 128 "
+                         f"backward and dropout instances are ROADMAP Queue C)")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -232,8 +339,7 @@ def _checked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
     if C % num_heads:
         raise ValueError(f"{C} channels do not split into {num_heads} heads")
     d = C // num_heads
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_mha supports head dims {HEAD_DIMS}, got {d}")
+    instance_dim(d)  # raises past the largest instance
     if Tk == 0:
         raise ValueError("flash_mha needs at least one key")
     for t in (q, k, v):
@@ -275,9 +381,18 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
         return flash_mha_bf16(q, k, v, num_heads, mask=mask, dropout=dropout,
                               dropout_seed=seed)
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.float32)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    return _FlashMHA.apply(q, k, v, num_heads, keep, _tiles(mask, keep), float(dropout), seed,
-                           _wants_grad(q, k, v))
+    return _node(q, k, v, num_heads, d, keep, _tiles(mask, keep), float(dropout), seed)
+
+
+def _node(q, k, v, num_heads: int, d: int, keep, tiles, rate: float, seed: int) -> torch.Tensor:
+    """The autograd node :class:`_FlashMHA` on q, k, v padded to the
+    instance of head dim ``d``, its output cropped back (refusing what no
+    instance trains)."""
+    want = _wants_grad(q, k, v)
+    _refuse_training(d, want, rate)
+    return _on_instance(lambda q, k, v: _FlashMHA.apply(
+        _aligned(q), _aligned(k), _aligned(v), num_heads, keep, tiles, rate, seed, want, d),
+        num_heads, d, q, k, v)
 
 
 @torch.library.custom_op("demucs_tpu_torch::flash_mha", mutates_args=(), device_types="cpu")
@@ -298,8 +413,9 @@ def _flash_mha_op_cuda(q, k, v, num_heads, mask=None):
     if B * Tq == 0:
         return torch.empty_like(q)
     route = _forward_bf16 if dtype == torch.bfloat16 else _forward_f32
-    return route(_aligned(q), _aligned(k), _aligned(v), num_heads, _tiles(mask, keep), 0.0, 0,
-                 False)[0]
+    tiles = _tiles(mask, keep)
+    return _on_instance(lambda q, k, v: route(_aligned(q), _aligned(k), _aligned(v), num_heads,
+                                              tiles, 0.0, 0, False, d)[0], num_heads, d, q, k, v)
 
 
 @flash_mha_op.register_fake
@@ -313,23 +429,28 @@ def _wants_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _forward_f32(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_lse: bool):
-    """One launch of the fp32 route -> (o, lse or None); ``tiles``: the
-    mask's :class:`MaskTiles`, or None."""
+def _forward_f32(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_lse: bool,
+                 head_dim: int | None = None):
+    """One launch of the fp32 route at the instance of q's head dim (one of
+    :data:`HEAD_DIMS`) -> (o, lse or None); ``tiles``: the mask's
+    :class:`MaskTiles`, or None; ``head_dim``: the heads' own dim where they
+    come padded with zero channels (the softmax scale's), else q's."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
-    d = C // num_heads
+    D = C // num_heads
+    rows, keys = f32_plan(D)
     out = torch.empty_like(q)
-    image = torch.empty(B, num_heads, -(-Tk // KEY_TILE), 4, KEY_TILE * d, device=q.device)
+    image = torch.empty(B, num_heads, -(-Tk // keys), 4, keys * D, device=q.device)
     lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
-    tmap, bits = (None, None) if tiles is None else tiles.launch(BLOCK_ROWS, KEY_TILE)
+    tmap, bits = (None, None) if tiles is None else tiles.launch(rows, keys)
     status = _lib().flash_mha_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tmap, bits, image.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(),
-        B, Tq, Tk, num_heads, d, q_scale(d), BLOCK_ROWS, rate, _int32(seed),
+        B, Tq, Tk, num_heads, D, q_scale(head_dim or D), rows, rate, _int32(seed),
         _build.stream_ptr(q.device))
     _build.check(status, "flash_mha_f32")
     flash_mha.launches += 1
+    flash_mha.launches_by_instance[_instance_key(D, tiles)] += 1
     return out, lse
 
 
@@ -339,36 +460,37 @@ class _FlashMHA(torch.autograd.Function):
     the backward kernel of the same route (:func:`flash_mha_bwd`)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, num_heads, keep, tiles, rate, seed, want_lse):
+    def forward(ctx, q, k, v, num_heads, keep, tiles, rate, seed, want_lse, head_dim=None):
         route = _forward_bf16 if q.dtype == torch.bfloat16 else _forward_f32
-        out, lse = route(q, k, v, num_heads, tiles, rate, seed, want_lse)
+        out, lse = route(q, k, v, num_heads, tiles, rate, seed, want_lse, head_dim)
         if want_lse:
             ctx.save_for_backward(q, k, v, out, lse)
-            ctx.args = (num_heads, keep, tiles, rate, seed)
+            ctx.args = (num_heads, keep, tiles, rate, seed, head_dim)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        num_heads, keep, tiles, rate, seed = ctx.args
+        num_heads, keep, tiles, rate, seed, head_dim = ctx.args
         dq, dk, dv = flash_mha_bwd(q, k, v, out, dout, num_heads, lse=lse, mask=keep,
-                                   mask_tiles=tiles, dropout=rate, dropout_seed=seed)
-        return dq, dk, dv, None, None, None, None, None, None
+                                   mask_tiles=tiles, dropout=rate, dropout_seed=seed,
+                                   head_dim=head_dim)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
 def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor | None = None,
                         mask: torch.Tensor | None = None, dropout: float = 0.0,
-                        dropout_seed: int | None = None) -> tuple:
+                        dropout_seed: int | None = None, head_dim: int | None = None) -> tuple:
     """The plain version of :func:`flash_mha_bwd`, the backward formula
     written out in fp32 (it recomputes the softmax and does not read ``lse``):
     with ``P = softmax(S)``, ``Z`` the dropout's keep / (1 - rate) (or 1) and
     ``D = rowsum(dO o)``: ``dV = (Z P)^T dO``, ``dS = P (Z dO V^T - D)``,
-    ``dQ = dS K / sqrt(d)``, ``dK = dS^T Q / sqrt(d)``."""
+    ``dQ = dS K / sqrt(d)``, ``dK = dS^T Q / sqrt(d)``; ``head_dim``: d where
+    the heads come padded with zero channels (else C / num_heads)."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
-    d = C // num_heads
-    scale = 1.0 / math.sqrt(d)
+    scale = 1.0 / math.sqrt(head_dim or C // num_heads)
     qh, kh, vh, oh, dh = (_split_heads(t.float(), num_heads) for t in (q, k, v, o, dout))
     scores = (qh * scale) @ kh.transpose(-1, -2)
     if mask is not None:
@@ -394,7 +516,8 @@ def flash_mha_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
 def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                   dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor,
                   mask: torch.Tensor | None = None, mask_tiles: "MaskTiles | None" = None,
-                  dropout: float = 0.0, dropout_seed: int | None = None) -> tuple:
+                  dropout: float = 0.0, dropout_seed: int | None = None,
+                  head_dim: int | None = None) -> tuple:
     """K3's backward: ``(dq, dk, dv)`` of :func:`flash_mha` at ``q, k, v``
     with output ``o`` and its gradient ``dout``, from the forward's ``lse (B
     * H, Tq)`` and its ``mask``, ``dropout`` and ``dropout_seed``. A CPU
@@ -404,17 +527,22 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     ``csrc/flash_mha_bwd_masked.cu``'s instances, which read the mask as its
     :class:`MaskTiles` (``mask_tiles``, as the forward built them; else
     :func:`mask_tiles` of ``mask``); a bf16 one :func:`flash_mha_bwd_bf16`;
-    anything else raises. ``flash_mha_bwd.launches`` counts the fp32 route's
-    launches, ``flash_mha_bwd.masked_launches`` those of them under a mask."""
+    anything else raises. On the card q's head dim is an instance's
+    (:data:`HEAD_DIMS`, at most :data:`TRAIN_HEAD_DIM`); ``head_dim``: the
+    heads' own dim where q, k, v, o and dout come padded with zero channels
+    to it (the autograd node pads a head between instances).
+    ``flash_mha_bwd.launches`` counts the fp32 route's launches,
+    ``flash_mha_bwd.masked_launches`` those of them under a mask."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
-                                   dropout_seed=seed)
+                                   dropout_seed=seed, head_dim=head_dim)
     if q.dtype == torch.bfloat16:
         return flash_mha_bwd_bf16(q, k, v, o, dout, num_heads, lse=lse, mask=mask,
-                                  mask_tiles=mask_tiles, dropout=dropout, dropout_seed=seed)
+                                  mask_tiles=mask_tiles, dropout=dropout, dropout_seed=seed,
+                                  head_dim=head_dim)
     grads = _launch_bwd("flash_mha_bwd_f32", torch.float32, q, k, v, o, dout, num_heads, lse,
-                        mask, dropout, seed, tiles=mask_tiles)
+                        mask, dropout, seed, tiles=mask_tiles, head_dim=head_dim)
     flash_mha_bwd.launches += 1
     flash_mha_bwd.masked_launches += mask is not None
     return grads
@@ -423,33 +551,43 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
 def flash_mha_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                        dout: torch.Tensor, num_heads: int, *, lse: torch.Tensor,
                        mask: torch.Tensor | None = None, mask_tiles: "MaskTiles | None" = None,
-                       dropout: float = 0.0, dropout_seed: int | None = None) -> tuple:
+                       dropout: float = 0.0, dropout_seed: int | None = None,
+                       head_dim: int | None = None) -> tuple:
     """K3's backward on the bf16 route: as :func:`flash_mha_bwd`, bf16 in and
     out (fp32 ``lse``), bf16 ``wgmma`` products with fp32 accumulation, the
     keys per block by :func:`bwd_keys`. A CPU tensor takes
     :func:`flash_mha_bwd_plain`; a bf16 CUDA tensor launches
     ``csrc/flash_mha_bwd.cu`` (the row dots, the pass, dQ's rounding), under
-    a mask the masked instances (``mask_tiles`` as for :func:`flash_mha_bwd`);
-    anything else raises. ``flash_mha_bwd_bf16.launches`` counts its
-    launches, ``flash_mha_bwd_bf16.masked_launches`` those under a mask."""
+    a mask the masked instances (``mask_tiles`` and ``head_dim`` as for
+    :func:`flash_mha_bwd`); anything else raises.
+    ``flash_mha_bwd_bf16.launches`` counts its launches,
+    ``flash_mha_bwd_bf16.masked_launches`` those under a mask."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
-                                   dropout_seed=seed)
+                                   dropout_seed=seed, head_dim=head_dim)
     grads = _launch_bwd("flash_mha_bwd_bf16", torch.bfloat16, q, k, v, o, dout, num_heads, lse,
-                        mask, dropout, seed, tiles=mask_tiles)
+                        mask, dropout, seed, tiles=mask_tiles, head_dim=head_dim)
     flash_mha_bwd_bf16.launches += 1
     flash_mha_bwd_bf16.masked_launches += mask is not None
     return grads
 
 
 def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int, lse, mask,
-                rate: float, seed: int, tiles: "MaskTiles | None" = None) -> tuple:
+                rate: float, seed: int, tiles: "MaskTiles | None" = None,
+                head_dim: int | None = None) -> tuple:
     """One launch of ``csrc/flash_mha_bwd.cu``'s C entry ``entry`` on ``dtype``
     CUDA tensors -> ``(dq, dk, dv)``; under ``mask``, of the masked library's
     entry of the same route with the mask's tile map and bits (``tiles``, or
-    the mask's :class:`MaskTiles`) for the launch's plan."""
+    the mask's :class:`MaskTiles`) for the launch's plan. q's head dim is an
+    instance's (:data:`HEAD_DIMS`; the autograd node pads a head between
+    them); ``head_dim``: the heads' own dim where they come so padded."""
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, dtype)
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{entry}: head dim {d} is no instance's {HEAD_DIMS}: pad the heads "
+                         f"to {instance_dim(d)} channels (pad_heads) and pass head_dim={d}")
+    scale_dim = head_dim or d
+    _refuse_training(scale_dim, True, rate)
     for name, t in (("o", o), ("dout", dout)):
         if t.shape != q.shape or t.dtype != dtype or t.device != q.device:
             raise ValueError(f"{entry}: {name} must be a {dtype} {tuple(q.shape)} tensor on "
@@ -467,7 +605,7 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
             if dtype == torch.bfloat16 else 64)
     args = (stats.data_ptr(), dq_acc.data_ptr(), None if turns is None else turns.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads, d, keys,
-            q_scale(d), 1.0 / math.sqrt(d), float(rate), _int32(seed),
+            q_scale(scale_dim), 1.0 / math.sqrt(scale_dim), float(rate), _int32(seed),
             _build.stream_ptr(q.device))
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), dout.data_ptr(),
             lse.data_ptr())
@@ -666,8 +804,9 @@ def _plan_cost(blocks: int, n_tiles: int, rows: int, ctas: int, persistent: bool
 
 
 def bf16_plan(B: int, Tq: int, Tk: int, num_heads: int, sm_count: int,
-              tiles: "MaskTiles | None" = None) -> tuple:
-    """(query rows per block, blocks in the grid) of the bf16 route.
+              tiles: "MaskTiles | None" = None, head_dim: int = 64) -> tuple:
+    """(query rows per block, blocks in the grid) of the bf16 route at the
+    instance head dim ``head_dim``.
 
     Of 128 or 192 rows, each on the plain grid (a block per row block) or on
     the persistent schedule (one block per SM of the card's ``sm_count``,
@@ -676,12 +815,18 @@ def bf16_plan(B: int, Tq: int, Tk: int, num_heads: int, sm_count: int,
     mask (``tiles``, its :class:`MaskTiles`) the units are its tile map's:
     the model prices the work there is, and a mask that keeps nothing takes
     the plain grid. ``BF16_ROWS`` and ``BF16_PERSISTENT`` fix either choice.
+    At head dim 128 the rows and keys are ``BF16_PLAN_D128``'s.
     """
-    n_tiles = -(-Tk // KEY_TILE_BF16)
+    keys = bf16_key_tile(head_dim)
+    n_tiles = -(-Tk // keys)
     best = None
-    for rows in (BF16_ROWS,) if BF16_ROWS else (128, 192):
+    if head_dim == 128:
+        choices = (BF16_PLAN_D128[1],)
+    else:
+        choices = (BF16_ROWS,) if BF16_ROWS else (128, 192)
+    for rows in choices:
         blocks = -(-Tq // rows) * num_heads * B
-        counts = None if tiles is None else tiles.counts[rows, KEY_TILE_BF16]
+        counts = None if tiles is None else tiles.counts[rows, keys]
         units = blocks * n_tiles if counts is None else blocks // len(counts) * sum(counts)
         ways = (False, True) if BF16_PERSISTENT is None else (BF16_PERSISTENT,)
         for persistent in ways if units else (False,):
@@ -807,7 +952,8 @@ def pack_mask_bits(mask: np.ndarray) -> np.ndarray:
 def unpack_mask_bits(words: np.ndarray, Tq: int, Tk: int, keys: int = 128) -> np.ndarray:
     """The inverse of :func:`pack_mask_bits` as the kernels read it: lane c
     of tile t (``keys`` keys) takes word c of its row in group ``t * keys //
-    128``, shifted right by 16 (t & 1) at 64 keys, and keeps element e's key
+    128``, shifted right by 16 (t & 1) at 64 keys and by 8 (t & 3) at 32, and
+    keeps element e's key
     ``k0 + 8 (e >> 2) + 2 c + (e & 1)`` where bit ``2 (e >> 2) + (e & 1)`` is
     set. Returns the ``(Tq, n_tiles * keys)`` boolean mask so read."""
     n_t = -(-Tk // keys)
@@ -816,8 +962,8 @@ def unpack_mask_bits(words: np.ndarray, Tq: int, Tk: int, keys: int = 128) -> np
     bit = 2 * (e >> 2) + (e & 1)
     for t in range(n_t):
         w = words[t * keys // 128, :Tq].astype(np.int64)  # (Tq, 4)
-        if keys == 64:
-            w = w >> (16 * (t & 1))
+        if keys < 128:
+            w = w >> (keys // 4 * (t % (128 // keys)))
         for c in range(4):
             key = t * keys + 8 * (e >> 2) + 2 * c + (e & 1)
             out[:, key] = (w[:, c, None] >> bit) & 1
@@ -916,17 +1062,27 @@ def unpack_mask_bits_bwd(bits: np.ndarray, Tq: int, Tk: int, keys: int, qt: int)
     return out
 
 
+def mask_pieces(Tq: int) -> list:
+    """The query rows ``[(r0, r1), ...]`` of each launch of the bf16 route
+    under a mask of ``Tq`` rows: pieces of MASK_PIECE_ROWS rows in order, the
+    last shorter, covering every row once."""
+    return [(r0, min(r0 + MASK_PIECE_ROWS, Tq)) for r0 in range(0, Tq, MASK_PIECE_ROWS)]
+
+
 class MaskTiles:
     """A keep-mask as K3's kernels read it on ``device``: the packed bits
     (:func:`pack_mask_bits`) and, for each plan of :data:`MASK_PLANS`, the
     tile map (:func:`tile_map`) and its row blocks' unit counts; for the
     backward, for each plan of :data:`BWD_PLANS` its tile map
     (:func:`bwd_tile_map`) and, for each query tile size, its bits
-    (:func:`pack_mask_bits_bwd`); all built from
-    ``mask``, its boolean host copy, at once (so a later launch, a CUDA
-    graph's capture or a backward included, builds nothing)."""
+    (:func:`pack_mask_bits_bwd`); past MASK_PIECE_ROWS query rows, ``pieces``:
+    each of :func:`mask_pieces`'s rows ``(r0, r1)`` with the forward's
+    MaskTiles of those rows (``piece=True``: no backward maps, no pieces);
+    all built from ``mask``, its boolean host copy, at once (so a later
+    launch, a CUDA graph's capture or a backward included, builds
+    nothing)."""
 
-    def __init__(self, mask: np.ndarray, device):
+    def __init__(self, mask: np.ndarray, device, piece: bool = False):
         self.shape = mask.shape
         with torch.inference_mode(False):
             self.bits = torch.from_numpy(pack_mask_bits(mask).view(np.int32)).to(device)
@@ -936,10 +1092,13 @@ class MaskTiles:
                 self.maps[rows, keys] = torch.from_numpy(tm["map"]).to(device)
                 self.counts[rows, keys] = tm["counts"]
             self.bwd_maps, self.bwd_bits = {}, {}
-            for keys, qt in BWD_PLANS:
+            self.pieces = [] if piece or mask.shape[0] <= MASK_PIECE_ROWS else [
+                (r0, r1, MaskTiles(mask[r0:r1], device, piece=True))
+                for r0, r1 in mask_pieces(mask.shape[0])]
+            for keys, qt in () if piece else BWD_PLANS:
                 self.bwd_maps[keys, qt] = torch.from_numpy(
                     bwd_tile_map(mask, keys, qt)["map"]).to(device)
-            for qt in sorted({qt for _, qt in BWD_PLANS}):
+            for qt in () if piece else sorted({qt for _, qt in BWD_PLANS}):
                 packed = np.ascontiguousarray(pack_mask_bits_bwd(mask, qt))
                 self.bwd_bits[qt] = torch.from_numpy(packed.reshape(-1).view(np.uint8)).to(device)
 
@@ -1031,47 +1190,76 @@ def flash_mha_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
     B, Tq, Tk, d, keep = _checked(q, k, v, num_heads, mask, torch.bfloat16)
     if B * Tq == 0:
         return torch.empty_like(q)
-    q, k, v = _aligned(q), _aligned(k), _aligned(v)
-    return _FlashMHA.apply(q, k, v, num_heads, keep, _tiles(mask, keep), float(dropout), seed,
-                           _wants_grad(q, k, v))
+    return _node(q, k, v, num_heads, d, keep, _tiles(mask, keep), float(dropout), seed)
 
 
-def _forward_bf16(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_lse: bool):
-    """One launch of the bf16 route (and its merge kernel where the plan
-    splits a row block) -> (o, lse or None); ``tiles``: the mask's
-    :class:`MaskTiles`, or None."""
+def _forward_bf16(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_lse: bool,
+                  head_dim: int | None = None):
+    """One launch of the bf16 route at the instance of q's head dim (and its
+    merge kernel where the plan splits a row block) -> (o, lse or None);
+    ``tiles``: the mask's :class:`MaskTiles`, or None (past MASK_PIECE_ROWS
+    queries, a launch per piece of its rows, :func:`mask_pieces`);
+    ``head_dim`` as for :func:`_forward_f32`."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
-    d = C // num_heads
-    rows, ctas = bf16_plan(B, Tq, Tk, num_heads, _sm_count(q.device.index or 0), tiles)
-    n_tiles = -(-Tk // KEY_TILE_BF16)
+    D = C // num_heads
+    if tiles is not None and tiles.pieces:
+        return _forward_bf16_pieces(q, k, v, num_heads, tiles, rate, seed, want_lse, head_dim)
+    rows, ctas = bf16_plan(B, Tq, Tk, num_heads, _sm_count(q.device.index or 0), tiles, D)
+    keys = bf16_key_tile(D)
+    n_tiles = -(-Tk // keys)
     blocks = -(-Tq // rows) * num_heads * B
     out = torch.empty_like(q)
-    tmap, bits = (None, None) if tiles is None else tiles.launch(rows, KEY_TILE_BF16)
+    tmap, bits = (None, None) if tiles is None else tiles.launch(rows, keys)
     if tiles is None:
         split = _splits(_ranges(blocks * n_tiles, ctas), n_tiles)
     else:
-        if -(-Tq // rows) > MASK_ROW_BLOCKS:
-            raise ValueError(f"flash_mha_bf16 under a mask takes at most "
-                             f"{MASK_ROW_BLOCKS * rows} queries at {rows} rows a block, got {Tq}")
-        split = ctas != blocks and _masked_splits(tiles.counts[rows, KEY_TILE_BF16],
-                                                  num_heads * B, ctas)
+        split = ctas != blocks and _masked_splits(tiles.counts[rows, keys], num_heads * B, ctas)
     # two slots per range: rows x (o, then the scaled max and the sum)
-    part = torch.empty(2 * ctas * rows * (d + 2), device=q.device) if split else None
+    part = torch.empty(2 * ctas * rows * (D + 2), device=q.device) if split else None
     lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
     status = _lib().flash_mha_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), tmap, bits,
         out.data_ptr(), None if part is None else part.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, Tq, Tk, num_heads, d, q_scale(d),
-        KEY_TILE_BF16, rows, ctas, rate, _int32(seed), _build.stream_ptr(q.device))
+        None if lse is None else lse.data_ptr(), B, Tq, Tk, num_heads, D, q_scale(head_dim or D),
+        keys, rows, ctas, rate, _int32(seed), _build.stream_ptr(q.device))
     _check_launch(status, "flash_mha_bf16")
     flash_mha_bf16.launches += 1
+    flash_mha_bf16.launches_by_instance[_instance_key(D, tiles)] += 1
+    return out, lse
+
+
+def _forward_bf16_pieces(q, k, v, num_heads: int, tiles, rate: float, seed: int,
+                         want_lse: bool, head_dim: int | None):
+    """The bf16 route under a mask past MASK_PIECE_ROWS queries: a launch per
+    piece of its rows (``tiles.pieces``: each piece's rows and their
+    :class:`MaskTiles`), each within the masked kernel's MASK_ROW_BLOCKS row
+    blocks. The dropout's hash counts global query rows, which a piece's
+    launch does not know: with dropout it raises."""
+    if rate > 0.0:
+        raise ValueError(f"flash_mha_bf16 under a mask takes no dropout past "
+                         f"{MASK_PIECE_ROWS} queries (a launch per piece of them)")
+    B, Tq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
+    for r0, r1, piece in tiles.pieces:
+        o, piece_lse = _forward_bf16(q[:, r0:r1].contiguous(), k, v, num_heads, piece, rate, seed,
+                                     want_lse, head_dim)
+        out[:, r0:r1] = o
+        if lse is not None:
+            lse[:, r0:r1] = piece_lse
     return out, lse
 
 
 flash_mha.launches = 0
 flash_mha_bwd.launches = 0
 flash_mha_bf16.launches = 0
+# each route's forward launches by instance: head dim, and masked or not
+# ("D=128", "D=128 masked"; inference/engine.py counts them through graph
+# replays as "flash_mha D=128", ...)
+flash_mha.launches_by_instance = dict.fromkeys(
+    [f"D={D}{m}" for D in HEAD_DIMS for m in ("", " masked")], 0)
+flash_mha_bf16.launches_by_instance = dict(flash_mha.launches_by_instance)
 flash_mha_bwd_bf16.launches = 0
 flash_mha_bwd.masked_launches = 0
 flash_mha_bwd_bf16.masked_launches = 0
@@ -1080,10 +1268,11 @@ flash_mha_bwd_bf16.masked_launches = 0
 def bf16_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                p: torch.Tensor) -> tuple:
     """Bring-up check of the bf16 route's two products alone, on the card:
-    bf16 ``q (64, d)``, ``k, v (n, d)`` and fp32 ``p (64, n)``, n = 64 or 128
-    keys -> fp32 ``(Q K^T, bf16(P) V)`` by one warpgroup's ``wgmma`` s through
-    the kernel's tensor-map copies, swizzled tile image, descriptors and
-    fragment maps (a wrong one gives wrong numbers, no error)."""
+    bf16 ``q (64, d)``, ``k, v (n, d)`` and fp32 ``p (64, n)``, d an instance
+    head dim (:data:`HEAD_DIMS`), n = 64 or 128 keys -> fp32 ``(Q K^T,
+    bf16(P) V)`` by one warpgroup's ``wgmma`` s through the kernel's
+    tensor-map copies, swizzled tile image, descriptors and fragment maps (a
+    wrong one gives wrong numbers, no error)."""
     d, n = q.shape[1], k.shape[0]
     if d not in HEAD_DIMS or q.shape != (64, d) or n not in (64, 128):
         raise ValueError(f"bf16_tiles takes q (64, d), d in {HEAD_DIMS}, and 64 or 128 keys")

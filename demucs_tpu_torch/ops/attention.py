@@ -91,7 +91,8 @@ def apply_dropout(x: torch.Tensor, rate: float,
 
 def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         num_heads: int, mask: torch.Tensor | None = None,
-                        dropout: float = 0.0, dropout_seed: int | None = None) -> torch.Tensor:
+                        dropout: float = 0.0, dropout_seed: int | None = None,
+                        head_dim: int | None = None) -> torch.Tensor:
     """Scaled dot-product attention over already-projected q/k/v.
 
     Args:
@@ -102,12 +103,14 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dropout, dropout_seed: train-time dropout of the probabilities at
             that rate, the scores of :func:`dropout_keep` kept and scaled by
             ``1 / (1 - dropout)``.
+        head_dim: the dim whose ``head_dim ** -0.5`` scales q, where the
+            heads carry zero channels past it (K3's padded path); else
+            ``C // num_heads``.
     Returns:
         ``(B, Tq, C)`` in q's dtype (before the output projection).
     """
     B, Tq, C = q.shape
-    head_dim = C // num_heads
-    scale = 1.0 / math.sqrt(head_dim)
+    scale = 1.0 / math.sqrt(head_dim or C // num_heads)
     if q.dtype not in (torch.float32, torch.float64):
         scale = torch.tensor(scale, dtype=q.dtype).item()
     acc = torch.promote_types(q.dtype, torch.float32)  # float64: a reference run

@@ -150,9 +150,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         KS.stft_dft(x.double(), 2048, 512)
     with pytest.raises(ValueError):
         KS.stft_dft(_randn(8192, 2).t(), 2048, 512)  # not contiguous
-    q = _randn(1, 16, 80)
+    q = _randn(1, 16, 144)
     with pytest.raises(ValueError, match="head dims"):
-        KA.flash_mha(q, q, q, 1)  # head dim 80 has no kernel
+        KA.flash_mha(q, q, q, 1)  # head dim 144: no instance (80 runs padded to 128)
+    q = _randn(1, 16, 80, seed=1).requires_grad_()
+    with pytest.raises(ValueError, match="no backward or dropout instance at head dim 80"):
+        KA.flash_mha(q, q, q, 1)
     qb = _randn(1, 16, 64).bfloat16()
     qf = _randn(1, 16, 64)
     with pytest.raises(TypeError):
@@ -256,8 +259,8 @@ def test_graph_replay_matches_eager_forward(cuda, batch):
         half = module(mix * 0.5)
     assert KS.stft_dft.launches == before + 3  # two eager forwards and the warm-up
     assert graphs.captures == 1 and graphs.replays == 2
-    assert graphs.replayed_launches == {"stft_dft": 2, "istft_dft": 2, "flash_mha": 20,
-                                        "flash_mha_bf16": 0}
+    launched = {k: n for k, n in graphs.replayed_launches.items() if n}
+    assert launched == {"stft_dft": 2, "istft_dft": 2, "flash_mha": 20, "flash_mha D=64": 20}
     peak = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-6 * peak
     assert (again - half).abs().max().item() <= 1e-6 * half.abs().max().item()
@@ -1396,3 +1399,157 @@ def test_unmasked_backward_sass_unchanged(cuda):
                              _build.library_path("flash_mha_bwd"),
                              {k.split()[0]: "ordered" for k in recorded["opcodes"]})
     assert counts == recorded["opcodes"]
+
+
+# ---- K3 at any head dim up to 128: the D = 128 instances, the others padded ----
+
+HEAD_DIM_CASES = (16, 24, 40, 96, 128)
+
+
+@pytest.mark.parametrize("keys", [64, 128])
+def test_flash_mha_bf16_tiles_d128(cuda, keys):
+    """One S tile and one P V tile at head dim 128 (two 128-byte boxes a row),
+    as test_flash_mha_bf16_tiles."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    q = _randn(64, 128, seed=160).bfloat16()
+    k, v = (_randn(keys, 128, seed=s).bfloat16() for s in (161, 162))
+    p = torch.rand(64, keys, generator=torch.Generator().manual_seed(163)).to(cuda)
+    s_tile, o_tile = K.bf16_tiles(q, k, v, p)
+    torch.cuda.synchronize()
+    want_s = q.double() @ k.double().T
+    want_o = p.bfloat16().double() @ v.double()
+    assert (s_tile.double() - want_s).abs().max().item() <= 1e-5 * want_s.abs().max().item()
+    assert (o_tile.double() - want_o).abs().max().item() <= 1e-5 * want_o.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", ["ragged", "one query"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", HEAD_DIM_CASES)
+def test_flash_mha_head_dims_match_plain(cuda, monkeypatch, d, bf16, masked, shape):
+    """Each head dim on its instance (128) or padded to the next one, on both
+    routes, unmasked and under a mask: ragged at B = 2 with three heads (a
+    fully masked key tile, row block and row), and one query over 70 keys at
+    B = 3 with one head (masked, its only row fully masked: NaN everywhere).
+    One launch of the instance, against the plain version (never reached by
+    a CUDA tensor inside the wrapper)."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    B, Tq, Tk, H = (2, 333, 517, 3) if shape == "ragged" else (3, 1, 70, 1)
+    q, k, v = (_randn(B, T, H * d, seed=s) for s, T in ((170, Tq), (171, Tk), (172, Tk)))
+    if bf16:
+        q, k, v = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    mask = None
+    if masked:
+        mask = _randn(Tq, Tk, seed=173) > 0.0
+        mask[:, :64] = False
+        mask[128:256] = False
+        mask[min(7, Tq - 1)] = False
+    want = K.flash_mha_plain(q, k, v, H, mask=mask)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    monkeypatch.setattr(K, "flash_mha_plain", refuse)
+    counter = K.flash_mha_bf16 if bf16 else K.flash_mha
+    instance = f"D={K.instance_dim(d)}" + (" masked" if masked else "")
+    before = (counter.launches, counter.launches_by_instance[instance])
+    got = K.flash_mha(q, k, v, H, mask=mask)
+    torch.cuda.synchronize()
+    assert (counter.launches, counter.launches_by_instance[instance]) == (before[0] + 1,
+                                                                          before[1] + 1)
+    assert got.shape == want.shape and got.dtype == q.dtype
+    _masked_close(got, want, BF16_TOL if bf16 else dict(atol=2e-5, rtol=1e-4))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("d", [16, 40])
+def test_flash_mha_padded_backward_matches_plain(cuda, d, bf16):
+    """A gradient at a head dim padded to an instance up to 64: the backward
+    kernel of the pad's instance, the gradients cropped, against autograd
+    through the plain version (1e-4 / 2^-6 x each gradient's peak)."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    H = 3
+    ts = [_randn(2, T, H * d, seed=s) for s, T in ((174, 300), (175, 200), (176, 200))]
+    do = _randn(2, 300, H * d, seed=177)
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    xs = [t.to(dtype).requires_grad_() for t in ts]
+    counter = K.flash_mha_bwd_bf16 if bf16 else K.flash_mha_bwd
+    before = counter.launches
+    got = torch.autograd.grad(K.flash_mha(*xs, H), xs, do.to(dtype))
+    assert counter.launches == before + 1
+    ref = [t.to(dtype).float().requires_grad_() for t in ts]
+    want = torch.autograd.grad(K.flash_mha_plain(*ref, H), ref, do.to(dtype).float())
+    rtol = 2.0 ** -6 if bf16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert (g.float() - w).abs().max().item() <= rtol * w.abs().max().item()
+
+
+def test_flash_mha_head_dims_refused(cuda):
+    """Past 128 no instance; a gradient or dropout at 64 < d <= 128 none yet:
+    each raises before any launch."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    before = (K.flash_mha.launches, K.flash_mha_bf16.launches)
+    q = _randn(1, 40, 2 * 136)
+    with pytest.raises(ValueError, match="head dims up to 128"):
+        K.flash_mha(q, q, q, 2)
+    for d in (96, 128):
+        q = _randn(1, 40, 2 * d)
+        with pytest.raises(ValueError, match=f"no backward or dropout instance at head dim {d}"):
+            K.flash_mha(q.requires_grad_(), q, q, 2)
+        with pytest.raises(ValueError, match=f"no backward or dropout instance at head dim {d}"):
+            K.flash_mha(q.detach().bfloat16(), q.detach().bfloat16(), q.detach().bfloat16(), 2,
+                        dropout=0.1, dropout_seed=3)
+    assert (K.flash_mha.launches, K.flash_mha_bf16.launches) == before
+
+
+def test_registered_op_at_head_dim_96_under_export(cuda, tmp_path):
+    """HTDemucs whose transformer has heads of 96 channels (384 in 4): its
+    core exported with K3 as the registered op, loaded, and run on the card,
+    where the op pads to the D = 128 instance: equal to the eager core (1e-6
+    x peak) and launching the D = 128 instance."""
+    import copy
+
+    from demucs_tpu_torch.export import core as C
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
+    from demucs_tpu_torch.ops.spec import cac_pack, demucs_spec
+
+    cfg = HTDemucsConfig(channels=16, depth=4, nfft=2048, t_layers=2, t_heads=4, segment=0.5,
+                         samplerate=8000, bottom_channels=384)
+    model = init_htdemucs(cfg, seed=9, layer_scale=1.0, random_norms=True).eval()
+    card = copy.deepcopy(model).to(cuda)
+    C.save_core(C.export_program(card), cfg, tmp_path / "core.pt2")
+    core = C.load_core(tmp_path / "core.pt2", "cuda")
+    mix = _randn(1, 2, 4000, seed=14) * 0.1
+    mag = cac_pack(demucs_spec(mix, cfg.nfft))
+    with torch.inference_mode():
+        want = card.forward_core(mag, mix)
+    before = KA.flash_mha.launches_by_instance["D=128"]
+    got = core(mag, mix)
+    torch.cuda.synchronize()
+    assert KA.flash_mha.launches_by_instance["D=128"] == before + 4
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
+
+
+def test_flash_mha_bf16_masked_past_the_row_block_limit(cuda):
+    """A bf16 masked call past MASK_ROW_BLOCKS row blocks at the largest
+    plan's rows (192) launches in pieces of its rows instead of raising, and
+    gives the plain version's result."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    Tq, Tk = K.MASK_ROW_BLOCKS * 192 + 5, 256
+    q = _randn(1, Tq, 64, seed=180).bfloat16()
+    k, v = (_randn(1, Tk, 64, seed=s).bfloat16() for s in (181, 182))
+    mask = _randn(Tq, Tk, seed=183) > 0.0
+    mask[3] = False
+    before = K.flash_mha_bf16.launches
+    got = K.flash_mha(q, k, v, 1, mask=mask)
+    torch.cuda.synchronize()
+    assert K.flash_mha_bf16.launches == before + len(K.mask_pieces(Tq)) == before + 2
+    _masked_close(got, K.flash_mha_plain(q, k, v, 1, mask=mask), BF16_TOL)

@@ -119,7 +119,7 @@ def test_tile_map_of_ragged_masks(name, rows, keys):
         assert (classes[:, -1] != 2).all()
 
 
-@pytest.mark.parametrize("keys", (64, 128))
+@pytest.mark.parametrize("keys", (32, 64, 128))
 @pytest.mark.parametrize("name", sorted(RAGGED) + [f"{m} released" for m in MASKS])
 def test_packed_bits_unpack_by_lane(name, keys):
     """The words unpacked lane by lane as the kernels test them give back the
@@ -242,8 +242,8 @@ def _lane_keep(words, x, rows, t, keys):
     e = np.arange(keys // 2)
     bit = 2 * (e >> 2) + (e & 1)
     w = words[t * keys // 128, x * rows:(x + 1) * rows].astype(np.int64)
-    if keys == 64:
-        w = w >> (16 * (t & 1))
+    if keys < 128:  # a tile's share of its group's words: 16 bits at 64 keys, 8 at 32
+        w = w >> (keys // 4 * (t % (128 // keys)))
     for c in range(4):
         out[:, 8 * (e >> 2) + 2 * c + (e & 1)] = (w[:, c, None] >> bit) & 1
     return torch.from_numpy(out)
@@ -451,8 +451,12 @@ def test_launch_arguments_under_mask(monkeypatch, B, Tq, Tk, mask_type):
 
 
 def test_masked_bf16_launch_refuses_too_many_row_blocks(monkeypatch):
-    """The masked bf16 kernel keeps the tile map's offsets in shared memory:
-    past MASK_ROW_BLOCKS row blocks the wrapper raises before any launch."""
+    """The masked bf16 kernel keeps the tile map's offsets in shared memory
+    and refuses more than MASK_ROW_BLOCKS row blocks a launch: past
+    MASK_PIECE_ROWS queries the wrapper launches a piece of the rows at a
+    time, each with its piece's tile map and bits, none past the limit at
+    any plan's rows; with dropout (the hash counts global rows) it raises
+    before any launch."""
     fake = _FakeLib()
     monkeypatch.setattr(K, "_lib", lambda: fake)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
@@ -462,6 +466,44 @@ def test_masked_bf16_launch_refuses_too_many_row_blocks(monkeypatch):
     tiles = K.MaskTiles(np.ones((Tq, Tk), bool), "cpu")
     q = torch.zeros(1, Tq, 64, dtype=torch.bfloat16)
     kv = torch.zeros(1, Tk, 64, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="at most"):
-        K._forward_bf16(q, kv, kv, 1, tiles, 0.0, 0, False)
+    with pytest.raises(ValueError, match="no dropout"):
+        K._forward_bf16(q, kv, kv, 1, tiles, 0.1, 3, False)
     assert fake.flash_mha_bf16.calls == []
+    K._forward_bf16(q, kv, kv, 1, tiles, 0.0, 0, False)
+    calls = fake.flash_mha_bf16.calls
+    assert len(calls) == len(tiles.pieces) == 2
+    for args, (r0, r1, piece) in zip(calls, tiles.pieces):
+        rows = args[15]
+        assert args[9] == r1 - r0 and -(-(r1 - r0) // rows) <= K.MASK_ROW_BLOCKS
+        assert args[3] == piece.maps[rows, K.KEY_TILE_BF16].data_ptr()
+        assert args[4] == piece.bits.data_ptr()
+
+
+@pytest.mark.parametrize("Tq", [1, K.MASK_PIECE_ROWS - 1, K.MASK_PIECE_ROWS,
+                                K.MASK_PIECE_ROWS + 1, 2 * K.MASK_PIECE_ROWS + 77])
+def test_mask_pieces_cover_every_row_once(Tq):
+    """The bf16 route's pieces of a masked call: consecutive, each at most
+    MASK_PIECE_ROWS rows (MASK_ROW_BLOCKS row blocks of the smallest plan),
+    every query row in exactly one."""
+    pieces = K.mask_pieces(Tq)
+    rows = [r for r0, r1 in pieces for r in range(r0, r1)]
+    assert rows == list(range(Tq))
+    assert all(0 < r1 - r0 <= K.MASK_PIECE_ROWS for r0, r1 in pieces)
+    assert K.MASK_PIECE_ROWS // 128 <= K.MASK_ROW_BLOCKS
+
+
+def test_mask_tiles_pieces_hold_their_rows():
+    """A mask past MASK_PIECE_ROWS rows keeps each piece's tiles, built from
+    that piece's rows: its bits are the packed rows, its maps their maps."""
+    Tq, Tk = K.MASK_PIECE_ROWS + 300, 70
+    mask = np.random.default_rng(3).random((Tq, Tk)) > 0.5
+    tiles = K.MaskTiles(mask, "cpu")
+    assert [(r0, r1) for r0, r1, _ in tiles.pieces] == K.mask_pieces(Tq)
+    for r0, r1, piece in tiles.pieces:
+        assert piece.shape == (r1 - r0, Tk) and not piece.pieces and not piece.bwd_maps
+        np.testing.assert_array_equal(piece.bits.numpy().view(np.uint32),
+                                      K.pack_mask_bits(mask[r0:r1]))
+        for rows, keys in K.MASK_PLANS:
+            np.testing.assert_array_equal(piece.maps[rows, keys].numpy(),
+                                          K.tile_map(mask[r0:r1], rows, keys)["map"])
+    assert not K.MaskTiles(mask[:K.MASK_PIECE_ROWS], "cpu").pieces

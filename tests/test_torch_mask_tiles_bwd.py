@@ -432,7 +432,7 @@ def test_autograd_node_keeps_the_forwards_tiles(monkeypatch):
     (kept in the node), as the forward does."""
     seen = {}
 
-    def forward(q, k, v, num_heads, tiles, rate, seed, want_lse):
+    def forward(q, k, v, num_heads, tiles, rate, seed, want_lse, head_dim=None):
         return q.clone(), torch.zeros(q.shape[0] * num_heads, q.shape[1])
 
     def backward(q, k, v, o, dout, num_heads, **kw):
@@ -455,9 +455,10 @@ def test_masked_sources_and_declarations():
     backward's a library whose ctypes declaration matches its C entries."""
     from test_torch_build import _exported, _FakeLib
 
-    assert _build.parts("flash_mha") == ["flash_mha", "flash_mha_masked"]
+    assert _build.parts("flash_mha") == ["flash_mha", "flash_mha_masked", "flash_mha_d128"]
     assert _build.parts("flash_mha_bwd_masked") == ["flash_mha_bwd_masked"]
-    assert 'extern "C"' not in (_build.CSRC / "flash_mha_masked.cu").read_text()
+    for part in ("flash_mha_masked", "flash_mha_d128"):
+        assert 'extern "C"' not in (_build.CSRC / f"{part}.cu").read_text()
     fake = _FakeLib()
     K._bwd_masked_lib.cache_clear()
     try:

@@ -787,8 +787,8 @@ def k3_bf16_checks(gen) -> dict:
     main = by_shape["B=1 freq<-freq"]
     instances = bf16_instances()
     # per head dim up to 64: 4 plans x dropout or not x masked or not; at 128
-    # one plan, no dropout, masked or not
-    wanted = (len(KA.HEAD_DIMS) - 1) * 4 * 2 * 2 + 2
+    # one plan, dropout or not, masked or not
+    wanted = (len(KA.HEAD_DIMS) - 1) * 4 * 2 * 2 + 4
     if len(instances) != wanted or not all(
             {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
             for v in instances.values()):
@@ -923,7 +923,7 @@ def k3_head_dims_checks(gen) -> list:
     inst = {**{f"fp32 {k}": v for k, v in f_inst.items() if k.startswith("d=128")},
             **{f"bf16 {k}": v for k, v in b_inst.items() if k.startswith("d=128")}}
     spills = [k for k, v in inst.items() if v.get("spill_stores") or v.get("spill_loads")]
-    if len(inst) != 4 or spills:
+    if len(inst) != 6 or spills:  # fp32 masked or not; bf16 also with the dropout
         raise AssertionError(f"K3 D = 128: instances {sorted(inst)}, spilling {spills}")
     for bf16 in (False, True):
         route = "bf16" if bf16 else "fp32"
@@ -2550,7 +2550,10 @@ def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
                     if pair:
                         times = paired({
                             "ms": lambda: k3_forward("f32", q, k, v, H, mask),
-                            "bf16_ms": lambda: k3_forward("bf16", qb, kb, vb, H, mask)})
+                            "bf16_ms": lambda: k3_forward("bf16", qb, kb, vb, H, mask),
+                            # the masked dropout instances add a piece's first row
+                            "bf16_ms_dropout": lambda: k3_forward("bf16", qb, kb, vb, H, mask,
+                                                                  TRAIN_DROPOUT, 5)})
                         row["pair"] = dict(times, unmasked=unmasked["pair"])
                     if key == "B=1 freq<-freq":
                         row["plain_ms"] = cuda_ms(
@@ -2563,6 +2566,8 @@ def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
         backward, worst_bwd, bwd_rows, bwd_inst = sparse_backward(gen, pair)
     ratios = [r["ms"] / r["unmasked_ms"] for r in rows.values()]
     ratios_b = [r["bf16_ms"] / r["bf16_unmasked_ms"] for r in rows.values()]
+    pairs = {name: [r["pair"][name][-1] / r["pair"][name][0] for r in rows.values()]
+             for name in ("ms", "bf16_ms", "bf16_ms_dropout")} if pair else {}
     spills = [v for v in (*b_inst.values(), *f_inst.values())
               if v.get("spill_stores") or v.get("spill_loads")]
     info = {"phase": "sparse_kernels", "card": card_line(), "masks": list(SPARSE_MASKS),
@@ -2570,6 +2575,8 @@ def phase_sparse_kernels(pair: tp.Optional[list] = None) -> dict:
             "worst_fp32_err": worst_fp32, "worst_bf16_excess_over_tol": worst_bf16,
             "masked_over_unmasked": {"fp32": [min(ratios), max(ratios)],
                                      "bf16": [min(ratios_b), max(ratios_b)]},
+            # --k3-pair: the last tree's time over the first's, each masked forward
+            "pair_last_over_first": {k: [min(v), max(v)] for k, v in pairs.items()},
             "bf16_over_sdpa": [min(r["bf16_over_sdpa"] for r in rows.values()),
                                max(r["bf16_over_sdpa"] for r in rows.values())],
             "bound_rule": "kept scores only: fp32 max(3 x 4 B H d kept / 495 TFLOP/s, bytes / "
@@ -2884,9 +2891,273 @@ def phase_variants(workdir: Path) -> tp.Tuple[dict, dict]:
 
 
 HEAD_DIM_REPEATS = 3  # each 30 s request of the head_dims phase, median reported
+HEADS4_TRAIN_STEPS = 4  # the head_dims phase's training steps a path (3-4 timed)
 
 
-def phase_head_dims(workdir: Path) -> tp.Tuple[dict, dict]:
+def k3_d128_train_checks(gen) -> list:
+    """K3's D = 128 training instances at freq self (2688 x 2688, 4 heads of
+    128 channels), B = 1 and 8, both routes, unmasked and under the diag
+    mask, at dropout 0 and TRAIN_DROPOUT: the forward with each row's
+    log-sum-exp against the plain version (fp32 K3_ATOL; bf16 2^-6 abs +
+    rel), dQ, dK, dV of the backward against the plain formula (K3_BWD_RTOL,
+    K3_BF16_BWD_RTOL x each gradient's peak), by default and twice under
+    deterministic() (bit-equal, each within tolerance). Times (B = 1 and 8):
+    the backward at 0 and TRAIN_DROPOUT and under the flag, the plain
+    backward (B = 1), SDPA's backward on the same shape (and mask); the
+    dropout forwards beside the plain one and SDPA's with its dropout; the
+    bound (the function's least work: bf16 5 x 2 B H Tq Tk d over 989
+    TFLOP/s, fp32 three times that over 495; masked, the kept scores; bytes
+    of q, k, v, o, dO, lse in and dQ, dK, dV out, and the mask as bits).
+    Registers and spills of every D = 128 backward instance (none may
+    spill). Returns the kernels line's rows of the new instances."""
+    import torch
+    import torch.nn.functional as F
+
+    from demucs_tpu_torch.kernels import attention as KA
+    from demucs_tpu_torch.ops.sparse import keep_mask
+
+    H, d, T = HEAD_DIM_HEADS, 128, 2688
+    C = H * d
+    diag = keep_mask(T, T, "diag", device="cuda", **MASK_DEFAULTS)
+    kept = int(diag.bool().sum().item())
+    cases, timed, bad = {}, {}, []
+    for route, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        bwd = KA.flash_mha_bwd_bf16 if route == "bf16" else KA.flash_mha_bwd
+        fwd = KA._forward_bf16 if route == "bf16" else KA._forward_f32
+        tol = K3_BF16_BWD_RTOL if route == "bf16" else K3_BWD_RTOL
+        size = 2 if route == "bf16" else 4
+        for batch in (1, 8):
+            q, k, v, do = (torch.randn(batch, T, C, device="cuda", generator=gen).to(dtype)
+                           for _ in range(4))
+            for masked in (False, True):
+                mask = diag if masked else None
+                tiles = None if mask is None else KA.mask_tiles(mask)
+                name = f"{route} B={batch}" + (" diag" if masked else "")
+                for rate in (0.0, TRAIN_DROPOUT):
+                    o, lse = fwd(q, k, v, H, tiles, rate, 7, True)
+                    want_o = KA.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate,
+                                                dropout_seed=7)
+                    want = KA.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask,
+                                                  dropout=rate, dropout_seed=7)
+                    got = bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
+                              dropout_seed=7)
+                    with deterministic():
+                        det = [bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
+                                   dropout_seed=7) for _ in range(2)]
+                    case = {
+                        # bf16: the excess over its tolerance (<= 0 passes)
+                        "fwd_err": (bf16_excess(o, want_o) if route == "bf16"
+                                    else fp32_err(o, want_o)),
+                        "fwd_abs_err": fp32_err(o.float(), want_o.float()),
+                        "lse_err": fp32_err(lse, _lse_plain(q, k, H, mask)),
+                        "dq_dk_dv_err_over_peak": [_grad_err(g.float(), w.float())
+                                                   for g, w in zip(got, want)],
+                        "deterministic_err_over_peak": [_grad_err(g.float(), w.float())
+                                                        for g, w in zip(det[0], want)],
+                        "deterministic_bit_equal": all(bool(torch.equal(a, b))
+                                                       for a, b in zip(*det))}
+                    case["ok"] = (case["fwd_err"] <= (0 if route == "bf16" else K3_ATOL)
+                                  and case["lse_err"] <= K3_BF16_LSE_ATOL
+                                  and max(case["dq_dk_dv_err_over_peak"]) <= tol
+                                  and max(case["deterministic_err_over_peak"]) <= tol
+                                  and case["deterministic_bit_equal"])
+                    cases[f"{name} rate={rate}"] = case
+                    bad += [] if case["ok"] else [f"{name} rate={rate}"]
+                    del got, det, want, want_o
+                o, lse = fwd(q, k, v, H, tiles, 0.0, 0, True)
+                scores = T * T if mask is None else kept
+                flops = 5 * 2 * batch * H * scores * d
+                # q, k, v, o, dO in and dQ, dK, dV out, lse; the mask as bits
+                bits = 0 if mask is None else T * T // 8
+                nbytes = size * batch * 8 * T * C + 4 * batch * H * T + bits
+                b_ms, b_by = (bound(flops, nbytes, BF16_FLOPS) if route == "bf16"
+                              else bound(3 * flops, nbytes, TF32_FLOPS))
+                split = [t.view(batch, T, H, d).transpose(1, 2).detach().clone()
+                         .requires_grad_() for t in (q, k, v)]
+                keep = None if mask is None else mask.bool()
+                so = F.scaled_dot_product_attention(*split, attn_mask=keep)
+                so_drop = F.scaled_dot_product_attention(*split, attn_mask=keep,
+                                                         dropout_p=TRAIN_DROPOUT)
+                sdo = do.view(batch, T, H, d).transpose(1, 2)
+                row = dict(
+                    ms=cuda_ms(lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask)),
+                    ms_dropout=cuda_ms(lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask,
+                                                   dropout=TRAIN_DROPOUT, dropout_seed=5)),
+                    deterministic_ms=_deterministic_ms(
+                        lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask)),
+                    sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
+                                                                    retain_graph=True)),
+                    sdpa_bwd_ms_dropout=cuda_ms(lambda: torch.autograd.grad(
+                        so_drop, split, sdo, retain_graph=True)),
+                    fwd_ms_dropout=cuda_ms(lambda: fwd(q, k, v, H, tiles, TRAIN_DROPOUT, 5,
+                                                       False)),
+                    fwd_bound_ms=(bound(4 * batch * H * scores * d,
+                                        size * batch * 4 * T * C + bits, BF16_FLOPS)
+                                  if route == "bf16" else
+                                  bound(3 * 4 * batch * H * scores * d,
+                                        size * batch * 4 * T * C + bits, TF32_FLOPS))[0],
+                    bound_ms=b_ms, bound_by=b_by)
+                with torch.no_grad():  # SDPA with the mask and its dropout, no graph
+                    row["sdpa_fwd_ms_dropout"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        *split, attn_mask=keep, dropout_p=TRAIN_DROPOUT))
+                row["bound_share"] = row["bound_ms"] / row["ms"]
+                if batch == 1:
+                    row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(
+                        q, k, v, o, do, H, mask=mask), repeat=3)
+                    row["fwd_plain_ms_dropout"] = cuda_ms(lambda: KA.flash_mha_plain(
+                        q, k, v, H, mask=mask, dropout=TRAIN_DROPOUT, dropout_seed=5),
+                        repeat=3)
+                timed[name] = row
+                del o, lse, split, so, so_drop
+            del q, k, v, do
+            torch.cuda.empty_cache()
+    instances = d128_bwd_instances()
+    fwd_inst = {k: v for k, v in bf16_instances().items()
+                if k.startswith("d=128") and "dropout" in k}
+    if not _no_spills(instances) or not _no_spills(fwd_inst) or len(fwd_inst) != 2:
+        bad.append(f"spills or missing instances: {instances}, {fwd_inst}")
+    rows = []
+
+    def errs(route, masked, key="dq_dk_dv_err_over_peak"):  # the worst over the row's cases
+        return max(max(c[key]) for n, c in cases.items()
+                   if n.startswith(route + " ") and (" diag " in n) == masked)
+
+    def dropped(masked):  # the bf16 cases with the dropout
+        return [(n, c) for n, c in cases.items() if n.startswith("bf16 ")
+                and (" diag " in n) == masked and not n.endswith("rate=0.0")]
+
+    for route in ("fp32", "bf16"):
+        for masked in (False, True):
+            suffix = " diag" if masked else ""
+            b1, b8 = timed[f"{route} B=1{suffix}"], timed[f"{route} B=8{suffix}"]
+            name = ("flash_mha_bwd_bf16" if route == "bf16" else "flash_mha_bwd") + " D=128" + (
+                " masked" if masked else "")
+            base = dict(
+                source="demucs_tpu_torch/csrc/flash_mha_bwd_d128.cu" if not masked else
+                "demucs_tpu_torch/csrc/flash_mha_bwd_masked_d128.cu",
+                replaces="demucs_tpu/ops/pallas/attention.py:103 (the gradient of its function "
+                         "at head dim 128, :117; the Pallas kernel has no backward, JAX trains "
+                         "through XLA's dense attention)",
+                library=f"autograd.grad of F.scaled_dot_product_attention ({route}"
+                        f"{', same mask' if masked else ''})",
+                plain_ms=b1["plain_ms"], bound_by=b1["bound_by"],
+                tol=K3_BF16_BWD_RTOL if route == "bf16" else K3_BWD_RTOL,
+                max_err_is="over each gradient's peak",
+                shape=f"q, k, v (1, 2688, 512), 4 heads of 128 (freq self; also B = 8)"
+                      f"{', diag mask' if masked else ''}",
+                instances={k: v for k, v in instances.items()
+                           if k.startswith(route) and ("masked" in k) == masked})
+            rows.append(dict(base, name=name, ms=b1["ms"], library_ms=b1["sdpa_bwd_ms"],
+                             bound_ms=b1["bound_ms"], max_abs_err=errs(route, masked),
+                             deterministic_ms=b1["deterministic_ms"],
+                             deterministic_max_abs_err=errs(route, masked,
+                                                            "deterministic_err_over_peak"),
+                             batch_8=b8, batch_1=b1))
+            if route == "bf16" and not masked:  # the ordered instance: a row of its own
+                rows.append(dict(base, name=name + " deterministic", ms=b1["deterministic_ms"],
+                                 library_ms=b1["sdpa_bwd_ms"], bound_ms=b1["bound_ms"],
+                                 max_abs_err=errs(route, masked, "deterministic_err_over_peak"),
+                                 deterministic_ms=b1["deterministic_ms"],
+                                 deterministic_max_abs_err=errs(
+                                     route, masked, "deterministic_err_over_peak"),
+                                 batch_8_ms=b8["deterministic_ms"]))
+            if route == "bf16":  # the dropout forward's instance
+                rows.append(dict(
+                    name="flash_mha_bf16 D=128" + (" masked" if masked else "") + " dropout",
+                    source="demucs_tpu_torch/csrc/flash_mha_d128.cu",
+                    replaces="demucs_tpu/ops/pallas/attention.py:103 (its hashed dropout, "
+                             ":34, :73-84, at head dim 128)",
+                    ms=b1["fwd_ms_dropout"], plain_ms=b1["fwd_plain_ms_dropout"],
+                    library_ms=b1["sdpa_fwd_ms_dropout"],
+                    library=f"F.scaled_dot_product_attention (bf16, dropout_p {TRAIN_DROPOUT}"
+                            f"{', same mask' if masked else ''})",
+                    bound_ms=b1["fwd_bound_ms"], bound_by="operations",
+                    max_abs_err=max(c["fwd_abs_err"] for n, c in dropped(masked)),
+                    excess_over_tol=max(c["fwd_err"] for n, c in dropped(masked)),
+                    tol=f"{K3_BF16_TOL} abs + rel",
+                    batch_8_ms=b8["fwd_ms_dropout"],
+                    instances={k: v for k, v in fwd_inst.items() if ("masked" in k) == masked},
+                    shape="q, k, v (1, 2688, 512), 4 heads of 128, dropout 0.1 (freq self; "
+                          f"also B = 8){', diag mask' if masked else ''}"))
+    emit({"phase": "head_dim_train_kernels", "card": card_line(), "cases": cases,
+          "times": timed, "instances": instances, "fwd_dropout_instances": fwd_inst,
+          "ok": not bad})
+    if bad:
+        raise AssertionError(f"K3's D = 128 training instances: {bad}")
+    return rows
+
+
+def bf16_step_twice(**model_kw) -> tp.Tuple[dict, dict]:
+    """The released HTDemucs (``model_kw`` over its options) in bf16 mixed
+    precision: one train step at batch 1 (TRAIN_CHECK_LOSS, lr 0) run twice
+    under deterministic() from the same weights and batch (C5: every
+    gradient bit-equal; K3's bf16 backward in its ordered instance). Returns
+    the report and the two steps' launches (every count from 0)."""
+    import torch
+
+    from demucs_tpu_torch.train.step import train_step
+
+    model = _released_training_model(seed=3, compute_dtype="bfloat16", **model_kw)
+    model.module.to("cuda")
+    sources = 0.2 * torch.randn(1, 4, 2, model.cfg.training_length, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(4))
+    grads = []
+    _zero_train_counts()
+    with deterministic():
+        for _ in range(2):
+            train_step(model, _optimizer(model, 0.0), sources, loss=TRAIN_CHECK_LOSS)
+            grads.append({n: p.grad.detach().clone() for n, p in model.module.named_parameters()})
+    torch.cuda.synchronize()
+    counts = _read_train_counts()
+    info = {"batch": 1, "compute_dtype": "bfloat16", "loss_kind": TRAIN_CHECK_LOSS,
+            "card_twice_bit_equal": all(bool(torch.equal(grads[0][n], grads[1][n]))
+                                        for n in grads[0]),
+            "finite": all(bool(torch.isfinite(g).all()) for g in grads[0].values())}
+    info["ok"] = info["card_twice_bit_equal"] and info["finite"] and counts[
+        "flash_mha_bwd_bf16"] > 0
+    del model, grads
+    torch.cuda.empty_cache()
+    return info, counts
+
+
+def head_dims_training() -> tp.Tuple[dict, dict]:
+    """HTDemucs at the released shape with t_heads=4 (K3's D = 128 backward)
+    in training: train_card_vs_cpu's card step against the CPU's at batch 1
+    on TRAIN_CHECK_LOSS (once by default, twice under deterministic():
+    bit-equal, each held to the CPU's); the bf16 step twice under
+    deterministic(), bit-equal (bf16_step_twice: the ordered bf16 D = 128
+    instance); then HEADS4_TRAIN_STEPS steps at TRAIN_BATCH (4 if 8 does not
+    fit) in fp32 and bf16, dense and sparse (SPARSE), at t_dropout
+    TRAIN_DROPOUT (the D = 128 dropout instances), with audio-s/s. Every
+    launch counted from 0 on each path: K3's D = 128 backward instance of
+    the path must be all of its route's backwards."""
+    info, paths = {}, {}
+    _zero_train_counts()
+    info["card_vs_cpu_step"], step = train_card_vs_cpu(t_heads=4)
+    paths["htdemucs heads4 train card steps"] = _read_train_counts()
+    del step
+    info["bf16_deterministic_steps"], det = bf16_step_twice(t_heads=4)
+    paths["htdemucs heads4 train bf16 deterministic"] = det
+    steps = paths["htdemucs heads4 train card steps"]
+    info["card_vs_cpu_step"]["ok"] = (
+        info["card_vs_cpu_step"]["ok"] and steps["flash_mha_bwd D=128"] > 0
+        and steps["flash_mha_bwd D=128 deterministic"] > 0)
+    info["bf16_deterministic_steps"]["ok"] = (
+        info["bf16_deterministic_steps"]["ok"]
+        and det["flash_mha_bwd_bf16 D=128 deterministic"] == det["flash_mha_bwd_bf16"])
+    for name, dtype, kw in (("fp32", "float32", {}), ("bf16", "bfloat16", {}),
+                            ("sparse", "float32", SPARSE), ("sparse bf16", "bfloat16", SPARSE)):
+        run, counts = train_throughput(dtype, steps=HEADS4_TRAIN_STEPS, detail=False, t_heads=4,
+                                       t_dropout=TRAIN_DROPOUT, **kw)
+        route = "flash_mha_bwd_bf16" if dtype == "bfloat16" else "flash_mha_bwd"
+        instance = f"{route} D=128" + (" masked" if kw else "")
+        run["ok"] = run["ok"] and counts[instance] == counts[route] > 0
+        info[f"throughput {name}"] = run
+        paths[f"htdemucs heads4 train {name}"] = counts
+    return info, paths
+
+
+def phase_head_dims(workdir: Path) -> tp.Tuple[list, dict]:
     """HTDemucs at the released shape with t_heads=4 (512 channels in 4
     heads: head dim 128, K3's D = 128 instances) through Separator on a 30 s
     track in four forms: fp32 (K3's fp32 route), the fast preset (its bf16
@@ -2897,11 +3168,16 @@ def phase_head_dims(workdir: Path) -> tp.Tuple[dict, dict]:
     weights, PRESET_SER_DB), a warm-up request (graphs captured),
     then HEAD_DIM_REPEATS requests on the device engine with every launch
     counted: K3's launches of the D = 128 instance of the form (masked on
-    the sparse form) must be all of K3's and more than 0; the wall time."""
+    the sparse form) must be all of K3's and more than 0; the wall time.
+    Then the same model in training: K3's D = 128 training instances alone
+    (k3_d128_train_checks) and its train steps (head_dims_training).
+    Returns the D = 128 training instances' rows of the kernels line and the
+    launches of each path."""
     import numpy as np
     import torch
 
     from demucs_tpu_torch.api import Separator
+    from demucs_tpu_torch.inference.engine import GRAPHS
     from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
     from demucs_tpu_torch.models.registry import Model
     from demucs_tpu_torch.presets import resolve_preset
@@ -2956,11 +3232,23 @@ def phase_head_dims(workdir: Path) -> tp.Tuple[dict, dict]:
         paths[f"htdemucs heads4 {form}"] = launched
         del sep, counts
         torch.cuda.empty_cache()
-    info["ok"] = all(r["ok"] for r in info["forms"].values())
+    GRAPHS.clear()
+    torch.cuda.empty_cache()
+    with _fp32():
+        rows = k3_d128_train_checks(torch.Generator(device="cuda").manual_seed(12))
+        info["train"], train_paths = head_dims_training()
+    paths.update(train_paths)
+    # each D = 128 training instance launched on the paths above
+    info["train_instance_launches"] = {r["name"]: sum(c.get(r["name"], 0) for c in paths.values())
+                                       for r in rows}
+    info["ok"] = (all(r["ok"] for r in info["forms"].values())
+                  and all(r["ok"] for r in info["train"].values())
+                  and all(info["train_instance_launches"].values()))
     emit(info)
     if not info["ok"]:
-        raise AssertionError("head_dims: a form's launches, card vs CPU or SER is wrong")
-    return info, paths
+        raise AssertionError("head_dims: a form's launches, card vs CPU or SER, or a train "
+                         "step is wrong")
+    return rows, paths
 
 
 def phase_memory(workdir: Path) -> dict:
@@ -3173,7 +3461,9 @@ C2_FLOOR = 1e-4
 def _train_counters():
     """name -> (wrapper, its count's attribute): each kernel's launches, and
     K3's backward launches under a mask on each route (the masked instances,
-    rows of their own in the kernels line)."""
+    rows of their own in the kernels line); then (a route's
+    ``launches_by_instance``, its key) for K3's D = 128 instances, forward
+    and backward ("flash_mha_bwd D=128 masked deterministic")."""
     from demucs_tpu_torch.kernels import attention as KA
     from demucs_tpu_torch.kernels import stft as KS
 
@@ -3184,16 +3474,24 @@ def _train_counters():
         ("flash_mha_bwd_bf16", KA.flash_mha_bwd_bf16))}
     counters["flash_mha_bwd masked"] = (KA.flash_mha_bwd, "masked_launches")
     counters["flash_mha_bwd_bf16 masked"] = (KA.flash_mha_bwd_bf16, "masked_launches")
+    for fn in (KA.flash_mha, KA.flash_mha_bf16, KA.flash_mha_bwd, KA.flash_mha_bwd_bf16):
+        for key in fn.launches_by_instance:
+            if key.startswith("D=128"):
+                counters[f"{fn.__name__} {key}"] = (fn.launches_by_instance, key)
     return counters
 
 
 def _zero_train_counts() -> None:
-    for fn, attr in _train_counters().values():
-        setattr(fn, attr, 0)
+    for obj, attr in _train_counters().values():
+        if isinstance(obj, dict):
+            obj[attr] = 0
+        else:
+            setattr(obj, attr, 0)
 
 
 def _read_train_counts() -> dict:
-    return {name: getattr(fn, attr) for name, (fn, attr) in _train_counters().items()}
+    return {name: obj[attr] if isinstance(obj, dict) else getattr(obj, attr)
+            for name, (obj, attr) in _train_counters().items()}
 
 
 def _grad_err(got, want) -> float:
@@ -3229,9 +3527,9 @@ def _deterministic_ms(fn) -> float:
 
 def bwd_instances(route: str, report: tp.Optional[str] = None, masked: bool = False) -> dict:
     """Registers and spills of each block-kernel instance of K3's backward on
-    ``route`` ("Bf16Bwd" or "F32Bwd"), the default and the deterministic
-    order's ("ordered"), from nvcc's report of the library (the masked
-    instances' with ``masked``), or of ``report``."""
+    ``route`` ("Bf16Bwd" or "F32Bwd") at head dims 32, 48 and 64, the default
+    and the deterministic order's ("ordered"), from nvcc's report of the
+    library (the masked instances' with ``masked``), or of ``report``."""
     from demucs_tpu_torch.kernels import _build
 
     groups = r"ILi(\d+)ELi(\d+)ELb([01])E" if route == "Bf16Bwd" else r"ILi(\d+)ELb([01])E"
@@ -3241,12 +3539,37 @@ def bwd_instances(route: str, report: tp.Optional[str] = None, masked: bool = Fa
     named = {}
     for key, v in found.items():
         d, *nwg, ordered = key.split()
+        if d == "128":  # the D = 128 instances: d128_bwd_instances
+            continue
         named[f"d={d}" + (f" keys={64 * int(nwg[0])}" if nwg else "")
               + (" ordered" if ordered == "1" else "")] = v
     if len(named) != 2 * 3 * (2 if route == "Bf16Bwd" else 1) or not all(
             {"registers_at_launch", "spill_stores", "spill_loads"} <= set(v)
             for v in named.values()):
         raise AssertionError(f"K3 backward: nvcc's report lacks {route} instances: {named}")
+    return named
+
+
+def d128_bwd_instances() -> dict:
+    """Registers and spills of K3's backward instances at head dim 128, from
+    nvcc's reports of both backward libraries (csrc/flash_mha_bwd_d128.cu and
+    its masked twin): the bf16 route's block kernel (Bf16Bwd<128, 1, ORDERED,
+    MASKED>) and the fp32 route's dK / dV and dQ kernels."""
+    from demucs_tpu_torch.kernels import _build
+    from demucs_tpu_torch.kernels import attention as KA
+
+    KA._bwd_lib(), KA._bwd_masked_lib()
+    named = {}
+    for lib, tag in (("flash_mha_bwd", ""), ("flash_mha_bwd_masked", " masked")):
+        report = _build.ptxas_report(lib)
+        for key, v in ptxas_kernels(report, r"bwd_kernelINS_\d+Bf16BwdILi128ELi1ELb([01])E"
+                                    ).items():
+            named["bf16 block" + tag + (" ordered" if key == "1" else "")] = v
+        for key, v in ptxas_kernels(report, r"bwd_(dkdv|dq)_f32_d128I").items():
+            named[f"fp32 {key}" + tag] = v
+    if len(named) != 8 or not all({"registers_at_launch", "spill_stores", "spill_loads"}
+                                  <= set(v) for v in named.values()):
+        raise AssertionError(f"K3 backward D = 128: nvcc's report lacks instances: {named}")
     return named
 
 
@@ -3600,7 +3923,8 @@ def train_k3_bf16_checks(gen) -> dict:
             torch.cuda.empty_cache()
     main = by_shape[f"B={TRAIN_BATCH} freq<-freq"]
     instances = bwd_instances("Bf16Bwd")
-    fwd_instances = {k: v for k, v in bf16_instances().items() if k.endswith("dropout")}
+    fwd_instances = {k: v for k, v in bf16_instances().items()  # D = 128's: head_dims phase
+                     if k.endswith("dropout") and not k.startswith("d=128")}
     worst["rerun_dq_gap"] = max(r["dq_gap_over_peak"] for r in rerun.values())
     ok = (worst["fwd_excess"] <= 0 and worst["lse"] <= K3_BF16_LSE_ATOL
           and worst["bwd"] <= K3_BF16_BWD_RTOL and worst["pattern_mismatches"] == 0
@@ -3696,11 +4020,12 @@ def train_stft_checks(gen) -> dict:
 
 def _released_training_model(seed: int = 0, **kw):
     """The released HTDemucs for training: seeded weights, every parameter an
-    fp32 master (a bf16 stage casts them on each forward)."""
+    fp32 master (a bf16 stage casts them on each forward); ``kw`` over the
+    released options (``t_heads=4``: heads of 128 channels)."""
     from demucs_tpu_torch.models.htdemucs import HTDemucsConfig, init_htdemucs
     from demucs_tpu_torch.models.registry import Model
 
-    cfg = HTDemucsConfig(segment=TRAIN_SEGMENT, **RELEASED, **kw)
+    cfg = HTDemucsConfig(**dict(RELEASED, segment=TRAIN_SEGMENT, **kw))
     return Model("htdemucs", cfg, init_htdemucs(cfg, seed=seed, layer_scale=1.0,
                                                  random_norms=True, fp32_masters=True).train())
 
@@ -3987,7 +4312,7 @@ def train_throughput(compute_dtype: str = "float32", steps: int = TRAIN_STEPS,
     The bf16 path must launch K3's bf16 kernels and no fp32 K3 kernel.
     ``steps``: the steps run (from the third timed); ``model_kw``: the
     model's options (the sparse path's static masks: every K3 backward then
-    masked)."""
+    masked; a ``t_dropout``, drawn from one seeded generator)."""
     import statistics
 
     import torch
@@ -4001,6 +4326,7 @@ def train_throughput(compute_dtype: str = "float32", steps: int = TRAIN_STEPS,
         opt = _optimizer(model, 3e-4)
         sources = 0.2 * torch.randn(batch, 4, 2, model.cfg.training_length, device="cuda",
                                     generator=torch.Generator(device="cuda").manual_seed(6))
+        gen = torch.Generator().manual_seed(9)  # the transformer's dropout draws, if any
         held = torch.cuda.memory_allocated() / 2**30  # with the weights, before any step
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -4008,7 +4334,7 @@ def train_throughput(compute_dtype: str = "float32", steps: int = TRAIN_STEPS,
             walls, losses = [], []
             for _ in range(steps):
                 start = time.perf_counter()
-                m = train_step(model, opt, sources)
+                m = train_step(model, opt, sources, generator=gen)
                 losses.append(m["loss"].item())  # synchronizes
                 walls.append(time.perf_counter() - start)
             counts = _read_train_counts()
@@ -4024,7 +4350,7 @@ def train_throughput(compute_dtype: str = "float32", steps: int = TRAIN_STEPS,
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         opt.zero_grad(set_to_none=True)
         ev[0].record()
-        value, _ = forward_loss(model, sources, "l1", (1.0,) * 4)
+        value, _ = forward_loss(model, sources, "l1", (1.0,) * 4, generator=gen)
         ev[1].record()
         with backward_precision(model):
             value.backward()
@@ -4034,7 +4360,8 @@ def train_throughput(compute_dtype: str = "float32", steps: int = TRAIN_STEPS,
         torch.cuda.synchronize()
         for (name, a, b) in (("forward", 0, 1), ("backward", 1, 2), ("optimizer", 2, 3)):
             split[name].append(ev[a].elapsed_time(ev[b]))
-    profile = _profile_step(lambda: train_step(model, opt, sources)) if detail else None
+    profile = (_profile_step(lambda: train_step(model, opt, sources, generator=gen)) if detail
+               else None)
     timed = walls[2:]
     median = statistics.median(timed)
     info = {"compute_dtype": compute_dtype, "batch": batch, "batch_8_fit": batch == TRAIN_BATCH,
@@ -4121,8 +4448,8 @@ def entry_counts(counted: Path, module: str, argv: list) -> int:
     try:
         runpy.run_module(module, run_name="__main__", alter_sys=True)
     finally:
-        counts = {name: getattr(fn, attr) + GRAPHS.replayed_launches.get(name, 0)
-                  for name, (fn, attr) in _train_counters().items()}
+        counts = {name: n + GRAPHS.replayed_launches.get(name, 0)
+                  for name, n in _read_train_counts().items()}
         counted.write_text(json.dumps(dict(counts, **dropping)))
     return 0
 
@@ -5932,7 +6259,9 @@ def main() -> int:
         paths.update(stream_paths)
         _, variant_paths = phase_variants(workdir)
         paths.update(variant_paths)
-        paths.update(phase_head_dims(workdir)[1])
+        head_rows, head_paths = phase_head_dims(workdir)
+        rows += head_rows
+        paths.update(head_paths)
         phase_memory(workdir)
         phase_evaluate(workdir)
         train_rows, train_paths = phase_train(workdir)

@@ -36,10 +36,11 @@ struct Dropout {
   float scale;         // 1 / (1 - rate), applied to the kept probabilities
   uint32_t seed;
   uint32_t limit;      // t << 8, t = ceil(rate 2^24): u = x >> 8 below t is dropped
+  int row0;            // the launch's first global query row (a piece of a longer call's rows)
 
-  static Dropout make(float rate, uint32_t seed) {
+  static Dropout make(float rate, uint32_t seed, int row0 = 0) {
     return Dropout{rate, rate > 0.f ? 1.f / (1.f - rate) : 1.f, seed,
-                   (uint32_t)ceilf(rate * 16777216.f) << 8};
+                   (uint32_t)ceilf(rate * 16777216.f) << 8, row0};
   }
 
   __device__ __forceinline__ uint32_t salt(int bh) const {

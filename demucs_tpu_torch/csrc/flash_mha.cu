@@ -10,6 +10,11 @@
 
 extern "C" {
 
+int flash_mha_bf16_piece(const void* q, const void* k, const void* v, const int* tile_map,
+                         const unsigned int* bits, void* o, float* part, float* lse, int B,
+                         int Tq, int Tk, int H, int D, float scale, int key_tile, int block_rows,
+                         int ctas, float rate, int seed, int row0, void* stream);
+
 // q (B, Tq, H*D), k/v (B, Tk, H*D) -> o (B, Tq, H*D). tile_map and bits:
 // null, or a keep-mask's tile map for block_rows rows and BK keys and its
 // packed words (see mask_rows); BK = 64, and 32 at D = 128 (f32_keys).
@@ -41,9 +46,9 @@ int flash_mha_f32(const float* q, const float* k, const float* v, const int* til
 // with 16-byte aligned bases; tile_map (for block_rows rows and key_tile
 // keys) and bits as for flash_mha_f32. scale = log2(e) / sqrt(d) as
 // flash_mha_f32's q_scale, applied to the fp32 scores. key_tile 64 or 128
-// keys, block_rows 128 or 192 query rows (D = 128: 64 keys, 128 rows, no
-// dropout); ctas blocks in the grid, each a range of the persistent schedule
-// over the units (Schedule; ctas = the row blocks: a block each; part: fp32
+// keys, block_rows 128 or 192 query rows (D = 128: 64 keys, 128 rows);
+// ctas blocks in the grid, each a range of the persistent schedule over
+// the units (Schedule; ctas = the row blocks: a block each; part: fp32
 // scratch of 2 ctas block_rows (D + 2) floats, which may be null when no
 // range starts inside a row block, and under a mask is given exactly when
 // one does). lse and the dropout's rate and seed as for flash_mha_f32.
@@ -53,17 +58,30 @@ int flash_mha_bf16(const void* q, const void* k, const void* v, const int* tile_
                    const unsigned int* bits, void* o, float* part, float* lse, int B, int Tq,
                    int Tk, int H, int D, float scale, int key_tile, int block_rows, int ctas,
                    float rate, int seed, void* stream) {
-  if (Tk <= 0 || !(rate >= 0.f && rate < 1.f)) return (int)cudaErrorInvalidValue;
+  return flash_mha_bf16_piece(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H, D, scale,
+                              key_tile, block_rows, ctas, rate, seed, 0, stream);
+}
+
+// flash_mha_bf16 on a piece of a longer call's query rows, which starts at
+// global row row0: q, o and lse are the piece's rows, tile_map and bits its
+// keep-mask's (kernels/attention.py MaskTiles.pieces); the dropout hashes
+// the global rows, so the pieces drop what one launch over all rows would.
+int flash_mha_bf16_piece(const void* q, const void* k, const void* v, const int* tile_map,
+                         const unsigned int* bits, void* o, float* part, float* lse, int B,
+                         int Tq, int Tk, int H, int D, float scale, int key_tile, int block_rows,
+                         int ctas, float rate, int seed, int row0, void* stream) {
+  if (Tk <= 0 || !(rate >= 0.f && rate < 1.f) || row0 < 0) return (int)cudaErrorInvalidValue;
   if ((tile_map == nullptr) != (bits == nullptr)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();
   const bf16 *qb = (const bf16*)q, *kb = (const bf16*)k, *vb = (const bf16*)v;
   bf16* ob = (bf16*)o;
   const cudaStream_t s = (cudaStream_t)stream;
-  const Dropout drop = Dropout::make(rate, (uint32_t)seed);
+  const Dropout drop = Dropout::make(rate, (uint32_t)seed, row0);
   if (tile_map != nullptr) {
     return flash_mha_bf16_masked(qb, kb, vb, tile_map, bits, ob, part, lse, B, Tq, Tk, H, D,
                                  scale, key_tile, block_rows, ctas, drop, s);
   }
+  if (row0 != 0) return (int)cudaErrorInvalidValue;  // only a masked call comes in pieces
   return run_bf16<false>(qb, kb, vb, tile_map, bits, ob, part, lse, B, Tq, Tk, H, D, scale,
                          key_tile, block_rows, ctas, drop, s);
 }

@@ -771,7 +771,8 @@ cudaError_t launch_rows(int block_rows, const float* q, const float* k, const fl
 // D = 128 (flash_mha_d128.cu): 64 keys a tile and 128 rows a block, the one
 // plan whose ring of 4 stages fits beside the two Q images (193 KiB; 128
 // keys would take 321), a slice in two boxes of 128 bytes, P V m64n128k16
-// over both; no dropout instance (training at D = 128 is refused).
+// over both; the DROP instances add each stage's column terms (256 bytes):
+// 194 KiB, 204 KiB masked (its words and offsets).
 //
 // Shared memory: a head's slice of a row is W bytes (W = 128 at D = 64 and
 // 128, 64 at D = 32, and 32 at D = 48 in three boxes of 16 channels),
@@ -1462,9 +1463,10 @@ flash_mha_bf16_masked_kernel(const __grid_constant__ CUtensorMap q_map,
       const uint32_t q_wg = q_img + qb * Cfg::Q_BYTES + wg * ROWS_WG * I::W;
       uint32_t rt[2];  // the dropout's row terms
       if constexpr (DROP) {
+        // the global row: a launch on a piece of a longer call's rows starts at row0
         const uint32_t salt = drop.salt(b * H + h);
-        rt[0] = Dropout::row_term(row, salt);
-        rt[1] = Dropout::row_term(row + 8, salt);
+        rt[0] = Dropout::row_term(row + drop.row0, salt);
+        rt[1] = Dropout::row_term(row + drop.row0 + 8, salt);
       }
 
       float acc[D / 2];
@@ -1729,13 +1731,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const int* tile_map
   if constexpr (MASKED) {
     auto kernel = flash_mha_bf16_masked_kernel<D, BK, NWG, false>;
     size_t smem = Bf16Cfg<D, BK, NWG, false, true>::SMEM_LAUNCH;
-    if constexpr (D <= 64) {  // the dropout instances (none yet at D = 128: training)
-      if (dropping) {
-        kernel = flash_mha_bf16_masked_kernel<D, BK, NWG, true>;
-        smem = Bf16Cfg<D, BK, NWG, true, true>::SMEM_LAUNCH;
-      }
-    } else if (dropping) {
-      return (int)cudaErrorInvalidValue;
+    if (dropping) {  // the dropout instances
+      kernel = flash_mha_bf16_masked_kernel<D, BK, NWG, true>;
+      smem = Bf16Cfg<D, BK, NWG, true, true>::SMEM_LAUNCH;
     }
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -1744,13 +1742,9 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, const int* tile_map
   } else {
     auto kernel = flash_mha_bf16_kernel<D, BK, NWG, false>;
     size_t smem = Cfg::SMEM_LAUNCH;
-    if constexpr (D <= 64) {
-      if (dropping) {
-        kernel = flash_mha_bf16_kernel<D, BK, NWG, true>;
-        smem = Bf16Cfg<D, BK, NWG, true>::SMEM_LAUNCH;
-      }
-    } else if (dropping) {
-      return (int)cudaErrorInvalidValue;
+    if (dropping) {
+      kernel = flash_mha_bf16_kernel<D, BK, NWG, true>;
+      smem = Bf16Cfg<D, BK, NWG, true>::SMEM_LAUNCH;
     }
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

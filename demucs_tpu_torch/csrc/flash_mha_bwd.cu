@@ -18,7 +18,9 @@ extern "C" {
 // order the blocks come) or scratch of B*H*ceil(Tq / 32) + 1 uint32 (dQ
 // summed in a fixed order, deterministic: a turn counter per tile, then the
 // item counter of the cooperative grid) -> dq (B, Tq, H*D), dk, dv (B, Tk,
-// H*D). keys: keys per block, 64. scale = log2(e) / sqrt(D), the forward's; sm_scale = 1 /
+// H*D). D: 32, 48, 64 or 128 (flash_mha_bwd_d128.cu; dq_acc and turns
+// unread there, the fp32 route's dQ is summed in one block). keys: keys per
+// block, 64. scale = log2(e) / sqrt(D), the forward's; sm_scale = 1 /
 // sqrt(D). rate and seed: the forward's dropout. Returns a cudaError_t, or
 // ENCODE_FAILED + the CUresult of a failed tensor-map encode.
 int flash_mha_bwd_f32(const float* q, const float* k, const float* v, const float* o,

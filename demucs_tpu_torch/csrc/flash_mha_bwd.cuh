@@ -114,6 +114,11 @@
 //   truncates, so each tile's dV and dK have accumulators of their own,
 //   added in fp32 (as flash_mha.cu's P V); the images are the kernel's own
 //   cost, not the function's.
+// - At D = 128 (flash_mha_bwd_d128.cuh, sources of their own): bf16
+//   Bf16Bwd<128, 1> (one consumer warpgroup, one block an SM, dQ in two
+//   halves of 64 channels); fp32 two kernels of its own (dK and dV by key
+//   block, dQ by row block, mma.sync in 3xTF32), as the images above would
+//   take about 430 KiB there.
 //
 // This header holds the device code and the host launch of both routes;
 // flash_mha_bwd.cu instantiates the unmasked instances and exports their C
@@ -132,6 +137,30 @@
 #include "attention_dropout.cuh"
 #include "hopper.cuh"
 #include "tensor_map.cuh"
+
+// The head dim 128 launches, defined in flash_mha_bwd_d128.cu (unmasked)
+// and flash_mha_bwd_masked_d128.cu (MASKED), each a source of its own linked
+// into its library (kernels/_build.py PARTS): dispatch_bwd and
+// ordered_plan_entry call them at D = 128. Arguments as dispatch_bwd's, the
+// keep-mask's as MaskArgs' fields (fwd_map, fwd_bits: the forward's tile map
+// for 64 rows and 32 keys and its bits, which the fp32 route's dQ kernel
+// reads). flash_mha_bwd_d128.cuh holds the design.
+int flash_mha_bwd_d128(int bf16_route, const void* q, const void* k, const void* v,
+                       const void* o, const void* dout, const float* lse, const int* tile_map,
+                       const unsigned char* bits, const int* fwd_map, const unsigned* fwd_bits,
+                       float* stats, float* dq_acc, unsigned* turns, void* dq, void* dk, void* dv,
+                       int B, int Tq, int Tk, int H, int keys, float scale, float sm_scale,
+                       Dropout drop, cudaStream_t s);
+int flash_mha_bwd_masked_d128(int bf16_route, const void* q, const void* k, const void* v,
+                              const void* o, const void* dout, const float* lse,
+                              const int* tile_map, const unsigned char* bits, const int* fwd_map,
+                              const unsigned* fwd_bits, float* stats, float* dq_acc,
+                              unsigned* turns, void* dq, void* dk, void* dv, int B, int Tq,
+                              int Tk, int H, int keys, float scale, float sm_scale, Dropout drop,
+                              cudaStream_t s);
+int flash_mha_bwd_d128_plan(int bf16_route, int keys, int B, int Tq, int Tk, int H, int* plan);
+int flash_mha_bwd_masked_d128_plan(int bf16_route, int keys, int B, int Tq, int Tk, int H,
+                                   int* plan);
 
 namespace {
 
@@ -476,11 +505,14 @@ struct Bf16Bwd {
   // the producer warpgroup (232 for two consumer warpgroups), its consumers
   // 224 of one (32 for the producer warpgroup): with fewer, either spills.
   // MASKED, two consumer warpgroups: 40 / 232, the producer reading the map.
-  static constexpr int MIN_BLOCKS = NWG == 1 ? 2 : 1;
+  // D = 128 (one consumer warpgroup, flash_mha_bwd_d128.cu): one block per
+  // SM (its shared memory), no setmaxnreg: every thread may hold 255.
+  static constexpr int MIN_BLOCKS = NWG == 1 && D <= 64 ? 2 : 1;
   static constexpr int PRODUCER_REGS =
-      ORDERED ? (NWG == 1 ? 32 : 40) : (NWG == 1 || MASKED ? 40 : 24);
+      D == 128 ? 0 : ORDERED ? (NWG == 1 ? 32 : 40) : (NWG == 1 || MASKED ? 40 : 24);
   static constexpr int CONSUMER_REGS =
-      ORDERED ? (NWG == 1 ? 224 : 232) : (NWG == 1 ? 216 : MASKED ? 232 : 240);
+      D == 128 ? 0
+      : ORDERED ? (NWG == 1 ? 224 : 232) : (NWG == 1 ? 216 : MASKED ? 232 : 240);
   // setmaxnreg's split of the block's registers (the launch gives each
   // thread 65536 / (THREADS MIN_BLOCKS), rounded down to 8): what the
   // producer warpgroup gives up, the consumers take, or setmaxnreg.inc waits
@@ -508,7 +540,8 @@ struct Bf16Bwd {
   static constexpr uint32_t BARS = UNITS + UNIT_BYTES;
   static constexpr size_t SMEM = 1024 + BARS + bar_bytes(STAGES);
   static constexpr size_t SMEM_LAUNCH = NWG == 1 || SMEM > 118 * 1024 ? SMEM : 118 * 1024;
-  static_assert(SMEM <= (NWG == 1 ? 113 : 227) * 1024, "shared memory over the plan's blocks");
+  static_assert(SMEM <= (MIN_BLOCKS == 2 ? 113 : 227) * 1024,
+                "shared memory over the plan's blocks");
   static_assert(DQ_SLOTS <= MAX_SLOTS && WRITERS <= 3 && STAGES <= 4,
                 "the ring's barriers, writers or units");
 
@@ -625,7 +658,27 @@ __device__ void Bf16Bwd<D, NWG, ORDERED, MASKED>::consume(
     fence_all(dpt);
 
     const float* lse_t = stats_s + s * 2 * QT;
-    if (MASKED && partial) {
+    if constexpr (D == 128) {
+      // four quarters of 16 queries, each with its 4 + 4 of the tile's lse
+      // and D: all 32 held at once beside dK's and dV's 128 spilled
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        float(&sh)[8] = reinterpret_cast<float(&)[8]>(st[8 * h]);
+        float(&dh)[8] = reinterpret_cast<float(&)[8]>(dpt[8 * h]);
+        const float* lh = lse_t + 16 * h;
+        if (MASKED && partial) {
+          const uint32_t wh[2] = {wd[0] >> (4 * h), wd[1] >> (4 * h)};
+          probs_and_ds_bits<16>(sh, dh, lh, lh + QT, j0 + row0, i0 + 16 * h, c, wh, scale, drop,
+                                salt);
+        } else if (!MASKED && edge) {
+          probs_and_ds<16, true>(sh, dh, lh, lh + QT, j0 + row0, i0 + 16 * h, c, mask, Tq, Tk,
+                                 scale, drop, salt);
+        } else {
+          probs_and_ds<16, false>(sh, dh, lh, lh + QT, j0 + row0, i0 + 16 * h, c, mask, Tq, Tk,
+                                  scale, drop, salt);
+        }
+      }
+    } else if (MASKED && partial) {
       probs_and_ds_bits<QT>(st, dpt, lse_t, lse_t + QT, j0 + row0, i0, c, wd, scale, drop, salt);
     } else if (!MASKED && edge) {
       probs_and_ds<QT, true>(st, dpt, lse_t, lse_t + QT, j0 + row0, i0, c, mask, Tq, Tk, scale,
@@ -683,29 +736,63 @@ __device__ void Bf16Bwd<D, NWG, ORDERED, MASKED>::consume(
       if (!ORDERED && threadIdx.x % 128 == 0) bulk_wait_read<0>();  // its staging is free again
       named_bar_sync(BAR_DS0 + owner, 128 * NWG);
       const uint32_t ds_img = smem_addr(ds_tile);
-      float dq[D / 2];
-      fence_all(dq);
-      wgmma_fence();
+      int slot;
+      float2* stage;
+      if constexpr (D == 128) {
+        // dQ in two halves of 64 channels (K's two boxes), each staged before
+        // the next: a 64 x 128 accumulator beside dK's and dV's would not fit
+        // in 255 registers
+        slot = ORDERED ? u % DQ_SLOTS : wg;
+        if (ORDERED && u >= DQ_SLOTS) mbar_wait(&hand.dq_empty[slot], (u / DQ_SLOTS - 1) & 1);
+        stage = reinterpret_cast<float2*>(base + DQ + slot * DQ_BYTES);
 #pragma unroll
-      for (int kk = 0; kk < KEYS / 16; ++kk) {
-        MmaBf16SS<D, 1, 1>::run(dq, swizzled_desc(ds_img + kk * 16 * 128, KEYS * 128, 8 * 128, 1),
-                                swizzled_desc(k_img + kk * 16 * W, KEYS * W, 8 * W, L), kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_all(dq);
-      // to the staging in fragment order, then one bulk reduction into the
-      // tile's sums (rows past Tq add zeros to the padding): by this
-      // warpgroup's first thread, or (deterministic) by the slot's writer
-      const int slot = ORDERED ? u % DQ_SLOTS : wg;
-      if (ORDERED && u >= DQ_SLOTS) mbar_wait(&hand.dq_empty[slot], (u / DQ_SLOTS - 1) & 1);
-      float2* stage = reinterpret_cast<float2*>(base + DQ + slot * DQ_BYTES);
+        for (int half = 0; half < 2; ++half) {
+          float dq[32];
+          fence_all(dq);
+          wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
+          for (int kk = 0; kk < KEYS / 16; ++kk) {
+            MmaBf16SS<64, 1, 1>::run(
+                dq, swizzled_desc(ds_img + kk * 16 * 128, KEYS * 128, 8 * 128, 1),
+                swizzled_desc(k_img + half * KEYS * W + kk * 16 * W, KEYS * W, 8 * W, L), kk > 0);
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_all(dq);
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          stage[((wi * (D / 8) + j) * 2 + hf) * 32 + lane] =
-              make_float2(dq[4 * j + 2 * hf] * sm_scale, dq[4 * j + 2 * hf + 1] * sm_scale);
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              stage[((wi * (D / 8) + 8 * half + j) * 2 + hf) * 32 + lane] =
+                  make_float2(dq[4 * j + 2 * hf] * sm_scale, dq[4 * j + 2 * hf + 1] * sm_scale);
+            }
+          }
+        }
+      } else {
+        float dq[D / 2];
+        fence_all(dq);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KEYS / 16; ++kk) {
+          MmaBf16SS<D, 1, 1>::run(dq, swizzled_desc(ds_img + kk * 16 * 128, KEYS * 128, 8 * 128, 1),
+                                  swizzled_desc(k_img + kk * 16 * W, KEYS * W, 8 * W, L), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_all(dq);
+        // to the staging in fragment order, then one bulk reduction into the
+        // tile's sums (rows past Tq add zeros to the padding): by this
+        // warpgroup's first thread, or (deterministic) by the slot's writer
+        slot = ORDERED ? u % DQ_SLOTS : wg;
+        if (ORDERED && u >= DQ_SLOTS) mbar_wait(&hand.dq_empty[slot], (u / DQ_SLOTS - 1) & 1);
+        stage = reinterpret_cast<float2*>(base + DQ + slot * DQ_BYTES);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            stage[((wi * (D / 8) + j) * 2 + hf) * 32 + lane] =
+                make_float2(dq[4 * j + 2 * hf] * sm_scale, dq[4 * j + 2 * hf + 1] * sm_scale);
+          }
         }
       }
       fence_proxy_async();
@@ -1493,11 +1580,15 @@ cudaError_t ordered_plan(int B, int Tq, int Tk, int H, OrderedPlan* p) {
 
 // What a launch reads of a keep-mask: the unmasked instances a null `mask`
 // (the wrapper's masked launches take the MASKED ones), the MASKED ones the
-// plan's tile map and the bits (mask_rows).
+// plan's tile map and the bits (mask_rows); at D = 128 the fp32 route's also
+// the forward's tile map and bits (its dQ kernel walks the key tiles of each
+// row block), null otherwise.
 struct MaskArgs {
   const unsigned char* mask;
   const int* tile_map;
   const unsigned char* bits;
+  const int* fwd_map;
+  const unsigned* fwd_bits;
 };
 
 // The prep kernel, the block kernel and dQ's epilogue, on `stream`; dQ's
@@ -1650,6 +1741,18 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, con
     case 64:
       return Route::template run<64>(keys, qt, kt, vt, ot, dt, lse, m, stats, dq_acc, turns, dqt,
                                      dkt, dvt, B, Tq, Tk, H, scale, sm_scale, drop, s);
+    case 128: {
+      const int bf16_route = sizeof(T) == 2;
+      if constexpr (MASKED) {
+        return flash_mha_bwd_masked_d128(bf16_route, q, k, v, o, dout, lse, m.tile_map, m.bits,
+                                         m.fwd_map, m.fwd_bits, stats, dq_acc, turns, dq, dk, dv,
+                                         B, Tq, Tk, H, keys, scale, sm_scale, drop, s);
+      } else {
+        return flash_mha_bwd_d128(bf16_route, q, k, v, o, dout, lse, nullptr, nullptr, nullptr,
+                                  nullptr, stats, dq_acc, turns, dq, dk, dv, B, Tq, Tk, H, keys,
+                                  scale, sm_scale, drop, s);
+      }
+    }
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1676,6 +1779,13 @@ int ordered_plan_entry(int bf16_route, int B, int Tq, int Tk, int H, int D, int 
     if (D == 32) e = plan_of<32, MASKED>(bf16_route, keys, B, Tq, Tk, H, &p);
     if (D == 48) e = plan_of<48, MASKED>(bf16_route, keys, B, Tq, Tk, H, &p);
     if (D == 64) e = plan_of<64, MASKED>(bf16_route, keys, B, Tq, Tk, H, &p);
+    if (D == 128) {  // the d128 source fills the plan
+      if constexpr (MASKED) {
+        return flash_mha_bwd_masked_d128_plan(bf16_route, keys, B, Tq, Tk, H, plan);
+      } else {
+        return flash_mha_bwd_d128_plan(bf16_route, keys, B, Tq, Tk, H, plan);
+      }
+    }
   }
   const int out[] = {p.n_qt, p.n_kb, p.per_sm, p.sms, p.grid, p.stagger, p.ring};
   for (int i = 0; i < 7; ++i) plan[i] = out[i];

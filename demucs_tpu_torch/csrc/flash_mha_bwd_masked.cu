@@ -25,6 +25,23 @@ int flash_mha_bwd_masked_f32(const float* q, const float* k, const float* v, con
                                    sm_scale, rate, seed, stream);
 }
 
+// As flash_mha_bwd_masked_f32 at head dim 128 (D = 128): also the
+// forward's tile map for 64 rows and 32 keys and its bits
+// (kernels/attention.py MaskTiles.launch(64, 32)), which the dQ kernel walks
+// (flash_mha_bwd_d128.cuh); turns are not read (that dQ needs no order).
+int flash_mha_bwd_masked_f32_d128(const float* q, const float* k, const float* v,
+                                  const float* o, const float* dout, const float* lse,
+                                  const int* tile_map, const unsigned char* bits,
+                                  const int* fwd_map, const unsigned* fwd_bits, float* stats,
+                                  float* dq_acc, unsigned* turns, float* dq, float* dk,
+                                  float* dv, int B, int Tq, int Tk, int H, int keys, float scale,
+                                  float sm_scale, float rate, int seed, void* stream) {
+  return dispatch_bwd<float, true>(q, k, v, o, dout, lse,
+                                   MaskArgs{nullptr, tile_map, bits, fwd_map, fwd_bits}, stats,
+                                   dq_acc, turns, dq, dk, dv, B, Tq, Tk, H, 128, keys, scale,
+                                   sm_scale, rate, seed, stream);
+}
+
 // As flash_mha_bwd_bf16, under the keep-mask: the tile map for `keys` (64 or
 // 128) keys a block and 64 queries a tile, the bits for 64-query tiles.
 int flash_mha_bwd_masked_bf16(const void* q, const void* k, const void* v, const void* o,

@@ -13,9 +13,10 @@
 //   P V's 64. 194 KiB a block.
 // - bf16 (flash_mha_bf16_kernel<128, 64, 2, false>, its masked twin and
 //   their merges): 64 keys a tile and 128 rows a block, the only plan whose
-//   4-stage ring fits (193 KiB; 128 keys would need 321 KiB); no dropout
-//   instance (training at D = 128 is not ported yet: the wrapper refuses
-//   it, and so does the launch).
+//   4-stage ring fits (193 KiB; 128 keys would need 321 KiB); the dropout
+//   instances (DROP) add each stage's column terms, 256 bytes: 194 KiB, 204
+//   KiB masked. The fp32 instances take the dropout at run time.
+// The backward at D = 128 is flash_mha_bwd_d128.cu's (and its masked twin's).
 
 #include "flash_mha.cuh"
 

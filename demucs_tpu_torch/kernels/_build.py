@@ -5,7 +5,8 @@ together by :func:`build`) for ``sm_90a`` into ``build/kernels/`` at the root
 of the checkout, named by a hash of the source, every header in ``csrc/``
 (``*.cuh``) and the flags, so an edited source or header never loads a
 stale library. A library of several sources (``PARTS``: K3's masked forward
-kernels and its head dim 128 instances beside its unmasked ones) compiles
+kernels and its head dim 128 instances beside its unmasked ones, and the
+backwards' head dim 128 instances beside theirs) compiles
 each to an object in parallel with the rest and links them into one
 library. The build runs at the first CUDA call of a kernel, or up front
 through :func:`build`. The libraries have a plain C
@@ -31,8 +32,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("stft", "flash_mha", "flash_mha_bwd", "flash_mha_bwd_masked")
 # the libraries linked from several sources, each compiled on its own: K3's
 # forward (flash_mha.cu's C entries call flash_mha_masked.cu's launches and,
-# at head dim 128, flash_mha_d128.cu's)
-PARTS = {"flash_mha": ("flash_mha", "flash_mha_masked", "flash_mha_d128")}
+# at head dim 128, flash_mha_d128.cu's) and its backwards (at head dim 128
+# their d128 sources')
+PARTS = {"flash_mha": ("flash_mha", "flash_mha_masked", "flash_mha_d128"),
+         "flash_mha_bwd": ("flash_mha_bwd", "flash_mha_bwd_d128"),
+         "flash_mha_bwd_masked": ("flash_mha_bwd_masked", "flash_mha_bwd_masked_d128")}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")

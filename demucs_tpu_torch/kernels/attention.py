@@ -33,10 +33,12 @@ smallest instance above it, each head's q, k and v padded with zero
 channels (which leave every score as it was) and the output cropped
 (:func:`instance_dim`, :func:`pad_heads`, :func:`crop_heads`), the softmax
 scale the true head dim's; the pad and the crop are differentiable ops
-outside the autograd node, so a gradient at a padded head dim up to 64 runs
-the backward instances of its pad. The backward and the dropout have
-instances up to head dim 64 (:data:`TRAIN_HEAD_DIM`); past it, and past 128,
-the wrappers raise. Under a mask each route reads it as :class:`MaskTiles`, built
+outside the autograd node, so a gradient at a padded head dim runs the
+backward instances of its pad. The backward and the dropout have instances
+at every head dim the forward has (:data:`TRAIN_HEAD_DIM`, 128; the
+backward's at 128 in ``csrc/flash_mha_bwd_d128.cu``: the bf16 route's one
+consumer warpgroup of 64 keys, the fp32 route's dK / dV and dQ kernels);
+past 128 the wrappers raise. Under a mask each route reads it as :class:`MaskTiles`, built
 once per mask on the host (:func:`mask_tiles`; ``ops/sparse.py`` builds the
 transformer's beside its cached table): for each plan a tile map of the
 (row block, key tile) units that keep a score, full or partial (the
@@ -108,11 +110,11 @@ __all__ = ["flash_mha", "flash_mha_op", "flash_mha_bf16", "flash_mha_plain", "fl
            "flash_mha_padded_plain", "f32_plan", "bf16_key_tile", "mask_pieces",
            "TRAIN_HEAD_DIM", "MASK_PIECE_ROWS"]
 
-# The head dims of the forward kernels' instances; a smaller head runs on the
-# next one up, padded (instance_dim). The backward and the dropout have
-# instances up to TRAIN_HEAD_DIM.
+# The head dims of the kernels' instances; a smaller head runs on the next
+# one up, padded (instance_dim). The backward and the dropout have instances
+# up to TRAIN_HEAD_DIM, every forward instance's.
 HEAD_DIMS = (32, 48, 64, 128)
-TRAIN_HEAD_DIM = 64
+TRAIN_HEAD_DIM = 128
 KEY_TILE = 64  # keys per tile of the fp32 route's loop (F32_PLAN_D128 at head dim 128)
 # Query rows per block of the fp32 route: 64 (one consumer warpgroup) or 128
 # (two, which overlap one's softmax with the other's products; the faster at
@@ -252,19 +254,11 @@ def bf16_key_tile(D: int) -> int:
     return BF16_PLAN_D128[0] if D == 128 else KEY_TILE_BF16
 
 
-def _instance_key(D: int, tiles) -> str:
+def _instance_key(D: int, tiles, rate: float) -> str:
     """A forward launch's instance, as the routes' ``launches_by_instance``
-    name it."""
-    return f"D={D}" + ("" if tiles is None else " masked")
-
-
-def _refuse_training(d: int, grad: bool, rate: float) -> None:
-    """Raise for a gradient or dropout at a head dim with no backward or
-    dropout instance (past TRAIN_HEAD_DIM)."""
-    if d > TRAIN_HEAD_DIM and (grad or rate > 0.0):
-        raise ValueError(f"flash_mha has no backward or dropout instance at head dim {d}: "
-                         f"training takes head dims up to {TRAIN_HEAD_DIM} (the D = 128 "
-                         f"backward and dropout instances are ROADMAP Queue C)")
+    name it: head dim, masked or not, with dropout or not ("D=128 masked
+    dropout")."""
+    return f"D={D}" + ("" if tiles is None else " masked") + (" dropout" if rate > 0.0 else "")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -281,6 +275,9 @@ def _lib() -> ctypes.CDLL:
     lib.flash_mha_f32.restype = i
     lib.flash_mha_bf16.argtypes = [p] * 8 + [i, i, i, i, i, f, i, i, i, f, i, p]
     lib.flash_mha_bf16.restype = i
+    if hasattr(lib, "flash_mha_bf16_piece"):  # (an older checkout's library has none)
+        lib.flash_mha_bf16_piece.argtypes = [p] * 8 + [i, i, i, i, i, f, i, i, i, f, i, i, p]
+        lib.flash_mha_bf16_piece.restype = i
     lib.flash_mha_bf16_tiles.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.flash_mha_bf16_tiles.restype = i
     return lib
@@ -308,6 +305,9 @@ def _bwd_masked_lib() -> ctypes.CDLL:
         getattr(lib, name).restype = i
     lib.flash_mha_bwd_masked_ordered_plan.argtypes = [i] * 7 + [p]
     lib.flash_mha_bwd_masked_ordered_plan.restype = i
+    if hasattr(lib, "flash_mha_bwd_masked_f32_d128"):  # (an older checkout's library has none)
+        lib.flash_mha_bwd_masked_f32_d128.argtypes = [p] * 16 + [i] * 5 + [f, f, f, i, p]
+        lib.flash_mha_bwd_masked_f32_d128.restype = i
     return lib
 
 
@@ -386,10 +386,8 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int,
 
 def _node(q, k, v, num_heads: int, d: int, keep, tiles, rate: float, seed: int) -> torch.Tensor:
     """The autograd node :class:`_FlashMHA` on q, k, v padded to the
-    instance of head dim ``d``, its output cropped back (refusing what no
-    instance trains)."""
+    instance of head dim ``d``, its output cropped back."""
     want = _wants_grad(q, k, v)
-    _refuse_training(d, want, rate)
     return _on_instance(lambda q, k, v: _FlashMHA.apply(
         _aligned(q), _aligned(k), _aligned(v), num_heads, keep, tiles, rate, seed, want, d),
         num_heads, d, q, k, v)
@@ -450,7 +448,7 @@ def _forward_f32(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_ls
         _build.stream_ptr(q.device))
     _build.check(status, "flash_mha_f32")
     flash_mha.launches += 1
-    flash_mha.launches_by_instance[_instance_key(D, tiles)] += 1
+    flash_mha.launches_by_instance[_instance_key(D, tiles, rate)] += 1
     return out, lse
 
 
@@ -528,11 +526,13 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     :class:`MaskTiles` (``mask_tiles``, as the forward built them; else
     :func:`mask_tiles` of ``mask``); a bf16 one :func:`flash_mha_bwd_bf16`;
     anything else raises. On the card q's head dim is an instance's
-    (:data:`HEAD_DIMS`, at most :data:`TRAIN_HEAD_DIM`); ``head_dim``: the
-    heads' own dim where q, k, v, o and dout come padded with zero channels
-    to it (the autograd node pads a head between instances).
-    ``flash_mha_bwd.launches`` counts the fp32 route's launches,
-    ``flash_mha_bwd.masked_launches`` those of them under a mask."""
+    (:data:`HEAD_DIMS`; at 128 ``csrc/flash_mha_bwd_d128.cu``'s two kernels,
+    dK and dV by key block, dQ by row block); ``head_dim``: the heads' own
+    dim where q, k, v, o and dout come padded with zero channels to it (the
+    autograd node pads a head between instances). ``flash_mha_bwd.launches``
+    counts the fp32 route's launches, ``flash_mha_bwd.masked_launches`` those
+    of them under a mask, ``flash_mha_bwd.launches_by_instance`` each by
+    head dim, mask and order (:func:`_bwd_instance_key`)."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
@@ -545,6 +545,7 @@ def flash_mha_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
                         mask, dropout, seed, tiles=mask_tiles, head_dim=head_dim)
     flash_mha_bwd.launches += 1
     flash_mha_bwd.masked_launches += mask is not None
+    flash_mha_bwd.launches_by_instance[_bwd_instance_key(q, num_heads, mask)] += 1
     return grads
 
 
@@ -559,9 +560,10 @@ def flash_mha_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
     :func:`flash_mha_bwd_plain`; a bf16 CUDA tensor launches
     ``csrc/flash_mha_bwd.cu`` (the row dots, the pass, dQ's rounding), under
     a mask the masked instances (``mask_tiles`` and ``head_dim`` as for
-    :func:`flash_mha_bwd`); anything else raises.
-    ``flash_mha_bwd_bf16.launches`` counts its launches,
-    ``flash_mha_bwd_bf16.masked_launches`` those under a mask."""
+    :func:`flash_mha_bwd`; at head dim 128 one consumer warpgroup of 64
+    keys); anything else raises. ``flash_mha_bwd_bf16.launches`` counts its
+    launches, ``flash_mha_bwd_bf16.masked_launches`` those under a mask,
+    ``flash_mha_bwd_bf16.launches_by_instance`` each by instance."""
     seed = _seed32(dropout, dropout_seed)
     if q.device.type == "cpu":
         return flash_mha_bwd_plain(q, k, v, o, dout, num_heads, mask=mask, dropout=dropout,
@@ -570,7 +572,17 @@ def flash_mha_bwd_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: tor
                         mask, dropout, seed, tiles=mask_tiles, head_dim=head_dim)
     flash_mha_bwd_bf16.launches += 1
     flash_mha_bwd_bf16.masked_launches += mask is not None
+    flash_mha_bwd_bf16.launches_by_instance[_bwd_instance_key(q, num_heads, mask)] += 1
     return grads
+
+
+def _bwd_instance_key(q, num_heads: int, mask) -> str:
+    """A backward launch's instance, as the routes' ``launches_by_instance``
+    name it: head dim, masked or not, and deterministic (the ordered
+    instances; at head dim 128 on the fp32 route the same kernels, whose dQ
+    needs no order) or not."""
+    return (f"D={q.shape[-1] // num_heads}" + ("" if mask is None else " masked")
+            + (" deterministic" if torch.are_deterministic_algorithms_enabled() else ""))
 
 
 def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int, lse, mask,
@@ -587,7 +599,6 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
         raise ValueError(f"{entry}: head dim {d} is no instance's {HEAD_DIMS}: pad the heads "
                          f"to {instance_dim(d)} channels (pad_heads) and pass head_dim={d}")
     scale_dim = head_dim or d
-    _refuse_training(scale_dim, True, rate)
     for name, t in (("o", o), ("dout", dout)):
         if t.shape != q.shape or t.dtype != dtype or t.device != q.device:
             raise ValueError(f"{entry}: {name} must be a {dtype} {tuple(q.shape)} tensor on "
@@ -598,10 +609,12 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # each row's lse and D = dO . o, padded to tiles of 64 (bf16) or 32 (fp32)
     stats = torch.empty(B * num_heads * -(-Tq // 64) * 128, device=q.device)
-    # dQ's fp32 sums over the blocks of keys, per tile of queries (the launch zeroes them)
-    dq_acc = torch.empty(B * num_heads * -(-Tq // 64) * 64 * d, device=q.device)
+    # dQ's fp32 sums over the blocks of keys, per tile of queries (the launch zeroes
+    # them); the fp32 route at head dim 128 sums each query's dQ in one block: unread
+    split = dtype == torch.float32 and d == 128
+    dq_acc = torch.empty(1 if split else B * num_heads * -(-Tq // 64) * 64 * d, device=q.device)
     turns = dq_turns(B, num_heads, Tq, q.device)
-    keys = (bwd_keys(B, Tk, num_heads, _sm_count(q.device.index or 0))
+    keys = (bwd_keys(B, Tk, num_heads, _sm_count(q.device.index or 0), d)
             if dtype == torch.bfloat16 else 64)
     args = (stats.data_ptr(), dq_acc.data_ptr(), None if turns is None else turns.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, Tq, Tk, num_heads, d, keys,
@@ -615,7 +628,12 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
         tiles = _tiles(mask, keep) if tiles is None else tiles
         tmap, bits = tiles.bwd_launch(keys, 64 if dtype == torch.bfloat16 else 32)
         entry = entry.replace("flash_mha_bwd", "flash_mha_bwd_masked")
-        status = getattr(_bwd_masked_lib(), entry)(*ptrs, tmap, bits, *args)
+        if split:  # its dQ kernel walks the forward's tile map of 64 rows and 32 keys
+            entry += "_d128"
+            ptrs += (tmap, bits, *tiles.launch(64, 32))
+            status = getattr(_bwd_masked_lib(), entry)(*ptrs, *args[:10], *args[11:])  # no D
+        else:
+            status = getattr(_bwd_masked_lib(), entry)(*ptrs, tmap, bits, *args)
     _check_launch(status, entry)
     return dq, dk, dv
 
@@ -696,10 +714,14 @@ def bwd_plan(dtype: torch.dtype, keys: int, B: int, Tq: int, Tk: int, num_heads:
     order (staggered, else key-block order), the depth of the dQ ring; then
     the resident blocks (``capacity``), the rounds of heads and whether the
     CPU twin (:func:`bwd_rounds`) chose the same grid and order. ``keys``:
-    keys per block (64 or 128 on the bf16 route, 64 on the fp32 route);
+    keys per block (64 or 128 on the bf16 route, 64 at head dim 128 and on
+    the fp32 route, which has no such grid at 128);
     ``masked``: the plan of the masked instances (their own occupancy)."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"bwd_plan: float32 or bfloat16, got {dtype}")
+    if dtype == torch.float32 and d == 128:
+        raise ValueError("bwd_plan: the fp32 backward at head dim 128 has no cooperative grid "
+                         "(its dQ kernel sums each query in one block, in a fixed order)")
     device = torch.device("cuda", torch.cuda.current_device()) if device is None else device
     out = (ctypes.c_int * len(_PLAN))()
     entry = (_bwd_masked_lib().flash_mha_bwd_masked_ordered_plan if masked
@@ -717,13 +739,17 @@ def bwd_plan(dtype: torch.dtype, keys: int, B: int, Tq: int, Tk: int, num_heads:
     return plan
 
 
-def bwd_keys(B: int, Tk: int, num_heads: int, sm_count: int) -> int:
+def bwd_keys(B: int, Tk: int, num_heads: int, sm_count: int, head_dim: int = 64) -> int:
     """Keys per block of the bf16 backward kernel, 64 or 128: the one the
     model prices lowest, the blocks an SM takes at once (one of 128 keys,
     two of 64) times ``_BWD_COST`` (``_BWD_COST_ORDERED`` under
     ``torch.use_deterministic_algorithms``), at least one such round. The
     last block of each head covers keys past Tk: 128-key blocks waste more
-    of a ragged Tk. ``BWD_KEYS_BF16`` fixes the choice."""
+    of a ragged Tk. ``BWD_KEYS_BF16`` fixes the choice. At the instance head
+    dim ``head_dim`` 128 always 64, the one plan there (one consumer
+    warpgroup: two would take 256 KiB of shared memory)."""
+    if head_dim == 128:
+        return 64
     if BWD_KEYS_BF16 is not None:
         return BWD_KEYS_BF16
     costs = _BWD_COST_ORDERED if torch.are_deterministic_algorithms_enabled() else _BWD_COST
@@ -1194,12 +1220,13 @@ def flash_mha_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads:
 
 
 def _forward_bf16(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_lse: bool,
-                  head_dim: int | None = None):
+                  head_dim: int | None = None, row0: int = 0):
     """One launch of the bf16 route at the instance of q's head dim (and its
     merge kernel where the plan splits a row block) -> (o, lse or None);
     ``tiles``: the mask's :class:`MaskTiles`, or None (past MASK_PIECE_ROWS
     queries, a launch per piece of its rows, :func:`mask_pieces`);
-    ``head_dim`` as for :func:`_forward_f32`."""
+    ``head_dim`` as for :func:`_forward_f32`; ``row0``: a piece's first
+    global query row, which its dropout hashes from."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
     D = C // num_heads
@@ -1218,14 +1245,17 @@ def _forward_bf16(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_l
     # two slots per range: rows x (o, then the scaled max and the sum)
     part = torch.empty(2 * ctas * rows * (D + 2), device=q.device) if split else None
     lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
-    status = _lib().flash_mha_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), tmap, bits,
-        out.data_ptr(), None if part is None else part.data_ptr(),
-        None if lse is None else lse.data_ptr(), B, Tq, Tk, num_heads, D, q_scale(head_dim or D),
-        keys, rows, ctas, rate, _int32(seed), _build.stream_ptr(q.device))
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), tmap, bits, out.data_ptr(),
+            None if part is None else part.data_ptr(), None if lse is None else lse.data_ptr(),
+            B, Tq, Tk, num_heads, D, q_scale(head_dim or D), keys, rows, ctas, rate,
+            _int32(seed))
+    if row0:
+        status = _lib().flash_mha_bf16_piece(*args, row0, _build.stream_ptr(q.device))
+    else:
+        status = _lib().flash_mha_bf16(*args, _build.stream_ptr(q.device))
     _check_launch(status, "flash_mha_bf16")
     flash_mha_bf16.launches += 1
-    flash_mha_bf16.launches_by_instance[_instance_key(D, tiles)] += 1
+    flash_mha_bf16.launches_by_instance[_instance_key(D, tiles, rate)] += 1
     return out, lse
 
 
@@ -1234,17 +1264,14 @@ def _forward_bf16_pieces(q, k, v, num_heads: int, tiles, rate: float, seed: int,
     """The bf16 route under a mask past MASK_PIECE_ROWS queries: a launch per
     piece of its rows (``tiles.pieces``: each piece's rows and their
     :class:`MaskTiles`), each within the masked kernel's MASK_ROW_BLOCKS row
-    blocks. The dropout's hash counts global query rows, which a piece's
-    launch does not know: with dropout it raises."""
-    if rate > 0.0:
-        raise ValueError(f"flash_mha_bf16 under a mask takes no dropout past "
-                         f"{MASK_PIECE_ROWS} queries (a launch per piece of them)")
+    blocks, given its first global row (the dropout's hash counts global
+    query rows, so the pieces drop what one launch would)."""
     B, Tq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(B * num_heads, Tq, device=q.device) if want_lse else None
     for r0, r1, piece in tiles.pieces:
         o, piece_lse = _forward_bf16(q[:, r0:r1].contiguous(), k, v, num_heads, piece, rate, seed,
-                                     want_lse, head_dim)
+                                     want_lse, head_dim, r0)
         out[:, r0:r1] = o
         if lse is not None:
             lse[:, r0:r1] = piece_lse
@@ -1254,15 +1281,21 @@ def _forward_bf16_pieces(q, k, v, num_heads: int, tiles, rate: float, seed: int,
 flash_mha.launches = 0
 flash_mha_bwd.launches = 0
 flash_mha_bf16.launches = 0
-# each route's forward launches by instance: head dim, and masked or not
-# ("D=128", "D=128 masked"; inference/engine.py counts them through graph
-# replays as "flash_mha D=128", ...)
+# each route's forward launches by instance: head dim, masked or not, dropout or
+# not ("D=128", "D=128 masked dropout"; inference/engine.py counts them through
+# graph replays as "flash_mha D=128", ...)
 flash_mha.launches_by_instance = dict.fromkeys(
-    [f"D={D}{m}" for D in HEAD_DIMS for m in ("", " masked")], 0)
+    [f"D={D}{m}{r}" for D in HEAD_DIMS for m in ("", " masked") for r in ("", " dropout")], 0)
 flash_mha_bf16.launches_by_instance = dict(flash_mha.launches_by_instance)
 flash_mha_bwd_bf16.launches = 0
 flash_mha_bwd.masked_launches = 0
 flash_mha_bwd_bf16.masked_launches = 0
+# each route's backward launches by instance (_bwd_instance_key: "D=128",
+# "D=128 masked deterministic", ...)
+flash_mha_bwd.launches_by_instance = dict.fromkeys(
+    [f"D={D}{m}{o}" for D in HEAD_DIMS for m in ("", " masked") for o in ("", " deterministic")],
+    0)
+flash_mha_bwd_bf16.launches_by_instance = dict(flash_mha_bwd.launches_by_instance)
 
 
 def bf16_tiles(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -153,9 +153,8 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     q = _randn(1, 16, 144)
     with pytest.raises(ValueError, match="head dims"):
         KA.flash_mha(q, q, q, 1)  # head dim 144: no instance (80 runs padded to 128)
-    q = _randn(1, 16, 80, seed=1).requires_grad_()
-    with pytest.raises(ValueError, match="no backward or dropout instance at head dim 80"):
-        KA.flash_mha(q, q, q, 1)
+    with pytest.raises(ValueError, match="head dims"):  # nor its gradient
+        KA.flash_mha(q.clone().requires_grad_(), q, q, 1)
     qb = _randn(1, 16, 64).bfloat16()
     qf = _randn(1, 16, 64)
     with pytest.raises(TypeError):
@@ -880,12 +879,18 @@ def test_pass_memory_analysis_and_pool_release(cuda):
 # dims 32, 48 and 64; a key count that is not a whole number of 128-key blocks.
 BWD_EDGES = [(1, 100, 40, 64, 2, 0.1, True), (2, 77, 33, 96, 2, 0.0, False),
              (1, 129, 50, 128, 2, 0.2, False), (2, 95, 300, 128, 2, 0.1, True)]
+# the D = 128 instances (csrc/flash_mha_bwd_d128.cu), with their edges, and a head of 96
+# channels padded to them; a released width in 4 heads at freq self
+BWD_D128 = [(1, 130, 200, 256, 2, 0.1, False), (2, 333, 190, 512, 4, 0.0, True),
+            (2, 333, 190, 512, 4, 0.3, True), (1, 100, 40, 256, 2, 0.1, True),
+            (2, 95, 300, 192, 2, 0.1, False), (2, 77, 33, 192, 2, 0.0, True),
+            (1, 2688, 2688, 512, 4, 0.1, False)]
 
 
 @pytest.mark.parametrize("B,Tq,Tk,C,H,rate,masked", [
     (1, 64, 64, 64, 1, 0.0, False), (2, 70, 90, 96, 2, 0.1, True),
     (1, 130, 200, 128, 4, 0.1, False), (1, 300, 257, 256, 8, 0.0, True),
-    (2, 333, 190, 512, 8, 0.3, True), *BWD_EDGES])
+    (2, 333, 190, 512, 8, 0.3, True), *BWD_EDGES, *BWD_D128])
 def test_flash_mha_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, masked):
     from demucs_tpu_torch.kernels import attention as K
 
@@ -909,7 +914,10 @@ def test_flash_mha_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, ma
     (1, 64, 64, 64, 1, 0.1, False), (2, 70, 90, 96, 2, 0.1, True),
     (1, 130, 200, 128, 4, 0.1, False), (3, 200, 130, 512, 8, 0.3, True),
     (1, 2688, 2688, 512, 8, 0.1, False), (8, 1344, 2688, 512, 8, 0.1, True),
-    (2, 1344, 2688, 512, 8, 0.1, "diag"), (1, 2688, 1344, 512, 8, 0.1, "global")])
+    (2, 1344, 2688, 512, 8, 0.1, "diag"), (1, 2688, 1344, 512, 8, 0.1, "global"),
+    # the D = 128 dropout instances, masked or not, and a head of 96 padded to them
+    (3, 200, 130, 512, 4, 0.3, True), (1, 2688, 2688, 512, 4, 0.1, False),
+    (2, 1344, 2688, 512, 4, 0.1, "diag"), (2, 70, 90, 192, 2, 0.1, True)])
 def test_flash_mha_bf16_dropout_matches_plain(cuda, monkeypatch, B, Tq, Tk, C, H, rate, masked):
     """K3's bf16 route with the hashed dropout against the plain version on the
     same bf16 inputs (the bf16 route's tolerance), on every plan (keys per
@@ -974,7 +982,8 @@ def _bf16_dropped_scores(q, k, num_heads, rate, seed, mask):
     (1, 64, 64, 64, 1, 0.0, False), (2, 70, 90, 96, 2, 0.1, True),
     (1, 130, 200, 128, 4, 0.1, False), (1, 300, 257, 256, 8, 0.0, True),
     (2, 333, 190, 512, 8, 0.3, True), (1, 2688, 1344, 512, 8, 0.1, False), *BWD_EDGES,
-    (8, 2688, 2688, 512, 8, 0.1, False)])  # the released freq self at the training batch
+    (8, 2688, 2688, 512, 8, 0.1, False),  # the released freq self at the training batch
+    *BWD_D128, (8, 2688, 2688, 512, 4, 0.1, False)])
 def test_flash_mha_bf16_backward_kernel_matches_plain(cuda, B, Tq, Tk, C, H, rate, masked):
     """The bf16 backward kernel through autograd against the plain formula:
     each gradient within 2**-6 of its peak (bf16 outputs, Z P and dS rounded
@@ -1026,7 +1035,10 @@ AGREE_SHAPES = {"small": (2, 700, 1500, 4), "freq self B=1": (1, 2688, 2688, 8),
     (torch.bfloat16, 64, 64, False, "small")] + [
     (dtype, keys, d, True, shape) for dtype, keys in ((torch.float32, None), (torch.bfloat16, 64),
                                                       (torch.bfloat16, 128))
-    for d in (32, 48, 64) for shape in AGREE_SHAPES])
+    for d in (32, 48, 64) for shape in AGREE_SHAPES] + [
+    # D = 128: the bf16 route's one plan (64 keys), the fp32 route's dQ kernel (no atomics)
+    (dtype, None, 128, ordered, shape) for dtype in (torch.float32, torch.bfloat16)
+    for ordered in (False, True) for shape in AGREE_SHAPES if shape != "freq self B=8"])
 def test_flash_mha_backward_launches_agree(cuda, monkeypatch, request, dtype, keys, d, ordered,
                                            shape):
     """By default the blocks of keys add their parts of dQ with atomics, in
@@ -1054,11 +1066,13 @@ def test_flash_mha_backward_launches_agree(cuda, monkeypatch, request, dtype, ke
                      for _ in range(2))
     torch.cuda.synchronize()
     dq1, dq2 = first[0].float(), second[0].float()
-    if ordered:
+    if ordered or (d == 128 and dtype == torch.float32):  # (that one's dQ takes no atomics)
         assert torch.equal(first[0], second[0])
+    if ordered and not (d == 128 and dtype == torch.float32):
         # the order the launch took, as it reports it, and the CPU twin's choice
         plan = K.bwd_plan(dtype, keys or 64, B, Tq, Tk, H, d)
         assert plan["twin_agrees"] and plan["stagger"] is (shape != "Tk past capacity")
+    if ordered:
         want = K.flash_mha_bwd_plain(q, k, v, o, do, H, dropout=0.1, dropout_seed=5)
         tol = 2 ** -6 if dtype == torch.bfloat16 else 1e-4
         for g, w in zip(first, want):
@@ -1262,8 +1276,8 @@ MASKED_BWD_SHAPES = TOKEN_SHAPES + ((1001, 1337),)
 MASKED_BWD_ROUTES = ((torch.float32, None), (torch.bfloat16, 64), (torch.bfloat16, 128))
 
 
-def _masked_bwd_case(mask_type, Tq, Tk, dtype, rate, B=1):
-    """Released widths (512 channels, 8 heads), the mask of MASK_CASES, the
+def _masked_bwd_case(mask_type, Tq, Tk, dtype, rate, B=1, H=8):
+    """Released widths (512 channels, H heads: 8, or 4 of 128 channels), the mask of MASK_CASES, the
     forward's o and lse (the masked forward of the dtype's route), dO; and
     the plain backward's inputs: a fully masked row's gradients are zero on
     the card (the plain formula gives NaN there, ROADMAP C), so the plain
@@ -1273,11 +1287,11 @@ def _masked_bwd_case(mask_type, Tq, Tk, dtype, rate, B=1):
     q, k, v, mask = _sparse_case(mask_type, Tq, Tk, bf16=dtype == torch.bfloat16, B=B)
     do = _randn(B, Tq, 512, seed=94).to(dtype)
     forward = K._forward_bf16 if dtype == torch.bfloat16 else K._forward_f32
-    o, lse = forward(q, k, v, 8, K.mask_tiles(mask), rate, 5, True)
+    o, lse = forward(q, k, v, H, K.mask_tiles(mask), rate, 5, True)
     empty = ~mask.bool().any(1)
     plain_mask = mask.bool() | empty[:, None]
     o_p, do_p = (t.masked_fill(empty[None, :, None], 0) for t in (o, do))
-    want = K.flash_mha_bwd_plain(q, k, v, o_p, do_p, 8, mask=plain_mask, dropout=rate,
+    want = K.flash_mha_bwd_plain(q, k, v, o_p, do_p, H, mask=plain_mask, dropout=rate,
                                  dropout_seed=5)
     return q, k, v, o, do, lse, mask, want
 
@@ -1335,6 +1349,41 @@ def test_masked_backward_repeats_under_deterministic(cuda, monkeypatch, determin
         assert plan["twin_agrees"] and plan["stagger"]
 
 
+@pytest.mark.parametrize("deterministic_flag", [False, True])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("Tq,Tk", [(2688, 2688), (1001, 1337)])
+@pytest.mark.parametrize("mask_type", MASK_CASES)
+def test_masked_backward_d128_matches_plain(cuda, request, mask_type, Tq, Tk, rate,
+                                            deterministic_flag):
+    """The D = 128 masked backward (4 heads of 128 channels; fp32: the dK /
+    dV and dQ kernels over the backward's and the forward's tile maps; bf16:
+    its one plan of 64 keys) under each static mask and "holes" and "bare",
+    at dropout 0 and 0.1, against the plain backward (1e-4, 2**-6 x each
+    gradient's peak), by default and under the deterministic flag (then two
+    launches bit-equal); counted as launches of the masked D = 128
+    instance."""
+    from demucs_tpu_torch.kernels import attention as K
+
+    if deterministic_flag:
+        request.getfixturevalue("deterministic")
+    instance = "D=128 masked" + (" deterministic" if deterministic_flag else "")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, o, do, lse, mask, want = _masked_bwd_case(mask_type, Tq, Tk, dtype, rate, B=2,
+                                                           H=4)
+        backward = K.flash_mha_bwd_bf16 if dtype == torch.bfloat16 else K.flash_mha_bwd
+        before = backward.launches_by_instance[instance]
+        first, second = (backward(q, k, v, o, do, 4, lse=lse, mask=mask, dropout=rate,
+                                  dropout_seed=5) for _ in range(2))
+        torch.cuda.synchronize()
+        assert backward.launches_by_instance[instance] == before + 2
+        _bwd_close(first, want, dtype)
+        if deterministic_flag:
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
+            if dtype == torch.bfloat16:
+                plan = K.bwd_plan(dtype, 64, 2, Tq, Tk, 4, 128, masked=True)
+                assert plan["twin_agrees"] and plan["stagger"]
+
+
 def test_masked_backward_tile_order_is_walk_order(cuda, deterministic):
     """A mask whose every unit is kept gives the masked deterministic
     instances the unmasked order exactly: the same dQ bit for bit as the unmasked
@@ -1356,7 +1405,8 @@ def test_masked_backward_tile_order_is_walk_order(cuda, deterministic):
 def test_masked_backward_instances_do_not_spill(cuda):
     """nvcc's report of the masked backward's library: every block-kernel
     instance (both routes, default and deterministic, every head dim and
-    bf16 block) without spills."""
+    bf16 block; at head dim 128 the bf16 route's one block) without
+    spills."""
     import re
 
     from demucs_tpu_torch.kernels import _build
@@ -1375,7 +1425,7 @@ def test_masked_backward_instances_do_not_spill(cuda):
         found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if name and found and (int(found.group(1)) or int(found.group(2))):
             spills.append(name)
-    assert len(kernels) == 18 and not spills, (sorted(kernels), spills)
+    assert len(kernels) == 20 and not spills, (sorted(kernels), spills)  # 18, D = 128's 2
     assert all("ELb1EE" in n for n in kernels)  # every instance the MASKED one
 
 
@@ -1464,11 +1514,12 @@ def test_flash_mha_head_dims_match_plain(cuda, monkeypatch, d, bf16, masked, sha
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("d", [16, 40, 96, 128])
 def test_flash_mha_padded_backward_matches_plain(cuda, d, bf16):
-    """A gradient at a head dim padded to an instance up to 64: the backward
-    kernel of the pad's instance, the gradients cropped, against autograd
-    through the plain version (1e-4 / 2^-6 x each gradient's peak)."""
+    """A gradient at a head dim padded to an instance (96 to 128; 128 its
+    own): the backward kernel of the pad's instance, the gradients cropped,
+    against autograd through the plain version (1e-4 / 2^-6 x each
+    gradient's peak)."""
     from demucs_tpu_torch.kernels import attention as K
 
     H = 3
@@ -1489,22 +1540,28 @@ def test_flash_mha_padded_backward_matches_plain(cuda, d, bf16):
 
 
 def test_flash_mha_head_dims_refused(cuda):
-    """Past 128 no instance; a gradient or dropout at 64 < d <= 128 none yet:
-    each raises before any launch."""
+    """Past 128 no instance: the forward, with a gradient or dropout too,
+    and the backward raise before any launch, naming ROADMAP Queue C. A
+    gradient and dropout at 96 and 128 launch the D = 128 instances."""
     from demucs_tpu_torch.kernels import attention as K
 
-    before = (K.flash_mha.launches, K.flash_mha_bf16.launches)
+    before = (K.flash_mha.launches, K.flash_mha_bf16.launches, K.flash_mha_bwd.launches)
     q = _randn(1, 40, 2 * 136)
-    with pytest.raises(ValueError, match="head dims up to 128"):
-        K.flash_mha(q, q, q, 2)
+    for kw in ({}, dict(dropout=0.1, dropout_seed=3)):
+        with pytest.raises(ValueError, match="head dims up to 128.*ROADMAP Queue C"):
+            K.flash_mha(q.clone().requires_grad_(), q, q, 2, **kw)
+    with pytest.raises(ValueError, match="head dims up to 128.*ROADMAP Queue C"):
+        K.flash_mha_bwd(q, q, q, q, q, 2, lse=torch.zeros(2, 40, device=q.device))
+    assert (K.flash_mha.launches, K.flash_mha_bf16.launches, K.flash_mha_bwd.launches) == before
     for d in (96, 128):
         q = _randn(1, 40, 2 * d)
-        with pytest.raises(ValueError, match=f"no backward or dropout instance at head dim {d}"):
-            K.flash_mha(q.requires_grad_(), q, q, 2)
-        with pytest.raises(ValueError, match=f"no backward or dropout instance at head dim {d}"):
-            K.flash_mha(q.detach().bfloat16(), q.detach().bfloat16(), q.detach().bfloat16(), 2,
-                        dropout=0.1, dropout_seed=3)
-    assert (K.flash_mha.launches, K.flash_mha_bf16.launches) == before
+        x = q.clone().requires_grad_()
+        torch.autograd.grad(K.flash_mha(x, q, q, 2), x, q)
+        b = q.bfloat16()
+        K.flash_mha(b, b, b, 2, dropout=0.1, dropout_seed=3)
+    torch.cuda.synchronize()
+    assert (K.flash_mha.launches, K.flash_mha_bf16.launches, K.flash_mha_bwd.launches) == (
+        before[0] + 2, before[1] + 2, before[2] + 2)
 
 
 def test_registered_op_at_head_dim_96_under_export(cuda, tmp_path):
@@ -1537,10 +1594,12 @@ def test_registered_op_at_head_dim_96_under_export(cuda, tmp_path):
         assert (g - w).abs().max().item() <= 1e-6 * w.abs().max().item()
 
 
-def test_flash_mha_bf16_masked_past_the_row_block_limit(cuda):
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_flash_mha_bf16_masked_past_the_row_block_limit(cuda, rate):
     """A bf16 masked call past MASK_ROW_BLOCKS row blocks at the largest
     plan's rows (192) launches in pieces of its rows instead of raising, and
-    gives the plain version's result."""
+    gives the plain version's result; with dropout each piece hashes its
+    global rows, so the pieces drop what the plain version drops."""
     from demucs_tpu_torch.kernels import attention as K
 
     Tq, Tk = K.MASK_ROW_BLOCKS * 192 + 5, 256
@@ -1549,7 +1608,8 @@ def test_flash_mha_bf16_masked_past_the_row_block_limit(cuda):
     mask = _randn(Tq, Tk, seed=183) > 0.0
     mask[3] = False
     before = K.flash_mha_bf16.launches
-    got = K.flash_mha(q, k, v, 1, mask=mask)
+    got = K.flash_mha(q, k, v, 1, mask=mask, dropout=rate, dropout_seed=184)
     torch.cuda.synchronize()
     assert K.flash_mha_bf16.launches == before + len(K.mask_pieces(Tq)) == before + 2
-    _masked_close(got, K.flash_mha_plain(q, k, v, 1, mask=mask), BF16_TOL)
+    _masked_close(got, K.flash_mha_plain(q, k, v, 1, mask=mask, dropout=rate, dropout_seed=184),
+                  BF16_TOL)

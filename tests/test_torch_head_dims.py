@@ -5,8 +5,9 @@ true head dim's, the output cropped. Here, on the CPU, that path's plain
 version (``flash_mha_padded_plain``) and the wrappers' own pad, crop and
 autograd node with the plain versions in the kernels' place, against JAX's
 ``flash_mha`` (the Pallas kernel, interpret mode) and ``multihead_attention``
-and its autodiff; HTDemucs at head dims 128 and 16 against JAX's; the
-refusals of what no instance computes yet.
+and its autodiff, gradients and dropout up to head dim 128 included;
+HTDemucs at head dims 128 and 16 against JAX's; the refusal of head dims
+past 128, which no instance computes.
 
 Tolerances: forwards atol 2e-5, rtol 1e-4 (tests/test_torch_attention.py:
 fp32 softmax and products summed in another order); gradients 1e-4 x each
@@ -64,7 +65,7 @@ def _jax(q, k, v, mask):
 
 def test_instance_dims():
     """Each head dim up to 128 runs on the smallest instance at least as wide."""
-    assert K.HEAD_DIMS == (32, 48, 64, 128) and K.TRAIN_HEAD_DIM == 64
+    assert K.HEAD_DIMS == (32, 48, 64, 128) and K.TRAIN_HEAD_DIM == 128
     for d in range(1, 129):
         D = K.instance_dim(d)
         assert D in K.HEAD_DIMS and D >= d
@@ -116,7 +117,8 @@ def _cpu_launches(monkeypatch, mask):
         assert D in K.HEAD_DIMS and (head_dim is None or head_dim <= D)
         assert (tiles is None) == (mask is None)
         launched.append((D, head_dim))
-        out = K.flash_mha_plain(q, k, v, num_heads, mask=mask, head_dim=head_dim)
+        out = K.flash_mha_plain(q, k, v, num_heads, mask=mask, head_dim=head_dim, dropout=rate,
+                                dropout_seed=seed)
         return out, torch.zeros(q.shape[0] * num_heads, q.shape[1])
 
     monkeypatch.setattr(K, "_checked", checked)
@@ -157,7 +159,7 @@ def _grad_close(got, want):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("d", [16, 40, 96, 128])
 def test_gradients_through_the_pad_match_jax(monkeypatch, d, masked):
     """The autograd node on the padded tensors (its forward at the instance,
     its backward the backward formula at the instance with the true head
@@ -192,7 +194,7 @@ def test_gradients_through_the_pad_match_jax(monkeypatch, d, masked):
 
 
 @pytest.mark.parametrize("padded", [True, False])
-@pytest.mark.parametrize("d", [16, 40])
+@pytest.mark.parametrize("d", [16, 40, 96])
 def test_backward_wrapper_takes_instance_dims(monkeypatch, d, padded):
     """flash_mha_bwd's launch takes heads at an instance's dim: on heads
     padded to it (as the autograd node hands them) with ``head_dim`` the
@@ -232,6 +234,33 @@ def test_backward_wrapper_takes_instance_dims(monkeypatch, d, padded):
     assert [tuple(g.shape) for g in grads] == [(B, Tq, H * D), (B, Tk, H * D), (B, Tk, H * D)]
 
 
+@pytest.mark.parametrize("rate", [0.1, 0.3])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [96, 128])
+def test_dropout_at_the_d128_instance_matches_pallas(monkeypatch, d, masked, rate):
+    """A forward with dropout at head dim 128 (and 96, padded to it)
+    through the autograd node's launch path (the launch the plain version at
+    the instance, with the rate and seed the kernel gets), against JAX's
+    ``flash_mha`` (the Pallas kernel, interpret mode) with the same seed: the
+    hashed pattern is the Pallas kernel's, the zero channels change no
+    score."""
+    q, k, v, mask = _inputs(d, "cross", masked, seed=3)
+    seed = 424242
+    tm = None if mask is None else torch.from_numpy(mask)
+    launched = _cpu_launches(monkeypatch, tm)
+    want = np.asarray(jax_flash_mha(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), H,
+        mask=None if mask is None else jnp.asarray(mask), dropout=rate,
+        dropout_seed=jnp.int32(seed), block_q=64, block_k=64, interpret=True))
+    keep = None if tm is None else tm.to(torch.uint8)
+    tiles = None if tm is None else K.mask_tiles(tm)
+    got = K._node(*(torch.from_numpy(a) for a in (q, k, v)), H, d, keep, tiles, rate, seed)
+    assert launched == [(128, d)]
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    undropped, _ = _jax(q, k, v, mask)
+    assert np.abs(got.numpy() - undropped).max() > 0.05  # the drop is there
+
+
 @pytest.mark.parametrize("case", ["released width, 4 heads (d = 128)",
                                   "channels 8, 4 heads (d = 16)",
                                   "channels 8, 4 heads (d = 16), padded path"])
@@ -268,22 +297,29 @@ def test_htdemucs_at_other_head_dims_matches_jax(monkeypatch, case):
     assert _rel_err(got, want) < RTOL
 
 
-def test_refusals():
-    """What no instance computes raises, naming the missing instance and the
-    ROADMAP item: a head dim past 128 (forward and op), and a gradient or
-    dropout at 64 < d <= 128 (forward node on either route, backward)."""
+def test_refusals(monkeypatch):
+    """What no instance computes raises, naming the ROADMAP item: a head dim
+    past 128 (forward, op, a gradient or dropout, the backward). A gradient
+    and dropout at 64 < d <= 128 are taken now: the node launches the D =
+    128 instance on either route."""
     with pytest.raises(ValueError, match="head dims up to 128.*ROADMAP Queue C"):
         K.instance_dim(129)
     q = torch.zeros(1, 8, 144)
     with pytest.raises(ValueError, match="head dims up to 128"):
         K._flash_mha_op_cuda(q, q, q, 1)
+    launched = _cpu_launches(monkeypatch, None)
+    for kw in (dict(rate=0.0, grad=True), dict(rate=0.1, grad=False)):
+        x = q.clone().requires_grad_(kw["grad"])
+        with pytest.raises(ValueError, match="head dims up to 128.*ROADMAP Queue C"):
+            K._node(x, q, q, 1, 144, None, None, kw["rate"], 7)
+    with pytest.raises(ValueError, match="head dims up to 128.*ROADMAP Queue C"):
+        K._launch_bwd("flash_mha_bwd_f32", torch.float32, q, q, q, q, q, 1, torch.zeros(1, 8),
+                      None, 0.0, 0)
+    assert launched == []
     for d in (96, 128):
-        x = torch.zeros(1, 8, d)
-        msg = f"no backward or dropout instance at head dim {d}.*ROADMAP Queue C"
-        with pytest.raises(ValueError, match=msg):
-            K._node(x.clone().requires_grad_(), x, x, 1, d, None, None, 0.0, 0)
-        with pytest.raises(ValueError, match=msg):
-            K._node(x, x, x, 1, d, None, None, 0.1, 7)
-        with pytest.raises(ValueError, match=msg):
-            K._node(x.bfloat16(), x.bfloat16(), x.bfloat16(), 1, d, None, None, 0.1, 7)
-    K._refuse_training(64, True, 0.1)  # the largest head dim that trains
+        x = torch.ones(1, 8, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [x.to(dtype).requires_grad_() for _ in range(3)]
+            K._node(*xs, 1, d, None, None, 0.0, 0).sum().backward()  # the backward's plain twin
+            K._node(*(x.to(dtype) for _ in range(3)), 1, d, None, None, 0.1, 7)
+    assert launched == [(128, d) for d in (96, 128) for _ in range(4)]

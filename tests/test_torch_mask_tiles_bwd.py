@@ -452,12 +452,16 @@ def test_autograd_node_keeps_the_forwards_tiles(monkeypatch):
 def test_masked_sources_and_declarations():
     """The masked kernels are sources of their own: the forward's linked into
     its library (PARTS, built in parallel), exporting nothing itself; the
-    backward's a library whose ctypes declaration matches its C entries."""
+    backward's a library (with its head dim 128 part) whose ctypes
+    declaration matches its C entries."""
     from test_torch_build import _exported, _FakeLib
 
     assert _build.parts("flash_mha") == ["flash_mha", "flash_mha_masked", "flash_mha_d128"]
-    assert _build.parts("flash_mha_bwd_masked") == ["flash_mha_bwd_masked"]
-    for part in ("flash_mha_masked", "flash_mha_d128"):
+    assert _build.parts("flash_mha_bwd_masked") == ["flash_mha_bwd_masked",
+                                                    "flash_mha_bwd_masked_d128"]
+    assert _build.parts("flash_mha_bwd") == ["flash_mha_bwd", "flash_mha_bwd_d128"]
+    for part in ("flash_mha_masked", "flash_mha_d128", "flash_mha_bwd_d128",
+                 "flash_mha_bwd_masked_d128"):
         assert 'extern "C"' not in (_build.CSRC / f"{part}.cu").read_text()
     fake = _FakeLib()
     K._bwd_masked_lib.cache_clear()
@@ -470,7 +474,7 @@ def test_masked_sources_and_declarations():
     exported = _exported((_build.CSRC / "flash_mha_bwd_masked.cu").read_text())
     assert set(fake.functions) == set(exported) == {
         "flash_mha_bwd_masked_f32", "flash_mha_bwd_masked_bf16",
-        "flash_mha_bwd_masked_ordered_plan"}
+        "flash_mha_bwd_masked_ordered_plan", "flash_mha_bwd_masked_f32_d128"}
     for name, kinds in exported.items():
         assert fake.functions[name].argtypes == kinds
         assert fake.functions[name].restype is ctypes.c_int

@@ -102,12 +102,18 @@ def _grad_keeper():
 # small enough to mask scores at SMALL's token counts: every K3 call masked
 SPARSE = dict(t_sparse_self_attn=True, t_sparse_cross_attn=True, t_sparse_attn_window=4,
               t_global_window=2)
+# a transformer of one head of 128 channels: K3's D = 128 instance on the card (the released
+# width in 4 heads is the same head; SMALL's own heads are 8 channels wide)
+D128 = dict(bottom_channels=128, t_heads=1)
 
 
-@pytest.mark.parametrize("loss,options", [("l1", {}), ("mse", {}), ("l1", SPARSE)],
-                         ids=["l1", "mse", "l1-sparse"])
+@pytest.mark.parametrize("loss,options", [("l1", {}), ("mse", {}), ("l1", SPARSE),
+                                          ("mse", D128), ("l1", dict(D128, **SPARSE))],
+                         ids=["l1", "mse", "l1-sparse", "mse-d128", "l1-sparse-d128"])
 def test_train_step_matches_jax(loss, options):
     jcfg, params, model = _pair(**options)
+    width = jcfg.bottom_channels or jcfg.channels * jcfg.growth ** (jcfg.depth - 1)
+    assert width // jcfg.t_heads == (128 if options.get("bottom_channels") else 8)
     sources = _sources(jcfg)
     weights = (1.0, 2.0, 0.5, 1.0)
     keeper = _grad_keeper()
@@ -143,7 +149,9 @@ def _jax_step_grads(jcfg, params, sources):
 
 @pytest.mark.parametrize("precision", [dict(compute_dtype="bfloat16"),
                                        dict(bf16_stages=("transformer",)),
-                                       dict(bf16_stages=("transformer",), **SPARSE)])
+                                       dict(bf16_stages=("transformer",), **SPARSE),
+                                       dict(compute_dtype="bfloat16", **D128)],
+                         ids=["bf16", "transformer", "transformer-sparse", "bf16-d128"])
 def test_bf16_train_step_matches_jax(precision):
     """One mixed-precision step against ``make_train_step`` on the same fp32
     masters: every gradient within the bound of the module docstring, and

@@ -2895,13 +2895,15 @@ HEADS4_TRAIN_STEPS = 4  # the head_dims phase's training steps a path (3-4 timed
 
 
 def k3_d128_train_checks(gen) -> list:
-    """K3's D = 128 training instances at freq self (2688 x 2688, 4 heads of
-    128 channels), B = 1 and 8, both routes, unmasked and under the diag
-    mask, at dropout 0 and TRAIN_DROPOUT: the forward with each row's
-    log-sum-exp against the plain version (fp32 K3_ATOL; bf16 2^-6 abs +
-    rel), dQ, dK, dV of the backward against the plain formula (K3_BWD_RTOL,
-    K3_BF16_BWD_RTOL x each gradient's peak), by default and twice under
-    deterministic() (bit-equal, each within tolerance). Times (B = 1 and 8):
+    """K3's D = 128 training instances at the transformer's four shapes
+    (freq and time self, both cross directions; 4 heads of 128 channels),
+    B = 1 and 8, both routes, unmasked and under the diag mask that SPARSE
+    gives the shape, at dropout 0 and TRAIN_DROPOUT: the forward with each
+    row's log-sum-exp against the plain version (fp32 K3_ATOL for both; bf16
+    2^-6 abs + rel, its log-sum-exp K3_BF16_LSE_ATOL), dQ, dK, dV of the
+    backward against the plain formula (K3_BWD_RTOL, K3_BF16_BWD_RTOL x each
+    gradient's peak), by default and twice under deterministic() (bit-equal,
+    each within tolerance). Times at freq self (2688 x 2688, B = 1 and 8):
     the backward at 0 and TRAIN_DROPOUT and under the flag, the plain
     backward (B = 1), SDPA's backward on the same shape (and mask); the
     dropout forwards beside the plain one and SDPA's with its dropout; the
@@ -2918,99 +2920,110 @@ def k3_d128_train_checks(gen) -> list:
 
     H, d, T = HEAD_DIM_HEADS, 128, 2688
     C = H * d
-    diag = keep_mask(T, T, "diag", device="cuda", **MASK_DEFAULTS)
-    kept = int(diag.bool().sum().item())
+    tokens = {"freq": T, "time": 1344}
     cases, timed, bad = {}, {}, []
+
+    def times(route, batch, q, k, v, do, mask, tiles) -> dict:  # at freq self
+        bwd = KA.flash_mha_bwd_bf16 if route == "bf16" else KA.flash_mha_bwd
+        fwd = KA._forward_bf16 if route == "bf16" else KA._forward_f32
+        size = 2 if route == "bf16" else 4
+        o, lse = fwd(q, k, v, H, tiles, 0.0, 0, True)
+        scores = T * T if mask is None else int(mask.bool().sum().item())
+        flops = 5 * 2 * batch * H * scores * d
+        # q, k, v, o, dO in and dQ, dK, dV out, lse; the mask as bits
+        bits = 0 if mask is None else T * T // 8
+        nbytes = size * batch * 8 * T * C + 4 * batch * H * T + bits
+        b_ms, b_by = (bound(flops, nbytes, BF16_FLOPS) if route == "bf16"
+                      else bound(3 * flops, nbytes, TF32_FLOPS))
+        split = [t.view(batch, T, H, d).transpose(1, 2).detach().clone()
+                 .requires_grad_() for t in (q, k, v)]
+        keep = None if mask is None else mask.bool()
+        so = F.scaled_dot_product_attention(*split, attn_mask=keep)
+        so_drop = F.scaled_dot_product_attention(*split, attn_mask=keep,
+                                                 dropout_p=TRAIN_DROPOUT)
+        sdo = do.view(batch, T, H, d).transpose(1, 2)
+        row = dict(
+            ms=cuda_ms(lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask)),
+            ms_dropout=cuda_ms(lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask,
+                                           dropout=TRAIN_DROPOUT, dropout_seed=5)),
+            deterministic_ms=_deterministic_ms(
+                lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask)),
+            sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
+                                                            retain_graph=True)),
+            sdpa_bwd_ms_dropout=cuda_ms(lambda: torch.autograd.grad(
+                so_drop, split, sdo, retain_graph=True)),
+            fwd_ms_dropout=cuda_ms(lambda: fwd(q, k, v, H, tiles, TRAIN_DROPOUT, 5, False)),
+            fwd_bound_ms=(bound(4 * batch * H * scores * d,
+                                size * batch * 4 * T * C + bits, BF16_FLOPS)
+                          if route == "bf16" else
+                          bound(3 * 4 * batch * H * scores * d,
+                                size * batch * 4 * T * C + bits, TF32_FLOPS))[0],
+            bound_ms=b_ms, bound_by=b_by)
+        with torch.no_grad():  # SDPA with the mask and its dropout, no graph
+            row["sdpa_fwd_ms_dropout"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                *split, attn_mask=keep, dropout_p=TRAIN_DROPOUT))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        if batch == 1:
+            row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(
+                q, k, v, o, do, H, mask=mask), repeat=3)
+            row["fwd_plain_ms_dropout"] = cuda_ms(lambda: KA.flash_mha_plain(
+                q, k, v, H, mask=mask, dropout=TRAIN_DROPOUT, dropout_seed=5), repeat=3)
+        return row
+
     for route, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         bwd = KA.flash_mha_bwd_bf16 if route == "bf16" else KA.flash_mha_bwd
         fwd = KA._forward_bf16 if route == "bf16" else KA._forward_f32
         tol = K3_BF16_BWD_RTOL if route == "bf16" else K3_BWD_RTOL
-        size = 2 if route == "bf16" else 4
         for batch in (1, 8):
-            q, k, v, do = (torch.randn(batch, T, C, device="cuda", generator=gen).to(dtype)
-                           for _ in range(4))
-            for masked in (False, True):
-                mask = diag if masked else None
-                tiles = None if mask is None else KA.mask_tiles(mask)
-                name = f"{route} B={batch}" + (" diag" if masked else "")
-                for rate in (0.0, TRAIN_DROPOUT):
-                    o, lse = fwd(q, k, v, H, tiles, rate, 7, True)
-                    want_o = KA.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate,
-                                                dropout_seed=7)
-                    want = KA.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask,
-                                                  dropout=rate, dropout_seed=7)
-                    got = bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
-                              dropout_seed=7)
-                    with deterministic():
-                        det = [bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
-                                   dropout_seed=7) for _ in range(2)]
-                    case = {
-                        # bf16: the excess over its tolerance (<= 0 passes)
-                        "fwd_err": (bf16_excess(o, want_o) if route == "bf16"
-                                    else fp32_err(o, want_o)),
-                        "fwd_abs_err": fp32_err(o.float(), want_o.float()),
-                        "lse_err": fp32_err(lse, _lse_plain(q, k, H, mask)),
-                        "dq_dk_dv_err_over_peak": [_grad_err(g.float(), w.float())
-                                                   for g, w in zip(got, want)],
-                        "deterministic_err_over_peak": [_grad_err(g.float(), w.float())
-                                                        for g, w in zip(det[0], want)],
-                        "deterministic_bit_equal": all(bool(torch.equal(a, b))
-                                                       for a, b in zip(*det))}
-                    case["ok"] = (case["fwd_err"] <= (0 if route == "bf16" else K3_ATOL)
-                                  and case["lse_err"] <= K3_BF16_LSE_ATOL
-                                  and max(case["dq_dk_dv_err_over_peak"]) <= tol
-                                  and max(case["deterministic_err_over_peak"]) <= tol
-                                  and case["deterministic_bit_equal"])
-                    cases[f"{name} rate={rate}"] = case
-                    bad += [] if case["ok"] else [f"{name} rate={rate}"]
-                    del got, det, want, want_o
-                o, lse = fwd(q, k, v, H, tiles, 0.0, 0, True)
-                scores = T * T if mask is None else kept
-                flops = 5 * 2 * batch * H * scores * d
-                # q, k, v, o, dO in and dQ, dK, dV out, lse; the mask as bits
-                bits = 0 if mask is None else T * T // 8
-                nbytes = size * batch * 8 * T * C + 4 * batch * H * T + bits
-                b_ms, b_by = (bound(flops, nbytes, BF16_FLOPS) if route == "bf16"
-                              else bound(3 * flops, nbytes, TF32_FLOPS))
-                split = [t.view(batch, T, H, d).transpose(1, 2).detach().clone()
-                         .requires_grad_() for t in (q, k, v)]
-                keep = None if mask is None else mask.bool()
-                so = F.scaled_dot_product_attention(*split, attn_mask=keep)
-                so_drop = F.scaled_dot_product_attention(*split, attn_mask=keep,
-                                                         dropout_p=TRAIN_DROPOUT)
-                sdo = do.view(batch, T, H, d).transpose(1, 2)
-                row = dict(
-                    ms=cuda_ms(lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask)),
-                    ms_dropout=cuda_ms(lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask,
-                                                   dropout=TRAIN_DROPOUT, dropout_seed=5)),
-                    deterministic_ms=_deterministic_ms(
-                        lambda: bwd(q, k, v, o, do, H, lse=lse, mask=mask)),
-                    sdpa_bwd_ms=cuda_ms(lambda: torch.autograd.grad(so, split, sdo,
-                                                                    retain_graph=True)),
-                    sdpa_bwd_ms_dropout=cuda_ms(lambda: torch.autograd.grad(
-                        so_drop, split, sdo, retain_graph=True)),
-                    fwd_ms_dropout=cuda_ms(lambda: fwd(q, k, v, H, tiles, TRAIN_DROPOUT, 5,
-                                                       False)),
-                    fwd_bound_ms=(bound(4 * batch * H * scores * d,
-                                        size * batch * 4 * T * C + bits, BF16_FLOPS)
-                                  if route == "bf16" else
-                                  bound(3 * 4 * batch * H * scores * d,
-                                        size * batch * 4 * T * C + bits, TF32_FLOPS))[0],
-                    bound_ms=b_ms, bound_by=b_by)
-                with torch.no_grad():  # SDPA with the mask and its dropout, no graph
-                    row["sdpa_fwd_ms_dropout"] = cuda_ms(lambda: F.scaled_dot_product_attention(
-                        *split, attn_mask=keep, dropout_p=TRAIN_DROPOUT))
-                row["bound_share"] = row["bound_ms"] / row["ms"]
-                if batch == 1:
-                    row["plain_ms"] = cuda_ms(lambda: KA.flash_mha_bwd_plain(
-                        q, k, v, o, do, H, mask=mask), repeat=3)
-                    row["fwd_plain_ms_dropout"] = cuda_ms(lambda: KA.flash_mha_plain(
-                        q, k, v, H, mask=mask, dropout=TRAIN_DROPOUT, dropout_seed=5),
-                        repeat=3)
-                timed[name] = row
-                del o, lse, split, so, so_drop
-            del q, k, v, do
-            torch.cuda.empty_cache()
+            for tq_name, tk_name in (("freq", "freq"), ("time", "time"), ("freq", "time"),
+                                     ("time", "freq")):
+                Tq, Tk = tokens[tq_name], tokens[tk_name]
+                q, k, v, do = (torch.randn(batch, n, C, device="cuda", generator=gen).to(dtype)
+                               for n in (Tq, Tk, Tk, Tq))
+                # the mask SPARSE gives this shape's self or cross layers
+                diag = keep_mask(Tq, Tk, "diag", device="cuda", **MASK_DEFAULTS)
+                for masked in (False, True):
+                    mask = diag if masked else None
+                    tiles = None if mask is None else KA.mask_tiles(mask)
+                    shape = f"{route} B={batch} {tq_name}<-{tk_name}"
+                    name = shape + (" diag" if masked else "")
+                    for rate in (0.0, TRAIN_DROPOUT):
+                        o, lse = fwd(q, k, v, H, tiles, rate, 7, True)
+                        want_o = KA.flash_mha_plain(q, k, v, H, mask=mask, dropout=rate,
+                                                    dropout_seed=7)
+                        want = KA.flash_mha_bwd_plain(q, k, v, want_o, do, H, mask=mask,
+                                                      dropout=rate, dropout_seed=7)
+                        got = bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
+                                  dropout_seed=7)
+                        with deterministic():
+                            det = [bwd(q, k, v, o, do, H, lse=lse, mask=mask, dropout=rate,
+                                       dropout_seed=7) for _ in range(2)]
+                        case = {
+                            # bf16: the excess over its tolerance (<= 0 passes)
+                            "fwd_err": (bf16_excess(o, want_o) if route == "bf16"
+                                        else fp32_err(o, want_o)),
+                            "fwd_abs_err": fp32_err(o.float(), want_o.float()),
+                            "lse_err": fp32_err(lse, _lse_plain(q, k, H, mask)),
+                            "dq_dk_dv_err_over_peak": [_grad_err(g.float(), w.float())
+                                                       for g, w in zip(got, want)],
+                            "deterministic_err_over_peak": [_grad_err(g.float(), w.float())
+                                                            for g, w in zip(det[0], want)],
+                            "deterministic_bit_equal": all(bool(torch.equal(a, b))
+                                                           for a, b in zip(*det))}
+                        fwd_tol, lse_tol = ((0, K3_BF16_LSE_ATOL) if route == "bf16"
+                                            else (K3_ATOL, K3_ATOL))
+                        case["ok"] = (case["fwd_err"] <= fwd_tol and case["lse_err"] <= lse_tol
+                                      and max(case["dq_dk_dv_err_over_peak"]) <= tol
+                                      and max(case["deterministic_err_over_peak"]) <= tol
+                                      and case["deterministic_bit_equal"])
+                        cases[f"{name} rate={rate}"] = case
+                        bad += [] if case["ok"] else [f"{name} rate={rate}"]
+                        del got, det, want, want_o, o, lse
+                    if tq_name == tk_name == "freq":
+                        timed[f"{route} B={batch}" + (" diag" if masked else "")] = times(
+                            route, batch, q, k, v, do, mask, tiles)
+                del q, k, v, do, diag
+                torch.cuda.empty_cache()
     instances = d128_bwd_instances()
     fwd_inst = {k: v for k, v in bf16_instances().items()
                 if k.startswith("d=128") and "dropout" in k}
@@ -3044,7 +3057,7 @@ def k3_d128_train_checks(gen) -> list:
                 tol=K3_BF16_BWD_RTOL if route == "bf16" else K3_BWD_RTOL,
                 max_err_is="over each gradient's peak",
                 shape=f"q, k, v (1, 2688, 512), 4 heads of 128 (freq self; also B = 8)"
-                      f"{', diag mask' if masked else ''}",
+                      f"{', diag mask' if masked else ''}; max_abs_err over the four shapes",
                 instances={k: v for k, v in instances.items()
                            if k.startswith(route) and ("masked" in k) == masked})
             rows.append(dict(base, name=name, ms=b1["ms"], library_ms=b1["sdpa_bwd_ms"],
@@ -3078,7 +3091,8 @@ def k3_d128_train_checks(gen) -> list:
                     batch_8_ms=b8["fwd_ms_dropout"],
                     instances={k: v for k, v in fwd_inst.items() if ("masked" in k) == masked},
                     shape="q, k, v (1, 2688, 512), 4 heads of 128, dropout 0.1 (freq self; "
-                          f"also B = 8){', diag mask' if masked else ''}"))
+                          f"also B = 8){', diag mask' if masked else ''}; max_abs_err over "
+                          "the four shapes"))
     emit({"phase": "head_dim_train_kernels", "card": card_line(), "cases": cases,
           "times": timed, "instances": instances, "fwd_dropout_instances": fwd_inst,
           "ok": not bad})
@@ -3087,64 +3101,33 @@ def k3_d128_train_checks(gen) -> list:
     return rows
 
 
-def bf16_step_twice(**model_kw) -> tp.Tuple[dict, dict]:
-    """The released HTDemucs (``model_kw`` over its options) in bf16 mixed
-    precision: one train step at batch 1 (TRAIN_CHECK_LOSS, lr 0) run twice
-    under deterministic() from the same weights and batch (C5: every
-    gradient bit-equal; K3's bf16 backward in its ordered instance). Returns
-    the report and the two steps' launches (every count from 0)."""
-    import torch
-
-    from demucs_tpu_torch.train.step import train_step
-
-    model = _released_training_model(seed=3, compute_dtype="bfloat16", **model_kw)
-    model.module.to("cuda")
-    sources = 0.2 * torch.randn(1, 4, 2, model.cfg.training_length, device="cuda",
-                                generator=torch.Generator(device="cuda").manual_seed(4))
-    grads = []
-    _zero_train_counts()
-    with deterministic():
-        for _ in range(2):
-            train_step(model, _optimizer(model, 0.0), sources, loss=TRAIN_CHECK_LOSS)
-            grads.append({n: p.grad.detach().clone() for n, p in model.module.named_parameters()})
-    torch.cuda.synchronize()
-    counts = _read_train_counts()
-    info = {"batch": 1, "compute_dtype": "bfloat16", "loss_kind": TRAIN_CHECK_LOSS,
-            "card_twice_bit_equal": all(bool(torch.equal(grads[0][n], grads[1][n]))
-                                        for n in grads[0]),
-            "finite": all(bool(torch.isfinite(g).all()) for g in grads[0].values())}
-    info["ok"] = info["card_twice_bit_equal"] and info["finite"] and counts[
-        "flash_mha_bwd_bf16"] > 0
-    del model, grads
-    torch.cuda.empty_cache()
-    return info, counts
-
-
 def head_dims_training() -> tp.Tuple[dict, dict]:
     """HTDemucs at the released shape with t_heads=4 (K3's D = 128 backward)
-    in training: train_card_vs_cpu's card step against the CPU's at batch 1
-    on TRAIN_CHECK_LOSS (once by default, twice under deterministic():
-    bit-equal, each held to the CPU's); the bf16 step twice under
-    deterministic(), bit-equal (bf16_step_twice: the ordered bf16 D = 128
-    instance); then HEADS4_TRAIN_STEPS steps at TRAIN_BATCH (4 if 8 does not
-    fit) in fp32 and bf16, dense and sparse (SPARSE), at t_dropout
-    TRAIN_DROPOUT (the D = 128 dropout instances), with audio-s/s. Every
-    launch counted from 0 on each path: K3's D = 128 backward instance of
-    the path must be all of its route's backwards."""
+    in training, dense and sparse (SPARSE): train_card_vs_cpu's card step
+    against the CPU's at batch 1 on TRAIN_CHECK_LOSS (once by default, twice
+    under deterministic(): bit-equal, each held to the CPU's), and
+    train_bf16_card_vs_cpu's bf16 step of the same model and batch against
+    the CPU's bf16 step (once by default, twice under deterministic():
+    bit-equal, the ordered bf16 D = 128 instance); then HEADS4_TRAIN_STEPS
+    steps at TRAIN_BATCH (4 if 8 does not fit) in fp32 and bf16, dense and
+    sparse, at t_dropout TRAIN_DROPOUT (the D = 128 dropout instances), with
+    audio-s/s. Every launch counted from 0 on each path: K3's D = 128
+    backward instance of the path must be all of its route's backwards."""
     info, paths = {}, {}
-    _zero_train_counts()
-    info["card_vs_cpu_step"], step = train_card_vs_cpu(t_heads=4)
-    paths["htdemucs heads4 train card steps"] = _read_train_counts()
-    del step
-    info["bf16_deterministic_steps"], det = bf16_step_twice(t_heads=4)
-    paths["htdemucs heads4 train bf16 deterministic"] = det
-    steps = paths["htdemucs heads4 train card steps"]
-    info["card_vs_cpu_step"]["ok"] = (
-        info["card_vs_cpu_step"]["ok"] and steps["flash_mha_bwd D=128"] > 0
-        and steps["flash_mha_bwd D=128 deterministic"] > 0)
-    info["bf16_deterministic_steps"]["ok"] = (
-        info["bf16_deterministic_steps"]["ok"]
-        and det["flash_mha_bwd_bf16 D=128 deterministic"] == det["flash_mha_bwd_bf16"])
+    for form, kw in (("", {}), ("sparse ", SPARSE)):
+        masked = " masked" if kw else ""
+        _zero_train_counts()
+        info[f"{form}card_vs_cpu_step"], step = train_card_vs_cpu(t_heads=4, **kw)
+        steps = paths[f"htdemucs heads4 train {form}card steps"] = _read_train_counts()
+        info[f"{form}bf16_card_vs_cpu_step"], det = train_bf16_card_vs_cpu(step)
+        paths[f"htdemucs heads4 train {form}bf16 deterministic"] = det
+        del step
+        row = info[f"{form}card_vs_cpu_step"]
+        row["ok"] = (row["ok"] and steps[f"flash_mha_bwd D=128{masked}"] > 0
+                     and steps[f"flash_mha_bwd D=128{masked} deterministic"] > 0)
+        row = info[f"{form}bf16_card_vs_cpu_step"]
+        row["ok"] = (row["ok"] and det[f"flash_mha_bwd_bf16 D=128{masked} deterministic"]
+                     == det["flash_mha_bwd_bf16"])
     for name, dtype, kw in (("fp32", "float32", {}), ("bf16", "bfloat16", {}),
                             ("sparse", "float32", SPARSE), ("sparse bf16", "bfloat16", SPARSE)):
         run, counts = train_throughput(dtype, steps=HEADS4_TRAIN_STEPS, detail=False, t_heads=4,
@@ -5905,6 +5888,11 @@ def _pair_build(trees: list) -> list:
             lib.flash_mha_f32.argtypes = [p] * 7 + [n, n, n, n, n, f, n, f, n, p]
             lib.flash_mha_bf16.argtypes = [p] * 7 + [n, n, n, n, n, f, n, n, n, f, n, p]
             libs[i]["legacy"] = True
+        elif name in K3_NEWER_ARGS:
+            entry, marker, drop = K3_NEWER_ARGS[name]
+            source = Path(trees[i]) / "demucs_tpu_torch" / "csrc" / f"{name}.cu"
+            if marker not in source.read_text():
+                lib = _OlderEntry(lib, entry, drop)
         libs[i][name] = lib
         libs[i][name + ".ptxas"] = report
         wanted = {"flash_mha": K3_PAIR_SASS, "flash_mha_bwd": K3_PAIR_BWD_SASS}.get(name)
@@ -5917,6 +5905,35 @@ def _pair_build(trees: list) -> list:
         # a tree before the masked backward's instances: its entries take the mask as bytes
         lib["bwd_legacy"] = "flash_mha_bwd_masked" not in lib
     return libs
+
+
+# the C entries that gained arguments, by library: (entry, what its source
+# names, the arguments' positions); a tree before them takes none of these
+K3_NEWER_ARGS = {"flash_mha": ("flash_mha_bf16", "int row0", (19,)),  # a piece's first row
+                 "flash_mha_bwd_masked": ("flash_mha_bwd_masked_f32", "fwd_map", (8, 9))}
+
+
+class _OlderEntry:
+    """A tree's library whose C entry ``entry`` predates the arguments at
+    ``drop`` (K3_NEWER_ARGS): the wrappers' call without them, which must
+    be 0 or null there (that tree has nothing of them); its other entries
+    as they are."""
+
+    def __init__(self, lib, entry: str, drop: tuple):
+        self._lib, self._entry, self._drop = lib, entry, drop
+        fn = getattr(lib, entry)
+        fn.argtypes = [t for j, t in enumerate(fn.argtypes) if j not in drop]
+
+    def __getattr__(self, name: str):
+        fn = getattr(self._lib, name)
+        if name != self._entry:
+            return fn
+
+        def call(*args):
+            if any(args[j] for j in self._drop):
+                raise ValueError(f"{name} of an older tree takes no arguments {self._drop}")
+            return fn(*(a for j, a in enumerate(args) if j not in self._drop))
+        return call
 
 
 _LEGACY = None  # inside _pair_libs: a parent tree's library that takes the mask as bytes

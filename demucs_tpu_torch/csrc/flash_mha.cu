@@ -10,11 +10,6 @@
 
 extern "C" {
 
-int flash_mha_bf16_piece(const void* q, const void* k, const void* v, const int* tile_map,
-                         const unsigned int* bits, void* o, float* part, float* lse, int B,
-                         int Tq, int Tk, int H, int D, float scale, int key_tile, int block_rows,
-                         int ctas, float rate, int seed, int row0, void* stream);
-
 // q (B, Tq, H*D), k/v (B, Tk, H*D) -> o (B, Tq, H*D). tile_map and bits:
 // null, or a keep-mask's tile map for block_rows rows and BK keys and its
 // packed words (see mask_rows); BK = 64, and 32 at D = 128 (f32_keys).
@@ -52,24 +47,16 @@ int flash_mha_f32(const float* q, const float* k, const float* v, const int* til
 // scratch of 2 ctas block_rows (D + 2) floats, which may be null when no
 // range starts inside a row block, and under a mask is given exactly when
 // one does). lse and the dropout's rate and seed as for flash_mha_f32.
+// row0: the first global query row of the launch, 0 but on a piece of a
+// longer masked call's rows (kernels/attention.py MaskTiles.pieces: q, o,
+// lse, tile_map and bits are the piece's); the dropout hashes the global
+// rows, so the pieces drop what one launch over all rows would.
 // Returns a cudaError_t, or ENCODE_FAILED + the CUresult of a failed
 // tensor-map encode.
 int flash_mha_bf16(const void* q, const void* k, const void* v, const int* tile_map,
                    const unsigned int* bits, void* o, float* part, float* lse, int B, int Tq,
                    int Tk, int H, int D, float scale, int key_tile, int block_rows, int ctas,
-                   float rate, int seed, void* stream) {
-  return flash_mha_bf16_piece(q, k, v, tile_map, bits, o, part, lse, B, Tq, Tk, H, D, scale,
-                              key_tile, block_rows, ctas, rate, seed, 0, stream);
-}
-
-// flash_mha_bf16 on a piece of a longer call's query rows, which starts at
-// global row row0: q, o and lse are the piece's rows, tile_map and bits its
-// keep-mask's (kernels/attention.py MaskTiles.pieces); the dropout hashes
-// the global rows, so the pieces drop what one launch over all rows would.
-int flash_mha_bf16_piece(const void* q, const void* k, const void* v, const int* tile_map,
-                         const unsigned int* bits, void* o, float* part, float* lse, int B,
-                         int Tq, int Tk, int H, int D, float scale, int key_tile, int block_rows,
-                         int ctas, float rate, int seed, int row0, void* stream) {
+                   float rate, int seed, int row0, void* stream) {
   if (Tk <= 0 || !(rate >= 0.f && rate < 1.f) || row0 < 0) return (int)cudaErrorInvalidValue;
   if ((tile_map == nullptr) != (bits == nullptr)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tq == 0 || H == 0) return (int)cudaGetLastError();

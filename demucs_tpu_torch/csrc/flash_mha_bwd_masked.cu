@@ -13,32 +13,20 @@ extern "C" {
 
 // As flash_mha_bwd_f32, under the keep-mask given as the backward's tile
 // map for 64 keys a block and 32 queries a tile, and its bits for 32-query
-// tiles (kernels/attention.py MaskTiles.bwd_launch; see mask_rows).
+// tiles (kernels/attention.py MaskTiles.bwd_launch; see mask_rows). At
+// head dim 128 also the forward's tile map for 64 rows and 32 keys and its
+// bits (MaskTiles.launch(64, 32)), which that dQ kernel walks
+// (flash_mha_bwd_d128.cuh), and turns are not read; below 128 both null.
 int flash_mha_bwd_masked_f32(const float* q, const float* k, const float* v, const float* o,
                              const float* dout, const float* lse, const int* tile_map,
-                             const unsigned char* bits, float* stats, float* dq_acc,
+                             const unsigned char* bits, const int* fwd_map,
+                             const unsigned* fwd_bits, float* stats, float* dq_acc,
                              unsigned* turns, float* dq, float* dk, float* dv, int B, int Tq,
                              int Tk, int H, int D, int keys, float scale, float sm_scale,
                              float rate, int seed, void* stream) {
-  return dispatch_bwd<float, true>(q, k, v, o, dout, lse, MaskArgs{nullptr, tile_map, bits},
-                                   stats, dq_acc, turns, dq, dk, dv, B, Tq, Tk, H, D, keys, scale,
-                                   sm_scale, rate, seed, stream);
-}
-
-// As flash_mha_bwd_masked_f32 at head dim 128 (D = 128): also the
-// forward's tile map for 64 rows and 32 keys and its bits
-// (kernels/attention.py MaskTiles.launch(64, 32)), which the dQ kernel walks
-// (flash_mha_bwd_d128.cuh); turns are not read (that dQ needs no order).
-int flash_mha_bwd_masked_f32_d128(const float* q, const float* k, const float* v,
-                                  const float* o, const float* dout, const float* lse,
-                                  const int* tile_map, const unsigned char* bits,
-                                  const int* fwd_map, const unsigned* fwd_bits, float* stats,
-                                  float* dq_acc, unsigned* turns, float* dq, float* dk,
-                                  float* dv, int B, int Tq, int Tk, int H, int keys, float scale,
-                                  float sm_scale, float rate, int seed, void* stream) {
   return dispatch_bwd<float, true>(q, k, v, o, dout, lse,
                                    MaskArgs{nullptr, tile_map, bits, fwd_map, fwd_bits}, stats,
-                                   dq_acc, turns, dq, dk, dv, B, Tq, Tk, H, 128, keys, scale,
+                                   dq_acc, turns, dq, dk, dv, B, Tq, Tk, H, D, keys, scale,
                                    sm_scale, rate, seed, stream);
 }
 

@@ -273,11 +273,8 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_mha_f32.argtypes = [p] * 8 + [i, i, i, i, i, f, i, f, i, p]
     lib.flash_mha_f32.restype = i
-    lib.flash_mha_bf16.argtypes = [p] * 8 + [i, i, i, i, i, f, i, i, i, f, i, p]
+    lib.flash_mha_bf16.argtypes = [p] * 8 + [i, i, i, i, i, f, i, i, i, f, i, i, p]
     lib.flash_mha_bf16.restype = i
-    if hasattr(lib, "flash_mha_bf16_piece"):  # (an older checkout's library has none)
-        lib.flash_mha_bf16_piece.argtypes = [p] * 8 + [i, i, i, i, i, f, i, i, i, f, i, i, p]
-        lib.flash_mha_bf16_piece.restype = i
     lib.flash_mha_bf16_tiles.argtypes = [p, p, p, p, p, p, i, i, p]
     lib.flash_mha_bf16_tiles.restype = i
     return lib
@@ -300,14 +297,11 @@ def _bwd_masked_lib() -> ctypes.CDLL:
     """The masked backward's library (``csrc/flash_mha_bwd_masked.cu``)."""
     lib = _build.load("flash_mha_bwd_masked")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("flash_mha_bwd_masked_f32", "flash_mha_bwd_masked_bf16"):
-        getattr(lib, name).argtypes = [p] * 14 + [i] * 6 + [f, f, f, i, p]
-        getattr(lib, name).restype = i
+    lib.flash_mha_bwd_masked_f32.argtypes = [p] * 16 + [i] * 6 + [f, f, f, i, p]
+    lib.flash_mha_bwd_masked_bf16.argtypes = [p] * 14 + [i] * 6 + [f, f, f, i, p]
+    lib.flash_mha_bwd_masked_f32.restype = lib.flash_mha_bwd_masked_bf16.restype = i
     lib.flash_mha_bwd_masked_ordered_plan.argtypes = [i] * 7 + [p]
     lib.flash_mha_bwd_masked_ordered_plan.restype = i
-    if hasattr(lib, "flash_mha_bwd_masked_f32_d128"):  # (an older checkout's library has none)
-        lib.flash_mha_bwd_masked_f32_d128.argtypes = [p] * 16 + [i] * 5 + [f, f, f, i, p]
-        lib.flash_mha_bwd_masked_f32_d128.restype = i
     return lib
 
 
@@ -626,14 +620,11 @@ def _launch_bwd(entry: str, dtype: torch.dtype, q, k, v, o, dout, num_heads: int
         status = getattr(_bwd_lib(), entry)(*ptrs, None, *args)
     else:
         tiles = _tiles(mask, keep) if tiles is None else tiles
-        tmap, bits = tiles.bwd_launch(keys, 64 if dtype == torch.bfloat16 else 32)
+        maps = tiles.bwd_launch(keys, 64 if dtype == torch.bfloat16 else 32)
+        if dtype == torch.float32:  # at 128 its dQ kernel walks the forward's map (64, 32)
+            maps += tiles.launch(64, 32) if split else (None, None)
         entry = entry.replace("flash_mha_bwd", "flash_mha_bwd_masked")
-        if split:  # its dQ kernel walks the forward's tile map of 64 rows and 32 keys
-            entry += "_d128"
-            ptrs += (tmap, bits, *tiles.launch(64, 32))
-            status = getattr(_bwd_masked_lib(), entry)(*ptrs, *args[:10], *args[11:])  # no D
-        else:
-            status = getattr(_bwd_masked_lib(), entry)(*ptrs, tmap, bits, *args)
+        status = getattr(_bwd_masked_lib(), entry)(*ptrs, *maps, *args)
     _check_launch(status, entry)
     return dq, dk, dv
 
@@ -1249,10 +1240,7 @@ def _forward_bf16(q, k, v, num_heads: int, tiles, rate: float, seed: int, want_l
             None if part is None else part.data_ptr(), None if lse is None else lse.data_ptr(),
             B, Tq, Tk, num_heads, D, q_scale(head_dim or D), keys, rows, ctas, rate,
             _int32(seed))
-    if row0:
-        status = _lib().flash_mha_bf16_piece(*args, row0, _build.stream_ptr(q.device))
-    else:
-        status = _lib().flash_mha_bf16(*args, _build.stream_ptr(q.device))
+    status = _lib().flash_mha_bf16(*args, row0, _build.stream_ptr(q.device))
     _check_launch(status, "flash_mha_bf16")
     flash_mha_bf16.launches += 1
     flash_mha_bf16.launches_by_instance[_instance_key(D, tiles, rate)] += 1

@@ -1599,17 +1599,31 @@ def test_flash_mha_bf16_masked_past_the_row_block_limit(cuda, rate):
     """A bf16 masked call past MASK_ROW_BLOCKS row blocks at the largest
     plan's rows (192) launches in pieces of its rows instead of raising, and
     gives the plain version's result; with dropout each piece hashes its
-    global rows, so the pieces drop what the plain version drops."""
+    global rows, so the pieces drop what the plain version drops. Its
+    gradients (the masked backward, one launch over every row, which hashes
+    the global rows too) against the plain backward's, 2**-6 x each
+    gradient's peak (a fully masked row as _masked_bwd_case takes it)."""
     from demucs_tpu_torch.kernels import attention as K
 
     Tq, Tk = K.MASK_ROW_BLOCKS * 192 + 5, 256
-    q = _randn(1, Tq, 64, seed=180).bfloat16()
-    k, v = (_randn(1, Tk, 64, seed=s).bfloat16() for s in (181, 182))
+    q = _randn(1, Tq, 64, seed=180).bfloat16().requires_grad_()
+    k, v = (_randn(1, Tk, 64, seed=s).bfloat16().requires_grad_() for s in (181, 182))
+    do = _randn(1, Tq, 64, seed=185).bfloat16()
     mask = _randn(Tq, Tk, seed=183) > 0.0
     mask[3] = False
     before = K.flash_mha_bf16.launches
     got = K.flash_mha(q, k, v, 1, mask=mask, dropout=rate, dropout_seed=184)
     torch.cuda.synchronize()
     assert K.flash_mha_bf16.launches == before + len(K.mask_pieces(Tq)) == before + 2
-    _masked_close(got, K.flash_mha_plain(q, k, v, 1, mask=mask, dropout=rate, dropout_seed=184),
-                  BF16_TOL)
+    with torch.no_grad():
+        want_o = K.flash_mha_plain(q, k, v, 1, mask=mask, dropout=rate, dropout_seed=184)
+    _masked_close(got.detach(), want_o, BF16_TOL)
+    before = K.flash_mha_bwd_bf16.masked_launches
+    got.backward(do)
+    torch.cuda.synchronize()
+    assert K.flash_mha_bwd_bf16.masked_launches == before + 1
+    empty = ~mask.any(1)
+    o_p, do_p = (t.detach().masked_fill(empty[None, :, None], 0) for t in (got, do))
+    want = K.flash_mha_bwd_plain(q.detach(), k.detach(), v.detach(), o_p, do_p, 1,
+                                 mask=mask | empty[:, None], dropout=rate, dropout_seed=184)
+    _bwd_close((q.grad, k.grad, v.grad), want, torch.bfloat16)

@@ -414,7 +414,6 @@ class _FakeLib:
     def __init__(self):
         self.flash_mha_f32 = _FakeEntry()
         self.flash_mha_bf16 = _FakeEntry()
-        self.flash_mha_bf16_piece = _FakeEntry()
 
 
 @pytest.mark.parametrize("B,Tq,Tk,mask_type", [
@@ -457,9 +456,8 @@ def test_masked_bf16_launch_refuses_too_many_row_blocks(monkeypatch, rate):
     and refuses more than MASK_ROW_BLOCKS row blocks a launch: past
     MASK_PIECE_ROWS queries the wrapper launches a piece of the rows at a
     time, each with its piece's tile map and bits, none past the limit at
-    any plan's rows; a piece after the first through the entry that takes
-    its first global row (the dropout's hash counts global rows), with the
-    call's rate and seed."""
+    any plan's rows, each given its first global row (the dropout's hash
+    counts global rows) and the call's rate and seed."""
     fake = _FakeLib()
     monkeypatch.setattr(K, "_lib", lambda: fake)
     monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
@@ -470,29 +468,28 @@ def test_masked_bf16_launch_refuses_too_many_row_blocks(monkeypatch, rate):
     q = torch.zeros(1, Tq, 64, dtype=torch.bfloat16)
     kv = torch.zeros(1, Tk, 64, dtype=torch.bfloat16)
     K._forward_bf16(q, kv, kv, 1, tiles, rate, 3, False)
-    calls = fake.flash_mha_bf16.calls + fake.flash_mha_bf16_piece.calls
+    calls = fake.flash_mha_bf16.calls
     assert len(calls) == len(tiles.pieces) == 2
-    assert len(fake.flash_mha_bf16.calls) == 1  # the first piece starts at row 0
     for args, (r0, r1, piece) in zip(calls, tiles.pieces):
         rows = args[15]
         assert args[9] == r1 - r0 and -(-(r1 - r0) // rows) <= K.MASK_ROW_BLOCKS
         assert args[3] == piece.maps[rows, K.KEY_TILE_BF16].data_ptr()
         assert args[4] == piece.bits.data_ptr()
         assert args[17] == pytest.approx(rate) and args[18] == 3
-        assert len(args) == (21 if r0 else 20) and (not r0 or args[19] == r0)
+        assert len(args) == 21 and args[19] == r0
 
 
 def _drop_rows_of_pieces(calls, H, rate, seed, keys=64):
     """The dropout pattern the masked bf16 kernel draws on each launch of
-    ``calls`` (recorded arguments: the piece's rows, and its first global row
-    where the piece entry took one), from the kernel's own arithmetic per
+    ``calls`` (recorded arguments: the piece's rows and its first global
+    row), from the kernel's own arithmetic per
     warpgroup tile (bf16_drop_tile: row terms of the launch's row plus its
     first global row) at the tiles on each side of every piece's edge ->
     {global first row of a tile: (H, 64, Tk) keep}."""
     out = {}
     for args in calls:
         n, Tk = args[9], args[10]
-        row0 = args[19] if len(args) > 20 else 0
+        row0 = args[19]
         for local in sorted({0, 64, n - n % 64 - 64, n - n % 64} - {n}):
             tiles = []
             for bh in range(H):
@@ -527,7 +524,7 @@ def test_masked_bf16_pieces_drop_the_global_rows(monkeypatch):
     q = torch.zeros(1, Tq, H * 64, dtype=torch.bfloat16)
     kv = torch.zeros(1, Tk, H * 64, dtype=torch.bfloat16)
     K._forward_bf16(q, kv, kv, H, tiles, rate, seed, False)
-    calls = fake.flash_mha_bf16.calls + fake.flash_mha_bf16_piece.calls
+    calls = fake.flash_mha_bf16.calls
     assert [c[9] for c in calls] == [r1 - r0 for r0, r1, _ in tiles.pieces]
     got = _drop_rows_of_pieces(calls, H, rate, K._seed32(rate, seed))
     want = dropout_keep(H, Tq + 64, Tk, rate, seed, "cpu")

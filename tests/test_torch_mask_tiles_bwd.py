@@ -398,7 +398,8 @@ class _Lib:
 def test_masked_launch_arguments(monkeypatch, entry, dtype, keys):
     """A masked launch goes to the masked library's entry of its route with
     the plan's tile map and the bits of its query tiles (from the mask's
-    MaskTiles), never to the unmasked entry; an unmasked one the reverse."""
+    MaskTiles; the fp32 entry's forward map and bits, read at head dim 128
+    only, null), never to the unmasked entry; an unmasked one the reverse."""
     plain, masked = _Lib("flash_mha_bwd_f32", "flash_mha_bwd_bf16"), _Lib(
         "flash_mha_bwd_masked_f32", "flash_mha_bwd_masked_bf16")
     monkeypatch.setattr(K, "_bwd_lib", lambda: plain)
@@ -418,13 +419,39 @@ def test_masked_launch_arguments(monkeypatch, entry, dtype, keys):
     qt = 32 if dtype == torch.float32 else 64
     K._launch_bwd(entry, dtype, q, k, v, o, do, H, lse, mask, 0.1, 7, tiles=tiles)
     (args,) = getattr(masked, entry.replace("flash_mha_bwd", "flash_mha_bwd_masked")).calls
-    assert len(args) == 25 and not getattr(plain, entry).calls
+    fwd = 2 if dtype == torch.float32 else 0  # the fp32 entry's forward map and bits
+    assert len(args) == 25 + fwd and not getattr(plain, entry).calls
     assert args[6] == tiles.bwd_maps[keys, qt].data_ptr()
     assert args[7] == tiles.bwd_bits[qt].data_ptr()
-    assert args[19] == keys  # the plan's keys a block
+    assert args[8:8 + fwd] == (None,) * fwd
+    assert args[19 + fwd] == keys  # the plan's keys a block
     K._launch_bwd(entry, dtype, q, k, v, o, do, H, lse, None, 0.1, 7)
     (args,) = getattr(plain, entry).calls
     assert len(args) == 24 and args[6] is None
+
+
+def test_masked_f32_d128_launch_passes_the_forward_map(monkeypatch):
+    """At head dim 128 the fp32 masked launch also gives its entry the
+    forward's tile map of 64 rows and 32 keys and its bits (that dQ kernel
+    walks them), and a dQ sum of one float (it sums each query in a block)."""
+    masked = _Lib("flash_mha_bwd_masked_f32", "flash_mha_bwd_masked_bf16")
+    monkeypatch.setattr(K, "_bwd_masked_lib", lambda: masked)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(K, "_sm_count", lambda index: 132)
+    B, Tq, Tk, H, d = 1, 300, 260, 1, 128
+    mask_np = _holes(Tq, Tk)
+    mask = torch.from_numpy(mask_np)
+    monkeypatch.setattr(K, "_checked", lambda q, k, v, h, m, dt: (
+        B, Tq, Tk, d, m.to(torch.uint8)))
+    tiles = K.MaskTiles(mask_np, "cpu")
+    q, o, do = (torch.zeros(B, Tq, H * d) for _ in range(3))
+    k, v = (torch.zeros(B, Tk, H * d) for _ in range(2))
+    K._launch_bwd("flash_mha_bwd_f32", torch.float32, q, k, v, o, do, H, torch.zeros(B * H, Tq),
+                  mask, 0.1, 7, tiles=tiles)
+    (args,) = masked.flash_mha_bwd_masked_f32.calls
+    assert len(args) == 27
+    assert args[6:10] == (*tiles.bwd_launch(64, 32), *tiles.launch(64, 32))
+    assert args[20] == d and args[21] == 64
 
 
 def test_autograd_node_keeps_the_forwards_tiles(monkeypatch):
@@ -474,7 +501,7 @@ def test_masked_sources_and_declarations():
     exported = _exported((_build.CSRC / "flash_mha_bwd_masked.cu").read_text())
     assert set(fake.functions) == set(exported) == {
         "flash_mha_bwd_masked_f32", "flash_mha_bwd_masked_bf16",
-        "flash_mha_bwd_masked_ordered_plan", "flash_mha_bwd_masked_f32_d128"}
+        "flash_mha_bwd_masked_ordered_plan"}
     for name, kinds in exported.items():
         assert fake.functions[name].argtypes == kinds
         assert fake.functions[name].restype is ctypes.c_int

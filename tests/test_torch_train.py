@@ -151,7 +151,7 @@ def _jax_step_grads(jcfg, params, sources):
                                        dict(bf16_stages=("transformer",)),
                                        dict(bf16_stages=("transformer",), **SPARSE),
                                        dict(compute_dtype="bfloat16", **D128)],
-                         ids=["bf16", "transformer", "transformer-sparse", "bf16-d128"])
+                         ids=["precision0", "precision1", "precision2", "bf16-d128"])
 def test_bf16_train_step_matches_jax(precision):
     """One mixed-precision step against ``make_train_step`` on the same fp32
     masters: every gradient within the bound of the module docstring, and
